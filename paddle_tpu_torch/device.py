@@ -1,0 +1,22 @@
+"""Device resolution for the port's entry points.
+
+``None`` means the CUDA card.  Without a card that raises instead of
+quietly running on the CPU: a caller that wants the CPU (the parity
+tests) says so with ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None):
+    """Return the ``torch.device`` an entry point runs on.
+
+    ``None`` resolves to ``"cuda"``; asking for CUDA without a card
+    raises ``RuntimeError`` naming the ``device="cpu"`` escape hatch."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; paddle_tpu_torch runs on the "
+            "card by default — pass device=\"cpu\" to run on the CPU")
+    return dev

@@ -1,0 +1,466 @@
+"""GPT decoder in PyTorch — counterpart of ``paddle_tpu/models/gpt.py``.
+
+This slice carries the dense model (``GPTModel.forward`` returns logits)
+and the serving engine's RAGGED paged window: every decoder layer's
+``ragged_window_paged`` writes the window's K/V through the slots' block
+tables and runs the ragged paged attention kernel
+(``ops/ragged_paged_attn.py``), and ``_fused_ragged_tick_slots`` adds the
+on-device sample / stop-condition epilogue of one engine tick.
+
+Layouts follow the JAX package so the weight bridge (``convert.py``) and
+the parity tests compare like with like: the fused QKV projection
+reshapes to ``[b, s, 3, H, hd]`` and splits on dim 2, and KV pools are
+``[num_blocks, block_size, H, hd]``.  Sampling keys are per-lane
+``torch.Generator`` seeds derived from the request's seed words and
+emitted-token counter (``_slot_sample_keys``); they do not reproduce
+jax's draws, only the same stream for the same seed.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..device import resolve_device
+from ..ops.ragged_paged_attn import ragged_paged_attention
+
+GPT_CONFIGS = {
+    # name: (n_layer, hidden, heads, ffn_mult, vocab, max_seq)
+    "gpt2-small": dict(num_layers=12, hidden_size=768, num_heads=12,
+                       vocab_size=50304, max_position=1024),
+    "gpt2-medium": dict(num_layers=24, hidden_size=1024, num_heads=16,
+                        vocab_size=50304, max_position=1024),  # 345M
+    "gpt2-large": dict(num_layers=36, hidden_size=1280, num_heads=20,
+                       vocab_size=50304, max_position=1024),
+    "gpt3-1.3b": dict(num_layers=24, hidden_size=2048, num_heads=16,
+                      vocab_size=50304, max_position=2048),
+    "tiny": dict(num_layers=2, hidden_size=64, num_heads=4,
+                 vocab_size=128, max_position=64),
+}
+
+_MASK = -1e30
+_U64 = (1 << 64) - 1
+
+
+def _mix64(x):
+    """splitmix64 finalizer: spreads a 64-bit integer's bits."""
+    x = (x + 0x9E3779B97F4A7C15) & _U64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
+    return x ^ (x >> 31)
+
+
+def sample_rows(last, temperature, top_k, top_p, seed_lo, seed_hi, ctr):
+    """One token per row of ``last`` [B, V] with per-row sampling
+    parameters and keys derived from the seed words and counters
+    (``GPTModel._sample_lanes``)."""
+    keys = GPTModel._slot_sample_keys(seed_lo, seed_hi, ctr)
+    return GPTModel._sample_lanes(last, temperature, top_k, top_p, keys)
+
+
+class GPTEmbeddings(nn.Module):
+    def __init__(self, vocab_size, hidden_size, max_position, dropout=0.1):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+        self.position_embeddings = nn.Embedding(max_position, hidden_size)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, input_ids, position_ids=None):
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)
+        emb = self.word_embeddings(input_ids) \
+            + self.position_embeddings(position_ids)
+        return self.dropout(emb)
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention with fused QKV (dense form only)."""
+
+    def __init__(self, hidden_size, num_heads, dropout=0.1):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = hidden_size // num_heads
+        self.hidden_size = hidden_size
+        self.dropout = dropout
+        self.qkv_proj = nn.Linear(hidden_size, 3 * hidden_size)
+        self.out_proj = nn.Linear(hidden_size, hidden_size)
+
+    def _qkv_step(self, x):
+        """Fused QKV for a window: [B, S, E] -> (q, k, v) each
+        [B, S, H, hd], split on dim 2 of ``[B, S, 3, H, hd]``."""
+        b, s = x.shape[0], x.shape[1]
+        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def forward(self, x):
+        """Dense causal attention in plain torch math (the JAX
+        ``_reference_attention``): scores, causal mask at the dtype's
+        minimum, softmax in f32."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv_step(x)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+        causal = torch.ones(s, s, dtype=torch.bool,
+                            device=x.device).tril()
+        scores = scores.masked_fill(~causal, torch.finfo(scores.dtype).min)
+        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+        probs = F.dropout(probs, self.dropout, self.training)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return self.out_proj(out.reshape(b, s, self.hidden_size))
+
+    def _slot_attn(self, qa, k_rows, v_rows, pos):
+        """Windowed attention over each slot's gathered cache rows — the
+        plain oracle the ragged kernel is held to: f32 scores, the query
+        at window offset q of slot b sees cache positions <= pos[b] + q,
+        softmax, value contraction, output projection.
+        qa [B, S, H, hd]; k_rows/v_rows [B, L, H, hd]; pos [B].
+        Returns [B, S, E]."""
+        B, S = qa.shape[0], qa.shape[1]
+        scale = 1.0 / math.sqrt(self.head_dim)
+        scores = torch.einsum("bqhd,bkhd->bhqk", qa.float(),
+                              k_rows.float()) * scale
+        L = k_rows.shape[1]
+        dev = qa.device
+        visible = (torch.arange(L, device=dev)[None, None, :]
+                   <= (pos.long()[:, None]
+                       + torch.arange(S, device=dev)[None, :])[:, :, None])
+        scores = torch.where(visible[:, None], scores,
+                             torch.full_like(scores, _MASK))
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
+                           v_rows.float()).to(qa.dtype)
+        return self.out_proj(ctx.reshape(B, S, self.hidden_size))
+
+    def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
+                            width, scratch=None):
+        """Ragged paged window: each slot runs its ``width[b]`` real
+        lanes of the W-lane window at positions ``pos[b]..``.
+
+        The window's K/V scatter through each slot's table with the
+        width mask applied first: lanes ``s >= width[b]``, and any offset
+        past the table, write into the slot's scratch block
+        (``scratch[b]``, block 0 when None), so a masked lane never
+        touches a live row.  The JAX version returns new (donated)
+        pools; here the writes go INTO ``k_pool``/``v_pool`` in place,
+        and the same tensors are returned.  The attention core is the
+        ragged paged attention kernel.
+
+        x [B, W, E]; k_pool/v_pool [NB, bs, H, hd]; block_tables int32
+        [B, L/bs]; pos/width int32 [B]; scratch optional int32 [B].
+        Returns (out [B, W, E], k_pool, v_pool)."""
+        qa, ka, va = self._qkv_step(x)
+        B, W = qa.shape[0], qa.shape[1]
+        NB, bs = k_pool.shape[0], k_pool.shape[1]
+        H, hd = self.num_heads, self.head_dim
+        bps = block_tables.shape[1]
+        dev = x.device
+        if scratch is None:
+            scratch = torch.zeros(B, dtype=torch.int32, device=dev)
+        lane = torch.arange(W, device=dev)
+        offs = pos.long()[:, None] + lane[None, :]              # [B, W]
+        valid = (lane[None, :] < width.long()[:, None]) \
+            & (offs < bps * bs)
+        offs_safe = torch.where(valid, offs, torch.zeros_like(offs))
+        blk = torch.gather(block_tables.long(), 1, offs_safe // bs)
+        widx = torch.where(valid, blk * bs + offs_safe % bs,
+                           scratch.long()[:, None] * bs).reshape(-1)
+        flat_k = k_pool.view(NB * bs, H, hd)
+        flat_v = v_pool.view(NB * bs, H, hd)
+        flat_k[widx] = ka.reshape(B * W, H, hd).to(flat_k.dtype)
+        flat_v[widx] = va.reshape(B * W, H, hd).to(flat_v.dtype)
+        ctx = ragged_paged_attention(
+            qa.contiguous(), flat_k, flat_v, block_tables, pos, width,
+            block_size=bs)
+        out = self.out_proj(ctx.reshape(B, W, self.hidden_size))
+        return out, k_pool, v_pool
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, hidden_size, ffn_hidden=None, dropout=0.1):
+        super().__init__()
+        ffn_hidden = ffn_hidden or 4 * hidden_size
+        self.fc1 = nn.Linear(hidden_size, ffn_hidden)
+        self.fc2 = nn.Linear(ffn_hidden, hidden_size)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x):
+        return self.dropout(self.fc2(F.gelu(self.fc1(x),
+                                            approximate="tanh")))
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN transformer block."""
+
+    def __init__(self, hidden_size, num_heads, dropout=0.1):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.attn = GPTAttention(hidden_size, num_heads, dropout)
+        self.ln2 = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.mlp = GPTMLP(hidden_size, dropout=dropout)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
+    def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
+                            width, scratch=None):
+        """Ragged paged window (GPTAttention.ragged_window_paged)."""
+        attn_out, k_pool, v_pool = self.attn.ragged_window_paged(
+            self.ln1(x), k_pool, v_pool, block_tables, pos, width,
+            scratch=scratch)
+        x = x + attn_out
+        x = x + self.mlp(self.ln2(x))
+        return x, k_pool, v_pool
+
+
+class GPTLMHead(nn.Module):
+    def __init__(self, hidden_size, vocab_size):
+        super().__init__()
+        self.ln_f = nn.LayerNorm(hidden_size, eps=1e-5)
+        self.lm_head = nn.Linear(hidden_size, vocab_size, bias=False)
+
+    def forward(self, x):
+        return self.lm_head(self.ln_f(x))
+
+
+class GPTModel(nn.Module):
+    """Decoder-only LM returning logits [B, S, V]."""
+
+    def __init__(self, num_layers=12, hidden_size=768, num_heads=12,
+                 vocab_size=50304, max_position=1024, dropout=0.1):
+        super().__init__()
+        self.embeddings = GPTEmbeddings(vocab_size, hidden_size,
+                                        max_position, dropout)
+        self.blocks = nn.ModuleList([
+            GPTBlock(hidden_size, num_heads, dropout)
+            for _ in range(num_layers)])
+        self.head = GPTLMHead(hidden_size, vocab_size)
+
+    @classmethod
+    def from_config(cls, name, device=None, seed=0, **overrides):
+        """Build a ``GPT_CONFIGS`` model on ``device`` (None = the CUDA
+        card; raises without one) with weights drawn from ``seed``:
+        Normal(0, 0.02) for embeddings and linear weights, zero biases,
+        LayerNorm at 1 / 0, as the reference initializes them."""
+        dev = resolve_device(device)
+        cfg = dict(GPT_CONFIGS[name])
+        cfg.update(overrides)
+        with torch.device(dev):
+            model = cls(**cfg)
+        model.reset_parameters(seed)
+        return model
+
+    @torch.no_grad()
+    def reset_parameters(self, seed=0):
+        """Redraw every weight from ``seed`` (see ``from_config``)."""
+        gen = torch.Generator(device=self.head.lm_head.weight.device)
+        gen.manual_seed(int(seed))
+        for mod in self.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, 0.02, generator=gen)
+                if getattr(mod, "bias", None) is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.LayerNorm):
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+    def forward(self, input_ids):
+        x = self.embeddings(input_ids)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.head(x)
+
+    # -- sampling ---------------------------------------------------------
+    @staticmethod
+    def _filter_logits_lanes(last, temperature, top_k, top_p):
+        """Per-lane sampling filters on f32 logits [B, V]: temperature,
+        then top-k, then top-p over the already-masked row, each
+        parameter a [B] tensor.  ``top_k == 0`` / ``top_p == 1`` disable
+        their filter lane-wise, and a ``temperature == 0`` greedy lane
+        passes through at temperature 1."""
+        V = last.shape[-1]
+        t_eff = torch.where(temperature > 0, temperature,
+                            torch.ones_like(temperature))[:, None]
+        x = last / t_eff
+        srt = torch.sort(x, dim=-1, descending=True).values
+        k_eff = torch.clamp(top_k.long(), 1, V)
+        kth = torch.gather(srt, 1, (k_eff - 1)[:, None])
+        x = torch.where((top_k > 0)[:, None] & (x < kth),
+                        torch.full_like(x, -1e9), x)
+        p_eff = torch.clamp(top_p, min=1e-9)[:, None]
+        srt2 = torch.sort(x, dim=-1, descending=True).values
+        probs = torch.softmax(srt2, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = (cum - probs) < p_eff
+        cutoff = torch.where(keep, srt2, torch.full_like(srt2, math.inf)
+                             ).amin(dim=-1, keepdim=True)
+        return torch.where((top_p < 1.0)[:, None] & (x < cutoff),
+                           torch.full_like(x, -1e9), x)
+
+    @staticmethod
+    def _slot_sample_keys(seed_lo, seed_hi, ctr):
+        """Per-lane sampling keys: one 64-bit ``torch.Generator`` seed per
+        lane from the request's seed words and the emitted-token counter,
+        so token i of a request always draws from key(seed, i) — whether a
+        decode tick or a final prefill chunk emits it.  Returns a list of
+        ints (host values)."""
+        lo = torch.as_tensor(seed_lo).tolist()
+        hi = torch.as_tensor(seed_hi).tolist()
+        cs = torch.as_tensor(ctr).tolist()
+        return [_mix64(((int(h) & 0xFFFFFFFF) << 32 | (int(l) & 0xFFFFFFFF))
+                       ^ _mix64(int(c)))
+                for l, h, c in zip(lo, hi, cs)]
+
+    @staticmethod
+    def _sample_lanes(last, temperature, top_k, top_p, keys):
+        """One token per row of [B, V] logits with per-lane parameters:
+        lanes with ``temperature == 0`` (the greedy sentinel) take the
+        raw argmax (the first maximum, as in jnp), sampling lanes draw
+        from the lane-filtered distribution with a generator seeded by
+        their key.  An all-greedy batch skips the filter and the draw
+        (``keys=None`` tells it so without reading ``temperature``
+        back).  Returns int32 [B]."""
+        last = last.float()
+        greedy = torch.argmax(last, dim=-1).to(torch.int32)
+        if keys is None:  # the caller knows no lane samples
+            return greedy
+        sampling = temperature > 0
+        if not bool(sampling.any()):
+            return greedy
+        filt = GPTModel._filter_logits_lanes(last, temperature, top_k,
+                                             top_p)
+        probs = torch.softmax(filt, dim=-1)
+        out = greedy.clone()
+        for b in torch.nonzero(sampling).flatten().tolist():
+            gen = torch.Generator(device=last.device)
+            gen.manual_seed(keys[b])
+            out[b] = torch.multinomial(probs[b], 1, generator=gen)[0]
+        return out
+
+    # -- ragged engine tick -------------------------------------------------
+    def _ragged_window_tick_slots(self, toks, k_pools, v_pools,
+                                  block_tables, pos, width, scratch=None,
+                                  head_lanes=None):
+        """Run each slot's ``width[b]`` real window tokens (of W) at
+        positions ``pos[b]..`` through every block's
+        ``ragged_window_paged``: decode lanes and prefill chunks in one
+        pass.  ``head_lanes`` (int [B, K]) gathers K lanes per slot
+        before the LM head, so the vocab matmul pays only for lanes
+        something reads.  Returns (logits [B, W or K, V], k_pools,
+        v_pools); the pools are written in place."""
+        W = toks.shape[1]
+        maxp = self.embeddings.position_embeddings.weight.shape[0]
+        # the clamp only guards the discarded lanes past width; real
+        # lanes satisfy pos + s < max_position by admission
+        pids = torch.clamp(
+            pos.long()[:, None] + torch.arange(W, device=toks.device)[None],
+            max=maxp - 1)
+        x = self.embeddings(toks, position_ids=pids)
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.ragged_window_paged(
+                x, k_pools[j], v_pools[j], block_tables, pos, width,
+                scratch=scratch)
+        if head_lanes is not None:
+            x = torch.gather(
+                x, 1, head_lanes.long()[:, :, None].expand(-1, -1,
+                                                           x.shape[-1]))
+        return self.head(x), k_pools, v_pools
+
+    def _fused_ragged_tick_slots(self, toks, k_pools, v_pools,
+                                 block_tables, width, mode, lanes, tok,
+                                 pos, temp, top_k, top_p, seed_lo,
+                                 seed_hi, ctr, eos, rem, scratch=None,
+                                 emit_w=None):
+        """One engine tick: the ragged window plus the sample /
+        accept-scan / stop-condition epilogue.  Per-slot ``mode``:
+
+        * 0 — decode window: lane 0 is the slot's current token (``tok``),
+          lane j is sampled with key(seed, ctr + j), the longest accepted
+          prefix is scanned (one lane without drafts), and eos / the
+          remaining budget stop the lane.
+        * 1 — prefill chunk: ``width[b]`` prompt tokens are written; the
+          cursor advances by the width, nothing is sampled.
+        * 2 — final prefill chunk: as mode 1, plus the last real lane's
+          logits sample the next token with the UNSHIFTED key(seed, ctr),
+          delivered on picks lane 0.
+
+        Width-0 (parked) slots and finished lanes (rem 0) keep tok, pos
+        and ctr.  Returns (picks [B, E], n_acc [B], n_emit [B], done
+        bool [B], new_tok [B, 1], new_pos [B], new_ctr [B], new_rem [B],
+        k_pools, v_pools) with E = min(W, emit_w)."""
+        B, W = toks.shape
+        E = min(W, emit_w) if emit_w else W
+        dev = toks.device
+        i32 = torch.int32
+        window = torch.where((mode == 0)[:, None],
+                             torch.cat([tok, toks[:, 1:]], dim=1), toks)
+        head_lanes = torch.cat(
+            [torch.arange(E, device=dev)[None, :].expand(B, E),
+             torch.clamp(width.long() - 1, min=0)[:, None]], dim=1)
+        logits, k_pools, v_pools = self._ragged_window_tick_slots(
+            window, k_pools, v_pools, block_tables, pos, width,
+            scratch=scratch, head_lanes=head_lanes)      # [B, E+1, V]
+        L = block_tables.shape[1] * k_pools[0].shape[1]
+        # keys only when some lane samples: deriving them reads the seed
+        # words and counters back to the host
+        sampling = bool((temp > 0).any())
+
+        def keys(c):
+            return (self._slot_sample_keys(seed_lo, seed_hi, c)
+                    if sampling else None)
+
+        picks = torch.stack(
+            [self._sample_lanes(logits[:, j], temp, top_k, top_p,
+                                keys(ctr + j))
+             for j in range(E)], dim=1)                  # [B, E]
+        is_final = mode == 2
+        if bool(is_final.any()):
+            last_pick = self._sample_lanes(logits[:, E], temp, top_k,
+                                           top_p, keys(ctr))
+        else:
+            last_pick = torch.zeros(B, dtype=i32, device=dev)
+        is_pref = mode == 1
+        live = (rem > 0) & (width > 0)
+        match = (window[:, 1:E] == picks[:, :E - 1]) \
+            & (torch.arange(E - 1, device=dev)[None, :] < lanes[:, None])
+        n_acc = torch.argmin(
+            torch.cat([match, torch.zeros(B, 1, dtype=torch.bool,
+                                          device=dev)], dim=1).to(i32),
+            dim=1).to(i32)
+        hit_eos = (eos[:, None] >= 0) & (picks == eos[:, None])
+        eos_stop = torch.where(hit_eos.any(dim=1),
+                               torch.argmax(hit_eos.to(i32), dim=1) + 1,
+                               E + 1).to(i32)
+        n_emit0 = torch.minimum(torch.minimum(n_acc + 1, rem), eos_stop)
+        fc_eos = (eos >= 0) & (last_pick == eos)
+        zero = torch.zeros_like(rem)
+        n_emit = torch.where(
+            is_pref, zero,
+            torch.where(is_final, torch.clamp(rem, max=1),
+                        torch.where(live, n_emit0, zero))).to(i32)
+        last_idx = torch.clamp(n_emit - 1, min=0).long()
+        pick_tok = torch.gather(picks, 1, last_idx[:, None])
+        new_tok = torch.where(
+            is_final[:, None], last_pick[:, None],
+            torch.where((is_pref | ~live)[:, None], tok, pick_tok))
+        new_rem = torch.where(
+            is_pref, rem,
+            torch.where(is_final, torch.where(fc_eos, zero, rem - 1),
+                        torch.where(live,
+                                    torch.where(n_emit == eos_stop, zero,
+                                                rem - n_emit), rem)))
+        done = new_rem <= 0
+        adv = torch.where(is_pref | is_final, width,
+                          torch.where(live, n_emit, zero))
+        # L-1, not L-W: a chunk lane's legitimate prefill positions can
+        # pass L-W; runaway writes are parked in the scratch block by the
+        # width+range mask in ragged_window_paged
+        new_pos = torch.clamp(pos + adv, max=L - 1).to(i32)
+        new_ctr = (ctr + n_emit).to(i32)
+        picks[:, 0] = torch.where(is_final, last_pick, picks[:, 0])
+        return (picks, n_acc, n_emit, done, new_tok.to(i32), new_pos,
+                new_ctr, new_rem.to(i32), k_pools, v_pools)
+

@@ -1,0 +1,617 @@
+"""Continuous-batching inference engine over a fixed slot pool — the
+PyTorch counterpart of ``paddle_tpu/serving/engine.py`` on its
+``attn_impl="ragged"`` path.
+
+Each tick admits queued requests into free slots (the paged admission
+gate adopts cached prompt prefixes and reserves every block a request
+could need), then runs ONE ragged window dispatch
+(``GPTModel._fused_ragged_tick_slots``): decoding slots ride as
+one-token lanes, budgeted prefill chunks as lanes of up to
+``prefill_chunk`` tokens, and sampling plus the eos / max_new_tokens stop
+condition run in the dispatch's epilogue on the device.  The tick then
+downloads the per-slot picks and counts and emits them.
+
+This slice serves the dense GPT on one card at ``async_depth=1`` (each
+tick is dispatched and consumed before the next).  The JAX engine's other
+knobs — speculative decoding, the serving mesh, int8 KV and weights,
+LoRA adapters, the host-RAM offload tier, the pipelined loop, the XLA and
+gather attention bodies, monolithic prefill — raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.  Tracing,
+faults and migration wait too; plain integer counters stand in for the
+metrics (``prefix_hits``, ``ticks``, ``kv_blocks_walked``, ...).
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .kvcache import BlockPool, PrefixCache
+from .request import MAX_SEED, Request, RequestQueue
+from .scheduler import Scheduler
+
+_NOT_PORTED = {
+    "spec_k": "Queue A 6 (speculative decode)",
+    "mesh": "Queue A 10 (the serving mesh)",
+    "kv_dtype": "Queue A 7 (int8 KV, kernel B2)",
+    "weight_dtype": "Queue A 7 (int8 weights)",
+    "adapters": "Queue A 8 (LoRA adapters)",
+    "kv_host_mb": "Queue A 8 (host-RAM offload)",
+}
+
+
+class _InflightTick:
+    """One dispatched ragged tick: the device tensors its consume
+    downloads, and the slot -> request bindings and per-slot lane modes
+    as of dispatch."""
+
+    __slots__ = ("tick", "slots", "reqs", "arrays", "modes")
+
+    def __init__(self, tick, slots, arrays, modes):
+        self.tick = tick
+        self.slots = slots
+        self.reqs = [s.request for s in slots]
+        self.arrays = arrays
+        self.modes = modes
+
+
+class Engine:
+    """In-process continuous-batching engine for a ``GPTModel``.
+
+    Parameters
+    ----------
+    model : ``paddle_tpu_torch`` GPTModel whose parameters already lie on
+        ``device`` (the engine never moves them).
+    num_slots : fixed batch-slot pool size (B of every dispatch).
+    max_seq_len : per-slot KV length L (prompt + generated must fit);
+        defaults to the model's position table.
+    kv_block_size : paged KV block size (required; must divide
+        max_seq_len).
+    kv_blocks : physical block count of the pool (default
+        ``num_slots * max_seq_len / kv_block_size``), plus one reserved
+        scratch block.
+    prefix_cache : keep finished prompts' full blocks in a token trie so
+        later requests adopt them (default True).
+    prefill_chunk : prompt tokens a slot prefills per tick (required; must
+        divide max_seq_len); also the dispatch's window width W.
+    tick_token_budget : prompt tokens one tick may spend on prefill
+        chunks across slots (default: one chunk; must be >= it).
+    attn_impl : ``"ragged"`` — the ragged paged attention kernel.
+    sample_mode : ``"device"`` — sampling in the dispatch's epilogue.
+    device : where the engine's pools and state live; None = the CUDA
+        card (raises without one; the tests pass ``device="cpu"``).
+    """
+
+    def __init__(self, model, num_slots=4, max_seq_len=None,
+                 kv_block_size=None, kv_blocks=None,
+                 prefix_cache=True, prefill_chunk=None,
+                 tick_token_budget=None, attn_impl="ragged",
+                 sample_mode="device", async_depth=None, device=None,
+                 spec_k=None, mesh=None, kv_dtype=None,
+                 weight_dtype=None, adapters=None, kv_host_mb=None):
+        knobs = dict(spec_k=spec_k, mesh=mesh, kv_dtype=kv_dtype,
+                     weight_dtype=weight_dtype, adapters=adapters,
+                     kv_host_mb=kv_host_mb)
+        for name, item in _NOT_PORTED.items():
+            if knobs[name] is not None:
+                raise NotImplementedError(
+                    f"Engine({name}=...) is not ported yet: ROADMAP.md "
+                    f"{item}")
+        if async_depth not in (None, 1):
+            raise NotImplementedError(
+                f"async_depth={async_depth} is not ported yet: ROADMAP.md "
+                "Queue A 5 (the pipelined engine loop); this slice runs "
+                "async_depth=1")
+        if attn_impl in ("xla", "ragged_gather"):
+            raise NotImplementedError(
+                f"attn_impl={attn_impl!r} is not ported yet: ROADMAP.md "
+                + ("Queue A 5 (the XLA paged paths)" if attn_impl == "xla"
+                   else "Queue B 3 (the gather kernel body)"))
+        if attn_impl != "ragged":
+            raise ValueError(f"attn_impl must be 'ragged', got "
+                             f"{attn_impl!r}")
+        if sample_mode != "device":
+            raise ValueError(
+                f"sample_mode must be 'device', got {sample_mode!r}: "
+                "sampling and the stop condition run in the ragged "
+                "dispatch's epilogue")
+        if prefill_chunk is None:
+            raise NotImplementedError(
+                "prefill_chunk=None (monolithic prefill) is not ported "
+                "yet: ROADMAP.md Queue A 5; pass prefill_chunk=C")
+        if kv_block_size is None:
+            raise ValueError("kv_block_size is required: the ragged "
+                             "kernel reads K/V through block tables")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        for name, p in model.named_parameters():
+            if p.device != self.device:
+                raise ValueError(
+                    f"Engine: parameter {name} is on {p.device}, the "
+                    f"engine on {self.device} — move the model first "
+                    "(the engine never moves weights)")
+        model.eval()
+        self.model = model
+        max_position = model.embeddings.position_embeddings.weight.shape[0]
+        self.max_seq_len = int(max_seq_len or max_position)
+        if self.max_seq_len > max_position:
+            raise ValueError(
+                f"max_seq_len {self.max_seq_len} exceeds the model's "
+                f"position table ({max_position})")
+        self.num_slots = int(num_slots)
+        self.vocab_size = int(model.embeddings.word_embeddings.weight
+                              .shape[0])
+        self.queue = RequestQueue()
+        self.scheduler = Scheduler(self.num_slots, self.queue)
+        attn0 = model.blocks[0].attn
+        self._nh, self._hd = attn0.num_heads, attn0.head_dim
+        self._kv_dtype = attn0.qkv_proj.weight.dtype
+
+        c = int(prefill_chunk)
+        if c < 1 or self.max_seq_len % c:
+            raise ValueError(
+                f"prefill_chunk must be >= 1 and divide max_seq_len "
+                f"({self.max_seq_len}), got {c}")
+        b = int(tick_token_budget) if tick_token_budget is not None else c
+        if b < c:
+            raise ValueError(
+                f"tick_token_budget ({b}) must cover at least one "
+                f"prefill_chunk ({c}), or no tick could ever make "
+                "prefill progress")
+        self._chunk = c
+        self._tick_budget = b
+        bsz = int(kv_block_size)
+        if bsz < 1 or self.max_seq_len % bsz:
+            raise ValueError(
+                f"kv_block_size must be >= 1 and divide max_seq_len "
+                f"({self.max_seq_len}), got {bsz}")
+        self._bs = bsz
+        self._bps = self.max_seq_len // bsz  # blocks per full slot
+        managed = (self.num_slots * self._bps if kv_blocks is None
+                   else int(kv_blocks))
+        if managed < self._bps:
+            raise ValueError(
+                f"kv_blocks={managed} cannot hold even one max-length "
+                f"request ({self._bps} blocks)")
+        self._kv_managed = managed
+        self._prefix_enabled = bool(prefix_cache)
+        # the ragged dispatch's window: wide enough for a prefill chunk;
+        # each slot's real width is data
+        self._wmax = self._chunk
+
+        # plain counters in place of the JAX engine's metrics registry
+        self.ticks = 0
+        self.ragged_dispatches = 0
+        self.tokens_generated = 0
+        self.requests_completed = 0
+        self.prefill_tokens = 0
+        self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.kv_blocks_walked = 0   # summed over dispatches and slots
+        self._reset_pools()
+
+    # ------------------------------------------------------------------
+    def _reset_pools(self):
+        """(Re)allocate the per-layer K/V pools, the block pool, prefix
+        cache and block tables, and the per-slot step state — also the
+        step-failure recovery path: cached prefixes die with the rows
+        they described."""
+        # +1: block 0 is the reserved scratch block parked slots and
+        # masked lanes write through
+        nblocks = self._kv_managed + 1
+        self.block_pool = BlockPool(nblocks, self._bs, reserved_blocks=1)
+        self.prefix_cache = (PrefixCache(self.block_pool)
+                             if self._prefix_enabled else None)
+        self._slot_scratch = np.asarray(
+            [self.block_pool.scratch_row(0)] * self.num_slots, np.int32)
+        self._block_tables = np.repeat(
+            self._slot_scratch[:, None], self._bps, axis=1).copy()
+        self._slot_blocks = [[] for _ in range(self.num_slots)]
+        shape = (nblocks, self._bs, self._nh, self._hd)
+        self.k_pools = [torch.zeros(shape, dtype=self._kv_dtype,
+                                    device=self.device)
+                        for _ in self.model.blocks]
+        self.v_pools = [torch.zeros(shape, dtype=self._kv_dtype,
+                                    device=self.device)
+                        for _ in self.model.blocks]
+        # host mirrors of the device-resident step state, re-uploaded
+        # only when an admission / eviction / chunk dirties them
+        self._pos = np.zeros(self.num_slots, np.int32)
+        self._cur_tok = np.zeros((self.num_slots, 1), np.int32)
+        # sampling lanes: temperature 0 is the greedy sentinel; the seed
+        # words and the emitted-token counter derive each draw's key
+        self._temp = np.zeros(self.num_slots, np.float32)
+        self._topk = np.zeros(self.num_slots, np.int32)
+        self._topp = np.ones(self.num_slots, np.float32)
+        self._seed_lo = np.zeros(self.num_slots, np.int64)
+        self._seed_hi = np.zeros(self.num_slots, np.int64)
+        self._sctr = np.zeros(self.num_slots, np.int32)
+        # device-side stop condition: eos id (-1 = none), remaining budget
+        self._eos = np.full(self.num_slots, -1, np.int32)
+        self._rem = np.zeros(self.num_slots, np.int32)
+        self._dev_state = None
+        self._state_dirty = True
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens=16, eos_token_id=None,
+               temperature=1.0, top_k=0, top_p=1.0, seed=None):
+        """Queue one generation request; returns its Request handle
+        (block on ``request.result()``).  Greedy unless a sampling
+        parameter is set; ``seed`` makes a sampled stream repeat."""
+        if temperature <= 0:
+            raise ValueError(
+                f"temperature must be > 0, got {temperature} (greedy is "
+                "the default when no sampling params are set)")
+        if top_p <= 0 or top_p > 1:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        try:
+            eos_token_id = None if eos_token_id is None \
+                else int(eos_token_id)
+            seed = None if seed is None else int(seed)
+        except (TypeError, ValueError) as e:
+            raise ValueError(
+                f"eos_token_id/seed must be ints or None: {e}") from None
+        if seed is not None and not 0 <= seed < MAX_SEED:
+            raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+        req = Request(prompt, max_new_tokens, eos_token_id=eos_token_id,
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      seed=seed)
+        if int(req.prompt.max()) >= self.vocab_size \
+                or int(req.prompt.min()) < 0:
+            raise ValueError(f"prompt token ids must lie in [0, "
+                             f"{self.vocab_size})")
+        total = len(req.prompt) + req.max_new_tokens
+        if total > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({len(req.prompt)}) + max_new_tokens "
+                f"({req.max_new_tokens}) = {total} exceeds the slot "
+                f"cache length ({self.max_seq_len})")
+        self.queue.put(req)
+        return req
+
+    # -- paged KV admission ------------------------------------------------
+    def _kv_gate(self, req, slot):
+        """Paged admission gate, consulted before a slot binds: adopt the
+        prompt's longest cached prefix, then reserve every block the
+        request could need UP FRONT, so decode never allocates.  Under
+        pressure, LRU-evicts unreferenced cached prefixes; if the pool
+        still cannot cover the rest, returns False and the request waits
+        at the queue head."""
+        tokens = req.context
+        s = len(tokens)
+        n_total = -(-(s + req.remaining) // self._bs)
+        ctx, m = ([], 0)
+        if self.prefix_cache is not None:
+            ctx, m = self.prefix_cache.match(tokens)
+        need = n_total - len(ctx)
+        short = need - self.block_pool.free_count(0)
+        if short > 0 and self.prefix_cache is not None:
+            self.prefix_cache.evict(short)
+        if need > self.block_pool.free_count(0):
+            self.block_pool.decref(ctx)  # the cache keeps its own refs
+            return False
+        fresh = self.block_pool.alloc(need)
+        req._kv_plan = (ctx, fresh, m)
+        return True
+
+    def _release_slot_kv(self, i):
+        """Return slot i's block references (eviction): cached prefix
+        blocks fall back to the cache's reference, the rest free."""
+        self.block_pool.decref(self._slot_blocks[i])
+        self._slot_blocks[i] = []
+        self._block_tables[i, :] = self._slot_scratch[i]
+
+    def _bind_kv_plan(self, slot):
+        """Install the gate's reservation (``req._kv_plan``) into the
+        slot's table and count the prefix hit; returns (ctx, fresh, m)."""
+        req = slot.request
+        ctx, fresh, m = req._kv_plan
+        del req._kv_plan
+        i = slot.index
+        blocks = ctx + fresh
+        self._slot_blocks[i] = blocks
+        row = np.full(self._bps, self._slot_scratch[i], np.int32)
+        row[:len(blocks)] = blocks
+        self._block_tables[i] = row
+        if m:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += m
+        return ctx, fresh, m
+
+    # -- per-slot step state -----------------------------------------------
+    def _bind_sample_state(self, slot):
+        """Install the admitted request's sampling and stop lanes into the
+        mirrors: temperature 0 marks a greedy lane (its seed words are
+        constant zeros), the counter starts at the tokens already emitted,
+        and the dirty flag makes the next tick upload them."""
+        req = slot.request
+        i = slot.index
+        if req.do_sample:
+            self._temp[i] = req.temperature
+            self._topk[i] = req.top_k
+            self._topp[i] = req.top_p
+            lo, hi = req.seed_words()
+        else:
+            self._temp[i] = 0.0
+            self._topk[i] = 0
+            self._topp[i] = 1.0
+            lo, hi = 0, 0
+        self._seed_lo[i] = lo
+        self._seed_hi[i] = hi
+        self._sctr[i] = len(req.generated)
+        self._eos[i] = (-1 if req.eos_token_id is None
+                        else int(req.eos_token_id))
+        self._rem[i] = req.remaining
+        self._state_dirty = True
+
+    def _park_state(self, i):
+        """Park slot i's lanes (eviction): frozen zeros keep the parked
+        row's discarded compute in bounds and greedy, rem 0 freezes it."""
+        self._pos[i] = 0
+        self._cur_tok[i, 0] = 0
+        self._temp[i] = 0.0
+        self._topk[i] = 0
+        self._topp[i] = 1.0
+        self._seed_lo[i] = 0
+        self._seed_hi[i] = 0
+        self._sctr[i] = 0
+        self._eos[i] = -1
+        self._rem[i] = 0
+        self._state_dirty = True
+
+    def _push_state(self):
+        """Upload the mirrors as the device-resident step state.  Copies:
+        a CPU tensor made with ``from_numpy`` would alias the mirror the
+        host keeps editing."""
+        def put(a):
+            return torch.tensor(a, device=self.device)
+
+        self._dev_state = dict(
+            tok=put(self._cur_tok), pos=put(self._pos),
+            ctr=put(self._sctr), temp=put(self._temp),
+            topk=put(self._topk), topp=put(self._topp),
+            slo=put(self._seed_lo), shi=put(self._seed_hi),
+            eos=put(self._eos), rem=put(self._rem),
+            tables=put(self._block_tables),
+            scratch=put(self._slot_scratch))
+        self._state_dirty = False
+
+    def _begin_chunked(self, slot):
+        """Chunked admission: bind the block plan (the adopted prefix
+        counts as already prefilled) and park the slot PREFILLING; the
+        ragged dispatch spends the tick budget on its chunks."""
+        i = slot.index
+        self._bind_sample_state(slot)
+        _, _, m = self._bind_kv_plan(slot)
+        slot.prefilled = m
+        slot.pos = slot.prefilled
+        self._pos[i] = slot.prefilled
+        self._cur_tok[i, 0] = 0
+
+    # -- emission -----------------------------------------------------------
+    def _emit(self, slot, tok):
+        """Record one generated token; finish + evict on EOS or
+        max_new_tokens, else arm the slot for the next tick."""
+        req = slot.request
+        now = time.monotonic()
+        req._emit_token(int(tok))
+        if req.first_token_at is None:
+            req.first_token_at = now
+        self.tokens_generated += 1
+        finished = (len(req.generated) >= req.max_new_tokens or
+                    (req.eos_token_id is not None
+                     and int(tok) == int(req.eos_token_id)))
+        i = slot.index
+        if finished:
+            self.scheduler.evict(slot)
+            self._release_slot_kv(i)
+            self._park_state(i)
+            self.requests_completed += 1
+            return
+        self._cur_tok[i, 0] = int(tok)
+        self._pos[i] = slot.pos
+        self._sctr[i] = len(req.generated)
+        self._rem[i] = req.max_new_tokens - len(req.generated)
+
+    def _emit_window_lane(self, slot, picks_row, acc_i, n_emit_dev_i,
+                          done_i, tick):
+        """Emit a decode lane's accepted picks plus the bonus token
+        through ``_emit``; host-vs-device stop-condition drift raises
+        into step recovery.  Returns (emitted, accepted)."""
+        i = slot.index
+        n_cnt = 0
+        n_em = 0
+        j = 0
+        while True:
+            tok = int(picks_row[j])
+            matched = j < acc_i
+            if matched:
+                n_cnt += 1
+            slot.pos += 1
+            self._pos[i] = slot.pos
+            self._emit(slot, tok)
+            n_em += 1
+            if slot.request is None or not matched:
+                break
+            j += 1
+        if n_em != n_emit_dev_i or done_i != (slot.request is None):
+            raise RuntimeError(
+                f"stop-condition drift: slot {i} host emitted {n_em} "
+                f"(finished={slot.request is None}) vs device "
+                f"n_emit={n_emit_dev_i} done={done_i} at tick {tick}")
+        return n_em, n_cnt
+
+    # -- the ragged dispatch -------------------------------------------------
+    def _plan_ragged_chunks(self, prefilling):
+        """This tick's prefill-chunk lanes: admission order, one lane per
+        slot of up to ``min(W, budget left)`` tokens, capped by
+        ``tick_token_budget``.  Returns [(slot, n_tokens, is_final)]."""
+        plan = []
+        budget = self._tick_budget
+        for slot in prefilling:
+            req = slot.request
+            n = min(self._wmax, budget, len(req.context) - slot.prefilled)
+            if n <= 0:
+                continue
+            plan.append((slot, n, slot.prefilled + n >= len(req.context)))
+            budget -= n
+            if budget <= 0:
+                break
+        return plan
+
+    def _dispatch_ragged(self, active, plan):
+        """Dispatch one ragged window tick: decoding slots as mode-0 lanes
+        of width 1, chunks as mode-1/2 lanes of their token count — one
+        ``_fused_ragged_tick_slots`` call whatever the mix.  Chunk lanes
+        advance the prefill cursor here (their tokens are known)."""
+        W = self._wmax
+        B = self.num_slots
+        toks = np.zeros((B, W), np.int32)
+        width = np.zeros(B, np.int32)
+        mode = np.zeros(B, np.int32)
+        lanes = np.zeros(B, np.int32)   # draft lanes: none without spec
+        for slot in active:
+            width[slot.index] = 1
+        for slot, n, final in plan:
+            i = slot.index
+            p0 = slot.prefilled
+            toks[i, :n] = slot.request.context[p0:p0 + n]
+            width[i] = n
+            mode[i] = 2 if final else 1
+        # push BEFORE the chunk lanes' mirror advance: the upload carries
+        # the pre-dispatch cursors (the dispatch advances them by width)
+        if self._state_dirty or self._dev_state is None:
+            self._push_state()
+        walked = 0
+        for s in list(active) + [sl for sl, _, _ in plan]:
+            i = s.index
+            live = int(self._pos[i]) + max(int(width[i]), 1)
+            walked += min(self._bps, (live - 1) // self._bs + 1)
+        self.kv_blocks_walked += walked
+        for slot, n, _ in plan:
+            slot.prefilled += n
+            slot.pos = slot.prefilled
+            self._pos[slot.index] = slot.prefilled
+            self.prefill_tokens += n
+        st = self._dev_state
+        dev = self.device
+        with torch.no_grad():
+            (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
+             new_rem, _, _) = self.model._fused_ragged_tick_slots(
+                torch.tensor(toks, device=dev), self.k_pools, self.v_pools,
+                st["tables"], torch.tensor(width, device=dev),
+                torch.tensor(mode, device=dev),
+                torch.tensor(lanes, device=dev), st["tok"], st["pos"],
+                st["temp"], st["topk"], st["topp"], st["slo"], st["shi"],
+                st["ctr"], st["eos"], st["rem"], scratch=st["scratch"],
+                emit_w=1)
+        st["tok"], st["pos"], st["ctr"], st["rem"] = \
+            new_tok, new_pos, new_ctr, new_rem
+        self.ragged_dispatches += 1
+        slots = list(active) + [s for s, _, _ in plan]
+        return _InflightTick(
+            self.ticks, slots,
+            {"picks": picks, "n_acc": n_acc, "n_emit": n_emit,
+             "done": done},
+            [int(mode[s.index]) for s in slots])
+
+    def _consume_ragged(self, inf, mats, done):
+        """Emit a downloaded ragged tick, per lane mode: chunk lanes
+        (mode 1) emit nothing; a final chunk (mode 2) registers the
+        prompt's full blocks in the prefix cache and emits picks lane 0;
+        decode lanes (mode 0) run ``_emit_window_lane``.  Drift between
+        the host's and the device's stop condition raises."""
+        picks = mats["picks"]
+        n_acc = mats["n_acc"]
+        n_emit_dev = mats["n_emit"]
+        emitted = 0
+        for slot, req, mode_i in zip(inf.slots, inf.reqs, inf.modes):
+            i = slot.index
+            if slot.request is not req:
+                if not done[i]:
+                    raise RuntimeError(
+                        f"stop-condition drift: slot {i} was evicted on "
+                        f"the host but tick {inf.tick}'s device lane is "
+                        "not done")
+                continue
+            if mode_i == 1:
+                if int(n_emit_dev[i]):
+                    raise RuntimeError(
+                        f"ragged drift: chunk lane {i} emitted "
+                        f"{int(n_emit_dev[i])} on device at tick "
+                        f"{inf.tick}")
+                continue
+            if mode_i == 2:
+                ctxt = req.context
+                if self.prefix_cache is not None:
+                    self.prefix_cache.insert(
+                        ctxt, self._slot_blocks[i][:len(ctxt) // self._bs])
+                self._emit(slot, int(picks[i, 0]))
+                emitted += 1
+                if int(n_emit_dev[i]) != 1 or \
+                        bool(done[i]) != (slot.request is None):
+                    raise RuntimeError(
+                        f"ragged drift: final-chunk lane {i} device "
+                        f"n_emit={int(n_emit_dev[i])} done={bool(done[i])}"
+                        f" vs host finished={slot.request is None} at "
+                        f"tick {inf.tick}")
+                continue
+            n_em, _ = self._emit_window_lane(
+                slot, picks[i], int(n_acc[i]), int(n_emit_dev[i]),
+                bool(done[i]), inf.tick)
+            emitted += n_em
+        return emitted
+
+    def _consume(self, inf):
+        """Download one dispatched tick's picks, counts and done mask (the
+        tick's sync point) and emit them."""
+        mats = {k: v.cpu().numpy() for k, v in inf.arrays.items()}
+        return self._consume_ragged(inf, mats, mats["done"])
+
+    # -- the tick -------------------------------------------------------------
+    def step(self):
+        """One engine tick: admit -> one ragged dispatch -> emit.  Returns
+        the tokens emitted.  A tick that raises fails every bound request
+        loudly (their waiters unblock), rebuilds the pools, and
+        re-raises, so the engine works again afterwards."""
+        try:
+            return self._tick()
+        except Exception as e:
+            for slot in self.scheduler.busy_slots():
+                if self.scheduler.evict(slot, RuntimeError(
+                        f"engine step failed: {e!r}")) is not None:
+                    self.requests_completed += 1
+            self._reset_pools()
+            raise
+
+    def _tick(self):
+        self.ticks += 1
+        # submit() takes no deadline, so no queued request can time out
+        admitted, _ = self.scheduler.admit(time.monotonic(),
+                                           gate=self._kv_gate)
+        for slot in admitted:
+            self._begin_chunked(slot)
+        _, active, prefilling = self.scheduler.snapshot()
+        plan = self._plan_ragged_chunks(prefilling)
+        if not (active or plan):
+            return 0
+        inf = self._dispatch_ragged(active, plan)
+        return self._consume(inf)
+
+    def run_until_idle(self, max_steps=100000):
+        """Drive ticks until queue and slots are empty; returns the total
+        tokens emitted."""
+        total = 0
+        for _ in range(max_steps):
+            if self.scheduler.idle():
+                return total
+            total += self.step()
+        raise RuntimeError(
+            f"engine still busy after {max_steps} steps "
+            f"(occupancy={self.scheduler.occupancy()}, "
+            f"queue={self.queue.depth()})")
