@@ -32,7 +32,42 @@ without the last line:
    the seeded streams repeat on a second engine.  A third run of the
    same traffic under ``torch.profiler`` prints the device's busy share
    and the kernels that take the most device time.
-5. Prints ``{"ok": true, "device": {...}}`` as the last line.
+5. Flash kernels against their plain versions (``ops/flash_attention.py``):
+   the training slice's shape (B=4, H=16, S=2048, hd=128, bf16,
+   causal), an fp32 case, an hd=64 case and a case with segment ids
+   (four packed documents of uneven lengths).  fp32 holds o and lse at
+   atol 1e-5 and the gradients at atol 1e-4 (summation order); bf16
+   holds every output at rtol 2e-2 / atol 2e-2 against the plain
+   version computed in f32 from the same bf16 values (bf16 rounding of
+   the outputs); every case also holds each output to a relative L2
+   error of 1e-2, which a small but systematic fault on the late causal
+   rows (where o is ~0.03 in size) would pass per element but not in
+   norm.  At the slice's shape it times the forward, dK/dV and dQ
+   kernels, their plain versions and ``scaled_dot_product_attention``
+   (is_causal; forward, and backward through autograd — the library
+   yardstick; the port never calls it) with CUDA events, and computes
+   each kernel's bound from causal FLOPs and bytes.
+6. The training slice at full width and depth:
+   ``GPTModel.from_config("gpt3-1.3b", dropout=0.1, fused_loss=True)``
+   from seed 0 in bf16, ``AdamW(learning_rate=1e-4, weight_decay=0.01)``,
+   ``TrainStep``, B=4, S=2048 (ids from numpy seed 0), one warm-up step
+   and 5 timed steps on the fixed batch.  Checks: every loss finite; the
+   first within 0.1 of ln V + E * 0.02^2 / 2 (uniform logits, lifted by
+   the N(0, 0.02^2) head weights over unit-variance ln_f outputs); the
+   loss falls; each flash kernel launched 24 times per step.  Prints
+   tokens/s, seconds a step, peak memory, and a ``torch.profiler``
+   breakdown of one more step (device time by kernel, busy share).
+7. Kernel path against plain path in the model: gpt3-1.3b at 2 layers,
+   B=1, S=2048, bf16, dropout 0; one forward + backward of the loss
+   through the kernels and through the plain versions.  The losses
+   agree to rtol 1e-3 and every gradient to a relative L2 error of
+   2e-2 (bf16 rounding of the attention outputs and gradients,
+   propagated through two layers).
+8. Prints the ``kernels`` JSON line, the card line and
+   ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
+   ``library_covers`` names the kernels its ``library_ms`` call does the
+   work of: SDPA's one backward call gives dq, dk and dv, so both flash
+   backward kernels carry its time.
 
 Needs the repository around it: alone in a directory it exits non-zero.
 """
@@ -47,7 +82,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-N_LAYERS = 24                      # gpt2-medium
+N_LAYERS = 24                      # gpt2-medium and gpt3-1.3b
+FLASH_KERNELS = ("fwd", "bwd_dkv", "bwd_dq")
+FLASH_REL_TOL = 1e-2               # relative L2 error of each flash output
+# the upstream Pallas kernels (installed jax), reached from
+# paddle_tpu/nn/functional/attention.py:92
+_UPSTREAM = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+FLASH_REPLACES = {"fwd": f"{_UPSTREAM}:589", "bwd_dkv": f"{_UPSTREAM}:941",
+                  "bwd_dq": f"{_UPSTREAM}:1287"}
 
 
 def check(cond, msg):
@@ -295,6 +337,15 @@ def slice_phase(card, ragged_mod):
     return launches
 
 
+def device_kernels(prof):
+    """Kernels with device time in a profile; user annotations (such as
+    ``Optimizer.step``) span device time without being kernels and would
+    count it twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_phase(model, reqs, engine_cls, card):
     """Where a tick's time goes: the same traffic once more under
     torch.profiler; prints the device's busy share of the wall time and
@@ -305,8 +356,7 @@ def profile_phase(model, reqs, engine_cls, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng, _, wall = serve(model, reqs, engine_cls)
-    dev = [e for e in prof.key_averages()
-           if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     print(f"profile: ticks {eng.ticks} wall_s {wall:.3f} device_busy_s "
           f"{busy_ms / 1e3:.3f} busy_share {busy_ms / 1e3 / wall:.3f} "
@@ -315,6 +365,309 @@ def profile_phase(model, reqs, engine_cls, card):
     for e in dev[:10]:
         print(f"profile kernel: {e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d}x {e.key[:90]}", flush=True)
+
+
+# -- phase 5 --------------------------------------------------------------
+# (B, H, S, D, dtype, n_documents): the training slice's shape first
+FLASH_CASES = {
+    "slice_bf16": (4, 16, 2048, 128, "bfloat16", 0),
+    "fp32": (1, 16, 2048, 128, "float32", 0),
+    "hd64_bf16": (2, 16, 2048, 64, "bfloat16", 0),
+    "segments_bf16": (2, 16, 2048, 128, "bfloat16", 4),
+}
+
+
+def flash_inputs(case):
+    """q, k, v, do [B, S, H, D] from a seeded generator, and int32
+    segment ids of packed documents with uneven lengths (None for 0)."""
+    import numpy as np
+    import torch
+    B, H, S, D, dtype, ndoc = FLASH_CASES[case]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                   .to(dt) for _ in range(4))
+    seg = None
+    if ndoc:
+        rng = np.random.RandomState(2)
+        ids = np.zeros((B, S), np.int32)
+        for b in range(B):
+            cuts = np.sort(rng.choice(np.arange(64, S - 64), ndoc - 1,
+                                      replace=False))
+            ids[b] = np.searchsorted(cuts, np.arange(S), side="right")
+        seg = torch.tensor(ids, device="cuda")
+    return q, k, v, do, seg
+
+
+def flash_bound_ms(kernel, q):
+    """Least time for a kernel's work at causal attention without segment
+    ids (the slice's case): causal FLOPs (per visible (query, key) pair
+    and head: 4 D for QK^T and PV forward, 8 D for dK/dV's recomputed
+    QK^T, dO V^T, P^T dO and dS^T Q, 6 D for dQ's QK^T, dO V^T and dS K)
+    over the peak rate of the input dtype, or bytes (each input read
+    once, each output written once) over the memory rate; the larger."""
+    B, S, H, D = q.shape
+    pairs = B * H * S * (S + 1) // 2
+    n, item = q.numel(), q.element_size()
+    rows = B * H * S * 4                    # one f32 per row: lse, di
+    flops, nbytes = {
+        "fwd": (4 * pairs * D, 4 * n * item + rows),
+        "bwd_dkv": (8 * pairs * D, 6 * n * item + 2 * rows),
+        "bwd_dq": (6 * pairs * D, 5 * n * item + 2 * rows),
+    }[kernel]
+    dtype = str(q.dtype).replace("torch.", "")
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def flash_phase(fa):
+    """Every case: the three kernels against their plain versions; at the
+    slice's shape, times and bounds.  Returns {kernel: result} for the
+    slice's shape."""
+    import torch
+    import torch.nn.functional as F
+    results = {}
+    for case, (B, H, S, D, dtype, _) in FLASH_CASES.items():
+        q, k, v, do, seg = flash_inputs(case)
+        scale = D ** -0.5
+        kw = dict(causal=True, sm_scale=scale)
+        o, lse = fa.flash_fwd(q, k, v, seg, **kw)
+        di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, di, seg)
+        dk, dv = fa.flash_bwd_dkv(*args, **kw)
+        dq = fa.flash_bwd_dq(*args, **kw)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, do)]
+        want_o, want_lse = fa.flash_fwd_ref(*f32[:3], seg, **kw)
+        ref_args = (*f32, want_lse, di, seg)
+        want_dk, want_dv = fa.flash_bwd_dkv_ref(*ref_args, **kw)
+        want_dq = fa.flash_bwd_dq_ref(*ref_args, **kw)
+        if dtype == "float32":
+            tol_o, tol_g = (0.0, 1e-5), (0.0, 1e-4)
+        else:
+            tol_o = tol_g = (2e-2, 2e-2)
+        errs, rels = {}, {}
+        for kernel, pairs, tol in (
+                ("fwd", ((o, want_o), (lse, want_lse)), tol_o),
+                ("bwd_dkv", ((dk, want_dk), (dv, want_dv)), tol_g),
+                ("bwd_dq", ((dq, want_dq),), tol_g)):
+            rels[kernel] = 0.0
+            for got, want in pairs:
+                check(bool(torch.isfinite(got).all()),
+                      f"flash {kernel} {case}: non-finite output")
+                torch.testing.assert_close(got.float(), want, rtol=tol[0],
+                                           atol=tol[1])
+                # a fault small per element but systematic (late causal
+                # rows of o are ~0.03 in size) still moves the norm
+                rel = float((got.float() - want).norm() / want.norm())
+                check(rel <= FLASH_REL_TOL,
+                      f"flash {kernel} {case}: relative L2 error "
+                      f"{rel:.3e} over {FLASH_REL_TOL}")
+                rels[kernel] = max(rels[kernel], rel)
+            errs[kernel] = max(float((g.float() - w).abs().max())
+                               for g, w in pairs)
+        print(f"flash {case} (B={B} H={H} S={S} D={D} {dtype} causal"
+              f"{' segments' if seg is not None else ''}): max_abs_err "
+              + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + " rel_l2_err "
+              + " ".join(f"{n} {e:.3e}" for n, e in rels.items())
+              + f" (tolerance rtol {tol_o[0]} atol {tol_o[1]} fwd, rtol "
+              f"{tol_g[0]} atol {tol_g[1]} bwd, relative L2 "
+              f"{FLASH_REL_TOL} on every output)", flush=True)
+        if case != "slice_bf16":
+            continue
+        kernel_fns = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, seg, **kw),
+            "bwd_dkv": lambda: fa.flash_bwd_dkv(*args, **kw),
+            "bwd_dq": lambda: fa.flash_bwd_dq(*args, **kw)}
+        plain_fns = {
+            "fwd": lambda: fa.flash_fwd_ref(q, k, v, seg, **kw),
+            "bwd_dkv": lambda: fa.flash_bwd_dkv_ref(*args, **kw),
+            "bwd_dq": lambda: fa.flash_bwd_dq_ref(*args, **kw)}
+        sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        sdo = do.transpose(1, 2).contiguous()
+        with torch.no_grad():
+            sdpa_fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, is_causal=True), iters=10)
+        sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+            sout, (sq, sk, sv), sdo, retain_graph=True), iters=10)
+        print(f"flash library: scaled_dot_product_attention(is_causal) "
+              f"bf16 forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv in one "
+              f"autograd call) {sdpa_bwd:.4f} ms, forward+backward "
+              f"{sdpa_fwd + sdpa_bwd:.4f} ms", flush=True)
+        # SDPA's backward gives dq, dk and dv in one call: it is the
+        # yardstick of the two backward kernels together
+        library = {"fwd": (sdpa_fwd, ["flash_fwd"]),
+                   "bwd_dkv": (sdpa_bwd, ["flash_bwd_dkv", "flash_bwd_dq"]),
+                   "bwd_dq": (sdpa_bwd, ["flash_bwd_dkv", "flash_bwd_dq"])}
+        for kernel in FLASH_KERNELS:
+            ms = cuda_time_ms(kernel_fns[kernel], iters=10, warmup=2)
+            plain_ms = cuda_time_ms(plain_fns[kernel], iters=3, warmup=1)
+            bound, bound_by = flash_bound_ms(kernel, q)
+            results[kernel] = dict(
+                max_abs_err=errs[kernel], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by,
+                library_ms=library[kernel][0],
+                library_covers=library[kernel][1])
+            print(f"kernel flash_{kernel} bf16: max_abs_err "
+                  f"{errs[kernel]:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {bound:.4f} ({bound_by})", flush=True)
+        del sq, sk, sv, sout
+    torch.cuda.empty_cache()
+    return results
+
+
+# -- phase 6 --------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 4, 2048, 5
+
+
+def flash_counts(fa):
+    return {n: op.launches for n, op in fa.KERNEL_OPS.items()}
+
+
+def zero_flash_counts(fa):
+    for op in fa.KERNEL_OPS.values():
+        op.launches = 0
+
+
+def train_batch(vocab, batch, seq, seed):
+    import numpy as np
+    import torch
+    ids = np.random.RandomState(seed).randint(0, vocab, (batch, seq + 1))
+    ids = torch.tensor(ids.astype(np.int64), device="cuda")
+    return ids[:, :-1], ids[:, 1:]
+
+
+def train_phase(card, fa):
+    import math
+    import torch
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.1,
+                                 fused_loss=True).to(torch.bfloat16)
+    check(len(model.blocks) == N_LAYERS, "gpt3-1.3b has 24 layers")
+    n_params = sum(p.numel() for p in model.parameters())
+    E = model.blocks[0].attn.hidden_size
+    V = model.head.lm_head.weight.shape[0]
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, opt)
+    x, y = train_batch(V, TRAIN_B, TRAIN_S, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    t_warm = time.perf_counter()
+    losses = [step.step([x, y])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm_s = t0 - t_warm
+    for _ in range(TRAIN_TIMED):
+        losses.append(step.step([x, y]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts(fa)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    steps = TRAIN_TIMED + 1
+    for name, n in launches.items():
+        check(n == N_LAYERS * steps,
+              f"flash {name} launched {n} times in {steps} steps, not "
+              f"{N_LAYERS} a step")
+    check(all(math.isfinite(l) for l in losses), f"non-finite loss {losses}")
+    expect0 = math.log(V) + E * 0.02 ** 2 / 2
+    check(abs(losses[0] - expect0) < 0.1,
+          f"step-0 loss {losses[0]:.4f} is not within 0.1 of "
+          f"ln V + E * 0.02^2 / 2 = {expect0:.4f}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    tokens = TRAIN_B * TRAIN_S * TRAIN_TIMED
+    print(f"train gpt3-1.3b bf16: params {n_params} B {TRAIN_B} S "
+          f"{TRAIN_S} losses " + " ".join(f"{l:.4f}" for l in losses)
+          + f" (step-0 expected {expect0:.4f}) warmup_s {warm_s:.3f} "
+          f"timed_steps {TRAIN_TIMED} wall_s {wall:.3f} s_per_step "
+          f"{wall / TRAIN_TIMED:.4f} tokens_per_s {tokens / wall:.1f} "
+          f"peak_mem_gb {peak_gb:.2f} flash_launches {launches} [{card}]",
+          flush=True)
+    train_profile(step, x, y, card)
+    del step, opt, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_profile(step, x, y, card):
+    """One more step under torch.profiler: device time by kernel and the
+    device's busy share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.step([x, y])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    print(f"train profile: one step wall_s {wall:.3f} device_busy_s "
+          f"{busy_ms / 1e3:.3f} busy_share {busy_ms / 1e3 / wall:.3f} "
+          f"[{card}]", flush=True)
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    for e in dev[:12]:
+        print(f"train profile kernel: {e.self_device_time_total / 1e3:10.3f}"
+              f" ms {e.count:6d}x {100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
+              f"{e.key[:90]}", flush=True)
+
+
+# -- phase 7 --------------------------------------------------------------
+def model_compare_phase(fa):
+    """Loss and every gradient of a 2-layer gpt3-1.3b-width model through
+    the kernels and through the plain versions, on the same weights and
+    batch."""
+    import torch
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.0,
+                                 fused_loss=True, num_layers=2
+                                 ).to(torch.bfloat16)
+    V = model.head.lm_head.weight.shape[0]
+    x, y = train_batch(V, 1, TRAIN_S, seed=1)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        loss = model(x, labels=y)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone()
+                             for n, p in model.named_parameters()}
+
+    before = flash_counts(fa)
+    l_kernel, g_kernel = loss_and_grads()
+    check(all(flash_counts(fa)[n] == before[n] + 2 for n in before),
+          "the kernel path did not launch each flash kernel once a layer")
+    real = attn_mod.flash_attention
+    attn_mod.flash_attention = fa.flash_attention_ref
+    try:
+        l_plain, g_plain = loss_and_grads()
+    finally:
+        attn_mod.flash_attention = real
+    check(abs(l_kernel - l_plain) <= 1e-3 * abs(l_plain),
+          f"loss through the kernels {l_kernel} vs plain {l_plain}")
+    worst = 0.0
+    for n, gp in g_plain.items():
+        rel = float((g_kernel[n] - gp).norm() / gp.norm().clamp(min=1e-30))
+        check(rel <= 2e-2, f"gradient {n}: relative L2 error {rel:.3e}")
+        worst = max(worst, rel)
+    print(f"model kernel vs plain (gpt3-1.3b width, 2 layers, B=1, S="
+          f"{TRAIN_S}, bf16): loss {l_kernel:.6f} vs {l_plain:.6f}, worst "
+          f"gradient relative L2 error {worst:.3e} over {len(g_plain)} "
+          f"parameters (tolerance loss rtol 1e-3, gradients 2e-2)",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -337,6 +690,7 @@ def main():
     print(f"card: {card}", flush=True)
 
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import ragged_paged_attn as ragged_mod
     t0 = time.perf_counter()
     reports = _build.build_all()
@@ -349,10 +703,19 @@ def main():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     kres = kernel_phase(ragged_mod)
+    fres = flash_phase(fa)
+    zero_flash_counts(fa)
     launches = slice_phase(card, ragged_mod)
+    check(sum(flash_counts(fa).values()) == 0,
+          "the serving path launched a flash kernel")
+    ragged_mod.ragged_paged_attention.launches = 0
+    flash_launches = train_phase(card, fa)
+    check(ragged_mod.ragged_paged_attention.launches == 0,
+          "the training path launched the ragged kernel")
+    model_compare_phase(fa)
 
     f32 = kres["float32"]
-    line = {"kernels": [{
+    kernels = [{
         "name": "ragged_paged_attention",
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attn.cu",
@@ -364,7 +727,25 @@ def main():
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-    }], "card": card}
+        "library_covers": ["ragged_paged_attention"],
+    }]
+    for kernel in FLASH_KERNELS:
+        r = fres[kernel]
+        kernels.append({
+            "name": f"flash_{kernel}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": FLASH_REPLACES[kernel],
+            "launches": flash_launches[kernel],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_covers": r["library_covers"],
+        })
+    line = {"kernels": kernels, "card": card}
     print(json.dumps(line), flush=True)
     print(f"{card}", flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", flush=True)

@@ -13,7 +13,9 @@ them, and copies it into a ``paddle_tpu_torch`` ``GPTModel``:
 ``paddle_tpu``'s ``nn.Linear`` stores its weight ``[in, out]`` and
 torch's ``[out, in]``, so every linear weight is transposed on the way
 in.  Missing names, unexpected names and shape mismatches are refused
-before anything is copied.
+before anything is copied.  ``export_paddle_tpu_state(model)`` is the
+reverse: the model's parameters as numpy arrays in ``paddle_tpu``'s
+layout and names.
 """
 from __future__ import annotations
 
@@ -56,3 +58,17 @@ def load_paddle_tpu_state(model, arrays):
         for name, p in params.items():
             p.copy_(torch.from_numpy(np.array(staged[name], copy=True)))
     return model
+
+
+def export_paddle_tpu_state(model):
+    """The model's parameters as ``{name: numpy array}`` in
+    ``paddle_tpu``'s layout (linear weights transposed back to
+    ``[in, out]``), as float32 (numpy has no bfloat16)."""
+    linear = _linear_weights(model)
+    out = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            arr = p.detach().float().cpu().numpy()
+            out[name] = np.ascontiguousarray(arr.T if name in linear
+                                             else arr)
+    return out

@@ -20,3 +20,19 @@ def resolve_device(device=None):
             "no CUDA device is available; paddle_tpu_torch runs on the "
             "card by default — pass device=\"cpu\" to run on the CPU")
     return dev
+
+
+def require_on(device, named_tensors, who):
+    """Resolve ``device`` as ``resolve_device`` does (a bare ``"cuda"``
+    becomes the current card) and raise ``ValueError`` when any of the
+    ``(name, tensor)`` pairs lies elsewhere: entry points never move
+    weights.  Returns the resolved ``torch.device``."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    for name, t in named_tensors:
+        if t.device != dev:
+            raise ValueError(
+                f"{who}: parameter {name} is on {t.device}, not on {dev} "
+                "— move the model first (the port never moves weights)")
+    return dev

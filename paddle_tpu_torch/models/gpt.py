@@ -1,7 +1,9 @@
 """GPT decoder in PyTorch — counterpart of ``paddle_tpu/models/gpt.py``.
 
-This slice carries the dense model (``GPTModel.forward`` returns logits)
-and the serving engine's RAGGED paged window: every decoder layer's
+The dense model (``GPTModel.forward`` returns logits, or the loss when
+given labels) trains through ``scaled_dot_product_attention``
+(``nn/functional/attention.py``: the flash kernels at long sequences),
+and the serving engine runs the RAGGED paged window: every decoder layer's
 ``ragged_window_paged`` writes the window's K/V through the slots' block
 tables and runs the ragged paged attention kernel
 (``ops/ragged_paged_attn.py``), and ``_fused_ragged_tick_slots`` adds the
@@ -24,6 +26,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
+from ..nn.functional import (cross_entropy, fused_linear_cross_entropy,
+                             scaled_dot_product_attention)
 from ..ops.ragged_paged_attn import ragged_paged_attention
 
 GPT_CONFIGS = {
@@ -96,19 +100,15 @@ class GPTAttention(nn.Module):
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def forward(self, x):
-        """Dense causal attention in plain torch math (the JAX
-        ``_reference_attention``): scores, causal mask at the dtype's
-        minimum, softmax in f32."""
+        """Dense causal attention through ``scaled_dot_product_attention``
+        (the flash kernels at long sequences, the reference attention
+        otherwise).  In training, dropout applies to the attention
+        output, before ``out_proj``, as in the JAX package."""
         b, s, _ = x.shape
         q, k, v = self._qkv_step(x)
-        scale = 1.0 / math.sqrt(self.head_dim)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-        causal = torch.ones(s, s, dtype=torch.bool,
-                            device=x.device).tril()
-        scores = scores.masked_fill(~causal, torch.finfo(scores.dtype).min)
-        probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
-        probs = F.dropout(probs, self.dropout, self.training)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        out = scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=self.dropout,
+            training=self.training)
         return self.out_proj(out.reshape(b, s, self.hidden_size))
 
     def _slot_attn(self, qa, k_rows, v_rows, pos):
@@ -226,12 +226,38 @@ class GPTLMHead(nn.Module):
         return self.lm_head(self.ln_f(x))
 
 
+# knobs of the JAX GPTModel that the port does not carry yet, each with
+# the ROADMAP item that ports it
+_UNPORTED = {
+    "use_mp": "Queue A 10 (the mesh)",
+    "use_sp": "Queue A 12 (distributed ring/ulysses)",
+    "moe_experts": "Queue A 12 (distributed moe)",
+    "use_recompute": "Queue A 11 (training: use_recompute)",
+    "scan_layers": "Queue A 11 (training: scan_layers)",
+}
+
+
 class GPTModel(nn.Module):
-    """Decoder-only LM returning logits [B, S, V]."""
+    """Decoder-only LM returning logits [B, S, V], or the mean loss when
+    ``forward`` gets labels."""
 
     def __init__(self, num_layers=12, hidden_size=768, num_heads=12,
-                 vocab_size=50304, max_position=1024, dropout=0.1):
+                 vocab_size=50304, max_position=1024, dropout=0.1,
+                 fused_loss=False, fused_loss_chunk=128, use_mp=False,
+                 use_sp=False, moe_experts=0, use_recompute=False,
+                 scan_layers=False):
         super().__init__()
+        knobs = dict(use_mp=use_mp, use_sp=use_sp, moe_experts=moe_experts,
+                     use_recompute=use_recompute, scan_layers=scan_layers)
+        for name, value in knobs.items():
+            if value:
+                raise NotImplementedError(
+                    f"GPTModel({name}={value!r}) is not ported yet "
+                    f"(ROADMAP {_UNPORTED[name]})")
+        # sequence-chunk size of the fused head + CE (see
+        # nn/functional/loss.py fused_linear_cross_entropy)
+        self.fused_loss = fused_loss
+        self.fused_loss_chunk = fused_loss_chunk
         self.embeddings = GPTEmbeddings(vocab_size, hidden_size,
                                         max_position, dropout)
         self.blocks = nn.ModuleList([
@@ -267,11 +293,29 @@ class GPTModel(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, labels=None, doc_lens=None):
+        """Logits ``[B, S, V]``; with ``labels`` (int ``[B, S]``, already
+        shifted, -100 ignored) the mean cross entropy instead — fused
+        with the LM head per sequence chunk when ``fused_loss`` (in f32;
+        the ``[B, S, V]`` logits never exist whole), else over the whole
+        logits in their dtype."""
+        if doc_lens is not None:
+            raise NotImplementedError(
+                "GPTModel.forward(doc_lens=...) (packed pretraining) is not "
+                "ported yet (ROADMAP Queue A 11: doc_lens)")
         x = self.embeddings(input_ids)
         for blk in self.blocks:
             x = blk(x)
-        return self.head(x)
+        if labels is not None and self.fused_loss:
+            return fused_linear_cross_entropy(
+                self.head.ln_f(x), self.head.lm_head.weight.t(), labels,
+                chunk_size=self.fused_loss_chunk, ignore_index=-100)
+        logits = self.head(x)
+        if labels is not None:
+            b, s, v = logits.shape
+            return cross_entropy(logits.reshape(b * s, v),
+                                 labels.reshape(b * s))
+        return logits
 
     # -- sampling ---------------------------------------------------------
     @staticmethod

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import require_on
 from .kvcache import BlockPool, PrefixCache
 from .request import MAX_SEED, Request, RequestQueue
 from .scheduler import Scheduler
@@ -124,15 +124,7 @@ class Engine:
         if kv_block_size is None:
             raise ValueError("kv_block_size is required: the ragged "
                              "kernel reads K/V through block tables")
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        for name, p in model.named_parameters():
-            if p.device != self.device:
-                raise ValueError(
-                    f"Engine: parameter {name} is on {p.device}, the "
-                    f"engine on {self.device} — move the model first "
-                    "(the engine never moves weights)")
+        self.device = require_on(device, model.named_parameters(), "Engine")
         model.eval()
         self.model = model
         max_position = model.embeddings.position_embeddings.weight.shape[0]

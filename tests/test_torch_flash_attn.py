@@ -1,0 +1,308 @@
+"""Flash attention in the PyTorch port, held to the JAX package.
+
+``paddle_tpu_torch.ops.flash_attention`` runs its plain versions on the
+CPU (the FlashAttention-2 recurrence in plain PyTorch: forward with the
+online softmax, dK/dV and dQ recomputing the probabilities from the
+saved log-sum-exp).  Here they are compared, forward and backward,
+with the JAX package's ``_reference_attention`` (the oracle of the
+upstream Pallas flash kernel) and its ``jax.vjp``, in fp32: output at
+atol 1e-5 (the online softmax sums block by block, in another order
+than one softmax over the row), gradients at atol 1e-4 (the backward
+recomputes p from lse and sums over S in another order).
+
+The dispatch of ``scaled_dot_product_attention`` is checked too: CPU
+tensors never load the CUDA library, shapes outside the gate take the
+reference attention, and a device without a kernel raises.
+
+Tests marked ``cuda`` hold the three CUDA kernels to their plain
+versions on the card and skip without one (jax is imported only inside
+the CPU tests: the card has none).
+"""
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.nn.functional import attention as attn_mod
+from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+# (B, S, H, D, causal, n_segments): causal, causal + packed documents of
+# uneven lengths, a head dim of 128, and segments without causal
+CASES = {
+    "causal_s128": (2, 128, 2, 64, True, 0),
+    "causal_seg_s256": (2, 256, 2, 64, True, 3),
+    "causal_hd128": (1, 128, 2, 128, True, 0),
+    "seg_only_s192": (1, 192, 3, 64, False, 4),
+}
+
+
+def _segments(B, S, n, rng):
+    """int32 [B, S] ids of ``n`` packed documents of uneven lengths (0 =
+    one document)."""
+    if not n:
+        return None
+    seg = np.zeros((B, S), np.int32)
+    for b in range(B):
+        cuts = np.sort(rng.choice(np.arange(1, S), n - 1, replace=False))
+        seg[b] = np.searchsorted(cuts, np.arange(S), side="right")
+    return seg
+
+
+def _inputs(case, seed=0):
+    B, S, H, D, causal, nseg = CASES[case]
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (rng.randn(B, S, H, D).astype(np.float32)
+                   for _ in range(4))
+    return q, k, v, do, _segments(B, S, nseg, rng), causal
+
+
+def _jax_reference(q, k, v, do, seg, causal):
+    import jax
+    import jax.numpy as jnp
+    from paddle_tpu.nn.functional.attention import _reference_attention
+    mask = None
+    if seg is not None:
+        s = jnp.asarray(seg)
+        mask = (s[:, :, None] == s[:, None, :])[:, None]
+
+    def f(a, b, c):
+        return _reference_attention(a, b, c, mask, None, causal)
+
+    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    grads = vjp(jnp.asarray(do))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_matches_jax_reference(case):
+    """Forward at atol 1e-5, dq/dk/dv at atol 1e-4 (fp32)."""
+    q, k, v, do, seg, causal = _inputs(case)
+    want_o, want_g = _jax_reference(q, k, v, do, seg, causal)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    tseg = None if seg is None else torch.tensor(seg)
+    o = fa.flash_attention(tq, tk, tv, tseg, causal=causal)
+    o.backward(torch.tensor(do))
+    np.testing.assert_allclose(o.detach().numpy(), want_o, rtol=0,
+                               atol=1e-5)
+    for name, t, g in zip("qkv", (tq, tk, tv), want_g):
+        np.testing.assert_allclose(t.grad.numpy(), g, rtol=0, atol=1e-4,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_ops_agree_with_autograd(case):
+    """The three plain versions against autograd through a dense torch
+    softmax on the same f32 inputs: lse is the log of the row's
+    normaliser, and dk/dv/dq are the dense gradients (atol 1e-4)."""
+    q, k, v, do, seg, causal = _inputs(case, seed=1)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    tseg = None if seg is None else torch.tensor(seg)
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    vis = fa._visible(0, S, 0, S, causal, tseg, "cpu")
+    s = torch.einsum("bqhd,bkhd->bhqk", tq, tk) * scale
+    s = s.masked_fill(~vis, float("-inf"))
+    dense = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), tv)
+    dense.backward(torch.tensor(do))
+    o, lse = fa.flash_fwd(tq.detach(), tk.detach(), tv.detach(), tseg,
+                          causal=causal, sm_scale=scale)
+    torch.testing.assert_close(o, dense.detach(), rtol=0, atol=1e-5)
+    torch.testing.assert_close(lse, torch.logsumexp(s.detach(), -1),
+                               rtol=0, atol=1e-5)
+    tdo = torch.tensor(do)
+    di = (o * tdo).sum(-1).transpose(1, 2).contiguous()
+    args = (tq.detach(), tk.detach(), tv.detach(), tdo, lse, di, tseg)
+    dk, dv = fa.flash_bwd_dkv(*args, causal=causal, sm_scale=scale)
+    dq = fa.flash_bwd_dq(*args, causal=causal, sm_scale=scale)
+    for got, t in ((dq, tq), (dk, tk), (dv, tv)):
+        torch.testing.assert_close(got, t.grad, rtol=0, atol=1e-4)
+
+
+def test_fully_masked_tile_adds_exact_zero():
+    """A key tile that no query of a query tile can see (other segments)
+    contributes exactly 0 to dk/dv, never NaN."""
+    B, S, H, D = 1, 128, 1, 64
+    rng = np.random.RandomState(3)
+    q, k, v, do = (torch.tensor(rng.randn(B, S, H, D).astype(np.float32))
+                   for _ in range(4))
+    seg = torch.zeros(B, S, dtype=torch.int32)
+    seg[:, 64:] = 1                     # two tiles, two documents
+    o, lse = fa.flash_fwd(q, k, v, seg, causal=False, sm_scale=D ** -0.5)
+    di = (o * do).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, di, seg, causal=False,
+                              sm_scale=D ** -0.5)
+    assert torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    # document 1's queries alone give tile 1's gradient
+    o1, lse1 = fa.flash_fwd(q[:, 64:], k[:, 64:], v[:, 64:], None,
+                            causal=False, sm_scale=D ** -0.5)
+    di1 = (o1 * do[:, 64:]).sum(-1).transpose(1, 2).contiguous()
+    dk1, dv1 = fa.flash_bwd_dkv(q[:, 64:], k[:, 64:], v[:, 64:],
+                                do[:, 64:], lse1, di1, None, causal=False,
+                                sm_scale=D ** -0.5)
+    torch.testing.assert_close(dk[:, 64:], dk1, rtol=0, atol=1e-6)
+    torch.testing.assert_close(dv[:, 64:], dv1, rtol=0, atol=1e-6)
+
+
+# -- dispatch -------------------------------------------------------------
+def _count_flash(monkeypatch):
+    calls = []
+    real = attn_mod.flash_attention
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attn_mod, "flash_attention", counting)
+    return calls
+
+
+def test_cpu_never_loads_the_cuda_library(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CPU path tried to load csrc/{name}.cu")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(attn_mod, "FLASH_MIN_SEQ", 128)
+    calls = _count_flash(monkeypatch)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+              fa.flash_bwd_dq.launches)
+    q, k, v, do, _, _ = _inputs("causal_s128")
+    tq = torch.tensor(q, requires_grad=True)
+    out = scaled_dot_product_attention(tq, torch.tensor(k), torch.tensor(v),
+                                       is_causal=True)
+    out.backward(torch.tensor(do))
+    assert calls == [tq.shape]
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches,
+            fa.flash_bwd_dq.launches) == before
+
+
+@pytest.mark.parametrize("shape", [
+    "below_min_seq", "seq_not_128", "sq_ne_sk", "mask", "head_dim_32"])
+def test_gate_sends_other_shapes_to_reference(monkeypatch, shape):
+    """Outside the gate, attention is ``_reference_attention`` — exactly
+    its output, and the flash op is never called."""
+    monkeypatch.setattr(attn_mod, "FLASH_MIN_SEQ", 128)
+    calls = _count_flash(monkeypatch)
+    rng = np.random.RandomState(4)
+    sq, sk, d, mask = {"below_min_seq": (64, 64, 64, None),
+                       "seq_not_128": (192, 192, 64, None),
+                       "sq_ne_sk": (128, 256, 64, None),
+                       "mask": (128, 128, 64, "bool"),
+                       "head_dim_32": (128, 128, 32, None)}[shape]
+    q = torch.tensor(rng.randn(1, sq, 2, d).astype(np.float32))
+    k = torch.tensor(rng.randn(1, sk, 2, d).astype(np.float32))
+    v = torch.tensor(rng.randn(1, sk, 2, d).astype(np.float32))
+    m = None
+    if mask:
+        m = torch.tensor(rng.rand(1, 1, sq, sk) > 0.3)
+        m[..., 0] = True
+    got = scaled_dot_product_attention(q, k, v, attn_mask=m, is_causal=True)
+    want = attn_mod._reference_attention(q, k, v, m, None, True)
+    assert calls == []
+    assert torch.equal(got, want)
+
+
+def test_gate_takes_flash_at_min_seq(monkeypatch):
+    """At the gate (S = FLASH_MIN_SEQ, multiples of 128, hd 64) with
+    segment ids, the flash op runs and agrees with the dense fallback
+    that the JAX package takes off the TPU (atol 1e-5)."""
+    monkeypatch.setattr(attn_mod, "FLASH_MIN_SEQ", 256)
+    calls = _count_flash(monkeypatch)
+    q, k, v, _, seg, _ = _inputs("causal_seg_s256")
+    args = [torch.tensor(a) for a in (q, k, v)]
+    tseg = torch.tensor(seg)
+    got = scaled_dot_product_attention(*args, is_causal=True,
+                                       segment_ids=tseg)
+    assert len(calls) == 1
+    mask = (tseg[:, :, None] == tseg[:, None, :])[:, None]
+    want = attn_mod._reference_attention(*args, mask, None, True)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_wrappers_raise_on_what_they_do_not_take():
+    q = torch.zeros(1, 128, 2, 64)
+    with pytest.raises(ValueError, match="share shape"):
+        fa.flash_fwd(q, torch.zeros(1, 64, 2, 64), q, causal=True,
+                     sm_scale=1.0)
+    with pytest.raises(ValueError, match="segment_ids"):
+        fa.flash_fwd(q, q, q, torch.zeros(1, 128, dtype=torch.int64),
+                     causal=True, sm_scale=1.0)
+    lse = torch.zeros(1, 2, 128)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_bwd_dq(q, q, q, q, lse[:, :, :64], lse, causal=True,
+                        sm_scale=1.0)
+    # a device with no kernel raises; it does not run the plain version
+    m = torch.zeros(1, 128, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fa.flash_fwd(m, m, m, causal=True, sm_scale=1.0)
+    with pytest.raises(ValueError, match="attn_mask OR segment_ids"):
+        scaled_dot_product_attention(
+            q, q, q, attn_mask=torch.ones(1, 1, 128, 128, dtype=torch.bool),
+            segment_ids=torch.zeros(1, 128, dtype=torch.int32))
+
+
+# -- on the card ----------------------------------------------------------
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernels_match_plain_versions_on_card(case, dtype):
+    """The three CUDA kernels against their plain versions on the same
+    inputs.  fp32: o and lse at atol 1e-5, gradients at atol 1e-4
+    (summation order); bf16: every output at rtol 2e-2 / atol 2e-2
+    against the plain version computed in f32 from the same bf16 values
+    (bf16 rounding of the outputs)."""
+    _need_cuda()
+    q, k, v, do, seg, causal = _inputs(case)
+    dt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.tensor(a, device="cuda").to(dt)
+                       for a in (q, k, v, do))
+    tseg = None if seg is None else torch.tensor(seg, device="cuda")
+    scale = q.shape[-1] ** -0.5
+    before = [op.launches for op in fa.KERNEL_OPS.values()]
+    o, lse = fa.flash_fwd(tq, tk, tv, tseg, causal=causal, sm_scale=scale)
+    di = (o.float() * tdo.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (tq, tk, tv, tdo, lse, di, tseg)
+    dk, dv = fa.flash_bwd_dkv(*args, causal=causal, sm_scale=scale)
+    dq = fa.flash_bwd_dq(*args, causal=causal, sm_scale=scale)
+    torch.cuda.synchronize()
+    assert [op.launches for op in fa.KERNEL_OPS.values()] == \
+        [n + 1 for n in before]
+    f32 = [t.float() for t in (tq, tk, tv, tdo)]
+    want_o, want_lse = fa.flash_fwd_ref(*f32[:3], tseg, causal=causal,
+                                        sm_scale=scale)
+    ref_args = (*f32, want_lse, di, tseg)
+    want_dk, want_dv = fa.flash_bwd_dkv_ref(*ref_args, causal=causal,
+                                            sm_scale=scale)
+    want_dq = fa.flash_bwd_dq_ref(*ref_args, causal=causal, sm_scale=scale)
+    if dtype == "float32":
+        tol_o, tol_g = (0, 1e-5), (0, 1e-4)
+    else:
+        tol_o = tol_g = (2e-2, 2e-2)
+    torch.testing.assert_close(o.float(), want_o, rtol=tol_o[0],
+                               atol=tol_o[1])
+    torch.testing.assert_close(lse, want_lse, rtol=tol_o[0], atol=tol_o[1])
+    for got, want in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+        assert got.dtype == dt
+        torch.testing.assert_close(got.float(), want, rtol=tol_g[0],
+                                   atol=tol_g[1])
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_on_card():
+    _need_cuda()
+    q = torch.zeros(1, 128, 2, 32, device="cuda")
+    with pytest.raises(ValueError, match="head dim 32"):
+        fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0)
+    q = torch.zeros(1, 96, 2, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0)
+    q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="float16"):
+        fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0)
