@@ -63,7 +63,45 @@ without the last line:
    agree to rtol 1e-3 and every gradient to a relative L2 error of
    2e-2 (bf16 rounding of the attention outputs and gradients,
    propagated through two layers).
-8. Prints the ``kernels`` JSON line, the card line and
+8. Quantized and gather kernels against their plain versions, on phase
+   3's inputs (the int8 pools are ``quantize_blocks`` of its f32 pools):
+   B2 (``ragged_paged_attention_int8``) and B3 (``ragged_gather_attention``)
+   over fp and int8 pools, fp32 q at atol 2e-6 / rtol 2e-5 (the
+   dequantization is exact in f32, so only the summation order differs),
+   bf16 q at 2e-2 / 2e-2 plus a relative L2 error of 1e-2; lanes past
+   width exactly 0.  Times each kernel, its plain version and
+   ``scaled_dot_product_attention`` over pre-gathered, pre-dequantized
+   rows (the library yardstick, the same call as B1's; the port never
+   calls it), and computes the bounds from bytes: B2's live codes and
+   scales, B3's every gathered table entry (its live-bytes bound printed
+   beside it).
+9. Weight-only int8 slice: phase 4's traffic on a fresh gpt2-medium from
+   seed 0 served by ``Engine(weight_dtype="int8")``; every greedy token
+   teacher-forced against the dense forward of the same relayouted
+   model, as phase 4; B1 launched 24 times a dispatch.
+10. int8 KV + int8 weights slice at full width and depth: the same
+   traffic through ``Engine(kv_dtype="int8", weight_dtype="int8")`` on
+   another fresh model.  Checks: B2 launched 24 times a dispatch and B1
+   and B3 not at all, ``QuantKV`` pools, prefix hits > 0, seeded streams
+   repeat on a second engine, and the greedy streams equal those of the
+   same engine with B2 swapped for its plain version, except from a
+   first divergence where the logits that engine picked the token from
+   have a top-2 margin under 1e-3 (counted and printed, with the dense
+   fp forward's margin beside it: an int8 near tie is one of the int8
+   logits, which differ from the dense ones by the KV quantization).  Prints the greedy agreement
+   with phase 9's streams (the effect of int8 KV; not gated), tokens/s,
+   and a ``torch.profiler`` busy share and top kernels.
+11. Gather slices: the same traffic through
+   ``Engine(attn_impl="ragged_gather")`` on phase 4's fp32 model
+   (teacher-forced as phase 4) and with ``kv_dtype="int8"`` on phase
+   10's model (greedy streams equal phase 10's under the same int8
+   margin rule).  In both, B3 launched 24 times a dispatch and
+   ``kv_blocks_walked`` = 64 x the slots dispatched, summed over
+   dispatches.
+12. Capacity: ``Engine(kv_budget_mb=1536)`` on gpt2-medium with fp32 and
+   with int8 pools; prints both block counts and holds their ratio to
+   at least 3.9 (the geometry gives 3.98).
+13. Prints the ``kernels`` JSON line, the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -254,10 +292,10 @@ def traffic(vocab):
     return reqs
 
 
-def serve(model, reqs, engine_cls):
+def serve(model, reqs, engine_cls, **engine_kw):
     import torch
     eng = engine_cls(model, num_slots=8, max_seq_len=1024,
-                     kv_block_size=16, prefill_chunk=64)
+                     kv_block_size=16, prefill_chunk=64, **engine_kw)
     handles = [eng.submit(p, max_new_tokens=32, **kw) for p, kw in reqs]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -334,7 +372,7 @@ def slice_phase(card, ragged_mod):
     print(f"second engine: seeded streams repeat; greedy streams repeat "
           f"{greedy_repeat}; wall_s {wall2:.3f}", flush=True)
     profile_phase(model, reqs, Engine, card)
-    return launches
+    return launches, model, reqs
 
 
 def device_kernels(prof):
@@ -346,7 +384,8 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def profile_phase(model, reqs, engine_cls, card):
+def profile_phase(model, reqs, engine_cls, card, label="",
+                  **engine_kw):
     """Where a tick's time goes: the same traffic once more under
     torch.profiler; prints the device's busy share of the wall time and
     the kernels that took the most device time.  Profiler overhead
@@ -355,16 +394,415 @@ def profile_phase(model, reqs, engine_cls, card):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, _, wall = serve(model, reqs, engine_cls)
+        eng, _, wall = serve(model, reqs, engine_cls, **engine_kw)
     dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"profile: ticks {eng.ticks} wall_s {wall:.3f} device_busy_s "
-          f"{busy_ms / 1e3:.3f} busy_share {busy_ms / 1e3 / wall:.3f} "
-          f"[{card}]", flush=True)
+    print(f"profile{label}: ticks {eng.ticks} wall_s {wall:.3f} "
+          f"device_busy_s {busy_ms / 1e3:.3f} busy_share "
+          f"{busy_ms / 1e3 / wall:.3f} [{card}]", flush=True)
     dev.sort(key=lambda e: -e.self_device_time_total)
     for e in dev[:10]:
-        print(f"profile kernel: {e.self_device_time_total / 1e3:10.3f} ms "
+        print(f"profile{label} kernel: "
+              f"{e.self_device_time_total / 1e3:10.3f} ms "
               f"{e.count:6d}x {e.key[:90]}", flush=True)
+
+
+# -- phase 8 --------------------------------------------------------------
+REL_L2_TOL = 1e-2                  # relative L2 error of a bf16 output
+
+
+def quant_pools(k, v, bs):
+    """int8 code rows and f32 scales [NB, H] of the f32 pools, and the
+    pools those codes dequantize to."""
+    from paddle_tpu_torch.serving.quant import (dequantize_blocks,
+                                                quantize_blocks)
+    rows, H, hd = k.shape
+    out = []
+    for pool in (k, v):
+        codes, scale = quantize_blocks(pool.view(-1, bs, H, hd))
+        out.append((codes.view(rows, H, hd), scale,
+                    dequantize_blocks(codes, scale).view(rows, H, hd)))
+    return out
+
+
+def quant_bound_ms(args, bs, dtype, gather, scales):
+    """Least time for the work, from this run's pos / width: the bytes
+    of the K/V blocks the kernel must read (the streaming body the live
+    blocks to each slot's horizon, the gather body every table entry of
+    each slot with a real lane), their scale rows when int8, q, the
+    output and the per-slot metadata, over the memory rate; or the
+    flops of the scores and value products it computes over the peak
+    rate; the larger."""
+    q, k, _, tables, pos, width = args
+    B, W, H, hd = q.shape
+    nb = tables.shape[1]
+    blocks = flops = 0
+    for p, w in zip(pos.tolist(), width.tolist()):
+        if gather:
+            if w:
+                blocks += nb
+                flops += 4 * w * nb * bs * H * hd
+        else:
+            blocks += min(nb, (p + max(w, 1) - 1) // bs + 1)
+            flops += 4 * sum(p + s + 1 for s in range(w)) * H * hd
+    nbytes = (2 * blocks * bs * H * hd * k.element_size()
+              + 2 * q.numel() * q.element_size()
+              + (tables.numel() + pos.numel() + width.numel()) * 4)
+    if scales:
+        nbytes += 2 * blocks * H * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def quant_kernel_phase(ragged_mod):
+    """B2 and B3 (fp and int8 pools) against their plain versions on
+    phase 3's inputs; times and bounds.  Returns {(name, dtype): result}."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args, bs = kernel_inputs(gen)
+    q, k, v, tables, pos, width = args
+    (kc, ks, kd), (vc, vs, vd) = quant_pools(k, v, bs)
+    w_list = width.tolist()
+    rm = ragged_mod
+    cases = (
+        # name, kernel, plain version, pools, scales, SDPA's pools
+        ("ragged_paged_attention_int8", "stream",
+         lambda *a, k_scale, v_scale, block_size:
+             rm.ragged_paged_attention_int8(*a, k_scale, v_scale,
+                                            block_size=block_size),
+         rm.ragged_paged_attention_ref, (kc, vc), (ks, vs), (kd, vd)),
+        ("ragged_gather_attention", "gather", rm.ragged_gather_attention,
+         rm.ragged_gather_attention_ref, (k, v), None, (k, v)),
+        ("ragged_gather_attention_int8_pools", "gather",
+         rm.ragged_gather_attention, rm.ragged_gather_attention_ref,
+         (kc, vc), (ks, vs), (kd, vd)),
+    )
+    results = {}
+    for name, variant, fn, ref, pools, scales, lib_pools in cases:
+        sc = {} if scales is None else dict(k_scale=scales[0],
+                                            v_scale=scales[1])
+        for dtype, tol in (("float32", (2e-5, 2e-6)),
+                           ("bfloat16", (2e-2, 2e-2))):
+            dt = getattr(torch, dtype)
+            qd = q.to(dt)
+            kp, vp = (t if t.dtype == torch.int8 else t.to(dt)
+                      for t in pools)
+            a = (qd, kp, vp, tables, pos, width)
+            got = fn(*a, block_size=bs, **sc)
+            torch.cuda.synchronize()
+            a32 = [t.float() if t.is_floating_point() else t for t in a]
+            want = ref(*a32, block_size=bs, **sc)
+            err = 0.0
+            diff2 = norm2 = 0.0
+            for b, w in enumerate(w_list):
+                torch.testing.assert_close(got[b, :w].float(), want[b, :w],
+                                           rtol=tol[0], atol=tol[1])
+                check(bool(torch.all(got[b, w:] == 0)),
+                      f"{name} {dtype}: lanes past width {w} of slot {b} "
+                      "not zero")
+                if w:
+                    d = got[b, :w].float() - want[b, :w]
+                    err = max(err, float(d.abs().max()))
+                    diff2 += float((d * d).sum())
+                    norm2 += float((want[b, :w] ** 2).sum())
+            rel = (diff2 / norm2) ** 0.5
+            check(rel <= REL_L2_TOL, f"{name} {dtype}: relative L2 error "
+                  f"{rel:.3e} over {REL_L2_TOL}")
+            ms = cuda_time_ms(lambda: fn(*a, block_size=bs, **sc))
+            plain_ms = cuda_time_ms(lambda: ref(*a, block_size=bs, **sc),
+                                    iters=3, warmup=1)
+            sq, sk, sv, mask = sdpa_inputs(
+                (qd, lib_pools[0].to(dt), lib_pools[1].to(dt), tables, pos,
+                 width), bs)
+            lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask))
+            gather = variant == "gather"
+            bound, bound_by = quant_bound_ms(a, bs, dtype, gather,
+                                             scales is not None)
+            live = ""
+            if gather:
+                live_ms, _ = quant_bound_ms(a, bs, dtype, False,
+                                            scales is not None)
+                live = f" live_bound_ms {live_ms:.4f}"
+            results[name, dtype] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+            print(f"kernel {name} {dtype}: max_abs_err {err:.3e} rel_l2 "
+                  f"{rel:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
+                  f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}){live}",
+                  flush=True)
+    return results
+
+
+# -- phases 9 to 12 -------------------------------------------------------
+def ragged_counts(ragged_mod):
+    return {n: op.launches for n, op in ragged_mod.KERNEL_OPS.items()}
+
+
+def zero_ragged_counts(ragged_mod):
+    for op in ragged_mod.KERNEL_OPS.values():
+        op.launches = 0
+
+
+def check_launches(ragged_mod, eng, kernel, label):
+    """The path launched ``kernel`` 24 times a dispatch and no other
+    ragged kernel.  Returns its count."""
+    counts = ragged_counts(ragged_mod)
+    check(counts[kernel] == eng.ragged_dispatches * N_LAYERS,
+          f"{label}: {kernel} launched {counts[kernel]} times, not "
+          f"{eng.ragged_dispatches} dispatches x {N_LAYERS}")
+    others = {n: c for n, c in counts.items() if n != kernel and c}
+    check(not others, f"{label}: other ragged kernels launched: {others}")
+    return counts[kernel]
+
+
+def serve_recording_margins(model, reqs, **engine_kw):
+    """``serve``, recording for every emitted token the top-2 margin of
+    the logits the engine picked it from (a decode lane's lane 0, a final
+    prefill chunk's last lane): the engine's own numbers, int8 KV
+    included.  Returns (engine, streams, wall, {(prompt bytes, generated
+    index): margin})."""
+    from paddle_tpu_torch.serving import Engine
+    margins, last = {}, {}
+    real_tick = model._ragged_window_tick_slots
+
+    def tick(*args, **kw):
+        logits, k_pools, v_pools = real_tick(*args, **kw)
+        top2 = logits.float().topk(2, dim=-1).values
+        last["gap"] = (top2[..., 0] - top2[..., 1]).cpu()   # [B, E + 1]
+        return logits, k_pools, v_pools
+
+    class Recording(Engine):
+        def _emit(self, slot, tok):
+            req = slot.request
+            g = len(req.generated)
+            lane = 1 if g == 0 else 0   # E = 1: lane 1 is the last lane
+            margins[req.prompt.tobytes(), g] = float(
+                last["gap"][slot.index, lane])
+            return super()._emit(slot, tok)
+
+    model._ragged_window_tick_slots = tick
+    try:
+        eng, outs, wall = serve(model, reqs, Recording, **engine_kw)
+    finally:
+        del model._ragged_window_tick_slots
+    return eng, outs, wall, margins
+
+
+def stream_divergences(model, reqs, outs_a, outs_b, margins_b, margin):
+    """Two int8-KV engines' greedy streams must be equal, except from a
+    first divergence at which the logits engine b picked its token from
+    have a top-2 margin under ``margin`` (``serve_recording_margins``).
+    The margin is taken on the int8 path itself: the two engines' K/V
+    differ in the last bits, a value at a rounding boundary takes
+    another int8 code, and that moves the logits by far more than the
+    kernels' summation order, so the dense fp forward's margin is no
+    measure of an int8 near tie (it is printed beside it, from
+    ``model``).  Returns (divergences, their int8 margins)."""
+    import torch
+    gaps = []
+    for (prompt, kw), a, b in zip(reqs, outs_a, outs_b):
+        a, b = a.tolist(), b.tolist()
+        if kw or a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        g = t - len(prompt)
+        gap = margins_b[prompt.tobytes(), g]
+        with torch.no_grad():
+            top2 = model(torch.tensor([a[:t]], device="cuda"))[0, -1] \
+                .float().topk(2).values
+        print(f"divergence at generated token {g} of a {len(prompt)}-token "
+              f"prompt: int8 engine top-2 margin {gap:.3e}, dense fp KV "
+              f"margin {float(top2[0] - top2[1]):.3e}", flush=True)
+        check(gap < margin,
+              f"greedy streams diverge at generated token {g} of a "
+              f"{len(prompt)}-token prompt where the int8 engine's top-2 "
+              f"margin is {gap:.3e}, not under {margin}")
+        gaps.append(gap)
+    return len(gaps), gaps
+
+
+def greedy_agreement(reqs, outs_a, outs_b):
+    """Share of generated greedy tokens equal at the same position."""
+    same = total = 0
+    for (prompt, kw), a, b in zip(reqs, outs_a, outs_b):
+        if kw:
+            continue
+        ga, gb = a[len(prompt):], b[len(prompt):]
+        same += int((ga == gb).sum())
+        total += len(ga)
+    return same / total
+
+
+def slice_line(label, eng, wall, launches, card, extra=""):
+    print(f"slice {label}: ticks {eng.ticks} ragged_dispatches "
+          f"{eng.ragged_dispatches} generated_tokens {eng.tokens_generated} "
+          f"prefill_tokens {eng.prefill_tokens} prefix_hits "
+          f"{eng.prefix_hits} kv_blocks_walked {eng.kv_blocks_walked} "
+          f"kernel_launches {launches} wall_s {wall:.3f} tokens_per_s "
+          f"{eng.tokens_generated / wall:.2f}{extra} [{card}]", flush=True)
+
+
+def weight_slice_phase(card, ragged_mod, reqs):
+    """Phase 9: weight-only int8 at full width; returns its streams."""
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.quantization import WeightOnlyInt8Linear
+    from paddle_tpu_torch.serving import Engine
+
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(model, reqs, Engine, weight_dtype="int8")
+    launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                              "weight-only int8 slice")
+    n_int8 = sum(isinstance(m, WeightOnlyInt8Linear)
+                 for m in model.modules())
+    check(n_int8 == 4 * N_LAYERS, f"{n_int8} int8 Linears, not "
+          f"{4 * N_LAYERS}")
+    check(eng.prefix_hits > 0, "weight-only int8: no prefix-cache hit")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
+    checked, near = teacher_forcing(model, reqs, outs)
+    slice_line("gpt2-medium weight_dtype=int8", eng, wall, launches, card,
+               f" int8_linears {n_int8} greedy_checked {checked} "
+               f"near_ties {near}")
+    del model, eng
+    return outs
+
+
+def int8_slice_phase(card, ragged_mod, reqs, w_outs):
+    """Phase 10: int8 KV + int8 weights at full width and depth.  Returns
+    (the relayouted model, its streams, B2's launches)."""
+    import torch
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.quant import QuantKV
+
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(model, reqs, Engine, kv_dtype="int8",
+                            weight_dtype="int8")
+    launches = check_launches(ragged_mod, eng, "ragged_paged_attention_int8",
+                              "int8 KV + weights slice")
+    check(len(eng.k_pools) == N_LAYERS
+          and all(isinstance(p, QuantKV) and p.codes.dtype == torch.int8
+                  for p in eng.k_pools + eng.v_pools),
+          "the int8 engine's pools are not int8 QuantKV")
+    check(eng.prefix_hits > 0, "int8 slice: no prefix-cache hit")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
+    agree = greedy_agreement(reqs, outs, w_outs)
+    slice_line("gpt2-medium kv_dtype=int8 weight_dtype=int8", eng, wall,
+               launches, card, f" kv_blocks {eng.block_pool.managed_blocks}"
+               f" greedy_agreement_with_weight_only {agree:.4f}")
+    # the model is relayouted now: the engines below serve it as it is
+    eng2, outs2, wall2 = serve(model, reqs, Engine, kv_dtype="int8")
+    for (p, kw), a, b in zip(reqs, outs, outs2):
+        if kw:
+            check(a.tolist() == b.tolist(),
+                  "int8: a seeded stream did not repeat on a second engine")
+    real = ragged_mod.ragged_paged_attention_int8
+
+    def plain(q, k, v, tables, pos, width, k_scale, v_scale, *,
+              block_size):
+        return ragged_mod.ragged_paged_attention_ref(
+            q, k, v, tables, pos, width, block_size=block_size,
+            k_scale=k_scale, v_scale=v_scale)
+
+    ragged_mod.ragged_paged_attention_int8 = plain
+    try:
+        eng3, outs3, wall3, margins3 = serve_recording_margins(
+            model, reqs, kv_dtype="int8")
+    finally:
+        ragged_mod.ragged_paged_attention_int8 = real
+    near, gaps = stream_divergences(model, reqs, outs, outs3, margins3,
+                                    1e-3)
+    same = sum(a.tolist() == b.tolist()
+               for (_, kw), a, b in zip(reqs, outs, outs3) if not kw)
+    print(f"int8 slice: seeded streams repeat on a second engine (wall_s "
+          f"{wall2:.3f}); greedy streams equal to B2's plain version "
+          f"{same} of 10, near-tie divergences (int8 margin < 1e-3) {near}"
+          f" at margins {gaps} (plain-version wall_s {wall3:.3f})",
+          flush=True)
+    profile_phase(model, reqs, Engine, card, label=" int8",
+                  kv_dtype="int8")
+    del eng, eng2, eng3
+    return model, outs, launches
+
+
+def count_dispatched_slots(model):
+    """Wrap the model's tick to count the slots each dispatch runs (width
+    > 0); returns (counter, undo)."""
+    real = model._fused_ragged_tick_slots
+    counter = {"slots": 0}
+
+    def tick(*args, **kw):
+        counter["slots"] += int((args[4] > 0).sum())
+        return real(*args, **kw)
+
+    model._fused_ragged_tick_slots = tick
+    return counter, lambda: delattr(model, "_fused_ragged_tick_slots")
+
+
+def gather_slices_phase(card, ragged_mod, reqs, model_fp, model_q, q_outs):
+    """Phase 11: attn_impl="ragged_gather" over fp32 and int8 pools.
+    Returns B3's launches summed over both runs."""
+    total = 0
+    for label, model, kw in (("fp32", model_fp, {}),
+                             ("int8", model_q, dict(kv_dtype="int8"))):
+        counter, undo = count_dispatched_slots(model)
+        zero_ragged_counts(ragged_mod)
+        try:
+            eng, outs, wall, margins = serve_recording_margins(
+                model, reqs, attn_impl="ragged_gather", **kw)
+        finally:
+            undo()
+        launches = check_launches(ragged_mod, eng, "ragged_gather_attention",
+                                  f"gather {label} slice")
+        total += launches
+        check(eng.kv_blocks_walked == 64 * counter["slots"],
+              f"gather {label}: kv_blocks_walked {eng.kv_blocks_walked} != "
+              f"64 x {counter['slots']} slots dispatched")
+        for (p, _), ids in zip(reqs, outs):
+            check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
+        if label == "fp32":
+            checked, near = teacher_forcing(model, reqs, outs)
+            extra = f" greedy_checked {checked} near_ties {near}"
+        else:
+            near, gaps = stream_divergences(model, reqs, q_outs, outs,
+                                            margins, 1e-3)
+            same = sum(a.tolist() == b.tolist()
+                       for (_, k), a, b in zip(reqs, q_outs, outs) if not k)
+            extra = (f" greedy_equal_to_int8_stream_slice {same}/10 "
+                     f"near_tie_divergences {near} at int8 margins {gaps}")
+        slice_line(f"gpt2-medium attn_impl=ragged_gather {label}", eng,
+                   wall, launches, card,
+                   f" slots_dispatched {counter['slots']}{extra}")
+    return total
+
+
+def capacity_phase(model_fp, card):
+    """Phase 12: the block counts one kv_budget_mb buys, fp32 and int8."""
+    import torch
+    from paddle_tpu_torch.serving import Engine
+    blocks = {}
+    for kv in (None, "int8"):
+        eng = Engine(model_fp, num_slots=8, max_seq_len=1024,
+                     kv_block_size=16, prefill_chunk=64, kv_budget_mb=1536,
+                     kv_dtype=kv)
+        blocks[kv] = eng.block_pool.managed_blocks
+        print(f"capacity kv_budget_mb 1536 kv_dtype {kv or 'float32'}: "
+              f"blocks {blocks[kv]} kv_block_bytes {eng.kv_block_bytes} "
+              f"kv_scale_bytes {eng.kv_scale_bytes}", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    ratio = blocks["int8"] / blocks[None]
+    check(ratio >= 3.9, f"int8 pools hold {ratio:.3f}x the fp32 blocks, "
+          "under 3.9x")
+    print(f"capacity ratio int8 / fp32 {ratio:.4f} [{card}]", flush=True)
+    return ratio
 
 
 # -- phase 5 --------------------------------------------------------------
@@ -702,17 +1140,38 @@ def main():
                                        "Compiling entry")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
+    def lap(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     kres = kernel_phase(ragged_mod)
+    qres = quant_kernel_phase(ragged_mod)
+    lap("3, 8 (ragged kernels)")
     fres = flash_phase(fa)
+    lap("5 (flash kernels)")
     zero_flash_counts(fa)
-    launches = slice_phase(card, ragged_mod)
+    zero_ragged_counts(ragged_mod)
+    launches, model_fp, reqs = slice_phase(card, ragged_mod)
+    lap("4 (fp32 slice)")
+    w_outs = weight_slice_phase(card, ragged_mod, reqs)
+    lap("9 (weight-only int8 slice)")
+    model_q, q_outs, int8_launches = int8_slice_phase(card, ragged_mod,
+                                                      reqs, w_outs)
+    lap("10 (int8 KV + weights slice)")
+    gather_launches = gather_slices_phase(card, ragged_mod, reqs, model_fp,
+                                          model_q, q_outs)
+    capacity_phase(model_fp, card)
+    lap("11, 12 (gather slices, capacity)")
     check(sum(flash_counts(fa).values()) == 0,
           "the serving path launched a flash kernel")
-    ragged_mod.ragged_paged_attention.launches = 0
+    del model_fp, model_q
+    torch.cuda.empty_cache()
+    zero_ragged_counts(ragged_mod)
     flash_launches = train_phase(card, fa)
-    check(ragged_mod.ragged_paged_attention.launches == 0,
-          "the training path launched the ragged kernel")
+    check(sum(ragged_counts(ragged_mod).values()) == 0,
+          "the training path launched a ragged kernel")
     model_compare_phase(fa)
+    lap("6, 7 (training)")
 
     f32 = kres["float32"]
     kernels = [{
@@ -729,6 +1188,26 @@ def main():
         "library_ms": f32["library_ms"],
         "library_covers": ["ragged_paged_attention"],
     }]
+    for name, source, replaces, n in (
+            ("ragged_paged_attention_int8", "ragged_paged_attn.cu",
+             "paddle_tpu/ops/ragged_paged_attn.py:141", int8_launches),
+            ("ragged_gather_attention", "ragged_gather_attn.cu",
+             "paddle_tpu/ops/ragged_paged_attn.py:232", gather_launches)):
+        r = qres[name, "float32"]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": n,
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_covers": [name],
+        })
     for kernel in FLASH_KERNELS:
         r = fres[kernel]
         kernels.append({

@@ -29,6 +29,7 @@ from ..device import resolve_device
 from ..nn.functional import (cross_entropy, fused_linear_cross_entropy,
                              scaled_dot_product_attention)
 from ..ops.ragged_paged_attn import ragged_paged_attention
+from ..serving.quant import QuantKV, paged_insert
 
 GPT_CONFIGS = {
     # name: (n_layer, hidden, heads, ffn_mult, vocab, max_seq)
@@ -135,7 +136,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(ctx.reshape(B, S, self.hidden_size))
 
     def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
-                            width, scratch=None):
+                            width, scratch=None, variant="stream"):
         """Ragged paged window: each slot runs its ``width[b]`` real
         lanes of the W-lane window at positions ``pos[b]..``.
 
@@ -145,12 +146,17 @@ class GPTAttention(nn.Module):
         (``scratch[b]``, block 0 when None), so a masked lane never
         touches a live row.  The JAX version returns new (donated)
         pools; here the writes go INTO ``k_pool``/``v_pool`` in place,
-        and the same tensors are returned.  The attention core is the
-        ragged paged attention kernel.
+        and the same pools are returned.  Quantized pools (``QuantKV``,
+        ``Engine(kv_dtype="int8")``) take the same rule in insert form:
+        each lane read-modify-writes its block (masked lanes row 0 of
+        their scratch block) through ``paged_insert``, and the kernel
+        gets the code rows plus the scale pools.  ``variant`` picks the
+        kernel body: ``"stream"`` (``attn_impl="ragged"``) or
+        ``"gather"`` (``attn_impl="ragged_gather"``).
 
-        x [B, W, E]; k_pool/v_pool [NB, bs, H, hd]; block_tables int32
-        [B, L/bs]; pos/width int32 [B]; scratch optional int32 [B].
-        Returns (out [B, W, E], k_pool, v_pool)."""
+        x [B, W, E]; k_pool/v_pool [NB, bs, H, hd] tensors or QuantKV;
+        block_tables int32 [B, L/bs]; pos/width int32 [B]; scratch
+        optional int32 [B].  Returns (out [B, W, E], k_pool, v_pool)."""
         qa, ka, va = self._qkv_step(x)
         B, W = qa.shape[0], qa.shape[1]
         NB, bs = k_pool.shape[0], k_pool.shape[1]
@@ -165,15 +171,28 @@ class GPTAttention(nn.Module):
             & (offs < bps * bs)
         offs_safe = torch.where(valid, offs, torch.zeros_like(offs))
         blk = torch.gather(block_tables.long(), 1, offs_safe // bs)
-        widx = torch.where(valid, blk * bs + offs_safe % bs,
-                           scratch.long()[:, None] * bs).reshape(-1)
-        flat_k = k_pool.view(NB * bs, H, hd)
-        flat_v = v_pool.view(NB * bs, H, hd)
-        flat_k[widx] = ka.reshape(B * W, H, hd).to(flat_k.dtype)
-        flat_v[widx] = va.reshape(B * W, H, hd).to(flat_v.dtype)
-        ctx = ragged_paged_attention(
-            qa.contiguous(), flat_k, flat_v, block_tables, pos, width,
-            block_size=bs)
+        if isinstance(k_pool, QuantKV):
+            blk_q = torch.where(valid, blk, scratch.long()[:, None])
+            off_q = torch.where(valid, offs_safe % bs,
+                                torch.zeros_like(offs_safe))
+            blk_q, off_q = blk_q.reshape(-1), off_q.reshape(-1)
+            paged_insert(k_pool, blk_q, off_q, ka.reshape(B * W, H, hd))
+            paged_insert(v_pool, blk_q, off_q, va.reshape(B * W, H, hd))
+            ctx = ragged_paged_attention(
+                qa.contiguous(), k_pool.codes.view(NB * bs, H, hd),
+                v_pool.codes.view(NB * bs, H, hd), block_tables, pos,
+                width, block_size=bs, k_scale=k_pool.scale,
+                v_scale=v_pool.scale, variant=variant)
+        else:
+            widx = torch.where(valid, blk * bs + offs_safe % bs,
+                               scratch.long()[:, None] * bs).reshape(-1)
+            flat_k = k_pool.view(NB * bs, H, hd)
+            flat_v = v_pool.view(NB * bs, H, hd)
+            flat_k[widx] = ka.reshape(B * W, H, hd).to(flat_k.dtype)
+            flat_v[widx] = va.reshape(B * W, H, hd).to(flat_v.dtype)
+            ctx = ragged_paged_attention(
+                qa.contiguous(), flat_k, flat_v, block_tables, pos, width,
+                block_size=bs, variant=variant)
         out = self.out_proj(ctx.reshape(B, W, self.hidden_size))
         return out, k_pool, v_pool
 
@@ -206,11 +225,11 @@ class GPTBlock(nn.Module):
         return x + self.mlp(self.ln2(x))
 
     def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
-                            width, scratch=None):
+                            width, scratch=None, variant="stream"):
         """Ragged paged window (GPTAttention.ragged_window_paged)."""
         attn_out, k_pool, v_pool = self.attn.ragged_window_paged(
             self.ln1(x), k_pool, v_pool, block_tables, pos, width,
-            scratch=scratch)
+            scratch=scratch, variant=variant)
         x = x + attn_out
         x = x + self.mlp(self.ln2(x))
         return x, k_pool, v_pool
@@ -387,14 +406,16 @@ class GPTModel(nn.Module):
     # -- ragged engine tick -------------------------------------------------
     def _ragged_window_tick_slots(self, toks, k_pools, v_pools,
                                   block_tables, pos, width, scratch=None,
-                                  head_lanes=None):
+                                  head_lanes=None, variant="stream"):
         """Run each slot's ``width[b]`` real window tokens (of W) at
         positions ``pos[b]..`` through every block's
         ``ragged_window_paged``: decode lanes and prefill chunks in one
         pass.  ``head_lanes`` (int [B, K]) gathers K lanes per slot
         before the LM head, so the vocab matmul pays only for lanes
-        something reads.  Returns (logits [B, W or K, V], k_pools,
-        v_pools); the pools are written in place."""
+        something reads; ``variant`` picks the attention kernel body
+        (``"stream"`` or ``"gather"``), and the pools may be tensors or
+        ``QuantKV``.  Returns (logits [B, W or K, V], k_pools, v_pools);
+        the pools are written in place."""
         W = toks.shape[1]
         maxp = self.embeddings.position_embeddings.weight.shape[0]
         # the clamp only guards the discarded lanes past width; real
@@ -406,7 +427,7 @@ class GPTModel(nn.Module):
         for j, blk in enumerate(self.blocks):
             x, _, _ = blk.ragged_window_paged(
                 x, k_pools[j], v_pools[j], block_tables, pos, width,
-                scratch=scratch)
+                scratch=scratch, variant=variant)
         if head_lanes is not None:
             x = torch.gather(
                 x, 1, head_lanes.long()[:, :, None].expand(-1, -1,
@@ -417,7 +438,7 @@ class GPTModel(nn.Module):
                                  block_tables, width, mode, lanes, tok,
                                  pos, temp, top_k, top_p, seed_lo,
                                  seed_hi, ctr, eos, rem, scratch=None,
-                                 emit_w=None):
+                                 emit_w=None, variant="stream"):
         """One engine tick: the ragged window plus the sample /
         accept-scan / stop-condition epilogue.  Per-slot ``mode``:
 
@@ -432,9 +453,11 @@ class GPTModel(nn.Module):
           delivered on picks lane 0.
 
         Width-0 (parked) slots and finished lanes (rem 0) keep tok, pos
-        and ctr.  Returns (picks [B, E], n_acc [B], n_emit [B], done
-        bool [B], new_tok [B, 1], new_pos [B], new_ctr [B], new_rem [B],
-        k_pools, v_pools) with E = min(W, emit_w)."""
+        and ctr.  ``variant`` (``"stream"``/``"gather"``) and the pool
+        form (tensors or ``QuantKV``) pass through to every layer's
+        ``ragged_window_paged``.  Returns (picks [B, E], n_acc [B],
+        n_emit [B], done bool [B], new_tok [B, 1], new_pos [B], new_ctr
+        [B], new_rem [B], k_pools, v_pools) with E = min(W, emit_w)."""
         B, W = toks.shape
         E = min(W, emit_w) if emit_w else W
         dev = toks.device
@@ -446,7 +469,8 @@ class GPTModel(nn.Module):
              torch.clamp(width.long() - 1, min=0)[:, None]], dim=1)
         logits, k_pools, v_pools = self._ragged_window_tick_slots(
             window, k_pools, v_pools, block_tables, pos, width,
-            scratch=scratch, head_lanes=head_lanes)      # [B, E+1, V]
+            scratch=scratch, head_lanes=head_lanes,
+            variant=variant)                             # [B, E+1, V]
         L = block_tables.shape[1] * k_pools[0].shape[1]
         # keys only when some lane samples: deriving them reads the seed
         # words and counters back to the host

@@ -1,22 +1,34 @@
-"""Ragged paged attention — one kernel for every paged window.
+"""Ragged paged attention — the kernels behind every paged window.
 
 Counterpart of ``paddle_tpu/ops/ragged_paged_attn.py``
-(``ragged_paged_attention(variant="stream")`` → ``_stream_impl``).  Per
+(``ragged_paged_attention``: ``_stream_impl`` and ``_gather_impl``).  Per
 slot, ``pos[b]`` (the window start), ``width[b]`` (real query lanes this
 tick: 1 for a decode lane, the chunk length for a prefill chunk, 0 for a
 parked slot) and the slot's block table are DATA, so a batch that mixes
 decode lanes and prefill chunks is one launch.
 
-The kernel (``csrc/ragged_paged_attn.cu``) walks each slot's live blocks
-up to the causal horizon with the flash online-softmax recurrence, in
-f32, and zeroes the lanes at or past ``width``.  It is allclose to the
-gather-then-softmax oracle (``models/gpt.py`` ``GPTAttention._slot_attn``),
-not bitwise: the block-by-block accumulation sums in another order.
+Three CUDA kernels, each with a wrapper that counts its launches:
 
-``ragged_paged_attention`` launches the kernel for CUDA tensors and runs
-``ragged_paged_attention_ref`` — the same recurrence in plain PyTorch —
-only for CPU tensors.  The K/V writes happen before the call, in the
-caller (``GPTAttention.ragged_window_paged``).
+* ``ragged_paged_attention`` (B1, ``csrc/ragged_paged_attn.cu``) — the
+  streaming body over fp pools: each slot's live blocks up to the causal
+  horizon, flash online softmax in f32, lanes at or past ``width``
+  zeroed.  Allclose to the gather-then-softmax oracle, not bitwise: the
+  block-by-block accumulation sums in another order.
+* ``ragged_paged_attention_int8`` (B2, the same source's int8 leg) — the
+  streaming body over int8 code pools with f32 per-block per-head
+  ``k_scale``/``v_scale`` ``[NB, H]``: each block is dequantized as it is
+  streamed, never the whole pool.
+* ``ragged_gather_attention`` (B3, ``csrc/ragged_gather_attn.cu``) — the
+  gather body (``attn_impl="ragged_gather"``), fp or int8: every table
+  entry's block gathered, one masked f32 softmax over the whole row.
+
+``ragged_paged_attention(..., k_scale=None, v_scale=None,
+variant="stream")`` takes the JAX function's contract and sends the call
+to the right one.  A wrapper runs its plain PyTorch version
+(``ragged_paged_attention_ref``, ``ragged_gather_attention_ref``) only
+for CPU tensors; for CUDA tensors it launches its kernel or raises.  The
+K/V writes happen before the call, in the caller
+(``GPTAttention.ragged_window_paged``).
 """
 from __future__ import annotations
 
@@ -27,6 +39,7 @@ import torch
 
 from . import _build
 
+VARIANTS = ("stream", "gather")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024  # an H100 block's shared-memory ceiling
 _MASK = -1e30
@@ -40,11 +53,24 @@ def causal_horizon(pos, width, block_size, blocks_per_slot):
     return torch.clamp(live, max=blocks_per_slot)
 
 
+def _dequant(codes, scale):
+    """Gathered blocks ``[B, ..., bs, H, hd]`` as f32, times their
+    per-head scales ``[B, ..., H]`` when the pool is int8."""
+    if scale is None:
+        return codes.float()
+    return codes.float() * scale[..., None, :, None]
+
+
+# -- plain versions -------------------------------------------------------
 def ragged_paged_attention_ref(q, k_flat, v_flat, block_tables, pos,
-                               width, *, block_size):
-    """Plain PyTorch version of the kernel: the same online-softmax
-    recurrence over each slot's live blocks, batched over slots (a slot
-    whose horizon is behind the loop keeps its carry unchanged).
+                               width, *, block_size, k_scale=None,
+                               v_scale=None):
+    """Plain PyTorch version of the streaming kernels (B1, and B2 with
+    scales): the same online-softmax recurrence over each slot's live
+    blocks, batched over slots (a slot whose horizon is behind the loop
+    keeps its carry unchanged).  With ``k_scale``/``v_scale`` each
+    streamed block is dequantized in the loop as codes times that block's
+    per-head scale.
 
     Shapes as ``ragged_paged_attention``.  Returns ``[B, W, H, hd]`` in
     q's dtype."""
@@ -65,8 +91,11 @@ def ragged_paged_attention_ref(q, k_flat, v_flat, block_tables, pos,
     l = torch.zeros((B, H, W), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, H, W, hd), dtype=torch.float32, device=q.device)
     for j in range(int(n_live.max())):
-        kb = blocks_k[tables[:, j]].float()              # [B, bs, H, hd]
-        vb = blocks_v[tables[:, j]].float()
+        idx = tables[:, j]
+        kb = _dequant(blocks_k[idx], None if k_scale is None
+                      else k_scale[idx])                 # [B, bs, H, hd]
+        vb = _dequant(blocks_v[idx], None if v_scale is None
+                      else v_scale[idx])
         sc = torch.einsum("bqhd,bkhd->bhqk", qa, kb) * scale
         visible = ((j * bs + r_ids)[None, None, :]
                    <= (pos[:, None] + s_ids[None, :])[:, :, None])
@@ -88,107 +117,294 @@ def ragged_paged_attention_ref(q, k_flat, v_flat, block_tables, pos,
     return ctx.to(q.dtype)
 
 
-def _check(q, k_flat, v_flat, block_tables, pos, width, bs):
+def ragged_gather_attention_ref(q, k_flat, v_flat, block_tables, pos,
+                                width, *, block_size, k_scale=None,
+                                v_scale=None):
+    """Plain PyTorch version of the gather kernel (B3): gather each
+    slot's whole ``[L, H, hd]`` row through its table (dequantizing per
+    block when int8), then one masked softmax over L in f32 and the value
+    contraction; lanes at or past ``width`` are zeroed.
+
+    Shapes as ``ragged_paged_attention``.  Returns ``[B, W, H, hd]`` in
+    q's dtype."""
+    B, W, H, hd = q.shape
+    bs = int(block_size)
+    tables = block_tables.long()
+    L = tables.shape[1] * bs
+    scale = 1.0 / math.sqrt(hd)
+
+    def rows(pool, sc):
+        blocks = pool.reshape(-1, bs, H, hd)[tables]     # [B, nb, bs, H, hd]
+        return _dequant(blocks, None if sc is None else sc[tables]
+                        ).reshape(B, L, H, hd)
+
+    k_rows = rows(k_flat, k_scale)
+    v_rows = rows(v_flat, v_scale)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_rows) * scale
+    dev = q.device
+    visible = (torch.arange(L, device=dev)[None, None, :]
+               <= (pos.long()[:, None]
+                   + torch.arange(W, device=dev)[None, :])[:, :, None])
+    scores = torch.where(visible[:, None], scores,
+                         torch.full_like(scores, _MASK))
+    probs = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v_rows)
+    lane_live = (torch.arange(W, device=dev)[None, :]
+                 < width.long()[:, None])[:, :, None, None]
+    ctx = torch.where(lane_live, ctx, torch.zeros_like(ctx))
+    return ctx.to(q.dtype)
+
+
+# -- checks ---------------------------------------------------------------
+def _check(who, q, k_flat, v_flat, block_tables, pos, width, bs, k_scale,
+           v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{who}: pass both k_scale and v_scale "
+                         "(quantized pools) or neither (fp pools)")
     tensors = dict(q=q, k_flat=k_flat, v_flat=v_flat,
                    block_tables=block_tables, pos=pos, width=width)
+    if k_scale is not None:
+        tensors.update(k_scale=k_scale, v_scale=v_scale)
     dev = q.device
     for name, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"ragged_paged_attention: {name} is on "
-                             f"{t.device}, q on {dev}")
+            raise ValueError(f"{who}: {name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"ragged_paged_attention: {name} must be "
-                             "contiguous")
+            raise ValueError(f"{who}: {name} must be contiguous")
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"ragged_paged_attention: q dtype {q.dtype} not "
-                        "supported (float32 or bfloat16)")
-    if k_flat.dtype != q.dtype or v_flat.dtype != q.dtype:
-        raise TypeError("ragged_paged_attention: q, k_flat and v_flat "
-                        "must share one dtype")
+        raise TypeError(f"{who}: q dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    pool_dtype = q.dtype if k_scale is None else torch.int8
+    if k_flat.dtype != pool_dtype or v_flat.dtype != pool_dtype:
+        raise TypeError(
+            f"{who}: k_flat/v_flat are {k_flat.dtype}/{v_flat.dtype}; "
+            + (f"fp pools share q's dtype ({q.dtype})" if k_scale is None
+               else "pools with scales are int8 codes"))
     for name in ("block_tables", "pos", "width"):
         if tensors[name].dtype != torch.int32:
-            raise TypeError(f"ragged_paged_attention: {name} must be "
-                            "int32")
+            raise TypeError(f"{who}: {name} must be int32")
     if q.dim() != 4:
-        raise ValueError("ragged_paged_attention: q must be [B, W, H, hd]")
+        raise ValueError(f"{who}: q must be [B, W, H, hd]")
     B, W, H, hd = q.shape
     if k_flat.dim() != 3 or tuple(k_flat.shape[1:]) != (H, hd) \
             or v_flat.shape != k_flat.shape:
         raise ValueError(
-            f"ragged_paged_attention: k_flat/v_flat must be [NB*bs, {H}, "
-            f"{hd}], got {tuple(k_flat.shape)} / {tuple(v_flat.shape)}")
+            f"{who}: k_flat/v_flat must be [NB*bs, {H}, {hd}], got "
+            f"{tuple(k_flat.shape)} / {tuple(v_flat.shape)}")
     if bs < 1 or k_flat.shape[0] % bs:
-        raise ValueError(f"ragged_paged_attention: pool rows "
-                         f"{k_flat.shape[0]} are not whole blocks of {bs}")
+        raise ValueError(f"{who}: pool rows {k_flat.shape[0]} are not "
+                         f"whole blocks of {bs}")
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
-        raise ValueError("ragged_paged_attention: block_tables must be "
-                         f"[{B}, L/bs]")
+        raise ValueError(f"{who}: block_tables must be [{B}, L/bs]")
     if tuple(pos.shape) != (B,) or tuple(width.shape) != (B,):
-        raise ValueError(f"ragged_paged_attention: pos/width must be [{B}]")
+        raise ValueError(f"{who}: pos/width must be [{B}]")
+    if k_scale is not None:
+        want = (k_flat.shape[0] // bs, H)
+        for name in ("k_scale", "v_scale"):
+            t = tensors[name]
+            if t.dtype != torch.float32 or tuple(t.shape) != want:
+                raise ValueError(f"{who}: {name} must be float32 "
+                                 f"{list(want)}, got {t.dtype} "
+                                 f"{list(t.shape)}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: no kernel for device {q.device}")
 
 
+# -- launches -------------------------------------------------------------
+_smem_sizes = {}   # (library, dims) -> bytes one block needs
+_prepared = {}     # (library, dtype, quant, card) -> the limit set so far
+
+
+def _smem_error(lib_name, lib, dims, smem):
+    if lib_name == "ragged_gather_attn":
+        hd, bs, nb = dims
+        per_block = lib.ragged_gather_attn_smem_bytes(hd, bs, 1) \
+            - lib.ragged_gather_attn_smem_bytes(hd, bs, 0)
+        most = (_MAX_SMEM - lib.ragged_gather_attn_smem_bytes(hd, bs, 0)) \
+            // per_block
+        return (f"ragged_gather_attention: max_seq_len {nb * bs} (hd={hd}, "
+                f"bs={bs}) needs {smem} B of shared memory per block for "
+                f"its [{lib.ragged_gather_attn_tile_lanes()}, L] f32 score "
+                f"tile, over the card's {_MAX_SMEM}; the gather kernel "
+                f"takes at most max_seq_len {most * bs} at this head dim "
+                "and block size")
+    W, hd, bs = dims
+    return (f"ragged_paged_attention: W={W}, hd={hd}, bs={bs} needs {smem} "
+            f"B of shared memory per block, over {_MAX_SMEM}")
+
+
+def _prepare(lib_name, lib, dtype_code, quant, dims, card):
+    """Once per config: ask the library for the block's shared memory,
+    raise above the card's ceiling, and raise the kernel's dynamic
+    shared-memory limit — once per (kernel, dtype, quant, card), and
+    again only when a config needs more than was set (the limit is a
+    ceiling, so a smaller config launches under a larger one)."""
+    size_key = (lib_name, dims)
+    smem = _smem_sizes.get(size_key)
+    if smem is None:
+        smem = getattr(lib, f"{lib_name}_smem_bytes")(*dims)
+        if smem > _MAX_SMEM:
+            raise ValueError(_smem_error(lib_name, lib, dims, smem))
+        _smem_sizes[size_key] = smem
+    key = (lib_name, dtype_code, quant, card)
+    if _prepared.get(key, -1) >= smem:
+        return
+    rc = getattr(lib, f"{lib_name}_prepare")(dtype_code, quant, smem)
+    if rc != 0:
+        raise RuntimeError(f"{lib_name}: setting its shared-memory limit "
+                           f"failed with CUDA error {rc}")
+    _prepared[key] = smem
+
+
+def _launch(lib_name, dims, q, k_flat, v_flat, block_tables, pos, width,
+            k_scale, v_scale, bs):
+    B, W, H, hd = q.shape
+    nb = block_tables.shape[1]
+    lib = _load(lib_name)
+    quant = int(k_scale is not None)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _prepare(lib_name, lib, _DTYPE_CODE[q.dtype], quant, dims,
+                 q.device.index)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = getattr(lib, f"{lib_name}_launch")(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k_flat.data_ptr(),
+            v_flat.data_ptr(), k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, block_tables.data_ptr(),
+            pos.data_ptr(), width.data_ptr(), out.data_ptr(), B, W, H, hd,
+            bs, nb, 1.0 / math.sqrt(hd), stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib_name}: kernel launch failed with CUDA "
+                           f"error {rc}")
+    return out
+
+
+def _load(lib_name):
+    lib = _build.load(lib_name)
+    if not getattr(lib, "_argtypes_set", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        launch = getattr(lib, f"{lib_name}_launch")
+        launch.argtypes = [i] + [p] * 9 + [i] * 6 + [ctypes.c_float, p]
+        launch.restype = i
+        smem = getattr(lib, f"{lib_name}_smem_bytes")
+        smem.argtypes = [i, i, i]
+        smem.restype = ctypes.c_size_t
+        prepare = getattr(lib, f"{lib_name}_prepare")
+        prepare.argtypes = [i, i, i]
+        prepare.restype = i
+        if lib_name == "ragged_gather_attn":
+            lib.ragged_gather_attn_tile_lanes.argtypes = []
+            lib.ragged_gather_attn_tile_lanes.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+# -- the wrappers -----------------------------------------------------------
 def ragged_paged_attention(q, k_flat, v_flat, block_tables, pos, width,
-                           *, block_size):
+                           *, block_size, k_scale=None, v_scale=None,
+                           variant="stream"):
     """Ragged paged attention over a slot pool (module docstring).
 
     q : ``[B, W, H, hd]`` query window per slot (W = the engine's widest
-        window; real lanes per slot are ``width[b]``).
+        window; real lanes per slot are ``width[b]``), float32 or bf16.
     k_flat / v_flat : ``[NB * block_size, H, hd]`` — the paged pools
-        flattened to physical rows, writes already scattered.
+        flattened to physical rows, writes already scattered; q's dtype,
+        or int8 codes with ``k_scale``/``v_scale``.
     block_tables : int32 ``[B, L // block_size]`` physical block per
         logical block (block 0 is the scratch block).
     pos : int32 ``[B]`` window start per slot.
     width : int32 ``[B]`` real query lanes (0 = parked; lanes at or past
         width come back as exact zeros).
+    k_scale / v_scale : optional f32 ``[NB, H]`` per-block per-head
+        dequantization multipliers of int8 pools (``Engine(kv_dtype=
+        "int8")``).  Pass both or neither.
+    variant : ``"stream"`` (default) — the online-softmax walk to the
+        causal horizon (kernel B1, or B2 with scales); ``"gather"`` —
+        the whole row and one softmax (kernel B3,
+        ``attn_impl="ragged_gather"``).
 
-    CPU tensors run ``ragged_paged_attention_ref``.  CUDA tensors launch
-    the kernel on the current stream without synchronizing, and add one
-    to ``ragged_paged_attention.launches``; anything the kernel does not
-    take raises.  Block ids in the tables are trusted (the engine's
-    block pool hands them out).  Returns ``[B, W, H, hd]`` in q's dtype.
+    CPU tensors run the plain versions.  CUDA tensors launch the kernel
+    on the current stream without synchronizing, and add one to that
+    kernel's wrapper's ``launches`` (this function's own for B1); anything
+    the kernel does not take raises.  Block ids in the tables are trusted
+    (the engine's block pool hands them out).  Returns ``[B, W, H, hd]``
+    in q's dtype.
     """
+    if variant not in VARIANTS:
+        raise ValueError(
+            f"ragged_paged_attention: variant must be one of {VARIANTS}, "
+            f"got {variant!r}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            "ragged_paged_attention: pass both k_scale and v_scale "
+            "(quantized pools) or neither (fp pools)")
+    if variant == "gather":
+        return ragged_gather_attention(
+            q, k_flat, v_flat, block_tables, pos, width,
+            block_size=block_size, k_scale=k_scale, v_scale=v_scale)
+    if k_scale is not None:
+        return ragged_paged_attention_int8(
+            q, k_flat, v_flat, block_tables, pos, width, k_scale, v_scale,
+            block_size=block_size)
     bs = int(block_size)
-    _check(q, k_flat, v_flat, block_tables, pos, width, bs)
+    _check("ragged_paged_attention", q, k_flat, v_flat, block_tables, pos,
+           width, bs, None, None)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, k_flat, v_flat, block_tables,
                                           pos, width, block_size=bs)
-    if q.device.type != "cuda":
-        raise ValueError(f"ragged_paged_attention: no kernel for device "
-                         f"{q.device}")
-    B, W, H, hd = q.shape
-    nb = block_tables.shape[1]
-    lib = _load()
-    smem = lib.ragged_paged_attn_smem_bytes(W, hd, bs)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"ragged_paged_attention: W={W}, hd={hd}, bs={bs} needs "
-            f"{smem} B of shared memory per block, over {_MAX_SMEM}")
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ragged_paged_attn_launch(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k_flat.data_ptr(),
-            v_flat.data_ptr(), block_tables.data_ptr(), pos.data_ptr(),
-            width.data_ptr(), out.data_ptr(), B, W, H, hd, bs, nb,
-            1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(f"ragged_paged_attention: kernel launch failed "
-                           f"with CUDA error {rc}")
+    out = _launch("ragged_paged_attn", (q.shape[1], q.shape[3], bs), q,
+                  k_flat, v_flat, block_tables, pos, width, None, None, bs)
     ragged_paged_attention.launches += 1
     return out
 
 
+def ragged_paged_attention_int8(q, k_codes, v_codes, block_tables, pos,
+                                width, k_scale, v_scale, *, block_size):
+    """Kernel B2: the streaming body over int8 code pools ``[NB*bs, H,
+    hd]`` with f32 scales ``[NB, H]`` (shapes otherwise as
+    ``ragged_paged_attention``).  CPU tensors run
+    ``ragged_paged_attention_ref`` with the scales; CUDA tensors launch the
+    kernel and add one to ``ragged_paged_attention_int8.launches``."""
+    bs = int(block_size)
+    _check("ragged_paged_attention_int8", q, k_codes, v_codes,
+           block_tables, pos, width, bs, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_ref(
+            q, k_codes, v_codes, block_tables, pos, width, block_size=bs,
+            k_scale=k_scale, v_scale=v_scale)
+    out = _launch("ragged_paged_attn", (q.shape[1], q.shape[3], bs), q,
+                  k_codes, v_codes, block_tables, pos, width, k_scale,
+                  v_scale, bs)
+    ragged_paged_attention_int8.launches += 1
+    return out
+
+
+def ragged_gather_attention(q, k_flat, v_flat, block_tables, pos, width,
+                            *, block_size, k_scale=None, v_scale=None):
+    """Kernel B3: the gather body, over fp pools or int8 code pools with
+    scales (shapes as ``ragged_paged_attention``).  CPU tensors run
+    ``ragged_gather_attention_ref``; CUDA tensors launch the kernel and
+    add one to ``ragged_gather_attention.launches``.  A context whose
+    ``[16, L]`` score tile does not fit a block's shared memory raises,
+    naming the largest one the kernel takes."""
+    bs = int(block_size)
+    _check("ragged_gather_attention", q, k_flat, v_flat, block_tables,
+           pos, width, bs, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return ragged_gather_attention_ref(
+            q, k_flat, v_flat, block_tables, pos, width, block_size=bs,
+            k_scale=k_scale, v_scale=v_scale)
+    out = _launch("ragged_gather_attn",
+                  (q.shape[3], bs, block_tables.shape[1]), q, k_flat, v_flat,
+                  block_tables, pos, width, k_scale, v_scale, bs)
+    ragged_gather_attention.launches += 1
+    return out
+
+
 ragged_paged_attention.launches = 0
-
-
-def _load():
-    lib = _build.load("ragged_paged_attn")
-    if not getattr(lib, "_argtypes_set", False):
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ragged_paged_attn_launch.argtypes = [
-            i, p, p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
-        lib.ragged_paged_attn_launch.restype = i
-        lib.ragged_paged_attn_smem_bytes.argtypes = [i, i, i]
-        lib.ragged_paged_attn_smem_bytes.restype = ctypes.c_size_t
-        lib._argtypes_set = True
-    return lib
+ragged_paged_attention_int8.launches = 0
+ragged_gather_attention.launches = 0
+# every kernel's wrapper, by the name the smoke's report gives it
+KERNEL_OPS = {"ragged_paged_attention": ragged_paged_attention,
+              "ragged_paged_attention_int8": ragged_paged_attention_int8,
+              "ragged_gather_attention": ragged_gather_attention}

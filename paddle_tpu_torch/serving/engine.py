@@ -11,12 +11,17 @@ one-token lanes, budgeted prefill chunks as lanes of up to
 condition run in the dispatch's epilogue on the device.  The tick then
 downloads the per-slot picks and counts and emits them.
 
-This slice serves the dense GPT on one card at ``async_depth=1`` (each
-tick is dispatched and consumed before the next).  The JAX engine's other
-knobs — speculative decoding, the serving mesh, int8 KV and weights,
-LoRA adapters, the host-RAM offload tier, the pipelined loop, the XLA and
-gather attention bodies, monolithic prefill — raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.  Tracing,
+The engine serves on one card at ``async_depth=1`` (each tick is
+dispatched and consumed before the next), with fp or int8 KV pools
+(``kv_dtype="int8"``: ``QuantKV`` codes plus per-block per-head scales,
+``serving/quant.py``), fp or weight-only int8 block Linears
+(``weight_dtype="int8"``), a pool sized by blocks or by a byte budget
+(``kv_budget_mb``), and either ragged kernel body (``attn_impl="ragged"``
+streams to the causal horizon, ``"ragged_gather"`` gathers the whole
+row).  The JAX engine's other knobs — speculative decoding, the serving
+mesh, LoRA adapters, the host-RAM offload tier, the pipelined loop, the
+XLA attention paths, monolithic prefill — raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item.  Tracing,
 faults and migration wait too; plain integer counters stand in for the
 metrics (``prefix_hits``, ``ticks``, ``kv_blocks_walked``, ...).
 """
@@ -28,15 +33,14 @@ import numpy as np
 import torch
 
 from ..device import require_on
-from .kvcache import BlockPool, PrefixCache
+from .kvcache import BlockPool, PrefixCache, per_shard_block_bytes
+from .quant import QuantKV, relayout_weights_int8
 from .request import MAX_SEED, Request, RequestQueue
 from .scheduler import Scheduler
 
 _NOT_PORTED = {
     "spec_k": "Queue A 6 (speculative decode)",
     "mesh": "Queue A 10 (the serving mesh)",
-    "kv_dtype": "Queue A 7 (int8 KV, kernel B2)",
-    "weight_dtype": "Queue A 7 (int8 weights)",
     "adapters": "Queue A 8 (LoRA adapters)",
     "kv_host_mb": "Queue A 8 (host-RAM offload)",
 }
@@ -72,16 +76,28 @@ class Engine:
     kv_blocks : physical block count of the pool (default
         ``num_slots * max_seq_len / kv_block_size``), plus one reserved
         scratch block.
+    kv_budget_mb : size the pool by bytes instead: as many blocks as
+        ``kv_budget_mb`` MiB hold at one block's true footprint over all
+        layers, K and V (codes plus scales when int8; ``kv_block_bytes``
+        and ``kv_scale_bytes`` say what one block costs).  Exclusive with
+        ``kv_blocks``.
     prefix_cache : keep finished prompts' full blocks in a token trie so
         later requests adopt them (default True).
     prefill_chunk : prompt tokens a slot prefills per tick (required; must
         divide max_seq_len); also the dispatch's window width W.
     tick_token_budget : prompt tokens one tick may spend on prefill
         chunks across slots (default: one chunk; must be >= it).
-    attn_impl : ``"ragged"`` — the ragged paged attention kernel.
+    attn_impl : ``"ragged"`` — the streaming ragged kernel (B1, or B2
+        with int8 pools); ``"ragged_gather"`` — the gather body (B3),
+        which walks every table entry: the A/B baseline.
     sample_mode : ``"device"`` — sampling in the dispatch's epilogue.
     device : where the engine's pools and state live; None = the CUDA
         card (raises without one; the tests pass ``device="cpu"``).
+    weight_dtype : ``"int8"`` relayouts every transformer-block Linear of
+        ``model`` (in place) to weight-only int8 at construction; None
+        serves the checkpoint as it is.
+    kv_dtype : ``"int8"`` stores the K/V pools as int8 codes with a f32
+        scale per block and head; None stores them in the compute dtype.
     """
 
     def __init__(self, model, num_slots=4, max_seq_len=None,
@@ -90,9 +106,9 @@ class Engine:
                  tick_token_budget=None, attn_impl="ragged",
                  sample_mode="device", async_depth=None, device=None,
                  spec_k=None, mesh=None, kv_dtype=None,
-                 weight_dtype=None, adapters=None, kv_host_mb=None):
-        knobs = dict(spec_k=spec_k, mesh=mesh, kv_dtype=kv_dtype,
-                     weight_dtype=weight_dtype, adapters=adapters,
+                 weight_dtype=None, adapters=None, kv_host_mb=None,
+                 kv_budget_mb=None):
+        knobs = dict(spec_k=spec_k, mesh=mesh, adapters=adapters,
                      kv_host_mb=kv_host_mb)
         for name, item in _NOT_PORTED.items():
             if knobs[name] is not None:
@@ -104,14 +120,33 @@ class Engine:
                 f"async_depth={async_depth} is not ported yet: ROADMAP.md "
                 "Queue A 5 (the pipelined engine loop); this slice runs "
                 "async_depth=1")
-        if attn_impl in ("xla", "ragged_gather"):
+        if attn_impl == "xla":
             raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet: ROADMAP.md "
-                + ("Queue A 5 (the XLA paged paths)" if attn_impl == "xla"
-                   else "Queue B 3 (the gather kernel body)"))
-        if attn_impl != "ragged":
-            raise ValueError(f"attn_impl must be 'ragged', got "
-                             f"{attn_impl!r}")
+                "attn_impl='xla' is not ported yet: ROADMAP.md Queue A 5 "
+                "(the XLA paged paths)")
+        if attn_impl not in ("ragged", "ragged_gather"):
+            raise ValueError(f"attn_impl must be 'ragged' or "
+                             f"'ragged_gather', got {attn_impl!r}")
+        self._weight_quant = weight_dtype is not None
+        if self._weight_quant and str(weight_dtype) != "int8":
+            raise ValueError(
+                f"weight_dtype must be 'int8' (or None to serve the "
+                f"checkpoint's own dtype), got {weight_dtype!r}")
+        self._kv_quant = kv_dtype is not None
+        if self._kv_quant and str(kv_dtype) != "int8":
+            raise ValueError(
+                f"kv_dtype must be 'int8' (or None for the compute "
+                f"dtype), got {kv_dtype!r}")
+        if self._kv_quant and kv_block_size is None:
+            raise ValueError(
+                "kv_dtype='int8' requires the paged KV layout "
+                "(kv_block_size=...): quantization is per-block — the "
+                "contiguous pools have no block granularity to hang a "
+                "scale on")
+        if self._kv_quant and sample_mode != "device":
+            raise ValueError(
+                "kv_dtype='int8' requires sample_mode='device': only the "
+                "fused device-sampling dispatch threads QuantKV pools")
         if sample_mode != "device":
             raise ValueError(
                 f"sample_mode must be 'device', got {sample_mode!r}: "
@@ -124,7 +159,13 @@ class Engine:
         if kv_block_size is None:
             raise ValueError("kv_block_size is required: the ragged "
                              "kernel reads K/V through block tables")
-        self.device = require_on(device, model.named_parameters(), "Engine")
+        self.device = require_on(
+            device, [*model.named_parameters(), *model.named_buffers()],
+            "Engine")
+        if self._weight_quant:
+            # before the dtype probe and the pools: the codes and scales
+            # become buffers of the model's block Linears
+            relayout_weights_int8(model)
         model.eval()
         self.model = model
         max_position = model.embeddings.position_embeddings.weight.shape[0]
@@ -140,7 +181,13 @@ class Engine:
         self.scheduler = Scheduler(self.num_slots, self.queue)
         attn0 = model.blocks[0].attn
         self._nh, self._hd = attn0.num_heads, attn0.head_dim
-        self._kv_dtype = attn0.qkv_proj.weight.dtype
+        # compute_dtype first: a weight-only int8 projection's .weight
+        # would materialize the dequantized matrix
+        self._kv_dtype = getattr(attn0.qkv_proj, "compute_dtype", None) \
+            or attn0.qkv_proj.weight.dtype
+        self.attn_impl = attn_impl
+        self._variant = "gather" if attn_impl == "ragged_gather" \
+            else "stream"
 
         c = int(prefill_chunk)
         if c < 1 or self.max_seq_len % c:
@@ -162,12 +209,32 @@ class Engine:
                 f"({self.max_seq_len}), got {bsz}")
         self._bs = bsz
         self._bps = self.max_seq_len // bsz  # blocks per full slot
-        managed = (self.num_slots * self._bps if kv_blocks is None
-                   else int(kv_blocks))
+        # one logical block's footprint over every layer, K and V: the
+        # codes (or rows), plus the scale pool's rows when int8
+        store_dtype = "int8" if self._kv_quant else self._kv_dtype
+        n_layers = len(model.blocks)
+        self.kv_block_bytes = per_shard_block_bytes(
+            bsz, self._nh, self._hd, store_dtype, n_layers)
+        block_bytes = per_shard_block_bytes(
+            bsz, self._nh, self._hd, store_dtype, n_layers,
+            scale_dtype="float32" if self._kv_quant else None)
+        self.kv_scale_bytes = block_bytes - self.kv_block_bytes
+        if kv_budget_mb is not None:
+            if kv_blocks is not None:
+                raise ValueError(
+                    "kv_budget_mb and kv_blocks are two answers to one "
+                    "question (pool size) — pass one")
+            managed = int(float(kv_budget_mb) * 2 ** 20 // block_bytes)
+            src = (f"kv_budget_mb={float(kv_budget_mb):g} (-> {managed} "
+                   f"blocks at {block_bytes} B/block)")
+        else:
+            managed = (self.num_slots * self._bps if kv_blocks is None
+                       else int(kv_blocks))
+            src = f"kv_blocks={managed}"
         if managed < self._bps:
             raise ValueError(
-                f"kv_blocks={managed} cannot hold even one max-length "
-                f"request ({self._bps} blocks)")
+                f"{src} cannot hold even one max-length request "
+                f"({self._bps} blocks)")
         self._kv_managed = managed
         self._prefix_enabled = bool(prefix_cache)
         # the ragged dispatch's window: wide enough for a prefill chunk;
@@ -203,12 +270,18 @@ class Engine:
             self._slot_scratch[:, None], self._bps, axis=1).copy()
         self._slot_blocks = [[] for _ in range(self.num_slots)]
         shape = (nblocks, self._bs, self._nh, self._hd)
-        self.k_pools = [torch.zeros(shape, dtype=self._kv_dtype,
-                                    device=self.device)
-                        for _ in self.model.blocks]
-        self.v_pools = [torch.zeros(shape, dtype=self._kv_dtype,
-                                    device=self.device)
-                        for _ in self.model.blocks]
+
+        def pool():
+            if self._kv_quant:
+                return QuantKV(
+                    torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    torch.zeros((nblocks, self._nh), dtype=torch.float32,
+                                device=self.device))
+            return torch.zeros(shape, dtype=self._kv_dtype,
+                               device=self.device)
+
+        self.k_pools = [pool() for _ in self.model.blocks]
+        self.v_pools = [pool() for _ in self.model.blocks]
         # host mirrors of the device-resident step state, re-uploaded
         # only when an admission / eviction / chunk dirties them
         self._pos = np.zeros(self.num_slots, np.int32)
@@ -313,7 +386,21 @@ class Engine:
         if m:
             self.prefix_hits += 1
             self.prefix_hit_tokens += m
+        if self._kv_quant and fresh:
+            self._zero_fresh_scales(fresh)
         return ctx, fresh, m
+
+    def _zero_fresh_scales(self, fresh):
+        """Zero the scale rows of freshly reserved int8 blocks, before
+        their first write.  A recycled block's stale codes would
+        otherwise enter the read-modify-write's amax (dequantized garbage
+        raising the fresh block's scale); a zero scale turns them into
+        zeros (``codes * 0``) without touching the code pool, and the
+        first write re-quantizes the whole block."""
+        idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+        for kp, vp in zip(self.k_pools, self.v_pools):
+            kp.scale.index_fill_(0, idx, 0.0)
+            vp.scale.index_fill_(0, idx, 0.0)
 
     # -- per-slot step state -----------------------------------------------
     def _bind_sample_state(self, slot):
@@ -479,11 +566,17 @@ class Engine:
         # the pre-dispatch cursors (the dispatch advances them by width)
         if self._state_dirty or self._dev_state is None:
             self._push_state()
+        # blocks the kernel walks, on the pre-dispatch cursors: the
+        # streaming body stops at each lane's causal horizon, the gather
+        # body walks the slot's whole table
         walked = 0
         for s in list(active) + [sl for sl, _, _ in plan]:
             i = s.index
-            live = int(self._pos[i]) + max(int(width[i]), 1)
-            walked += min(self._bps, (live - 1) // self._bs + 1)
+            if self._variant == "gather":
+                walked += self._bps
+            else:
+                live = int(self._pos[i]) + max(int(width[i]), 1)
+                walked += min(self._bps, (live - 1) // self._bs + 1)
         self.kv_blocks_walked += walked
         for slot, n, _ in plan:
             slot.prefilled += n
@@ -501,7 +594,7 @@ class Engine:
                 torch.tensor(lanes, device=dev), st["tok"], st["pos"],
                 st["temp"], st["topk"], st["topp"], st["slo"], st["shi"],
                 st["ctr"], st["eos"], st["rem"], scratch=st["scratch"],
-                emit_w=1)
+                emit_w=1, variant=self._variant)
         st["tok"], st["pos"], st["ctr"], st["rem"] = \
             new_tok, new_pos, new_ctr, new_rem
         self.ragged_dispatches += 1

@@ -8,8 +8,15 @@ math.  Tolerance rtol 2e-5 / atol 2e-6, as in tests/test_ragged_attn.py:
 the online softmax sums block by block, in another order than one
 softmax over the row.  Lanes at or past ``width`` must be exactly 0.
 
-Tests marked ``cuda`` hold the CUDA kernel to its plain version on the
-card and skip without one.
+The int8 leg (kernel B2's plain version: ``ragged_paged_attention_ref``
+with ``k_scale``/``v_scale``) and the gather body
+(``ragged_gather_attention_ref``, B3's plain version, fp and int8) are
+held to the JAX kernel at the same tolerance, on int8 pools made by
+``quantize_blocks`` from the fp pools; the dequantization is exact in
+f32 in both packages, so only the summation order differs.
+
+Tests marked ``cuda`` hold the CUDA kernels to their plain versions on
+the card and skip without one.
 """
 import os
 import time
@@ -19,8 +26,12 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import ragged_paged_attn as rpa_mod
 from paddle_tpu_torch.ops.ragged_paged_attn import (
-    ragged_paged_attention, ragged_paged_attention_ref)
+    KERNEL_OPS, ragged_gather_attention, ragged_gather_attention_ref,
+    ragged_paged_attention, ragged_paged_attention_int8,
+    ragged_paged_attention_ref)
+from paddle_tpu_torch.serving.quant import quantize_blocks
 
 torch.set_num_threads(1)
 
@@ -72,6 +83,175 @@ def test_ref_matches_jax_kernel(case, variant):
         np.testing.assert_allclose(got[b, :w], want[b, :w], rtol=2e-5,
                                    atol=2e-6)
         assert np.all(got[b, w:] == 0.0), "lanes past width must be 0"
+
+
+def _int8_inputs(case, seed=0):
+    """The case's fp pools quantized block by block: int8 code rows and
+    f32 scales [NB, H]."""
+    q, k, v, tables, pos, width, bs = _inputs(case, seed)
+    H, hd = k.shape[1], k.shape[2]
+    out = []
+    for pool in (k, v):
+        c, sc = quantize_blocks(torch.tensor(pool).view(-1, bs, H, hd))
+        out += [c.reshape(-1, H, hd).numpy(), sc.numpy()]
+    kc, ks, vc, vs = out
+    return q, kc, vc, tables, pos, width, ks, vs, bs
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("variant", ["stream", "gather"])
+def test_int8_ref_matches_jax_kernel(case, variant):
+    """int8 pools with per-block per-head scales: the port's plain
+    versions (stream: B2's; gather: B3's) against the JAX kernel in
+    interpret mode with ``k_scale``/``v_scale``."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops.ragged_paged_attn import (
+        ragged_paged_attention as jax_rpa)
+
+    q, kc, vc, tables, pos, width, ks, vs, bs = _int8_inputs(case)
+    want = np.asarray(jax_rpa(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(width),
+        block_size=bs, interpret=True, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(vs), variant=variant))
+    ref = (ragged_paged_attention_ref if variant == "stream"
+           else ragged_gather_attention_ref)
+    t = _torch((q, kc, vc, tables, pos, width, ks, vs))
+    got = ref(*t[:6], block_size=bs, k_scale=t[6], v_scale=t[7]).numpy()
+    for b, w in enumerate(width):
+        np.testing.assert_allclose(got[b, :w], want[b, :w], rtol=2e-5,
+                                   atol=2e-6)
+        assert np.all(got[b, w:] == 0.0), "lanes past width must be 0"
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_gather_ref_matches_jax_gather_kernel(case):
+    """B3's plain version over fp pools against the JAX gather body."""
+    import jax.numpy as jnp
+    from paddle_tpu.ops.ragged_paged_attn import (
+        ragged_paged_attention as jax_rpa)
+
+    q, k, v, tables, pos, width, bs = _inputs(case)
+    want = np.asarray(jax_rpa(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(width),
+        block_size=bs, interpret=True, variant="gather"))
+    got = ragged_gather_attention_ref(
+        *_torch((q, k, v, tables, pos, width)), block_size=bs).numpy()
+    for b, w in enumerate(width):
+        np.testing.assert_allclose(got[b, :w], want[b, :w], rtol=2e-5,
+                                   atol=2e-6)
+        assert np.all(got[b, w:] == 0.0)
+
+
+@pytest.mark.parametrize("variant", ["stream", "gather"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_dispatch_on_cpu_takes_each_plain_version(variant, quant):
+    """``ragged_paged_attention(variant=, k_scale=, v_scale=)`` sends a
+    CPU call to the matching plain version, bit-identically, and counts
+    no kernel launch."""
+    if quant:
+        q, k, v, tables, pos, width, ks, vs, bs = _int8_inputs("mixed_hd8")
+        t = _torch((q, k, v, tables, pos, width, ks, vs))
+        args, sc = t[:6], dict(k_scale=t[6], v_scale=t[7])
+    else:
+        *arrays, bs = _inputs("mixed_hd8")
+        args, sc = _torch(arrays), {}
+    before = {n: op.launches for n, op in KERNEL_OPS.items()}
+    got = ragged_paged_attention(*args, block_size=bs, variant=variant,
+                                 **sc)
+    ref = (ragged_paged_attention_ref if variant == "stream"
+           else ragged_gather_attention_ref)
+    assert torch.equal(got, ref(*args, block_size=bs, **sc))
+    assert {n: op.launches for n, op in KERNEL_OPS.items()} == before
+
+
+@pytest.mark.parametrize("bad", ["one_scale", "variant", "int8_no_scale",
+                                 "fp_with_scale", "scale_shape",
+                                 "scale_dtype"])
+def test_quantized_wrappers_reject_what_the_kernels_do_not_take(bad):
+    q, kc, vc, tables, pos, width, ks, vs, bs = _int8_inputs("mixed_hd8")
+    q, kc, vc, tables, pos, width, ks, vs = _torch(
+        (q, kc, vc, tables, pos, width, ks, vs))
+    kw = dict(block_size=bs, k_scale=ks, v_scale=vs)
+    if bad == "one_scale":
+        kw["v_scale"] = None
+    elif bad == "variant":
+        kw["variant"] = "flash"
+    elif bad == "int8_no_scale":
+        kw.update(k_scale=None, v_scale=None)
+    elif bad == "fp_with_scale":
+        kc, vc = kc.float(), vc.float()
+    elif bad == "scale_shape":
+        kw["k_scale"] = ks[:-1].contiguous()
+    elif bad == "scale_dtype":
+        kw["v_scale"] = vs.double()
+    for variant in ("stream", "gather"):
+        kw.setdefault("variant", variant)
+        with pytest.raises((TypeError, ValueError)):
+            ragged_paged_attention(q, kc, vc, tables, pos, width, **kw)
+        if bad != "variant":
+            kw.pop("variant")
+
+
+class _StubLib:
+    """The C interface of a kernel library, counting calls (no card)."""
+
+    def __init__(self, name, per_config_bytes):
+        self.calls = []
+        self._bytes = per_config_bytes
+        setattr(self, f"{name}_smem_bytes", self._smem)
+        setattr(self, f"{name}_prepare", self._prepare)
+        self.ragged_gather_attn_tile_lanes = lambda: 16
+
+    def _smem(self, *dims):
+        self.calls.append(("smem", dims))
+        return self._bytes(*dims)
+
+    def _prepare(self, dtype, quant, smem):
+        self.calls.append(("prepare", dtype, quant, smem))
+        return 0
+
+
+def test_prepare_runs_once_per_config(monkeypatch):
+    """The shared-memory size is asked once per config and the kernel's
+    limit raised once per (kernel, dtype, quant, card), again only when a
+    config needs more — not before every launch."""
+    monkeypatch.setattr(rpa_mod, "_smem_sizes", {})
+    monkeypatch.setattr(rpa_mod, "_prepared", {})
+    lib = _StubLib("ragged_paged_attn", lambda W, hd, bs: 100 * W + hd)
+    prep = rpa_mod._prepare
+    for _ in range(3):
+        prep("ragged_paged_attn", lib, 0, 0, (64, 64, 16), 0)
+    assert lib.calls == [("smem", (64, 64, 16)), ("prepare", 0, 0, 6464)]
+    prep("ragged_paged_attn", lib, 0, 1, (64, 64, 16), 0)   # int8 leg
+    prep("ragged_paged_attn", lib, 1, 0, (64, 64, 16), 0)   # bf16
+    prep("ragged_paged_attn", lib, 0, 0, (8, 64, 16), 0)    # smaller
+    prep("ragged_paged_attn", lib, 0, 0, (128, 64, 16), 0)  # larger
+    prep("ragged_paged_attn", lib, 0, 0, (64, 64, 16), 1)   # other card
+    assert [c for c in lib.calls if c[0] == "prepare"] == [
+        ("prepare", 0, 0, 6464), ("prepare", 0, 1, 6464),
+        ("prepare", 1, 0, 6464), ("prepare", 0, 0, 12864),
+        ("prepare", 0, 0, 6464)]
+    assert sum(c[0] == "smem" for c in lib.calls) == 3
+
+
+def test_gather_score_tile_over_the_ceiling_raises(monkeypatch):
+    """A context whose [16, L] score tile does not fit a block's shared
+    memory raises, naming the largest max_seq_len the kernel takes; it
+    never launches."""
+    monkeypatch.setattr(rpa_mod, "_smem_sizes", {})
+    monkeypatch.setattr(rpa_mod, "_prepared", {})
+
+    def floats(hd, bs, nb):   # the source's layout: q, acc, K/V, scores
+        return 4 * (2 * 16 * hd + bs * (hd + 1) + 16 * nb * bs)
+
+    lib = _StubLib("ragged_gather_attn", floats)
+    rpa_mod._prepare("ragged_gather_attn", lib, 0, 0, (64, 16, 64), 0)
+    with pytest.raises(ValueError, match=r"max_seq_len 4096 .*at most "
+                                         r"max_seq_len 3424"):
+        rpa_mod._prepare("ragged_gather_attn", lib, 0, 0, (64, 16, 256), 0)
+    assert [c[0] for c in lib.calls].count("prepare") == 1
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -173,6 +353,52 @@ def test_kernel_matches_plain_version_on_card(case, dtype):
     assert got.dtype == dt
     ref_args = [t.float() if t.is_floating_point() else t for t in args]
     want = ragged_paged_attention_ref(*ref_args, block_size=bs)
+    tol = (2e-5, 2e-6) if dtype == "float32" else (2e-2, 2e-2)
+    w = width.tolist()
+    for b in range(len(w)):
+        torch.testing.assert_close(got[b, :w[b]].float(), want[b, :w[b]],
+                                   rtol=tol[0], atol=tol[1])
+        assert torch.all(got[b, w[b]:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kernel", ["int8_stream", "gather_fp",
+                                    "gather_int8"])
+def test_b2_b3_match_plain_versions_on_card(case, dtype, kernel):
+    """Kernels B2 (int8 stream) and B3 (gather, fp and int8 pools)
+    against their plain versions on the same inputs: fp32 q at rtol 2e-5
+    / atol 2e-6 (summation order; the dequantization is exact in f32),
+    bf16 q at 2e-2 / 2e-2 against the plain version in f32 on the same
+    bf16 values; each launch is counted on its own wrapper."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    if kernel == "gather_fp":
+        *arrays, bs = _inputs(case)
+        q, k, v, tables, pos, width = _torch(arrays, "cuda")
+        k, v = k.to(dt), v.to(dt)
+        sc = {}
+    else:
+        q, k, v, tables, pos, width, ks, vs, bs = _int8_inputs(case)
+        q, k, v, tables, pos, width, ks, vs = _torch(
+            (q, k, v, tables, pos, width, ks, vs), "cuda")
+        sc = dict(k_scale=ks, v_scale=vs)
+    q = q.to(dt)
+    if kernel == "int8_stream":
+        op, ref = ragged_paged_attention_int8, ragged_paged_attention_ref
+        before = op.launches
+        got = op(q, k, v, tables, pos, width, ks, vs, block_size=bs)
+    else:
+        op, ref = ragged_gather_attention, ragged_gather_attention_ref
+        before = op.launches
+        got = op(q, k, v, tables, pos, width, block_size=bs, **sc)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    assert got.dtype == dt
+    want = ref(q.float(), k if k.dtype == torch.int8 else k.float(),
+               v if v.dtype == torch.int8 else v.float(), tables, pos,
+               width, block_size=bs, **sc)
     tol = (2e-5, 2e-6) if dtype == "float32" else (2e-2, 2e-2)
     w = width.tolist()
     for b in range(len(w)):
