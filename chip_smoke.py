@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch port (``paddle_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card
+    python3 chip_smoke.py --cards 4  # the mesh serve over four cards
 
-Phases, in order; any failure ends the run with a non-zero exit code and
-without the last line:
+Without arguments it needs one card and runs these phases, in order; any
+failure ends the run with a non-zero exit code and without the last
+line:
 
 1. Device: a CUDA card must be present; prints the card's name and power
    limit as ``nvidia-smi`` reports them.
@@ -30,8 +32,10 @@ without the last line:
    near ties under a 1e-4 margin are counted, not failed), the kernel
    launched exactly 24 times per ragged dispatch, prefix hits > 0, and
    the seeded streams repeat on a second engine.  A third run of the
-   same traffic under ``torch.profiler`` prints the device's busy share
-   and the kernels that take the most device time.
+   same traffic with ticks 32-55 under ``torch.profiler`` prints the
+   device's busy share in that window and the kernels that take the most
+   device time (every profiled serve covers the same window: the trace
+   of a whole serve takes minutes to process).
 5. Flash kernels against their plain versions (``ops/flash_attention.py``):
    the training slice's shape (B=4, H=16, S=2048, hd=128, bf16,
    causal), an fp32 case, an hd=64 case and a case with segment ids
@@ -88,9 +92,10 @@ without the last line:
    first divergence where the logits that engine picked the token from
    have a top-2 margin under 1e-3 (counted and printed, with the dense
    fp forward's margin beside it: an int8 near tie is one of the int8
-   logits, which differ from the dense ones by the KV quantization).  Prints the greedy agreement
-   with phase 9's streams (the effect of int8 KV; not gated), tokens/s,
-   and a ``torch.profiler`` busy share and top kernels.
+   logits, which differ from the dense ones by the KV quantization).
+   Prints the greedy agreement with phase 9's streams (the effect of int8
+   KV; not gated), tokens/s, and a ``torch.profiler`` busy share and top
+   kernels.
 11. Gather slices: the same traffic through
    ``Engine(attn_impl="ragged_gather")`` on phase 4's fp32 model
    (teacher-forced as phase 4) and with ``kv_dtype="int8"`` on phase
@@ -101,11 +106,40 @@ without the last line:
 12. Capacity: ``Engine(kv_budget_mb=1536)`` on gpt2-medium with fp32 and
    with int8 pools; prints both block counts and holds their ratio to
    at least 3.9 (the geometry gives 3.98).
-13. Prints the ``kernels`` JSON line, the card line and
+13. B4 (``sharded_ragged_paged_attention``) on a (2, 2) mesh whose four
+   ranks all map onto ``cuda:0``: phase 3's inputs with the pool laid out
+   in two dp ranges of 257 blocks (each led by its scratch block, every
+   slot's blocks in its own range, tables of GLOBAL ids), q and the pools
+   sharded per rank.  Over B1, B2 (int8 pools) and B3 (fp and int8
+   pools): one launch a rank, equal to the unsharded kernel on the same
+   logical inputs within 1e-6 (each CUDA block computes one (slot, head)
+   alone, so bitwise is expected) and to B4's plain form at atol 2e-6 /
+   rtol 2e-5; lanes past width exactly 0.  Times the four launches
+   together (and per launch), the unsharded kernel, the plain form and
+   SDPA over each rank's pre-gathered rows (the four calls summed); the
+   bound is the unsharded call's.
+14. Mesh serving: phase 4's fp32 model -> ``to_tensor_parallel()`` ->
+   ``Engine(mesh=ServingMesh(2, 2, devices=[cuda:0] * 4))``, phase 4's
+   traffic served three ways.  fp32 pools: every greedy token
+   teacher-forced against the dense forward (phase 4's near-tie rule),
+   seeded streams equal to phase 4's unsharded ones and repeating on a
+   second run profiled as phase 4's (busy share, top kernels, and the
+   device time under B4's and the collectives' profiler labels).  int8 pools: greedy
+   streams equal to an unsharded ``kv_dtype="int8"`` engine's on the
+   same fp32 weights except at int8 near ties (phase 10's rule, margin
+   < 1e-3 on the mesh engine's own logits).  Gather body: greedy streams
+   equal to the mesh fp32 ones except at near ties (margin < 1e-4 on its
+   own logits).  In each, the path's kernel and B4 launched 24 x 4 times
+   a dispatch, and no other ragged kernel.
+15. Prints the ``kernels`` JSON line, the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
    backward kernels carry its time.
+
+With ``--cards 4`` it builds the kernels and runs only
+``four_card_phase``: the (2, 2) mesh serve over four cards beside the
+same mesh on one card.
 
 Needs the repository around it: alone in a directory it exits non-zero.
 """
@@ -113,6 +147,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -136,11 +171,13 @@ def check(cond, msg):
 
 
 def card_line():
+    """The first card's name and power limit, as nvidia-smi gives them
+    (every card's, joined with "; ", when there are several)."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+    return "; ".join(out.strip().splitlines())
 
 
 def cuda_time_ms(fn, iters=20, warmup=3):
@@ -158,10 +195,15 @@ def cuda_time_ms(fn, iters=20, warmup=3):
 
 
 # -- phase 3 --------------------------------------------------------------
-def kernel_inputs(gen):
-    """gpt2-medium serving shapes with mixed per-slot pos / width."""
+def kernel_inputs(gen, dp=1):
+    """gpt2-medium serving shapes with mixed per-slot pos / width.  With
+    ``dp`` > 1 the pool is laid out as a dp mesh's: ``dp`` contiguous
+    ranges, each led by its own scratch block, every slot's blocks drawn
+    from its dp group's range (tables of GLOBAL ids)."""
     import torch
-    B, W, H, hd, bs, nb, NB = 8, 64, 16, 64, 16, 64, 513
+    B, W, H, hd, bs, nb = 8, 64, 16, 64, 16, 64
+    rps = B // dp * nb + 1                # blocks per dp shard
+    NB = dp * rps                         # 513 on one shard
     # (pos, width): decode lanes at contexts 1, 1000 and 348, prefill
     # chunks of 64, 17 and 40, a parked slot, a chunk whose horizon is
     # the table's last block
@@ -169,14 +211,15 @@ def kernel_inputs(gen):
              (1000, 24), (700, 40)]
     pos = torch.tensor([p for p, _ in lanes], dtype=torch.int32)
     width = torch.tensor([w for _, w in lanes], dtype=torch.int32)
-    # every slot its own blocks (8 x 64 = the 512 allocatable ones);
-    # the parked slot points at the scratch block 0
-    perm = torch.randperm(NB - 1,
-                          generator=torch.Generator().manual_seed(0)) + 1
-    tables = perm.view(B, nb).int()
+    # every slot its own blocks (all the allocatable ones); the parked
+    # slot points at its shard's scratch block
+    perm_gen = torch.Generator().manual_seed(0)
+    tables = torch.cat([
+        (torch.randperm(rps - 1, generator=perm_gen) + 1 + d * rps)
+        .view(B // dp, nb) for d in range(dp)]).int()
     for b, (_, w) in enumerate(lanes):
         if not w:
-            tables[b] = 0
+            tables[b] = b // (B // dp) * rps
     dev = "cuda"
     q = torch.randn(B, W, H, hd, generator=gen, device=dev)
     k = torch.randn(NB * bs, H, hd, generator=gen, device=dev)
@@ -292,11 +335,16 @@ def traffic(vocab):
     return reqs
 
 
-def serve(model, reqs, engine_cls, **engine_kw):
-    import torch
+def submit_all(model, reqs, engine_cls, **engine_kw):
+    """The smoke's engine over ``model`` with every request queued."""
     eng = engine_cls(model, num_slots=8, max_seq_len=1024,
                      kv_block_size=16, prefill_chunk=64, **engine_kw)
-    handles = [eng.submit(p, max_new_tokens=32, **kw) for p, kw in reqs]
+    return eng, [eng.submit(p, max_new_tokens=32, **kw) for p, kw in reqs]
+
+
+def serve(model, reqs, engine_cls, **engine_kw):
+    import torch
+    eng, handles = submit_all(model, reqs, engine_cls, **engine_kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.run_until_idle()
@@ -372,7 +420,14 @@ def slice_phase(card, ragged_mod):
     print(f"second engine: seeded streams repeat; greedy streams repeat "
           f"{greedy_repeat}; wall_s {wall2:.3f}", flush=True)
     profile_phase(model, reqs, Engine, card)
-    return launches, model, reqs
+    return launches, model, reqs, outs
+
+
+# torch.profiler labels of the mesh path (ops/ragged_paged_attn.py,
+# distributed/collective.py), and the ragged kernels' names in a profile
+MESH_REGIONS = ("sharded_ragged_paged_attention", "mesh.all_reduce_sum",
+                "mesh.all_gather")
+RAGGED_KERNEL_NAMES = re.compile(r"ragged_(paged|gather)_attn_kernel")
 
 
 def device_kernels(prof):
@@ -384,27 +439,69 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
+# the ticks a profile covers: (first, count) — a window that mixes
+# prefill chunks and decode lanes, the same in every profiled serve;
+# profiling a whole serve costs minutes of trace processing
+PROFILE_TICKS = (32, 24)
+
+
 def profile_phase(model, reqs, engine_cls, card, label="",
                   **engine_kw):
-    """Where a tick's time goes: the same traffic once more under
-    torch.profiler; prints the device's busy share of the wall time and
-    the kernels that took the most device time.  Profiler overhead
-    stretches this run's wall time; the share is of this run."""
+    """Where a tick's time goes: the same traffic once more, ticks
+    ``PROFILE_TICKS`` under torch.profiler; prints the device's busy
+    share of that window's wall time, the kernels that took the most
+    device time in it, and the device time of the kernels launched
+    under the mesh's profiler labels (B4, the collectives) where the
+    path has them.  Profiler overhead stretches the window's wall time;
+    the share is of this window.  The serve then runs to its end;
+    returns its streams."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    first, count = PROFILE_TICKS
+    eng, handles = submit_all(model, reqs, engine_cls, **engine_kw)
+    for _ in range(first):
+        eng.step()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng, _, wall = serve(model, reqs, engine_cls, **engine_kw)
+        t0 = time.perf_counter()
+        for _ in range(count):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.run_until_idle()
+    outs = [h.result(timeout=1) for h in handles]
     dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"profile{label}: ticks {eng.ticks} wall_s {wall:.3f} "
-          f"device_busy_s {busy_ms / 1e3:.3f} busy_share "
-          f"{busy_ms / 1e3 / wall:.3f} [{card}]", flush=True)
+    print(f"profile{label}: ticks {first}-{first + count - 1} of "
+          f"{eng.ticks} wall_s {wall:.3f} device_busy_s "
+          f"{busy_ms / 1e3:.3f} busy_share {busy_ms / 1e3 / wall:.3f} "
+          f"[{card}]", flush=True)
     dev.sort(key=lambda e: -e.self_device_time_total)
     for e in dev[:10]:
+        share = 100 * e.self_device_time_total / 1e3 / busy_ms
         print(f"profile{label} kernel: "
               f"{e.self_device_time_total / 1e3:10.3f} ms "
-              f"{e.count:6d}x {e.key[:90]}", flush=True)
+              f"{e.count:6d}x {share:5.1f}% {e.key[:90]}", flush=True)
+    # a label's host-side row holds the device time of the torch ops
+    # under it; the ragged kernels, launched through ctypes, are not
+    # among them and are counted by name (on the mesh path every ragged
+    # launch is B4's)
+    regions = {e.key: (e.device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.key in MESH_REGIONS and e.device_type.name == "CPU"}
+    if regions:
+        ragged = sum(e.self_device_time_total for e in dev
+                     if RAGGED_KERNEL_NAMES.search(e.key)) / 1e3
+        ms, n = regions.pop("sharded_ragged_paged_attention")
+        print(f"profile{label} region: sharded_ragged_paged_attention "
+              f"{ragged + ms:10.3f} ms device {n:6d}x "
+              f"{100 * (ragged + ms) / busy_ms:5.1f}% of busy (its kernels "
+              f"{ragged:.3f} ms, torch ops under it {ms:.3f} ms)", flush=True)
+        for key, (ms, n) in regions.items():
+            print(f"profile{label} region: {key} {ms:10.3f} ms device "
+                  f"{n:6d}x {100 * ms / busy_ms:5.1f}% of busy", flush=True)
+    return outs
 
 
 # -- phase 8 --------------------------------------------------------------
@@ -537,6 +634,115 @@ def quant_kernel_phase(ragged_mod):
     return results
 
 
+# -- phase 13 -------------------------------------------------------------
+MESH_SHAPE = (2, 2)                # (mp, dp), every rank on cuda:0
+
+
+def one_card_mesh():
+    import torch
+    from paddle_tpu_torch.distributed import ServingMesh
+    mp, dp = MESH_SHAPE
+    return ServingMesh(mp, dp, devices=[torch.device("cuda", 0)] * (mp * dp))
+
+
+def mesh_kernel_phase(ragged_mod):
+    """B4 over B1, B2 and B3 on phase 3's inputs sharded over the (2, 2)
+    mesh: held to its plain form (per-rank plain versions) and to the
+    unsharded kernel on the same logical inputs (bitwise expected, gated
+    at 1e-6); times the four launches together, the unsharded kernel,
+    the plain form and SDPA over each rank's pre-gathered rows (summed),
+    and computes the bound from the unsharded call's bytes.  Returns
+    {case: result}."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.distributed import shard, unshard
+    rm = ragged_mod
+    mesh = one_card_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args, bs = kernel_inputs(gen, dp=mesh.dp)
+    q, k, v, tables, pos, width = args
+    (kc, ks, kd), (vc, vs, vd) = quant_pools(k, v, bs)
+    qspec, kvspec = ("dp", None, "mp", None), ("dp", "mp", None)
+    rps = k.shape[0] // bs // mesh.dp
+    bl = q.shape[0] // mesh.dp
+    w_list = width.tolist()
+    results = {}
+    for name, variant, pools, scales in (
+            ("stream_fp32", "stream", (k, v), None),
+            ("stream_int8", "stream", (kc, vc), (ks, vs)),
+            ("gather_fp32", "gather", (k, v), None),
+            ("gather_int8", "gather", (kc, vc), (ks, vs))):
+        sc = {} if scales is None else dict(k_scale=scales[0],
+                                            v_scale=scales[1])
+        ssc = {} if scales is None else dict(
+            k_scale_shards=shard(scales[0], "kv_scale", mesh),
+            v_scale_shards=shard(scales[1], "kv_scale", mesh))
+        qs = shard(q, qspec, mesh)
+        kss, vss = (shard(t, kvspec, mesh) for t in pools)
+        b4_args = (qs, kss, vss, tables, pos, width)
+        kw = dict(block_size=bs, mesh=mesh, variant=variant, **ssc)
+        b4 = lambda: rm.sharded_ragged_paged_attention(*b4_args, **kw)
+        plain = lambda: rm.sharded_ragged_paged_attention_ref(*b4_args,
+                                                              **kw)
+        one = lambda: rm.ragged_paged_attention(
+            q, *pools, tables, pos, width, block_size=bs, variant=variant,
+            **sc)
+        before = rm.sharded_ragged_paged_attention.launches
+        got = unshard(b4(), qspec, mesh)
+        torch.cuda.synchronize()
+        check(rm.sharded_ragged_paged_attention.launches
+              == before + mesh.size, f"B4 {name}: not one launch a rank")
+        want_one = one()
+        want_plain = unshard(plain(), qspec, mesh)
+        err_one = float((got - want_one).abs().max())
+        check(err_one <= 1e-6, f"B4 {name}: {err_one:.3e} from the "
+              "unsharded kernel, over 1e-6")
+        err = 0.0
+        for b, w in enumerate(w_list):
+            torch.testing.assert_close(got[b, :w], want_plain[b, :w],
+                                       rtol=2e-5, atol=2e-6)
+            check(bool(torch.all(got[b, w:] == 0)),
+                  f"B4 {name}: lanes past width {w} of slot {b} not zero")
+            if w:
+                err = max(err, float((got[b, :w]
+                                      - want_plain[b, :w]).abs().max()))
+        ms = cuda_time_ms(b4)
+        one_ms = cuda_time_ms(one)
+        plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
+        # SDPA over each rank's rows, gathered through its localized
+        # table (dequantized for int8 pools), the four calls summed
+        lib_pools = (kd, vd) if scales is not None else (k, v)
+        sdpa = []
+        for r, (m, d) in enumerate(mesh.ranks()):
+            sl = slice(d * bl, (d + 1) * bl)
+            heads = slice(m * q.shape[2] // mesh.mp,
+                          (m + 1) * q.shape[2] // mesh.mp)
+            rows = slice(d * rps * bs, (d + 1) * rps * bs)
+            sdpa.append(sdpa_inputs(
+                (q[sl, :, heads].contiguous(),
+                 lib_pools[0][rows, heads].contiguous(),
+                 lib_pools[1][rows, heads].contiguous(),
+                 tables[sl] - d * rps, pos[sl], width[sl]), bs))
+        lib_ms = cuda_time_ms(lambda: [F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=mask) for sq, sk, sv, mask in sdpa])
+        gather = variant == "gather"
+        bound, bound_by = quant_bound_ms(
+            (q, *pools, tables, pos, width), bs, "float32", gather,
+            scales is not None)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bound,
+                             bound_by=bound_by, unsharded_ms=one_ms,
+                             err_vs_unsharded=err_one)
+        print(f"kernel sharded_ragged_paged_attention {name} mesh "
+              f"{MESH_SHAPE} on one card: max_abs_err {err:.3e} (vs plain "
+              f"form) vs_unsharded {err_one:.3e} ms {ms:.4f} (4 launches) "
+              f"per_launch_ms {ms / mesh.size:.4f} unsharded_kernel_ms "
+              f"{one_ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} "
+              f"(4 ranks summed) bound_ms {bound:.4f} ({bound_by})",
+              flush=True)
+    return results
+
+
 # -- phases 9 to 12 -------------------------------------------------------
 def ragged_counts(ragged_mod):
     return {n: op.launches for n, op in ragged_mod.KERNEL_OPS.items()}
@@ -559,20 +765,27 @@ def check_launches(ragged_mod, eng, kernel, label):
     return counts[kernel]
 
 
-def serve_recording_margins(model, reqs, **engine_kw):
+def serve_recording_margins(model, reqs, mesh=False, **engine_kw):
     """``serve``, recording for every emitted token the top-2 margin of
     the logits the engine picked it from (a decode lane's lane 0, a final
     prefill chunk's last lane): the engine's own numbers, int8 KV
-    included.  Returns (engine, streams, wall, {(prompt bytes, generated
-    index): margin})."""
+    included.  With ``mesh`` the engine serves on the (2, 2) mesh and the
+    margins are read from its sharded tick.  Returns (engine, streams,
+    wall, {(prompt bytes, generated index): margin})."""
     from paddle_tpu_torch.serving import Engine
+    from paddle_tpu_torch.serving.sharded import ShardedServingModel
     margins, last = {}, {}
-    real_tick = model._ragged_window_tick_slots
+    # the mesh engine builds its sharded model itself: wrap its class
+    owner = ShardedServingModel if mesh else model
+    real_tick = owner._ragged_window_tick_slots
+
+    def record(logits):
+        top2 = logits.float().topk(2, dim=-1).values
+        last["gap"] = (top2[..., 0] - top2[..., 1]).cpu()   # [B, E + 1]
 
     def tick(*args, **kw):
         logits, k_pools, v_pools = real_tick(*args, **kw)
-        top2 = logits.float().topk(2, dim=-1).values
-        last["gap"] = (top2[..., 0] - top2[..., 1]).cpu()   # [B, E + 1]
+        record(logits)
         return logits, k_pools, v_pools
 
     class Recording(Engine):
@@ -584,24 +797,29 @@ def serve_recording_margins(model, reqs, **engine_kw):
                 last["gap"][slot.index, lane])
             return super()._emit(slot, tok)
 
-    model._ragged_window_tick_slots = tick
+    if mesh:
+        engine_kw["mesh"] = one_card_mesh()
+    setattr(owner, "_ragged_window_tick_slots", tick)
     try:
         eng, outs, wall = serve(model, reqs, Recording, **engine_kw)
     finally:
-        del model._ragged_window_tick_slots
+        if mesh:
+            owner._ragged_window_tick_slots = real_tick
+        else:
+            del owner._ragged_window_tick_slots
     return eng, outs, wall, margins
 
 
 def stream_divergences(model, reqs, outs_a, outs_b, margins_b, margin):
-    """Two int8-KV engines' greedy streams must be equal, except from a
-    first divergence at which the logits engine b picked its token from
-    have a top-2 margin under ``margin`` (``serve_recording_margins``).
-    The margin is taken on the int8 path itself: the two engines' K/V
+    """Two engines' greedy streams must be equal, except from a first
+    divergence at which the logits engine b picked its token from have a
+    top-2 margin under ``margin`` (``serve_recording_margins``).  The
+    margin is taken on engine b's own path: two int8-KV engines' K/V
     differ in the last bits, a value at a rounding boundary takes
     another int8 code, and that moves the logits by far more than the
     kernels' summation order, so the dense fp forward's margin is no
     measure of an int8 near tie (it is printed beside it, from
-    ``model``).  Returns (divergences, their int8 margins)."""
+    ``model``).  Returns (divergences, engine b's margins at them)."""
     import torch
     gaps = []
     for (prompt, kw), a, b in zip(reqs, outs_a, outs_b):
@@ -615,11 +833,11 @@ def stream_divergences(model, reqs, outs_a, outs_b, margins_b, margin):
             top2 = model(torch.tensor([a[:t]], device="cuda"))[0, -1] \
                 .float().topk(2).values
         print(f"divergence at generated token {g} of a {len(prompt)}-token "
-              f"prompt: int8 engine top-2 margin {gap:.3e}, dense fp KV "
+              f"prompt: engine top-2 margin {gap:.3e}, dense fp forward "
               f"margin {float(top2[0] - top2[1]):.3e}", flush=True)
         check(gap < margin,
               f"greedy streams diverge at generated token {g} of a "
-              f"{len(prompt)}-token prompt where the int8 engine's top-2 "
+              f"{len(prompt)}-token prompt where the engine's top-2 "
               f"margin is {gap:.3e}, not under {margin}")
         gaps.append(gap)
     return len(gaps), gaps
@@ -803,6 +1021,143 @@ def capacity_phase(model_fp, card):
           "under 3.9x")
     print(f"capacity ratio int8 / fp32 {ratio:.4f} [{card}]", flush=True)
     return ratio
+
+
+# -- phase 14 -------------------------------------------------------------
+def check_mesh_launches(ragged_mod, eng, kernel, label):
+    """The mesh path launched ``kernel`` through B4 once a rank, 24 layers
+    a dispatch, and no other ragged kernel.  Returns B4's count."""
+    ranks = eng.mp * eng.dp
+    counts = ragged_counts(ragged_mod)
+    want = eng.ragged_dispatches * N_LAYERS * ranks
+    path = (kernel, "sharded_ragged_paged_attention")
+    for name in path:
+        check(counts[name] == want,
+              f"{label}: {name} launched {counts[name]} times, not "
+              f"{eng.ragged_dispatches} dispatches x {N_LAYERS} x {ranks}")
+    others = {n: c for n, c in counts.items() if n not in path and c}
+    check(not others, f"{label}: other ragged kernels launched: {others}")
+    return counts["sharded_ragged_paged_attention"]
+
+
+def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
+    """Phase 14: gpt2-medium -> to_tensor_parallel() -> Engine(mesh=(2, 2)
+    on one card), phase 4's traffic served with fp32 pools (B1 under B4),
+    int8 pools (B2) and the gather body (B3).  Returns B4's launches over
+    the three serves."""
+    import torch
+    from paddle_tpu_torch.serving import Engine
+
+    tp = model_fp.to_tensor_parallel()
+    total = 0
+    # fp32 pools: teacher-forced against the dense forward; seeded
+    # streams equal the unsharded engine's (phase 4) and repeat
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(tp, reqs, Engine, mesh=one_card_mesh())
+    total += check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
+                                 "mesh fp32 serve")
+    check(eng.prefix_hits > 0, "mesh fp32: no prefix-cache hit")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
+    checked, near = teacher_forcing(model_fp, reqs, outs)
+    for (_, kw), a, b in zip(reqs, outs, fp_outs):
+        if kw:
+            check(a.tolist() == b.tolist(), "mesh: a seeded stream differs "
+                  "from the unsharded engine's")
+    slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32", eng, wall,
+               eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp, card,
+               f" kv_blocks {eng.block_pool.managed_blocks} greedy_checked "
+               f"{checked} near_ties {near}")
+    again = profile_phase(tp, reqs, Engine, card, label=" mesh",
+                          mesh=one_card_mesh())
+    for (_, kw), a, b in zip(reqs, outs, again):
+        if kw:
+            check(a.tolist() == b.tolist(),
+                  "mesh: a seeded stream did not repeat")
+    del eng
+    # int8 pools: greedy streams equal the unsharded int8-KV engine's on
+    # the same fp32 weights, except at int8 near ties
+    _, u_outs, u_wall = serve(model_fp, reqs, Engine, kv_dtype="int8")
+    zero_ragged_counts(ragged_mod)
+    eng, q_outs, wall, margins = serve_recording_margins(
+        tp, reqs, mesh=True, kv_dtype="int8")
+    total += check_mesh_launches(ragged_mod, eng,
+                                 "ragged_paged_attention_int8",
+                                 "mesh int8 serve")
+    near, gaps = stream_divergences(model_fp, reqs, u_outs, q_outs, margins,
+                                    1e-3)
+    same = sum(a.tolist() == b.tolist()
+               for (_, kw), a, b in zip(reqs, u_outs, q_outs) if not kw)
+    slice_line(f"gpt2-medium mesh {MESH_SHAPE} kv_dtype=int8", eng, wall,
+               eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp, card,
+               f" greedy_equal_to_unsharded_int8 {same}/10 "
+               f"near_tie_divergences {near} at margins {gaps} "
+               f"(unsharded int8 wall_s {u_wall:.3f})")
+    del eng
+    # the gather body: greedy streams equal the mesh fp32 streams, except
+    # at near ties of its own logits
+    zero_ragged_counts(ragged_mod)
+    eng, g_outs, wall, margins = serve_recording_margins(
+        tp, reqs, mesh=True, attn_impl="ragged_gather")
+    total += check_mesh_launches(ragged_mod, eng, "ragged_gather_attention",
+                                 "mesh gather serve")
+    near, gaps = stream_divergences(model_fp, reqs, outs, g_outs, margins,
+                                    1e-4)
+    same = sum(a.tolist() == b.tolist()
+               for (_, kw), a, b in zip(reqs, outs, g_outs) if not kw)
+    slice_line(f"gpt2-medium mesh {MESH_SHAPE} attn_impl=ragged_gather",
+               eng, wall, eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp,
+               card, f" greedy_equal_to_mesh_fp32 {same}/10 "
+               f"near_tie_divergences {near} at margins {gaps}")
+    del eng, tp
+    torch.cuda.empty_cache()
+    return total
+
+
+def four_card_phase(card, ragged_mod):
+    """``--cards 4``: the mesh serve of phase 14 (fp32 pools) on the (2, 2)
+    mesh over four cards (``serving_mesh``: rank (m, d) on card
+    ``2 d + m``) beside the same mesh mapped onto ``cuda:0``, on a fresh
+    gpt2-medium from seed 0: both teacher-forced against the dense
+    forward, B4 launched 24 x 4 times a dispatch, seeded streams equal.
+    Prints each card's peak memory."""
+    import torch
+    from paddle_tpu_torch.distributed import serving_mesh
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+    check(torch.cuda.device_count() >= 4, "--cards 4 needs four cards, "
+          f"found {torch.cuda.device_count()}")
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    tp = model.to_tensor_parallel()
+    reqs = traffic(model.embeddings.word_embeddings.weight.shape[0])
+    streams = {}
+    for label, mesh in (("one card", one_card_mesh()),
+                        ("four cards", serving_mesh(*MESH_SHAPE))):
+        for i in range(4):
+            torch.cuda.reset_peak_memory_stats(i)
+        zero_ragged_counts(ragged_mod)
+        eng, outs, wall = serve(tp, reqs, Engine, mesh=mesh)
+        check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
+                            f"mesh on {label}")
+        checked, near = teacher_forcing(model, reqs, outs)
+        peaks = " ".join(f"{torch.cuda.max_memory_allocated(i) / 1e9:.2f}"
+                         for i in range(4))
+        slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32 on {label} "
+                   f"({', '.join(str(d) for d in mesh.devices)})", eng, wall,
+                   eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp, card,
+                   f" greedy_checked {checked} near_ties {near} "
+                   f"peak_mem_gb_per_card {peaks}")
+        streams[label] = outs
+        del eng
+    same = sum(a.tolist() == b.tolist() for a, b in
+               zip(streams["one card"], streams["four cards"]))
+    for (_, kw), a, b in zip(reqs, streams["one card"],
+                             streams["four cards"]):
+        if kw:
+            check(a.tolist() == b.tolist(), "four cards: a seeded stream "
+                  "differs from the one-card mesh's")
+    print(f"four cards: {same} of {len(reqs)} streams equal to the "
+          "one-card mesh's", flush=True)
 
 
 # -- phase 5 --------------------------------------------------------------
@@ -1108,8 +1463,13 @@ def model_compare_phase(fa):
     torch.cuda.empty_cache()
 
 
-def main():
+def main(argv):
     import torch
+    cards = int(argv[argv.index("--cards") + 1]) if "--cards" in argv else 1
+    if cards not in (1, 4):
+        print("chip_smoke: --cards takes 1 (the default) or 4",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
@@ -1144,14 +1504,23 @@ def main():
         print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
+    if cards == 4:
+        four_card_phase(card, ragged_mod)
+        lap("four-card mesh")
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     kres = kernel_phase(ragged_mod)
     qres = quant_kernel_phase(ragged_mod)
-    lap("3, 8 (ragged kernels)")
+    mres = mesh_kernel_phase(ragged_mod)
+    lap("3, 8, 13 (ragged kernels)")
     fres = flash_phase(fa)
     lap("5 (flash kernels)")
     zero_flash_counts(fa)
     zero_ragged_counts(ragged_mod)
-    launches, model_fp, reqs = slice_phase(card, ragged_mod)
+    launches, model_fp, reqs, fp_outs = slice_phase(card, ragged_mod)
     lap("4 (fp32 slice)")
     w_outs = weight_slice_phase(card, ragged_mod, reqs)
     lap("9 (weight-only int8 slice)")
@@ -1162,6 +1531,9 @@ def main():
                                           model_q, q_outs)
     capacity_phase(model_fp, card)
     lap("11, 12 (gather slices, capacity)")
+    mesh_launches = mesh_slice_phase(card, ragged_mod, model_fp, reqs,
+                                     fp_outs)
+    lap("14 (mesh serving)")
     check(sum(flash_counts(fa).values()) == 0,
           "the serving path launched a flash kernel")
     del model_fp, model_q
@@ -1208,6 +1580,25 @@ def main():
             "library_ms": r["library_ms"],
             "library_covers": [name],
         })
+    r = mres["stream_fp32"]
+    kernels.append({
+        "name": "sharded_ragged_paged_attention",
+        "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ragged_paged_attn.cu",
+        "sources": ["paddle_tpu_torch/csrc/ragged_paged_attn.cu",
+                    "paddle_tpu_torch/csrc/ragged_gather_attn.cu",
+                    "paddle_tpu_torch/ops/ragged_paged_attn.py"],
+        "replaces": "paddle_tpu/ops/ragged_paged_attn.py:377",
+        "launches": mesh_launches,
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"],
+        "library_covers": ["sharded_ragged_paged_attention"],
+        "mesh": list(MESH_SHAPE),
+    })
     for kernel in FLASH_KERNELS:
         r = fres[kernel]
         kernels.append({
@@ -1235,4 +1626,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

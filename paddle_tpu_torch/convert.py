@@ -12,7 +12,13 @@ them, and copies it into a ``paddle_tpu_torch`` ``GPTModel``:
 
 ``paddle_tpu``'s ``nn.Linear`` stores its weight ``[in, out]`` and
 torch's ``[out, in]``, so every linear weight is transposed on the way
-in.  A model whose block Linears were relayouted to weight-only int8
+in.  The tensor-parallel form (``use_mp=True``, ``to_tensor_parallel()``)
+keeps the JAX layouts and names — ``blocks.{i}.attn.qkv_weight [E, 3, H,
+hd]``, ``qkv_bias [3, 1, H, hd]``, ``out_weight [H, hd, E]``,
+``out_bias [E]``, the column/row-parallel ``mlp.fc{1,2}.weight [in,
+out]``, the vocab-parallel ``embeddings.word_embeddings.weight [V, E]``
+and the column-parallel ``head.lm_head.weight [E, V]`` — so its weights
+are copied as they are.  A model whose block Linears were relayouted to weight-only int8
 (``serving.quant.relayout_weights_int8`` in either package) carries
 ``{...}.weight_int8`` codes (``[in, out]`` in ``paddle_tpu``, transposed
 here too) and ``{...}.weight_scale`` ``[out]`` in place of the weight;
@@ -34,7 +40,8 @@ from .quantization.weight_only import WeightOnlyInt8Linear
 
 def _linear_weights(model):
     """Names stored ``[in, out]`` by ``paddle_tpu`` and ``[out, in]``
-    here: Linear weights and weight-only int8 codes."""
+    here: Linear weights and weight-only int8 codes (the parallel layers
+    of the tensor-parallel form store ``[in, out]`` in both)."""
     names = set()
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear):

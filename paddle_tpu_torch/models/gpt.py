@@ -26,6 +26,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import resolve_device
+from ..distributed.sharding import (ColumnParallelLinear, RowParallelLinear,
+                                    VocabParallelEmbedding)
 from ..nn.functional import (cross_entropy, fused_linear_cross_entropy,
                              scaled_dot_product_attention)
 from ..ops.ragged_paged_attn import ragged_paged_attention
@@ -57,6 +59,50 @@ def _mix64(x):
     return x ^ (x >> 31)
 
 
+def window_write_rows(block_tables, pos, width, scratch, W, block_size):
+    """Where each lane of a W-lane ragged window writes its K/V: lane s of
+    slot b lands at position ``pos[b] + s``, i.e. physical block
+    ``block_tables[b, (pos[b] + s) // bs]``, row ``(pos[b] + s) % bs``.
+    Lanes ``s >= width[b]``, and any offset past the table, write row 0
+    of the slot's scratch block ``scratch[b]`` instead, so a masked lane
+    never touches a live row.  Returns (blk, off), int64 ``[B * W]``."""
+    dev = block_tables.device
+    bs = int(block_size)
+    bps = block_tables.shape[1]
+    lane = torch.arange(W, device=dev)
+    offs = pos.long()[:, None] + lane[None, :]              # [B, W]
+    valid = (lane[None, :] < width.long()[:, None]) & (offs < bps * bs)
+    offs_safe = torch.where(valid, offs, torch.zeros_like(offs))
+    blk = torch.gather(block_tables.long(), 1, offs_safe // bs)
+    blk = torch.where(valid, blk, scratch.long()[:, None])
+    off = torch.where(valid, offs_safe % bs, torch.zeros_like(offs_safe))
+    return blk.reshape(-1), off.reshape(-1)
+
+
+def write_window_kv(k_pool, v_pool, k_rows, v_rows, blk, off):
+    """Write a window's K/V rows ``[N, H, hd]`` into the pools in place at
+    (``blk``, ``off``) from ``window_write_rows``: a row scatter into fp
+    pools, the touched-block read-modify-write (``paged_insert``) into
+    ``QuantKV`` pools."""
+    if isinstance(k_pool, QuantKV):
+        paged_insert(k_pool, blk, off, k_rows)
+        paged_insert(v_pool, blk, off, v_rows)
+        return
+    NB, bs, H, hd = k_pool.shape
+    widx = blk * bs + off
+    k_pool.view(NB * bs, H, hd)[widx] = k_rows.to(k_pool.dtype)
+    v_pool.view(NB * bs, H, hd)[widx] = v_rows.to(v_pool.dtype)
+
+
+def kernel_view(pool):
+    """A pool as the ragged kernels take it: (rows ``[NB * bs, H, hd]``,
+    the scale pool ``[NB, H]`` of a ``QuantKV`` or None)."""
+    codes = pool.codes if isinstance(pool, QuantKV) else pool
+    NB, bs, H, hd = codes.shape
+    return (codes.view(NB * bs, H, hd),
+            pool.scale if isinstance(pool, QuantKV) else None)
+
+
 def sample_rows(last, temperature, top_k, top_p, seed_lo, seed_hi, ctr):
     """One token per row of ``last`` [B, V] with per-row sampling
     parameters and keys derived from the seed words and counters
@@ -66,9 +112,12 @@ def sample_rows(last, temperature, top_k, top_p, seed_lo, seed_hi, ctr):
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, vocab_size, hidden_size, max_position, dropout=0.1):
+    def __init__(self, vocab_size, hidden_size, max_position, dropout=0.1,
+                 use_mp=False):
         super().__init__()
-        self.word_embeddings = nn.Embedding(vocab_size, hidden_size)
+        self.word_embeddings = (
+            VocabParallelEmbedding(vocab_size, hidden_size) if use_mp
+            else nn.Embedding(vocab_size, hidden_size))
         self.position_embeddings = nn.Embedding(max_position, hidden_size)
         self.dropout = nn.Dropout(dropout)
 
@@ -82,23 +131,64 @@ class GPTEmbeddings(nn.Module):
 
 
 class GPTAttention(nn.Module):
-    """Causal self-attention with fused QKV (dense form only)."""
+    """Causal self-attention with fused QKV.
 
-    def __init__(self, hidden_size, num_heads, dropout=0.1):
+    Dense form: ``qkv_proj`` / ``out_proj`` Linears.  Tensor-parallel form
+    (``use_mp=True``): einsum-layout weights that carry the head axis
+    explicitly, as in the JAX package — ``qkv_weight [E, 3, H, hd]``,
+    ``qkv_bias [3, 1, H, hd]``, ``out_weight [H, hd, E]``, ``out_bias
+    [E]`` — so a mesh splits heads without a reshape across a split
+    dimension; outside a mesh it computes the dense form's math."""
+
+    def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.hidden_size = hidden_size
         self.dropout = dropout
-        self.qkv_proj = nn.Linear(hidden_size, 3 * hidden_size)
-        self.out_proj = nn.Linear(hidden_size, hidden_size)
+        self.use_mp = use_mp
+        if use_mp:
+            H, hd = num_heads, self.head_dim
+            self.qkv_weight = nn.Parameter(
+                torch.empty(hidden_size, 3, H, hd).normal_(0.0, 0.02))
+            self.qkv_weight.partition_spec = (None, None, "mp", None)
+            self.qkv_bias = nn.Parameter(torch.zeros(3, 1, H, hd))
+            self.qkv_bias.partition_spec = (None, None, "mp", None)
+            self.out_weight = nn.Parameter(
+                torch.empty(H, hd, hidden_size).normal_(0.0, 0.02))
+            self.out_weight.partition_spec = ("mp", None, None)
+            self.out_bias = nn.Parameter(torch.zeros(hidden_size))
+            self.out_bias.partition_spec = ()
+        else:
+            self.qkv_proj = nn.Linear(hidden_size, 3 * hidden_size)
+            self.out_proj = nn.Linear(hidden_size, hidden_size)
+
+    def _qkv_mp(self, x):
+        """The tensor-parallel form's QKV: ``einsum("bse,ethd->btshd")``
+        plus the bias; (q, k, v) each [B, S, H, hd]."""
+        qkv = torch.einsum("bse,ethd->btshd", x, self.qkv_weight) \
+            + self.qkv_bias
+        return qkv[:, 0], qkv[:, 1], qkv[:, 2]
 
     def _qkv_step(self, x):
         """Fused QKV for a window: [B, S, E] -> (q, k, v) each
-        [B, S, H, hd], split on dim 2 of ``[B, S, 3, H, hd]``."""
+        [B, S, H, hd], split on dim 2 of ``[B, S, 3, H, hd]`` (or through
+        ``_qkv_mp`` in the tensor-parallel form)."""
+        if self.use_mp:
+            return self._qkv_mp(x)
         b, s = x.shape[0], x.shape[1]
         qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+    def _out(self, ctx):
+        """Output projection of the attention context [B, S, H, hd] ->
+        [B, S, E]: ``out_proj``, or ``einsum("bshd,hde->bse")`` plus the
+        bias in the tensor-parallel form."""
+        if self.use_mp:
+            return torch.einsum("bshd,hde->bse", ctx, self.out_weight) \
+                + self.out_bias
+        b, s = ctx.shape[0], ctx.shape[1]
+        return self.out_proj(ctx.reshape(b, s, self.hidden_size))
 
     def forward(self, x):
         """Dense causal attention through ``scaled_dot_product_attention``
@@ -110,7 +200,7 @@ class GPTAttention(nn.Module):
         out = scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.dropout,
             training=self.training)
-        return self.out_proj(out.reshape(b, s, self.hidden_size))
+        return self._out(out)
 
     def _slot_attn(self, qa, k_rows, v_rows, pos):
         """Windowed attention over each slot's gathered cache rows — the
@@ -133,7 +223,7 @@ class GPTAttention(nn.Module):
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
                            v_rows.float()).to(qa.dtype)
-        return self.out_proj(ctx.reshape(B, S, self.hidden_size))
+        return self._out(ctx)
 
     def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
                             width, scratch=None, variant="stream"):
@@ -159,50 +249,37 @@ class GPTAttention(nn.Module):
         optional int32 [B].  Returns (out [B, W, E], k_pool, v_pool)."""
         qa, ka, va = self._qkv_step(x)
         B, W = qa.shape[0], qa.shape[1]
-        NB, bs = k_pool.shape[0], k_pool.shape[1]
+        bs = k_pool.shape[1]
         H, hd = self.num_heads, self.head_dim
-        bps = block_tables.shape[1]
-        dev = x.device
         if scratch is None:
-            scratch = torch.zeros(B, dtype=torch.int32, device=dev)
-        lane = torch.arange(W, device=dev)
-        offs = pos.long()[:, None] + lane[None, :]              # [B, W]
-        valid = (lane[None, :] < width.long()[:, None]) \
-            & (offs < bps * bs)
-        offs_safe = torch.where(valid, offs, torch.zeros_like(offs))
-        blk = torch.gather(block_tables.long(), 1, offs_safe // bs)
-        if isinstance(k_pool, QuantKV):
-            blk_q = torch.where(valid, blk, scratch.long()[:, None])
-            off_q = torch.where(valid, offs_safe % bs,
-                                torch.zeros_like(offs_safe))
-            blk_q, off_q = blk_q.reshape(-1), off_q.reshape(-1)
-            paged_insert(k_pool, blk_q, off_q, ka.reshape(B * W, H, hd))
-            paged_insert(v_pool, blk_q, off_q, va.reshape(B * W, H, hd))
-            ctx = ragged_paged_attention(
-                qa.contiguous(), k_pool.codes.view(NB * bs, H, hd),
-                v_pool.codes.view(NB * bs, H, hd), block_tables, pos,
-                width, block_size=bs, k_scale=k_pool.scale,
-                v_scale=v_pool.scale, variant=variant)
-        else:
-            widx = torch.where(valid, blk * bs + offs_safe % bs,
-                               scratch.long()[:, None] * bs).reshape(-1)
-            flat_k = k_pool.view(NB * bs, H, hd)
-            flat_v = v_pool.view(NB * bs, H, hd)
-            flat_k[widx] = ka.reshape(B * W, H, hd).to(flat_k.dtype)
-            flat_v[widx] = va.reshape(B * W, H, hd).to(flat_v.dtype)
-            ctx = ragged_paged_attention(
-                qa.contiguous(), flat_k, flat_v, block_tables, pos, width,
-                block_size=bs, variant=variant)
-        out = self.out_proj(ctx.reshape(B, W, self.hidden_size))
-        return out, k_pool, v_pool
+            scratch = torch.zeros(B, dtype=torch.int32, device=x.device)
+        blk, off = window_write_rows(block_tables, pos, width, scratch, W,
+                                     bs)
+        write_window_kv(k_pool, v_pool, ka.reshape(B * W, H, hd),
+                        va.reshape(B * W, H, hd), blk, off)
+        k_rows, k_scale = kernel_view(k_pool)
+        v_rows, v_scale = kernel_view(v_pool)
+        ctx = ragged_paged_attention(
+            qa.contiguous(), k_rows, v_rows, block_tables, pos, width,
+            block_size=bs, k_scale=k_scale, v_scale=v_scale,
+            variant=variant)
+        return self._out(ctx), k_pool, v_pool
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, hidden_size, ffn_hidden=None, dropout=0.1):
+    """Two-layer tanh-GELU MLP; in the tensor-parallel form ``fc1`` is
+    column-parallel and ``fc2`` row-parallel (``[in, out]`` weights)."""
+
+    def __init__(self, hidden_size, ffn_hidden=None, dropout=0.1,
+                 use_mp=False):
         super().__init__()
         ffn_hidden = ffn_hidden or 4 * hidden_size
-        self.fc1 = nn.Linear(hidden_size, ffn_hidden)
-        self.fc2 = nn.Linear(ffn_hidden, hidden_size)
+        if use_mp:
+            self.fc1 = ColumnParallelLinear(hidden_size, ffn_hidden)
+            self.fc2 = RowParallelLinear(ffn_hidden, hidden_size)
+        else:
+            self.fc1 = nn.Linear(hidden_size, ffn_hidden)
+            self.fc2 = nn.Linear(ffn_hidden, hidden_size)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x):
@@ -213,12 +290,12 @@ class GPTMLP(nn.Module):
 class GPTBlock(nn.Module):
     """Pre-LN transformer block."""
 
-    def __init__(self, hidden_size, num_heads, dropout=0.1):
+    def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False):
         super().__init__()
         self.ln1 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.attn = GPTAttention(hidden_size, num_heads, dropout)
+        self.attn = GPTAttention(hidden_size, num_heads, dropout, use_mp)
         self.ln2 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.mlp = GPTMLP(hidden_size, dropout=dropout)
+        self.mlp = GPTMLP(hidden_size, dropout=dropout, use_mp=use_mp)
 
     def forward(self, x):
         x = x + self.attn(self.ln1(x))
@@ -236,10 +313,15 @@ class GPTBlock(nn.Module):
 
 
 class GPTLMHead(nn.Module):
-    def __init__(self, hidden_size, vocab_size):
+    def __init__(self, hidden_size, vocab_size, use_mp=False):
         super().__init__()
         self.ln_f = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.lm_head = nn.Linear(hidden_size, vocab_size, bias=False)
+        # the tensor-parallel head is column-parallel over vocab, weight
+        # [E, V]; the dense one an nn.Linear, weight [V, E]
+        self.use_mp = use_mp
+        self.lm_head = (
+            ColumnParallelLinear(hidden_size, vocab_size, has_bias=False)
+            if use_mp else nn.Linear(hidden_size, vocab_size, bias=False))
 
     def forward(self, x):
         return self.lm_head(self.ln_f(x))
@@ -248,7 +330,6 @@ class GPTLMHead(nn.Module):
 # knobs of the JAX GPTModel that the port does not carry yet, each with
 # the ROADMAP item that ports it
 _UNPORTED = {
-    "use_mp": "Queue A 10 (the mesh)",
     "use_sp": "Queue A 12 (distributed ring/ulysses)",
     "moe_experts": "Queue A 12 (distributed moe)",
     "use_recompute": "Queue A 11 (training: use_recompute)",
@@ -258,7 +339,11 @@ _UNPORTED = {
 
 class GPTModel(nn.Module):
     """Decoder-only LM returning logits [B, S, V], or the mean loss when
-    ``forward`` gets labels."""
+    ``forward`` gets labels.  ``use_mp=True`` builds the tensor-parallel
+    form (einsum-layout attention, column/row-parallel MLP,
+    vocab-parallel embedding, column-parallel head) that
+    ``Engine(mesh=...)`` shards; ``to_tensor_parallel()`` relayouts a
+    dense model into it."""
 
     def __init__(self, num_layers=12, hidden_size=768, num_heads=12,
                  vocab_size=50304, max_position=1024, dropout=0.1,
@@ -266,7 +351,7 @@ class GPTModel(nn.Module):
                  use_sp=False, moe_experts=0, use_recompute=False,
                  scan_layers=False):
         super().__init__()
-        knobs = dict(use_mp=use_mp, use_sp=use_sp, moe_experts=moe_experts,
+        knobs = dict(use_sp=use_sp, moe_experts=moe_experts,
                      use_recompute=use_recompute, scan_layers=scan_layers)
         for name, value in knobs.items():
             if value:
@@ -277,12 +362,19 @@ class GPTModel(nn.Module):
         # nn/functional/loss.py fused_linear_cross_entropy)
         self.fused_loss = fused_loss
         self.fused_loss_chunk = fused_loss_chunk
+        # the dense hyperparameters, from which to_tensor_parallel()
+        # builds the tensor-parallel form
+        self._config = dict(
+            num_layers=num_layers, hidden_size=hidden_size,
+            num_heads=num_heads, vocab_size=vocab_size,
+            max_position=max_position, dropout=dropout,
+            fused_loss=fused_loss, fused_loss_chunk=fused_loss_chunk)
         self.embeddings = GPTEmbeddings(vocab_size, hidden_size,
-                                        max_position, dropout)
+                                        max_position, dropout, use_mp)
         self.blocks = nn.ModuleList([
-            GPTBlock(hidden_size, num_heads, dropout)
+            GPTBlock(hidden_size, num_heads, dropout, use_mp)
             for _ in range(num_layers)])
-        self.head = GPTLMHead(hidden_size, vocab_size)
+        self.head = GPTLMHead(hidden_size, vocab_size, use_mp)
 
     @classmethod
     def from_config(cls, name, device=None, seed=0, **overrides):
@@ -304,10 +396,16 @@ class GPTModel(nn.Module):
         gen = torch.Generator(device=self.head.lm_head.weight.device)
         gen.manual_seed(int(seed))
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding)):
+            if isinstance(mod, (nn.Linear, nn.Embedding, ColumnParallelLinear,
+                                RowParallelLinear, VocabParallelEmbedding)):
                 mod.weight.normal_(0.0, 0.02, generator=gen)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, GPTAttention) and mod.use_mp:
+                mod.qkv_weight.normal_(0.0, 0.02, generator=gen)
+                mod.out_weight.normal_(0.0, 0.02, generator=gen)
+                mod.qkv_bias.zero_()
+                mod.out_bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -326,8 +424,9 @@ class GPTModel(nn.Module):
         for blk in self.blocks:
             x = blk(x)
         if labels is not None and self.fused_loss:
+            w = self.head.lm_head.weight
             return fused_linear_cross_entropy(
-                self.head.ln_f(x), self.head.lm_head.weight.t(), labels,
+                self.head.ln_f(x), w if self.head.use_mp else w.t(), labels,
                 chunk_size=self.fused_loss_chunk, ignore_index=-100)
         logits = self.head(x)
         if labels is not None:
@@ -335,6 +434,75 @@ class GPTModel(nn.Module):
             return cross_entropy(logits.reshape(b * s, v),
                                  labels.reshape(b * s))
         return logits
+
+    @torch.no_grad()
+    def to_tensor_parallel(self):
+        """The tensor-parallel form of this dense model with the SAME
+        weights (``paddle_tpu``'s ``GPTModel.to_tensor_parallel``): a pure
+        relayout — ``qkv_proj.weight`` read as ``[E, 3, H, hd]`` exactly
+        as the dense forward's ``[b, s, 3E] -> [b, s, 3, H, hd]`` reshape
+        reads it, ``out_proj.weight`` as ``[H, hd, E]``, the MLP, head and
+        embedding weights in the ``[in, out]`` / ``[vocab, hidden]``
+        layouts of the parallel layers.  It computes the dense math up to
+        float summation order.  A tensor-parallel model returns itself;
+        blocks that are not the dense variant (MoE, sequence-parallel,
+        weight-only int8) are refused.  The new model lies on this one's
+        device and dtype, in eval mode."""
+        if self.blocks[0].attn.use_mp:
+            return self
+        for i, blk in enumerate(self.blocks):
+            if not hasattr(blk.mlp, "fc1"):
+                raise ValueError(
+                    "to_tensor_parallel supports the dense GPT variant "
+                    "only — MoE blocks already carry their expert-parallel "
+                    "sharding")
+            if getattr(blk.attn, "use_sp", False):
+                raise ValueError(
+                    "to_tensor_parallel supports the dense GPT variant "
+                    "only — sequence-parallel attention shards the "
+                    "sequence axis, not heads")
+            for name, lin in (("attn.qkv_proj", blk.attn.qkv_proj),
+                              ("attn.out_proj", blk.attn.out_proj),
+                              ("mlp.fc1", blk.mlp.fc1),
+                              ("mlp.fc2", blk.mlp.fc2)):
+                if not isinstance(lin, nn.Linear):
+                    raise ValueError(
+                        f"to_tensor_parallel cannot relayout blocks[{i}]."
+                        f"{name} ({type(lin).__name__}): the tensor-parallel "
+                        "form takes dense Linear weights — convert before "
+                        "weight_dtype='int8', or serve the model dense")
+        ref = self.head.ln_f.weight
+        with torch.device(ref.device):
+            tp = GPTModel(use_mp=True, **self._config)
+        tp.to(ref.dtype)
+        attn0 = self.blocks[0].attn
+        H, hd, E = attn0.num_heads, attn0.head_dim, attn0.hidden_size
+        copies = [
+            (tp.embeddings.word_embeddings.weight,
+             self.embeddings.word_embeddings.weight),
+            (tp.embeddings.position_embeddings.weight,
+             self.embeddings.position_embeddings.weight),
+            (tp.head.ln_f.weight, self.head.ln_f.weight),
+            (tp.head.ln_f.bias, self.head.ln_f.bias),
+            (tp.head.lm_head.weight, self.head.lm_head.weight.t())]
+        for sb, tb in zip(self.blocks, tp.blocks):
+            sa, ta = sb.attn, tb.attn
+            copies += [
+                (tb.ln1.weight, sb.ln1.weight), (tb.ln1.bias, sb.ln1.bias),
+                (tb.ln2.weight, sb.ln2.weight), (tb.ln2.bias, sb.ln2.bias),
+                (ta.qkv_weight, sa.qkv_proj.weight.t().reshape(E, 3, H, hd)),
+                (ta.qkv_bias, sa.qkv_proj.bias.reshape(3, H, hd)[:, None]),
+                (ta.out_weight, sa.out_proj.weight.t().reshape(H, hd, E)),
+                (ta.out_bias, sa.out_proj.bias)]
+            for fc in ("fc1", "fc2"):
+                copies += [
+                    (getattr(tb.mlp, fc).weight,
+                     getattr(sb.mlp, fc).weight.t()),
+                    (getattr(tb.mlp, fc).bias, getattr(sb.mlp, fc).bias)]
+        for dst, src in copies:
+            dst.copy_(src)
+        tp.eval()
+        return tp
 
     # -- sampling ---------------------------------------------------------
     @staticmethod
@@ -458,77 +626,92 @@ class GPTModel(nn.Module):
         ``ragged_window_paged``.  Returns (picks [B, E], n_acc [B],
         n_emit [B], done bool [B], new_tok [B, 1], new_pos [B], new_ctr
         [B], new_rem [B], k_pools, v_pools) with E = min(W, emit_w)."""
-        B, W = toks.shape
-        E = min(W, emit_w) if emit_w else W
-        dev = toks.device
-        i32 = torch.int32
-        window = torch.where((mode == 0)[:, None],
-                             torch.cat([tok, toks[:, 1:]], dim=1), toks)
-        head_lanes = torch.cat(
-            [torch.arange(E, device=dev)[None, :].expand(B, E),
-             torch.clamp(width.long() - 1, min=0)[:, None]], dim=1)
-        logits, k_pools, v_pools = self._ragged_window_tick_slots(
-            window, k_pools, v_pools, block_tables, pos, width,
-            scratch=scratch, head_lanes=head_lanes,
-            variant=variant)                             # [B, E+1, V]
-        L = block_tables.shape[1] * k_pools[0].shape[1]
-        # keys only when some lane samples: deriving them reads the seed
-        # words and counters back to the host
-        sampling = bool((temp > 0).any())
+        return fused_ragged_tick(
+            self, toks, k_pools, v_pools, block_tables, width, mode, lanes,
+            tok, pos, temp, top_k, top_p, seed_lo, seed_hi, ctr, eos, rem,
+            block_size=k_pools[0].shape[1], scratch=scratch, emit_w=emit_w,
+            variant=variant)
 
-        def keys(c):
-            return (self._slot_sample_keys(seed_lo, seed_hi, c)
-                    if sampling else None)
 
-        picks = torch.stack(
-            [self._sample_lanes(logits[:, j], temp, top_k, top_p,
+def fused_ragged_tick(model, toks, k_pools, v_pools, block_tables, width,
+                      mode, lanes, tok, pos, temp, top_k, top_p, seed_lo,
+                      seed_hi, ctr, eos, rem, *, block_size, scratch=None,
+                      emit_w=None, variant="stream"):
+    """The body of ``GPTModel._fused_ragged_tick_slots`` (see there) for
+    any ``model`` with a ``_ragged_window_tick_slots`` of the same
+    contract: the dense or tensor-parallel ``GPTModel``, or the mesh's
+    ``serving.sharded.ShardedServingModel``.  The sampling epilogue runs
+    on the full logits the window returns."""
+    B, W = toks.shape
+    E = min(W, emit_w) if emit_w else W
+    dev = toks.device
+    i32 = torch.int32
+    window = torch.where((mode == 0)[:, None],
+                         torch.cat([tok, toks[:, 1:]], dim=1), toks)
+    head_lanes = torch.cat(
+        [torch.arange(E, device=dev)[None, :].expand(B, E),
+         torch.clamp(width.long() - 1, min=0)[:, None]], dim=1)
+    logits, k_pools, v_pools = model._ragged_window_tick_slots(
+        window, k_pools, v_pools, block_tables, pos, width,
+        scratch=scratch, head_lanes=head_lanes,
+        variant=variant)                                 # [B, E+1, V]
+    L = block_tables.shape[1] * int(block_size)
+    # keys only when some lane samples: deriving them reads the seed
+    # words and counters back to the host
+    sampling = bool((temp > 0).any())
+
+    def keys(c):
+        return (GPTModel._slot_sample_keys(seed_lo, seed_hi, c)
+                if sampling else None)
+
+    picks = torch.stack(
+        [GPTModel._sample_lanes(logits[:, j], temp, top_k, top_p,
                                 keys(ctr + j))
-             for j in range(E)], dim=1)                  # [B, E]
-        is_final = mode == 2
-        if bool(is_final.any()):
-            last_pick = self._sample_lanes(logits[:, E], temp, top_k,
+         for j in range(E)], dim=1)                      # [B, E]
+    is_final = mode == 2
+    if bool(is_final.any()):
+        last_pick = GPTModel._sample_lanes(logits[:, E], temp, top_k,
                                            top_p, keys(ctr))
-        else:
-            last_pick = torch.zeros(B, dtype=i32, device=dev)
-        is_pref = mode == 1
-        live = (rem > 0) & (width > 0)
-        match = (window[:, 1:E] == picks[:, :E - 1]) \
-            & (torch.arange(E - 1, device=dev)[None, :] < lanes[:, None])
-        n_acc = torch.argmin(
-            torch.cat([match, torch.zeros(B, 1, dtype=torch.bool,
-                                          device=dev)], dim=1).to(i32),
-            dim=1).to(i32)
-        hit_eos = (eos[:, None] >= 0) & (picks == eos[:, None])
-        eos_stop = torch.where(hit_eos.any(dim=1),
-                               torch.argmax(hit_eos.to(i32), dim=1) + 1,
-                               E + 1).to(i32)
-        n_emit0 = torch.minimum(torch.minimum(n_acc + 1, rem), eos_stop)
-        fc_eos = (eos >= 0) & (last_pick == eos)
-        zero = torch.zeros_like(rem)
-        n_emit = torch.where(
-            is_pref, zero,
-            torch.where(is_final, torch.clamp(rem, max=1),
-                        torch.where(live, n_emit0, zero))).to(i32)
-        last_idx = torch.clamp(n_emit - 1, min=0).long()
-        pick_tok = torch.gather(picks, 1, last_idx[:, None])
-        new_tok = torch.where(
-            is_final[:, None], last_pick[:, None],
-            torch.where((is_pref | ~live)[:, None], tok, pick_tok))
-        new_rem = torch.where(
-            is_pref, rem,
-            torch.where(is_final, torch.where(fc_eos, zero, rem - 1),
-                        torch.where(live,
-                                    torch.where(n_emit == eos_stop, zero,
-                                                rem - n_emit), rem)))
-        done = new_rem <= 0
-        adv = torch.where(is_pref | is_final, width,
-                          torch.where(live, n_emit, zero))
-        # L-1, not L-W: a chunk lane's legitimate prefill positions can
-        # pass L-W; runaway writes are parked in the scratch block by the
-        # width+range mask in ragged_window_paged
-        new_pos = torch.clamp(pos + adv, max=L - 1).to(i32)
-        new_ctr = (ctr + n_emit).to(i32)
-        picks[:, 0] = torch.where(is_final, last_pick, picks[:, 0])
-        return (picks, n_acc, n_emit, done, new_tok.to(i32), new_pos,
-                new_ctr, new_rem.to(i32), k_pools, v_pools)
-
+    else:
+        last_pick = torch.zeros(B, dtype=i32, device=dev)
+    is_pref = mode == 1
+    live = (rem > 0) & (width > 0)
+    match = (window[:, 1:E] == picks[:, :E - 1]) \
+        & (torch.arange(E - 1, device=dev)[None, :] < lanes[:, None])
+    n_acc = torch.argmin(
+        torch.cat([match, torch.zeros(B, 1, dtype=torch.bool,
+                                      device=dev)], dim=1).to(i32),
+        dim=1).to(i32)
+    hit_eos = (eos[:, None] >= 0) & (picks == eos[:, None])
+    eos_stop = torch.where(hit_eos.any(dim=1),
+                           torch.argmax(hit_eos.to(i32), dim=1) + 1,
+                           E + 1).to(i32)
+    n_emit0 = torch.minimum(torch.minimum(n_acc + 1, rem), eos_stop)
+    fc_eos = (eos >= 0) & (last_pick == eos)
+    zero = torch.zeros_like(rem)
+    n_emit = torch.where(
+        is_pref, zero,
+        torch.where(is_final, torch.clamp(rem, max=1),
+                    torch.where(live, n_emit0, zero))).to(i32)
+    last_idx = torch.clamp(n_emit - 1, min=0).long()
+    pick_tok = torch.gather(picks, 1, last_idx[:, None])
+    new_tok = torch.where(
+        is_final[:, None], last_pick[:, None],
+        torch.where((is_pref | ~live)[:, None], tok, pick_tok))
+    new_rem = torch.where(
+        is_pref, rem,
+        torch.where(is_final, torch.where(fc_eos, zero, rem - 1),
+                    torch.where(live,
+                                torch.where(n_emit == eos_stop, zero,
+                                            rem - n_emit), rem)))
+    done = new_rem <= 0
+    adv = torch.where(is_pref | is_final, width,
+                      torch.where(live, n_emit, zero))
+    # L-1, not L-W: a chunk lane's legitimate prefill positions can
+    # pass L-W; runaway writes are parked in the scratch block by the
+    # width+range mask in ragged_window_paged
+    new_pos = torch.clamp(pos + adv, max=L - 1).to(i32)
+    new_ctr = (ctr + n_emit).to(i32)
+    picks[:, 0] = torch.where(is_final, last_pick, picks[:, 0])
+    return (picks, n_acc, n_emit, done, new_tok.to(i32), new_pos,
+            new_ctr, new_rem.to(i32), k_pools, v_pools)

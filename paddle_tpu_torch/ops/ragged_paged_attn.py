@@ -7,7 +7,8 @@ tick: 1 for a decode lane, the chunk length for a prefill chunk, 0 for a
 parked slot) and the slot's block table are DATA, so a batch that mixes
 decode lanes and prefill chunks is one launch.
 
-Three CUDA kernels, each with a wrapper that counts its launches:
+Three CUDA kernels, each with a wrapper that counts its launches, and
+the mesh wrapper that launches them per rank:
 
 * ``ragged_paged_attention`` (B1, ``csrc/ragged_paged_attn.cu``) — the
   streaming body over fp pools: each slot's live blocks up to the causal
@@ -21,6 +22,11 @@ Three CUDA kernels, each with a wrapper that counts its launches:
 * ``ragged_gather_attention`` (B3, ``csrc/ragged_gather_attn.cu``) — the
   gather body (``attn_impl="ragged_gather"``), fp or int8: every table
   entry's block gathered, one masked f32 softmax over the whole row.
+* ``sharded_ragged_paged_attention`` (B4) — the ``(mp, dp)`` serving
+  mesh's form: one launch of B1, B2 or B3 per rank over that rank's
+  slots, heads and pool shard, with its dp group's GLOBAL block ids
+  localized to its shard.  No kernel of its own: the Hopper form of the
+  JAX ``shard_map`` wrapper is the existing kernel launched per rank.
 
 ``ragged_paged_attention(..., k_scale=None, v_scale=None,
 variant="stream")`` takes the JAX function's contract and sends the call
@@ -37,6 +43,7 @@ import math
 
 import torch
 
+from ..distributed.mesh import get_mesh
 from . import _build
 
 VARIANTS = ("stream", "gather")
@@ -401,10 +408,165 @@ def ragged_gather_attention(q, k_flat, v_flat, block_tables, pos, width,
     return out
 
 
+# -- the (mp, dp) mesh ----------------------------------------------------
+def _over_ranks(who, attn, q_shards, k_shards, v_shards, block_tables, pos,
+                width, bs, mesh, k_scale_shards, v_scale_shards):
+    """Validate the sharded operands, localize each dp group's table rows
+    and run ``attn(q, k, v, tables, pos, width, k_scale, v_scale)`` once
+    per rank.  Returns the per-rank outputs."""
+    if (k_scale_shards is None) != (v_scale_shards is None):
+        raise ValueError(f"{who}: pass both k_scale_shards and "
+                         "v_scale_shards (quantized pools) or neither")
+    lists = dict(q_shards=q_shards, k_shards=k_shards, v_shards=v_shards)
+    if k_scale_shards is not None:
+        lists.update(k_scale_shards=k_scale_shards,
+                     v_scale_shards=v_scale_shards)
+    for name, parts in lists.items():
+        if len(parts) != mesh.size:
+            raise ValueError(f"{who}: {name} has {len(parts)} shards, the "
+                             f"mesh {mesh.size} ranks")
+    mp, dp = mesh.mp, mesh.dp
+    if block_tables.dim() != 2 or tuple(pos.shape) != \
+            (block_tables.shape[0],) or pos.shape != width.shape:
+        raise ValueError(f"{who}: block_tables must be [B, L/bs] and "
+                         "pos/width [B]")
+    B = block_tables.shape[0]
+    rows = k_shards[0].shape[0]
+    if B % dp:
+        raise ValueError(
+            f"{who}: B={B} slots must divide by the mesh's dp degree ({dp})")
+    q0, k0 = q_shards[0], k_shards[0]
+    if q0.dim() != 4 or k0.dim() != 3:
+        raise ValueError(f"{who}: q shards must be [B/dp, W, H/mp, hd] and "
+                         "pool shards [rows, H/mp, hd]")
+    want_q = (B // dp, q0.shape[1], q0.shape[2], q0.shape[3])
+    want_kv = (rows, q0.shape[2], q0.shape[3])
+    for r in range(mesh.size):
+        if tuple(q_shards[r].shape) != want_q:
+            raise ValueError(
+                f"{who}: q shard {r} is {list(q_shards[r].shape)}, not "
+                f"{list(want_q)} (B={B} slots over dp={dp}; every rank "
+                f"{q0.shape[2]} of the H={q0.shape[2] * mp} heads over "
+                f"mp={mp} — attention shards whole heads)")
+        for name in ("k_shards", "v_shards"):
+            if tuple(lists[name][r].shape) != want_kv:
+                raise ValueError(
+                    f"{who}: {name}[{r}] is {list(lists[name][r].shape)}, "
+                    f"not {list(want_kv)}")
+    if rows % bs:
+        raise ValueError(f"{who}: pool shard rows {rows} are not whole "
+                         f"blocks of {bs}")
+    nb_local = rows // bs
+    bl = B // dp
+    local = {}
+    outs = []
+    for r, (m, d) in enumerate(mesh.ranks()):
+        dev = q_shards[r].device
+        if (d, dev) not in local:
+            # tables hold GLOBAL block ids; dp shard d's pool starts at
+            # global row d * nb_local
+            sl = slice(d * bl, (d + 1) * bl)
+            local[d, dev] = (
+                (block_tables[sl].to(dev) - d * nb_local).to(torch.int32),
+                pos[sl].to(dev), width[sl].to(dev))
+        tables_l, pos_l, width_l = local[d, dev]
+        scales = ((k_scale_shards[r], v_scale_shards[r])
+                  if k_scale_shards is not None else (None, None))
+        outs.append(attn(q_shards[r].contiguous(), k_shards[r], v_shards[r],
+                         tables_l, pos_l, width_l, *scales))
+    return outs
+
+
+def _mesh_or_global(mesh, who):
+    if mesh is None:
+        mesh = get_mesh()
+    if mesh is None:
+        raise ValueError(f"{who} needs a mesh: pass mesh=... or set the "
+                         "process-global one (distributed.set_mesh)")
+    return mesh
+
+
+def sharded_ragged_paged_attention(q_shards, k_shards, v_shards,
+                                   block_tables, pos, width, *, block_size,
+                                   mesh=None, k_scale_shards=None,
+                                   v_scale_shards=None, variant="stream"):
+    """Kernel B4: ragged paged attention over an ``(mp, dp)`` serving
+    mesh — the counterpart of ``paddle_tpu``'s
+    ``sharded_ragged_paged_attention``, whose ``shard_map`` runs the
+    unchanged kernel on every shard.  Here that is one launch of B1, B2
+    or B3 per rank (``ragged_paged_attention`` with the rank's operands):
+
+    * ``q_shards[r]`` — rank ``(m, d)``'s ``[B/dp, W, H/mp, hd]`` slice of
+      the window (its dp group's slots, its mp slice of the heads); a
+      strided slice is made contiguous for the kernel;
+    * ``k_shards[r]`` / ``v_shards[r]`` — its pool shard ``[NB/dp * bs,
+      H/mp, hd]`` (q's dtype, or int8 codes with ``k_scale_shards`` /
+      ``v_scale_shards`` ``[NB/dp, H/mp]``);
+    * ``block_tables`` ``[B, L/bs]``, ``pos`` / ``width`` ``[B]`` — the
+      whole batch; tables carry GLOBAL block ids, and dp group ``d``'s
+      rows are localized as ``table - d * NB/dp`` (exact: the engine's
+      admission gate gives a slot blocks of its own shard's range only).
+
+    ``mesh`` is a ``distributed.ServingMesh`` (None: the one
+    ``distributed.set_mesh`` set); rank order is its order.
+    Validation follows the JAX wrapper's.  Each rank's launch runs on its
+    shard's device; CUDA launches add one to this wrapper's ``launches``
+    (and one to the launched kernel's own), CPU shards run the plain
+    version.  Returns the per-rank outputs, shaped like ``q_shards``."""
+    if variant not in VARIANTS:
+        raise ValueError(
+            f"sharded_ragged_paged_attention: variant must be one of "
+            f"{VARIANTS}, got {variant!r}")
+    mesh = _mesh_or_global(mesh, "sharded_ragged_paged_attention")
+    bs = int(block_size)
+
+    def launch(q, k, v, tables, p, w, ks, vs):
+        out = ragged_paged_attention(q, k, v, tables, p, w, block_size=bs,
+                                     k_scale=ks, v_scale=vs,
+                                     variant=variant)
+        if q.device.type == "cuda":
+            sharded_ragged_paged_attention.launches += 1
+        return out
+
+    with torch.profiler.record_function("sharded_ragged_paged_attention"):
+        return _over_ranks("sharded_ragged_paged_attention", launch,
+                           q_shards, k_shards, v_shards, block_tables, pos,
+                           width, bs, mesh, k_scale_shards, v_scale_shards)
+
+
+def sharded_ragged_paged_attention_ref(q_shards, k_shards, v_shards,
+                                       block_tables, pos, width, *,
+                                       block_size, mesh=None,
+                                       k_scale_shards=None,
+                                       v_scale_shards=None,
+                                       variant="stream"):
+    """Plain version of B4: the same per-rank operands through the plain
+    version of B1/B2 (``ragged_paged_attention_ref``) or B3
+    (``ragged_gather_attention_ref``), on any device."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    mesh = _mesh_or_global(mesh, "sharded_ragged_paged_attention_ref")
+    bs = int(block_size)
+    ref = (ragged_gather_attention_ref if variant == "gather"
+           else ragged_paged_attention_ref)
+
+    def plain(q, k, v, tables, p, w, ks, vs):
+        return ref(q, k, v, tables, p, w, block_size=bs, k_scale=ks,
+                   v_scale=vs)
+
+    return _over_ranks("sharded_ragged_paged_attention_ref", plain,
+                       q_shards, k_shards, v_shards, block_tables, pos,
+                       width, bs, mesh, k_scale_shards, v_scale_shards)
+
+
 ragged_paged_attention.launches = 0
 ragged_paged_attention_int8.launches = 0
 ragged_gather_attention.launches = 0
+sharded_ragged_paged_attention.launches = 0
 # every kernel's wrapper, by the name the smoke's report gives it
 KERNEL_OPS = {"ragged_paged_attention": ragged_paged_attention,
               "ragged_paged_attention_int8": ragged_paged_attention_int8,
-              "ragged_gather_attention": ragged_gather_attention}
+              "ragged_gather_attention": ragged_gather_attention,
+              "sharded_ragged_paged_attention":
+                  sharded_ragged_paged_attention}

@@ -11,16 +11,19 @@ one-token lanes, budgeted prefill chunks as lanes of up to
 condition run in the dispatch's epilogue on the device.  The tick then
 downloads the per-slot picks and counts and emits them.
 
-The engine serves on one card at ``async_depth=1`` (each tick is
-dispatched and consumed before the next), with fp or int8 KV pools
+The engine serves at ``async_depth=1`` (each tick is dispatched and
+consumed before the next), on one device or over an ``(mp, dp)`` serving
+mesh (``mesh=``: the tensor-parallel model's heads, FFN and vocab split
+over mp, the batch slots and the KV block pool over dp; one controller
+drives every rank, ``serving/sharded.py``), with fp or int8 KV pools
 (``kv_dtype="int8"``: ``QuantKV`` codes plus per-block per-head scales,
 ``serving/quant.py``), fp or weight-only int8 block Linears
 (``weight_dtype="int8"``), a pool sized by blocks or by a byte budget
 (``kv_budget_mb``), and either ragged kernel body (``attn_impl="ragged"``
 streams to the causal horizon, ``"ragged_gather"`` gathers the whole
-row).  The JAX engine's other knobs — speculative decoding, the serving
-mesh, LoRA adapters, the host-RAM offload tier, the pipelined loop, the
-XLA attention paths, monolithic prefill — raise ``NotImplementedError``
+row).  The JAX engine's other knobs — speculative decoding, LoRA
+adapters, the host-RAM offload tier, the pipelined loop, the XLA
+attention paths, monolithic prefill — raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item.  Tracing,
 faults and migration wait too; plain integer counters stand in for the
 metrics (``prefix_hits``, ``ticks``, ``kv_blocks_walked``, ...).
@@ -33,17 +36,39 @@ import numpy as np
 import torch
 
 from ..device import require_on
+from ..distributed.mesh import ServingMesh, serving_mesh
 from .kvcache import BlockPool, PrefixCache, per_shard_block_bytes
 from .quant import QuantKV, relayout_weights_int8
 from .request import MAX_SEED, Request, RequestQueue
 from .scheduler import Scheduler
+from .sharded import ShardedServingModel
 
 _NOT_PORTED = {
     "spec_k": "Queue A 6 (speculative decode)",
-    "mesh": "Queue A 10 (the serving mesh)",
     "adapters": "Queue A 8 (LoRA adapters)",
     "kv_host_mb": "Queue A 8 (host-RAM offload)",
 }
+
+
+def _resolve_mesh(mesh):
+    """``Engine(mesh=...)``: an int mp degree, an ``(mp,)`` / ``(mp, dp)``
+    tuple (over the first ``mp * dp`` cards, ``distributed.serving_mesh``)
+    or a ``ServingMesh``."""
+    if isinstance(mesh, ServingMesh):
+        return mesh
+    if isinstance(mesh, (int, np.integer)):
+        return serving_mesh(int(mesh))
+    if isinstance(mesh, (tuple, list)):
+        if len(mesh) not in (1, 2):
+            raise ValueError(
+                f"mesh shape must be (mp,) or (mp, dp), got {tuple(mesh)} "
+                "— the serving engine shards over a tensor-parallel and a "
+                "data-parallel axis")
+        return serving_mesh(int(mesh[0]),
+                            int(mesh[1]) if len(mesh) == 2 else 1)
+    raise ValueError(
+        f"mesh must be an int mp degree, an (mp,) / (mp, dp) tuple, or a "
+        f"ServingMesh, got {type(mesh).__name__}")
 
 
 class _InflightTick:
@@ -75,7 +100,7 @@ class Engine:
         max_seq_len).
     kv_blocks : physical block count of the pool (default
         ``num_slots * max_seq_len / kv_block_size``), plus one reserved
-        scratch block.
+        scratch block (one per dp shard on a mesh).
     kv_budget_mb : size the pool by bytes instead: as many blocks as
         ``kv_budget_mb`` MiB hold at one block's true footprint over all
         layers, K and V (codes plus scales when int8; ``kv_block_bytes``
@@ -92,7 +117,19 @@ class Engine:
         which walks every table entry: the A/B baseline.
     sample_mode : ``"device"`` — sampling in the dispatch's epilogue.
     device : where the engine's pools and state live; None = the CUDA
-        card (raises without one; the tests pass ``device="cpu"``).
+        card (raises without one; the tests pass ``device="cpu"``), or
+        with a mesh its first rank's device (the only one it takes).
+    mesh : None (one device), an int mp degree, an ``(mp,)`` / ``(mp,
+        dp)`` tuple over the first ``mp * dp`` cards, or a
+        ``distributed.ServingMesh`` (which may map several ranks onto one
+        device).  mp > 1 needs the tensor-parallel model form
+        (``GPTModel(use_mp=True)`` or ``to_tensor_parallel()``);
+        ``num_heads`` must divide by mp and ``num_slots`` by dp.  The
+        model's weights are read from ``device`` and sliced per rank; the
+        KV pools hold ``H/mp`` heads per rank, and dp shard ``d`` owns
+        slots ``[d*B/dp, (d+1)*B/dp)`` and one contiguous pool range with
+        its own scratch block.  ``kv_budget_mb`` is then a per-rank
+        budget, and ``kv_blocks`` rounds up to a multiple of dp.
     weight_dtype : ``"int8"`` relayouts every transformer-block Linear of
         ``model`` (in place) to weight-only int8 at construction; None
         serves the checkpoint as it is.
@@ -159,6 +196,51 @@ class Engine:
         if kv_block_size is None:
             raise ValueError("kv_block_size is required: the ragged "
                              "kernel reads K/V through block tables")
+        attn0 = model.blocks[0].attn
+        is_tp = getattr(attn0, "use_mp", False)
+        if self._weight_quant and is_tp:
+            raise ValueError(
+                "weight_dtype='int8' cannot relayout the tensor-parallel "
+                "einsum form (use_mp=True): its fused qkv/ffn weights are "
+                "not nn.Linear layers — quantize the dense checkpoint "
+                "before to_tensor_parallel(), or serve it dense")
+        self.mesh = None
+        self.mp = self.dp = 1
+        self.mesh_axes = None
+        if mesh is not None:
+            mesh = _resolve_mesh(mesh)
+            if mesh.mp > 1 and not is_tp:
+                raise ValueError(
+                    "mesh with mp > 1 requires the tensor-parallel model "
+                    "form: build with GPTModel(use_mp=True) or convert a "
+                    "dense checkpoint with model.to_tensor_parallel() — the "
+                    "dense fused qkv layout cannot shard its head axis")
+            if attn0.num_heads % mesh.mp:
+                raise ValueError(
+                    f"num_heads ({attn0.num_heads}) must divide by the "
+                    f"mesh's mp degree ({mesh.mp}) — attention shards whole "
+                    "heads")
+            if int(num_slots) % mesh.dp:
+                raise ValueError(
+                    f"num_slots ({num_slots}) must divide by the mesh's dp "
+                    f"degree ({mesh.dp}) — each dp shard owns an equal "
+                    "contiguous range of batch slots")
+            if self._weight_quant:
+                raise NotImplementedError(
+                    "Engine(mesh=..., weight_dtype='int8') is not ported "
+                    "yet: ROADMAP.md Queue A 10 (the mesh: weight-only int8 "
+                    "over a dense dp mesh)")
+            first = mesh.devices[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(
+                    f"Engine: device={device!r} is not the mesh's first "
+                    f"rank's device ({first}), where the engine keeps its "
+                    "step state and reads the model's weights")
+            device = first
+            self.mesh = mesh
+            self.mp, self.dp = mesh.mp, mesh.dp
+            self.mesh_axes = ({k: v for k, v in mesh.shape.items() if v > 1}
+                              or {"mp": 1})
         self.device = require_on(
             device, [*model.named_parameters(), *model.named_buffers()],
             "Engine")
@@ -168,6 +250,11 @@ class Engine:
             relayout_weights_int8(model)
         model.eval()
         self.model = model
+        # what runs the tick: the model itself, or its per-rank shards
+        self._runner = model
+        if self.mesh is not None:
+            self._runner = ShardedServingModel(
+                model if is_tp else model.to_tensor_parallel(), self.mesh)
         max_position = model.embeddings.position_embeddings.weight.shape[0]
         self.max_seq_len = int(max_seq_len or max_position)
         if self.max_seq_len > max_position:
@@ -179,12 +266,12 @@ class Engine:
                               .shape[0])
         self.queue = RequestQueue()
         self.scheduler = Scheduler(self.num_slots, self.queue)
-        attn0 = model.blocks[0].attn
         self._nh, self._hd = attn0.num_heads, attn0.head_dim
         # compute_dtype first: a weight-only int8 projection's .weight
         # would materialize the dequantized matrix
-        self._kv_dtype = getattr(attn0.qkv_proj, "compute_dtype", None) \
-            or attn0.qkv_proj.weight.dtype
+        self._kv_dtype = attn0.qkv_weight.dtype if is_tp else (
+            getattr(attn0.qkv_proj, "compute_dtype", None)
+            or attn0.qkv_proj.weight.dtype)
         self.attn_impl = attn_impl
         self._variant = "gather" if attn_impl == "ragged_gather" \
             else "stream"
@@ -209,14 +296,15 @@ class Engine:
                 f"({self.max_seq_len}), got {bsz}")
         self._bs = bsz
         self._bps = self.max_seq_len // bsz  # blocks per full slot
-        # one logical block's footprint over every layer, K and V: the
-        # codes (or rows), plus the scale pool's rows when int8
+        # one logical block's footprint over every layer, K and V, on ONE
+        # rank (its H/mp heads): the codes (or rows), plus the scale
+        # pool's rows when int8
         store_dtype = "int8" if self._kv_quant else self._kv_dtype
         n_layers = len(model.blocks)
         self.kv_block_bytes = per_shard_block_bytes(
-            bsz, self._nh, self._hd, store_dtype, n_layers)
+            bsz, self._nh, self._hd, store_dtype, n_layers, self.mp)
         block_bytes = per_shard_block_bytes(
-            bsz, self._nh, self._hd, store_dtype, n_layers,
+            bsz, self._nh, self._hd, store_dtype, n_layers, self.mp,
             scale_dtype="float32" if self._kv_quant else None)
         self.kv_scale_bytes = block_bytes - self.kv_block_bytes
         if kv_budget_mb is not None:
@@ -224,17 +312,24 @@ class Engine:
                 raise ValueError(
                     "kv_budget_mb and kv_blocks are two answers to one "
                     "question (pool size) — pass one")
-            managed = int(float(kv_budget_mb) * 2 ** 20 // block_bytes)
-            src = (f"kv_budget_mb={float(kv_budget_mb):g} (-> {managed} "
-                   f"blocks at {block_bytes} B/block)")
+            # a per-rank budget; every dp shard owns its own pool range
+            managed = self.dp * int(float(kv_budget_mb) * 2 ** 20
+                                    // block_bytes)
+            src = (f"kv_budget_mb={float(kv_budget_mb):g} (-> "
+                   f"{managed // self.dp} blocks at {block_bytes} B/block"
+                   + ("/shard)" if self.dp > 1 else ")"))
         else:
             managed = (self.num_slots * self._bps if kv_blocks is None
                        else int(kv_blocks))
-            src = f"kv_blocks={managed}"
-        if managed < self._bps:
+            src = f"kv_blocks={managed}" + (f" (/{self.dp} dp shards)"
+                                            if self.dp > 1 else "")
+            # the dp shard ranges must be equal: round UP, never less
+            managed += -managed % self.dp
+        if managed // self.dp < self._bps:
             raise ValueError(
                 f"{src} cannot hold even one max-length request "
-                f"({self._bps} blocks)")
+                f"({self._bps} blocks" + (" per dp shard)" if self.dp > 1
+                                          else ")"))
         self._kv_managed = managed
         self._prefix_enabled = bool(prefix_cache)
         # the ragged dispatch's window: wide enough for a prefill chunk;
@@ -258,30 +353,40 @@ class Engine:
         cache and block tables, and the per-slot step state — also the
         step-failure recovery path: cached prefixes die with the rows
         they described."""
-        # +1: block 0 is the reserved scratch block parked slots and
-        # masked lanes write through
-        nblocks = self._kv_managed + 1
-        self.block_pool = BlockPool(nblocks, self._bs, reserved_blocks=1)
+        # +dp: each dp shard's pool range leads with a reserved scratch
+        # block that its parked slots and masked lanes write through (one
+        # block, row 0, without a mesh)
+        nblocks = self._kv_managed + self.dp
+        self.block_pool = BlockPool(nblocks, self._bs, reserved_blocks=1,
+                                    shards=self.dp)
         self.prefix_cache = (PrefixCache(self.block_pool)
                              if self._prefix_enabled else None)
         self._slot_scratch = np.asarray(
-            [self.block_pool.scratch_row(0)] * self.num_slots, np.int32)
+            [self.block_pool.scratch_row(self._slot_shard(i))
+             for i in range(self.num_slots)], np.int32)
         self._block_tables = np.repeat(
             self._slot_scratch[:, None], self._bps, axis=1).copy()
         self._slot_blocks = [[] for _ in range(self.num_slots)]
-        shape = (nblocks, self._bs, self._nh, self._hd)
+        rows = nblocks // self.dp
+        heads = self._nh // self.mp
 
-        def pool():
+        def pool(dev):
+            shape = (rows, self._bs, heads, self._hd)
             if self._kv_quant:
                 return QuantKV(
-                    torch.zeros(shape, dtype=torch.int8, device=self.device),
-                    torch.zeros((nblocks, self._nh), dtype=torch.float32,
-                                device=self.device))
-            return torch.zeros(shape, dtype=self._kv_dtype,
-                               device=self.device)
+                    torch.zeros(shape, dtype=torch.int8, device=dev),
+                    torch.zeros((rows, heads), dtype=torch.float32,
+                                device=dev))
+            return torch.zeros(shape, dtype=self._kv_dtype, device=dev)
 
-        self.k_pools = [pool() for _ in self.model.blocks]
-        self.v_pools = [pool() for _ in self.model.blocks]
+        def layer_pools():
+            if self.mesh is None:
+                return pool(self.device)
+            # one shard per rank, in rank order: [NB/dp, bs, H/mp, hd]
+            return [pool(dev) for dev in self.mesh.devices]
+
+        self.k_pools = [layer_pools() for _ in self.model.blocks]
+        self.v_pools = [layer_pools() for _ in self.model.blocks]
         # host mirrors of the device-resident step state, re-uploaded
         # only when an admission / eviction / chunk dirties them
         self._pos = np.zeros(self.num_slots, np.int32)
@@ -299,6 +404,12 @@ class Engine:
         self._rem = np.zeros(self.num_slots, np.int32)
         self._dev_state = None
         self._state_dirty = True
+
+    def _slot_shard(self, i):
+        """The dp shard that owns batch slot ``i``: slots divide into
+        ``dp`` contiguous ranges of ``num_slots/dp`` (always 0 without a
+        dp mesh)."""
+        return int(i) // (self.num_slots // self.dp)
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, eos_token_id=None,
@@ -346,21 +457,23 @@ class Engine:
         request could need UP FRONT, so decode never allocates.  Under
         pressure, LRU-evicts unreferenced cached prefixes; if the pool
         still cannot cover the rest, returns False and the request waits
-        at the queue head."""
+        at the queue head.  Everything is scoped to the slot's dp shard:
+        its trie, its free list, its eviction."""
         tokens = req.context
+        shard = self._slot_shard(slot.index)
         s = len(tokens)
         n_total = -(-(s + req.remaining) // self._bs)
         ctx, m = ([], 0)
         if self.prefix_cache is not None:
-            ctx, m = self.prefix_cache.match(tokens)
+            ctx, m = self.prefix_cache.match(tokens, shard=shard)
         need = n_total - len(ctx)
-        short = need - self.block_pool.free_count(0)
+        short = need - self.block_pool.free_count(shard)
         if short > 0 and self.prefix_cache is not None:
-            self.prefix_cache.evict(short)
-        if need > self.block_pool.free_count(0):
+            self.prefix_cache.evict(short, shard=shard)
+        if need > self.block_pool.free_count(shard):
             self.block_pool.decref(ctx)  # the cache keeps its own refs
             return False
-        fresh = self.block_pool.alloc(need)
+        fresh = self.block_pool.alloc(need, shard=shard)
         req._kv_plan = (ctx, fresh, m)
         return True
 
@@ -387,20 +500,35 @@ class Engine:
             self.prefix_hits += 1
             self.prefix_hit_tokens += m
         if self._kv_quant and fresh:
-            self._zero_fresh_scales(fresh)
+            self._zero_fresh_scales(fresh, self._slot_shard(i))
         return ctx, fresh, m
 
-    def _zero_fresh_scales(self, fresh):
+    def _zero_fresh_scales(self, fresh, shard=0):
         """Zero the scale rows of freshly reserved int8 blocks, before
         their first write.  A recycled block's stale codes would
         otherwise enter the read-modify-write's amax (dequantized garbage
         raising the fresh block's scale); a zero scale turns them into
         zeros (``codes * 0``) without touching the code pool, and the
-        first write re-quantizes the whole block."""
-        idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+        first write re-quantizes the whole block.  On a mesh the blocks
+        lie in dp shard ``shard``'s range: every mp rank of that shard
+        zeroes them at their local ids."""
+        if self.mesh is None:
+            idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+            for kp, vp in zip(self.k_pools, self.v_pools):
+                kp.scale.index_fill_(0, idx, 0.0)
+                vp.scale.index_fill_(0, idx, 0.0)
+            return
+        base = shard * self.block_pool.rows_per_shard
+        ranks = [self.mesh.rank(m, shard) for m in range(self.mp)]
+        idx = {}
         for kp, vp in zip(self.k_pools, self.v_pools):
-            kp.scale.index_fill_(0, idx, 0.0)
-            vp.scale.index_fill_(0, idx, 0.0)
+            for r in ranks:
+                dev = self.mesh.devices[r]
+                if dev not in idx:
+                    idx[dev] = torch.tensor([b - base for b in fresh],
+                                            dtype=torch.long, device=dev)
+                kp[r].scale.index_fill_(0, idx[dev], 0.0)
+                vp[r].scale.index_fill_(0, idx[dev], 0.0)
 
     # -- per-slot step state -----------------------------------------------
     def _bind_sample_state(self, slot):
@@ -587,7 +715,7 @@ class Engine:
         dev = self.device
         with torch.no_grad():
             (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
-             new_rem, _, _) = self.model._fused_ragged_tick_slots(
+             new_rem, _, _) = self._runner._fused_ragged_tick_slots(
                 torch.tensor(toks, device=dev), self.k_pools, self.v_pools,
                 st["tables"], torch.tensor(width, device=dev),
                 torch.tensor(mode, device=dev),

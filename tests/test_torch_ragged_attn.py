@@ -405,3 +405,55 @@ def test_b2_b3_match_plain_versions_on_card(case, dtype, kernel):
         torch.testing.assert_close(got[b, :w[b]].float(), want[b, :w[b]],
                                    rtol=tol[0], atol=tol[1])
         assert torch.all(got[b, w[b]:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("kernel", ["stream_fp", "stream_int8", "gather_fp",
+                                    "gather_int8"])
+def test_b4_over_kernels_equals_unsharded_kernel_on_card(case, kernel):
+    """Kernel B4 (``sharded_ragged_paged_attention``) on a mesh of ranks
+    all on the card — (2, 2), or (2, 1) for an odd slot count — with
+    tables of GLOBAL block ids, each slot's blocks in its own dp shard's
+    range: one launch of the hand-written kernel per rank, and outputs
+    equal to the unsharded kernel on the same logical inputs (each CUDA
+    block computes one (slot, head) alone; atol 1e-6)."""
+    from paddle_tpu_torch.distributed import ServingMesh, shard, unshard
+    from paddle_tpu_torch.ops.ragged_paged_attn import (
+        sharded_ragged_paged_attention)
+    _need_cuda()
+    quant = kernel.endswith("int8")
+    if quant:
+        q, k, v, _, pos, width, ks, vs, bs = _int8_inputs(case)
+    else:
+        q, k, v, _, pos, width, bs = _inputs(case)
+    B, nb = q.shape[0], CASES[case][5]
+    dp = 2 if B % 2 == 0 else 1
+    rps = k.shape[0] // bs // dp
+    rng = np.random.RandomState(1)
+    tables = np.stack([b // (B // dp) * rps + rng.randint(0, rps, nb)
+                       for b in range(B)]).astype(np.int32)
+    mesh = ServingMesh(2, dp, devices=["cuda:0"] * (2 * dp))
+    t = _torch((q, k, v, tables, pos, width), "cuda")
+    sc, ssc = {}, {}
+    if quant:
+        ks_t, vs_t = _torch((ks, vs), "cuda")
+        sc = dict(k_scale=ks_t, v_scale=vs_t)
+        ssc = dict(k_scale_shards=shard(ks_t, "kv_scale", mesh),
+                   v_scale_shards=shard(vs_t, "kv_scale", mesh))
+    variant = kernel.split("_")[0]
+    want = ragged_paged_attention(*t, block_size=bs, variant=variant, **sc)
+    qspec, kvspec = ("dp", None, "mp", None), ("dp", "mp", None)
+    op = {"stream_fp": ragged_paged_attention,
+          "stream_int8": ragged_paged_attention_int8}.get(
+              kernel, ragged_gather_attention)
+    before = (sharded_ragged_paged_attention.launches, op.launches)
+    outs = sharded_ragged_paged_attention(
+        shard(t[0], qspec, mesh), shard(t[1], kvspec, mesh),
+        shard(t[2], kvspec, mesh), t[3], t[4], t[5], block_size=bs,
+        mesh=mesh, variant=variant, **ssc)
+    torch.cuda.synchronize()
+    assert (sharded_ragged_paged_attention.launches, op.launches) == \
+        (before[0] + mesh.size, before[1] + mesh.size)
+    got = unshard(outs, qspec, mesh)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-6)

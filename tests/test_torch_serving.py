@@ -23,6 +23,7 @@ import paddle_tpu as paddle
 from paddle_tpu.models import GPTModel as JaxGPT
 from paddle_tpu.serving import kvcache as jax_kv
 from paddle_tpu_torch.convert import load_paddle_tpu_state
+from paddle_tpu_torch.distributed import ServingMesh
 from paddle_tpu_torch.models import GPTModel
 from paddle_tpu_torch.serving import Engine
 from paddle_tpu_torch.serving import kvcache as torch_kv
@@ -294,7 +295,10 @@ def test_engine_refuses_weights_elsewhere():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(spec_k=2), dict(mesh=2), dict(kv_dtype="int8", spec_k=2),
+    dict(spec_k=2),
+    # the mesh is ported; weight-only int8 over a dense dp mesh is not
+    dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), weight_dtype="int8"),
+    dict(kv_dtype="int8", spec_k=2),
     dict(weight_dtype="int8", adapters={}), dict(adapters={}),
     dict(kv_host_mb=64), dict(async_depth=2), dict(attn_impl="xla"),
     dict(kv_dtype="int8", kv_host_mb=64), dict(prefill_chunk=None)])
