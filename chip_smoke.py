@@ -12,7 +12,10 @@ line:
    limit as ``nvidia-smi`` reports them.
 2. Build: compiles every kernel under ``paddle_tpu_torch/csrc`` with
    nvcc for sm_90a (one nvcc per source, all at once) and prints
-   ptxas's register / shared-memory / spill report.
+   ptxas's register / shared-memory / spill report, and for each flash
+   kernel the tensor-core instructions in its SASS (``HGMMA`` for wgmma,
+   ``HMMA`` for mma.sync; ``cuobjdump -sass``, the toolkit's or the copy
+   in Triton's package; "cuobjdump not found" when neither exists).
 3. Kernels against their plain versions at gpt2-medium's shapes on the
    serving path (H=16, hd=64, block 16, 8 slots, a 64-lane window, 64
    table entries, 513 pool blocks), with decode lanes, prefill-chunk
@@ -39,14 +42,17 @@ line:
 5. Flash kernels against their plain versions (``ops/flash_attention.py``):
    the training slice's shape (B=4, H=16, S=2048, hd=128, bf16,
    causal), an fp32 case, an hd=64 case and a case with segment ids
-   (four packed documents of uneven lengths).  fp32 holds o and lse at
-   atol 1e-5 and the gradients at atol 1e-4 (summation order); bf16
-   holds every output at rtol 2e-2 / atol 2e-2 against the plain
-   version computed in f32 from the same bf16 values (bf16 rounding of
-   the outputs); every case also holds each output to a relative L2
-   error of 1e-2, which a small but systematic fault on the late causal
-   rows (where o is ~0.03 in size) would pass per element but not in
-   norm.  At the slice's shape it times the forward, dK/dV and dQ
+   (four packed documents of uneven lengths).  bf16 forward and dK/dV
+   run the tensor-core kernels (``csrc/flash_attention_sm90.cu``), fp32
+   and dQ the scalar ones (``csrc/flash_attention.cu``).  fp32 holds o
+   and lse at atol 1e-5 and the gradients at atol 1e-4 (summation
+   order); bf16 holds every output at rtol 2e-2 / atol 2e-2 against the
+   plain version computed in f32 from the same bf16 values (bf16
+   rounding of the outputs, and of P and dS before their products, as
+   the TPU kernel rounds them); every case also holds each output to a
+   relative L2 error of 1e-2, which a small but systematic fault on the
+   late causal rows (where o is ~0.03 in size) would pass per element
+   but not in norm.  At the slice's shape it times the forward, dK/dV and dQ
    kernels, their plain versions and ``scaled_dot_product_attention``
    (is_causal; forward, and backward through autograd — the library
    yardstick; the port never calls it) with CUDA events, and computes
@@ -145,9 +151,11 @@ Needs the repository around it: alone in a directory it exits non-zero.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1215,6 +1223,51 @@ def flash_bound_ms(kernel, q):
                                  else "bytes")
 
 
+def cuobjdump():
+    """The toolkit's cuobjdump, or the copy in Triton's package; None if
+    neither exists."""
+    cands = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.origin:
+        cands.append(os.path.join(os.path.dirname(spec.origin), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+def flash_sass_counts(build):
+    """{flash kernel function: (HGMMA, HMMA)}: the tensor-core instructions
+    (wgmma, mma.sync) in each flash kernel's SASS, by ``cuobjdump -sass``
+    on the built libraries.  None when no cuobjdump exists."""
+    exe = cuobjdump()
+    if exe is None:
+        return None
+    counts = {}
+    for name in ("flash_attention", "flash_attention_sm90"):
+        lib = build._paths(name)[1]
+        sass = subprocess.run([exe, "-sass", lib], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        fn = None
+        for line in sass.splitlines():
+            found = re.search(r"Function : (\S+)", line)
+            if found:
+                fn = found.group(1)
+                counts[fn] = [0, 0]
+            elif fn is not None and "HGMMA" in line:
+                counts[fn][0] += 1
+            elif fn is not None and "HMMA" in line:
+                counts[fn][1] += 1
+    return {fn: tuple(c) for fn, c in counts.items() if "flash" in fn}
+
+
+def print_flash_sass(build):
+    counts = flash_sass_counts(build)
+    if counts is None:
+        print("sass: cuobjdump not found (no tensor-core count)", flush=True)
+        return
+    for fn, (hgmma, hmma) in sorted(counts.items()):
+        print(f"sass {fn}: HGMMA {hgmma} HMMA {hmma}", flush=True)
+
+
 def flash_phase(fa):
     """Every case: the three kernels against their plain versions; at the
     slice's shape, times and bounds.  Returns {kernel: result} for the
@@ -1497,8 +1550,9 @@ def main(argv):
     for name, text in reports.items():
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
-                                       "Compiling entry")):
+                                       "Compiling entry", "Performance")):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+    print_flash_sass(_build)
 
     def lap(phase):
         print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
@@ -1601,10 +1655,14 @@ def main(argv):
     })
     for kernel in FLASH_KERNELS:
         r = fres[kernel]
+        # the slice's bf16 calls: the tensor-core kernels, dQ the scalar one
+        source = {"tensor_core": "flash_attention_sm90.cu",
+                  "scalar": "flash_attention.cu"}[
+                      fa.entry(kernel, torch.bfloat16, 128)[0]]
         kernels.append({
             "name": f"flash_{kernel}",
             "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "source": f"paddle_tpu_torch/csrc/{source}",
             "replaces": FLASH_REPLACES[kernel],
             "launches": flash_launches[kernel],
             "max_abs_err": r["max_abs_err"],

@@ -19,8 +19,9 @@
 // q/k/v/o, so the tensor cores' 989 TFLOP/s set the bound (0.07 ms), not
 // the 3.35 TB/s of HBM (0.04 ms).  These kernels are the simple, correct
 // first version: scalar f32 FMAs over shared-memory tiles, so they run at
-// the CUDA cores' fp32 rate, far from that bound.  wgmma/TMA tiles are the
-// later step.
+// the CUDA cores' fp32 rate, far from that bound.  They serve float32 (the
+// tensor cores would compute it as TF32) and dQ; bf16 forward and dK/dV
+// run on the tensor cores in flash_attention_sm90.cu.
 //
 // Design, against the TPU kernel's shape:
 // * The TPU grid walks k-blocks in order and carries m, l and the output
@@ -520,24 +521,21 @@ int dq_typed(const void* q, const void* k, const void* v, const void* dout,
 // Raise a kernel's dynamic shared-memory ceiling to what it uses, on the
 // current device.  Called once per (kernel, dtype, D, device) before the
 // first launch, not before every launch.
-template <typename T, int D>
-int prepare_typed(int kernel) {
-  const void* fn;
-  size_t smem;
-  if (kernel == 0) {
-    fn = (const void*)flash_fwd_kernel<T, D>;
-    smem = smem_fwd(D);
-  } else if (kernel == 1) {
-    fn = (const void*)flash_bwd_dkv_kernel<T, D>;
-    smem = smem_dkv(D);
-  } else if (kernel == 2) {
-    fn = (const void*)flash_bwd_dq_kernel<T, D>;
-    smem = smem_dq(D);
-  } else {
-    return -1;
-  }
+int set_smem_limit(const void* fn, size_t smem) {
   return (int)cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+template <typename T, int D>
+int prepare_fwd(size_t smem) {
+  return set_smem_limit((const void*)flash_fwd_kernel<T, D>, smem);
+}
+template <typename T, int D>
+int prepare_dkv(size_t smem) {
+  return set_smem_limit((const void*)flash_bwd_dkv_kernel<T, D>, smem);
+}
+template <typename T, int D>
+int prepare_dq(size_t smem) {
+  return set_smem_limit((const void*)flash_bwd_dq_kernel<T, D>, smem);
 }
 
 // dtype 0 = float32, 1 = bfloat16; D = 64 or 128.  -1: unsupported.
@@ -546,6 +544,11 @@ int prepare_typed(int kernel) {
   if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__);       \
   if (dtype == 1 && D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__); \
   if (dtype == 1 && D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__); \
+  return -1;
+// float32 only: the bf16 forward and dK/dV run in flash_attention_sm90.cu
+#define FLASH_DISPATCH_F32(FN, ...)                               \
+  if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);   \
+  if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__); \
   return -1;
 
 }  // namespace
@@ -560,7 +563,16 @@ size_t flash_smem_bytes(int kernel, int D) {
 }
 
 int flash_prepare(int kernel, int dtype, int D) {
-  FLASH_DISPATCH(prepare_typed, kernel)
+  if (kernel == 0) {
+    FLASH_DISPATCH_F32(prepare_fwd, smem_fwd(D))
+  }
+  if (kernel == 1) {
+    FLASH_DISPATCH_F32(prepare_dkv, smem_dkv(D))
+  }
+  if (kernel == 2) {
+    FLASH_DISPATCH(prepare_dq, smem_dq(D))
+  }
+  return -1;
 }
 
 int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v,
@@ -568,7 +580,8 @@ int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v,
                      int D, int causal, float scale, void* stream) {
   if (S % kTile) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  FLASH_DISPATCH(fwd_typed, q, k, v, seg, o, lse, B, H, S, causal, scale, st)
+  FLASH_DISPATCH_F32(fwd_typed, q, k, v, seg, o, lse, B, H, S, causal, scale,
+                     st)
 }
 
 int flash_bwd_dkv_launch(int dtype, const void* q, const void* k,
@@ -578,8 +591,8 @@ int flash_bwd_dkv_launch(int dtype, const void* q, const void* k,
                          void* stream) {
   if (S % kTile) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  FLASH_DISPATCH(dkv_typed, q, k, v, dout, lse, di, seg, dk, dv, B, H, S,
-                 causal, scale, st)
+  FLASH_DISPATCH_F32(dkv_typed, q, k, v, dout, lse, di, seg, dk, dv, B, H, S,
+                     causal, scale, st)
 }
 
 int flash_bwd_dq_launch(int dtype, const void* q, const void* k,

@@ -17,13 +17,16 @@ top-left and bottom-right diagonals agree) and optional ``segment_ids``
 ``[B, S]`` int32 (a query sees only keys of its own segment), combined.
 Every row keeps its diagonal under either mask, so no row is empty.
 
-Three wrappers, one per kernel of ``csrc/flash_attention.cu``:
-``flash_fwd``, ``flash_bwd_dkv`` and ``flash_bwd_dq``.  Each runs its
-plain PyTorch version (``*_ref``, the same FlashAttention-2 recurrence in
-f32) for CPU tensors, and for CUDA tensors launches its kernel on the
-current stream without synchronizing and adds one to its ``launches``.
-A dtype, head dim, length or device the kernel does not take raises;
-nothing falls back.
+Three wrappers, one per kernel: ``flash_fwd``, ``flash_bwd_dkv`` and
+``flash_bwd_dq``.  Each runs its plain PyTorch version (``*_ref``, the
+same FlashAttention-2 recurrence in f32) for CPU tensors, and for CUDA
+tensors launches its kernel on the current stream without synchronizing
+and adds one to its ``launches``.  ``route`` names the kernel a CUDA call
+takes: bf16 forward and dK/dV run on the tensor cores
+(``csrc/flash_attention_sm90.cu``; they round P and dS to bf16 before
+their products, as the TPU kernel does), float32 and dQ on the scalar
+kernels (``csrc/flash_attention.cu``).  A dtype, head dim, length,
+alignment or device no kernel takes raises; nothing falls back.
 
 ``flash_attention`` is differentiable through ``torch.autograd.Function``:
 forward -> ``flash_fwd``; backward -> ``di`` in plain f32 torch (as the
@@ -45,6 +48,35 @@ BLOCK = 64               # the kernels' q and k tile rows
 _MAX_SMEM = 227 * 1024   # an H100 block's shared-memory ceiling
 _MASK = -1e30
 _KERNEL_ID = {"fwd": 0, "bwd_dkv": 1, "bwd_dq": 2}
+# the C entry points of each route: csrc/flash_attention.cu (scalar, a
+# dtype code first) and csrc/flash_attention_sm90.cu (tensor cores, bf16)
+_ENTRY = {("scalar", "fwd"): "flash_fwd_launch",
+          ("scalar", "bwd_dkv"): "flash_bwd_dkv_launch",
+          ("scalar", "bwd_dq"): "flash_bwd_dq_launch",
+          ("tensor_core", "fwd"): "flash_fwd_sm90_launch",
+          ("tensor_core", "bwd_dkv"): "flash_bwd_dkv_sm90_launch"}
+
+
+def route(dtype, head_dim):
+    """The kernels a CUDA call of ``flash_fwd`` or ``flash_bwd_dkv`` takes
+    for inputs of ``dtype`` and ``head_dim``: ``"tensor_core"`` (bf16;
+    wgmma, ``csrc/flash_attention_sm90.cu``) or ``"scalar"`` (float32;
+    ``csrc/flash_attention.cu``).  ``flash_bwd_dq`` takes the scalar kernel
+    for both.  Raises TypeError for another dtype and ValueError for a head
+    dim outside ``HEAD_DIMS``.
+
+    float32 stays on the scalar kernels on purpose: on the tensor cores
+    float32 runs as TF32 (about three decimal digits), which breaks the
+    float32 contract (o at atol 1e-5, gradients at 1e-4), and nothing on
+    the main path runs flash in float32 (training casts the model to bf16).
+    """
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash attention: dtype {dtype} not supported "
+                        "(float32 or bfloat16)")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash attention: head dim {head_dim} not "
+                         f"supported {HEAD_DIMS}")
+    return "tensor_core" if dtype == torch.bfloat16 else "scalar"
 
 
 # -- plain versions -------------------------------------------------------
@@ -176,53 +208,75 @@ def _check(name, tensors, segment_ids, f32_tensors=()):
         return B, S, H, D
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 "
-                        "or bfloat16)")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not supported "
-                         f"{HEAD_DIMS}")
+    route(q.dtype, D)
     if S % BLOCK:
         raise ValueError(f"{name}: sequence length {S} is not a multiple "
                          f"of the kernel's {BLOCK}-row tiles")
-    for t in (*tensors, *f32_tensors):
+    for t in (*tensors, *f32_tensors,
+              *(() if segment_ids is None else (segment_ids,))):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        # the tensor-core kernels' TMA and bulk copies take 16-byte
+        # aligned addresses
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: inputs must start on a 16-byte "
+                             "boundary")
     return B, S, H, D
 
 
 def _seg_ptr(segment_ids):
-    return 0 if segment_ids is None else segment_ids.contiguous().data_ptr()
+    return 0 if segment_ids is None else segment_ids.data_ptr()
 
 
-_prepared = set()   # (kernel, dtype, D, device index) already set up
+_prepared = set()   # (route, kernel, dtype, D, device index) already set up
 
 
-def _prepare(lib, kernel, q):
-    """Once per (kernel, dtype, head dim, card): check the block's shared
-    memory against the ceiling and raise the kernel's limit to it."""
-    key = (kernel, q.dtype, q.shape[-1], q.device.index)
+def _prepare(lib, path, kernel, q):
+    """Once per (route, kernel, dtype, head dim, card): check the block's
+    shared memory against the ceiling and raise the kernel's limit to
+    it."""
+    D = q.shape[-1]
+    key = (path, kernel, q.dtype, D, q.device.index)
     if key in _prepared:
         return
-    smem = lib.flash_smem_bytes(_KERNEL_ID[kernel], q.shape[-1])
+    if path == "tensor_core":
+        smem = lib.flash_sm90_smem_bytes(_KERNEL_ID[kernel], D)
+    else:
+        smem = lib.flash_smem_bytes(_KERNEL_ID[kernel], D)
     if smem > _MAX_SMEM:
-        raise ValueError(f"flash {kernel}: head dim {q.shape[-1]} needs "
-                         f"{smem} B of shared memory per block, over "
-                         f"{_MAX_SMEM}")
-    rc = lib.flash_prepare(_KERNEL_ID[kernel], _DTYPE_CODE[q.dtype],
-                           q.shape[-1])
+        raise ValueError(f"flash {kernel}: head dim {D} needs {smem} B of "
+                         f"shared memory per block, over {_MAX_SMEM}")
+    if path == "tensor_core":
+        rc = lib.flash_sm90_prepare(_KERNEL_ID[kernel], D)
+    else:
+        rc = lib.flash_prepare(_KERNEL_ID[kernel], _DTYPE_CODE[q.dtype], D)
     if rc != 0:
         raise RuntimeError(f"flash {kernel}: setting its shared-memory "
                            f"limit failed with CUDA error {rc}")
     _prepared.add(key)
 
 
-def _launch(kernel, q, fn, *args):
-    lib = _load()
+def entry(kernel, dtype, head_dim):
+    """``(route, C entry point)`` of a CUDA call of ``kernel`` ("fwd",
+    "bwd_dkv" or "bwd_dq"; dQ always takes the scalar kernel)."""
+    path = route(dtype, head_dim)
+    if kernel == "bwd_dq":
+        path = "scalar"
+    return path, _ENTRY[path, kernel]
+
+
+def _launch(kernel, q, *args):
+    """Launch ``kernel`` on q's card by its route; raise on a CUDA
+    error."""
+    path, name = entry(kernel, q.dtype, q.shape[-1])
+    lib = _load_sm90() if path == "tensor_core" else _load()
+    fn = getattr(lib, name)
+    if path == "scalar":
+        args = (_DTYPE_CODE[q.dtype], *args)
     with torch.cuda.device(q.device):
-        _prepare(lib, kernel, q)
+        _prepare(lib, path, kernel, q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = getattr(lib, fn)(_DTYPE_CODE[q.dtype], *args, stream)
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"flash {kernel}: kernel launch failed with "
                            f"CUDA error {rc}")
@@ -236,7 +290,7 @@ def flash_fwd(q, k, v, segment_ids=None, *, causal, sm_scale):
                              sm_scale=sm_scale)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    _launch("fwd", q, "flash_fwd_launch", q.data_ptr(), k.data_ptr(),
+    _launch("fwd", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), _seg_ptr(segment_ids), o.data_ptr(),
             lse.data_ptr(), B, H, S, D, int(bool(causal)),
             float(sm_scale))
@@ -254,7 +308,7 @@ def flash_bwd_dkv(q, k, v, do, lse, di, segment_ids=None, *, causal,
                                  causal=causal, sm_scale=sm_scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("bwd_dkv", q, "flash_bwd_dkv_launch", q.data_ptr(),
+    _launch("bwd_dkv", q, q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             di.data_ptr(), _seg_ptr(segment_ids), dk.data_ptr(),
             dv.data_ptr(), B, H, S, D, int(bool(causal)), float(sm_scale))
@@ -271,7 +325,7 @@ def flash_bwd_dq(q, k, v, do, lse, di, segment_ids=None, *, causal,
         return flash_bwd_dq_ref(q, k, v, do, lse, di, segment_ids,
                                 causal=causal, sm_scale=sm_scale)
     dq = torch.empty_like(q)
-    _launch("bwd_dq", q, "flash_bwd_dq_launch", q.data_ptr(), k.data_ptr(),
+    _launch("bwd_dq", q, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
             _seg_ptr(segment_ids), dq.data_ptr(), B, H, S, D,
             int(bool(causal)), float(sm_scale))
@@ -303,6 +357,23 @@ def _load():
         lib.flash_smem_bytes.restype = ctypes.c_size_t
         lib.flash_prepare.argtypes = [i, i, i]
         lib.flash_prepare.restype = i
+        lib._argtypes_set = True
+    return lib
+
+
+def _load_sm90():
+    lib = _build.load("flash_attention_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        tail = [i, i, i, i, i, f, p]      # B, H, S, D, causal, scale, stream
+        lib.flash_fwd_sm90_launch.argtypes = [p] * 6 + tail
+        lib.flash_bwd_dkv_sm90_launch.argtypes = [p] * 9 + tail
+        for fn in (lib.flash_fwd_sm90_launch, lib.flash_bwd_dkv_sm90_launch):
+            fn.restype = i
+        lib.flash_sm90_smem_bytes.argtypes = [i, i]
+        lib.flash_sm90_smem_bytes.restype = ctypes.c_size_t
+        lib.flash_sm90_prepare.argtypes = [i, i]
+        lib.flash_sm90_prepare.restype = i
         lib._argtypes_set = True
     return lib
 

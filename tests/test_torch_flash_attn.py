@@ -59,7 +59,9 @@ def _inputs(case, seed=0):
     return q, k, v, do, _segments(B, S, nseg, rng), causal
 
 
-def _jax_reference(q, k, v, do, seg, causal):
+def _jax_reference(q, k, v, do, seg, causal, dtype="float32"):
+    """JAX's ``_reference_attention`` and its ``jax.vjp`` on q, k, v, do
+    cast to ``dtype``; the output and dq, dk, dv as f32 numpy."""
     import jax
     import jax.numpy as jnp
     from paddle_tpu.nn.functional.attention import _reference_attention
@@ -71,9 +73,10 @@ def _jax_reference(q, k, v, do, seg, causal):
     def f(a, b, c):
         return _reference_attention(a, b, c, mask, None, causal)
 
-    out, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    grads = vjp(jnp.asarray(do))
-    return np.asarray(out), [np.asarray(g) for g in grads]
+    out, vjp = jax.vjp(f, *(jnp.asarray(a, dtype) for a in (q, k, v)))
+    grads = vjp(jnp.asarray(do, dtype))
+    return (np.asarray(out.astype(jnp.float32)),
+            [np.asarray(g.astype(jnp.float32)) for g in grads])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -90,6 +93,31 @@ def test_plain_flash_matches_jax_reference(case):
     for name, t, g in zip("qkv", (tq, tk, tv), want_g):
         np.testing.assert_allclose(t.grad.numpy(), g, rtol=0, atol=1e-4,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_flash_matches_jax_reference_bf16(case):
+    """The op on bf16 inputs (the training slice's dtype) against JAX's
+    reference and its vjp on the same bf16 values: every output at rtol
+    2e-2 / atol 2e-2 and a relative L2 error of 1e-2, as the card holds
+    its bf16 kernels.  JAX rounds the scores, the probabilities and each
+    product's output to bf16; the plain versions compute in f32 and round
+    only their outputs, so they differ by about one bf16 ulp at magnitudes
+    of 2-4 (measured up to 1.6e-2 absolute, 5.2e-3 relative L2)."""
+    q, k, v, do, seg, causal = _inputs(case)
+    want_o, want_g = _jax_reference(q, k, v, do, seg, causal, "bfloat16")
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16).requires_grad_()
+                  for a in (q, k, v))
+    tseg = None if seg is None else torch.tensor(seg)
+    o = fa.flash_attention(tq, tk, tv, tseg, causal=causal)
+    o.backward(torch.tensor(do).to(torch.bfloat16))
+    got = [o.detach(), tq.grad, tk.grad, tv.grad]
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, [want_o, *want_g]):
+        assert g.dtype == torch.bfloat16, name
+        g = g.float().numpy()
+        np.testing.assert_allclose(g, w, rtol=2e-2, atol=2e-2, err_msg=name)
+        rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+        assert rel <= 1e-2, f"{name}: relative L2 error {rel:.3e}"
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -219,6 +247,37 @@ def test_gate_takes_flash_at_min_seq(monkeypatch):
     mask = (tseg[:, :, None] == tseg[:, None, :])[:, None]
     want = attn_mod._reference_attention(*args, mask, None, True)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
+def test_route_by_dtype_and_head_dim(dtype, head_dim, want):
+    """bf16 takes the tensor-core kernels, float32 the scalar ones (TF32
+    would break its tolerances); the forward and dK/dV follow the route,
+    dQ is scalar for both."""
+    assert fa.route(dtype, head_dim) == want
+    sm90 = want == "tensor_core"
+    assert fa.entry("fwd", dtype, head_dim) == (
+        want, "flash_fwd_sm90_launch" if sm90 else "flash_fwd_launch")
+    assert fa.entry("bwd_dkv", dtype, head_dim) == (
+        want,
+        "flash_bwd_dkv_sm90_launch" if sm90 else "flash_bwd_dkv_launch")
+    assert fa.entry("bwd_dq", dtype, head_dim) == ("scalar",
+                                                   "flash_bwd_dq_launch")
+
+
+@pytest.mark.parametrize("dtype,head_dim,err,match", [
+    (torch.float16, 128, TypeError, "float16"),
+    (torch.int8, 64, TypeError, "int8"),
+    (torch.bfloat16, 32, ValueError, "head dim 32"),
+    (torch.float32, 256, ValueError, "head dim 256")])
+def test_route_raises_for_what_no_kernel_takes(dtype, head_dim, err, match):
+    with pytest.raises(err, match=match):
+        fa.route(dtype, head_dim)
+    for kernel in fa.KERNEL_OPS:
+        with pytest.raises(err, match=match):
+            fa.entry(kernel, dtype, head_dim)
 
 
 def test_wrappers_raise_on_what_they_do_not_take():
