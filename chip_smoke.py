@@ -15,7 +15,9 @@ line:
    ptxas's register / shared-memory / spill report, and for each flash
    kernel the tensor-core instructions in its SASS (``HGMMA`` for wgmma,
    ``HMMA`` for mma.sync; ``cuobjdump -sass``, the toolkit's or the copy
-   in Triton's package; "cuobjdump not found" when neither exists).
+   in Triton's package; "cuobjdump not found" when neither exists): the
+   bf16 forward, dK/dV and dQ kernels of ``flash_attention_sm90.cu`` beside
+   the scalar ones.
 3. Kernels against their plain versions at gpt2-medium's shapes on the
    serving path (H=16, hd=64, block 16, 8 slots, a 64-lane window, 64
    table entries, 513 pool blocks), with decode lanes, prefill-chunk
@@ -25,7 +27,8 @@ line:
    rounding of the output); lanes past width exactly 0.  Times the
    kernel, the plain version and ``scaled_dot_product_attention`` (the
    library yardstick, over pre-gathered rows; the port never calls it)
-   with CUDA events, and computes the bound.
+   with CUDA events, computes the bound, and prints the split walk's
+   pieces (the grid's, and the live ones the inputs need).
 4. The slice at full width: ``GPTModel.from_config("gpt2-medium")`` in
    fp32 from a seed, ``Engine(num_slots=8, max_seq_len=1024,
    kv_block_size=16, prefill_chunk=64)``, 12 requests (prompts of 17 to
@@ -42,9 +45,9 @@ line:
 5. Flash kernels against their plain versions (``ops/flash_attention.py``):
    the training slice's shape (B=4, H=16, S=2048, hd=128, bf16,
    causal), an fp32 case, an hd=64 case and a case with segment ids
-   (four packed documents of uneven lengths).  bf16 forward and dK/dV
-   run the tensor-core kernels (``csrc/flash_attention_sm90.cu``), fp32
-   and dQ the scalar ones (``csrc/flash_attention.cu``).  fp32 holds o
+   (four packed documents of uneven lengths).  bf16 runs the
+   tensor-core kernels (``csrc/flash_attention_sm90.cu``), fp32 the scalar
+   ones (``csrc/flash_attention.cu``).  fp32 holds o
    and lse at atol 1e-5 and the gradients at atol 1e-4 (summation
    order); bf16 holds every output at rtol 2e-2 / atol 2e-2 against the
    plain version computed in f32 from the same bf16 values (bf16
@@ -56,7 +59,8 @@ line:
    kernels, their plain versions and ``scaled_dot_product_attention``
    (is_causal; forward, and backward through autograd — the library
    yardstick; the port never calls it) with CUDA events, and computes
-   each kernel's bound from causal FLOPs and bytes.
+   each kernel's bound from causal FLOPs and bytes.  It also times the
+   fp32 case's kernels (the scalar route).
 6. The training slice at full width and depth:
    ``GPTModel.from_config("gpt3-1.3b", dropout=0.1, fused_loss=True)``
    from seed 0 in bf16, ``AdamW(learning_rate=1e-4, weight_decay=0.01)``,
@@ -278,6 +282,20 @@ def sdpa_inputs(args, bs):
             vb.transpose(1, 2).contiguous(), mask[:, None])
 
 
+def walk_pieces_text(ragged_mod, args, bs):
+    """The stream kernel's split walk at these inputs: paged blocks a
+    piece, pieces a table (the grid's second dimension), and the CUDA
+    blocks the slots' horizons keep (a parked slot's first piece writes
+    its zeros) out of the grid's, over every head."""
+    q, _, _, tables, pos, width = args
+    nb, H = tables.shape[1], q.shape[2]
+    g, n = ragged_mod.walk_pieces(nb, bs)
+    live = sum(-(-min(nb, (p + max(w, 1) - 1) // bs + 1) // g) if w else 1
+               for p, w in zip(pos.tolist(), width.tolist()))
+    return (f"walk pieces: {g} blocks a piece, {n} a table, {live * H} of "
+            f"{len(pos) * n * H} blocks live")
+
+
 def kernel_phase(ragged_mod):
     import torch
     import torch.nn.functional as F
@@ -316,7 +334,8 @@ def kernel_phase(ragged_mod):
                               bound_by=bound_by)
         print(f"kernel ragged_paged_attention {dtype}: max_abs_err {err:.3e}"
               f" ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} "
-              f"bound_ms {bound:.4f} ({bound_by})", flush=True)
+              f"bound_ms {bound:.4f} ({bound_by}); "
+              f"{walk_pieces_text(ragged_mod, a, bs)}", flush=True)
     return results
 
 
@@ -635,10 +654,12 @@ def quant_kernel_phase(ragged_mod):
             results[name, dtype] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
+            pieces = ("" if gather else
+                      f"; {walk_pieces_text(ragged_mod, a, bs)}")
             print(f"kernel {name} {dtype}: max_abs_err {err:.3e} rel_l2 "
                   f"{rel:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
-                  f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}){live}",
-                  flush=True)
+                  f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}){live}"
+                  f"{pieces}", flush=True)
     return results
 
 
@@ -746,7 +767,10 @@ def mesh_kernel_phase(ragged_mod):
               f"form) vs_unsharded {err_one:.3e} ms {ms:.4f} (4 launches) "
               f"per_launch_ms {ms / mesh.size:.4f} unsharded_kernel_ms "
               f"{one_ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} "
-              f"(4 ranks summed) bound_ms {bound:.4f} ({bound_by})",
+              f"(4 ranks summed) bound_ms {bound:.4f} ({bound_by})"
+              + ("" if gather else "; rank 0 " + walk_pieces_text(
+                  rm, (qs[0], None, None, tables[:bl], pos[:bl],
+                       width[:bl]), bs)),
               flush=True)
     return results
 
@@ -1322,6 +1346,15 @@ def flash_phase(fa):
               + f" (tolerance rtol {tol_o[0]} atol {tol_o[1]} fwd, rtol "
               f"{tol_g[0]} atol {tol_g[1]} bwd, relative L2 "
               f"{FLASH_REL_TOL} on every output)", flush=True)
+        if dtype == "float32":
+            scalar_ms = {
+                n: cuda_time_ms(fn, iters=5, warmup=1) for n, fn in (
+                    ("fwd", lambda: fa.flash_fwd(q, k, v, seg, **kw)),
+                    ("bwd_dkv", lambda: fa.flash_bwd_dkv(*args, **kw)),
+                    ("bwd_dq", lambda: fa.flash_bwd_dq(*args, **kw)))}
+            print(f"flash {case} (scalar route) ms: "
+                  + " ".join(f"{n} {t:.4f}" for n, t in scalar_ms.items()),
+                  flush=True)
         if case != "slice_bf16":
             continue
         kernel_fns = {
@@ -1655,7 +1688,7 @@ def main(argv):
     })
     for kernel in FLASH_KERNELS:
         r = fres[kernel]
-        # the slice's bf16 calls: the tensor-core kernels, dQ the scalar one
+        # the slice's bf16 calls: the tensor-core kernels
         source = {"tensor_core": "flash_attention_sm90.cu",
                   "scalar": "flash_attention.cu"}[
                       fa.entry(kernel, torch.bfloat16, 128)[0]]

@@ -19,9 +19,9 @@
 // q/k/v/o, so the tensor cores' 989 TFLOP/s set the bound (0.07 ms), not
 // the 3.35 TB/s of HBM (0.04 ms).  These kernels are the simple, correct
 // first version: scalar f32 FMAs over shared-memory tiles, so they run at
-// the CUDA cores' fp32 rate, far from that bound.  They serve float32 (the
-// tensor cores would compute it as TF32) and dQ; bf16 forward and dK/dV
-// run on the tensor cores in flash_attention_sm90.cu.
+// the CUDA cores' fp32 rate, far from that bound.  They serve float32 only
+// (the tensor cores would compute it as TF32); bf16 runs on the tensor
+// cores in flash_attention_sm90.cu.
 //
 // Design, against the TPU kernel's shape:
 // * The TPU grid walks k-blocks in order and carries m, l and the output
@@ -46,7 +46,6 @@
 //   it outside Pallas).  dK/dV and dQ are separate kernels, so nothing is
 //   accumulated across blocks and no atomics are needed.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,16 +57,9 @@ constexpr int kLdP = kTile + 1;
 constexpr float kMask = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // Stage rows r0 .. r0+63 of head h of batch b from a [B, S, H, D] tensor
@@ -538,15 +530,9 @@ int prepare_dq(size_t smem) {
   return set_smem_limit((const void*)flash_bwd_dq_kernel<T, D>, smem);
 }
 
-// dtype 0 = float32, 1 = bfloat16; D = 64 or 128.  -1: unsupported.
-#define FLASH_DISPATCH(FN, ...)                                         \
-  if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);         \
-  if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__);       \
-  if (dtype == 1 && D == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__); \
-  if (dtype == 1 && D == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__); \
-  return -1;
-// float32 only: the bf16 forward and dK/dV run in flash_attention_sm90.cu
-#define FLASH_DISPATCH_F32(FN, ...)                               \
+// dtype 0 = float32 (bf16 runs in flash_attention_sm90.cu); D = 64 or 128.
+// -1: unsupported.
+#define FLASH_DISPATCH(FN, ...)                                   \
   if (dtype == 0 && D == 64) return FN<float, 64>(__VA_ARGS__);   \
   if (dtype == 0 && D == 128) return FN<float, 128>(__VA_ARGS__); \
   return -1;
@@ -564,10 +550,10 @@ size_t flash_smem_bytes(int kernel, int D) {
 
 int flash_prepare(int kernel, int dtype, int D) {
   if (kernel == 0) {
-    FLASH_DISPATCH_F32(prepare_fwd, smem_fwd(D))
+    FLASH_DISPATCH(prepare_fwd, smem_fwd(D))
   }
   if (kernel == 1) {
-    FLASH_DISPATCH_F32(prepare_dkv, smem_dkv(D))
+    FLASH_DISPATCH(prepare_dkv, smem_dkv(D))
   }
   if (kernel == 2) {
     FLASH_DISPATCH(prepare_dq, smem_dq(D))
@@ -580,7 +566,7 @@ int flash_fwd_launch(int dtype, const void* q, const void* k, const void* v,
                      int D, int causal, float scale, void* stream) {
   if (S % kTile) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  FLASH_DISPATCH_F32(fwd_typed, q, k, v, seg, o, lse, B, H, S, causal, scale,
+  FLASH_DISPATCH(fwd_typed, q, k, v, seg, o, lse, B, H, S, causal, scale,
                      st)
 }
 
@@ -591,7 +577,7 @@ int flash_bwd_dkv_launch(int dtype, const void* q, const void* k,
                          void* stream) {
   if (S % kTile) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  FLASH_DISPATCH_F32(dkv_typed, q, k, v, dout, lse, di, seg, dk, dv, B, H, S,
+  FLASH_DISPATCH(dkv_typed, q, k, v, dout, lse, di, seg, dk, dv, B, H, S,
                      causal, scale, st)
 }
 

@@ -1,35 +1,35 @@
 // Flash attention for Hopper's tensor cores (sm_90a), bf16: the forward
-// kernel (B5a) and the dK/dV kernel (B5b).
+// kernel (B5a), the dK/dV kernel (B5b) and the dQ kernel (B5c).
 //
-// Replaces, for bf16 inputs at head dims 64 and 128, two of the three
+// Replaces, for bf16 inputs at head dims 64 and 128, the three
 // pallas_calls of the upstream TPU flash-attention kernel that
 // paddle_tpu/nn/functional/attention.py (_flash_attention) calls,
 // jax/experimental/pallas/ops/tpu/flash_attention.py:
 //   flash_fwd_sm90      <- _flash_attention_impl    (_flash_attention_kernel)
 //   flash_bwd_dkv_sm90  <- _flash_attention_bwd_dkv (_flash_attention_dkv_kernel)
-// float32 inputs keep the scalar kernels of flash_attention.cu, and so does
-// dQ (_flash_attention_bwd_dq).
+//   flash_bwd_dq_sm90   <- _flash_attention_bwd_dq  (_flash_attention_dq_kernel)
+// float32 inputs keep the scalar kernels of flash_attention.cu.
 //
-// Contract, as flash_attention.cu's: q, k, v, o, do, dk, dv contiguous
+// Contract, as flash_attention.cu's: q, k, v, o, do, dq, dk, dv contiguous
 // [B, S, H, D] bf16; lse and di f32 [B, H, S]; segment ids int32 [B, S] or
 // null; one length S for q and k, a multiple of 64; masks causal (key j
 // visible to query i iff j <= i) and segment ids, combined.
 //
 // What bounds it: at the training slice (B=4, H=16, S=2048, D=128) the
-// forward does 6.9e10 causal FLOPs and dK/dV 1.37e11, so the tensor cores'
-// 989 TFLOP/s set the bounds (0.0695 and 0.139 ms), well above HBM's
-// (0.04 ms).  The design follows from that:
-// * Both products of a tile run on the tensor cores as wgmma m64nNk16,
+// forward does 6.9e10 causal FLOPs, dK/dV 1.37e11 and dQ 1.03e11, so the
+// tensor cores' 989 TFLOP/s set the bounds (0.0695, 0.139 and 0.104 ms),
+// well above HBM's (0.04 ms).  The design follows from that:
+// * Every product of a tile runs on the tensor cores as wgmma m64nNk16,
 //   bf16 operands and f32 accumulators in registers, one consumer
 //   warpgroup per 64 rows.  Rounding P and dS to bf16 before their
 //   products is what the TPU kernel does (p.astype(v.dtype),
-//   ds.T.astype(do.dtype)).
-// * Q K^T (forward), K Q^T and V dO^T (dK/dV) read both operands from
-//   shared memory, K-major.  P V, P^T dO and dS^T Q take P, P^T, dS^T as
-//   the register A operand, converted from the first product's accumulator
-//   with no shuffle (its row/column layout is the A fragment's), and V,
-//   dO, Q as an MN-major B operand (the descriptor's transpose bit), one
-//   m64n64 product per 64-column atom.
+//   ds.T.astype(do.dtype), ds.astype(k.dtype)).
+// * Q K^T (forward, dQ), K Q^T and V dO^T (dK/dV) and dO V^T (dQ) read both
+//   operands from shared memory, K-major.  P V, P^T dO, dS^T Q and dS K
+//   take P, P^T, dS^T, dS as the register A operand, converted from the
+//   first product's accumulator with no shuffle (its row/column layout is
+//   the A fragment's), and V, dO, Q, K as an MN-major B operand (the
+//   descriptor's transpose bit), one m64n64 product per 64-column atom.
 // * Warp specialization: a producer warpgroup, of which one thread issues
 //   every copy (TMA boxes of 64 columns x 64 or 128 rows through 4-d
 //   tensor maps over [B, S, H, D], so the H*D row stride costs nothing and
@@ -45,22 +45,28 @@
 // * Softmax in registers in the log2 domain: the raw row max, then
 //   p = exp2(s * sm_scale log2 e - m) as one FFMA and one ex2; a row's
 //   four owner threads reduce its max by two shuffles, its sum once, at
-//   the end.
+//   the end.  The backward kernels know lse, so p = exp2(s * sm_scale
+//   log2 e - lse log2 e) needs no max at all.
 // * Masks only on the tiles that need them (the causal diagonal, segment
 //   ids, the ragged last k tile), in a separately compiled path.  A masked
 //   score is -inf in the forward and a masked probability is selected to 0
-//   in dK/dV, so either is exactly 0; m starts at -1e30 and stays finite,
-//   and a fully masked tile adds nothing.
+//   in the backward kernels, so either is exactly 0; m starts at -1e30 and
+//   stays finite, and a fully masked tile adds nothing.
 // * Grid (B*H, tiles), the tile from blockIdx.y: all heads' longest causal
-//   tiles (the forward's last q tiles, dK/dV's first k tiles) launch first,
-//   so the grid's tail is short work.
+//   tiles (the forward's and dQ's last q tiles, dK/dV's first k tiles)
+//   launch first, so the grid's tail is short work.
+// * dQ is a kernel of its own, as upstream's is: each block owns its q
+//   rows' dQ and writes it once, with no atomics, so the result does not
+//   depend on the schedule.
 //
 // Forward: 384 threads per 128-row q tile (64 rows a consumer), k tiles of
 // 128 rows; dK/dV: 384 threads per 128-row k tile (64 rows a consumer), q
-// tiles of 64 rows.  Shared memory at D=128: 166,472 B (forward) and
-// 134,184 B (dK/dV): one block per SM.  The consumers' registers hold the
-// forward's S 64 + O 64 floats and two P sets of 32, and dK/dV's dK 64 +
-// dV 64 + S^T 32 + dP^T 32 floats a thread.
+// tiles of 64 rows; dQ: 384 threads per 128-row q tile (64 rows a
+// consumer), k tiles of 64 rows.  Shared memory at D=128: 166,472 B
+// (forward), 134,184 B (dK/dV) and 132,648 B (dQ): one block per SM.  The
+// consumers' registers hold the forward's S 64 + O 64 floats and two P sets
+// of 32, dK/dV's dK 64 + dV 64 + S^T 32 + dP^T 32 floats a thread, and
+// dQ's dQ 64 + S 32 + dP 32 floats and a dS set of 16 words.
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
@@ -828,18 +834,242 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// -- dQ ----------------------------------------------------------------------
+// A producer warpgroup (one thread issues every copy) and two consumer
+// warpgroups of 64 q rows each; Q and dO of the block stay in shared memory,
+// and the ring of k tiles (K, V, the k segment ids) is handed over by
+// mbarriers.  lse, di and the q segment ids of a consumer thread's two rows
+// sit in its registers.
+constexpr int kDqThreads = 384;
+constexpr int kDqBM = 128;  // q rows a block (64 a consumer warpgroup)
+constexpr int kDqBN = 64;   // k rows a tile
+
+template <int D>
+struct DqSmem {  // byte offsets from the 1024-aligned base
+  static constexpr uint32_t kQTile = kDqBM * D * 2;
+  static constexpr uint32_t kKTile = kDqBN * D * 2;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kQTile;
+  __host__ __device__ static constexpr uint32_t k_k(int st) {
+    return 2 * kQTile + st * 2 * kKTile;
+  }
+  __host__ __device__ static constexpr uint32_t k_v(int st) {
+    return k_k(st) + kKTile;
+  }
+  __host__ __device__ static constexpr uint32_t seg_k(int st) {
+    return 2 * kQTile + 4 * kKTile + st * 256;
+  }
+  // mbarriers: Q and dO full; per stage, k tile full and empty
+  static constexpr uint32_t kBarQ = seg_k(2);
+  __host__ __device__ static constexpr uint32_t bar_full(int st) {
+    return kBarQ + 8 + 8 * st;
+  }
+  __host__ __device__ static constexpr uint32_t bar_empty(int st) {
+    return kBarQ + 24 + 8 * st;
+  }
+  static constexpr uint32_t kBytes = kBarQ + 40 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_sm90_kernel(
+        __grid_constant__ const CUtensorMap tq,
+        __grid_constant__ const CUtensorMap tk,
+        __grid_constant__ const CUtensorMap tv,
+        __grid_constant__ const CUtensorMap tdo,
+        const float* __restrict__ lse, const float* __restrict__ di,
+        const int* __restrict__ seg, bf16* __restrict__ dq, int H, int S,
+        int causal, float scale, float scale_log2) {
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint8_t* gbase = smem_raw + (base - raw);
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int n_tiles = (S + kDqBM - 1) / kDqBM;
+  const int qt = causal ? n_tiles - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * kDqBM;
+  // S is a multiple of 64: the second consumer's rows are all past S or
+  // all real, and no k tile is ragged
+  const int n_consumers = q0 + 64 < S ? 2 : 1;
+  const int n_kt = causal ? (q0 + 64 * n_consumers) / kDqBN : S / kDqBN;
+  const bool has_seg = seg != nullptr;
+
+  if (tid == 0) {
+    mbar_init(base + L::kBarQ, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(base + L::bar_full(st), 1);
+      // each consumer warp releases a stage it has read
+      mbar_init(base + L::bar_empty(st), 4 * n_consumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer
+    setmaxnreg_dec<24>();
+    if (tid != 0) return;
+    mbar_expect_tx(base + L::kBarQ, 2 * L::kQTile);
+    for (int a = 0; a < D / 64; ++a) {
+      tma_load_4d(base + L::kQ + a * (kDqBM * 128), &tq, base + L::kBarQ,
+                  64 * a, h, q0, b);
+      tma_load_4d(base + L::kDo + a * (kDqBM * 128), &tdo, base + L::kBarQ,
+                  64 * a, h, q0, b);
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int st = kt & 1, k0 = kt * kDqBN;
+      mbar_wait(base + L::bar_empty(st), ((kt >> 1) & 1) ^ 1);
+      const uint32_t full = base + L::bar_full(st);
+      mbar_expect_tx(full, 2 * L::kKTile + (has_seg ? 256 : 0));
+      for (int a = 0; a < D / 64; ++a) {
+        tma_load_4d(base + L::k_k(st) + a * (kDqBN * 128), &tk, full, 64 * a,
+                    h, k0, b);
+        tma_load_4d(base + L::k_v(st) + a * (kDqBN * 128), &tv, full, 64 * a,
+                    h, k0, b);
+      }
+      if (has_seg)
+        bulk_load(base + L::seg_k(st), seg + (size_t)b * S + k0, 256, full);
+    }
+    return;
+  }
+
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;  // consumer warpgroup: q rows q0 + 64 cw ..
+  if (cw >= n_consumers) return;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  // This warpgroup's 64 rows start at qw0; this thread owns rows row0 and
+  // row0 + 8, and in each 8-column chunk of a k tile the columns cq, cq + 1.
+  const int qw0 = q0 + 64 * cw;
+  const int row0 = qw0 + 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+  float lse2[2], dis[2];
+  int segq[2] = {0, 0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t i = ((size_t)b * H + h) * S + row0 + 8 * r;
+    lse2[r] = lse[i] * kLog2e;
+    dis[r] = di[i];
+    if (has_seg) segq[r] = seg[(size_t)b * S + row0 + 8 * r];
+  }
+  // causal: the k tiles past this warpgroup's last row add nothing
+  const int my_kt = causal ? (qw0 + 64) / kDqBN : n_kt;
+
+  // dQ: column chunk j (8 columns) of the 64-column atom hh is
+  // dq_acc[hh][4 j .. 4 j + 3]
+  float dq_acc[D / 64][32];
+#pragma unroll
+  for (int hh = 0; hh < D / 64; ++hh)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[hh][i] = 0.f;
+
+  mbar_wait(base + L::kBarQ, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int st = kt & 1, k0 = kt * kDqBN;
+    mbar_wait(base + L::bar_full(st), (kt >> 1) & 1);
+    if (kt < my_kt) {
+      // S = Q K^T and dP = dO V^T over D in steps of 16
+      float sacc[kDqBN / 2], dpacc[kDqBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t a_off =
+            (ks / 4) * (kDqBM * 128) + cw * (64 * 128) + (ks % 4) * 32;
+        const uint32_t b_off = (ks / 4) * (kDqBN * 128) + (ks % 4) * 32;
+        wgmma_ss_n64(sacc, desc_sw128(base + L::kQ + a_off, 16, 1024),
+                     desc_sw128(base + L::k_k(st) + b_off, 16, 1024), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t a_off =
+            (ks / 4) * (kDqBM * 128) + cw * (64 * 128) + (ks % 4) * 32;
+        const uint32_t b_off = (ks / 4) * (kDqBN * 128) + (ks % 4) * 32;
+        wgmma_ss_n64(dpacc, desc_sw128(base + L::kDo + a_off, 16, 1024),
+                     desc_sw128(base + L::k_v(st) + b_off, 16, 1024),
+                     ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      fence_regs(dpacc);
+
+      // P = exp2(S scale log2e - lse log2e), dS = P (dP - di), rounded to
+      // bf16 as the A operand of dS K; masked entries are exactly 0
+      const int* seg_k = reinterpret_cast<const int*>(gbase + L::seg_k(st));
+      uint32_t dsa[kDqBN / 16][4];
+      auto probs = [&](auto masked) {
+#pragma unroll
+        for (int kk = 0; kk < kDqBN / 16; ++kk) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            // elements 8 kk + 2 i (+1): row i & 1, chunk 2 kk + i / 2
+            float ds[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int x = 8 * kk + 2 * i + e, r = i & 1;
+              float p = ex2(fmaf(sacc[x], scale_log2, -lse2[r]));
+              if constexpr (decltype(masked)::value) {
+                const int kc = 8 * (2 * kk + i / 2) + cq + e;
+                const bool vis =
+                    (!causal || k0 + kc <= row0 + 8 * r) &&
+                    (!has_seg || seg_k[kc] == segq[r]);
+                p = vis ? p : 0.f;
+              }
+              ds[e] = p * (dpacc[x] - dis[r]);
+            }
+            dsa[kk][i] = pack_bf16(ds[0], ds[1]);
+          }
+        }
+      };
+      if (has_seg || (causal && k0 + kDqBN - 1 > qw0))
+        probs(Bool<true>());
+      else
+        probs(Bool<false>());
+
+      // dQ += dS K over the tile's k rows, 16 at a time (operands pinned
+      // first, so that ptxas does not serialize the products)
+      fence_regs(dsa);
+      fence_regs(dq_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqBN / 16; ++kk)
+        wgmma_rs_atoms(dq_acc, dsa[kk], base + L::k_k(st) + kk * (16 * 128),
+                       kDqBN * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq_acc);
+    }
+    if (lane == 0) mbar_arrive(base + L::bar_empty(st));
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* drow = dq + ((size_t)(b * S + row0 + 8 * r) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j + cq) =
+          __floats2bfloat162_rn(dq_acc[j / 8][4 * (j % 8) + 2 * r] * scale,
+                                dq_acc[j / 8][4 * (j % 8) + 2 * r + 1] * scale);
+  }
+}
+
 // -- host side ----------------------------------------------------------------
 size_t smem_bytes(int kernel, int D) {
   if (kernel == 0) return D == 128 ? FwdSmem<128>::kBytes : FwdSmem<64>::kBytes;
-  return D == 128 ? DkvSmem<128>::kBytes : DkvSmem<64>::kBytes;
+  if (kernel == 1)
+    return D == 128 ? DkvSmem<128>::kBytes : DkvSmem<64>::kBytes;
+  return D == 128 ? DqSmem<128>::kBytes : DqSmem<64>::kBytes;
 }
 
 const void* kernel_fn(int kernel, int D) {
   if (kernel == 0)
     return D == 128 ? (const void*)flash_fwd_sm90_kernel<128>
                     : (const void*)flash_fwd_sm90_kernel<64>;
-  return D == 128 ? (const void*)flash_bwd_dkv_sm90_kernel<128>
-                  : (const void*)flash_bwd_dkv_sm90_kernel<64>;
+  if (kernel == 1)
+    return D == 128 ? (const void*)flash_bwd_dkv_sm90_kernel<128>
+                    : (const void*)flash_bwd_dkv_sm90_kernel<64>;
+  return D == 128 ? (const void*)flash_bwd_dq_sm90_kernel<128>
+                  : (const void*)flash_bwd_dq_sm90_kernel<64>;
 }
 
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint: the library
@@ -892,7 +1122,7 @@ int tensor_map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H,
 }
 
 bool supported(int kernel, int D, int S) {
-  return (kernel == 0 || kernel == 1) && (D == 64 || D == 128) && S > 0 &&
+  return kernel >= 0 && kernel <= 2 && (D == 64 || D == 128) && S > 0 &&
          S % 64 == 0;
 }
 
@@ -900,7 +1130,7 @@ bool supported(int kernel, int D, int S) {
 
 extern "C" {
 
-// kernel 0 = fwd, 1 = bwd_dkv; D = 64 or 128.
+// kernel 0 = fwd, 1 = bwd_dkv, 2 = bwd_dq; D = 64 or 128.
 size_t flash_sm90_smem_bytes(int kernel, int D) {
   return supported(kernel, D, 64) ? smem_bytes(kernel, D) : 0;
 }
@@ -964,6 +1194,33 @@ int flash_bwd_dkv_sm90_launch(const void* q, const void* k, const void* v,
     flash_bwd_dkv_sm90_kernel<64><<<grid, kBwdThreads, smem_bytes(1, D), st>>>(
         tq, tk, tv, tdo, (const float*)lse, (const float*)di,
         (const int*)seg, (bf16*)dk, (bf16*)dv, H, S, causal, scale, sl2);
+  return (int)cudaGetLastError();
+}
+
+int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* di, const void* seg, void* dq, int B,
+                             int H, int S, int D, int causal, float scale,
+                             void* stream) {
+  if (!supported(2, D, S)) return -1;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = 0;
+  if ((rc = tensor_map_bshd(&tq, q, B, S, H, D, kDqBM)) ||
+      (rc = tensor_map_bshd(&tk, k, B, S, H, D, kDqBN)) ||
+      (rc = tensor_map_bshd(&tv, v, B, S, H, D, kDqBN)) ||
+      (rc = tensor_map_bshd(&tdo, dout, B, S, H, D, kDqBM)))
+    return rc;
+  const dim3 grid(B * H, (S + kDqBM - 1) / kDqBM);
+  const float sl2 = scale * kLog2e;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128)
+    flash_bwd_dq_sm90_kernel<128><<<grid, kDqThreads, smem_bytes(2, D), st>>>(
+        tq, tk, tv, tdo, (const float*)lse, (const float*)di, (const int*)seg,
+        (bf16*)dq, H, S, causal, scale, sl2);
+  else
+    flash_bwd_dq_sm90_kernel<64><<<grid, kDqThreads, smem_bytes(2, D), st>>>(
+        tq, tk, tv, tdo, (const float*)lse, (const float*)di, (const int*)seg,
+        (bf16*)dq, H, S, causal, scale, sl2);
   return (int)cudaGetLastError();
 }
 

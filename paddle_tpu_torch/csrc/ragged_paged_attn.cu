@@ -9,67 +9,109 @@
 //
 // What it computes, per slot b and head h: walk the slot's block table
 // up to the causal horizon n_live = min(nb, (pos + max(width, 1) - 1) / bs
-// + 1); for each live block take f32 scores of the query lanes against
-// the block's K rows, mask position j*bs + r > pos + s to -1e30, and run
-// the flash online-softmax recurrence (running max m, normalizer l,
-// accumulator acc rescaled by exp(m_old - m_new), probabilities
-// multiplied by the mask so a fully masked tile adds exactly 0).  The
-// output is acc / l in q's dtype, and lanes >= width are written as 0.
-// With int8 pools each streamed block is dequantized as it is staged:
-// (float)code * scale[block, h], the scale read once per block, so the
-// pool is never dequantized whole and the f32 values exist only in
-// shared memory.
+// + 1); score the query lanes against each live K row, mask position
+// j*bs + r > pos + s, and run the flash online-softmax recurrence
+// (running max m, normalizer l, accumulator acc rescaled by
+// exp(m_old - m_new), masked probabilities exactly 0).  The output is
+// acc / l in q's dtype, and lanes >= width are written as 0.  With int8
+// pools each row is dequantized as (float)code * scale[block, h], the
+// scale read once per row of a piece, so the pool is never dequantized
+// whole.
 //
 // What bounds it on an H100: bytes.  Each slot's live K/V rows are read
 // once per head, q and the output once; the arithmetic is about
 // 4 * lanes * hd flops per K/V row, far below the card's ~20 flop/byte
-// fp32 (~295 bf16) balance point, so the floor is the live K/V bytes over
-// 3.35 TB/s (a quarter of them for int8 codes, plus the scale rows).
+// fp32 balance point, so the floor is the live K/V bytes over 3.35 TB/s
+// (a quarter of them for int8 codes, plus the scale rows).
 //
-// What the design does about it: one CUDA block per (slot, head), so a
-// B=8, H=16 batch fills 128 of the 132 SMs and every block streams only
-// its own head's slice of its slot's live blocks; the walk stops at the
-// causal horizon (the TPU kernel's early exit), and only the slot's real
-// lanes (s < width) are computed, so a decode lane (width 1) does one
-// row's work inside a window sized for the 64-token prefill chunk.  K
-// and V of one paged block sit in shared memory as f32 whatever the pool
-// type (K rows padded by one float against bank conflicts) and every
-// thread of the block works on them with scalar FMAs.  No tensor cores,
-// TMA or pipelining yet: the loads of block j+1 do not overlap the math
-// of block j.  The kernel is templated over (q/out type, pool type): the
-// fp and int8 legs share every line but the staging conversion.
+// What the design does about it: the walk is split, so that a long slot
+// no longer sets the launch's time alone.
+// * Pieces.  A slot's table splits into pieces of G = kPieceRows / bs
+//   paged blocks (G = 1 for bs >= kPieceRows).  The grid is (B*H, pieces)
+//   with pieces = ceil(nb / G): the split depends on the table's length
+//   and the block size only, never on B, H or the card, so a batch cut to
+//   some of its slots or heads (the serving mesh's per-rank launches)
+//   computes every (slot, head) in the same order, bitwise.  A piece past
+//   its slot's horizon exits at once.
+// * A piece stages its live K/V rows into shared memory with cp.async, in
+//   the pool's own type (int8 codes stay int8 there), one commit group per
+//   32 rows; the first pass over the rows waits for each group as it
+//   lands, so loads overlap arithmetic, and the other blocks on the SM
+//   overlap the rest (two or three at hd=64: shared memory holds fp32
+//   pools to two, registers int8 pools).
+// * Four warps split the lanes: warp i takes the 16-lane blocks i, i + 4,
+//   ..., so a 64-lane prefill chunk runs on all four and a decode lane
+//   (width 1) on one warp, which walks the piece alone.  In a warp, a
+//   thread owns 4 lanes x 4 rows of each 32-row step's scores (lanes
+//   lg + 4 i, rows rg + 8 j, so the four lanes' q rows and the eight
+//   threads' K rows fall in distinct banks) and 4 lanes x hd/8 columns of
+//   the accumulator.  The online softmax lives in registers: a lane's
+//   step max by three shuffles over its 8 row-group threads, its l as a
+//   per-thread partial sum reduced once at the end of the piece, and each
+//   probability broadcast to the accumulator's owners by a shuffle.
+// * fp32 stays on CUDA-core FMAs (TF32 would break the fp32 tolerances),
+//   and so does bf16.
+// * Combine, in the same launch.  A slot with one live piece (every
+//   decode lane up to kPieceRows of context, every slot of a short table)
+//   writes its output and the zeros past width directly.  Otherwise each
+//   piece writes its partial (m, l, acc) per lane into an f32 workspace
+//   that the caller allocates ([B*H, pieces, W, hd], [B*H, pieces, W, 2],
+//   then [B*H, pieces, W] for the merge's factors) and adds one to its
+//   (slot, head)'s counter; the
+//   piece that brings the counter to the live piece count merges every
+//   piece in piece order (so the result does not depend on which piece
+//   finished last), writes the zeros past width and sets the counter back
+//   to 0 for the next launch.
+// The kernel is templated over (q/out type, pool type, head dim): the fp
+// and int8 legs share every line but the dequantizing multiplies.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;    // four warps
+constexpr int kPieceRows = 128;  // K/V rows a piece walks (G = this / bs)
+constexpr int kStepRows = 32;    // rows of one step: 8 row groups x 4
+constexpr int kLaneBlock = 16;   // lanes a warp carries: 4 lane groups x 4
 constexpr float kMaskValue = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) {
-  return x;
+__host__ __device__ inline int piece_blocks(int bs) {
+  return bs >= kPieceRows ? 1 : kPieceRows / bs;
 }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+__host__ __device__ inline int n_pieces(int nb, int bs) {
+  const int g = piece_blocks(bs);
+  return (nb + g - 1) / g;
+}
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~(size_t)15;
+}
+// rows of a piece's staging buffers: whole steps
+__host__ __device__ inline int staged_rows(int bs) {
+  const int r = piece_blocks(bs) * bs;
+  return (r + kStepRows - 1) / kStepRows * kStepRows;
+}
+
+// Shared memory in bytes: q lanes [round16(W)][hd + 4] f32, K rows
+// [rows][hd + 16 / elem] and V rows [rows][hd] in the pool's type, and the
+// rows' dequantization scales (int8) [2][rows] f32.
+__host__ __device__ inline size_t smem_bytes(int W, int hd, int bs,
+                                             int elem) {
+  const size_t R = staged_rows(bs);
+  const size_t wp = (W + kLaneBlock - 1) / kLaneBlock * kLaneBlock;
+  return align16(wp * (hd + 4) * 4) + align16(R * (hd * elem + 16)) +
+         align16(R * hd * elem) + 2 * R * 4;
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-
-// a pool element as f32: fp pools convert, int8 codes are multiplied by
-// their block's per-head scale
-template <typename P>
-__device__ __forceinline__ float dequant(P x, float) {
-  return to_float<P>(x);
-}
-template <>
-__device__ __forceinline__ float dequant<int8_t>(int8_t x, float s) {
-  return (float)x * s;
-}
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -82,15 +124,67 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// Shared memory, in floats: q rows [W][hd], acc [W][hd], one K block
-// [bs][hd+1], one V block [bs][hd], probabilities [W][bs], and m, l and
-// the per-lane correction [W] each.
-__host__ __device__ inline size_t smem_floats(int W, int hd, int bs) {
-  return 2 * (size_t)W * hd + (size_t)bs * (hd + 1) + (size_t)bs * hd +
-         (size_t)W * bs + 3 * (size_t)W;
+// four consecutive elements of shared memory as f32 (aligned to 4 elements)
+__device__ __forceinline__ void ld4(const float* p, float* o) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x, o[1] = x.y, o[2] = x.z, o[3] = x.w;
+}
+__device__ __forceinline__ void ld4(const __nv_bfloat16* p, float* o) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  o[0] = a.x, o[1] = a.y, o[2] = b.x, o[3] = b.y;
+}
+__device__ __forceinline__ void ld4(const int8_t* p, float* o) {
+  const char4 x = *reinterpret_cast<const char4*>(p);
+  o[0] = (float)x.x, o[1] = (float)x.y, o[2] = (float)x.z, o[3] = (float)x.w;
+}
+template <int N, typename P>
+__device__ __forceinline__ void ldn(const P* p, float (&o)[N]) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) ld4(p + i, o + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = to_float(p[i]);
+  }
 }
 
-template <typename T, typename P>
+// N bytes from global src to shared dst, or N zero bytes when !valid
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? N : 0;
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(N), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most n of this thread's groups are pending (at most 3:
+// waiting for fewer is only stricter).
+__device__ __forceinline__ void cp_async_wait_pending(int n) {
+  if (n >= 3)
+    asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (n == 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One (slot, head, piece) a block.  scale_log2 = log2(e) / sqrt(hd).
+template <typename T, typename P, int HD>
 __global__ void __launch_bounds__(kThreads)
 ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
                          const P* __restrict__ v,
@@ -99,130 +193,335 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
                          const int* __restrict__ tables,
                          const int* __restrict__ pos,
                          const int* __restrict__ width, T* __restrict__ out,
-                         int W, int H, int hd, int bs, int nb, float scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int tid = threadIdx.x;
-  const int ks = hd + 1;  // padded K row stride
+                         float* __restrict__ ws, int* __restrict__ counters,
+                         int W, int H, int bs, int nb, float scale_log2) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
+  constexpr int QS = HD + 4;                // q row stride, floats
+  constexpr int KS = HD + 16 / sizeof(P);   // K row stride, elements
+  constexpr int CPT = HD / 8;               // accumulator columns a thread
+  constexpr int RB = HD * sizeof(P);        // bytes of a pool row
+  constexpr int CHUNK = RB < 16 ? RB : 16;  // cp.async size
+  constexpr int CPR = RB / CHUNK;           // chunks a row
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ bool merges;  // this piece finished its (slot, head) last
 
-  float* q_s = smem;
-  float* acc = q_s + (size_t)W * hd;
-  float* k_s = acc + (size_t)W * hd;
-  float* v_s = k_s + (size_t)bs * ks;
-  float* p_s = v_s + (size_t)bs * hd;
-  float* m_s = p_s + (size_t)W * bs;
-  float* l_s = m_s + W;
-  float* c_s = l_s + W;
-
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, c = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = piece_blocks(bs), NP = n_pieces(nb, bs);
   const int p = pos[b];
   const int w = min(max(width[b], 0), W);
-  // causal horizon; a parked width-0 slot still walks block 0 (it
-  // computes no lane, and its output is all zeros)
+  // causal horizon; a parked width-0 slot walks nothing and writes zeros
   const int n_live = min(nb, (p + max(w, 1) - 1) / bs + 1);
-  const int64_t row_stride = (int64_t)H * hd;
-
-  for (int i = tid; i < w * hd; i += kThreads) {
-    const int s = i / hd, d = i - s * hd;
-    q_s[i] = to_float(q[((int64_t)b * W + s) * row_stride + (int64_t)h * hd + d]);
-    acc[i] = 0.f;
+  const int n_pc = (n_live + G - 1) / G;
+  const bool direct = n_pc == 1 || w == 0;
+  const int64_t hs = (int64_t)H * HD;  // row stride of q, out and pools
+  if (c >= n_pc || (w == 0 && c > 0)) return;
+  if (direct) {  // the zeros past width
+    for (int i = tid; i < (W - w) * HD; i += kThreads) {
+      const int s = w + i / HD, d = i % HD;
+      out[((int64_t)b * W + s) * hs + (int64_t)h * HD + d] = from_float<T>(0.f);
+    }
+    if (w == 0) return;
   }
-  for (int s = tid; s < w; s += kThreads) {
-    m_s[s] = kMaskValue;
-    l_s[s] = 0.f;
+
+  const int wp = (W + kLaneBlock - 1) / kLaneBlock * kLaneBlock;
+  const int R = staged_rows(bs);
+  float* q_s = reinterpret_cast<float*>(smem);
+  P* k_s = reinterpret_cast<P*>(smem + align16((size_t)wp * QS * 4));
+  P* v_s = reinterpret_cast<P*>(reinterpret_cast<uint8_t*>(k_s) +
+                                align16((size_t)R * KS * sizeof(P)));
+  float* ks_row = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(v_s) +
+                                           align16((size_t)R * HD * sizeof(P)));
+  float* vs_row = ks_row + R;
+
+  const int row0 = c * G * bs;                  // the piece's first row
+  const int rows = min(G * bs, n_live * bs - row0);  // its live rows
+  const int n_steps = (rows + kStepRows - 1) / kStepRows;
+
+  // q of the real lanes as f32, zeros up to the lane blocks' end
+  for (int i = tid; i < wp * HD; i += kThreads) {
+    const int s = i / HD, d = i % HD;
+    q_s[s * QS + d] =
+        s < w ? to_float(q[((int64_t)b * W + s) * hs + (int64_t)h * HD + d])
+              : 0.f;
+  }
+  // K/V rows, one cp.async group a step; rows past the live ones are zeros
+  const int* table = tables + (int64_t)b * nb;
+  for (int st = 0; st < n_steps; ++st) {
+    for (int i = tid; i < kStepRows * CPR; i += kThreads) {
+      const int r = st * kStepRows + i / CPR, ch = i % CPR;
+      const bool live = r < rows;
+      const int jb = (row0 + r) / bs;
+      const int64_t blk = live ? table[jb] : 0;
+      const int64_t off =
+          ((blk * bs + (row0 + r) - (int64_t)jb * bs) * hs + (int64_t)h * HD) *
+              (int64_t)sizeof(P) + ch * CHUNK;
+      const int64_t src = live ? off : 0;
+      const uint8_t* ksrc = reinterpret_cast<const uint8_t*>(k) + src;
+      const uint8_t* vsrc = reinterpret_cast<const uint8_t*>(v) + src;
+      cp_async<CHUNK>(reinterpret_cast<uint8_t*>(k_s + r * KS) + ch * CHUNK,
+                      ksrc, live);
+      cp_async<CHUNK>(reinterpret_cast<uint8_t*>(v_s + r * HD) + ch * CHUNK,
+                      vsrc, live);
+      if (kQuant && ch == 0) {
+        ks_row[r] = live ? k_scale[blk * H + h] : 0.f;
+        vs_row[r] = live ? v_scale[blk * H + h] : 0.f;
+      }
+    }
+    cp_async_commit();
+  }
+
+  const int rg = lane & 7, lg = lane >> 3;
+  const int n_lb = (w + kLaneBlock - 1) / kLaneBlock;
+  float m[4], l[4], acc[4][CPT];
+
+  auto init = [&] {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = kMaskValue;
+      l[i] = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) acc[i][cc] = 0.f;
+    }
+  };
+  // one 32-row step of lane block lb: scores, online softmax, P V
+  auto step = [&](int lb, int st) {
+    const int l0 = lb * kLaneBlock + lg;  // lanes l0 + 4 i
+    const int sr = st * kStepRows;        // rows sr + rg + 8 j
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float qv[4][4], kv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ld4(q_s + (l0 + 4 * i) * QS + d, qv[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ld4(k_s + (sr + rg + 8 * j) * KS + d, kv[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
+    }
+    float pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lane_pos = p + l0 + 4 * i;
+      float x[4], mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = sr + rg + 8 * j;
+        const bool vis = r < rows && row0 + r <= lane_pos;
+        const float sc = kQuant ? scale_log2 * ks_row[r] : scale_log2;
+        x[j] = vis ? s[i][j] * sc : -INFINITY;
+        mx = fmaxf(mx, x[j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);  // finite: m starts at -1e30
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float e = x[j] == -INFINITY ? 0.f : exp2f(x[j] - m_new);
+        sum += e;
+        pv[i][j] = kQuant ? e * vs_row[sr + rg + 8 * j] : e;
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) acc[i][cc] *= corr;
+    }
+    // acc += P V: row sr + r's probabilities live in thread rg = r % 8,
+    // register j = r / 8 of its lane group
+#pragma unroll
+    for (int r = 0; r < kStepRows; ++r) {
+      float vv[CPT];
+      ldn<CPT>(v_s + (sr + r) * HD + rg * CPT, vv);
+      const int src = (lane & ~7) | (r & 7);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pr = __shfl_sync(0xffffffffu, pv[i][r >> 3], src);
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc)
+          acc[i][cc] = fmaf(pr, vv[cc], acc[i][cc]);
+      }
+    }
+  };
+  // lane block lb's result: the output (one live piece) or the partial
+  auto finish = [&](int lb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+      const int s = lb * kLaneBlock + lg + 4 * i;
+      if (s >= w) continue;
+      if (direct) {
+        T* o = out + ((int64_t)b * W + s) * hs + (int64_t)h * HD + rg * CPT;
+        const float inv = 1.f / l[i];
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc)
+          o[cc] = from_float<T>(acc[i][cc] * inv);
+      } else {
+        const int64_t at = ((int64_t)bh * NP + c) * W + s;
+        float* a = ws + at * HD + rg * CPT;
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) a[cc] = acc[i][cc];
+        if (rg == 0) {
+          float* ml = ws + (int64_t)gridDim.x * NP * W * HD + at * 2;
+          ml[0] = m[i];
+          ml[1] = l[i];
+        }
+      }
+    }
+  };
+
+  // First pass: lane block `warp`, each step as soon as its rows landed
+  // (every warp takes part in the barriers, with a lane block or not).
+  const bool first = warp < n_lb;
+  if (first) init();
+  for (int st = 0; st < n_steps; ++st) {
+    cp_async_wait_pending(n_steps - 1 - st);
+    __syncthreads();
+    if (first) step(warp, st);
+  }
+  if (first) finish(warp);
+  // lanes past 64: the later lane blocks, over rows already staged
+  for (int lb = warp + 4; lb < n_lb; lb += 4) {
+    init();
+    for (int st = 0; st < n_steps; ++st) step(lb, st);
+    finish(lb);
+  }
+  if (direct) return;
+
+  // The last piece of (slot, head) to finish merges them all.  Every
+  // piece's partial is published (fence) before its count is.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    merges = atomicAdd(counters + bh, 1) == n_pc - 1;
+    if (merges) counters[bh] = 0;
   }
   __syncthreads();
-
-  constexpr bool kQuant = std::is_same<P, int8_t>::value;
-  for (int j = 0; j < n_live; ++j) {
-    const int64_t blk = tables[(int64_t)b * nb + j];
-    const int64_t base = blk * bs;
-    const float k_sc = kQuant ? k_scale[blk * H + h] : 1.f;
-    const float v_sc = kQuant ? v_scale[blk * H + h] : 1.f;
-    for (int i = tid; i < bs * hd; i += kThreads) {
-      const int r = i / hd, d = i - r * hd;
-      const int64_t off = (base + r) * row_stride + (int64_t)h * hd + d;
-      k_s[r * ks + d] = dequant<P>(k[off], k_sc);
-      v_s[i] = dequant<P>(v[off], v_sc);
+  if (!merges) return;
+  __threadfence();
+  // Other blocks' partials are read through L2 (__ldcg), never a stale
+  // L1.  First each (lane, piece) pair's factor exp2(m - max) / l_sum, in
+  // a slot of its own; then every output column as the pieces'
+  // accumulators times their factors, summed in piece order.  Each
+  // thread's loads over the pieces are independent, so they overlap.
+  const int64_t n_part = (int64_t)gridDim.x * NP * W;  // partials a launch
+  const float* ml = ws + n_part * HD;
+  float* fac = ws + n_part * (HD + 2);
+  const int64_t at0 = (int64_t)bh * NP * W;  // lane 0 of piece 0
+  for (int i = tid; i < w * n_pc; i += kThreads) {
+    const int s = i / n_pc, pc = i % n_pc;
+    float mx = kMaskValue, lsum = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < n_pc; ++k)
+      mx = fmaxf(mx, __ldcg(ml + (at0 + k * W + s) * 2));
+#pragma unroll 8
+    for (int k = 0; k < n_pc; ++k) {
+      const float* e = ml + (at0 + k * W + s) * 2;
+      lsum += __ldcg(e + 1) * exp2f(__ldcg(e) - mx);
     }
-    __syncthreads();
-
-    // scores of the real lanes against this block, masked
-    for (int i = tid; i < w * bs; i += kThreads) {
-      const int s = i / bs, r = i - s * bs;
-      const float* qr = q_s + s * hd;
-      const float* kr = k_s + r * ks;
-      float dot = 0.f;
-      for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-      p_s[i] = (j * bs + r <= p + s) ? dot * scale : kMaskValue;
-    }
-    __syncthreads();
-
-    // online-softmax update, one lane per thread
-    for (int s = tid; s < w; s += kThreads) {
-      float* row = p_s + s * bs;
-      float bm = row[0];
-      for (int r = 1; r < bs; ++r) bm = fmaxf(bm, row[r]);
-      const float m_old = m_s[s];
-      const float m_new = fmaxf(m_old, bm);
-      float sum = 0.f;
-      for (int r = 0; r < bs; ++r) {
-        const float vis = (j * bs + r <= p + s) ? 1.f : 0.f;
-        const float e = expf(row[r] - m_new) * vis;
-        row[r] = e;
-        sum += e;
-      }
-      const float corr = expf(m_old - m_new);
-      l_s[s] = l_s[s] * corr + sum;
-      m_s[s] = m_new;
-      c_s[s] = corr;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < w * hd; i += kThreads) {
-      const int s = i / hd, d = i - s * hd;
-      const float* pr = p_s + s * bs;
-      float a = 0.f;
-      for (int r = 0; r < bs; ++r) a = fmaf(pr[r], v_s[r * hd + d], a);
-      acc[i] = acc[i] * c_s[s] + a;
-    }
-    __syncthreads();
+    fac[at0 + pc * W + s] =
+        exp2f(__ldcg(ml + (at0 + pc * W + s) * 2) - mx) / lsum;
   }
-
-  for (int i = tid; i < W * hd; i += kThreads) {
-    const int s = i / hd, d = i - s * hd;
-    const float o = (s < w) ? acc[i] / l_s[s] : 0.f;
-    out[((int64_t)b * W + s) * row_stride + (int64_t)h * hd + d] =
-        from_float<T>(o);
+  __syncthreads();
+  constexpr int C4 = HD / 4;  // float4 columns a lane
+  for (int i = tid; i < W * C4; i += kThreads) {
+    const int s = i / C4, c = i % C4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (s < w) {
+#pragma unroll 8
+      for (int pc = 0; pc < n_pc; ++pc) {
+        const int64_t e = at0 + pc * W + s;
+        const float f = __ldcg(fac + e);
+        const float4 x =
+            __ldcg(reinterpret_cast<const float4*>(ws + e * HD) + c);
+        o.x = fmaf(x.x, f, o.x);
+        o.y = fmaf(x.y, f, o.y);
+        o.z = fmaf(x.z, f, o.z);
+        o.w = fmaf(x.w, f, o.w);
+      }
+    }
+    T* dst = out + ((int64_t)b * W + s) * hs + (int64_t)h * HD + 4 * c;
+    dst[0] = from_float<T>(o.x);
+    dst[1] = from_float<T>(o.y);
+    dst[2] = from_float<T>(o.z);
+    dst[3] = from_float<T>(o.w);
   }
 }
 
-template <typename T, typename P>
-int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* tables, const void* pos,
-           const void* width, void* out, int B, int W, int H, int hd, int bs,
-           int nb, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats(W, hd, bs) * sizeof(float);
-  ragged_paged_attn_kernel<T, P><<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(k),
-      static_cast<const P*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(tables),
-      static_cast<const int*>(pos), static_cast<const int*>(width),
-      static_cast<T*>(out), W, H, hd, bs, nb, scale);
+template <typename T, typename P, int HD>
+int launch_hd(const void* q, const void* k, const void* v, const void* k_scale,
+              const void* v_scale, const void* tables, const void* pos,
+              const void* width, void* out, void* ws, void* counters, int B,
+              int W, int H, int bs, int nb, float scale,
+              cudaStream_t stream) {
+  const int np = n_pieces(nb, bs);
+  if (np > 1 && (ws == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(W, HD, bs, sizeof(P));
+  ragged_paged_attn_kernel<T, P, HD>
+      <<<dim3(B * H, np), kThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const P*>(k),
+          static_cast<const P*>(v), static_cast<const float*>(k_scale),
+          static_cast<const float*>(v_scale), static_cast<const int*>(tables),
+          static_cast<const int*>(pos), static_cast<const int*>(width),
+          static_cast<T*>(out), static_cast<float*>(ws),
+          static_cast<int*>(counters), W, H, bs, nb, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-// The kernel instantiation of (dtype, quant): 0 = float32, 1 = bfloat16
-// for q and out; quant = int8 pools with scales, else pools of q's dtype.
-const void* kernel_of(int dtype, int quant) {
+template <typename T, typename P>
+int launch(int hd, const void* q, const void* k, const void* v,
+           const void* k_scale, const void* v_scale, const void* tables,
+           const void* pos, const void* width, void* out, void* ws,
+           void* counters, int B, int W, int H, int bs, int nb, float scale,
+           cudaStream_t stream) {
+#define RPA_ARGS                                                         \
+  q, k, v, k_scale, v_scale, tables, pos, width, out, ws, counters, B, W, \
+      H, bs, nb, scale, stream
+  switch (hd) {
+    case 8: return launch_hd<T, P, 8>(RPA_ARGS);
+    case 16: return launch_hd<T, P, 16>(RPA_ARGS);
+    case 32: return launch_hd<T, P, 32>(RPA_ARGS);
+    case 64: return launch_hd<T, P, 64>(RPA_ARGS);
+    case 128: return launch_hd<T, P, 128>(RPA_ARGS);
+  }
+#undef RPA_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename P>
+const void* kernel_hd(int hd) {
+  switch (hd) {
+    case 8: return (const void*)ragged_paged_attn_kernel<T, P, 8>;
+    case 16: return (const void*)ragged_paged_attn_kernel<T, P, 16>;
+    case 32: return (const void*)ragged_paged_attn_kernel<T, P, 32>;
+    case 64: return (const void*)ragged_paged_attn_kernel<T, P, 64>;
+    case 128: return (const void*)ragged_paged_attn_kernel<T, P, 128>;
+  }
+  return nullptr;
+}
+
+// The piece kernel of (dtype, quant, hd): 0 = float32, 1 = bfloat16 for q
+// and out; quant = int8 pools with scales, else pools of q's dtype.
+const void* kernel_of(int dtype, int quant, int hd) {
   if (dtype == 0)
-    return quant ? (const void*)ragged_paged_attn_kernel<float, int8_t>
-                 : (const void*)ragged_paged_attn_kernel<float, float>;
+    return quant ? kernel_hd<float, int8_t>(hd) : kernel_hd<float, float>(hd);
   if (dtype == 1)
-    return quant
-        ? (const void*)ragged_paged_attn_kernel<__nv_bfloat16, int8_t>
-        : (const void*)ragged_paged_attn_kernel<__nv_bfloat16,
-                                                __nv_bfloat16>;
+    return quant ? kernel_hd<__nv_bfloat16, int8_t>(hd)
+                 : kernel_hd<__nv_bfloat16, __nv_bfloat16>(hd);
   return nullptr;
 }
 
@@ -230,40 +529,57 @@ const void* kernel_of(int dtype, int quant) {
 
 extern "C" {
 
-// Dynamic shared memory one block needs for these shapes, in bytes (the
-// same for fp and int8 pools: tiles are staged as f32 either way).
+// Pieces a slot's table of nb blocks of bs rows splits into (the grid's
+// second dimension; the workspace holds this many partials a slot, head
+// and lane).
+int ragged_paged_attn_pieces(int nb, int bs) { return n_pieces(nb, bs); }
+
+// Dynamic shared memory a block needs for these shapes at most, in bytes:
+// with f32 pools (bf16 and int8 pools stage fewer bytes, and a launch
+// asks for what its pool type needs).
 size_t ragged_paged_attn_smem_bytes(int W, int hd, int bs) {
-  return smem_floats(W, hd, bs) * sizeof(float);
+  return smem_bytes(W, hd, bs, 4);
 }
 
-// Raise the instantiation's dynamic shared-memory limit to smem bytes:
-// called once per (dtype, quant, card) and again only when a config needs
-// more, not before every launch.  Returns the CUDA error (0 on success).
+// Raise the piece kernels' dynamic shared-memory limit to smem bytes, for
+// every head dim of (dtype, quant): called once per (dtype, quant, card)
+// and again only when a config needs more, not before every launch.
+// Returns the CUDA error (0 on success).
 int ragged_paged_attn_prepare(int dtype, int quant, int smem) {
-  const void* fn = kernel_of(dtype, quant);
-  if (!fn) return (int)cudaErrorInvalidValue;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int head_dims[] = {8, 16, 32, 64, 128};
+  for (int hd : head_dims) {
+    const void* fn = kernel_of(dtype, quant, hd);
+    if (!fn) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 for q and out.  k_scale / v_scale:
 // null for fp pools (k and v then share q's dtype), else f32 [NB, H] and
 // k, v are int8 codes.  tables, pos and width are int32.  Layouts: q and
-// out [B, W, H, hd]; k and v [NB * bs, H, hd]; tables [B, nb].  Returns
-// cudaGetLastError() after the launch (0 on success).
+// out [B, W, H, hd]; k and v [NB * bs, H, hd], 16-byte aligned; tables
+// [B, nb].  ws: f32 workspace of B * H * pieces * W * (hd + 3) floats
+// (ragged_paged_attn_pieces), and counters: int32 [B * H], all 0 (the
+// launch leaves them 0, so one set serves every launch on a stream); both
+// null when there is one piece.  hd is 8, 16, 32, 64 or 128.  One launch;
+// returns cudaGetLastError() after it (0 on success).
 int ragged_paged_attn_launch(int dtype, const void* q, const void* k,
                              const void* v, const void* k_scale,
                              const void* v_scale, const void* tables,
                              const void* pos, const void* width, void* out,
-                             int B, int W, int H, int hd, int bs, int nb,
-                             float scale, void* stream) {
+                             void* ws, void* counters, int B, int W, int H,
+                             int hd, int bs, int nb, float scale,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((k_scale == nullptr) != (v_scale == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool quant = k_scale != nullptr;
-#define RPA_ARGS \
-  q, k, v, k_scale, v_scale, tables, pos, width, out, B, W, H, hd, bs, nb, \
-      scale, s
+#define RPA_ARGS                                                          \
+  hd, q, k, v, k_scale, v_scale, tables, pos, width, out, ws, counters, B, \
+      W, H, bs, nb, scale, s
   if (dtype == 0)
     return quant ? launch<float, int8_t>(RPA_ARGS)
                  : launch<float, float>(RPA_ARGS);

@@ -22,17 +22,20 @@ Three wrappers, one per kernel: ``flash_fwd``, ``flash_bwd_dkv`` and
 same FlashAttention-2 recurrence in f32) for CPU tensors, and for CUDA
 tensors launches its kernel on the current stream without synchronizing
 and adds one to its ``launches``.  ``route`` names the kernel a CUDA call
-takes: bf16 forward and dK/dV run on the tensor cores
-(``csrc/flash_attention_sm90.cu``; they round P and dS to bf16 before
-their products, as the TPU kernel does), float32 and dQ on the scalar
-kernels (``csrc/flash_attention.cu``).  A dtype, head dim, length,
-alignment or device no kernel takes raises; nothing falls back.
+takes: bf16 runs on the tensor cores (``csrc/flash_attention_sm90.cu``;
+the kernels round P and dS to bf16 before their products, as the TPU
+kernel does), float32 on the scalar kernels
+(``csrc/flash_attention.cu``).  A dtype, head dim, length, alignment or
+device no kernel takes raises; nothing falls back.
 
 ``flash_attention`` is differentiable through ``torch.autograd.Function``:
 forward -> ``flash_fwd``; backward -> ``di`` in plain f32 torch (as the
 upstream computes it outside Pallas), then ``flash_bwd_dkv``, then
-``flash_bwd_dq``.  ``flash_attention_ref`` is the same function over the
-plain versions on any device (the comparisons on the card use it).
+``flash_bwd_dq``.  It takes segment ids of any integer dtype and layout
+(as the reference takes any ``[B, S]`` integer array) and hands the
+kernels int32 contiguous ones.  ``flash_attention_ref`` is the same
+function over the plain versions on any device (the comparisons on the
+card use it).
 """
 from __future__ import annotations
 
@@ -54,16 +57,17 @@ _ENTRY = {("scalar", "fwd"): "flash_fwd_launch",
           ("scalar", "bwd_dkv"): "flash_bwd_dkv_launch",
           ("scalar", "bwd_dq"): "flash_bwd_dq_launch",
           ("tensor_core", "fwd"): "flash_fwd_sm90_launch",
-          ("tensor_core", "bwd_dkv"): "flash_bwd_dkv_sm90_launch"}
+          ("tensor_core", "bwd_dkv"): "flash_bwd_dkv_sm90_launch",
+          ("tensor_core", "bwd_dq"): "flash_bwd_dq_sm90_launch"}
 
 
 def route(dtype, head_dim):
-    """The kernels a CUDA call of ``flash_fwd`` or ``flash_bwd_dkv`` takes
-    for inputs of ``dtype`` and ``head_dim``: ``"tensor_core"`` (bf16;
-    wgmma, ``csrc/flash_attention_sm90.cu``) or ``"scalar"`` (float32;
-    ``csrc/flash_attention.cu``).  ``flash_bwd_dq`` takes the scalar kernel
-    for both.  Raises TypeError for another dtype and ValueError for a head
-    dim outside ``HEAD_DIMS``.
+    """The kernels a CUDA call of ``flash_fwd``, ``flash_bwd_dkv`` or
+    ``flash_bwd_dq`` takes for inputs of ``dtype`` and ``head_dim``:
+    ``"tensor_core"`` (bf16; wgmma, ``csrc/flash_attention_sm90.cu``) or
+    ``"scalar"`` (float32; ``csrc/flash_attention.cu``).  Raises TypeError
+    for another dtype and ValueError for a head dim outside
+    ``HEAD_DIMS``.
 
     float32 stays on the scalar kernels on purpose: on the tensor cores
     float32 runs as TF32 (about three decimal digits), which breaks the
@@ -258,10 +262,8 @@ def _prepare(lib, path, kernel, q):
 
 def entry(kernel, dtype, head_dim):
     """``(route, C entry point)`` of a CUDA call of ``kernel`` ("fwd",
-    "bwd_dkv" or "bwd_dq"; dQ always takes the scalar kernel)."""
+    "bwd_dkv" or "bwd_dq")."""
     path = route(dtype, head_dim)
-    if kernel == "bwd_dq":
-        path = "scalar"
     return path, _ENTRY[path, kernel]
 
 
@@ -368,7 +370,9 @@ def _load_sm90():
         tail = [i, i, i, i, i, f, p]      # B, H, S, D, causal, scale, stream
         lib.flash_fwd_sm90_launch.argtypes = [p] * 6 + tail
         lib.flash_bwd_dkv_sm90_launch.argtypes = [p] * 9 + tail
-        for fn in (lib.flash_fwd_sm90_launch, lib.flash_bwd_dkv_sm90_launch):
+        lib.flash_bwd_dq_sm90_launch.argtypes = [p] * 8 + tail
+        for fn in (lib.flash_fwd_sm90_launch, lib.flash_bwd_dkv_sm90_launch,
+                   lib.flash_bwd_dq_sm90_launch):
             fn.restype = i
         lib.flash_sm90_smem_bytes.argtypes = [i, i]
         lib.flash_sm90_smem_bytes.restype = ctypes.c_size_t
@@ -386,6 +390,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, causal, sm_scale, ops):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if segment_ids is not None:
+            segment_ids = segment_ids.to(torch.int32).contiguous()
         o, lse = ops["fwd"](q, k, v, segment_ids, causal=causal,
                             sm_scale=sm_scale)
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)

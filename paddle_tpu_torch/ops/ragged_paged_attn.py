@@ -13,7 +13,11 @@ the mesh wrapper that launches them per rank:
 * ``ragged_paged_attention`` (B1, ``csrc/ragged_paged_attn.cu``) — the
   streaming body over fp pools: each slot's live blocks up to the causal
   horizon, flash online softmax in f32, lanes at or past ``width``
-  zeroed.  Allclose to the gather-then-softmax oracle, not bitwise: the
+  zeroed.  The walk is split into pieces of ``PIECE_ROWS`` rows
+  (``walk_pieces``), one CUDA block each, merged in order, in the same
+  launch, by the last piece of each (slot, head) to finish, through an
+  f32 workspace that the wrapper allocates from torch's caching allocator.
+  Allclose to the gather-then-softmax oracle, not bitwise: the
   block-by-block accumulation sums in another order.
 * ``ragged_paged_attention_int8`` (B2, the same source's int8 leg) — the
   streaming body over int8 code pools with f32 per-block per-head
@@ -48,6 +52,10 @@ from . import _build
 
 VARIANTS = ("stream", "gather")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the stream kernel's split walk (csrc/ragged_paged_attn.cu kPieceRows) and
+# the head dims it is compiled for
+PIECE_ROWS = 128
+STREAM_HEAD_DIMS = (8, 16, 32, 64, 128)
 _MAX_SMEM = 227 * 1024  # an H100 block's shared-memory ceiling
 _MASK = -1e30
 
@@ -58,6 +66,29 @@ def causal_horizon(pos, width, block_size, blocks_per_slot):
     a parked width-0 slot still walks block 0."""
     live = (pos + torch.clamp(width, min=1) - 1) // block_size + 1
     return torch.clamp(live, max=blocks_per_slot)
+
+
+def walk_pieces(blocks_per_slot, block_size):
+    """``(G, pieces)``: the paged blocks one piece of the stream kernel's
+    walk covers (``PIECE_ROWS // block_size``, at least 1) and the pieces
+    a table of ``blocks_per_slot`` entries splits into.  They depend on the
+    table's shape alone, never on the batch, the heads or the card, so a
+    launch over some of a batch's slots or heads sums every (slot, head)
+    in the same order as the whole batch."""
+    g = max(1, PIECE_ROWS // int(block_size))
+    return g, -(-int(blocks_per_slot) // g)
+
+
+def stream_workspace_floats(batch, window, heads, head_dim,
+                            blocks_per_slot, block_size):
+    """f32 words of the stream kernel's workspace: one partial
+    ``(acc [head_dim], m, l)`` and its merge factor per slot, head, piece
+    and lane; 0 when a table is one piece (every slot then writes its
+    output directly)."""
+    pieces = walk_pieces(blocks_per_slot, block_size)[1]
+    if pieces == 1:
+        return 0
+    return batch * heads * pieces * window * (head_dim + 3)
 
 
 def _dequant(codes, scale):
@@ -220,6 +251,7 @@ def _check(who, q, k_flat, v_flat, block_tables, pos, width, bs, k_scale,
 # -- launches -------------------------------------------------------------
 _smem_sizes = {}   # (library, dims) -> bytes one block needs
 _prepared = {}     # (library, dtype, quant, card) -> the limit set so far
+_counters = {}     # (card, stream) -> the stream kernel's int32 counters
 
 
 def _smem_error(lib_name, lib, dims, smem):
@@ -274,24 +306,67 @@ def _launch(lib_name, dims, q, k_flat, v_flat, block_tables, pos, width,
         _prepare(lib_name, lib, _DTYPE_CODE[q.dtype], quant, dims,
                  q.device.index)
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        # the stream kernel's workspace (held in ws until its launch is
+        # enqueued: freed earlier, the caching allocator could hand its
+        # memory to out) and merge counters, none for one-piece tables
+        ws_ptr = ()
+        if lib_name == "ragged_paged_attn":
+            n = stream_workspace_floats(B, W, H, hd, nb, bs)
+            ws_ptr = (None, None)
+            if n:
+                ws = torch.empty(n, dtype=torch.float32, device=q.device)
+                counters = _merge_counters(q.device, stream, B * H)
+                ws_ptr = (ws.data_ptr(), counters.data_ptr())
         rc = getattr(lib, f"{lib_name}_launch")(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k_flat.data_ptr(),
             v_flat.data_ptr(), k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, block_tables.data_ptr(),
-            pos.data_ptr(), width.data_ptr(), out.data_ptr(), B, W, H, hd,
-            bs, nb, 1.0 / math.sqrt(hd), stream)
+            pos.data_ptr(), width.data_ptr(), out.data_ptr(), *ws_ptr, B, W,
+            H, hd, bs, nb, 1.0 / math.sqrt(hd), stream)
     if rc != 0:
         raise RuntimeError(f"{lib_name}: kernel launch failed with CUDA "
                            f"error {rc}")
     return out
 
 
+def _merge_counters(device, stream, n):
+    """At least ``n`` int32 zeros on ``device`` for the stream kernel's
+    merge counters, one set per (card, stream): each launch leaves its
+    counters at 0, and launches on one stream run in order.  Allocated
+    (zeroed) again only when a launch needs more than the set holds."""
+    key = (device.index, stream)
+    counters = _counters.get(key)
+    if counters is None or counters.numel() < n:
+        counters = torch.zeros(n, dtype=torch.int32, device=device)
+        _counters[key] = counters
+    return counters
+
+
+def _stream_launch(who, q, k_flat, v_flat, block_tables, pos, width,
+                   k_scale, v_scale, bs):
+    """B1 or B2 on the card: what only the stream kernel needs checked
+    (its compiled head dims; pools on 16-byte boundaries for its cp.async
+    copies), then the launch."""
+    hd = q.shape[3]
+    if hd not in STREAM_HEAD_DIMS:
+        raise ValueError(f"{who}: head dim {hd} not supported by the "
+                         f"kernel {STREAM_HEAD_DIMS}")
+    if k_flat.data_ptr() % 16 or v_flat.data_ptr() % 16:
+        raise ValueError(f"{who}: k_flat/v_flat must start on a 16-byte "
+                         "boundary")
+    return _launch("ragged_paged_attn", (q.shape[1], hd, bs), q, k_flat,
+                   v_flat, block_tables, pos, width, k_scale, v_scale, bs)
+
+
 def _load(lib_name):
     lib = _build.load(lib_name)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
+        # the stream kernel also takes its workspace and counters
+        stream = int(lib_name == "ragged_paged_attn")
         launch = getattr(lib, f"{lib_name}_launch")
-        launch.argtypes = [i] + [p] * 9 + [i] * 6 + [ctypes.c_float, p]
+        launch.argtypes = ([i] + [p] * (9 + 2 * stream) + [i] * 6
+                           + [ctypes.c_float, p])
         launch.restype = i
         smem = getattr(lib, f"{lib_name}_smem_bytes")
         smem.argtypes = [i, i, i]
@@ -299,7 +374,10 @@ def _load(lib_name):
         prepare = getattr(lib, f"{lib_name}_prepare")
         prepare.argtypes = [i, i, i]
         prepare.restype = i
-        if lib_name == "ragged_gather_attn":
+        if stream:
+            lib.ragged_paged_attn_pieces.argtypes = [i, i]
+            lib.ragged_paged_attn_pieces.restype = i
+        else:
             lib.ragged_gather_attn_tile_lanes.argtypes = []
             lib.ragged_gather_attn_tile_lanes.restype = i
         lib._argtypes_set = True
@@ -359,8 +437,8 @@ def ragged_paged_attention(q, k_flat, v_flat, block_tables, pos, width,
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(q, k_flat, v_flat, block_tables,
                                           pos, width, block_size=bs)
-    out = _launch("ragged_paged_attn", (q.shape[1], q.shape[3], bs), q,
-                  k_flat, v_flat, block_tables, pos, width, None, None, bs)
+    out = _stream_launch("ragged_paged_attention", q, k_flat, v_flat,
+                         block_tables, pos, width, None, None, bs)
     ragged_paged_attention.launches += 1
     return out
 
@@ -379,9 +457,8 @@ def ragged_paged_attention_int8(q, k_codes, v_codes, block_tables, pos,
         return ragged_paged_attention_ref(
             q, k_codes, v_codes, block_tables, pos, width, block_size=bs,
             k_scale=k_scale, v_scale=v_scale)
-    out = _launch("ragged_paged_attn", (q.shape[1], q.shape[3], bs), q,
-                  k_codes, v_codes, block_tables, pos, width, k_scale,
-                  v_scale, bs)
+    out = _stream_launch("ragged_paged_attention_int8", q, k_codes, v_codes,
+                         block_tables, pos, width, k_scale, v_scale, bs)
     ragged_paged_attention_int8.launches += 1
     return out
 

@@ -249,13 +249,44 @@ def test_gate_takes_flash_at_min_seq(monkeypatch):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+def _strided(ids):
+    """The same int32 ids as a non-contiguous view (every other column of
+    a wider tensor)."""
+    wide = torch.zeros(*ids.shape, 2, dtype=torch.int32, device=ids.device)
+    wide[..., 0] = ids
+    view = wide[..., 0]
+    assert not view.is_contiguous()
+    return view
+
+
+def test_segment_ids_of_any_integer_layout_take_the_flash_route(monkeypatch):
+    """Segment ids valid for the reference (any ``[B, S]`` integer array)
+    serve on the flash route: int64 ids and a strided int32 view give
+    exactly the int32 call's output and gradients."""
+    monkeypatch.setattr(attn_mod, "FLASH_MIN_SEQ", 256)
+    calls = _count_flash(monkeypatch)
+    q, k, v, do, seg, _ = _inputs("causal_seg_s256")
+    ids32 = torch.tensor(seg)
+    results = []
+    for ids in (ids32, ids32.long(), _strided(ids32)):
+        tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+        out = scaled_dot_product_attention(tq, tk, tv, is_causal=True,
+                                           segment_ids=ids)
+        out.backward(torch.tensor(do))
+        results.append([out.detach(), tq.grad, tk.grad, tv.grad])
+    assert len(calls) == 3
+    for got in results[1:]:
+        for g, w in zip(got, results[0]):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
 def test_route_by_dtype_and_head_dim(dtype, head_dim, want):
     """bf16 takes the tensor-core kernels, float32 the scalar ones (TF32
-    would break its tolerances); the forward and dK/dV follow the route,
-    dQ is scalar for both."""
+    would break its tolerances); the forward, dK/dV and dQ all follow the
+    route."""
     assert fa.route(dtype, head_dim) == want
     sm90 = want == "tensor_core"
     assert fa.entry("fwd", dtype, head_dim) == (
@@ -263,8 +294,8 @@ def test_route_by_dtype_and_head_dim(dtype, head_dim, want):
     assert fa.entry("bwd_dkv", dtype, head_dim) == (
         want,
         "flash_bwd_dkv_sm90_launch" if sm90 else "flash_bwd_dkv_launch")
-    assert fa.entry("bwd_dq", dtype, head_dim) == ("scalar",
-                                                   "flash_bwd_dq_launch")
+    assert fa.entry("bwd_dq", dtype, head_dim) == (
+        want, "flash_bwd_dq_sm90_launch" if sm90 else "flash_bwd_dq_launch")
 
 
 @pytest.mark.parametrize("dtype,head_dim,err,match", [
@@ -365,3 +396,29 @@ def test_kernel_wrappers_raise_on_card():
     q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError, match="float16"):
         fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_strided_segment_ids_serve_on_card(dtype):
+    """A strided int32 view of segment ids (and int64 ids) through the
+    differentiable op on the card: the same output and gradients as
+    contiguous int32 ids, with every kernel launched once a call."""
+    _need_cuda()
+    q, k, v, do, seg, causal = _inputs("causal_seg_s256")
+    dt = getattr(torch, dtype)
+    ids32 = torch.tensor(seg, device="cuda")
+    results = []
+    for ids in (ids32, ids32.long(), _strided(ids32)):
+        tq, tk, tv = (torch.tensor(a, device="cuda").to(dt).requires_grad_()
+                      for a in (q, k, v))
+        before = [op.launches for op in fa.KERNEL_OPS.values()]
+        out = fa.flash_attention(tq, tk, tv, ids, causal=causal)
+        out.backward(torch.tensor(do, device="cuda").to(dt))
+        torch.cuda.synchronize()
+        assert [op.launches for op in fa.KERNEL_OPS.values()] == \
+            [n + 1 for n in before]
+        results.append([out.detach(), tq.grad, tk.grad, tv.grad])
+    for got in results[1:]:
+        for g, w in zip(got, results[0]):
+            assert torch.equal(g, w)

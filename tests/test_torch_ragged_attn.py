@@ -328,9 +328,155 @@ def test_build_names_and_stale_lock(tmp_path):
     assert _build._lock_is_stale(str(old))
 
 
+@pytest.mark.parametrize("bs", [1, 2, 4, 8, 16, 24, 32, 64, 128, 256])
+def test_walk_split_depends_only_on_the_table(bs):
+    """The stream kernel's split walk, over a grid of table lengths,
+    windows, head dims, batches and head counts: pieces of
+    G = PIECE_ROWS // bs blocks (at least 1), every table entry in exactly
+    one piece, and a workspace of one partial and its merge factor per
+    slot, head, piece and lane — the same per (slot, head) whatever the batch and head count, so
+    a launch over part of a batch (a mesh rank's) splits every slot as the
+    whole batch does."""
+    shapes = [(1, 1), (1, 16), (4, 8), (8, 16), (16, 32), (3, 5)]
+    for nb in (1, 2, 7, 8, 9, 63, 64, 65, 127, 128, 129, 600):
+        g, n = rpa_mod.walk_pieces(nb, bs)
+        assert g == max(1, rpa_mod.PIECE_ROWS // bs)
+        assert (n - 1) * g < nb <= n * g
+        for window in (1, 24, 64, 128):
+            for head_dim in rpa_mod.STREAM_HEAD_DIMS:
+                per_slot_head = {
+                    rpa_mod.stream_workspace_floats(B, window, H, head_dim,
+                                                    nb, bs) / (B * H)
+                    for B, H in shapes}
+                assert per_slot_head == {
+                    0 if n == 1 else n * window * (head_dim + 3)}
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+# (B, W, H, hd, bs, nb, pos, width): walks of many pieces — gpt2-medium's
+# head dim and block size with a decode lane and a chunk whose horizon is
+# the table's last block, a parked slot deep in its table, a short slot;
+# and an 80-lane chunk (more lane blocks than warps) at the tiny model's
+# head dim
+LONG_CASES = {
+    "hd64_bs16_nb64": (4, 24, 2, 64, 16, 64, [999, 1000, 300, 0],
+                       [1, 24, 0, 17]),
+    "hd16_bs8_w80": (3, 80, 2, 16, 8, 40, [200, 239, 0], [80, 1, 5]),
+}
+
+
+def _long_inputs(case, quant, dtype):
+    """Card tensors of a LONG_CASES walk: q in ``dtype``, every slot its
+    own blocks, fp pools in ``dtype`` or int8 codes with their scales."""
+    B, W, H, hd, bs, nb, pos, width = LONG_CASES[case]
+    rng = np.random.RandomState(3)
+    NB = B * nb + 1
+    q = rng.randn(B, W, H, hd).astype(np.float32)
+    k = rng.randn(NB * bs, H, hd).astype(np.float32)
+    v = rng.randn(NB * bs, H, hd).astype(np.float32)
+    tables = (rng.permutation(NB - 1)[:B * nb] + 1).reshape(B, nb)
+    dt = getattr(torch, dtype)
+    t = _torch((q, k, v, tables.astype(np.int32), np.asarray(pos, np.int32),
+                np.asarray(width, np.int32)), "cuda")
+    t[0] = t[0].to(dt)
+    sc = {}
+    if quant:
+        (kc, ks), (vc, vs) = (quantize_blocks(p.view(-1, bs, H, hd))
+                              for p in t[1:3])
+        t[1], t[2] = kc.view(-1, H, hd), vc.view(-1, H, hd)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        t[1], t[2] = t[1].to(dt), t[2].to(dt)
+    return t, sc, bs
+
+
+def _stream(t, sc, bs):
+    if sc:
+        return ragged_paged_attention_int8(*t, sc["k_scale"], sc["v_scale"],
+                                           block_size=bs)
+    return ragged_paged_attention(*t, block_size=bs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_long_walk_matches_plain_version_on_card(case, quant, dtype):
+    """Walks that cross several pieces (merged by the last to finish)
+    against the plain version: fp32 at rtol 2e-5 / atol 2e-6, bf16 at
+    2e-2 / 2e-2 against the plain version in f32 on the same values;
+    lanes past width exactly 0; one launch counted.  The library's piece
+    count agrees with ``walk_pieces``."""
+    _need_cuda()
+    t, sc, bs = _long_inputs(case, quant, dtype)
+    nb = t[3].shape[1]
+    lib = _build.load("ragged_paged_attn")
+    rpa_mod._load("ragged_paged_attn")
+    assert lib.ragged_paged_attn_pieces(nb, bs) == \
+        rpa_mod.walk_pieces(nb, bs)[1] > 1
+    op = ragged_paged_attention_int8 if quant else ragged_paged_attention
+    before = op.launches
+    got = _stream(t, sc, bs)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    ref_t = [x.float() if x.is_floating_point() else x for x in t]
+    want = ragged_paged_attention_ref(*ref_t, block_size=bs, **sc)
+    tol = (2e-5, 2e-6) if dtype == "float32" else (2e-2, 2e-2)
+    w = t[5].tolist()
+    for b in range(len(w)):
+        torch.testing.assert_close(got[b, :w[b]].float(), want[b, :w[b]],
+                                   rtol=tol[0], atol=tol[1])
+        assert torch.all(got[b, w[b]:] == 0)
+
+
+@pytest.mark.cuda
+def test_stream_kernel_raises_on_what_it_does_not_take_on_card():
+    """A head dim the stream kernel is not compiled for, and a pool that
+    does not start on a 16-byte boundary (its cp.async copies), raise
+    before any launch."""
+    _need_cuda()
+    t, _, bs = _long_inputs("hd64_bs16_nb64", False, "float32")
+    before = ragged_paged_attention.launches
+    q24 = torch.zeros(*t[0].shape[:3], 24, device="cuda")
+    k24 = torch.zeros(t[1].shape[0], t[1].shape[1], 24, device="cuda")
+    with pytest.raises(ValueError, match="head dim 24"):
+        ragged_paged_attention(q24, k24, k24, *t[3:], block_size=bs)
+    shifted = torch.zeros(t[1].numel() + 1, device="cuda")[1:] \
+        .view(t[1].shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        ragged_paged_attention(t[0], shifted, t[2], *t[3:], block_size=bs)
+    assert ragged_paged_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("part", ["slots", "heads"])
+def test_walk_of_part_of_a_batch_is_bitwise_the_whole_on_card(quant, part):
+    """A launch over some of a batch's slots, or some of its heads, gives
+    bitwise the rows the whole batch's launch gives them: the split walk
+    depends on each slot's own table, never on the batch (the property the
+    serving mesh's per-rank launches rely on)."""
+    _need_cuda()
+    t, sc, bs = _long_inputs("hd64_bs16_nb64", quant, "float32")
+    whole = _stream(t, sc, bs)
+    if part == "slots":
+        idx = torch.tensor([1, 3], device="cuda")
+        sub = [t[0][idx], t[1], t[2], t[3][idx], t[4][idx], t[5][idx]]
+        sub_sc = sc
+        want = whole[idx]
+    else:
+        heads = slice(1, 2)
+        sub = [t[0][:, :, heads].contiguous(), t[1][:, heads].contiguous(),
+               t[2][:, heads].contiguous(), *t[3:]]
+        sub_sc = {n: x[:, heads].contiguous() for n, x in sc.items()}
+        want = whole[:, :, heads]
+    got = _stream(sub, sub_sc, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
