@@ -12,7 +12,8 @@ line:
    limit as ``nvidia-smi`` reports them.
 2. Build: compiles every kernel under ``paddle_tpu_torch/csrc`` with
    nvcc for sm_90a (one nvcc per source, all at once) and prints
-   ptxas's register / shared-memory / spill report, and for each flash
+   ptxas's register / shared-memory / spill report (every instantiation:
+   the ragged source's stream and gather bodies alike), and for each flash
    kernel the tensor-core instructions in its SASS (``HGMMA`` for wgmma,
    ``HMMA`` for mma.sync; ``cuobjdump -sass``, the toolkit's or the copy
    in Triton's package; "cuobjdump not found" when neither exists): the
@@ -88,7 +89,8 @@ line:
    rows (the library yardstick, the same call as B1's; the port never
    calls it), and computes the bounds from bytes: B2's live codes and
    scales, B3's every gathered table entry (its live-bytes bound printed
-   beside it).
+   beside it).  Prints each body's split walk (B3's every piece of a slot
+   with a real lane).
 9. Weight-only int8 slice: phase 4's traffic on a fresh gpt2-medium from
    seed 0 served by ``Engine(weight_dtype="int8")``; every greedy token
    teacher-forced against the dense forward of the same relayouted
@@ -121,13 +123,14 @@ line:
    in two dp ranges of 257 blocks (each led by its scratch block, every
    slot's blocks in its own range, tables of GLOBAL ids), q and the pools
    sharded per rank.  Over B1, B2 (int8 pools) and B3 (fp and int8
-   pools): one launch a rank, equal to the unsharded kernel on the same
-   logical inputs within 1e-6 (each CUDA block computes one (slot, head)
-   alone, so bitwise is expected) and to B4's plain form at atol 2e-6 /
-   rtol 2e-5; lanes past width exactly 0.  Times the four launches
-   together (and per launch), the unsharded kernel, the plain form and
-   SDPA over each rank's pre-gathered rows (the four calls summed); the
-   bound is the unsharded call's.
+   pools): one launch for the card's group of four ranks, equal to the
+   unsharded kernel on the same logical inputs within 1e-6 (each (slot,
+   head) runs the same pieces in the same order, so bitwise is expected)
+   and to B4's plain form at atol 2e-6 / rtol 2e-5; lanes past width
+   exactly 0.  Times the call (CUDA events; the wrapper's host work
+   included), its kernel's device time (torch.profiler), the unsharded
+   kernel, the plain form and SDPA over each rank's pre-gathered rows (the
+   four calls summed); the bound is the unsharded call's.
 14. Mesh serving: phase 4's fp32 model -> ``to_tensor_parallel()`` ->
    ``Engine(mesh=ServingMesh(2, 2, devices=[cuda:0] * 4))``, phase 4's
    traffic served three ways.  fp32 pools: every greedy token
@@ -139,8 +142,9 @@ line:
    same fp32 weights except at int8 near ties (phase 10's rule, margin
    < 1e-3 on the mesh engine's own logits).  Gather body: greedy streams
    equal to the mesh fp32 ones except at near ties (margin < 1e-4 on its
-   own logits).  In each, the path's kernel and B4 launched 24 x 4 times
-   a dispatch, and no other ragged kernel.
+   own logits).  In each, the path's kernel and B4 launched 24 times a
+   dispatch (one launch for the card's group of ranks), and no other
+   ragged kernel.
 15. Prints the ``kernels`` JSON line, the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
@@ -282,15 +286,17 @@ def sdpa_inputs(args, bs):
             vb.transpose(1, 2).contiguous(), mask[:, None])
 
 
-def walk_pieces_text(ragged_mod, args, bs):
-    """The stream kernel's split walk at these inputs: paged blocks a
-    piece, pieces a table (the grid's second dimension), and the CUDA
-    blocks the slots' horizons keep (a parked slot's first piece writes
-    its zeros) out of the grid's, over every head."""
+def walk_pieces_text(ragged_mod, args, bs, gather=False):
+    """The kernels' split walk at these inputs: paged blocks a piece,
+    pieces a table (the grid's second dimension), and the CUDA blocks that
+    walk rows out of the grid's, over every head: the stream body's up to
+    each slot's horizon, the gather body's every piece of a slot with a
+    real lane (a parked slot's first piece writes its zeros)."""
     q, _, _, tables, pos, width = args
     nb, H = tables.shape[1], q.shape[2]
     g, n = ragged_mod.walk_pieces(nb, bs)
-    live = sum(-(-min(nb, (p + max(w, 1) - 1) // bs + 1) // g) if w else 1
+    live = sum(1 if not w else n if gather
+               else -(-min(nb, (p + max(w, 1) - 1) // bs + 1) // g)
                for p, w in zip(pos.tolist(), width.tolist()))
     return (f"walk pieces: {g} blocks a piece, {n} a table, {live * H} of "
             f"{len(pos) * n * H} blocks live")
@@ -464,6 +470,23 @@ def device_kernels(prof):
     return [e for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0
             and not getattr(e, "is_user_annotation", False)]
+
+
+def ragged_device_ms(fn, iters=20):
+    """Device time of the ragged kernels a call of ``fn`` launches, from
+    ``iters`` calls under torch.profiler after one warm-up: what a
+    host-bound call's CUDA-event time does not show."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in device_kernels(prof)
+               if RAGGED_KERNEL_NAMES.search(e.key)) / 1e3 / iters
 
 
 # the ticks a profile covers: (first, count) — a window that mixes
@@ -654,8 +677,7 @@ def quant_kernel_phase(ragged_mod):
             results[name, dtype] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by)
-            pieces = ("" if gather else
-                      f"; {walk_pieces_text(ragged_mod, a, bs)}")
+            pieces = f"; {walk_pieces_text(ragged_mod, a, bs, gather)}"
             print(f"kernel {name} {dtype}: max_abs_err {err:.3e} rel_l2 "
                   f"{rel:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms "
                   f"{lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}){live}"
@@ -676,12 +698,12 @@ def one_card_mesh():
 
 def mesh_kernel_phase(ragged_mod):
     """B4 over B1, B2 and B3 on phase 3's inputs sharded over the (2, 2)
-    mesh: held to its plain form (per-rank plain versions) and to the
-    unsharded kernel on the same logical inputs (bitwise expected, gated
-    at 1e-6); times the four launches together, the unsharded kernel,
-    the plain form and SDPA over each rank's pre-gathered rows (summed),
-    and computes the bound from the unsharded call's bytes.  Returns
-    {case: result}."""
+    mesh: one launch for the card's group of four ranks, held to its plain
+    form (per-rank plain versions) and to the unsharded kernel on the same
+    logical inputs (bitwise expected, gated at 1e-6); times that launch,
+    the unsharded kernel, the plain form and SDPA over each rank's
+    pre-gathered rows (summed), and computes the bound from the unsharded
+    call's bytes.  Returns {case: result}."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.distributed import shard, unshard
@@ -696,6 +718,9 @@ def mesh_kernel_phase(ragged_mod):
     bl = q.shape[0] // mesh.dp
     w_list = width.tolist()
     results = {}
+
+    def group_rows(t):   # each rank's slots, in the launch's order
+        return torch.cat([t[d * bl:(d + 1) * bl] for _, d in mesh.ranks()])
     for name, variant, pools, scales in (
             ("stream_fp32", "stream", (k, v), None),
             ("stream_int8", "stream", (kc, vc), (ks, vs)),
@@ -719,8 +744,10 @@ def mesh_kernel_phase(ragged_mod):
         before = rm.sharded_ragged_paged_attention.launches
         got = unshard(b4(), qspec, mesh)
         torch.cuda.synchronize()
-        check(rm.sharded_ragged_paged_attention.launches
-              == before + mesh.size, f"B4 {name}: not one launch a rank")
+        groups = len(rm.card_groups(mesh))
+        check(groups == 1 and rm.sharded_ragged_paged_attention.launches
+              == before + groups, f"B4 {name}: not one launch for the "
+              "card's four ranks")
         want_one = one()
         want_plain = unshard(plain(), qspec, mesh)
         err_one = float((got - want_one).abs().max())
@@ -736,6 +763,7 @@ def mesh_kernel_phase(ragged_mod):
                 err = max(err, float((got[b, :w]
                                       - want_plain[b, :w]).abs().max()))
         ms = cuda_time_ms(b4)
+        device_ms = ragged_device_ms(b4)
         one_ms = cuda_time_ms(one)
         plain_ms = cuda_time_ms(plain, iters=3, warmup=1)
         # SDPA over each rank's rows, gathered through its localized
@@ -761,16 +789,17 @@ def mesh_kernel_phase(ragged_mod):
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bound,
                              bound_by=bound_by, unsharded_ms=one_ms,
-                             err_vs_unsharded=err_one)
+                             err_vs_unsharded=err_one, device_ms=device_ms)
         print(f"kernel sharded_ragged_paged_attention {name} mesh "
               f"{MESH_SHAPE} on one card: max_abs_err {err:.3e} (vs plain "
-              f"form) vs_unsharded {err_one:.3e} ms {ms:.4f} (4 launches) "
-              f"per_launch_ms {ms / mesh.size:.4f} unsharded_kernel_ms "
-              f"{one_ms:.4f} plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} "
-              f"(4 ranks summed) bound_ms {bound:.4f} ({bound_by})"
-              + ("" if gather else "; rank 0 " + walk_pieces_text(
-                  rm, (qs[0], None, None, tables[:bl], pos[:bl],
-                       width[:bl]), bs)),
+              f"form) vs_unsharded {err_one:.3e} ms {ms:.4f} (1 launch, "
+              f"{mesh.size} ranks; its kernel's device time "
+              f"{device_ms:.4f}) unsharded_kernel_ms {one_ms:.4f} "
+              f"plain_ms {plain_ms:.4f} sdpa_ms {lib_ms:.4f} (4 ranks "
+              f"summed) bound_ms {bound:.4f} ({bound_by}); the launch's "
+              + walk_pieces_text(rm, (torch.cat(qs), None, None, tables,
+                                      group_rows(pos), group_rows(width)),
+                                 bs, gather),
               flush=True)
     return results
 
@@ -1057,16 +1086,18 @@ def capacity_phase(model_fp, card):
 
 # -- phase 14 -------------------------------------------------------------
 def check_mesh_launches(ragged_mod, eng, kernel, label):
-    """The mesh path launched ``kernel`` through B4 once a rank, 24 layers
-    a dispatch, and no other ragged kernel.  Returns B4's count."""
-    ranks = eng.mp * eng.dp
+    """The mesh path launched ``kernel`` through B4 once a card group (one
+    group on one card, four over four cards), 24 layers a dispatch, and no
+    other ragged kernel.  Returns B4's count."""
+    groups = len(ragged_mod.card_groups(eng.mesh))
     counts = ragged_counts(ragged_mod)
-    want = eng.ragged_dispatches * N_LAYERS * ranks
+    want = eng.ragged_dispatches * N_LAYERS * groups
     path = (kernel, "sharded_ragged_paged_attention")
     for name in path:
         check(counts[name] == want,
               f"{label}: {name} launched {counts[name]} times, not "
-              f"{eng.ragged_dispatches} dispatches x {N_LAYERS} x {ranks}")
+              f"{eng.ragged_dispatches} dispatches x {N_LAYERS} x {groups} "
+              "card groups")
     others = {n: c for n, c in counts.items() if n not in path and c}
     check(not others, f"{label}: other ragged kernels launched: {others}")
     return counts["sharded_ragged_paged_attention"]
@@ -1086,8 +1117,9 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
     # streams equal the unsharded engine's (phase 4) and repeat
     zero_ragged_counts(ragged_mod)
     eng, outs, wall = serve(tp, reqs, Engine, mesh=one_card_mesh())
-    total += check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
-                                 "mesh fp32 serve")
+    n = check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
+                            "mesh fp32 serve")
+    total += n
     check(eng.prefix_hits > 0, "mesh fp32: no prefix-cache hit")
     for (p, _), ids in zip(reqs, outs):
         check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
@@ -1096,8 +1128,7 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
         if kw:
             check(a.tolist() == b.tolist(), "mesh: a seeded stream differs "
                   "from the unsharded engine's")
-    slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32", eng, wall,
-               eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp, card,
+    slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32", eng, wall, n, card,
                f" kv_blocks {eng.block_pool.managed_blocks} greedy_checked "
                f"{checked} near_ties {near}")
     again = profile_phase(tp, reqs, Engine, card, label=" mesh",
@@ -1113,15 +1144,15 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
     zero_ragged_counts(ragged_mod)
     eng, q_outs, wall, margins = serve_recording_margins(
         tp, reqs, mesh=True, kv_dtype="int8")
-    total += check_mesh_launches(ragged_mod, eng,
-                                 "ragged_paged_attention_int8",
-                                 "mesh int8 serve")
+    n = check_mesh_launches(ragged_mod, eng, "ragged_paged_attention_int8",
+                            "mesh int8 serve")
+    total += n
     near, gaps = stream_divergences(model_fp, reqs, u_outs, q_outs, margins,
                                     1e-3)
     same = sum(a.tolist() == b.tolist()
                for (_, kw), a, b in zip(reqs, u_outs, q_outs) if not kw)
     slice_line(f"gpt2-medium mesh {MESH_SHAPE} kv_dtype=int8", eng, wall,
-               eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp, card,
+               n, card,
                f" greedy_equal_to_unsharded_int8 {same}/10 "
                f"near_tie_divergences {near} at margins {gaps} "
                f"(unsharded int8 wall_s {u_wall:.3f})")
@@ -1131,15 +1162,15 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
     zero_ragged_counts(ragged_mod)
     eng, g_outs, wall, margins = serve_recording_margins(
         tp, reqs, mesh=True, attn_impl="ragged_gather")
-    total += check_mesh_launches(ragged_mod, eng, "ragged_gather_attention",
-                                 "mesh gather serve")
+    n = check_mesh_launches(ragged_mod, eng, "ragged_gather_attention",
+                            "mesh gather serve")
+    total += n
     near, gaps = stream_divergences(model_fp, reqs, outs, g_outs, margins,
                                     1e-4)
     same = sum(a.tolist() == b.tolist()
                for (_, kw), a, b in zip(reqs, outs, g_outs) if not kw)
     slice_line(f"gpt2-medium mesh {MESH_SHAPE} attn_impl=ragged_gather",
-               eng, wall, eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp,
-               card, f" greedy_equal_to_mesh_fp32 {same}/10 "
+               eng, wall, n, card, f" greedy_equal_to_mesh_fp32 {same}/10 "
                f"near_tie_divergences {near} at margins {gaps}")
     del eng, tp
     torch.cuda.empty_cache()
@@ -1151,7 +1182,8 @@ def four_card_phase(card, ragged_mod):
     mesh over four cards (``serving_mesh``: rank (m, d) on card
     ``2 d + m``) beside the same mesh mapped onto ``cuda:0``, on a fresh
     gpt2-medium from seed 0: both teacher-forced against the dense
-    forward, B4 launched 24 x 4 times a dispatch, seeded streams equal.
+    forward, B4 launched 24 times a dispatch for each card group (one
+    group on one card, four over four cards), seeded streams equal.
     Prints each card's peak memory."""
     import torch
     from paddle_tpu_torch.distributed import serving_mesh
@@ -1169,14 +1201,14 @@ def four_card_phase(card, ragged_mod):
             torch.cuda.reset_peak_memory_stats(i)
         zero_ragged_counts(ragged_mod)
         eng, outs, wall = serve(tp, reqs, Engine, mesh=mesh)
-        check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
-                            f"mesh on {label}")
+        n = check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
+                                f"mesh on {label}")
         checked, near = teacher_forcing(model, reqs, outs)
         peaks = " ".join(f"{torch.cuda.max_memory_allocated(i) / 1e9:.2f}"
                          for i in range(4))
         slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32 on {label} "
                    f"({', '.join(str(d) for d in mesh.devices)})", eng, wall,
-                   eng.ragged_dispatches * N_LAYERS * eng.mp * eng.dp, card,
+                   n, card,
                    f" greedy_checked {checked} near_ties {near} "
                    f"peak_mem_gb_per_card {peaks}")
         streams[label] = outs
@@ -1650,7 +1682,7 @@ def main(argv):
     for name, source, replaces, n in (
             ("ragged_paged_attention_int8", "ragged_paged_attn.cu",
              "paddle_tpu/ops/ragged_paged_attn.py:141", int8_launches),
-            ("ragged_gather_attention", "ragged_gather_attn.cu",
+            ("ragged_gather_attention", "ragged_paged_attn.cu",
              "paddle_tpu/ops/ragged_paged_attn.py:232", gather_launches)):
         r = qres[name, "float32"]
         kernels.append({
@@ -1673,7 +1705,6 @@ def main(argv):
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/ragged_paged_attn.cu",
         "sources": ["paddle_tpu_torch/csrc/ragged_paged_attn.cu",
-                    "paddle_tpu_torch/csrc/ragged_gather_attn.cu",
                     "paddle_tpu_torch/ops/ragged_paged_attn.py"],
         "replaces": "paddle_tpu/ops/ragged_paged_attn.py:377",
         "launches": mesh_launches,
@@ -1685,6 +1716,7 @@ def main(argv):
         "library_ms": r["library_ms"],
         "library_covers": ["sharded_ragged_paged_attention"],
         "mesh": list(MESH_SHAPE),
+        "device_ms": r["device_ms"],
     })
     for kernel in FLASH_KERNELS:
         r = fres[kernel]

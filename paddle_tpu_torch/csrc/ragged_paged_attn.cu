@@ -1,44 +1,59 @@
 // Ragged paged attention for Hopper (sm_90a): the hand-written CUDA
-// counterpart of paddle_tpu/ops/ragged_paged_attn.py::_stream_impl, the
-// TPU Pallas kernel that carries every paged window of the serving
-// engine's attn_impl="ragged" path (one-token decode lanes and prefill
-// chunks side by side, per-slot pos / width / block table as data), in
-// both of its legs: fp pools (B1) and int8 pools with per-block per-head
-// f32 scales (B2, Engine(kv_dtype="int8"), the same function's
-// k_scale / v_scale branch at :141-163).
+// counterpart of both Pallas kernels of paddle_tpu/ops/ragged_paged_attn.py,
+// the kernels behind every paged window of the serving engine (one-token
+// decode lanes and prefill chunks side by side, per-slot pos / width /
+// block table as data), each over fp pools and over int8 pools with
+// per-block per-head f32 scales (Engine(kv_dtype="int8")):
+// * _stream_impl (:125, call :222; the int8 branch :141-163), behind
+//   attn_impl="ragged": B1 over fp pools, B2 over int8 pools;
+// * _gather_impl (:232, call :314), behind attn_impl="ragged_gather", the
+//   A/B body beside it: B3;
+// * and sharded_ragged_paged_attention (:377, shard_map at :470), B4,
+//   which runs the unchanged kernel on every shard of an (mp, dp) serving
+//   mesh: here one launch covers every rank that shares a card.
 //
-// What it computes, per slot b and head h: walk the slot's block table
-// up to the causal horizon n_live = min(nb, (pos + max(width, 1) - 1) / bs
-// + 1); score the query lanes against each live K row, mask position
-// j*bs + r > pos + s, and run the flash online-softmax recurrence
-// (running max m, normalizer l, accumulator acc rescaled by
-// exp(m_old - m_new), masked probabilities exactly 0).  The output is
-// acc / l in q's dtype, and lanes >= width are written as 0.  With int8
-// pools each row is dequantized as (float)code * scale[block, h], the
-// scale read once per row of a piece, so the pool is never dequantized
-// whole.
+// What it computes, per slot b and head h: score the query lanes against
+// the slot's K rows, mask position j*bs + r > pos + s, and run the flash
+// online-softmax recurrence (running max m, normalizer l, accumulator acc
+// rescaled by exp(m_old - m_new), masked probabilities exactly 0).  The
+// output is acc / l in q's dtype, and lanes >= width are written as 0.
+// With int8 pools each row is dequantized as (float)code * scale[block,
+// h], the scale read once per row of a piece, so the pool is never
+// dequantized whole.  The two bodies differ in the rows they walk:
+// * the stream body (ragged_paged_attn_kernel) walks the slot's table up
+//   to the causal horizon n_live = min(nb, (pos + max(width, 1) - 1) / bs
+//   + 1), since every block past it is fully masked;
+// * the gather body (ragged_gather_attn_kernel) reads and scores EVERY
+//   table entry of a slot with a real lane (n_live = nb), the TPU gather
+//   kernel's defined work (it gathers the whole row of L = nb * bs
+//   positions and takes one softmax over it), which is what makes it the
+//   baseline the stream body is measured against.  A piece wholly past
+//   the horizon keeps m = -1e30 and l = 0, so its merge factor
+//   exp2(-1e30 - max) is exactly 0; piece 0 holds position 0, visible to
+//   every lane, so the normalizer is positive.  Allclose to one softmax
+//   over the row, not bitwise: the pieces sum in another order.
 //
-// What bounds it on an H100: bytes.  Each slot's live K/V rows are read
-// once per head, q and the output once; the arithmetic is about
-// 4 * lanes * hd flops per K/V row, far below the card's ~20 flop/byte
-// fp32 balance point, so the floor is the live K/V bytes over 3.35 TB/s
-// (a quarter of them for int8 codes, plus the scale rows).
+// What bounds it on an H100: bytes.  Each walked K/V row is read once per
+// head, q and the output once; the arithmetic is about 4 * lanes * hd
+// flops per K/V row, far below the card's ~20 flop/byte fp32 balance
+// point, so the floor is the walked K/V bytes over 3.35 TB/s (a quarter
+// of them for int8 codes, plus the scale rows).
 //
 // What the design does about it: the walk is split, so that a long slot
 // no longer sets the launch's time alone.
 // * Pieces.  A slot's table splits into pieces of G = kPieceRows / bs
-//   paged blocks (G = 1 for bs >= kPieceRows).  The grid is (B*H, pieces)
-//   with pieces = ceil(nb / G): the split depends on the table's length
-//   and the block size only, never on B, H or the card, so a batch cut to
-//   some of its slots or heads (the serving mesh's per-rank launches)
+//   paged blocks (G = 1 for bs >= kPieceRows).  The grid is (R*B*H,
+//   pieces) with pieces = ceil(nb / G): the split depends on the table's
+//   length and the block size only, never on the ranks, B, H or the card,
+//   so a launch over some of a batch's slots or heads (a mesh rank's)
 //   computes every (slot, head) in the same order, bitwise.  A piece past
-//   its slot's horizon exits at once.
-// * A piece stages its live K/V rows into shared memory with cp.async, in
-//   the pool's own type (int8 codes stay int8 there), one commit group per
-//   32 rows; the first pass over the rows waits for each group as it
-//   lands, so loads overlap arithmetic, and the other blocks on the SM
-//   overlap the rest (two or three at hd=64: shared memory holds fp32
-//   pools to two, registers int8 pools).
+//   the rows its slot walks exits at once.
+// * A piece stages its rows into shared memory with cp.async, in the
+//   pool's own type (int8 codes stay int8 there), one commit group per 32
+//   rows; the first pass over the rows waits for each group as it lands,
+//   so loads overlap arithmetic, and the other blocks on the SM overlap
+//   the rest (two or three at hd=64: shared memory holds fp32 pools to
+//   two, registers int8 pools).
 // * Four warps split the lanes: warp i takes the 16-lane blocks i, i + 4,
 //   ..., so a 64-lane prefill chunk runs on all four and a decode lane
 //   (width 1) on one warp, which walks the piece alone.  In a warp, a
@@ -51,19 +66,30 @@
 //   probability broadcast to the accumulator's owners by a shuffle.
 // * fp32 stays on CUDA-core FMAs (TF32 would break the fp32 tolerances),
 //   and so does bf16.
-// * Combine, in the same launch.  A slot with one live piece (every
-//   decode lane up to kPieceRows of context, every slot of a short table)
-//   writes its output and the zeros past width directly.  Otherwise each
-//   piece writes its partial (m, l, acc) per lane into an f32 workspace
-//   that the caller allocates ([B*H, pieces, W, hd], [B*H, pieces, W, 2],
-//   then [B*H, pieces, W] for the merge's factors) and adds one to its
-//   (slot, head)'s counter; the
-//   piece that brings the counter to the live piece count merges every
-//   piece in piece order (so the result does not depend on which piece
-//   finished last), writes the zeros past width and sets the counter back
-//   to 0 for the next launch.
-// The kernel is templated over (q/out type, pool type, head dim): the fp
-// and int8 legs share every line but the dequantizing multiplies.
+// * Combine, in the same launch.  A slot with one walked piece (a stream
+//   slot's decode lane up to kPieceRows of context, every slot of a short
+//   table) writes its output and the zeros past width directly.
+//   Otherwise each piece writes its partial (m, l, acc) per lane into an
+//   f32 workspace that the caller allocates ([R*B*H, pieces, W, hd],
+//   [R*B*H, pieces, W, 2], then [R*B*H, pieces, W] for the merge's
+//   factors) and adds one to its (slot, head)'s counter; the piece that
+//   brings the counter to the walked piece count merges every piece in
+//   piece order (so the result does not depend on which piece finished
+//   last), writes the zeros past width and sets the counter back to 0 for
+//   the next launch.
+// * Rank groups (B4).  One launch covers up to kMaxRanks mesh ranks that
+//   share a card, each with its own q, pools and scales (RankArgs, passed
+//   by value) and its dp index d; the grid's first dimension runs over
+//   (rank, slot, head).  The block tables, pos and width are the whole
+//   batch's: rank r's slot b is global slot d * B + b, and a table entry
+//   (a GLOBAL block id) is localized to the rank's pool shard as it is
+//   read, entry - d * nb_local.  An unsharded call is a group of one rank
+//   with d = 0.  Each (slot, head) runs the same pieces in the same order
+//   as in the unsharded launch, so the mesh's result is bitwise the
+//   unsharded one.
+// The kernel is templated over (q/out type, pool type, head dim, body):
+// the fp and int8 legs share every line but the dequantizing multiplies,
+// and the two bodies every line but the rows they walk.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,6 +105,19 @@ constexpr int kStepRows = 32;    // rows of one step: 8 row groups x 4
 constexpr int kLaneBlock = 16;   // lanes a warp carries: 4 lane groups x 4
 constexpr float kMaskValue = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxRanks = 8;     // mesh ranks one launch covers
+
+// Each rank's operands in a group launch: q [B, W, H, hd], the pools
+// [NB_local * bs, H, hd] and, for int8 pools, the scales [NB_local, H];
+// d is the rank's dp index.
+struct RankArgs {
+  const void* q[kMaxRanks];
+  const void* k[kMaxRanks];
+  const void* v[kMaxRanks];
+  const float* k_scale[kMaxRanks];
+  const float* v_scale[kMaxRanks];
+  int d[kMaxRanks];
+};
 
 __host__ __device__ inline int piece_blocks(int bs) {
   return bs >= kPieceRows ? 1 : kPieceRows / bs;
@@ -183,18 +222,15 @@ __device__ __forceinline__ void cp_async_wait_pending(int n) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// One (slot, head, piece) a block.  scale_log2 = log2(e) / sqrt(hd).
-template <typename T, typename P, int HD>
-__global__ void __launch_bounds__(kThreads)
-ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
-                         const P* __restrict__ v,
-                         const float* __restrict__ k_scale,
-                         const float* __restrict__ v_scale,
-                         const int* __restrict__ tables,
-                         const int* __restrict__ pos,
-                         const int* __restrict__ width, T* __restrict__ out,
-                         float* __restrict__ ws, int* __restrict__ counters,
-                         int W, int H, int bs, int nb, float scale_log2) {
+// One (rank, slot, head, piece) a block.  B and H are a rank's slots and
+// heads; scale_log2 = log2(e) / sqrt(hd).  kGather: walk every table
+// entry (B3), else up to the causal horizon (B1, B2).
+template <typename T, typename P, int HD, bool kGather>
+__device__ __forceinline__ void attn_body(
+    const RankArgs& ra, const int* __restrict__ tables,
+    const int* __restrict__ pos, const int* __restrict__ width,
+    T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+    int B, int W, int H, int bs, int nb, int nb_local, float scale_log2) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   constexpr int QS = HD + 4;                // q row stride, floats
   constexpr int KS = HD + 16 / sizeof(P);   // K row stride, elements
@@ -205,13 +241,24 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ bool merges;  // this piece finished its (slot, head) last
 
-  const int bh = blockIdx.x, b = bh / H, h = bh % H, c = blockIdx.y;
+  // bg: the slot's row in the group's output [R*B, W, H, hd]
+  const int bh = blockIdx.x, bg = bh / H, h = bh % H, c = blockIdx.y;
+  const int rk = bg / B, b = bg % B, dp_i = ra.d[rk];
+  const int slot = dp_i * B + b;                  // in the whole batch
+  const int64_t blk_base = (int64_t)dp_i * nb_local;  // the shard's first
+  const T* __restrict__ q = static_cast<const T*>(ra.q[rk]);
+  const P* __restrict__ k = static_cast<const P*>(ra.k[rk]);
+  const P* __restrict__ v = static_cast<const P*>(ra.v[rk]);
+  const float* __restrict__ k_scale = ra.k_scale[rk];
+  const float* __restrict__ v_scale = ra.v_scale[rk];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int G = piece_blocks(bs), NP = n_pieces(nb, bs);
-  const int p = pos[b];
-  const int w = min(max(width[b], 0), W);
-  // causal horizon; a parked width-0 slot walks nothing and writes zeros
-  const int n_live = min(nb, (p + max(w, 1) - 1) / bs + 1);
+  const int p = pos[slot];
+  const int w = min(max(width[slot], 0), W);
+  // the walked blocks: every entry, or up to the causal horizon; a parked
+  // width-0 slot walks nothing and writes zeros
+  const int n_live =
+      kGather ? nb : min(nb, (p + max(w, 1) - 1) / bs + 1);
   const int n_pc = (n_live + G - 1) / G;
   const bool direct = n_pc == 1 || w == 0;
   const int64_t hs = (int64_t)H * HD;  // row stride of q, out and pools
@@ -219,7 +266,8 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
   if (direct) {  // the zeros past width
     for (int i = tid; i < (W - w) * HD; i += kThreads) {
       const int s = w + i / HD, d = i % HD;
-      out[((int64_t)b * W + s) * hs + (int64_t)h * HD + d] = from_float<T>(0.f);
+      out[((int64_t)bg * W + s) * hs + (int64_t)h * HD + d] =
+          from_float<T>(0.f);
     }
     if (w == 0) return;
   }
@@ -246,13 +294,13 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
               : 0.f;
   }
   // K/V rows, one cp.async group a step; rows past the live ones are zeros
-  const int* table = tables + (int64_t)b * nb;
+  const int* table = tables + (int64_t)slot * nb;
   for (int st = 0; st < n_steps; ++st) {
     for (int i = tid; i < kStepRows * CPR; i += kThreads) {
       const int r = st * kStepRows + i / CPR, ch = i % CPR;
       const bool live = r < rows;
       const int jb = (row0 + r) / bs;
-      const int64_t blk = live ? table[jb] : 0;
+      const int64_t blk = live ? table[jb] - blk_base : 0;
       const int64_t off =
           ((blk * bs + (row0 + r) - (int64_t)jb * bs) * hs + (int64_t)h * HD) *
               (int64_t)sizeof(P) + ch * CHUNK;
@@ -364,7 +412,7 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
       const int s = lb * kLaneBlock + lg + 4 * i;
       if (s >= w) continue;
       if (direct) {
-        T* o = out + ((int64_t)b * W + s) * hs + (int64_t)h * HD + rg * CPT;
+        T* o = out + ((int64_t)bg * W + s) * hs + (int64_t)h * HD + rg * CPT;
         const float inv = 1.f / l[i];
 #pragma unroll
         for (int cc = 0; cc < CPT; ++cc)
@@ -453,7 +501,7 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
         o.w = fmaf(x.w, f, o.w);
       }
     }
-    T* dst = out + ((int64_t)b * W + s) * hs + (int64_t)h * HD + 4 * c;
+    T* dst = out + ((int64_t)bg * W + s) * hs + (int64_t)h * HD + 4 * c;
     dst[0] = from_float<T>(o.x);
     dst[1] = from_float<T>(o.y);
     dst[2] = from_float<T>(o.z);
@@ -461,67 +509,57 @@ ragged_paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ k,
   }
 }
 
+// The two bodies as kernels of their own names, apart in a profile.
+#define RPA_PARAMS                                                        \
+  const __grid_constant__ RankArgs ra, const int* __restrict__ tables,    \
+      const int* __restrict__ pos, const int* __restrict__ width,         \
+      T* __restrict__ out, float* __restrict__ ws,                        \
+      int* __restrict__ counters, int B, int W, int H, int bs, int nb,    \
+      int nb_local, float scale_log2
+#define RPA_BODY_ARGS                                                     \
+  ra, tables, pos, width, out, ws, counters, B, W, H, bs, nb, nb_local,   \
+      scale_log2
 template <typename T, typename P, int HD>
-int launch_hd(const void* q, const void* k, const void* v, const void* k_scale,
-              const void* v_scale, const void* tables, const void* pos,
-              const void* width, void* out, void* ws, void* counters, int B,
-              int W, int H, int bs, int nb, float scale,
-              cudaStream_t stream) {
-  const int np = n_pieces(nb, bs);
-  if (np > 1 && (ws == nullptr || counters == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(W, HD, bs, sizeof(P));
-  ragged_paged_attn_kernel<T, P, HD>
-      <<<dim3(B * H, np), kThreads, smem, stream>>>(
-          static_cast<const T*>(q), static_cast<const P*>(k),
-          static_cast<const P*>(v), static_cast<const float*>(k_scale),
-          static_cast<const float*>(v_scale), static_cast<const int*>(tables),
-          static_cast<const int*>(pos), static_cast<const int*>(width),
-          static_cast<T*>(out), static_cast<float*>(ws),
-          static_cast<int*>(counters), W, H, bs, nb, scale * kLog2e);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+ragged_paged_attn_kernel(RPA_PARAMS) {
+  attn_body<T, P, HD, false>(RPA_BODY_ARGS);
+}
+template <typename T, typename P, int HD>
+__global__ void __launch_bounds__(kThreads)
+ragged_gather_attn_kernel(RPA_PARAMS) {
+  attn_body<T, P, HD, true>(RPA_BODY_ARGS);
+}
+#undef RPA_PARAMS
+#undef RPA_BODY_ARGS
+
+template <typename T, typename P, int HD>
+const void* kernel_fn(bool gather) {
+  return gather ? (const void*)ragged_gather_attn_kernel<T, P, HD>
+                : (const void*)ragged_paged_attn_kernel<T, P, HD>;
 }
 
 template <typename T, typename P>
-int launch(int hd, const void* q, const void* k, const void* v,
-           const void* k_scale, const void* v_scale, const void* tables,
-           const void* pos, const void* width, void* out, void* ws,
-           void* counters, int B, int W, int H, int bs, int nb, float scale,
-           cudaStream_t stream) {
-#define RPA_ARGS                                                         \
-  q, k, v, k_scale, v_scale, tables, pos, width, out, ws, counters, B, W, \
-      H, bs, nb, scale, stream
+const void* kernel_hd(int hd, bool gather) {
   switch (hd) {
-    case 8: return launch_hd<T, P, 8>(RPA_ARGS);
-    case 16: return launch_hd<T, P, 16>(RPA_ARGS);
-    case 32: return launch_hd<T, P, 32>(RPA_ARGS);
-    case 64: return launch_hd<T, P, 64>(RPA_ARGS);
-    case 128: return launch_hd<T, P, 128>(RPA_ARGS);
-  }
-#undef RPA_ARGS
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename T, typename P>
-const void* kernel_hd(int hd) {
-  switch (hd) {
-    case 8: return (const void*)ragged_paged_attn_kernel<T, P, 8>;
-    case 16: return (const void*)ragged_paged_attn_kernel<T, P, 16>;
-    case 32: return (const void*)ragged_paged_attn_kernel<T, P, 32>;
-    case 64: return (const void*)ragged_paged_attn_kernel<T, P, 64>;
-    case 128: return (const void*)ragged_paged_attn_kernel<T, P, 128>;
+    case 8: return kernel_fn<T, P, 8>(gather);
+    case 16: return kernel_fn<T, P, 16>(gather);
+    case 32: return kernel_fn<T, P, 32>(gather);
+    case 64: return kernel_fn<T, P, 64>(gather);
+    case 128: return kernel_fn<T, P, 128>(gather);
   }
   return nullptr;
 }
 
-// The piece kernel of (dtype, quant, hd): 0 = float32, 1 = bfloat16 for q
-// and out; quant = int8 pools with scales, else pools of q's dtype.
-const void* kernel_of(int dtype, int quant, int hd) {
+// The piece kernel of (dtype, quant, hd, body): dtype 0 = float32, 1 =
+// bfloat16 for q and out; quant = int8 pools with scales, else pools of
+// q's dtype; gather = the gather body, else the stream body.
+const void* kernel_of(int dtype, int quant, int hd, bool gather) {
   if (dtype == 0)
-    return quant ? kernel_hd<float, int8_t>(hd) : kernel_hd<float, float>(hd);
+    return quant ? kernel_hd<float, int8_t>(hd, gather)
+                 : kernel_hd<float, float>(hd, gather);
   if (dtype == 1)
-    return quant ? kernel_hd<__nv_bfloat16, int8_t>(hd)
-                 : kernel_hd<__nv_bfloat16, __nv_bfloat16>(hd);
+    return quant ? kernel_hd<__nv_bfloat16, int8_t>(hd, gather)
+                 : kernel_hd<__nv_bfloat16, __nv_bfloat16>(hd, gather);
   return nullptr;
 }
 
@@ -542,52 +580,77 @@ size_t ragged_paged_attn_smem_bytes(int W, int hd, int bs) {
 }
 
 // Raise the piece kernels' dynamic shared-memory limit to smem bytes, for
-// every head dim of (dtype, quant): called once per (dtype, quant, card)
-// and again only when a config needs more, not before every launch.
-// Returns the CUDA error (0 on success).
+// both bodies and every head dim of (dtype, quant): called once per
+// (dtype, quant, card) and again only when a config needs more, not before
+// every launch.  Returns the CUDA error (0 on success).
 int ragged_paged_attn_prepare(int dtype, int quant, int smem) {
   const int head_dims[] = {8, 16, 32, 64, 128};
-  for (int hd : head_dims) {
-    const void* fn = kernel_of(dtype, quant, hd);
-    if (!fn) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+  for (int gather = 0; gather < 2; ++gather) {
+    for (int hd : head_dims) {
+      const void* fn = kernel_of(dtype, quant, hd, gather);
+      if (!fn) return (int)cudaErrorInvalidValue;
+      const cudaError_t err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+    }
   }
   return 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 for q and out.  k_scale / v_scale:
-// null for fp pools (k and v then share q's dtype), else f32 [NB, H] and
-// k, v are int8 codes.  tables, pos and width are int32.  Layouts: q and
-// out [B, W, H, hd]; k and v [NB * bs, H, hd], 16-byte aligned; tables
-// [B, nb].  ws: f32 workspace of B * H * pieces * W * (hd + 3) floats
-// (ragged_paged_attn_pieces), and counters: int32 [B * H], all 0 (the
-// launch leaves them 0, so one set serves every launch on a stream); both
-// null when there is one piece.  hd is 8, 16, 32, 64 or 128.  One launch;
-// returns cudaGetLastError() after it (0 on success).
-int ragged_paged_attn_launch(int dtype, const void* q, const void* k,
-                             const void* v, const void* k_scale,
-                             const void* v_scale, const void* tables,
-                             const void* pos, const void* width, void* out,
-                             void* ws, void* counters, int B, int W, int H,
-                             int hd, int bs, int nb, float scale,
+// One launch over n_ranks (1 to kMaxRanks) ranks that share the card.
+// dtype: 0 = float32, 1 = bfloat16 for q and out.  gather: 1 = the gather
+// body (B3), 0 = the stream body (B1, B2).  ranks: 5 * n_ranks pointers,
+// q, k, v, k_scale, v_scale of every rank in turn (q of rank r at
+// ranks[r], k at ranks[n_ranks + r], ...).  Per rank r: q [B, W, H, hd];
+// k, v [nb_local * bs, H, hd], 16-byte aligned, in q's dtype when k_scale
+// and v_scale are null, else int8 codes with f32 scales [nb_local, H]
+// (every rank alike); d[r] its dp index.  tables [n_slots,
+// nb] of GLOBAL block ids (rank r's slot b is row d[r] * B + b, its entries
+// are localized as entry - d[r] * nb_local), pos and width [n_slots]; all
+// int32.  out [n_ranks * B, W, H, hd] in q's dtype.  ws: f32 workspace of
+// n_ranks * B * H * pieces * W * (hd + 3) floats (ragged_paged_attn_pieces),
+// and counters: int32 [n_ranks * B * H], all 0 (the launch leaves them 0,
+// so one set serves every launch on a stream); both null when there is one
+// piece.  hd is 8, 16, 32, 64 or 128.  An unsharded call is one rank with
+// d = 0.  Returns cudaGetLastError() after the launch (0 on success).
+int ragged_paged_attn_launch(int dtype, int gather, int n_ranks,
+                             const void* const* ranks, const int* d,
+                             const void* tables, const void* pos,
+                             const void* width, void* out, void* ws,
+                             void* counters, int B, int W, int H, int hd,
+                             int bs, int nb, int nb_local, float scale,
                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((k_scale == nullptr) != (v_scale == nullptr))
+  if (n_ranks < 1 || n_ranks > kMaxRanks) return (int)cudaErrorInvalidValue;
+  const void* const* k_scale = ranks + 3 * n_ranks;
+  const void* const* v_scale = ranks + 4 * n_ranks;
+  const bool quant = k_scale[0] != nullptr;
+  RankArgs ra = {};
+  for (int r = 0; r < n_ranks; ++r) {
+    if ((k_scale[r] != nullptr) != quant || (v_scale[r] != nullptr) != quant)
+      return (int)cudaErrorInvalidValue;
+    ra.q[r] = ranks[r];
+    ra.k[r] = ranks[n_ranks + r];
+    ra.v[r] = ranks[2 * n_ranks + r];
+    ra.k_scale[r] = static_cast<const float*>(k_scale[r]);
+    ra.v_scale[r] = static_cast<const float*>(v_scale[r]);
+    ra.d[r] = d[r];
+  }
+  const int np = n_pieces(nb, bs);
+  if (np > 1 && (ws == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
-  const bool quant = k_scale != nullptr;
-#define RPA_ARGS                                                          \
-  hd, q, k, v, k_scale, v_scale, tables, pos, width, out, ws, counters, B, \
-      W, H, bs, nb, scale, s
-  if (dtype == 0)
-    return quant ? launch<float, int8_t>(RPA_ARGS)
-                 : launch<float, float>(RPA_ARGS);
-  if (dtype == 1)
-    return quant ? launch<__nv_bfloat16, int8_t>(RPA_ARGS)
-                 : launch<__nv_bfloat16, __nv_bfloat16>(RPA_ARGS);
-#undef RPA_ARGS
-  return (int)cudaErrorInvalidValue;
+  const void* fn = kernel_of(dtype, quant, hd, gather != 0);
+  if (!fn) return (int)cudaErrorInvalidValue;
+  const int elem = quant ? 1 : (dtype == 0 ? 4 : 2);
+  const size_t smem = smem_bytes(W, hd, bs, elem);
+  float scale_log2 = scale * kLog2e;
+  void* args[] = {&ra,  (void*)&tables, (void*)&pos, (void*)&width,
+                  &out, &ws, &counters, &B, &W, &H, &bs, &nb, &nb_local,
+                  &scale_log2};
+  const cudaError_t err = cudaLaunchKernel(
+      fn, dim3(n_ranks * B * H, np), dim3(kThreads), args, smem,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

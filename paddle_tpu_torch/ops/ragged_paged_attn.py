@@ -7,11 +7,11 @@ tick: 1 for a decode lane, the chunk length for a prefill chunk, 0 for a
 parked slot) and the slot's block table are DATA, so a batch that mixes
 decode lanes and prefill chunks is one launch.
 
-Three CUDA kernels, each with a wrapper that counts its launches, and
-the mesh wrapper that launches them per rank:
+One CUDA source, ``csrc/ragged_paged_attn.cu``, holds both bodies as
+kernels of their own names; each wrapper counts its launches:
 
-* ``ragged_paged_attention`` (B1, ``csrc/ragged_paged_attn.cu``) — the
-  streaming body over fp pools: each slot's live blocks up to the causal
+* ``ragged_paged_attention`` (B1, ``ragged_paged_attn_kernel``) — the
+  streaming body over fp pools: each slot's blocks up to the causal
   horizon, flash online softmax in f32, lanes at or past ``width``
   zeroed.  The walk is split into pieces of ``PIECE_ROWS`` rows
   (``walk_pieces``), one CUDA block each, merged in order, in the same
@@ -19,26 +19,28 @@ the mesh wrapper that launches them per rank:
   f32 workspace that the wrapper allocates from torch's caching allocator.
   Allclose to the gather-then-softmax oracle, not bitwise: the
   block-by-block accumulation sums in another order.
-* ``ragged_paged_attention_int8`` (B2, the same source's int8 leg) — the
+* ``ragged_paged_attention_int8`` (B2, the same kernel's int8 leg) — the
   streaming body over int8 code pools with f32 per-block per-head
   ``k_scale``/``v_scale`` ``[NB, H]``: each block is dequantized as it is
   streamed, never the whole pool.
-* ``ragged_gather_attention`` (B3, ``csrc/ragged_gather_attn.cu``) — the
-  gather body (``attn_impl="ragged_gather"``), fp or int8: every table
-  entry's block gathered, one masked f32 softmax over the whole row.
+* ``ragged_gather_attention`` (B3, ``ragged_gather_attn_kernel``) — the
+  gather body (``attn_impl="ragged_gather"``), fp or int8: the same split
+  walk over EVERY table entry of a slot with a real lane, not cut at the
+  horizon (the TPU kernel's defined work: the whole row, one masked
+  softmax over it).  No context ceiling of its own.
 * ``sharded_ragged_paged_attention`` (B4) — the ``(mp, dp)`` serving
-  mesh's form: one launch of B1, B2 or B3 per rank over that rank's
-  slots, heads and pool shard, with its dp group's GLOBAL block ids
-  localized to its shard.  No kernel of its own: the Hopper form of the
-  JAX ``shard_map`` wrapper is the existing kernel launched per rank.
+  mesh's form: one launch of B1, B2 or B3 for each group of ranks that
+  share a card (``card_groups``), each rank over its slots, heads and pool
+  shard, with the whole batch's tables of GLOBAL block ids localized to
+  its shard inside the kernel.
 
 ``ragged_paged_attention(..., k_scale=None, v_scale=None,
 variant="stream")`` takes the JAX function's contract and sends the call
 to the right one.  A wrapper runs its plain PyTorch version
-(``ragged_paged_attention_ref``, ``ragged_gather_attention_ref``) only
-for CPU tensors; for CUDA tensors it launches its kernel or raises.  The
-K/V writes happen before the call, in the caller
-(``GPTAttention.ragged_window_paged``).
+(``ragged_paged_attention_ref``, ``ragged_gather_attention_ref``,
+``ragged_group_attention_ref``) only for CPU tensors; for CUDA tensors it
+launches its kernel or raises.  The K/V writes happen before the call, in
+the caller (``GPTAttention.ragged_window_paged``).
 """
 from __future__ import annotations
 
@@ -52,10 +54,12 @@ from . import _build
 
 VARIANTS = ("stream", "gather")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the stream kernel's split walk (csrc/ragged_paged_attn.cu kPieceRows) and
-# the head dims it is compiled for
+# the kernels' split walk (csrc/ragged_paged_attn.cu kPieceRows), the head
+# dims they are compiled for, and the ranks one launch covers (kMaxRanks)
 PIECE_ROWS = 128
-STREAM_HEAD_DIMS = (8, 16, 32, 64, 128)
+HEAD_DIMS = (8, 16, 32, 64, 128)
+MAX_GROUP_RANKS = 8
+_LIB = "ragged_paged_attn"
 _MAX_SMEM = 227 * 1024  # an H100 block's shared-memory ceiling
 _MASK = -1e30
 
@@ -69,22 +73,22 @@ def causal_horizon(pos, width, block_size, blocks_per_slot):
 
 
 def walk_pieces(blocks_per_slot, block_size):
-    """``(G, pieces)``: the paged blocks one piece of the stream kernel's
-    walk covers (``PIECE_ROWS // block_size``, at least 1) and the pieces
-    a table of ``blocks_per_slot`` entries splits into.  They depend on the
-    table's shape alone, never on the batch, the heads or the card, so a
-    launch over some of a batch's slots or heads sums every (slot, head)
-    in the same order as the whole batch."""
+    """``(G, pieces)``: the paged blocks one piece of the kernels' walk
+    covers (``PIECE_ROWS // block_size``, at least 1) and the pieces a
+    table of ``blocks_per_slot`` entries splits into.  They depend on the
+    table's shape alone, never on the batch, the heads, the ranks or the
+    card, so a launch over some of a batch's slots or heads sums every
+    (slot, head) in the same order as the whole batch."""
     g = max(1, PIECE_ROWS // int(block_size))
     return g, -(-int(blocks_per_slot) // g)
 
 
-def stream_workspace_floats(batch, window, heads, head_dim,
-                            blocks_per_slot, block_size):
-    """f32 words of the stream kernel's workspace: one partial
-    ``(acc [head_dim], m, l)`` and its merge factor per slot, head, piece
-    and lane; 0 when a table is one piece (every slot then writes its
-    output directly)."""
+def workspace_floats(batch, window, heads, head_dim, blocks_per_slot,
+                     block_size):
+    """f32 words of the kernels' workspace: one partial ``(acc
+    [head_dim], m, l)`` and its merge factor per slot, head, piece and
+    lane; 0 when a table is one piece (every slot then writes its output
+    directly).  ``batch`` counts every rank's slots in a group launch."""
     pieces = walk_pieces(blocks_per_slot, block_size)[1]
     if pieces == 1:
         return 0
@@ -193,14 +197,58 @@ def ragged_gather_attention_ref(q, k_flat, v_flat, block_tables, pos,
     return ctx.to(q.dtype)
 
 
+def ragged_group_attention_ref(members, block_tables, pos, width, *,
+                               block_size, nb_local=0, variant="stream"):
+    """Plain version of one launch of the kernels over a group of ranks
+    (B4's launch per card): ``members`` is ``[(q, k_flat, v_flat, k_scale,
+    v_scale, d), ...]``, each rank's ``[B, W, H, hd]`` window, pool shard
+    (``[nb_local * bs, H, hd]``, with scales ``[nb_local, H]`` for int8
+    codes, else None) and dp index; ``block_tables`` ``[n_slots, nb]``
+    (GLOBAL block ids), ``pos`` and ``width`` ``[n_slots]`` are the whole
+    batch's.  Rank ``(.., d)``'s slot ``b`` is row ``d * B + b`` of them and
+    each of its table entries is localized as ``entry - d * nb_local``, as
+    the kernel reads them; the rank's rows then go through the plain
+    version of the body (``ragged_paged_attention_ref`` or
+    ``ragged_gather_attention_ref``).  An unsharded call is one rank with
+    ``d = 0``.  Returns ``[R * B, W, H, hd]``, the ranks' rows in order."""
+    ref = (ragged_gather_attention_ref if variant == "gather"
+           else ragged_paged_attention_ref)
+    outs = []
+    for q, k, v, ks, vs, d in members:
+        dev = q.device
+        sl = slice(d * q.shape[0], (d + 1) * q.shape[0])
+        outs.append(ref(q, k, v,
+                        (block_tables[sl].to(dev) - d * nb_local).int(),
+                        pos[sl].to(dev), width[sl].to(dev),
+                        block_size=block_size, k_scale=ks, v_scale=vs))
+    return torch.cat(outs)
+
+
 # -- checks ---------------------------------------------------------------
-def _check(who, q, k_flat, v_flat, block_tables, pos, width, bs, k_scale,
-           v_scale):
+def _check_tables(who, block_tables, pos, width, dev, slots):
+    """``block_tables`` ``[slots, L/bs]``, ``pos`` and ``width``
+    ``[slots]``: int32, contiguous, on ``dev``."""
+    for name, t in (("block_tables", block_tables), ("pos", pos),
+                    ("width", width)):
+        if t.device != dev:
+            raise ValueError(f"{who}: {name} is on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{who}: {name} must be int32")
+    if block_tables.dim() != 2 or block_tables.shape[0] != slots:
+        raise ValueError(f"{who}: block_tables must be [{slots}, L/bs]")
+    if tuple(pos.shape) != (slots,) or tuple(width.shape) != (slots,):
+        raise ValueError(f"{who}: pos/width must be [{slots}]")
+
+
+def _check_operands(who, q, k_flat, v_flat, bs, k_scale, v_scale):
+    """q ``[B, W, H, hd]`` in a kernel's dtype, its pools and scales:
+    contiguous, on q's device, of matching dtypes and shapes."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{who}: pass both k_scale and v_scale "
                          "(quantized pools) or neither (fp pools)")
-    tensors = dict(q=q, k_flat=k_flat, v_flat=v_flat,
-                   block_tables=block_tables, pos=pos, width=width)
+    tensors = dict(q=q, k_flat=k_flat, v_flat=v_flat)
     if k_scale is not None:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
     dev = q.device
@@ -218,12 +266,9 @@ def _check(who, q, k_flat, v_flat, block_tables, pos, width, bs, k_scale,
             f"{who}: k_flat/v_flat are {k_flat.dtype}/{v_flat.dtype}; "
             + (f"fp pools share q's dtype ({q.dtype})" if k_scale is None
                else "pools with scales are int8 codes"))
-    for name in ("block_tables", "pos", "width"):
-        if tensors[name].dtype != torch.int32:
-            raise TypeError(f"{who}: {name} must be int32")
     if q.dim() != 4:
         raise ValueError(f"{who}: q must be [B, W, H, hd]")
-    B, W, H, hd = q.shape
+    H, hd = q.shape[2:]
     if k_flat.dim() != 3 or tuple(k_flat.shape[1:]) != (H, hd) \
             or v_flat.shape != k_flat.shape:
         raise ValueError(
@@ -232,10 +277,6 @@ def _check(who, q, k_flat, v_flat, block_tables, pos, width, bs, k_scale,
     if bs < 1 or k_flat.shape[0] % bs:
         raise ValueError(f"{who}: pool rows {k_flat.shape[0]} are not "
                          f"whole blocks of {bs}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != B:
-        raise ValueError(f"{who}: block_tables must be [{B}, L/bs]")
-    if tuple(pos.shape) != (B,) or tuple(width.shape) != (B,):
-        raise ValueError(f"{who}: pos/width must be [{B}]")
     if k_scale is not None:
         want = (k_flat.shape[0] // bs, H)
         for name in ("k_scale", "v_scale"):
@@ -244,96 +285,46 @@ def _check(who, q, k_flat, v_flat, block_tables, pos, width, bs, k_scale,
                 raise ValueError(f"{who}: {name} must be float32 "
                                  f"{list(want)}, got {t.dtype} "
                                  f"{list(t.shape)}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{who}: no kernel for device {q.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: no kernel for device {dev}")
 
 
 # -- launches -------------------------------------------------------------
-_smem_sizes = {}   # (library, dims) -> bytes one block needs
-_prepared = {}     # (library, dtype, quant, card) -> the limit set so far
-_counters = {}     # (card, stream) -> the stream kernel's int32 counters
+_smem_sizes = {}   # (W, hd, bs) -> bytes one block needs
+_prepared = {}     # (dtype, quant, card) -> the limit set so far
+_counters = {}     # (card, stream) -> the merge counters
 
 
-def _smem_error(lib_name, lib, dims, smem):
-    if lib_name == "ragged_gather_attn":
-        hd, bs, nb = dims
-        per_block = lib.ragged_gather_attn_smem_bytes(hd, bs, 1) \
-            - lib.ragged_gather_attn_smem_bytes(hd, bs, 0)
-        most = (_MAX_SMEM - lib.ragged_gather_attn_smem_bytes(hd, bs, 0)) \
-            // per_block
-        return (f"ragged_gather_attention: max_seq_len {nb * bs} (hd={hd}, "
-                f"bs={bs}) needs {smem} B of shared memory per block for "
-                f"its [{lib.ragged_gather_attn_tile_lanes()}, L] f32 score "
-                f"tile, over the card's {_MAX_SMEM}; the gather kernel "
-                f"takes at most max_seq_len {most * bs} at this head dim "
-                "and block size")
-    W, hd, bs = dims
-    return (f"ragged_paged_attention: W={W}, hd={hd}, bs={bs} needs {smem} "
-            f"B of shared memory per block, over {_MAX_SMEM}")
-
-
-def _prepare(lib_name, lib, dtype_code, quant, dims, card):
+def _prepare(lib, dtype_code, quant, dims, card):
     """Once per config: ask the library for the block's shared memory,
-    raise above the card's ceiling, and raise the kernel's dynamic
-    shared-memory limit — once per (kernel, dtype, quant, card), and
-    again only when a config needs more than was set (the limit is a
-    ceiling, so a smaller config launches under a larger one)."""
-    size_key = (lib_name, dims)
-    smem = _smem_sizes.get(size_key)
+    raise above the card's ceiling, and raise the kernels' dynamic
+    shared-memory limit — once per (dtype, quant, card), and again only
+    when a config needs more than was set (the limit is a ceiling, so a
+    smaller config launches under a larger one)."""
+    smem = _smem_sizes.get(dims)
     if smem is None:
-        smem = getattr(lib, f"{lib_name}_smem_bytes")(*dims)
+        smem = lib.ragged_paged_attn_smem_bytes(*dims)
         if smem > _MAX_SMEM:
-            raise ValueError(_smem_error(lib_name, lib, dims, smem))
-        _smem_sizes[size_key] = smem
-    key = (lib_name, dtype_code, quant, card)
+            W, hd, bs = dims
+            raise ValueError(
+                f"ragged_paged_attention: W={W}, hd={hd}, bs={bs} needs "
+                f"{smem} B of shared memory per block, over {_MAX_SMEM}")
+        _smem_sizes[dims] = smem
+    key = (dtype_code, quant, card)
     if _prepared.get(key, -1) >= smem:
         return
-    rc = getattr(lib, f"{lib_name}_prepare")(dtype_code, quant, smem)
+    rc = lib.ragged_paged_attn_prepare(dtype_code, quant, smem)
     if rc != 0:
-        raise RuntimeError(f"{lib_name}: setting its shared-memory limit "
+        raise RuntimeError(f"{_LIB}: setting its shared-memory limit "
                            f"failed with CUDA error {rc}")
     _prepared[key] = smem
 
 
-def _launch(lib_name, dims, q, k_flat, v_flat, block_tables, pos, width,
-            k_scale, v_scale, bs):
-    B, W, H, hd = q.shape
-    nb = block_tables.shape[1]
-    lib = _load(lib_name)
-    quant = int(k_scale is not None)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        _prepare(lib_name, lib, _DTYPE_CODE[q.dtype], quant, dims,
-                 q.device.index)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        # the stream kernel's workspace (held in ws until its launch is
-        # enqueued: freed earlier, the caching allocator could hand its
-        # memory to out) and merge counters, none for one-piece tables
-        ws_ptr = ()
-        if lib_name == "ragged_paged_attn":
-            n = stream_workspace_floats(B, W, H, hd, nb, bs)
-            ws_ptr = (None, None)
-            if n:
-                ws = torch.empty(n, dtype=torch.float32, device=q.device)
-                counters = _merge_counters(q.device, stream, B * H)
-                ws_ptr = (ws.data_ptr(), counters.data_ptr())
-        rc = getattr(lib, f"{lib_name}_launch")(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), k_flat.data_ptr(),
-            v_flat.data_ptr(), k_scale.data_ptr() if quant else None,
-            v_scale.data_ptr() if quant else None, block_tables.data_ptr(),
-            pos.data_ptr(), width.data_ptr(), out.data_ptr(), *ws_ptr, B, W,
-            H, hd, bs, nb, 1.0 / math.sqrt(hd), stream)
-    if rc != 0:
-        raise RuntimeError(f"{lib_name}: kernel launch failed with CUDA "
-                           f"error {rc}")
-    return out
-
-
 def _merge_counters(device, stream, n):
-    """At least ``n`` int32 zeros on ``device`` for the stream kernel's
-    merge counters, one set per (card, stream): each launch leaves its
-    counters at 0, and launches on one stream run in order.  Allocated
-    (zeroed) again only when a launch needs more than the set holds."""
+    """At least ``n`` int32 zeros on ``device`` for the kernels' merge
+    counters, one set per (card, stream): each launch leaves its counters
+    at 0, and launches on one stream run in order.  Allocated (zeroed)
+    again only when a launch needs more than the set holds."""
     key = (device.index, stream)
     counters = _counters.get(key)
     if counters is None or counters.numel() < n:
@@ -342,44 +333,69 @@ def _merge_counters(device, stream, n):
     return counters
 
 
-def _stream_launch(who, q, k_flat, v_flat, block_tables, pos, width,
-                   k_scale, v_scale, bs):
-    """B1 or B2 on the card: what only the stream kernel needs checked
-    (its compiled head dims; pools on 16-byte boundaries for its cp.async
-    copies), then the launch."""
-    hd = q.shape[3]
-    if hd not in STREAM_HEAD_DIMS:
+def _launch(who, gather, members, block_tables, pos, width, bs,
+            nb_local=0):
+    """One launch of the kernel over ``members``, ranks that share one
+    card (``ragged_group_attention_ref``'s arguments, checked already;
+    one rank with ``d = 0`` for an unsharded call), on that card's current
+    stream.  Checks what only the kernel needs (its compiled head dims;
+    pools on 16-byte boundaries for its cp.async copies).  Returns the
+    output ``[R * B, W, H, hd]``."""
+    q0 = members[0][0]
+    B, W, H, hd = q0.shape
+    if hd not in HEAD_DIMS:
         raise ValueError(f"{who}: head dim {hd} not supported by the "
-                         f"kernel {STREAM_HEAD_DIMS}")
-    if k_flat.data_ptr() % 16 or v_flat.data_ptr() % 16:
-        raise ValueError(f"{who}: k_flat/v_flat must start on a 16-byte "
-                         "boundary")
-    return _launch("ragged_paged_attn", (q.shape[1], hd, bs), q, k_flat,
-                   v_flat, block_tables, pos, width, k_scale, v_scale, bs)
+                         f"kernel {HEAD_DIMS}")
+    for _, k, v, *_ in members:
+        if k.data_ptr() % 16 or v.data_ptr() % 16:
+            raise ValueError(f"{who}: k_flat/v_flat must start on a "
+                             "16-byte boundary")
+    R, nb, dev = len(members), block_tables.shape[1], q0.device
+    quant = int(members[0][3] is not None)
+    lib = _load()
+    ptrs = (ctypes.c_void_p * (5 * R))(*[
+        None if m[i] is None else m[i].data_ptr()
+        for i in range(5) for m in members])
+    dp_index = (ctypes.c_int * R)(*[m[5] for m in members])
+    out = torch.empty((R * B, W, H, hd), dtype=q0.dtype, device=dev)
+    with torch.cuda.device(dev):
+        _prepare(lib, _DTYPE_CODE[q0.dtype], quant, (W, hd, bs), dev.index)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # the workspace (held in ws until the launch is enqueued: freed
+        # earlier, the caching allocator could hand its memory to out) and
+        # the merge counters, none for one-piece tables
+        n = workspace_floats(R * B, W, H, hd, nb, bs)
+        ws = counters = None
+        if n:
+            ws = torch.empty(n, dtype=torch.float32, device=dev)
+            counters = _merge_counters(dev, stream, R * B * H)
+        rc = lib.ragged_paged_attn_launch(
+            _DTYPE_CODE[q0.dtype], int(gather), R, ptrs, dp_index,
+            block_tables.data_ptr(), pos.data_ptr(), width.data_ptr(),
+            out.data_ptr(), ws.data_ptr() if n else None,
+            counters.data_ptr() if n else None, B, W, H, hd, bs, nb,
+            nb_local, 1.0 / math.sqrt(hd), stream)
+    if rc != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
+                           f"{rc}")
+    return out
 
 
-def _load(lib_name):
-    lib = _build.load(lib_name)
+def _load():
+    lib = _build.load(_LIB)
     if not getattr(lib, "_argtypes_set", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        # the stream kernel also takes its workspace and counters
-        stream = int(lib_name == "ragged_paged_attn")
-        launch = getattr(lib, f"{lib_name}_launch")
-        launch.argtypes = ([i] + [p] * (9 + 2 * stream) + [i] * 6
-                           + [ctypes.c_float, p])
-        launch.restype = i
-        smem = getattr(lib, f"{lib_name}_smem_bytes")
-        smem.argtypes = [i, i, i]
-        smem.restype = ctypes.c_size_t
-        prepare = getattr(lib, f"{lib_name}_prepare")
-        prepare.argtypes = [i, i, i]
-        prepare.restype = i
-        if stream:
-            lib.ragged_paged_attn_pieces.argtypes = [i, i]
-            lib.ragged_paged_attn_pieces.restype = i
-        else:
-            lib.ragged_gather_attn_tile_lanes.argtypes = []
-            lib.ragged_gather_attn_tile_lanes.restype = i
+        pp, pi = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+        lib.ragged_paged_attn_launch.argtypes = (
+            [i] * 3 + [pp, pi] + [p] * 6 + [i] * 7
+            + [ctypes.c_float, p])
+        lib.ragged_paged_attn_launch.restype = i
+        lib.ragged_paged_attn_smem_bytes.argtypes = [i, i, i]
+        lib.ragged_paged_attn_smem_bytes.restype = ctypes.c_size_t
+        lib.ragged_paged_attn_prepare.argtypes = [i, i, i]
+        lib.ragged_paged_attn_prepare.restype = i
+        lib.ragged_paged_attn_pieces.argtypes = [i, i]
+        lib.ragged_paged_attn_pieces.restype = i
         lib._argtypes_set = True
     return lib
 
@@ -405,7 +421,7 @@ def ragged_paged_attention(q, k_flat, v_flat, block_tables, pos, width,
         "int8")``).  Pass both or neither.
     variant : ``"stream"`` (default) — the online-softmax walk to the
         causal horizon (kernel B1, or B2 with scales); ``"gather"`` —
-        the whole row and one softmax (kernel B3,
+        every table entry, the whole row's softmax (kernel B3,
         ``attn_impl="ragged_gather"``).
 
     CPU tensors run the plain versions.  CUDA tensors launch the kernel
@@ -431,15 +447,26 @@ def ragged_paged_attention(q, k_flat, v_flat, block_tables, pos, width,
         return ragged_paged_attention_int8(
             q, k_flat, v_flat, block_tables, pos, width, k_scale, v_scale,
             block_size=block_size)
+    return _unsharded("ragged_paged_attention", ragged_paged_attention,
+                      False, q, k_flat, v_flat, block_tables, pos, width,
+                      block_size, None, None)
+
+
+def _unsharded(who, op, gather, q, k_flat, v_flat, block_tables, pos,
+               width, block_size, k_scale, v_scale):
+    """A wrapper's call: checks, then the plain version for CPU tensors
+    or one launch (a group of one rank) counted on ``op``."""
     bs = int(block_size)
-    _check("ragged_paged_attention", q, k_flat, v_flat, block_tables, pos,
-           width, bs, None, None)
+    _check_operands(who, q, k_flat, v_flat, bs, k_scale, v_scale)
+    _check_tables(who, block_tables, pos, width, q.device, q.shape[0])
     if q.device.type == "cpu":
-        return ragged_paged_attention_ref(q, k_flat, v_flat, block_tables,
-                                          pos, width, block_size=bs)
-    out = _stream_launch("ragged_paged_attention", q, k_flat, v_flat,
-                         block_tables, pos, width, None, None, bs)
-    ragged_paged_attention.launches += 1
+        ref = (ragged_gather_attention_ref if gather
+               else ragged_paged_attention_ref)
+        return ref(q, k_flat, v_flat, block_tables, pos, width,
+                   block_size=bs, k_scale=k_scale, v_scale=v_scale)
+    out = _launch(who, gather, [(q, k_flat, v_flat, k_scale, v_scale, 0)],
+                  block_tables, pos, width, bs)
+    op.launches += 1
     return out
 
 
@@ -450,17 +477,10 @@ def ragged_paged_attention_int8(q, k_codes, v_codes, block_tables, pos,
     ``ragged_paged_attention``).  CPU tensors run
     ``ragged_paged_attention_ref`` with the scales; CUDA tensors launch the
     kernel and add one to ``ragged_paged_attention_int8.launches``."""
-    bs = int(block_size)
-    _check("ragged_paged_attention_int8", q, k_codes, v_codes,
-           block_tables, pos, width, bs, k_scale, v_scale)
-    if q.device.type == "cpu":
-        return ragged_paged_attention_ref(
-            q, k_codes, v_codes, block_tables, pos, width, block_size=bs,
-            k_scale=k_scale, v_scale=v_scale)
-    out = _stream_launch("ragged_paged_attention_int8", q, k_codes, v_codes,
-                         block_tables, pos, width, k_scale, v_scale, bs)
-    ragged_paged_attention_int8.launches += 1
-    return out
+    return _unsharded("ragged_paged_attention_int8",
+                      ragged_paged_attention_int8, False, q, k_codes,
+                      v_codes, block_tables, pos, width, block_size, k_scale,
+                      v_scale)
 
 
 def ragged_gather_attention(q, k_flat, v_flat, block_tables, pos, width,
@@ -468,29 +488,33 @@ def ragged_gather_attention(q, k_flat, v_flat, block_tables, pos, width,
     """Kernel B3: the gather body, over fp pools or int8 code pools with
     scales (shapes as ``ragged_paged_attention``).  CPU tensors run
     ``ragged_gather_attention_ref``; CUDA tensors launch the kernel and
-    add one to ``ragged_gather_attention.launches``.  A context whose
-    ``[16, L]`` score tile does not fit a block's shared memory raises,
-    naming the largest one the kernel takes."""
-    bs = int(block_size)
-    _check("ragged_gather_attention", q, k_flat, v_flat, block_tables,
-           pos, width, bs, k_scale, v_scale)
-    if q.device.type == "cpu":
-        return ragged_gather_attention_ref(
-            q, k_flat, v_flat, block_tables, pos, width, block_size=bs,
-            k_scale=k_scale, v_scale=v_scale)
-    out = _launch("ragged_gather_attn",
-                  (q.shape[3], bs, block_tables.shape[1]), q, k_flat, v_flat,
-                  block_tables, pos, width, k_scale, v_scale, bs)
-    ragged_gather_attention.launches += 1
-    return out
+    add one to ``ragged_gather_attention.launches``.  Every table entry of
+    a slot with a real lane is read, whatever the context."""
+    return _unsharded("ragged_gather_attention", ragged_gather_attention,
+                      True, q, k_flat, v_flat, block_tables, pos, width,
+                      block_size, k_scale, v_scale)
 
 
 # -- the (mp, dp) mesh ----------------------------------------------------
-def _over_ranks(who, attn, q_shards, k_shards, v_shards, block_tables, pos,
-                width, bs, mesh, k_scale_shards, v_scale_shards):
-    """Validate the sharded operands, localize each dp group's table rows
-    and run ``attn(q, k, v, tables, pos, width, k_scale, v_scale)`` once
-    per rank.  Returns the per-rank outputs."""
+def card_groups(mesh):
+    """The mesh's ranks as B4 launches them: ``[(device, [rank, ...])]``,
+    the ranks grouped by their device in rank order, at most
+    ``MAX_GROUP_RANKS`` a group (more ranks on one device split into
+    consecutive groups).  A ``(2, 2)`` mesh on one card is one group of
+    four (dp indices 0, 0, 1, 1); over four cards, four groups of one."""
+    by_device = {}
+    for r, dev in enumerate(mesh.devices):
+        by_device.setdefault(dev, []).append(r)
+    return [(dev, ranks[i:i + MAX_GROUP_RANKS])
+            for dev, ranks in by_device.items()
+            for i in range(0, len(ranks), MAX_GROUP_RANKS)]
+
+
+def _check_shards(who, q_shards, k_shards, v_shards, block_tables, pos,
+                  width, bs, mesh, k_scale_shards, v_scale_shards):
+    """Validate the sharded operands (as the JAX wrapper does, and every
+    rank alike).  Returns ``(B/dp, NB/dp)``: a rank's slots and pool
+    blocks."""
     if (k_scale_shards is None) != (v_scale_shards is None):
         raise ValueError(f"{who}: pass both k_scale_shards and "
                          "v_scale_shards (quantized pools) or neither")
@@ -533,25 +557,18 @@ def _over_ranks(who, attn, q_shards, k_shards, v_shards, block_tables, pos,
     if rows % bs:
         raise ValueError(f"{who}: pool shard rows {rows} are not whole "
                          f"blocks of {bs}")
-    nb_local = rows // bs
-    bl = B // dp
-    local = {}
-    outs = []
-    for r, (m, d) in enumerate(mesh.ranks()):
-        dev = q_shards[r].device
-        if (d, dev) not in local:
-            # tables hold GLOBAL block ids; dp shard d's pool starts at
-            # global row d * nb_local
-            sl = slice(d * bl, (d + 1) * bl)
-            local[d, dev] = (
-                (block_tables[sl].to(dev) - d * nb_local).to(torch.int32),
-                pos[sl].to(dev), width[sl].to(dev))
-        tables_l, pos_l, width_l = local[d, dev]
-        scales = ((k_scale_shards[r], v_scale_shards[r])
-                  if k_scale_shards is not None else (None, None))
-        outs.append(attn(q_shards[r].contiguous(), k_shards[r], v_shards[r],
-                         tables_l, pos_l, width_l, *scales))
-    return outs
+    return B // dp, rows // bs
+
+
+def _members(mesh, ranks, q_shards, k_shards, v_shards, k_scale_shards,
+             v_scale_shards):
+    """``ragged_group_attention_ref``'s members for these ranks, q made
+    contiguous for the kernel."""
+    dp_of = mesh.ranks()
+    return [(q_shards[r].contiguous(), k_shards[r], v_shards[r],
+             None if k_scale_shards is None else k_scale_shards[r],
+             None if v_scale_shards is None else v_scale_shards[r],
+             dp_of[r][1]) for r in ranks]
 
 
 def _mesh_or_global(mesh, who):
@@ -571,7 +588,7 @@ def sharded_ragged_paged_attention(q_shards, k_shards, v_shards,
     mesh — the counterpart of ``paddle_tpu``'s
     ``sharded_ragged_paged_attention``, whose ``shard_map`` runs the
     unchanged kernel on every shard.  Here that is one launch of B1, B2
-    or B3 per rank (``ragged_paged_attention`` with the rank's operands):
+    or B3 for each group of ranks that share a card (``card_groups``):
 
     * ``q_shards[r]`` — rank ``(m, d)``'s ``[B/dp, W, H/mp, hd]`` slice of
       the window (its dp group's slots, its mp slice of the heads); a
@@ -580,35 +597,56 @@ def sharded_ragged_paged_attention(q_shards, k_shards, v_shards,
       H/mp, hd]`` (q's dtype, or int8 codes with ``k_scale_shards`` /
       ``v_scale_shards`` ``[NB/dp, H/mp]``);
     * ``block_tables`` ``[B, L/bs]``, ``pos`` / ``width`` ``[B]`` — the
-      whole batch; tables carry GLOBAL block ids, and dp group ``d``'s
-      rows are localized as ``table - d * NB/dp`` (exact: the engine's
-      admission gate gives a slot blocks of its own shard's range only).
+      whole batch, moved to each card once; tables carry GLOBAL block ids,
+      and the kernel reads dp group ``d``'s rows and localizes each entry
+      as ``entry - d * NB/dp`` (exact: the engine's admission gate gives
+      a slot blocks of its own shard's range only).
 
     ``mesh`` is a ``distributed.ServingMesh`` (None: the one
-    ``distributed.set_mesh`` set); rank order is its order.
-    Validation follows the JAX wrapper's.  Each rank's launch runs on its
-    shard's device; CUDA launches add one to this wrapper's ``launches``
-    (and one to the launched kernel's own), CPU shards run the plain
-    version.  Returns the per-rank outputs, shaped like ``q_shards``."""
+    ``distributed.set_mesh`` set); rank order is its order.  Validation
+    follows the JAX wrapper's.  Each group's launch runs on its card and
+    adds one to this wrapper's ``launches`` and one to the launched
+    kernel's own; a group on the CPU runs the plain form
+    (``ragged_group_attention_ref``).  Each (slot, head) is computed as in
+    the unsharded launch, so the result is bitwise the unsharded kernel's.
+    Returns the per-rank outputs, shaped like ``q_shards``."""
+    who = "sharded_ragged_paged_attention"
     if variant not in VARIANTS:
-        raise ValueError(
-            f"sharded_ragged_paged_attention: variant must be one of "
-            f"{VARIANTS}, got {variant!r}")
-    mesh = _mesh_or_global(mesh, "sharded_ragged_paged_attention")
+        raise ValueError(f"{who}: variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    mesh = _mesh_or_global(mesh, who)
     bs = int(block_size)
-
-    def launch(q, k, v, tables, p, w, ks, vs):
-        out = ragged_paged_attention(q, k, v, tables, p, w, block_size=bs,
-                                     k_scale=ks, v_scale=vs,
-                                     variant=variant)
-        if q.device.type == "cuda":
-            sharded_ragged_paged_attention.launches += 1
-        return out
-
-    with torch.profiler.record_function("sharded_ragged_paged_attention"):
-        return _over_ranks("sharded_ragged_paged_attention", launch,
-                           q_shards, k_shards, v_shards, block_tables, pos,
-                           width, bs, mesh, k_scale_shards, v_scale_shards)
+    gather = variant == "gather"
+    with torch.profiler.record_function(who):
+        bl, nb_local = _check_shards(who, q_shards, k_shards, v_shards,
+                                     block_tables, pos, width, bs, mesh,
+                                     k_scale_shards, v_scale_shards)
+        outs = [None] * mesh.size
+        for _, ranks in card_groups(mesh):
+            members = _members(mesh, ranks, q_shards, k_shards, v_shards,
+                               k_scale_shards, v_scale_shards)
+            dev = members[0][0].device
+            tables_d, pos_d, width_d = (
+                t.to(dev) for t in (block_tables, pos, width))
+            _check_tables(who, tables_d, pos_d, width_d, dev,
+                          block_tables.shape[0])
+            for q, k, v, ks, vs, _ in members:
+                _check_operands(who, q, k, v, bs, ks, vs)
+            if dev.type == "cpu":
+                out = ragged_group_attention_ref(
+                    members, tables_d, pos_d, width_d, block_size=bs,
+                    nb_local=nb_local, variant=variant)
+            else:
+                out = _launch(who, gather, members, tables_d, pos_d,
+                              width_d, bs, nb_local)
+                op = (ragged_gather_attention if gather
+                      else ragged_paged_attention if k_scale_shards is None
+                      else ragged_paged_attention_int8)
+                op.launches += 1
+                sharded_ragged_paged_attention.launches += 1
+            for r, o in zip(ranks, out.split(bl)):
+                outs[r] = o
+        return outs
 
 
 def sharded_ragged_paged_attention_ref(q_shards, k_shards, v_shards,
@@ -617,24 +655,23 @@ def sharded_ragged_paged_attention_ref(q_shards, k_shards, v_shards,
                                        k_scale_shards=None,
                                        v_scale_shards=None,
                                        variant="stream"):
-    """Plain version of B4: the same per-rank operands through the plain
-    version of B1/B2 (``ragged_paged_attention_ref``) or B3
+    """Plain version of B4: every rank on its own, its dp group's rows of
+    the tables localized to its shard, through the plain version of
+    B1/B2 (``ragged_paged_attention_ref``) or B3
     (``ragged_gather_attention_ref``), on any device."""
+    who = "sharded_ragged_paged_attention_ref"
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    mesh = _mesh_or_global(mesh, "sharded_ragged_paged_attention_ref")
+    mesh = _mesh_or_global(mesh, who)
     bs = int(block_size)
-    ref = (ragged_gather_attention_ref if variant == "gather"
-           else ragged_paged_attention_ref)
-
-    def plain(q, k, v, tables, p, w, ks, vs):
-        return ref(q, k, v, tables, p, w, block_size=bs, k_scale=ks,
-                   v_scale=vs)
-
-    return _over_ranks("sharded_ragged_paged_attention_ref", plain,
-                       q_shards, k_shards, v_shards, block_tables, pos,
-                       width, bs, mesh, k_scale_shards, v_scale_shards)
+    _, nb_local = _check_shards(who, q_shards, k_shards, v_shards,
+                                block_tables, pos, width, bs, mesh,
+                                k_scale_shards, v_scale_shards)
+    return [ragged_group_attention_ref(
+        _members(mesh, [r], q_shards, k_shards, v_shards, k_scale_shards,
+                 v_scale_shards), block_tables, pos, width, block_size=bs,
+        nb_local=nb_local, variant=variant) for r in range(mesh.size)]
 
 
 ragged_paged_attention.launches = 0

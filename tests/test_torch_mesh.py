@@ -11,7 +11,10 @@ the plain kernels.
 * B4 (``sharded_ragged_paged_attention``) against the JAX ``shard_map``
   wrapper on the inputs of tests/test_sharded_serving.py (global block
   ids, each slot's blocks in its own dp shard's range): stream and
-  gather bodies, fp32 and int8 pools, atol 1e-5 (summation order).
+  gather bodies, fp32 and int8 pools, atol 1e-5 (summation order); the
+  plain form of its one launch per card group
+  (``ragged_group_attention_ref``) held the same way, and the grouping of
+  a mesh's ranks by card (``card_groups``).
 * ``to_tensor_parallel()``: the forward equals the dense one and JAX's
   tensor-parallel model's on bridged weights (atol 1e-5).
 * The mesh engine's greedy streams token-identical to the JAX engine's
@@ -237,6 +240,78 @@ def test_b4_plain_form_matches_jax_sharded_wrapper(variant, quant):
     before = sharded_ragged_paged_attention.launches
     np.testing.assert_array_equal(_b4_port(x, quant, variant), got)
     assert sharded_ragged_paged_attention.launches == before  # CPU: none
+
+
+@pytest.mark.parametrize("case", ["one_card", "four_cards", "two_cards",
+                                  "sixteen_on_one", "cpu_dp"])
+def test_card_groups_take_the_ranks_of_a_card_in_rank_order(case):
+    """B4's launches: the ranks grouped by device in rank order, at most
+    ``MAX_GROUP_RANKS`` a group, with each rank's dp index from
+    ``mesh.ranks()``."""
+    mp, dp, devices, want = {
+        "one_card": (2, 2, ["cuda:0"] * 4, [("cuda:0", [0, 1, 2, 3])]),
+        "four_cards": (2, 2, ["cuda:0", "cuda:1", "cuda:2", "cuda:3"],
+                       [("cuda:0", [0]), ("cuda:1", [1]), ("cuda:2", [2]),
+                        ("cuda:3", [3])]),
+        "two_cards": (2, 2, ["cuda:0", "cuda:0", "cuda:1", "cuda:1"],
+                      [("cuda:0", [0, 1]), ("cuda:1", [2, 3])]),
+        "sixteen_on_one": (4, 4, ["cuda:0"] * 16,
+                           [("cuda:0", list(range(8))),
+                            ("cuda:0", list(range(8, 16)))]),
+        "cpu_dp": (1, 2, ["cpu"] * 2, [("cpu", [0, 1])]),
+    }[case]
+    mesh = ServingMesh(mp, dp, devices=devices)
+    groups = rpa_mod.card_groups(mesh)
+    assert [(str(dev), ranks) for dev, ranks in groups] == want
+    assert max(len(r) for _, r in groups) <= rpa_mod.MAX_GROUP_RANKS
+    if case == "one_card":
+        assert [mesh.ranks()[r][1] for r in groups[0][1]] == [0, 0, 1, 1]
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp32", "int8"])
+@pytest.mark.parametrize("variant", ["stream", "gather"])
+def test_group_plain_form_matches_sharded_ref_and_jax(variant, quant):
+    """The plain form of one launch over the (2, 2) mesh's four ranks on
+    one device (``ragged_group_attention_ref``): each rank's slots read
+    from the whole batch's tables of GLOBAL ids and localized as the
+    kernel reads them.  Equal to B4's per-rank plain form and to the JAX
+    ``sharded_ragged_paged_attention`` (interpret mode) at atol 1e-5."""
+    import jax.numpy as jnp
+    from paddle_tpu.distributed.mesh import serving_mesh as jax_serving_mesh
+    from paddle_tpu.ops.ragged_paged_attn import (
+        sharded_ragged_paged_attention as jax_sharded)
+    x = _b4_inputs()
+    mesh = _cpu_mesh(2, 2)
+    k, v = (x["codes_k"], x["codes_v"]) if quant else (x["k"], x["v"])
+    kv, qspec = ("dp", "mp", None), ("dp", None, "mp", None)
+    qs = shard(torch.tensor(x["q"]), qspec, mesh)
+    kss, vss = (shard(torch.tensor(p), kv, mesh) for p in (k, v))
+    scs = [[None] * 4, [None] * 4]
+    if quant:
+        scs = [shard(torch.tensor(x[n]), "kv_scale", mesh)
+               for n in ("ks", "vs")]
+    members = [(qs[r], kss[r], vss[r], scs[0][r], scs[1][r], d)
+               for r, (_, d) in enumerate(mesh.ranks())]
+    t, p, w = (torch.tensor(x[n]) for n in ("tables", "pos", "width"))
+    nb_local = kss[0].shape[0] // x["bs"]
+    out = rpa_mod.ragged_group_attention_ref(
+        members, t, p, w, block_size=x["bs"], nb_local=nb_local,
+        variant=variant)
+    got = unshard(list(out.split(qs[0].shape[0])), qspec, mesh).numpy()
+    ssc = (dict(k_scale_shards=scs[0], v_scale_shards=scs[1]) if quant
+           else {})
+    ref = unshard(sharded_ragged_paged_attention_ref(
+        qs, kss, vss, t, p, w, block_size=x["bs"], mesh=mesh,
+        variant=variant, **ssc), qspec, mesh).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
+    sc = (dict(k_scale=jnp.asarray(x["ks"]), v_scale=jnp.asarray(x["vs"]))
+          if quant else {})
+    want = np.asarray(jax_sharded(
+        *[jnp.asarray(a) for a in (x["q"], k, v, x["tables"], x["pos"],
+                                   x["width"])],
+        block_size=x["bs"], mesh=jax_serving_mesh(2, 2), interpret=True,
+        variant=variant, **sc))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_b4_validation():

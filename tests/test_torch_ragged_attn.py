@@ -195,63 +195,43 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(bad):
 
 
 class _StubLib:
-    """The C interface of a kernel library, counting calls (no card)."""
+    """The kernel library's shared-memory entries, counting calls (no
+    card)."""
 
-    def __init__(self, name, per_config_bytes):
+    def __init__(self, per_config_bytes):
         self.calls = []
         self._bytes = per_config_bytes
-        setattr(self, f"{name}_smem_bytes", self._smem)
-        setattr(self, f"{name}_prepare", self._prepare)
-        self.ragged_gather_attn_tile_lanes = lambda: 16
 
-    def _smem(self, *dims):
+    def ragged_paged_attn_smem_bytes(self, *dims):
         self.calls.append(("smem", dims))
         return self._bytes(*dims)
 
-    def _prepare(self, dtype, quant, smem):
+    def ragged_paged_attn_prepare(self, dtype, quant, smem):
         self.calls.append(("prepare", dtype, quant, smem))
         return 0
 
 
 def test_prepare_runs_once_per_config(monkeypatch):
-    """The shared-memory size is asked once per config and the kernel's
-    limit raised once per (kernel, dtype, quant, card), again only when a
-    config needs more — not before every launch."""
+    """The shared-memory size is asked once per config and the kernels'
+    limit raised once per (dtype, quant, card), again only when a config
+    needs more — not before every launch."""
     monkeypatch.setattr(rpa_mod, "_smem_sizes", {})
     monkeypatch.setattr(rpa_mod, "_prepared", {})
-    lib = _StubLib("ragged_paged_attn", lambda W, hd, bs: 100 * W + hd)
+    lib = _StubLib(lambda W, hd, bs: 100 * W + hd)
     prep = rpa_mod._prepare
     for _ in range(3):
-        prep("ragged_paged_attn", lib, 0, 0, (64, 64, 16), 0)
+        prep(lib, 0, 0, (64, 64, 16), 0)
     assert lib.calls == [("smem", (64, 64, 16)), ("prepare", 0, 0, 6464)]
-    prep("ragged_paged_attn", lib, 0, 1, (64, 64, 16), 0)   # int8 leg
-    prep("ragged_paged_attn", lib, 1, 0, (64, 64, 16), 0)   # bf16
-    prep("ragged_paged_attn", lib, 0, 0, (8, 64, 16), 0)    # smaller
-    prep("ragged_paged_attn", lib, 0, 0, (128, 64, 16), 0)  # larger
-    prep("ragged_paged_attn", lib, 0, 0, (64, 64, 16), 1)   # other card
+    prep(lib, 0, 1, (64, 64, 16), 0)   # int8 leg
+    prep(lib, 1, 0, (64, 64, 16), 0)   # bf16
+    prep(lib, 0, 0, (8, 64, 16), 0)    # smaller
+    prep(lib, 0, 0, (128, 64, 16), 0)  # larger
+    prep(lib, 0, 0, (64, 64, 16), 1)   # other card
     assert [c for c in lib.calls if c[0] == "prepare"] == [
         ("prepare", 0, 0, 6464), ("prepare", 0, 1, 6464),
         ("prepare", 1, 0, 6464), ("prepare", 0, 0, 12864),
         ("prepare", 0, 0, 6464)]
     assert sum(c[0] == "smem" for c in lib.calls) == 3
-
-
-def test_gather_score_tile_over_the_ceiling_raises(monkeypatch):
-    """A context whose [16, L] score tile does not fit a block's shared
-    memory raises, naming the largest max_seq_len the kernel takes; it
-    never launches."""
-    monkeypatch.setattr(rpa_mod, "_smem_sizes", {})
-    monkeypatch.setattr(rpa_mod, "_prepared", {})
-
-    def floats(hd, bs, nb):   # the source's layout: q, acc, K/V, scores
-        return 4 * (2 * 16 * hd + bs * (hd + 1) + 16 * nb * bs)
-
-    lib = _StubLib("ragged_gather_attn", floats)
-    rpa_mod._prepare("ragged_gather_attn", lib, 0, 0, (64, 16, 64), 0)
-    with pytest.raises(ValueError, match=r"max_seq_len 4096 .*at most "
-                                         r"max_seq_len 3424"):
-        rpa_mod._prepare("ragged_gather_attn", lib, 0, 0, (64, 16, 256), 0)
-    assert [c[0] for c in lib.calls].count("prepare") == 1
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -343,10 +323,10 @@ def test_walk_split_depends_only_on_the_table(bs):
         assert g == max(1, rpa_mod.PIECE_ROWS // bs)
         assert (n - 1) * g < nb <= n * g
         for window in (1, 24, 64, 128):
-            for head_dim in rpa_mod.STREAM_HEAD_DIMS:
+            for head_dim in rpa_mod.HEAD_DIMS:
                 per_slot_head = {
-                    rpa_mod.stream_workspace_floats(B, window, H, head_dim,
-                                                    nb, bs) / (B * H)
+                    rpa_mod.workspace_floats(B, window, H, head_dim, nb,
+                                             bs) / (B * H)
                     for B, H in shapes}
                 assert per_slot_head == {
                     0 if n == 1 else n * window * (head_dim + 3)}
@@ -360,11 +340,14 @@ def _need_cuda():
 # (B, W, H, hd, bs, nb, pos, width): walks of many pieces — gpt2-medium's
 # head dim and block size with a decode lane and a chunk whose horizon is
 # the table's last block, a parked slot deep in its table, a short slot;
-# and an 80-lane chunk (more lane blocks than warps) at the tiny model's
-# head dim
+# the same at max_seq_len 4096 with a decode lane whose horizon is its
+# first piece; and an 80-lane chunk (more lane blocks than warps) at the
+# tiny model's head dim
 LONG_CASES = {
     "hd64_bs16_nb64": (4, 24, 2, 64, 16, 64, [999, 1000, 300, 0],
                        [1, 24, 0, 17]),
+    "hd64_bs16_nb256": (4, 24, 2, 64, 16, 256, [4095, 4072, 300, 30],
+                        [1, 24, 0, 1]),
     "hd16_bs8_w80": (3, 80, 2, 16, 8, 40, [200, 239, 0], [80, 1, 5]),
 }
 
@@ -401,6 +384,26 @@ def _stream(t, sc, bs):
     return ragged_paged_attention(*t, block_size=bs)
 
 
+def _body(variant, t, sc, bs):
+    if variant == "gather":
+        return ragged_gather_attention(*t, block_size=bs, **sc)
+    return _stream(t, sc, bs)
+
+
+def _assert_plain(got, t, sc, bs, dtype, ref):
+    """``got`` against ``ref`` on the same values in f32: fp32 at rtol
+    2e-5 / atol 2e-6 (summation order), bf16 at 2e-2 / 2e-2 (bf16 rounding
+    of the output); lanes past width exactly 0."""
+    ref_t = [x.float() if x.is_floating_point() else x for x in t]
+    want = ref(*ref_t, block_size=bs, **sc)
+    tol = (2e-5, 2e-6) if dtype == "float32" else (2e-2, 2e-2)
+    w = t[5].tolist()
+    for b in range(len(w)):
+        torch.testing.assert_close(got[b, :w[b]].float(), want[b, :w[b]],
+                                   rtol=tol[0], atol=tol[1])
+        assert torch.all(got[b, w[b]:] == 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(LONG_CASES))
 @pytest.mark.parametrize("quant", [False, True])
@@ -415,7 +418,7 @@ def test_long_walk_matches_plain_version_on_card(case, quant, dtype):
     t, sc, bs = _long_inputs(case, quant, dtype)
     nb = t[3].shape[1]
     lib = _build.load("ragged_paged_attn")
-    rpa_mod._load("ragged_paged_attn")
+    rpa_mod._load()
     assert lib.ragged_paged_attn_pieces(nb, bs) == \
         rpa_mod.walk_pieces(nb, bs)[1] > 1
     op = ragged_paged_attention_int8 if quant else ragged_paged_attention
@@ -423,14 +426,61 @@ def test_long_walk_matches_plain_version_on_card(case, quant, dtype):
     got = _stream(t, sc, bs)
     torch.cuda.synchronize()
     assert op.launches == before + 1
-    ref_t = [x.float() if x.is_floating_point() else x for x in t]
-    want = ragged_paged_attention_ref(*ref_t, block_size=bs, **sc)
-    tol = (2e-5, 2e-6) if dtype == "float32" else (2e-2, 2e-2)
-    w = t[5].tolist()
-    for b in range(len(w)):
-        torch.testing.assert_close(got[b, :w[b]].float(), want[b, :w[b]],
-                                   rtol=tol[0], atol=tol[1])
-        assert torch.all(got[b, w[b]:] == 0)
+    _assert_plain(got, t, sc, bs, dtype, ragged_paged_attention_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LONG_CASES))
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_long_walk_matches_plain_version_on_card(case, quant, dtype):
+    """B3 over walks of many pieces, every table entry of a slot with a
+    real lane, up to max_seq_len 4096 (nb 256, bs 16: no context ceiling
+    of its own), against its plain version at the tolerances of
+    ``_assert_plain``; one launch counted."""
+    _need_cuda()
+    t, sc, bs = _long_inputs(case, quant, dtype)
+    before = ragged_gather_attention.launches
+    got = ragged_gather_attention(*t, block_size=bs, **sc)
+    torch.cuda.synchronize()
+    assert ragged_gather_attention.launches == before + 1
+    _assert_plain(got, t, sc, bs, dtype, ragged_gather_attention_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hd64_bs16_nb64", "hd64_bs16_nb256"])
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_masked_pieces_add_exactly_zero_on_card(case, quant, dtype):
+    """B3 reads and scores every block past each slot's causal horizon,
+    whole pieces of them for the decode lanes; overwriting those blocks
+    with values of +-1e4 (int8: codes of +-127 under scales of 1e4) leaves
+    the output bitwise unchanged: a fully masked piece merges with a factor
+    of exactly 0."""
+    _need_cuda()
+    t, sc, bs = _long_inputs(case, quant, dtype)
+    base = ragged_gather_attention(*t, block_size=bs, **sc)
+    tables, pos, width = (x.tolist() for x in t[3:])
+    past = sorted({blk for b in range(len(pos)) for j, blk in
+                   enumerate(tables[b])
+                   if j * bs > pos[b] + max(width[b], 1) - 1})
+    assert past
+    rows = (torch.tensor(past, device="cuda")[:, None] * bs
+            + torch.arange(bs, device="cuda")[None]).reshape(-1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k2, v2 = t[1].clone(), t[2].clone()
+    for pool in (k2, v2):
+        sign = torch.randint(0, 2, pool[rows].shape, generator=gen,
+                             device="cuda") * 2 - 1
+        big = 127 if quant else 1e4
+        pool[rows] = (sign * big).to(pool.dtype)
+    sc2 = {n: x.clone() for n, x in sc.items()}
+    for x in sc2.values():
+        x[torch.tensor(past, device="cuda")] = 1e4
+    got = ragged_gather_attention(t[0], k2, v2, *t[3:], block_size=bs,
+                                  **sc2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base)
 
 
 @pytest.mark.cuda
@@ -453,16 +503,18 @@ def test_stream_kernel_raises_on_what_it_does_not_take_on_card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["stream", "gather"])
 @pytest.mark.parametrize("quant", [False, True])
 @pytest.mark.parametrize("part", ["slots", "heads"])
-def test_walk_of_part_of_a_batch_is_bitwise_the_whole_on_card(quant, part):
-    """A launch over some of a batch's slots, or some of its heads, gives
-    bitwise the rows the whole batch's launch gives them: the split walk
-    depends on each slot's own table, never on the batch (the property the
-    serving mesh's per-rank launches rely on)."""
+def test_walk_of_part_of_a_batch_is_bitwise_the_whole_on_card(variant, quant,
+                                                              part):
+    """A launch of either body over some of a batch's slots, or some of
+    its heads, gives bitwise the rows the whole batch's launch gives them:
+    the split walk depends on each slot's own table, never on the batch
+    (the property the serving mesh's launches rely on)."""
     _need_cuda()
     t, sc, bs = _long_inputs("hd64_bs16_nb64", quant, "float32")
-    whole = _stream(t, sc, bs)
+    whole = _body(variant, t, sc, bs)
     if part == "slots":
         idx = torch.tensor([1, 3], device="cuda")
         sub = [t[0][idx], t[1], t[2], t[3][idx], t[4][idx], t[5][idx]]
@@ -474,7 +526,7 @@ def test_walk_of_part_of_a_batch_is_bitwise_the_whole_on_card(quant, part):
                t[2][:, heads].contiguous(), *t[3:]]
         sub_sc = {n: x[:, heads].contiguous() for n, x in sc.items()}
         want = whole[:, :, heads]
-    got = _stream(sub, sub_sc, bs)
+    got = _body(variant, sub, sub_sc, bs)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
 
@@ -561,9 +613,10 @@ def test_b4_over_kernels_equals_unsharded_kernel_on_card(case, kernel):
     """Kernel B4 (``sharded_ragged_paged_attention``) on a mesh of ranks
     all on the card — (2, 2), or (2, 1) for an odd slot count — with
     tables of GLOBAL block ids, each slot's blocks in its own dp shard's
-    range: one launch of the hand-written kernel per rank, and outputs
-    equal to the unsharded kernel on the same logical inputs (each CUDA
-    block computes one (slot, head) alone; atol 1e-6)."""
+    range: one launch of the hand-written kernel for the card's group of
+    ranks, and outputs equal to the unsharded kernel on the same logical
+    inputs (each (slot, head) runs the same pieces in the same order;
+    atol 1e-6)."""
     from paddle_tpu_torch.distributed import ServingMesh, shard, unshard
     from paddle_tpu_torch.ops.ragged_paged_attn import (
         sharded_ragged_paged_attention)
@@ -600,6 +653,6 @@ def test_b4_over_kernels_equals_unsharded_kernel_on_card(case, kernel):
         mesh=mesh, variant=variant, **ssc)
     torch.cuda.synchronize()
     assert (sharded_ragged_paged_attention.launches, op.launches) == \
-        (before[0] + mesh.size, before[1] + mesh.size)
+        (before[0] + 1, before[1] + 1)
     got = unshard(outs, qspec, mesh)
     torch.testing.assert_close(got, want, rtol=0.0, atol=1e-6)
