@@ -145,15 +145,40 @@ line:
    own logits).  In each, the path's kernel and B4 launched 24 times a
    dispatch (one launch for the card's group of ranks), and no other
    ragged kernel.
-15. Prints the ``kernels`` JSON line, the card line and
+15. Pipelined, speculative and preempted serving, on phase 4's fp32
+   model and traffic.  Every serve above runs at the engine's default
+   ``async_depth=2`` (tick N+1 dispatched before tick N is consumed).
+   A/B of depth: fp32 serves at ``async_depth`` 1, 2, 2, 1, each printing
+   tokens/s and the loop's mean ``serving.tick_overlap_ms`` /
+   ``serving.d2h_wait_ms``; every stream, greedy and seeded, equal
+   across depths and to phase 4's (the greedy ones the dense argmax),
+   then ``profile_phase`` windows at depth 2 and 1 (busy share, kernels
+   a tick).  Each serve's line adds the tracer's host-side means:
+   tick, dispatch (the host issuing a tick's launches), emit.
+   Sync-free dispatch: the traffic once more, every tick that starts
+   with clean state and can admit nothing run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (at least 20, one with a
+   sampling lane and one with a final-chunk lane among them; the
+   consume's wait on its event lifted out).  Speculative decoding:
+   ``spec_k=3`` with prompt lookup, B1 launched 24 times a dispatch,
+   greedy streams equal phase 4's except at near ties of the engine's
+   own logits (margin < 1e-4), the acceptance metrics printed.
+   Preemption: on one slot, a priority-0 stream preempted by a
+   priority-5 request; ``serving.preemptions_total`` >= 1 and the
+   resumed stream equal to the request served alone (dense near ties
+   excepted).  The mesh: phase 14's (2, 2) fp32 serve again at depth 1,
+   every stream equal to the depth-2 one.
+16. Prints the ``kernels`` JSON line, the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
    backward kernels carry its time.
 
+With ``--depth-ab N`` it builds the kernels and runs only
+``depth_ab_phase``: N pairs of the fp32 serve at async_depth 1 and 2.
 With ``--cards 4`` it builds the kernels and runs only
 ``four_card_phase``: the (2, 2) mesh serve over four cards beside the
-same mesh on one card.
+same mesh on one card, both at the default ``async_depth=2``.
 
 Needs the repository around it: alone in a directory it exits non-zero.
 """
@@ -432,14 +457,15 @@ def slice_phase(card, ragged_mod):
         check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
     checked, near = teacher_forcing(model, reqs, outs)
     gen_tokens = eng.tokens_generated
-    print(f"slice gpt2-medium fp32: ticks {eng.ticks} ragged_dispatches "
+    print(f"slice gpt2-medium fp32: async_depth {eng.async_depth} ticks "
+          f"{eng.ticks} ragged_dispatches "
           f"{eng.ragged_dispatches} generated_tokens {gen_tokens} "
           f"prefill_tokens {eng.prefill_tokens} prefix_hits "
           f"{eng.prefix_hits} prefix_hit_tokens {eng.prefix_hit_tokens} "
           f"kv_blocks_walked {eng.kv_blocks_walked} "
           f"kernel_launches {launches} wall_s {wall:.3f} tokens_per_s "
           f"{gen_tokens / wall:.2f} greedy_checked {checked} near_ties "
-          f"{near} [{card}]", flush=True)
+          f"{near}{loop_text(eng)} [{card}]", flush=True)
     # the seeded streams repeat on a second engine serving the same
     # traffic (its launches are not the main path's count)
     eng2, outs2, wall2 = serve(model, reqs, Engine)
@@ -523,10 +549,12 @@ def profile_phase(model, reqs, engine_cls, card, label="",
     outs = [h.result(timeout=1) for h in handles]
     dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    launches = sum(e.count for e in dev)
     print(f"profile{label}: ticks {first}-{first + count - 1} of "
-          f"{eng.ticks} wall_s {wall:.3f} device_busy_s "
-          f"{busy_ms / 1e3:.3f} busy_share {busy_ms / 1e3 / wall:.3f} "
-          f"[{card}]", flush=True)
+          f"{eng.ticks} async_depth {eng.async_depth} wall_s {wall:.3f} "
+          f"device_busy_s {busy_ms / 1e3:.3f} busy_share "
+          f"{busy_ms / 1e3 / wall:.3f} kernels_per_tick "
+          f"{launches / count:.1f} [{card}]", flush=True)
     dev.sort(key=lambda e: -e.self_device_time_total)
     for e in dev[:10]:
         share = 100 * e.self_device_time_total / 1e3 / busy_ms
@@ -826,48 +854,72 @@ def check_launches(ragged_mod, eng, kernel, label):
     return counts[kernel]
 
 
-def serve_recording_margins(model, reqs, mesh=False, **engine_kw):
-    """``serve``, recording for every emitted token the top-2 margin of
-    the logits the engine picked it from (a decode lane's lane 0, a final
-    prefill chunk's last lane): the engine's own numbers, int8 KV
-    included.  With ``mesh`` the engine serves on the (2, 2) mesh and the
-    margins are read from its sharded tick.  Returns (engine, streams,
-    wall, {(prompt bytes, generated index): margin})."""
+def recording_engine(mesh=False):
+    """An Engine class that records, for every emitted token, the top-2
+    margin of the logits the engine picked it from (a decode window's
+    lane j for its j-th token, a final prefill chunk's last lane): the
+    engine's own numbers, int8 KV included.  The gaps are taken on the
+    device per dispatch and read at that dispatch's consume, in dispatch
+    order, so the ring (``async_depth=2``) keeps them apart.  With
+    ``mesh`` the sharded tick is patched.  Returns (class, {(prompt
+    bytes, generated index): margin}, undo)."""
+    from paddle_tpu_torch.models import GPTModel
     from paddle_tpu_torch.serving import Engine
     from paddle_tpu_torch.serving.sharded import ShardedServingModel
-    margins, last = {}, {}
-    # the mesh engine builds its sharded model itself: wrap its class
-    owner = ShardedServingModel if mesh else model
+    margins, pending = {}, []
+    # the mesh engine builds its sharded model itself: patch the class
+    owner = ShardedServingModel if mesh else GPTModel
     real_tick = owner._ragged_window_tick_slots
 
-    def record(logits):
+    def tick(self, *args, **kw):
+        logits, k_pools, v_pools = real_tick(self, *args, **kw)
         top2 = logits.float().topk(2, dim=-1).values
-        last["gap"] = (top2[..., 0] - top2[..., 1]).cpu()   # [B, E + 1]
-
-    def tick(*args, **kw):
-        logits, k_pools, v_pools = real_tick(*args, **kw)
-        record(logits)
+        pending.append(top2[..., 0] - top2[..., 1])      # [B, E + 1]
         return logits, k_pools, v_pools
 
     class Recording(Engine):
+        _gap = None
+        _lane = None
+
+        def _consume(self, inf, tr):
+            self._gap = pending.pop(0).cpu()
+            return super()._consume(inf, tr)
+
+        def _emit_window_lane(self, slot, *args):
+            self._lane = 0
+            try:
+                return super()._emit_window_lane(slot, *args)
+            finally:
+                self._lane = None
+
         def _emit(self, slot, tok):
             req = slot.request
-            g = len(req.generated)
-            lane = 1 if g == 0 else 0   # E = 1: lane 1 is the last lane
-            margins[req.prompt.tobytes(), g] = float(
-                last["gap"][slot.index, lane])
+            last = self._gap.shape[1] - 1
+            lane = last if self._lane is None else self._lane
+            margins[req.prompt.tobytes(), len(req.generated)] = float(
+                self._gap[slot.index, lane])
+            if self._lane is not None:
+                self._lane += 1
             return super()._emit(slot, tok)
 
+    owner._ragged_window_tick_slots = tick
+
+    def undo():
+        owner._ragged_window_tick_slots = real_tick
+
+    return Recording, margins, undo
+
+
+def serve_recording_margins(model, reqs, mesh=False, **engine_kw):
+    """``serve`` through ``recording_engine``.  Returns (engine, streams,
+    wall, {(prompt bytes, generated index): margin})."""
+    cls, margins, undo = recording_engine(mesh)
     if mesh:
         engine_kw["mesh"] = one_card_mesh()
-    setattr(owner, "_ragged_window_tick_slots", tick)
     try:
-        eng, outs, wall = serve(model, reqs, Recording, **engine_kw)
+        eng, outs, wall = serve(model, reqs, cls, **engine_kw)
     finally:
-        if mesh:
-            owner._ragged_window_tick_slots = real_tick
-        else:
-            del owner._ragged_window_tick_slots
+        undo()
     return eng, outs, wall, margins
 
 
@@ -917,12 +969,14 @@ def greedy_agreement(reqs, outs_a, outs_b):
 
 
 def slice_line(label, eng, wall, launches, card, extra=""):
-    print(f"slice {label}: ticks {eng.ticks} ragged_dispatches "
+    print(f"slice {label}: async_depth {eng.async_depth} ticks {eng.ticks} "
+          f"ragged_dispatches "
           f"{eng.ragged_dispatches} generated_tokens {eng.tokens_generated} "
           f"prefill_tokens {eng.prefill_tokens} prefix_hits "
           f"{eng.prefix_hits} kv_blocks_walked {eng.kv_blocks_walked} "
           f"kernel_launches {launches} wall_s {wall:.3f} tokens_per_s "
-          f"{eng.tokens_generated / wall:.2f}{extra} [{card}]", flush=True)
+          f"{eng.tokens_generated / wall:.2f}{extra}{loop_text(eng)} "
+          f"[{card}]", flush=True)
 
 
 def weight_slice_phase(card, ragged_mod, reqs):
@@ -1106,8 +1160,8 @@ def check_mesh_launches(ragged_mod, eng, kernel, label):
 def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
     """Phase 14: gpt2-medium -> to_tensor_parallel() -> Engine(mesh=(2, 2)
     on one card), phase 4's traffic served with fp32 pools (B1 under B4),
-    int8 pools (B2) and the gather body (B3).  Returns B4's launches over
-    the three serves."""
+    int8 pools (B2) and the gather body (B3).  Returns (B4's launches over
+    the three serves, the fp32 serve's streams)."""
     import torch
     from paddle_tpu_torch.serving import Engine
 
@@ -1174,7 +1228,7 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
                f"near_tie_divergences {near} at margins {gaps}")
     del eng, tp
     torch.cuda.empty_cache()
-    return total
+    return total, outs
 
 
 def four_card_phase(card, ragged_mod):
@@ -1222,6 +1276,280 @@ def four_card_phase(card, ragged_mod):
                   "differs from the one-card mesh's")
     print(f"four cards: {same} of {len(reqs)} streams equal to the "
           "one-card mesh's", flush=True)
+
+
+# -- phase 15 -------------------------------------------------------------
+SPEC_K = 3
+DEPTH_ROUNDS = (1, 2, 2, 1)        # async_depth of each A/B serve, in turn
+PROFILE_DEPTHS = (2, 1)            # and of each profiled window after them
+
+
+def mean_ms(eng, name):
+    """Mean of one of the engine's millisecond histograms."""
+    h = eng.registry.get(name)
+    return h.sum / h.count if h.count else 0.0
+
+
+def span_ms(eng, names):
+    """Mean duration (ms) of the engine tracer's spans of these names:
+    host clock.  A dispatch span times the host issuing one tick's
+    launches (nothing in it waits for the device)."""
+    durs = [e["dur"] for e in eng.chrome_trace()["traceEvents"]
+            if e.get("ph") == "X" and e["name"] in names]
+    return sum(durs) / len(durs) / 1e3 if durs else 0.0
+
+
+def loop_text(eng):
+    """The loop's host-side means: tick wall, the dispatch's launches,
+    the consume's wait and emit, the overlapped host work, the stall
+    between dispatches."""
+    return (f" tick_ms_mean {span_ms(eng, ('tick',)):.4f}"
+            f" dispatch_ms_mean "
+            f"{span_ms(eng, ('decode.ragged_stream', 'decode.ragged')):.4f}"
+            f" emit_ms_mean {span_ms(eng, ('decode.emit',)):.4f}"
+            f" d2h_wait_ms_mean {mean_ms(eng, 'serving.d2h_wait_ms'):.4f}"
+            f" tick_overlap_ms_mean "
+            f"{mean_ms(eng, 'serving.tick_overlap_ms'):.4f}"
+            f" decode_stall_ms_mean "
+            f"{mean_ms(eng, 'serving.decode_stall_ms'):.4f}")
+
+
+def depth_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 15, A/B of the pipeline depth: fp32 serves at async_depth 1
+    and 2 in turns (``DEPTH_ROUNDS``), each printing tokens/s and the
+    loop's mean overlap and download wait; every stream (greedy and
+    seeded) equal across depths and to phase 4's, the greedy ones the
+    dense forward's argmax; B1 launched 24 times a dispatch.  Then a
+    ``profile_phase`` window at each depth (``PROFILE_DEPTHS``)."""
+    from paddle_tpu_torch.serving import Engine
+    for depth in DEPTH_ROUNDS:
+        zero_ragged_counts(ragged_mod)
+        eng, outs, wall = serve(model, reqs, Engine, async_depth=depth)
+        launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                                  f"depth {depth} serve")
+        for (_, kw), a, b in zip(reqs, outs, fp_outs):
+            check(a.tolist() == b.tolist(),
+                  f"async_depth={depth}: a {'seeded' if kw else 'greedy'} "
+                  "stream differs from phase 4's depth-2 stream")
+        slice_line("gpt2-medium fp32 A/B", eng, wall, launches, card)
+        del eng
+    checked, near = teacher_forcing(model, reqs, fp_outs)
+    print(f"depth A/B: every stream equal across depths; greedy_checked "
+          f"{checked} near_ties {near}", flush=True)
+    for depth in PROFILE_DEPTHS:
+        profile_phase(model, reqs, Engine, card, label=f" depth{depth}",
+                      async_depth=depth)
+
+
+def sync_free_phase(card, model, reqs, fp_outs):
+    """Phase 15, the sync-free dispatch: the traffic served at depth 2,
+    every tick that starts with clean state and can admit nothing (the
+    ticks that upload nothing) run under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    synchronizing call; the consume's one wait on its event is lifted
+    out of the check.  At least 20 such ticks, one with a sampling lane
+    and one with a final-chunk lane among them; the streams equal
+    phase 4's."""
+    import torch
+    from paddle_tpu_torch.serving import Engine
+    eng, handles = submit_all(model, reqs, Engine)
+    real_wait = eng._d2h_wait
+
+    def wait_unchecked(stg):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            real_wait(stg)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    real_dispatch = eng._dispatch_ragged
+    seen = {"ticks": 0, "sampling": 0, "final": 0}
+    checking = [False]
+
+    def dispatch(active, plan, tr):
+        if checking[0]:
+            seen["sampling"] += any(eng._temp[s.index] > 0 for s in active)
+            seen["final"] += any(final for _, _, final in plan)
+        return real_dispatch(active, plan, tr)
+
+    eng._d2h_wait = wait_unchecked
+    eng._dispatch_ragged = dispatch
+    while not eng.scheduler.idle():
+        checking[0] = (not eng._state_dirty and eng._dev_state is not None
+                       and (eng.queue.depth() == 0
+                            or eng.scheduler.free_count() == 0))
+        if not checking[0]:
+            eng.step()
+            continue
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eng.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seen["ticks"] += 1
+    outs = [h.result(timeout=1) for h in handles]
+    check(seen["ticks"] >= 20 and seen["sampling"] and seen["final"],
+          f"sync-free check covered too little: {seen}")
+    for a, b in zip(outs, fp_outs):
+        check(a.tolist() == b.tolist(),
+              "sync-free check: a stream differs from phase 4's")
+    print(f"sync-free dispatch: {seen['ticks']} of {eng.ticks} ticks under "
+          f"set_sync_debug_mode('error'), {seen['sampling']} with a "
+          f"sampling lane, {seen['final']} with a final-chunk lane; no "
+          "synchronizing call", flush=True)
+
+
+def spec_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 15, speculative decoding: the traffic at ``spec_k=3`` with
+    prompt lookup, depth 2, B1 launched 24 times a dispatch; greedy
+    streams equal phase 4's except from a first divergence at a near tie
+    of the engine's own logits (margin < 1e-4, ``stream_divergences``).
+    Prints the acceptance metrics and tokens/s."""
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall, margins = serve_recording_margins(model, reqs,
+                                                       spec_k=SPEC_K)
+    launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                              "spec serve")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
+    near, gaps = stream_divergences(model, reqs, fp_outs, outs, margins,
+                                    1e-4)
+    same = sum(a.tolist() == b.tolist()
+               for (_, kw), a, b in zip(reqs, fp_outs, outs) if not kw)
+    seeded = sum(a.tolist() == b.tolist()
+                 for (_, kw), a, b in zip(reqs, fp_outs, outs) if kw)
+    reg = eng.registry
+    slice_line(
+        f"gpt2-medium fp32 spec_k={SPEC_K} prompt lookup", eng, wall,
+        launches, card,
+        f" spec_windows {reg.get('serving.spec_windows').value:.0f}"
+        f" spec_proposed {reg.get('serving.spec_proposed').value:.0f}"
+        f" spec_accepted {reg.get('serving.spec_accepted').value:.0f}"
+        f" spec_acceptance_rate "
+        f"{reg.get('serving.spec_acceptance_rate').value:.4f}"
+        f" greedy_equal_to_nonspec {same}/10 near_tie_divergences {near} "
+        f"at margins {gaps} seeded_equal_to_nonspec {seeded}/2")
+    return launches
+
+
+def depth_ab_phase(card, pairs):
+    """``--depth-ab N``: N pairs of phase 4's fp32 serve at async_depth 1
+    and 2 on a fresh gpt2-medium from seed 0, the order alternating pair
+    by pair (1 2, 2 1, ...), every stream equal to the first serve's.
+    Prints each serve's tokens/s and the tracer's tick / dispatch means,
+    then per depth the median and quartiles of each, and the pairs each
+    depth won on tokens/s."""
+    import statistics
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    reqs = traffic(model.embeddings.word_embeddings.weight.shape[0])
+    first = None
+    runs = {1: [], 2: []}
+    wins = {1: 0, 2: 0}
+    for i in range(pairs):
+        pair = {}
+        for depth in ((1, 2) if i % 2 == 0 else (2, 1)):
+            eng, outs, wall = serve(model, reqs, Engine, async_depth=depth)
+            first = first or outs
+            check(all(a.tolist() == b.tolist() for a, b in zip(outs, first)),
+                  f"depth A/B pair {i}: a stream differs at depth {depth}")
+            r = (eng.tokens_generated / wall, span_ms(eng, ("tick",)),
+                 span_ms(eng, ("decode.ragged_stream",)))
+            runs[depth].append(r)
+            pair[depth] = r[0]
+            print(f"depth A/B pair {i} async_depth {depth}: tokens_per_s "
+                  f"{r[0]:.2f} tick_ms_mean {r[1]:.4f} dispatch_ms_mean "
+                  f"{r[2]:.4f}", flush=True)
+            del eng
+        wins[max(pair, key=pair.get)] += 1
+    for depth, rs in runs.items():
+        text = []
+        for j, name in enumerate(("tokens_per_s", "tick_ms", "dispatch_ms")):
+            q1, med, q3 = statistics.quantiles([r[j] for r in rs], n=4)
+            text.append(f"{name} median {med:.4f} quartiles {q1:.4f} "
+                        f"{q3:.4f}")
+        print(f"depth A/B async_depth {depth} over {len(rs)} serves: "
+              + "; ".join(text) + f"; pairs won {wins[depth]} of {pairs} "
+              f"[{card}]", flush=True)
+
+
+def greedy_equal_or_near_tie(model, prompt, a, b, label):
+    """Two greedy streams of one prompt: equal, or from a first divergence
+    at which the dense forward's top-2 margin is under 1e-4 (phase 4's
+    near-tie rule).  Returns the divergence's margin or None."""
+    import torch
+    a, b = list(a), list(b)
+    if a == b:
+        return None
+    t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    with torch.no_grad():
+        ids = torch.tensor([list(prompt) + a[:t]], device="cuda")
+        top2 = model(ids)[0, -1].float().topk(2).values
+    gap = float(top2[0] - top2[1])
+    check(gap < 1e-4, f"{label}: streams diverge at generated token {t} "
+          f"where the dense top-2 margin is {gap:.3e}, not a near tie")
+    return gap
+
+
+def preempt_phase(card, model, reqs):
+    """Phase 15, priority preemption: on one slot, a priority-0 stream
+    of 64 tokens is preempted by a priority-5 request after 16 of them;
+    ``serving.preemptions_total`` >= 1, and the resumed stream equals the
+    same request served alone (near ties of the dense forward
+    excepted)."""
+    import torch
+    from paddle_tpu_torch.serving import Engine
+    kw = dict(num_slots=1, max_seq_len=1024, kv_block_size=16,
+              prefill_chunk=64)
+    p_low = reqs[1][0]
+    p_high = reqs[0][0]
+    alone = Engine(model, **kw)
+    ref = alone.submit(p_low, max_new_tokens=64)
+    alone.run_until_idle()
+    eng = Engine(model, **kw)
+    low = eng.submit(p_low, max_new_tokens=64, priority=0)
+    while len(low.generated) < 16:
+        eng.step()
+    high = eng.submit(p_high, max_new_tokens=16, priority=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reg = eng.registry
+    n = reg.get("serving.preemptions_total").value
+    check(n >= 1 and low.preemptions >= 1, "no preemption happened")
+    check(len(low.generated) == 64 and len(high.generated) == 16,
+          "a preempted or preempting stream is short")
+    gap = greedy_equal_or_near_tie(model, p_low, low.generated,
+                                   ref.generated, "preemption resume")
+    print(f"preemption: preemptions_total {n:.0f} resumed_total "
+          f"{reg.get('serving.resumed_total').value:.0f} prefix_hits "
+          f"{eng.prefix_hits} low prompt {len(p_low)} tokens, resumed "
+          f"stream equal to the uninterrupted one "
+          f"{gap is None} (near-tie margin {gap}); wall_s {wall:.3f} "
+          f"[{card}]", flush=True)
+
+
+def mesh_depth_phase(card, ragged_mod, model_fp, reqs, mesh_outs):
+    """Phase 15, the mesh under the ring: the (2, 2) mesh serve of phase
+    14 (which ran at depth 2) once more at async_depth=1; every stream
+    equal."""
+    from paddle_tpu_torch.serving import Engine
+    tp = model_fp.to_tensor_parallel()
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(tp, reqs, Engine, mesh=one_card_mesh(),
+                            async_depth=1)
+    n = check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
+                            "mesh depth-1 serve")
+    for (_, kw), a, b in zip(reqs, outs, mesh_outs):
+        check(a.tolist() == b.tolist(),
+              f"mesh: a {'seeded' if kw else 'greedy'} stream differs "
+              "between async_depth 1 and 2")
+    slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32", eng, wall, n, card,
+               " every stream equal to the depth-2 mesh serve (phase 14)")
 
 
 # -- phase 5 --------------------------------------------------------------
@@ -1623,6 +1951,14 @@ def main(argv):
         print(f"phase {phase} done at {time.perf_counter() - t_start:.1f} s",
               flush=True)
 
+    if "--depth-ab" in argv:
+        depth_ab_phase(card, int(argv[argv.index("--depth-ab") + 1]))
+        lap("depth A/B")
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if cards == 4:
         four_card_phase(card, ragged_mod)
         lap("four-card mesh")
@@ -1650,9 +1986,15 @@ def main(argv):
                                           model_q, q_outs)
     capacity_phase(model_fp, card)
     lap("11, 12 (gather slices, capacity)")
-    mesh_launches = mesh_slice_phase(card, ragged_mod, model_fp, reqs,
-                                     fp_outs)
+    mesh_launches, mesh_outs = mesh_slice_phase(card, ragged_mod, model_fp,
+                                                reqs, fp_outs)
     lap("14 (mesh serving)")
+    depth_phase(card, ragged_mod, model_fp, reqs, fp_outs)
+    sync_free_phase(card, model_fp, reqs, fp_outs)
+    spec_phase(card, ragged_mod, model_fp, reqs, fp_outs)
+    preempt_phase(card, model_fp, reqs)
+    mesh_depth_phase(card, ragged_mod, model_fp, reqs, mesh_outs)
+    lap("15 (pipelined, speculative and preempted serving)")
     check(sum(flash_counts(fa).values()) == 0,
           "the serving path launched a flash kernel")
     del model_fp, model_q

@@ -12,10 +12,13 @@ on-device sample / stop-condition epilogue of one engine tick.
 Layouts follow the JAX package so the weight bridge (``convert.py``) and
 the parity tests compare like with like: the fused QKV projection
 reshapes to ``[b, s, 3, H, hd]`` and splits on dim 2, and KV pools are
-``[num_blocks, block_size, H, hd]``.  Sampling keys are per-lane
-``torch.Generator`` seeds derived from the request's seed words and
-emitted-token counter (``_slot_sample_keys``); they do not reproduce
-jax's draws, only the same stream for the same seed.
+``[num_blocks, block_size, H, hd]``.  Sampling runs on the device
+without reading anything back: each lane's 64-bit key is a splitmix64
+mix of the request's seed words and emitted-token counter, computed in
+int64 tensor ops (``_slot_sample_keys``), and its draw is the inverse
+CDF of the filtered distribution at a uniform number taken from the key
+(``_sample_lanes``).  The keys do not reproduce jax's draws, only the
+same stream for the same seed.
 """
 from __future__ import annotations
 
@@ -48,15 +51,32 @@ GPT_CONFIGS = {
 }
 
 _MASK = -1e30
-_U64 = (1 << 64) - 1
+
+
+def _i64(c):
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_SPLITMIX = (_i64(0x9E3779B97F4A7C15), _i64(0xBF58476D1CE4E5B9),
+             _i64(0x94D049BB133111EB))
+
+
+def _shr(x, s):
+    """Logical right shift of an int64 tensor's bits: torch's ``>>`` is
+    arithmetic on int64, so the sign bits it brings in are masked off."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
 
 
 def _mix64(x):
-    """splitmix64 finalizer: spreads a 64-bit integer's bits."""
-    x = (x + 0x9E3779B97F4A7C15) & _U64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
-    return x ^ (x >> 31)
+    """splitmix64 finalizer over an int64 tensor, on its device: spreads
+    each element's 64 bits.  Adds and multiplies wrap modulo 2**64, so
+    the bits are those of the unsigned arithmetic."""
+    golden, m1, m2 = _SPLITMIX
+    x = x + golden
+    x = (x ^ _shr(x, 30)) * m1
+    x = (x ^ _shr(x, 27)) * m2
+    return x ^ _shr(x, 31)
 
 
 def window_write_rows(block_tables, pos, width, scratch, W, block_size):
@@ -533,43 +553,49 @@ class GPTModel(nn.Module):
 
     @staticmethod
     def _slot_sample_keys(seed_lo, seed_hi, ctr):
-        """Per-lane sampling keys: one 64-bit ``torch.Generator`` seed per
-        lane from the request's seed words and the emitted-token counter,
-        so token i of a request always draws from key(seed, i) — whether a
-        decode tick or a final prefill chunk emits it.  Returns a list of
-        ints (host values)."""
-        lo = torch.as_tensor(seed_lo).tolist()
-        hi = torch.as_tensor(seed_hi).tolist()
-        cs = torch.as_tensor(ctr).tolist()
-        return [_mix64(((int(h) & 0xFFFFFFFF) << 32 | (int(l) & 0xFFFFFFFF))
-                       ^ _mix64(int(c)))
-                for l, h, c in zip(lo, hi, cs)]
+        """Per-lane 64-bit sampling keys, as int64 tensors on ``ctr``'s
+        device: ``mix64((hi << 32 | lo) ^ mix64(ctr))`` of the request's
+        seed words and the emitted-token counter, so token i of a request
+        always draws from key(seed, i), whether a decode tick or a final
+        prefill chunk emits it.  Elementwise: the three may broadcast."""
+        dev = torch.as_tensor(ctr).device
+        lo = torch.as_tensor(seed_lo, device=dev).long() & 0xFFFFFFFF
+        hi = torch.as_tensor(seed_hi, device=dev).long() & 0xFFFFFFFF
+        word = (hi * (1 << 32)) | lo   # wraps into the sign bit
+        return _mix64(word ^ _mix64(torch.as_tensor(ctr).long()))
+
+    @staticmethod
+    def _key_uniform(keys):
+        """A float64 in (0, 1] from each int64 key: its top 53 bits plus
+        one, over 2**53 (exact in float64)."""
+        return (_shr(keys, 11) + 1).double() * 2.0 ** -53
 
     @staticmethod
     def _sample_lanes(last, temperature, top_k, top_p, keys):
         """One token per row of [B, V] logits with per-lane parameters:
         lanes with ``temperature == 0`` (the greedy sentinel) take the
         raw argmax (the first maximum, as in jnp), sampling lanes draw
-        from the lane-filtered distribution with a generator seeded by
-        their key.  An all-greedy batch skips the filter and the draw
-        (``keys=None`` tells it so without reading ``temperature``
-        back).  Returns int32 [B]."""
+        from the lane-filtered distribution by inverse CDF at their
+        key's uniform number (``keys``: int64 [B] from
+        ``_slot_sample_keys``).  The draw is the first token whose
+        cumulative probability (float64) reaches u times the total, so a
+        filtered-out token (probability exactly 0) is never drawn.  Runs
+        on the device and reads nothing back.  ``keys=None`` says no lane
+        samples: the filter and the draw are skipped.  Returns int32
+        [B]."""
         last = last.float()
         greedy = torch.argmax(last, dim=-1).to(torch.int32)
         if keys is None:  # the caller knows no lane samples
             return greedy
-        sampling = temperature > 0
-        if not bool(sampling.any()):
-            return greedy
         filt = GPTModel._filter_logits_lanes(last, temperature, top_k,
                                              top_p)
-        probs = torch.softmax(filt, dim=-1)
-        out = greedy.clone()
-        for b in torch.nonzero(sampling).flatten().tolist():
-            gen = torch.Generator(device=last.device)
-            gen.manual_seed(keys[b])
-            out[b] = torch.multinomial(probs[b], 1, generator=gen)[0]
-        return out
+        cum = torch.cumsum(torch.softmax(filt, dim=-1).double(), dim=-1)
+        target = GPTModel._key_uniform(keys) * cum[:, -1]
+        drawn = torch.searchsorted(cum, target[:, None]).squeeze(1)
+        # NaN logits would search past the end: keep the id a valid row
+        # of the embedding the next tick reads
+        drawn = torch.clamp(drawn, max=last.shape[-1] - 1).to(torch.int32)
+        return torch.where(temperature > 0, drawn, greedy)
 
     # -- ragged engine tick -------------------------------------------------
     def _ragged_window_tick_slots(self, toks, k_pools, v_pools,
@@ -606,7 +632,8 @@ class GPTModel(nn.Module):
                                  block_tables, width, mode, lanes, tok,
                                  pos, temp, top_k, top_p, seed_lo,
                                  seed_hi, ctr, eos, rem, scratch=None,
-                                 emit_w=None, variant="stream"):
+                                 emit_w=None, variant="stream",
+                                 any_sampling=None, any_final=None):
         """One engine tick: the ragged window plus the sample /
         accept-scan / stop-condition epilogue.  Per-slot ``mode``:
 
@@ -623,25 +650,33 @@ class GPTModel(nn.Module):
         Width-0 (parked) slots and finished lanes (rem 0) keep tok, pos
         and ctr.  ``variant`` (``"stream"``/``"gather"``) and the pool
         form (tensors or ``QuantKV``) pass through to every layer's
-        ``ragged_window_paged``.  Returns (picks [B, E], n_acc [B],
-        n_emit [B], done bool [B], new_tok [B, 1], new_pos [B], new_ctr
-        [B], new_rem [B], k_pools, v_pools) with E = min(W, emit_w)."""
+        ``ragged_window_paged``.  ``any_sampling`` / ``any_final`` are
+        facts the caller knows from its host state: whether some lane has
+        ``temp > 0``, whether some lane is mode 2.  False skips the
+        sampling filter / the last lane's pick; None (not known) computes
+        them, so the epilogue never reads a device tensor back.  Returns
+        (picks [B, E], n_acc [B], n_emit [B], done bool [B], new_tok
+        [B, 1], new_pos [B], new_ctr [B], new_rem [B], k_pools, v_pools)
+        with E = min(W, emit_w)."""
         return fused_ragged_tick(
             self, toks, k_pools, v_pools, block_tables, width, mode, lanes,
             tok, pos, temp, top_k, top_p, seed_lo, seed_hi, ctr, eos, rem,
             block_size=k_pools[0].shape[1], scratch=scratch, emit_w=emit_w,
-            variant=variant)
+            variant=variant, any_sampling=any_sampling,
+            any_final=any_final)
 
 
 def fused_ragged_tick(model, toks, k_pools, v_pools, block_tables, width,
                       mode, lanes, tok, pos, temp, top_k, top_p, seed_lo,
                       seed_hi, ctr, eos, rem, *, block_size, scratch=None,
-                      emit_w=None, variant="stream"):
+                      emit_w=None, variant="stream", any_sampling=None,
+                      any_final=None):
     """The body of ``GPTModel._fused_ragged_tick_slots`` (see there) for
     any ``model`` with a ``_ragged_window_tick_slots`` of the same
     contract: the dense or tensor-parallel ``GPTModel``, or the mesh's
     ``serving.sharded.ShardedServingModel``.  The sampling epilogue runs
-    on the full logits the window returns."""
+    on the full logits the window returns, every picked lane in one
+    batched ``_sample_lanes`` call."""
     B, W = toks.shape
     E = min(W, emit_w) if emit_w else W
     dev = toks.device
@@ -656,24 +691,27 @@ def fused_ragged_tick(model, toks, k_pools, v_pools, block_tables, width,
         scratch=scratch, head_lanes=head_lanes,
         variant=variant)                                 # [B, E+1, V]
     L = block_tables.shape[1] * int(block_size)
-    # keys only when some lane samples: deriving them reads the seed
-    # words and counters back to the host
-    sampling = bool((temp > 0).any())
+    V = logits.shape[-1]
+    # the lanes picked: the E emit lanes, lane j with key(seed, ctr + j),
+    # and (when a final chunk may be present) the last real lane, which
+    # samples the next token with the UNSHIFTED key(seed, ctr)
+    n = E + 1 if any_final is None or any_final else E
+    shift = torch.arange(n, device=dev)
+    shift = torch.where(shift < E, shift, torch.zeros_like(shift))
+    keys = (GPTModel._slot_sample_keys(seed_lo[:, None], seed_hi[:, None],
+                                       ctr[:, None] + shift[None, :])
+            .reshape(-1) if any_sampling is None or any_sampling else None)
 
-    def keys(c):
-        return (GPTModel._slot_sample_keys(seed_lo, seed_hi, c)
-                if sampling else None)
+    def per_lane(t):
+        return t[:, None].expand(B, n).reshape(-1)
 
-    picks = torch.stack(
-        [GPTModel._sample_lanes(logits[:, j], temp, top_k, top_p,
-                                keys(ctr + j))
-         for j in range(E)], dim=1)                      # [B, E]
+    drawn = GPTModel._sample_lanes(
+        logits[:, :n].reshape(B * n, V), per_lane(temp), per_lane(top_k),
+        per_lane(top_p), keys).view(B, n)
+    picks = drawn[:, :E].clone()                         # [B, E]
     is_final = mode == 2
-    if bool(is_final.any()):
-        last_pick = GPTModel._sample_lanes(logits[:, E], temp, top_k,
-                                           top_p, keys(ctr))
-    else:
-        last_pick = torch.zeros(B, dtype=i32, device=dev)
+    last_pick = (drawn[:, E] if n > E
+                 else torch.zeros(B, dtype=i32, device=dev))
     is_pref = mode == 1
     live = (rem > 0) & (width > 0)
     match = (window[:, 1:E] == picks[:, :E - 1]) \

@@ -6,45 +6,64 @@ Each tick admits queued requests into free slots (the paged admission
 gate adopts cached prompt prefixes and reserves every block a request
 could need), then runs ONE ragged window dispatch
 (``GPTModel._fused_ragged_tick_slots``): decoding slots ride as
-one-token lanes, budgeted prefill chunks as lanes of up to
-``prefill_chunk`` tokens, and sampling plus the eos / max_new_tokens stop
-condition run in the dispatch's epilogue on the device.  The tick then
-downloads the per-slot picks and counts and emits them.
+one-token lanes (``spec_k + 1``-token verify windows under speculative
+decoding, drafted by a ``serving.spec`` proposer), budgeted prefill
+chunks as lanes of up to ``prefill_chunk`` tokens, and sampling, the
+accept scan and the eos / max_new_tokens stop condition run in the
+dispatch's epilogue on the device.
 
-The engine serves at ``async_depth=1`` (each tick is dispatched and
-consumed before the next), on one device or over an ``(mp, dp)`` serving
-mesh (``mesh=``: the tensor-parallel model's heads, FFN and vocab split
-over mp, the batch slots and the KV block pool over dp; one controller
-drives every rank, ``serving/sharded.py``), with fp or int8 KV pools
+The loop is pipelined (``async_depth=2``, the default): a tick plans and
+admits while the previous tick computes, dispatches tick N+1, and only
+then consumes tick N.  A steady-state dispatch synchronizes nothing:
+its inputs go up through pinned staging buffers with ``non_blocking``
+copies, its picks, counts and done mask come home packed in one
+``non_blocking`` download that a CUDA event marks, and the consume's
+wait on that event (``decode.d2h_wait``) is the loop's one sync point.
+Admission, eviction and preemption dirty the host mirrors of the
+device-resident step state; the ring drains before they are uploaded
+again.  ``async_depth=1`` dispatches and consumes in the same tick.
+
+The engine serves on one device or over an ``(mp, dp)`` serving mesh
+(``mesh=``: the tensor-parallel model's heads, FFN and vocab split over
+mp, the batch slots and the KV block pool over dp; one controller drives
+every rank, ``serving/sharded.py``), with fp or int8 KV pools
 (``kv_dtype="int8"``: ``QuantKV`` codes plus per-block per-head scales,
 ``serving/quant.py``), fp or weight-only int8 block Linears
 (``weight_dtype="int8"``), a pool sized by blocks or by a byte budget
 (``kv_budget_mb``), and either ragged kernel body (``attn_impl="ragged"``
 streams to the causal horizon, ``"ragged_gather"`` gathers the whole
-row).  The JAX engine's other knobs — speculative decoding, LoRA
-adapters, the host-RAM offload tier, the pipelined loop, the XLA
-attention paths, monolithic prefill — raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.  Tracing,
-faults and migration wait too; plain integer counters stand in for the
-metrics (``prefix_hits``, ``ticks``, ``kv_blocks_walked``, ...).
+row).  Requests carry priorities, tenants and deadlines: a higher
+priority may preempt a running stream, which resumes token-identically.
+Metrics go to a ``monitor.StatRegistry`` under the JAX engine's names,
+spans to a ``monitor.Tracer`` (``Engine.chrome_trace()``).  The JAX
+engine's other knobs — LoRA adapters, the host-RAM offload tier, the
+XLA attention paths, monolithic prefill — raise ``NotImplementedError``
+naming their ``ROADMAP.md`` item; migration and the fault injector wait
+too.
 """
 from __future__ import annotations
 
+import os
+import threading
 import time
+from collections import deque
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
+from .. import monitor
 from ..device import require_on
 from ..distributed.mesh import ServingMesh, serving_mesh
 from .kvcache import BlockPool, PrefixCache, per_shard_block_bytes
 from .quant import QuantKV, relayout_weights_int8
-from .request import MAX_SEED, Request, RequestQueue
+from .request import (MAX_SEED, DeadlineShed, QueueFull, RateLimited,
+                      Request, RequestQueue, TenantPolicy, TokenBucket)
 from .scheduler import Scheduler
 from .sharded import ShardedServingModel
+from .spec import PromptLookupProposer
 
 _NOT_PORTED = {
-    "spec_k": "Queue A 6 (speculative decode)",
     "adapters": "Queue A 8 (LoRA adapters)",
     "kv_host_mb": "Queue A 8 (host-RAM offload)",
 }
@@ -71,19 +90,47 @@ def _resolve_mesh(mesh):
         f"ServingMesh, got {type(mesh).__name__}")
 
 
+class _Staging:
+    """One ring entry's host buffers — pinned on a CUDA engine: the
+    tick's uploads (``toks``, ``width``, ``mode``, ``lanes``) and the
+    packed download of its picks, accept counts, emit counts and done
+    mask (``out`` [B, E + 3]), plus the CUDA event recorded after that
+    download.  A set goes back to the free list only when its tick has
+    been consumed: until then an asynchronous copy may still read (or
+    fill) it."""
+
+    __slots__ = ("toks", "width", "mode", "lanes", "out", "event")
+
+    def __init__(self, num_slots, window, emit_w, device):
+        pin = device.type == "cuda"
+
+        def buf(*shape):
+            return torch.zeros(shape, dtype=torch.int32, pin_memory=pin)
+
+        self.toks = buf(num_slots, window)
+        self.width = buf(num_slots)
+        self.mode = buf(num_slots)
+        self.lanes = buf(num_slots)
+        self.out = buf(num_slots, emit_w + 3)
+        self.event = torch.cuda.Event() if pin else None
+
+
 class _InflightTick:
-    """One dispatched ragged tick: the device tensors its consume
-    downloads, and the slot -> request bindings and per-slot lane modes
-    as of dispatch."""
+    """One dispatched ragged tick: its staging set (the download lands
+    there), the slot -> request bindings as of dispatch (a slot may be
+    evicted and even re-admitted before this tick is consumed; the
+    identity check ``slot.request is req`` keeps a frozen lane out of a
+    newer request's stream), and per listed slot the lane's (mode,
+    width, draft lanes) as of dispatch."""
 
-    __slots__ = ("tick", "slots", "reqs", "arrays", "modes")
+    __slots__ = ("tick", "slots", "reqs", "meta_lanes", "staging")
 
-    def __init__(self, tick, slots, arrays, modes):
+    def __init__(self, tick, slots, meta_lanes, staging):
         self.tick = tick
         self.slots = slots
         self.reqs = [s.request for s in slots]
-        self.arrays = arrays
-        self.modes = modes
+        self.meta_lanes = meta_lanes
+        self.staging = staging
 
 
 class Engine:
@@ -135,6 +182,47 @@ class Engine:
         serves the checkpoint as it is.
     kv_dtype : ``"int8"`` stores the K/V pools as int8 codes with a f32
         scale per block and head; None stores them in the compute dtype.
+    async_depth : pipeline depth (default: 2).  At 2 a tick dispatches
+        tick N+1 before it consumes tick N, so admission, chunk planning
+        and tick N's emit loop run while the device computes (watch
+        ``serving.tick_overlap_ms`` / ``serving.d2h_wait_ms`` and the
+        ``host.overlap`` spans); greedy streams are token-identical to
+        ``async_depth=1``, which dispatches and consumes in one tick.
+    spec_k / proposer : speculative decoding.  ``spec_k=k`` widens every
+        decode lane to a k+1 verify window whose lanes 1..k the
+        ``proposer`` (default ``PromptLookupProposer()``) drafts; the
+        epilogue accepts the longest matching prefix plus one bonus
+        token.  Greedy streams equal the non-speculative engine's.  The
+        ring drains before drafting (a draft reads the tokens the
+        previous window accepted).
+    max_queue : admission queue bound (0 = unbounded); a full queue
+        sheds ``submit`` with ``QueueFull``.
+    tenants : per-tenant policies, name -> ``TenantPolicy`` (or a dict
+        of its kwargs): weighted-fair service within a priority tier,
+        and an optional token bucket charged ``prompt +
+        max_new_tokens`` at submit (``RateLimited`` when over rate).
+    preemption : when the best queued priority outranks a running
+        request and admission is blocked (no free slot, or the paged
+        gate short on blocks), evict the lowest-priority running slot
+        mid-stream (its computed full blocks go into the prefix cache)
+        and requeue it with its emitted tokens; the resumed stream is
+        token-identical, greedy and seeded (default True).
+    shed_deadlines : once the drain rate is measured, reject a submit
+        whose deadline (``timeout``) the estimated queue wait already
+        blows, with ``DeadlineShed`` (default True).
+    registry : the ``monitor.StatRegistry`` the engine's metrics live in
+        (default: a registry of the engine's own; pass
+        ``monitor.default_registry()`` to publish process-wide).
+    tracing / trace_capacity / trace_annotations : keep a span tracer
+        (``monitor.Tracer``, a bounded ring per thread of
+        ``trace_capacity`` events) fed by every tick — ``tracing=False``
+        swaps in a ``NullTracer``; ``trace_annotations=True`` also
+        enters ``torch.profiler.record_function`` per span.  Export with
+        ``chrome_trace()``.
+
+    ``step()`` is single-threaded — run it from one loop
+    (``run_until_idle`` or the ``start()`` background thread);
+    ``submit()`` is thread-safe.
     """
 
     def __init__(self, model, num_slots=4, max_seq_len=None,
@@ -142,21 +230,28 @@ class Engine:
                  prefix_cache=True, prefill_chunk=None,
                  tick_token_budget=None, attn_impl="ragged",
                  sample_mode="device", async_depth=None, device=None,
-                 spec_k=None, mesh=None, kv_dtype=None,
+                 spec_k=None, proposer=None, mesh=None, kv_dtype=None,
                  weight_dtype=None, adapters=None, kv_host_mb=None,
-                 kv_budget_mb=None):
-        knobs = dict(spec_k=spec_k, mesh=mesh, adapters=adapters,
-                     kv_host_mb=kv_host_mb)
+                 kv_budget_mb=None, max_queue=0, registry=None,
+                 tenants=None, preemption=True, shed_deadlines=True,
+                 tracing=True, trace_capacity=16384,
+                 trace_annotations=False):
+        knobs = dict(adapters=adapters, kv_host_mb=kv_host_mb)
         for name, item in _NOT_PORTED.items():
             if knobs[name] is not None:
                 raise NotImplementedError(
                     f"Engine({name}=...) is not ported yet: ROADMAP.md "
                     f"{item}")
-        if async_depth not in (None, 1):
-            raise NotImplementedError(
-                f"async_depth={async_depth} is not ported yet: ROADMAP.md "
-                "Queue A 5 (the pipelined engine loop); this slice runs "
-                "async_depth=1")
+        if async_depth is None:
+            async_depth = 2 if sample_mode == "device" else 1
+        depth = int(async_depth)
+        if depth < 1:
+            raise ValueError(f"async_depth must be >= 1, got {depth}")
+        if depth > 1 and sample_mode != "device":
+            raise ValueError(
+                "async_depth > 1 requires sample_mode='device': there is "
+                "no device-compute gap to overlap when the host samples")
+        self.async_depth = depth
         if attn_impl == "xla":
             raise NotImplementedError(
                 "attn_impl='xla' is not ported yet: ROADMAP.md Queue A 5 "
@@ -196,6 +291,35 @@ class Engine:
         if kv_block_size is None:
             raise ValueError("kv_block_size is required: the ragged "
                              "kernel reads K/V through block tables")
+        self._spec_k = None
+        self.proposer = None
+        if spec_k is not None:
+            k = int(spec_k)
+            if k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {k}")
+            L = int(max_seq_len or model.embeddings.position_embeddings
+                    .weight.shape[0])
+            if k + 2 > L:
+                raise ValueError(
+                    f"spec_k={k} leaves no room for any request in a "
+                    f"{L}-position slot (the verify window needs prompt + "
+                    "max_new_tokens + spec_k to fit)")
+            proposer = PromptLookupProposer() if proposer is None \
+                else proposer
+            pv = getattr(proposer, "vocab_size", None)
+            vocab = model.embeddings.word_embeddings.weight.shape[0]
+            if pv is not None and int(pv) != vocab:
+                raise ValueError(
+                    f"proposer vocab ({pv}) != target model vocab "
+                    f"({vocab}) — a draft from a different tokenizer can "
+                    "never match and only burns the verify window")
+            self._spec_k = k
+            self.proposer = proposer
+        elif proposer is not None:
+            raise ValueError(
+                "proposer requires spec_k (the draft window width)")
+        # a decode lane's width: the k+1 verify window, or one token
+        self._spec_w = self._spec_k + 1 if self._spec_k else 1
         attn0 = model.blocks[0].attn
         is_tp = getattr(attn0, "use_mp", False)
         if self._weight_quant and is_tp:
@@ -264,8 +388,33 @@ class Engine:
         self.num_slots = int(num_slots)
         self.vocab_size = int(model.embeddings.word_embeddings.weight
                               .shape[0])
-        self.queue = RequestQueue()
+        # -- overload protection: tenants, priorities, shedding --------
+        self._tenant_policies = {}
+        self._buckets = {}
+        for name, pol in (tenants or {}).items():
+            if isinstance(pol, dict):
+                pol = TenantPolicy(**pol)
+            elif not isinstance(pol, TenantPolicy):
+                raise ValueError(
+                    f"tenants[{name!r}] must be a TenantPolicy or a dict "
+                    f"of its kwargs, got {type(pol).__name__}")
+            self._tenant_policies[str(name)] = pol
+            if pol.rate is not None:
+                self._buckets[str(name)] = TokenBucket(pol.rate, pol.burst)
+        self.queue = RequestQueue(
+            max_queue=max_queue,
+            weights={n: p.weight for n, p in self._tenant_policies.items()})
         self.scheduler = Scheduler(self.num_slots, self.queue)
+        self._preemption = bool(preemption)
+        self._shed_deadlines = bool(shed_deadlines)
+        self._preempt_log = deque(maxlen=64)  # recent preemptions
+        self._gate_declined = False  # the paged gate turned the queue
+        #   head away this tick (short on blocks): preemption's probe
+        self._draining = False       # stop(drain=True) in progress
+        self._rate_win = deque(maxlen=64)  # (t, emitted) per emitting
+        #   tick: the measured drain rate behind deadline shedding
+        self._ovl_lock = threading.Lock()  # guards _rate_win and
+        #   _preempt_log against readers on other threads
         self._nh, self._hd = attn0.num_heads, attn0.head_dim
         # compute_dtype first: a weight-only int8 projection's .weight
         # would materialize the dequantized matrix
@@ -332,20 +481,160 @@ class Engine:
                                           else ")"))
         self._kv_managed = managed
         self._prefix_enabled = bool(prefix_cache)
-        # the ragged dispatch's window: wide enough for a prefill chunk;
-        # each slot's real width is data
-        self._wmax = self._chunk
-
-        # plain counters in place of the JAX engine's metrics registry
+        # the ragged dispatch's window: wide enough for a prefill chunk
+        # and the k+1 verify window; each slot's real width is data
+        self._wmax = max(self._chunk, self._spec_w)
         self.ticks = 0
-        self.ragged_dispatches = 0
-        self.tokens_generated = 0
-        self.requests_completed = 0
-        self.prefill_tokens = 0
-        self.prefix_hits = 0
-        self.prefix_hit_tokens = 0
-        self.kv_blocks_walked = 0   # summed over dispatches and slots
+        self.tracer = (monitor.Tracer(capacity=trace_capacity,
+                                      annotate=trace_annotations)
+                       if tracing else monitor.NullTracer())
+        self._init_metrics(monitor.StatRegistry() if registry is None
+                           else registry)
+        self._last_decode_end = None  # stall anchor: end of the last
+        #   dispatch, cleared when nothing was dispatched
+        self._evicted_in_tick = 0     # monotonic eviction counter; a
+        #   tick reads deltas to keep the occupancy gauge exact
+        self._overlap_acc = 0.0       # per-tick overlapped host work (s)
+        self._thread = None
+        self._stop = threading.Event()
+        self._wake = threading.Event()  # submit() wakes an idle loop
+        self._drain_on_exit = None    # a loop's stop event, when that
+        #   loop must drain on exit
         self._reset_pools()
+
+    def _init_metrics(self, reg):
+        """Register the engine's metrics in ``reg`` under the JAX
+        engine's names (the subset the ported paths touch)."""
+        self.registry = reg
+        self._m_queue = reg.gauge(
+            "serving.queue_depth", "requests waiting for a slot")
+        self._m_occ = reg.gauge(
+            "serving.slot_occupancy", "busy slots out of num_slots")
+        reg.gauge("serving.slot_total", "configured slot pool size").set(
+            self.num_slots)
+        reg.gauge("serving.mesh_devices", "ranks in this engine's "
+                  "serving mesh (mp x dp; 1 = unsharded)").set(
+            self.mp * self.dp)
+        self._m_tokens = reg.counter(
+            "serving.tokens_total", "generated tokens")
+        self._m_reqs = reg.counter(
+            "serving.requests_total", "submitted requests")
+        self._m_done = reg.counter(
+            "serving.requests_completed", "finished requests")
+        self._m_timeout = reg.counter(
+            "serving.requests_timeout", "requests expired in queue")
+        self._m_ttft = reg.histogram(
+            "serving.ttft_ms", "time to first token (ms)")
+        self._m_tpot = reg.histogram(
+            "serving.tpot_ms", "time per output token after the first "
+            "(ms, per finished request)")
+        self._m_rate = monitor.RateMeter(reg.gauge(
+            "serving.tokens_per_sec", "windowed decode throughput"))
+        self._m_prefill_tokens = reg.counter(
+            "serving.prefill_tokens", "prompt tokens actually computed in "
+            "prefill (prefix-cache hits skip the shared span)")
+        self._m_kv_blocks = reg.gauge(
+            "serving.kv_blocks_in_use", "paged KV blocks referenced by "
+            "slots or cached prefixes")
+        reg.gauge("serving.kv_blocks_total",
+                  "paged KV pool size in blocks").set(self._kv_managed)
+        reg.gauge("serving.kv_block_bytes", "per-shard K/V row bytes of "
+                  "one logical block across all layers (int8 code bytes "
+                  "when kv_dtype='int8')").set(self.kv_block_bytes)
+        reg.gauge("serving.kv_scale_bytes", "per-shard scale-pool bytes "
+                  "of one logical block (0 unless kv_dtype='int8')").set(
+            self.kv_scale_bytes)
+        self._m_prefix_hits = reg.counter(
+            "serving.prefix_hits", "admissions that adopted a cached "
+            "prompt prefix")
+        self._m_prefix_hit_tokens = reg.counter(
+            "serving.prefix_hit_tokens", "prompt tokens served from cached "
+            "prefix blocks (prefill skipped)")
+        self._m_prefix_evictions = reg.counter(
+            "serving.prefix_evictions", "cached prefix blocks evicted "
+            "(LRU) under pool pressure")
+        self._m_chunks = reg.counter(
+            "serving.prefill_chunks", "prefill-chunk lanes dispatched")
+        self._m_stall = reg.histogram(
+            "serving.decode_stall_ms", "gap between consecutive dispatches "
+            "while slots were decoding (ms)")
+        self._m_decode_batch = reg.gauge(
+            "serving.decode_batch", "DECODING slots in the latest "
+            "dispatch")
+        self._m_spec_proposed = reg.counter(
+            "serving.spec_proposed", "draft lanes proposed to the "
+            "speculative verify window")
+        self._m_spec_accepted = reg.counter(
+            "serving.spec_accepted", "draft lanes accepted (their token "
+            "emitted from a matched lane)")
+        self._m_spec_windows = reg.counter(
+            "serving.spec_windows", "per-slot verify windows dispatched")
+        self._m_spec_rate = reg.gauge(
+            "serving.spec_acceptance_rate", "accepted / proposed draft "
+            "lanes, cumulative over this engine's lifetime")
+        self._m_spec_tpt = reg.gauge(
+            "serving.spec_tokens_per_tick", "tokens emitted per DECODING "
+            "slot by the latest verify dispatch")
+        self._m_proposer_failures = reg.counter(
+            "serving.proposer_failures", "proposer calls that raised — "
+            "degraded to an empty draft window")
+        self._m_d2h = reg.gauge(
+            "serving.d2h_bytes_per_tick", "bytes the latest dispatch "
+            "downloaded to the host (picks + counts + done mask)")
+        self._m_fused_ticks = reg.counter(
+            "serving.fused_sample_ticks", "ragged dispatches, each "
+            "sampling on the device")
+        self._m_kv_blocks_walked = reg.gauge(
+            "serving.kv_blocks_walked_per_tick", "KV blocks the ragged "
+            "kernel walked in the latest dispatch, summed over lanes")
+        self._m_kv_walked_total = reg.counter(
+            "serving.kv_blocks_walked", "KV blocks the ragged kernel "
+            "walked, summed over dispatches and lanes")
+        reg.gauge("serving.async_depth", "engine pipeline depth (1 = "
+                  "synchronous tick, 2 = tick N+1 dispatched before tick "
+                  "N is consumed)").set(self.async_depth)
+        self._m_overlap = reg.histogram(
+            "serving.tick_overlap_ms", "host work done per tick WHILE a "
+            "dispatch was in flight (ms)")
+        self._m_d2h_wait = reg.histogram(
+            "serving.d2h_wait_ms", "blocking wait for a dispatched tick's "
+            "download (ms): the loop's one sync point")
+        self._m_preempt = reg.counter(
+            "serving.preemptions_total", "mid-stream preemptions: a "
+            "running lower-priority request evicted back to the queue")
+        self._m_resumed = reg.counter(
+            "serving.resumed_total", "re-admissions of preempted requests")
+        self._m_shed_deadline = reg.counter(
+            "serving.shed_deadline_total", "requests rejected at submit "
+            "because the estimated queue wait blew their deadline")
+        self._m_shed_rate = reg.counter(
+            "serving.shed_rate_limited_total", "requests rejected at "
+            "submit by a tenant token bucket")
+        self._m_shed_queue = reg.counter(
+            "serving.shed_queue_full_total", "requests rejected at submit "
+            "because the queue was at max_queue")
+        self._m_drain_tps = reg.gauge(
+            "serving.drain_rate_tps", "measured drain rate (tokens/sec "
+            "over the recent emitting ticks)")
+
+    # the plain counters of earlier slices, read from the registry
+    ragged_dispatches = property(
+        lambda self: int(self._m_fused_ticks.value))
+    tokens_generated = property(lambda self: int(self._m_tokens.value))
+    requests_completed = property(lambda self: int(self._m_done.value))
+    prefill_tokens = property(
+        lambda self: int(self._m_prefill_tokens.value))
+    prefix_hits = property(lambda self: int(self._m_prefix_hits.value))
+    prefix_hit_tokens = property(
+        lambda self: int(self._m_prefix_hit_tokens.value))
+    kv_blocks_walked = property(
+        lambda self: int(self._m_kv_walked_total.value))
+
+    def chrome_trace(self):
+        """The trace ring as a Catapult JSON dict (chrome://tracing,
+        Perfetto)."""
+        return self.tracer.chrome_trace(
+            process_name=f"paddle_tpu_torch-serving pid={os.getpid()}")
 
     # ------------------------------------------------------------------
     def _reset_pools(self):
@@ -404,6 +693,11 @@ class Engine:
         self._rem = np.zeros(self.num_slots, np.int32)
         self._dev_state = None
         self._state_dirty = True
+        # dispatched-but-unconsumed ticks, oldest first, and the staging
+        # sets no tick holds; recovery drops both (a set an asynchronous
+        # copy may still touch is never handed out again)
+        self._ring = []
+        self._staging_free = []
 
     def _slot_shard(self, i):
         """The dp shard that owns batch slot ``i``: slots divide into
@@ -413,10 +707,23 @@ class Engine:
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, eos_token_id=None,
-               temperature=1.0, top_k=0, top_p=1.0, seed=None):
+               timeout=None, temperature=1.0, top_k=0, top_p=1.0,
+               seed=None, priority=0, tenant=None):
         """Queue one generation request; returns its Request handle
         (block on ``request.result()``).  Greedy unless a sampling
-        parameter is set; ``seed`` makes a sampled stream repeat."""
+        parameter is set; ``seed`` makes a sampled stream repeat.
+
+        ``priority``: higher is served first and may preempt running
+        lower-priority streams (``Engine(preemption=...)``).
+        ``tenant``: the weighted-fair / rate-limit bucket
+        (``Engine(tenants=...)``); None = the default tenant.
+        ``timeout``: seconds the request may wait in the queue.
+        Overload sheds here: ``QueueFull``, ``RateLimited`` and
+        ``DeadlineShed`` carry a ``retry_after`` estimate."""
+        if self._draining:
+            raise QueueFull(
+                "engine draining: stop(drain=True) in progress — no new "
+                "admissions", retry_after=None)
         if temperature <= 0:
             raise ValueError(
                 f"temperature must be > 0, got {temperature} (greedy is "
@@ -435,20 +742,252 @@ class Engine:
         if seed is not None and not 0 <= seed < MAX_SEED:
             raise ValueError(f"seed must be in [0, 2**63), got {seed}")
         req = Request(prompt, max_new_tokens, eos_token_id=eos_token_id,
-                      temperature=temperature, top_k=top_k, top_p=top_p,
-                      seed=seed)
+                      timeout=timeout, temperature=temperature,
+                      top_k=top_k, top_p=top_p, seed=seed,
+                      priority=priority, tenant=tenant)
         if int(req.prompt.max()) >= self.vocab_size \
                 or int(req.prompt.min()) < 0:
             raise ValueError(f"prompt token ids must lie in [0, "
                              f"{self.vocab_size})")
         total = len(req.prompt) + req.max_new_tokens
-        if total > self.max_seq_len:
+        margin = self._spec_k or 0
+        if total + margin > self.max_seq_len:
+            note = (f" + spec_k ({margin}) speculative window margin"
+                    if margin else "")
             raise ValueError(
                 f"prompt ({len(req.prompt)}) + max_new_tokens "
-                f"({req.max_new_tokens}) = {total} exceeds the slot "
-                f"cache length ({self.max_seq_len})")
-        self.queue.put(req)
+                f"({req.max_new_tokens}){note} = {total + margin} exceeds "
+                f"the slot cache length ({self.max_seq_len})")
+        bucket = self._buckets.get(req.tenant)
+        if bucket is not None:
+            if req.cost_tokens > bucket.burst:
+                self._m_shed_rate.inc()
+                self.tracer.instant("req.shed", cat="request", req=req.id,
+                                    reason="rate_limited",
+                                    tenant=req.tenant)
+                raise RateLimited(
+                    f"request {req.id} costs {req.cost_tokens} tokens but "
+                    f"tenant {req.tenant!r}'s bucket holds at most "
+                    f"{bucket.burst:g} — it can never be admitted under "
+                    "this rate limit", retry_after=None)
+            wait = bucket.take(req.cost_tokens)
+            if wait is not None:
+                self._m_shed_rate.inc()
+                self.tracer.instant("req.shed", cat="request", req=req.id,
+                                    reason="rate_limited",
+                                    tenant=req.tenant,
+                                    retry_after_s=round(wait, 3))
+                raise RateLimited(
+                    f"tenant {req.tenant!r} over its token rate "
+                    f"({self._tenant_policies[req.tenant].rate:g} tok/s): "
+                    f"request {req.id} needs {req.cost_tokens} tokens, "
+                    f"bucket refills in {wait:.2f}s",
+                    retry_after=round(wait, 3))
+        if self._shed_deadlines and req.deadline is not None:
+            est = self.estimate_queue_wait(priority=req.priority)
+            budget = req.deadline - req.submitted_at
+            if est is not None and est > budget:
+                if bucket is not None:
+                    bucket.refund(req.cost_tokens)
+                retry = round(est - budget, 3)
+                self._m_shed_deadline.inc()
+                self.tracer.instant("req.shed", cat="request", req=req.id,
+                                    reason="deadline",
+                                    est_wait_s=round(est, 3),
+                                    retry_after_s=retry)
+                raise DeadlineShed(
+                    f"request {req.id} cannot meet its {budget:.2f}s "
+                    f"deadline: estimated queue wait {est:.2f}s at the "
+                    f"measured drain rate; retry after {retry:.2f}s",
+                    retry_after=retry)
+        # the instant before put: once queued, the engine thread may
+        # admit the request concurrently
+        self.tracer.instant("req.queued", cat="request", req=req.id,
+                            prompt=int(len(req.prompt)),
+                            max_new=req.max_new_tokens,
+                            priority=req.priority, tenant=req.tenant)
+        try:
+            self.queue.put(req)
+        except QueueFull as e:
+            if bucket is not None:
+                bucket.refund(req.cost_tokens)
+            self._m_shed_queue.inc()
+            e.retry_after = self._queue_full_retry_after()
+            self.tracer.instant("req.shed", cat="request", req=req.id,
+                                reason="queue_full",
+                                retry_after_s=e.retry_after)
+            raise
+        self._m_reqs.inc()
+        self._m_queue.set(self.queue.depth())
+        self._wake.set()
         return req
+
+    # -- overload protection: drain estimate, preemption ------------------
+    # entries older than this leave the drain-rate window: an idle gap
+    # between bursts must not stretch the measured span
+    _RATE_HORIZON_S = 10.0
+
+    def drain_rate(self, now=None):
+        """Measured drain rate (tokens/sec) over the recent emitting
+        ticks; None until two emitting ticks lie inside the horizon."""
+        now = time.monotonic() if now is None else now
+        with self._ovl_lock:
+            snap = list(self._rate_win)
+        win = [w for w in snap if now - w[0] <= self._RATE_HORIZON_S]
+        if len(win) < 2:
+            return None
+        span = win[-1][0] - win[0][0]
+        if span <= 1e-3:
+            return None
+        # tokens after the window's first stamp, over the stamped span
+        return sum(n for _, n in win[1:]) / span
+
+    def estimate_queue_wait(self, priority=0):
+        """Seconds until a request submitted now at ``priority`` reaches
+        a slot, from the measured drain rate: (in-flight remaining +
+        queued work at its priority or above) / rate.  None while the
+        rate is unmeasured; 0.0 when nothing queues ahead and a slot is
+        free or preemption would make one."""
+        rate = self.drain_rate()
+        if rate is None or rate <= 0:
+            return None
+        backlog = self.queue.backlog_tokens(min_priority=priority)
+        reqs = [r for r in (s.request for s in self.scheduler.busy_slots())
+                if r is not None]
+        if backlog == 0:
+            if len(reqs) < self.num_slots:
+                return 0.0
+            if self._preemption and any(r.priority < priority
+                                        for r in reqs):
+                return 0.0
+        # with preemption on, lower-priority streams are not work this
+        # request waits behind: it would evict them
+        inflight = sum(r.remaining for r in reqs
+                       if not self._preemption or r.priority >= priority)
+        return (inflight + backlog) / rate
+
+    def _queue_full_retry_after(self):
+        """Backoff for a full queue: the measured time for one queue
+        place to drain; 1.0 s while the rate is unmeasured."""
+        rate = self.drain_rate()
+        depth = self.queue.depth()
+        if rate is None or rate <= 0 or depth == 0:
+            return 1.0
+        return round(max(self.queue.backlog_tokens() / rate / depth,
+                         0.05), 3)
+
+    def _post_admit(self, admitted, timed_out, tr):
+        """Reconcile the admitted list against the preemption round (a
+        slot admitted earlier this tick may since have been evicted or
+        rebound: one entry per still-bound slot), emit the admitted /
+        resumed instants, and count the timeouts.  Returns the
+        reconciled list."""
+        uniq = []
+        for slot in admitted:
+            if slot.request is not None and slot not in uniq:
+                uniq.append(slot)
+        for slot in uniq:
+            req = slot.request
+            tr.instant("req.admitted", cat="request", req=req.id,
+                       slot=slot.index)
+            if req.preemptions:
+                self._m_resumed.inc()
+                tr.instant("req.resumed", cat="request", req=req.id,
+                           slot=slot.index, tokens=len(req.generated))
+        if timed_out:
+            self._m_timeout.inc(len(timed_out))
+            self._m_done.inc(len(timed_out))
+            for req in timed_out:
+                tr.instant("req.evicted", cat="request", req=req.id,
+                           reason="timeout")
+        return uniq
+
+    def _preempt(self, slot, tr):
+        """Evict a RUNNING request mid-stream and requeue it with its
+        emitted tokens.  Every full block of its computed history
+        (``slot.pos`` rows: prompt + emitted-so-far) goes into the prefix
+        cache first, so re-admission adopts the span and the resume
+        skips re-prefill; the frozen ``req._ctx`` is what a re-admission
+        prefills.  The resumed stream is token-identical: greedy
+        trivially, seeded because the key folds the emitted-token
+        counter.  The ring must be drained: an in-flight lane whose
+        request vanished un-done would raise the consume's drift
+        check."""
+        req = slot.request
+        i = slot.index
+        ctx = (np.concatenate([req.prompt,
+                               np.asarray(req.generated, np.int32)])
+               if req.generated else req.prompt)
+        if self.prefix_cache is not None:
+            n_full = min(slot.pos // self._bs, len(self._slot_blocks[i]))
+            if n_full:
+                self.prefix_cache.insert(ctx, self._slot_blocks[i][:n_full])
+        plan = getattr(req, "_kv_plan", None)
+        if plan is not None:
+            # admitted this tick but not yet bound (a higher-priority
+            # submit landed in between): return the gate's reservation
+            del req._kv_plan
+            self.block_pool.decref(plan[0] + plan[1])
+        self.scheduler.release(slot)
+        self._release_slot_kv(i)
+        self._park_state(i)
+        req._ctx = ctx
+        req.preemptions += 1
+        self.queue.requeue(req)
+        self._m_preempt.inc()
+        with self._ovl_lock:
+            self._preempt_log.append({
+                "tick": self.ticks, "request": req.id, "slot": i,
+                "priority": req.priority, "tenant": req.tenant,
+                "generated": len(req.generated),
+                "preemptions": req.preemptions})
+        tr.instant("req.preempted", cat="request", req=req.id, slot=i,
+                   tokens=len(req.generated), priority=req.priority)
+
+    def _preempt_round(self, now, tr):
+        """Admission-phase preemption: while the best queued priority
+        outranks a running request and admission is blocked (every slot
+        busy, or the paged gate just declined the head for blocks),
+        evict the lowest-priority busy slot (tie: the most recently
+        admitted) and admit again.  Returns (admitted, timed_out,
+        emitted): emitted counts tokens of a ring drain it forced."""
+        admitted, timed_out, emitted = [], [], 0
+        if not self._preemption or self._draining:
+            return admitted, timed_out, emitted
+        for _ in range(2 * self.num_slots):
+            pri = self.queue.best_priority()
+            if pri is None:
+                break
+            if not (self.scheduler.free_count() == 0
+                    or self._gate_declined):
+                break
+            victims = [s for s in self.scheduler.busy_slots()
+                       if s.request is not None
+                       and s.request.priority < pri]
+            if not victims:
+                break
+            victim = min(victims,
+                         key=lambda s: (s.request.priority, -s.seq))
+            if self._ring:
+                # consume the in-flight ticks first: the victim's device
+                # lane is not done
+                emitted += self._drain_ring(tr)
+                vr = victim.request
+                if vr is None or vr.priority >= pri \
+                        or self.scheduler.free_count() > 0:
+                    # the drain finished the victim or freed another
+                    # slot: admit into that capacity, then probe again
+                    self._gate_declined = False
+                    more, t2 = self.scheduler.admit(now, gate=self._kv_gate)
+                    admitted += more
+                    timed_out += t2
+                    continue
+            self._preempt(victim, tr)
+            self._gate_declined = False
+            more, t2 = self.scheduler.admit(now, gate=self._kv_gate)
+            admitted += more
+            timed_out += t2
+        return admitted, timed_out, emitted
 
     # -- paged KV admission ------------------------------------------------
     def _kv_gate(self, req, slot):
@@ -458,21 +997,31 @@ class Engine:
         pressure, LRU-evicts unreferenced cached prefixes; if the pool
         still cannot cover the rest, returns False and the request waits
         at the queue head.  Everything is scoped to the slot's dp shard:
-        its trie, its free list, its eviction."""
+        its trie, its free list, its eviction.
+
+        Speculative decoding widens the worst case by ``spec_k``: the
+        verify window writes rejected lanes' K/V up to spec_k positions
+        past the cursor, into blocks the slot already owns.  A preempted
+        request's context is its prompt + emitted snapshot and its
+        remaining budget the unemitted rest: the same total, and the
+        blocks its preemption cached match here."""
         tokens = req.context
         shard = self._slot_shard(slot.index)
         s = len(tokens)
-        n_total = -(-(s + req.remaining) // self._bs)
+        n_total = -(-(s + req.remaining + (self._spec_k or 0)) // self._bs)
         ctx, m = ([], 0)
         if self.prefix_cache is not None:
             ctx, m = self.prefix_cache.match(tokens, shard=shard)
         need = n_total - len(ctx)
         short = need - self.block_pool.free_count(shard)
         if short > 0 and self.prefix_cache is not None:
-            self.prefix_cache.evict(short, shard=shard)
+            evicted = self.prefix_cache.evict(short, shard=shard)
+            if evicted:
+                self._m_prefix_evictions.inc(len(evicted))
         if need > self.block_pool.free_count(shard):
             self.block_pool.decref(ctx)  # the cache keeps its own refs
-            return False
+            self._gate_declined = True   # blocks, not slots, hold the
+            return False                 # head back: preemption's probe
         fresh = self.block_pool.alloc(need, shard=shard)
         req._kv_plan = (ctx, fresh, m)
         return True
@@ -497,8 +1046,10 @@ class Engine:
         row[:len(blocks)] = blocks
         self._block_tables[i] = row
         if m:
-            self.prefix_hits += 1
-            self.prefix_hit_tokens += m
+            self._m_prefix_hits.inc()
+            self._m_prefix_hit_tokens.inc(m)
+            self.tracer.instant("req.prefix_adopted", cat="request",
+                                req=req.id, tokens=m, blocks=len(ctx))
         if self._kv_quant and fresh:
             self._zero_fresh_scales(fresh, self._slot_shard(i))
         return ctx, fresh, m
@@ -513,7 +1064,7 @@ class Engine:
         lie in dp shard ``shard``'s range: every mp rank of that shard
         zeroes them at their local ids."""
         if self.mesh is None:
-            idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+            idx = self._upload(np.asarray(fresh, np.int64))
             for kp, vp in zip(self.k_pools, self.v_pools):
                 kp.scale.index_fill_(0, idx, 0.0)
                 vp.scale.index_fill_(0, idx, 0.0)
@@ -525,8 +1076,8 @@ class Engine:
             for r in ranks:
                 dev = self.mesh.devices[r]
                 if dev not in idx:
-                    idx[dev] = torch.tensor([b - base for b in fresh],
-                                            dtype=torch.long, device=dev)
+                    idx[dev] = self._upload(
+                        np.asarray(fresh, np.int64) - base, dev)
                 kp[r].scale.index_fill_(0, idx[dev], 0.0)
                 vp[r].scale.index_fill_(0, idx[dev], 0.0)
 
@@ -571,21 +1122,35 @@ class Engine:
         self._rem[i] = 0
         self._state_dirty = True
 
-    def _push_state(self):
-        """Upload the mirrors as the device-resident step state.  Copies:
-        a CPU tensor made with ``from_numpy`` would alias the mirror the
-        host keeps editing."""
-        def put(a):
-            return torch.tensor(a, device=self.device)
+    def _upload(self, a, device=None):
+        """A host array as a new tensor on ``device`` (default: the
+        engine's) without a synchronizing copy: on a CUDA device through
+        a pinned copy and a ``non_blocking`` transfer (torch's pinned
+        host allocator keeps the pinned block until the transfer is
+        done); on the CPU a copy, never an alias of ``a``."""
+        device = self.device if device is None else device
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.clone()
 
+    def _push_state(self):
+        """Upload the mirrors as the device-resident step state.  Runs
+        only when an admission / eviction / preemption dirtied them, and
+        only over an empty ring: the mirrors reflect CONSUMED ticks, so
+        an upload under an unconsumed dispatch would rewind every other
+        slot's device cursor."""
+        if self._ring:
+            raise RuntimeError(
+                "_push_state with ticks in flight: drain the ring first")
         self._dev_state = dict(
-            tok=put(self._cur_tok), pos=put(self._pos),
-            ctr=put(self._sctr), temp=put(self._temp),
-            topk=put(self._topk), topp=put(self._topp),
-            slo=put(self._seed_lo), shi=put(self._seed_hi),
-            eos=put(self._eos), rem=put(self._rem),
-            tables=put(self._block_tables),
-            scratch=put(self._slot_scratch))
+            tok=self._upload(self._cur_tok), pos=self._upload(self._pos),
+            ctr=self._upload(self._sctr), temp=self._upload(self._temp),
+            topk=self._upload(self._topk), topp=self._upload(self._topp),
+            slo=self._upload(self._seed_lo), shi=self._upload(self._seed_hi),
+            eos=self._upload(self._eos), rem=self._upload(self._rem),
+            tables=self._upload(self._block_tables),
+            scratch=self._upload(self._slot_scratch))
         self._state_dirty = False
 
     def _begin_chunked(self, slot):
@@ -609,16 +1174,28 @@ class Engine:
         req._emit_token(int(tok))
         if req.first_token_at is None:
             req.first_token_at = now
-        self.tokens_generated += 1
+            ttft = (now - req.submitted_at) * 1e3
+            self._m_ttft.observe(ttft)
+            self.tracer.instant("req.first_token", cat="request",
+                                req=req.id, ttft_ms=round(ttft, 3))
+        self._m_tokens.inc()
+        self._m_rate.add(1, now)
         finished = (len(req.generated) >= req.max_new_tokens or
                     (req.eos_token_id is not None
                      and int(tok) == int(req.eos_token_id)))
         i = slot.index
         if finished:
+            n_after_first = len(req.generated) - 1
+            if n_after_first > 0:
+                self._m_tpot.observe(
+                    (now - req.first_token_at) / n_after_first * 1e3)
             self.scheduler.evict(slot)
+            self._evicted_in_tick += 1
             self._release_slot_kv(i)
             self._park_state(i)
-            self.requests_completed += 1
+            self._m_done.inc()
+            self.tracer.instant("req.finished", cat="request", req=req.id,
+                                tokens=len(req.generated))
             return
         self._cur_tok[i, 0] = int(tok)
         self._pos[i] = slot.pos
@@ -671,25 +1248,74 @@ class Engine:
                 break
         return plan
 
-    def _dispatch_ragged(self, active, plan):
-        """Dispatch one ragged window tick: decoding slots as mode-0 lanes
-        of width 1, chunks as mode-1/2 lanes of their token count — one
-        ``_fused_ragged_tick_slots`` call whatever the mix.  Chunk lanes
-        advance the prefill cursor here (their tokens are known)."""
-        W = self._wmax
-        B = self.num_slots
-        toks = np.zeros((B, W), np.int32)
-        width = np.zeros(B, np.int32)
-        mode = np.zeros(B, np.int32)
-        lanes = np.zeros(B, np.int32)   # draft lanes: none without spec
+    def _draft_window(self, active):
+        """The verify windows' tokens ``[num_slots, k + 1]``: lane 0 each
+        slot's current token, lanes 1..k the proposer's drafts, pad lanes
+        repeating the current token (filler: never counted as proposed,
+        never accepted).  Sets ``slot.spec_lanes`` to the drafts the
+        proposer really returned.  A proposer that raises degrades to
+        zero drafts and counts ``serving.proposer_failures``."""
+        k = self._spec_k
+        toks = np.zeros((self.num_slots, k + 1), np.int32)
+        toks[:, 0] = self._cur_tok[:, 0]
         for slot in active:
-            width[slot.index] = 1
+            i = slot.index
+            req = slot.request
+            # lanes past remaining - 1 could never be accepted: the
+            # window emits at most lanes + 1 tokens before max_new_tokens
+            n_lanes = min(k, req.max_new_tokens - len(req.generated) - 1)
+            toks[i, 1:] = toks[i, 0]
+            n_drafted = 0
+            if n_lanes > 0:
+                history = np.concatenate(
+                    [req.prompt, np.asarray(req.generated, np.int32)])
+                try:
+                    d = np.asarray(self.proposer.propose(history, n_lanes),
+                                   np.int32).reshape(-1)[:n_lanes]
+                except Exception as e:
+                    # a proposer outage costs the drafts, not the tick
+                    self._m_proposer_failures.inc()
+                    self.tracer.instant("spec.proposer_failed",
+                                        cat="serving", req=req.id,
+                                        error=repr(e))
+                    d = np.zeros(0, np.int32)
+                toks[i, 1:1 + len(d)] = d
+                n_drafted = len(d)
+            slot.spec_lanes = n_drafted
+        return toks
+
+    def _dispatch_ragged(self, active, plan, tr):
+        """Dispatch one ragged window tick without consuming it: decoding
+        slots as mode-0 lanes (width 1, or the k+1 verify window with
+        proposed drafts), chunks as mode-1/2 lanes of their token count —
+        one ``_fused_ragged_tick_slots`` call whatever the mix.  Nothing
+        here waits for the device: the inputs go up from a pinned staging
+        set, and the packed picks / counts / done mask go down into it
+        behind a recorded event.  Chunk lanes advance the prefill cursor
+        here (their tokens are known)."""
+        W = self._wmax
+        spec_w = self._spec_w
+        stg = (self._staging_free.pop() if self._staging_free
+               else _Staging(self.num_slots, W, spec_w, self.device))
+        toks, width = stg.toks.numpy(), stg.width.numpy()
+        mode, lanes = stg.mode.numpy(), stg.lanes.numpy()
+        for a in (toks, width, mode, lanes):
+            a.fill(0)
+        if self._spec_k is not None and active:
+            with tr.span("spec.draft", batch=len(active),
+                         spec_k=self._spec_k):
+                toks[:, :spec_w] = self._draft_window(active)
+        for slot in active:
+            width[slot.index] = spec_w
+            lanes[slot.index] = slot.spec_lanes
+        chunk_toks = 0
         for slot, n, final in plan:
             i = slot.index
             p0 = slot.prefilled
             toks[i, :n] = slot.request.context[p0:p0 + n]
             width[i] = n
             mode[i] = 2 if final else 1
+            chunk_toks += n
         # push BEFORE the chunk lanes' mirror advance: the upload carries
         # the pre-dispatch cursors (the dispatch advances them by width)
         if self._state_dirty or self._dev_state is None:
@@ -697,124 +1323,319 @@ class Engine:
         # blocks the kernel walks, on the pre-dispatch cursors: the
         # streaming body stops at each lane's causal horizon, the gather
         # body walks the slot's whole table
+        slots = list(active) + [s for s, _, _ in plan]
         walked = 0
-        for s in list(active) + [sl for sl, _, _ in plan]:
+        for s in slots:
             i = s.index
             if self._variant == "gather":
                 walked += self._bps
             else:
                 live = int(self._pos[i]) + max(int(width[i]), 1)
                 walked += min(self._bps, (live - 1) // self._bs + 1)
-        self.kv_blocks_walked += walked
+        self._m_kv_blocks_walked.set(walked)
+        self._m_kv_walked_total.inc(walked)
         for slot, n, _ in plan:
             slot.prefilled += n
             slot.pos = slot.prefilled
             self._pos[slot.index] = slot.prefilled
-            self.prefill_tokens += n
+            self._m_chunks.inc()
+            self._m_prefill_tokens.inc(n)
         st = self._dev_state
         dev = self.device
-        with torch.no_grad():
+
+        def up(t):
+            return t.to(dev, non_blocking=True, copy=True)
+
+        span = ("decode.ragged_stream" if self._variant == "stream"
+                else "decode.ragged")
+        with torch.no_grad(), tr.span(
+                span, batch=len(slots), w=W, chunks=len(plan),
+                chunk_tokens=chunk_toks, kv_blocks_walked=walked):
             (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
              new_rem, _, _) = self._runner._fused_ragged_tick_slots(
-                torch.tensor(toks, device=dev), self.k_pools, self.v_pools,
-                st["tables"], torch.tensor(width, device=dev),
-                torch.tensor(mode, device=dev),
-                torch.tensor(lanes, device=dev), st["tok"], st["pos"],
-                st["temp"], st["topk"], st["topp"], st["slo"], st["shi"],
-                st["ctr"], st["eos"], st["rem"], scratch=st["scratch"],
-                emit_w=1, variant=self._variant)
+                up(stg.toks), self.k_pools, self.v_pools, st["tables"],
+                up(stg.width), up(stg.mode), up(stg.lanes), st["tok"],
+                st["pos"], st["temp"], st["topk"], st["topp"], st["slo"],
+                st["shi"], st["ctr"], st["eos"], st["rem"],
+                scratch=st["scratch"], emit_w=spec_w,
+                variant=self._variant,
+                # host facts: _temp changes only at admission or
+                # eviction, both of which re-upload the state
+                any_sampling=bool((self._temp > 0).any()),
+                any_final=bool((mode == 2).any()))
+            packed = torch.cat([picks, n_acc[:, None], n_emit[:, None],
+                                done[:, None].to(torch.int32)], dim=1)
+            stg.out.copy_(packed, non_blocking=True)
+            if stg.event is not None:
+                stg.event.record(torch.cuda.current_stream(dev))
         st["tok"], st["pos"], st["ctr"], st["rem"] = \
             new_tok, new_pos, new_ctr, new_rem
-        self.ragged_dispatches += 1
-        slots = list(active) + [s for s, _, _ in plan]
+        self._m_fused_ticks.inc()
+        if self._spec_k is not None and active:
+            self._m_spec_windows.inc(len(active))
         return _InflightTick(
             self.ticks, slots,
-            {"picks": picks, "n_acc": n_acc, "n_emit": n_emit,
-             "done": done},
-            [int(mode[s.index]) for s in slots])
+            [(int(mode[s.index]), int(width[s.index]),
+              int(lanes[s.index])) for s in slots], stg)
 
-    def _consume_ragged(self, inf, mats, done):
+    def _consume_ragged(self, inf, mats, tr):
         """Emit a downloaded ragged tick, per lane mode: chunk lanes
         (mode 1) emit nothing; a final chunk (mode 2) registers the
         prompt's full blocks in the prefix cache and emits picks lane 0;
-        decode lanes (mode 0) run ``_emit_window_lane``.  Drift between
+        decode lanes (mode 0) run ``_emit_window_lane`` (a pure decode
+        lane is the zero-draft case of a verify window).  Drift between
         the host's and the device's stop condition raises."""
         picks = mats["picks"]
         n_acc = mats["n_acc"]
         n_emit_dev = mats["n_emit"]
-        emitted = 0
-        for slot, req, mode_i in zip(inf.slots, inf.reqs, inf.modes):
-            i = slot.index
-            if slot.request is not req:
-                if not done[i]:
-                    raise RuntimeError(
-                        f"stop-condition drift: slot {i} was evicted on "
-                        f"the host but tick {inf.tick}'s device lane is "
-                        "not done")
-                continue
-            if mode_i == 1:
-                if int(n_emit_dev[i]):
-                    raise RuntimeError(
-                        f"ragged drift: chunk lane {i} emitted "
-                        f"{int(n_emit_dev[i])} on device at tick "
-                        f"{inf.tick}")
-                continue
-            if mode_i == 2:
-                ctxt = req.context
-                if self.prefix_cache is not None:
-                    self.prefix_cache.insert(
-                        ctxt, self._slot_blocks[i][:len(ctxt) // self._bs])
-                self._emit(slot, int(picks[i, 0]))
-                emitted += 1
-                if int(n_emit_dev[i]) != 1 or \
-                        bool(done[i]) != (slot.request is None):
-                    raise RuntimeError(
-                        f"ragged drift: final-chunk lane {i} device "
-                        f"n_emit={int(n_emit_dev[i])} done={bool(done[i])}"
-                        f" vs host finished={slot.request is None} at "
-                        f"tick {inf.tick}")
-                continue
-            n_em, _ = self._emit_window_lane(
-                slot, picks[i], int(n_acc[i]), int(n_emit_dev[i]),
-                bool(done[i]), inf.tick)
-            emitted += n_em
+        done = mats["done"]
+        emitted = emitted_spec = n_spec = total_acc = 0
+        with tr.span("decode.emit", batch=len(inf.slots)) as emit_sp:
+            for slot, req, (mode_i, _, lanes_i) in zip(
+                    inf.slots, inf.reqs, inf.meta_lanes):
+                i = slot.index
+                if slot.request is not req:
+                    if not done[i]:
+                        raise RuntimeError(
+                            f"stop-condition drift: slot {i} was evicted "
+                            f"on the host but tick {inf.tick}'s device "
+                            "lane is not done")
+                    continue
+                if mode_i == 1:
+                    if int(n_emit_dev[i]):
+                        raise RuntimeError(
+                            f"ragged drift: chunk lane {i} emitted "
+                            f"{int(n_emit_dev[i])} on device at tick "
+                            f"{inf.tick}")
+                    continue
+                if mode_i == 2:
+                    ctxt = req.context
+                    if self.prefix_cache is not None:
+                        self.prefix_cache.insert(
+                            ctxt,
+                            self._slot_blocks[i][:len(ctxt) // self._bs])
+                    self._emit(slot, int(picks[i, 0]))
+                    emitted += 1
+                    if int(n_emit_dev[i]) != 1 or \
+                            bool(done[i]) != (slot.request is None):
+                        raise RuntimeError(
+                            f"ragged drift: final-chunk lane {i} device "
+                            f"n_emit={int(n_emit_dev[i])} "
+                            f"done={bool(done[i])} vs host finished="
+                            f"{slot.request is None} at tick {inf.tick}")
+                    continue
+                n_em, n_cnt = self._emit_window_lane(
+                    slot, picks[i], int(n_acc[i]), int(n_emit_dev[i]),
+                    bool(done[i]), inf.tick)
+                if self._spec_k is not None:
+                    self._m_spec_proposed.inc(lanes_i)
+                    self._m_spec_accepted.inc(n_cnt)
+                    total_acc += n_cnt
+                    n_spec += 1
+                    emitted_spec += n_em
+                emitted += n_em
+            emit_sp.args.update(emitted=emitted, accepted=total_acc)
+        if n_spec:
+            proposed = self._m_spec_proposed.value
+            if proposed:
+                self._m_spec_rate.set(
+                    self._m_spec_accepted.value / proposed)
+            self._m_spec_tpt.set(emitted_spec / n_spec)
         return emitted
 
-    def _consume(self, inf):
-        """Download one dispatched tick's picks, counts and done mask (the
-        tick's sync point) and emit them."""
-        mats = {k: v.cpu().numpy() for k, v in inf.arrays.items()}
-        return self._consume_ragged(inf, mats, mats["done"])
+    def _d2h_wait(self, stg):
+        """The consume's one sync: wait for the event recorded after the
+        tick's download (a CPU engine's download is already done)."""
+        if stg.event is not None:
+            stg.event.synchronize()
+
+    def _consume(self, inf, tr):
+        """Wait for one dispatched tick's download (``decode.d2h_wait``;
+        ``decode.d2h`` at ``async_depth=1``) and emit it.  When a newer
+        tick is still in flight, the emit runs in a ``host.overlap`` span
+        and counts into ``serving.tick_overlap_ms``.  The tick's staging
+        set then returns to the free list."""
+        stg = inf.staging
+        wait_name = ("decode.d2h_wait" if self.async_depth > 1
+                     else "decode.d2h")
+        nbytes = stg.out.numel() * stg.out.element_size()
+        t0 = time.monotonic()
+        with tr.span(wait_name, tick=inf.tick, bytes=nbytes):
+            self._d2h_wait(stg)
+        self._m_d2h_wait.observe((time.monotonic() - t0) * 1e3)
+        self._m_d2h.set(nbytes)
+        out = stg.out.numpy()
+        E = out.shape[1] - 3
+        mats = {"picks": out[:, :E], "n_acc": out[:, E],
+                "n_emit": out[:, E + 1], "done": out[:, E + 2] != 0}
+        in_flight = bool(self._ring)
+        t1 = time.monotonic()
+        with (tr.span("host.overlap", tick=inf.tick) if in_flight
+              else nullcontext()):
+            emitted = self._consume_ragged(inf, mats, tr)
+        if in_flight:
+            self._overlap_acc += time.monotonic() - t1
+        self._staging_free.append(stg)
+        return emitted
+
+    def _drain_ring(self, tr):
+        """Consume every in-flight tick, oldest first (the barrier before
+        the mirrors are uploaded again).  Returns tokens emitted."""
+        emitted = 0
+        while self._ring:
+            emitted += self._consume(self._ring.pop(0), tr)
+        return emitted
+
+    def _note_dispatch_gap(self, n_active):
+        """Pre-dispatch bookkeeping of both tick shapes: the stall
+        histogram and the decode-batch gauge."""
+        if self._last_decode_end is not None:
+            self._m_stall.observe(
+                (time.monotonic() - self._last_decode_end) * 1e3)
+        self._m_decode_batch.set(n_active)
 
     # -- the tick -------------------------------------------------------------
     def step(self):
-        """One engine tick: admit -> one ragged dispatch -> emit.  Returns
-        the tokens emitted.  A tick that raises fails every bound request
-        loudly (their waiters unblock), rebuilds the pools, and
-        re-raises, so the engine works again afterwards."""
+        """One engine tick; returns the tokens emitted.  A tick that
+        raises fails every bound request loudly (their waiters unblock),
+        drops the ring, rebuilds the pools, and re-raises, so the engine
+        works again afterwards."""
         try:
-            return self._tick()
+            return self._step_inner()
         except Exception as e:
             for slot in self.scheduler.busy_slots():
-                if self.scheduler.evict(slot, RuntimeError(
-                        f"engine step failed: {e!r}")) is not None:
-                    self.requests_completed += 1
+                req = self.scheduler.evict(slot, RuntimeError(
+                    f"engine step failed: {e!r}"))
+                if req is not None:
+                    self._m_done.inc()
+                    self.tracer.instant("req.evicted", cat="request",
+                                        req=req.id, reason="step_failure")
             self._reset_pools()
+            self._last_decode_end = None
+            self._m_occ.set(0)
             raise
 
-    def _tick(self):
+    def _step_inner(self):
         self.ticks += 1
-        # submit() takes no deadline, so no queued request can time out
-        admitted, _ = self.scheduler.admit(time.monotonic(),
-                                           gate=self._kv_gate)
-        for slot in admitted:
+        tr = self.tracer
+        with tr.span("tick", cat="tick", tick=self.ticks) as tick_sp:
+            if self.async_depth > 1:
+                emitted = self._tick_async(tr, tick_sp)
+            else:
+                emitted = self._tick(tr, tick_sp)
+        if emitted:
+            now = time.monotonic()
+            with self._ovl_lock:
+                self._rate_win.append((now, emitted))
+            rate = self.drain_rate()
+            if rate is not None:
+                self._m_drain_tps.set(round(rate, 1))
+        return emitted
+
+    def _admit(self, tr, in_flight=False):
+        """The admission phase of both tick shapes: queue deadlines and
+        admission through the paged gate (in a ``host.overlap`` span when
+        a tick is in flight), then the preemption round (outside it: it
+        may have to drain the ring) and the chunked binding of every
+        admitted slot.  Returns the tokens a preemption's drain
+        emitted."""
+        now = time.monotonic()
+        self._gate_declined = False
+        with (tr.span("host.overlap", phase="plan") if in_flight
+              else nullcontext()):
+            with tr.span("admit") as admit_sp:
+                timed_out = self.queue.expire(now)
+                admitted = []
+                if not self._draining:
+                    admitted, t2 = self.scheduler.admit(
+                        now, gate=self._kv_gate)
+                    timed_out = timed_out + t2
+                admit_sp.args.update(admitted=len(admitted),
+                                     timed_out=len(timed_out))
+        if in_flight:
+            self._overlap_acc += time.monotonic() - now
+        p_admitted, p_timed, emitted = self._preempt_round(now, tr)
+        for slot in self._post_admit(admitted + p_admitted,
+                                     timed_out + p_timed, tr):
             self._begin_chunked(slot)
-        _, active, prefilling = self.scheduler.snapshot()
+        return emitted
+
+    def _finish_tick(self, tick_sp, active, occ, emitted):
+        self._m_queue.set(self.queue.depth())
+        self._m_occ.set(occ)
+        self._m_kv_blocks.set(self.block_pool.in_use())
+        tick_sp.args.update(batch=len(active), emitted=emitted,
+                            occupancy=occ, queue=self.queue.depth(),
+                            kv_blocks_in_use=self.block_pool.in_use())
+
+    def _tick(self, tr, tick_sp):
+        """One synchronous tick (``async_depth=1``): admit -> one ragged
+        dispatch -> consume it."""
+        emitted = self._admit(tr)
+        occ, active, prefilling = self.scheduler.snapshot()
         plan = self._plan_ragged_chunks(prefilling)
-        if not (active or plan):
-            return 0
-        inf = self._dispatch_ragged(active, plan)
-        return self._consume(inf)
+        if active or plan:
+            self._note_dispatch_gap(len(active))
+            n_before = self._evicted_in_tick
+            inf = self._dispatch_ragged(active, plan, tr)
+            emitted += self._consume(inf, tr)
+            occ -= self._evicted_in_tick - n_before
+            self._last_decode_end = time.monotonic()
+        else:
+            self._m_decode_batch.set(0)
+            self._last_decode_end = None
+        self._finish_tick(tick_sp, active, occ, emitted)
+        return emitted
+
+    def _tick_async(self, tr, tick_sp):
+        """One PIPELINED tick (``async_depth`` > 1): admit and plan while
+        the previous tick computes, dispatch tick N+1, then consume tick
+        N.  Admission, eviction and preemption dirty the host mirrors;
+        the ring drains before they are uploaded, so greedy streams
+        equal the synchronous tick's."""
+        self._overlap_acc = 0.0
+        emitted = self._admit(tr, in_flight=bool(self._ring))
+        # spec barrier: a draft reads the tokens the previous window
+        # accepted, so speculative ticks consume before they dispatch
+        if self._spec_k is not None and self._ring:
+            emitted += self._drain_ring(tr)
+        # dirty barrier: consumed evictions must leave the dispatch set,
+        # and _push_state runs only over an empty ring
+        if self._ring and (self._state_dirty or self._dev_state is None):
+            emitted += self._drain_ring(tr)
+        occ, active, prefilling = self.scheduler.snapshot()
+        if active and self._ring and not prefilling and all(
+                self._rem[s.index] <= len(self._ring) for s in active):
+            # bursty-tail cutoff: every active slot exhausts its budget
+            # within the ticks already in flight, so one more dispatch
+            # would compute only frozen lanes.  Pending chunk lanes veto
+            # it: their dispatch still does real work
+            emitted += self._drain_ring(tr)
+            occ, active, prefilling = self.scheduler.snapshot()
+        n_before = self._evicted_in_tick
+        plan = self._plan_ragged_chunks(prefilling)
+        if active or plan:
+            self._note_dispatch_gap(len(active))
+            self._ring.append(self._dispatch_ragged(active, plan, tr))
+            self._last_decode_end = time.monotonic()
+        else:
+            self._m_decode_batch.set(0)
+            self._last_decode_end = None
+        # consume tick N while N+1 computes; with nothing dispatched,
+        # drain the tail
+        keep = (self.async_depth - 1) if (active or plan) else 0
+        while len(self._ring) > keep:
+            emitted += self._consume(self._ring.pop(0), tr)
+        occ -= self._evicted_in_tick - n_before
+        if self._ring and occ == 0:
+            # every slot freed while the newest dispatch was in flight:
+            # its lanes are all frozen; an idle engine holds no ticks
+            emitted += self._drain_ring(tr)
+        self._m_overlap.observe(self._overlap_acc * 1e3)
+        tick_sp.args.update(overlap_ms=round(self._overlap_acc * 1e3, 3),
+                            in_flight=len(self._ring))
+        self._finish_tick(tick_sp, active, occ, emitted)
+        return emitted
 
     def run_until_idle(self, max_steps=100000):
         """Drive ticks until queue and slots are empty; returns the total
@@ -828,3 +1649,113 @@ class Engine:
             f"engine still busy after {max_steps} steps "
             f"(occupancy={self.scheduler.occupancy()}, "
             f"queue={self.queue.depth()})")
+
+    # -- background loop ----------------------------------------------------
+    def start(self):
+        """Run the tick loop on a daemon thread; an idle loop waits for a
+        submit instead of spinning.  Safe after a timed-out ``stop()``:
+        the new loop joins the old one before its first tick."""
+        prev = self._thread
+        if prev is not None and prev.is_alive() \
+                and not self._stop.is_set():
+            return prev  # loop already running
+        if prev is not None and not prev.is_alive():
+            prev = None
+        self._drain_on_exit = None
+        self._draining = False
+        # each loop carries its own stop event: a stop-pending loop keeps
+        # honoring the one it was born with
+        stop_evt = self._stop = threading.Event()
+
+        def loop():
+            if prev is not None:
+                prev.join()  # never two loops in step()
+            try:
+                while not stop_evt.is_set():
+                    if self.scheduler.idle():
+                        self._m_rate.refresh()
+                        # clear, then check again: a submit between the
+                        # idle check and the clear is caught here, one
+                        # after it sets the event again
+                        self._wake.clear()
+                        if self.scheduler.idle() \
+                                and not stop_evt.is_set():
+                            self._wake.wait(timeout=0.5)
+                        continue
+                    try:
+                        self.step()  # step() already recovered state
+                    except Exception:  # keep the loop alive
+                        time.sleep(0.05)
+            finally:
+                if self._drain_on_exit is stop_evt:
+                    self._drain_on_exit = None
+                    self._drain()
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="paddle_tpu_torch-engine")
+        self._thread.start()
+        return self._thread
+
+    def _drain(self):
+        """Fail every queued and in-flight request (shutdown)."""
+        # unconsumed ticks die with their requests; every eviction parks
+        # its lanes, so a later start() uploads clean cursors
+        self._ring = []
+        self._staging_free = []
+        for _ in self.queue.drain():
+            self._m_done.inc()
+        for slot in self.scheduler.busy_slots():
+            req = self.scheduler.evict(slot, RuntimeError("engine stopped"))
+            self._release_slot_kv(slot.index)
+            self._park_state(slot.index)
+            if req is not None:
+                self._m_done.inc()
+                self.tracer.instant("req.evicted", cat="request",
+                                    req=req.id, reason="shutdown")
+        self._m_queue.set(0)
+        self._m_occ.set(0)
+
+    def stop(self, drain=True, join_timeout=30.0, drain_timeout=None):
+        """Stop the background loop.  ``drain=True``: submission closes
+        (``submit`` sheds with ``QueueFull``), no queued request is
+        admitted, and the loop keeps ticking until the in-flight streams
+        finish or ``drain_timeout`` (default ``join_timeout``) passes;
+        whatever is left, and every queued request, is then failed.
+        ``drain=False`` halts the loop and fails nothing (requests wait
+        for a later ``start()``)."""
+        evt = self._stop
+        t = self._thread
+        if drain and t is not None and t.is_alive() and not evt.is_set():
+            self._draining = True
+            self._wake.set()
+            limit = join_timeout if drain_timeout is None \
+                else drain_timeout
+            deadline = time.monotonic() + max(float(limit), 0.0)
+            while time.monotonic() < deadline \
+                    and self.scheduler.busy_slots():
+                time.sleep(0.002)
+        if drain:
+            # before set + join: a loop that exits inside the join
+            # window drains in its finally
+            self._drain_on_exit = evt
+        evt.set()
+        self._wake.set()
+        if t is not None:
+            t.join(timeout=join_timeout)
+            if t.is_alive():
+                # mid-tick: the loop drains on exit instead; the handle
+                # stays so a later start() joins it first
+                self._draining = False
+                return
+            self._thread = None
+        if drain:
+            self._drain_on_exit = None
+            self._drain()
+        self._draining = False
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+        return False

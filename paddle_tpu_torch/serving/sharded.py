@@ -27,6 +27,11 @@ of its own.  One controller drives every rank (see
   per-lane keys of ``_slot_sample_keys``, so a seeded stream does not
   depend on the mesh.
 
+Nothing in the per-rank window waits for the host: on one card the
+``.to(dev)`` moves are no-ops, across cards they are device-to-device
+copies, so the engine's pipelined loop keeps a tick in flight over the
+mesh as over one device.
+
 Pools are per layer a list of rank shards, in the mesh's rank order:
 ``[NB/dp, bs, H/mp, hd]`` tensors or ``QuantKV`` with scales
 ``[NB/dp, H/mp]``.
@@ -239,7 +244,8 @@ class ShardedServingModel:
                                  width, mode, lanes, tok, pos, temp, top_k,
                                  top_p, seed_lo, seed_hi, ctr, eos, rem,
                                  scratch=None, emit_w=None,
-                                 variant="stream"):
+                                 variant="stream", any_sampling=None,
+                                 any_final=None):
         """One engine tick over the mesh: the signature and result of
         ``GPTModel._fused_ragged_tick_slots`` (``models/gpt.py``), pools
         as per-layer lists of rank shards."""
@@ -247,4 +253,5 @@ class ShardedServingModel:
             self, toks, k_pools, v_pools, block_tables, width, mode, lanes,
             tok, pos, temp, top_k, top_p, seed_lo, seed_hi, ctr, eos, rem,
             block_size=k_pools[0][0].shape[1], scratch=scratch,
-            emit_w=emit_w, variant=variant)
+            emit_w=emit_w, variant=variant, any_sampling=any_sampling,
+            any_final=any_final)

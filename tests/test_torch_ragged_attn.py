@@ -341,9 +341,12 @@ def _need_cuda():
 # head dim and block size with a decode lane and a chunk whose horizon is
 # the table's last block, a parked slot deep in its table, a short slot;
 # the same at max_seq_len 4096 with a decode lane whose horizon is its
-# first piece; and an 80-lane chunk (more lane blocks than warps) at the
-# tiny model's head dim
+# first piece; an 80-lane chunk (more lane blocks than warps) at the
+# tiny model's head dim; and speculative verify windows (decode lanes of
+# width k+1 = 4 in a 64-lane window) beside a prefill chunk
 LONG_CASES = {
+    "hd64_bs16_verify4": (4, 64, 2, 64, 16, 64, [500, 997, 40, 3],
+                          [4, 4, 64, 4]),
     "hd64_bs16_nb64": (4, 24, 2, 64, 16, 64, [999, 1000, 300, 0],
                        [1, 24, 0, 17]),
     "hd64_bs16_nb256": (4, 24, 2, 64, 16, 256, [4095, 4072, 300, 30],

@@ -27,6 +27,7 @@ from paddle_tpu_torch.distributed import ServingMesh
 from paddle_tpu_torch.models import GPTModel
 from paddle_tpu_torch.serving import Engine
 from paddle_tpu_torch.serving import kvcache as torch_kv
+from paddle_tpu_torch.serving.spec import DraftModelProposer
 
 torch.set_num_threads(1)
 
@@ -174,14 +175,18 @@ def test_eos_stops_the_stream(models):
 
 
 def test_counters_track_a_request(models):
-    """One 5-token prompt, 3 new tokens, blocks of 8: a final-chunk tick
-    and two decode ticks, each walking one block."""
+    """One 5-token prompt, 3 new tokens, blocks of 8: a final-chunk
+    dispatch and two decode dispatches, each walking one block.  At the
+    default ``async_depth=2`` a fourth tick consumes the last dispatch
+    (the bursty-tail cutoff: the in-flight tick already spends the
+    budget); ``tests/test_torch_async_engine.py`` holds depth 1's three
+    ticks."""
     _, tm = models
     eng = _engine(tm)
     req = eng.submit(_prompts(1)[0], max_new_tokens=3)
     eng.run_until_idle()
     assert len(req.generated) == 3
-    assert (eng.ticks, eng.ragged_dispatches) == (3, 3)
+    assert (eng.ticks, eng.ragged_dispatches) == (4, 3)
     assert eng.kv_blocks_walked == 3
     assert (eng.prefill_tokens, eng.tokens_generated) == (5, 3)
     assert eng.requests_completed == 1
@@ -246,9 +251,10 @@ def test_block_pool_and_prefix_cache_match_jax_copies():
 
 
 def test_package_imports_no_jax():
-    """Every module of paddle_tpu_torch, and chip_smoke.py, import
-    without pulling in jax or the JAX package (exact module names:
-    ``paddle_tpu_torch`` has ``paddle_tpu`` as a prefix)."""
+    """Every module of paddle_tpu_torch (the monitor and the proposers
+    among them), and chip_smoke.py, import without pulling in jax or the
+    JAX package (exact module names: ``paddle_tpu_torch`` has
+    ``paddle_tpu`` as a prefix)."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
 import paddle_tpu_torch
@@ -261,6 +267,10 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(k for k in sys.modules
              if k in ("jax", "paddle_tpu") or k.startswith("jax.")
              or k.startswith("jaxlib") or k.startswith("paddle_tpu."))
+new = {"paddle_tpu_torch.monitor", "paddle_tpu_torch.monitor.stats",
+       "paddle_tpu_torch.monitor.exposition",
+       "paddle_tpu_torch.monitor.tracing", "paddle_tpu_torch.serving.spec"}
+assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -294,14 +304,18 @@ def test_engine_refuses_weights_elsewhere():
         Engine(m, device="cpu", kv_block_size=8, prefill_chunk=8)
 
 
+def _draft_model_knob(model):
+    return dict(spec_k=2, proposer=DraftModelProposer(model))
+
+
 @pytest.mark.parametrize("knob", [
-    dict(spec_k=2),
     # the mesh is ported; weight-only int8 over a dense dp mesh is not
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), weight_dtype="int8"),
-    dict(kv_dtype="int8", spec_k=2),
     dict(weight_dtype="int8", adapters={}), dict(adapters={}),
-    dict(kv_host_mb=64), dict(async_depth=2), dict(attn_impl="xla"),
-    dict(kv_dtype="int8", kv_host_mb=64), dict(prefill_chunk=None)])
+    dict(kv_host_mb=64), dict(attn_impl="xla"),
+    dict(kv_dtype="int8", kv_host_mb=64), dict(prefill_chunk=None),
+    # built inside the check: the proposer raises when it is made
+    _draft_model_knob])
 def test_unported_knobs_raise(models, knob):
     """Every knob still unported raises naming its ROADMAP item, also
     beside the ported int8 and gather knobs (and before a weight relayout
@@ -309,8 +323,8 @@ def test_unported_knobs_raise(models, knob):
     _, tm = models
     kw = dict(num_slots=2, max_seq_len=48, kv_block_size=8,
               prefill_chunk=8, device="cpu")
-    kw.update(knob)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        kw.update(knob(tm) if callable(knob) else knob)
         Engine(tm, **kw)
 
 
