@@ -168,7 +168,30 @@ line:
    resumed stream equal to the request served alone (dense near ties
    excepted).  The mesh: phase 14's (2, 2) fp32 serve again at depth 1,
    every stream equal to the depth-2 one.
-16. Prints the ``kernels`` JSON line, the card line and
+16. The XLA and monolithic paths, on phase 4's fp32 model and traffic,
+   served five ways: (a) ``Engine(attn_impl="xla")`` over contiguous
+   slot rows with whole-prompt prefill (``kv_block_size=None,
+   prefill_chunk=None``: the JAX engine's default configuration); (b)
+   the XLA windows over 16-token blocks with 64-token chunks; (c) the
+   ragged kernel's decode after a monolithic paged prefill; (d) (a) at
+   ``spec_k=3``; (e) (a) with ``sample_mode="host", async_depth=1``.
+   Checks: every greedy token the dense argmax (phase 4's near-tie rule),
+   the greedy streams equal to phase 4's except from a first divergence
+   at a dense near tie (margin < 1e-4), device-mode seeded streams equal
+   to phase 4's except where the draw is shown to sit within 1e-4 of a
+   cumulative edge between the two tokens, host-mode streams repeating on
+   a second engine, prefix hits > 0 in (b) and (c), no ragged kernel in
+   (a), (b), (d), (e) and B1 launched 24 times a ragged dispatch in (c),
+   no flash kernel; then the sync-free check over (a)'s clean ticks and a
+   ``profile_phase`` window of (a) (busy share, kernels a tick).  (f)
+   ``gpt3-1.3b`` in bf16 from seed 0 through ``Engine(num_slots=2,
+   max_seq_len=2048, attn_impl="xla", prefill_buckets="pow2")``: two
+   greedy prompts of 1100 and 1500 tokens pad to the 2048 bucket, so each
+   prefill runs B5a once a layer (24 launches a prefill, checked); each
+   first token is the dense forward's argmax (near ties under a 5e-2
+   margin counted, bf16); prints the prefills' wall times.
+17. Prints the ``kernels`` JSON line (B1's launches count phase 4's and
+   phase 16 (c)'s, B5a's phase 6's and phase 16 (f)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -394,9 +417,13 @@ def traffic(vocab):
 
 
 def submit_all(model, reqs, engine_cls, **engine_kw):
-    """The smoke's engine over ``model`` with every request queued."""
-    eng = engine_cls(model, num_slots=8, max_seq_len=1024,
-                     kv_block_size=16, prefill_chunk=64, **engine_kw)
+    """The smoke's engine over ``model`` (``Engine(num_slots=8,
+    max_seq_len=1024, kv_block_size=16, prefill_chunk=64)``, any of them
+    overridden by ``engine_kw``) with every request queued."""
+    ekw = dict(num_slots=8, max_seq_len=1024, kv_block_size=16,
+               prefill_chunk=64)
+    ekw.update(engine_kw)
+    eng = engine_cls(model, **ekw)
     return eng, [eng.submit(p, max_new_tokens=32, **kw) for p, kw in reqs]
 
 
@@ -1299,13 +1326,17 @@ def span_ms(eng, names):
     return sum(durs) / len(durs) / 1e3 if durs else 0.0
 
 
+# the tracer's dispatch spans: the ragged window's, the XLA tick's
+DISPATCH_SPANS = ("decode.ragged_stream", "decode.ragged", "decode.dispatch")
+
+
 def loop_text(eng):
     """The loop's host-side means: tick wall, the dispatch's launches,
     the consume's wait and emit, the overlapped host work, the stall
     between dispatches."""
     return (f" tick_ms_mean {span_ms(eng, ('tick',)):.4f}"
             f" dispatch_ms_mean "
-            f"{span_ms(eng, ('decode.ragged_stream', 'decode.ragged')):.4f}"
+            f"{span_ms(eng, DISPATCH_SPANS):.4f}"
             f" emit_ms_mean {span_ms(eng, ('decode.emit',)):.4f}"
             f" d2h_wait_ms_mean {mean_ms(eng, 'serving.d2h_wait_ms'):.4f}"
             f" tick_overlap_ms_mean "
@@ -1341,18 +1372,20 @@ def depth_phase(card, ragged_mod, model, reqs, fp_outs):
                       async_depth=depth)
 
 
-def sync_free_phase(card, model, reqs, fp_outs):
+def sync_free_phase(card, model, reqs, fp_outs, label="", **engine_kw):
     """Phase 15, the sync-free dispatch: the traffic served at depth 2,
     every tick that starts with clean state and can admit nothing (the
     ticks that upload nothing) run under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
     synchronizing call; the consume's one wait on its event is lifted
     out of the check.  At least 20 such ticks, one with a sampling lane
-    and one with a final-chunk lane among them; the streams equal
-    phase 4's."""
+    and (on a path with chunk lanes) one with a final-chunk lane among
+    them; the streams equal ``fp_outs``.  ``engine_kw`` picks the path
+    (phase 16 runs it over the XLA contiguous path)."""
     import torch
     from paddle_tpu_torch.serving import Engine
-    eng, handles = submit_all(model, reqs, Engine)
+    eng, handles = submit_all(model, reqs, Engine, **engine_kw)
+    chunks = eng._ragged and eng._chunk is not None
     real_wait = eng._d2h_wait
 
     def wait_unchecked(stg):
@@ -1363,7 +1396,7 @@ def sync_free_phase(card, model, reqs, fp_outs):
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
-    real_dispatch = eng._dispatch_ragged
+    real_dispatch = eng._dispatch
     seen = {"ticks": 0, "sampling": 0, "final": 0}
     checking = [False]
 
@@ -1374,7 +1407,7 @@ def sync_free_phase(card, model, reqs, fp_outs):
         return real_dispatch(active, plan, tr)
 
     eng._d2h_wait = wait_unchecked
-    eng._dispatch_ragged = dispatch
+    eng._dispatch = dispatch
     while not eng.scheduler.idle():
         checking[0] = (not eng._state_dirty and eng._dev_state is not None
                        and (eng.queue.depth() == 0
@@ -1389,12 +1422,15 @@ def sync_free_phase(card, model, reqs, fp_outs):
             torch.cuda.set_sync_debug_mode(0)
         seen["ticks"] += 1
     outs = [h.result(timeout=1) for h in handles]
-    check(seen["ticks"] >= 20 and seen["sampling"] and seen["final"],
-          f"sync-free check covered too little: {seen}")
+    check(seen["ticks"] >= 20 and seen["sampling"]
+          and (seen["final"] or not chunks),
+          f"sync-free check{label} covered too little: {seen}")
     for a, b in zip(outs, fp_outs):
         check(a.tolist() == b.tolist(),
-              "sync-free check: a stream differs from phase 4's")
-    print(f"sync-free dispatch: {seen['ticks']} of {eng.ticks} ticks under "
+              f"sync-free check{label}: a stream differs from its "
+              "reference")
+    print(f"sync-free dispatch{label}: {seen['ticks']} of {eng.ticks} "
+          "ticks under "
           f"set_sync_debug_mode('error'), {seen['sampling']} with a "
           f"sampling lane, {seen['final']} with a final-chunk lane; no "
           "synchronizing call", flush=True)
@@ -1550,6 +1586,215 @@ def mesh_depth_phase(card, ragged_mod, model_fp, reqs, mesh_outs):
               "between async_depth 1 and 2")
     slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32", eng, wall, n, card,
                " every stream equal to the depth-2 mesh serve (phase 14)")
+
+
+# -- phase 16 -------------------------------------------------------------
+# the JAX engine's default configuration (attn_impl "xla", contiguous slot
+# rows, whole-prompt prefill), and the serves beside it
+XLA_DEFAULT = dict(attn_impl="xla", kv_block_size=None, prefill_chunk=None)
+XLA_SERVES = (
+    ("a", "xla contiguous whole-prompt", XLA_DEFAULT),
+    ("b", "xla paged chunks", dict(attn_impl="xla", kv_block_size=16,
+                                   prefill_chunk=64)),
+    ("c", "ragged after monolithic paged prefill",
+     dict(kv_block_size=16, prefill_chunk=None)),
+    ("d", f"xla contiguous spec_k={SPEC_K}", dict(XLA_DEFAULT, spec_k=SPEC_K)),
+    ("e", "xla contiguous host sampling",
+     dict(XLA_DEFAULT, sample_mode="host", async_depth=1)),
+)
+BUCKET_PROMPTS = (1100, 1500)      # phase 16 (f): gpt3-1.3b, bucket 2048
+BF16_TIE = 5e-2                    # a bf16 near tie of the dense forward
+
+
+def seeded_near_tie(model, prompt, kw, a, b, label):
+    """Two seeded streams of one request: equal, or from a first
+    divergence at which the draw is shown to sit on a boundary: the
+    request's key at that token (``_slot_sample_keys``) puts its uniform
+    number, over the dense forward's filtered distribution, within 1e-4
+    of the total of the cumulative edge between the two tokens drawn.
+    Returns that distance or None."""
+    import torch
+    from paddle_tpu_torch.models import GPTModel
+    a, b = list(a), list(b)
+    if a == b:
+        return None
+    t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    seed = kw["seed"]
+    with torch.no_grad():
+        ids = torch.tensor([list(prompt) + a[:t]], device="cuda")
+        row = model(ids)[0, -1:].float()
+        dev = row.device
+
+        def lane(v, dt):
+            return torch.tensor([v], dtype=dt, device=dev)
+
+        filt = GPTModel._filter_logits_lanes(
+            row, lane(kw["temperature"], torch.float32),
+            lane(kw.get("top_k", 0), torch.int32),
+            lane(kw.get("top_p", 1.0), torch.float32))
+        cum = torch.cumsum(torch.softmax(filt, dim=-1).double(), dim=-1)[0]
+        key = GPTModel._slot_sample_keys(
+            lane(seed & 0xFFFFFFFF, torch.int64),
+            lane(seed >> 32, torch.int64), lane(t, torch.int32))
+        target = float(GPTModel._key_uniform(key)[0] * cum[-1])
+    edge = float(cum[min(a[t], b[t])])
+    gap = abs(target - edge) / float(cum[-1])
+    check(gap < 1e-4, f"{label}: seeded streams diverge at generated token "
+          f"{t} where the draw sits {gap:.3e} of the total from the "
+          "tokens' cumulative edge, not a near tie")
+    return gap
+
+
+def xla_serve(card, ragged_mod, fa, model, reqs, fp_outs, tag, name, kw):
+    """One of phase 16's serves of phase 4's traffic, with its checks:
+    greedy tokens the dense argmax, greedy and device-mode seeded streams
+    equal phase 4's (near ties shown excepted), and the ragged / flash
+    launches of its path.  Returns (engine, streams, B1 launches)."""
+    from paddle_tpu_torch.serving import Engine
+    zero_ragged_counts(ragged_mod)
+    zero_flash_counts(fa)
+    eng, outs, wall = serve(model, reqs, Engine, **kw)
+    label = f"phase 16 ({tag}) {name}"
+    counts = ragged_counts(ragged_mod)
+    if eng._ragged:
+        launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                                  label)
+    else:
+        launches = 0
+        check(not any(counts.values()),
+              f"{label}: ragged kernels launched: {counts}")
+    check(not any(flash_counts(fa).values()),
+          f"{label}: a flash kernel launched")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, f"{label}: a stream is short")
+    checked, near = teacher_forcing(model, reqs, outs)
+    ties, seeded_eq, seeded_ties = [], 0, []
+    for (p, rkw), a, b in zip(reqs, outs, fp_outs):
+        ga, gb = a[len(p):].tolist(), b[len(p):].tolist()
+        if not rkw:
+            gap = greedy_equal_or_near_tie(model, p, ga, gb, label)
+            if gap is not None:
+                ties.append(gap)
+        elif eng.sample_mode == "device":
+            gap = seeded_near_tie(model, p, rkw, ga, gb, label)
+            seeded_eq += gap is None
+            if gap is not None:
+                seeded_ties.append(gap)
+    if eng._paged:
+        check(eng.prefix_hits > 0, f"{label}: no prefix-cache hit")
+    reg = eng.registry
+    slice_line(
+        f"gpt2-medium fp32 phase 16 ({tag}) {name}", eng, wall, launches,
+        card,
+        f" sample_mode {eng.sample_mode} layout "
+        f"{'paged' if eng._paged else 'contiguous'} prefill "
+        f"{'chunks' if eng._chunk else 'whole'} greedy_checked {checked} "
+        f"near_ties {near} greedy_equal_to_phase4 {10 - len(ties)}/10 "
+        f"(near-tie divergences at margins {ties})"
+        + (f" seeded_equal_to_phase4 {seeded_eq}/2 (near-tie draws "
+           f"{seeded_ties})" if eng.sample_mode == "device" else "")
+        + f" prefill_chunks {reg.get('serving.prefill_chunks').value:.0f}"
+        f" fused_sample_ticks "
+        f"{reg.get('serving.fused_sample_ticks').value:.0f}"
+        f" d2h_bytes_per_tick "
+        f"{reg.get('serving.d2h_bytes_per_tick').value:.0f}")
+    return eng, outs, launches
+
+
+def xla_phase(card, ragged_mod, fa, model, reqs, fp_outs):
+    """Phase 16, the XLA and monolithic paths on phase 4's fp32 model and
+    traffic, served five ways (``XLA_SERVES``), then the sync-free check
+    over (a)'s clean ticks, (e) once more (seeded host streams repeat),
+    and a ``profile_phase`` window of (a).  Returns B1's launches in
+    (c)."""
+    b1 = 0
+    for tag, name, kw in XLA_SERVES:
+        eng, outs, launches = xla_serve(card, ragged_mod, fa, model, reqs,
+                                        fp_outs, tag, name, kw)
+        b1 += launches
+        if tag == "a":
+            a_outs = outs
+        if tag == "e":
+            from paddle_tpu_torch.serving import Engine
+            _, again, _ = serve(model, reqs, Engine, **kw)
+            for (_, rkw), x, y in zip(reqs, outs, again):
+                check(x.tolist() == y.tolist(),
+                      f"phase 16 (e): a {'seeded' if rkw else 'greedy'} "
+                      "host-mode stream did not repeat")
+            print("phase 16 (e): host-mode streams repeat on a second "
+                  "engine", flush=True)
+        del eng
+    zero_ragged_counts(ragged_mod)
+    sync_free_phase(card, model, reqs, a_outs, label=" (phase 16 a)",
+                    **XLA_DEFAULT)
+    from paddle_tpu_torch.serving import Engine
+    profile_phase(model, reqs, Engine, card, label=" xla", **XLA_DEFAULT)
+    check(not any(ragged_counts(ragged_mod).values()),
+          "phase 16 (a): the XLA path launched a ragged kernel")
+    return b1
+
+
+def bucket_phase(card, ragged_mod, fa):
+    """Phase 16 (f): ``gpt3-1.3b`` in bf16 from seed 0 through
+    ``Engine(num_slots=2, max_seq_len=2048, attn_impl="xla",
+    prefill_buckets="pow2")``; two greedy prompts of ``BUCKET_PROMPTS``
+    tokens (numpy seed 1234), 16 new tokens each.  Both pad to the 2048
+    bucket, so each prefill runs the flash forward (B5a) once a layer:
+    ``flash_fwd`` rises by exactly 24 a prefill, no other flash or ragged
+    kernel launches.  Each first token is the dense forward's argmax,
+    near ties (margin < 5e-2, bf16) counted.  Returns B5a's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.0
+                                 ).to(torch.bfloat16)
+    V = model.head.lm_head.weight.shape[0]
+    rng = np.random.RandomState(1234)
+    prompts = [rng.randint(0, V, n).astype(np.int32) for n in BUCKET_PROMPTS]
+    eng = Engine(model, num_slots=2, max_seq_len=2048, attn_impl="xla",
+                 prefill_buckets="pow2")
+    zero_flash_counts(fa)
+    zero_ragged_counts(ragged_mod)
+    reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = flash_counts(fa)
+    check(counts["fwd"] == N_LAYERS * len(prompts)
+          and counts["bwd_dkv"] == counts["bwd_dq"] == 0,
+          f"bucketed prefill: flash launches {counts}, not "
+          f"{N_LAYERS} forwards a prefill")
+    check(not any(ragged_counts(ragged_mod).values()),
+          "bucketed prefill launched a ragged kernel")
+    near = 0
+    with torch.no_grad():
+        for p, r in zip(prompts, reqs):
+            ids = r.result(timeout=1)
+            check(len(ids) == len(p) + 16, "bucketed prefill: short stream")
+            row = model(torch.tensor(p[None].astype("int64"),
+                                     device="cuda"))[0, -1].float()
+            top2 = row.topk(2).values
+            first = int(ids[len(p)])
+            if first != int(row.argmax()):
+                check(float(top2[0] - top2[1]) < BF16_TIE,
+                      f"bucketed prefill: first token of a {len(p)}-token "
+                      "prompt is not the dense argmax")
+                near += 1
+    prefill_ms = [e["dur"] / 1e3 for e in eng.chrome_trace()["traceEvents"]
+                  if e.get("ph") == "X" and e["name"] == "prefill"]
+    print(f"phase 16 (f) gpt3-1.3b bf16 bucketed prefill: prompts "
+          f"{list(BUCKET_PROMPTS)} -> bucket 2048, flash_fwd launches "
+          f"{counts['fwd']} ({N_LAYERS} a prefill), first tokens the dense "
+          f"argmax {len(prompts) - near}/{len(prompts)} (near ties {near}), "
+          f"prefill_ms " + " ".join(f"{m:.3f}" for m in prefill_ms)
+          + f" wall_s {wall:.3f} generated_tokens {eng.tokens_generated} "
+          f"[{card}]", flush=True)
+    del eng, model
+    torch.cuda.empty_cache()
+    return counts["fwd"]
 
 
 # -- phase 5 --------------------------------------------------------------
@@ -1997,10 +2242,14 @@ def main(argv):
     lap("15 (pipelined, speculative and preempted serving)")
     check(sum(flash_counts(fa).values()) == 0,
           "the serving path launched a flash kernel")
+    launches += xla_phase(card, ragged_mod, fa, model_fp, reqs, fp_outs)
     del model_fp, model_q
     torch.cuda.empty_cache()
+    bucket_fwd = bucket_phase(card, ragged_mod, fa)
+    lap("16 (the XLA and monolithic paths)")
     zero_ragged_counts(ragged_mod)
     flash_launches = train_phase(card, fa)
+    flash_launches["fwd"] += bucket_fwd
     check(sum(ragged_counts(ragged_mod).values()) == 0,
           "the training path launched a ragged kernel")
     model_compare_phase(fa)

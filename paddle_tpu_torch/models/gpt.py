@@ -1,13 +1,27 @@
 """GPT decoder in PyTorch — counterpart of ``paddle_tpu/models/gpt.py``.
 
 The dense model (``GPTModel.forward`` returns logits, or the loss when
-given labels) trains through ``scaled_dot_product_attention``
-(``nn/functional/attention.py``: the flash kernels at long sequences),
-and the serving engine runs the RAGGED paged window: every decoder layer's
-``ragged_window_paged`` writes the window's K/V through the slots' block
-tables and runs the ragged paged attention kernel
-(``ops/ragged_paged_attn.py``), and ``_fused_ragged_tick_slots`` adds the
-on-device sample / stop-condition epilogue of one engine tick.
+given labels; with ``caches=`` the logits and the grown K/V caches)
+trains through ``scaled_dot_product_attention``
+(``nn/functional/attention.py``: the flash kernels at long sequences).
+The serving engine runs one of two window families:
+
+* the RAGGED paged window: every decoder layer's ``ragged_window_paged``
+  writes the window's K/V through the slots' block tables and runs the
+  ragged paged attention kernel (``ops/ragged_paged_attn.py``), and
+  ``_fused_ragged_tick_slots`` adds the on-device sample /
+  stop-condition epilogue of one engine tick;
+* the XLA windows of the JAX package, in plain torch: ``decode_slots`` /
+  ``verify_slots`` over contiguous ``[B, L, H, hd]`` slot rows,
+  ``decode_slots_paged`` / ``verify_slots_paged`` /
+  ``prefill_chunk_paged`` over block pools (gathering each slot's whole
+  row), the shared-position ``decode`` of the contiguous chunk prefill,
+  and the whole-prompt, bucketed and block-granular prefills
+  (``_prefill_slot``, ``_prefill_paged``), all through the one
+  ``_slot_attn`` or ``forward(caches=)``.  ``_fused_decode_tick_slots``
+  and ``_fused_spec_verify_tick_slots`` add the same epilogue as the
+  ragged tick.  Where JAX jit-compiles these with donated pools, the
+  port writes the pools in place.
 
 Layouts follow the JAX package so the weight bridge (``convert.py``) and
 the parity tests compare like with like: the fused QKV projection
@@ -34,7 +48,8 @@ from ..distributed.sharding import (ColumnParallelLinear, RowParallelLinear,
 from ..nn.functional import (cross_entropy, fused_linear_cross_entropy,
                              scaled_dot_product_attention)
 from ..ops.ragged_paged_attn import ragged_paged_attention
-from ..serving.quant import QuantKV, paged_insert
+from ..serving.quant import (QuantKV, dequantize_blocks, paged_gather,
+                             paged_insert, quantize_blocks)
 
 GPT_CONFIGS = {
     # name: (n_layer, hidden, heads, ffn_mult, vocab, max_seq)
@@ -123,6 +138,43 @@ def kernel_view(pool):
             pool.scale if isinstance(pool, QuantKV) else None)
 
 
+def gather_block_rows(pool, block_tables):
+    """Each slot's logical ``[L]`` row of a block pool: ``pool`` ``[NB,
+    bs, H, hd]`` (or ``QuantKV``, dequantized block by block), tables int
+    ``[B, L/bs]`` -> ``[B, L, H, hd]``."""
+    if isinstance(pool, QuantKV):
+        return paged_gather(pool, block_tables)
+    NB, bs, H, hd = pool.shape
+    gidx = (block_tables.long()[:, :, None] * bs
+            + torch.arange(bs, device=pool.device)).reshape(
+                block_tables.shape[0], -1)
+    return pool.view(NB * bs, H, hd)[gidx]
+
+
+def scatter_slot_rows(buf, pos, vals, in_range=False):
+    """``buf[b, pos[b] + j] = vals[b, j]`` into contiguous slot rows
+    ``[B, L, H, hd]``, in place, with JAX's scatter rule: a lane past
+    ``L`` is dropped.  A dropped lane writes the row just before its
+    slot's window back onto itself instead (no lane of the window writes
+    that row, so no two lanes write one row with different values).
+    ``in_range=True`` says the caller knows every ``pos[b] + W <= L``
+    and skips that.  ``vals`` ``[B, W, H, hd]`` with W <= L."""
+    B, L = buf.shape[0], buf.shape[1]
+    W = vals.shape[1]
+    dev = buf.device
+    flat = buf.view(B * L, *buf.shape[2:])
+    cols = pos.long()[:, None] + torch.arange(W, device=dev)[None, :]
+    base = torch.arange(B, device=dev)[:, None] * L
+    vals = vals.to(buf.dtype)
+    if not in_range:
+        valid = cols < L
+        keep = torch.clamp(pos.long() - 1, 0, L - 1)[:, None].expand(B, W)
+        cols = torch.where(valid, cols, keep)
+        vals = torch.where(valid[..., None, None], vals,
+                           flat[(base + keep).reshape(-1)].view_as(vals))
+    flat[(base + cols).reshape(-1)] = vals.reshape(B * W, *buf.shape[2:])
+
+
 def sample_rows(last, temperature, top_k, top_p, seed_lo, seed_hi, ctr):
     """One token per row of ``last`` [B, V] with per-row sampling
     parameters and keys derived from the seed words and counters
@@ -141,10 +193,17 @@ class GPTEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(max_position, hidden_size)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, input_ids, position_ids=None):
+    def forward(self, input_ids, position_offset=0, position_ids=None):
+        """Word plus position embeddings; positions are ``position_ids``,
+        or ``position_offset + [0, S)`` (a host int), clamped into the
+        table as JAX's gather clamps them."""
         if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[-1],
-                                        device=input_ids.device)
+            seq = input_ids.shape[-1]
+            position_ids = torch.arange(seq, device=input_ids.device) \
+                + int(position_offset)
+            maxp = self.position_embeddings.weight.shape[0]
+            if int(position_offset) + seq > maxp:
+                position_ids = torch.clamp(position_ids, max=maxp - 1)
         emb = self.word_embeddings(input_ids) \
             + self.position_embeddings(position_ids)
         return self.dropout(emb)
@@ -210,17 +269,139 @@ class GPTAttention(nn.Module):
         b, s = ctx.shape[0], ctx.shape[1]
         return self.out_proj(ctx.reshape(b, s, self.hidden_size))
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
         """Dense causal attention through ``scaled_dot_product_attention``
         (the flash kernels at long sequences, the reference attention
         otherwise).  In training, dropout applies to the attention
-        output, before ``out_proj``, as in the JAX package."""
-        b, s, _ = x.shape
+        output, before ``out_proj``, as in the JAX package.  With
+        ``cache`` (k, v ``[B, P, H, hd]``, P may be 0) the window's K/V
+        are appended to it and the queries attend over all P + S keys
+        under the bottom-right causal diagonal; returns (out, (k, v))."""
         q, k, v = self._qkv_step(x)
-        out = scaled_dot_product_attention(
+        if cache is not None:
+            if cache[0].shape[1]:
+                k = torch.cat([cache[0], k], dim=1)
+                v = torch.cat([cache[1], v], dim=1)
+            cache = (k, v)
+        out = self._out(scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.dropout,
-            training=self.training)
-        return self._out(out)
+            training=self.training))
+        return out if cache is None else (out, cache)
+
+    def decode(self, x, k_buf, v_buf, pos):
+        """Windowed decode at ONE shared position: the window's K/V go to
+        rows ``pos..pos+S-1`` of every slot row (the start clamped so the
+        window fits, as ``dynamic_update_slice`` clamps it), and query q
+        sees positions <= pos + q (the unclamped pos).  x [B, S, E];
+        k_buf/v_buf [B, L, H, hd], written in place; pos a host int.
+        Returns (out [B, S, E], k_buf, v_buf)."""
+        S = x.shape[1]
+        qa, ka, va = self._qkv_step(x)
+        L = k_buf.shape[1]
+        start = min(max(int(pos), 0), L - S)
+        k_buf[:, start:start + S] = ka
+        v_buf[:, start:start + S] = va
+        pos_b = torch.full((x.shape[0],), int(pos), dtype=torch.long,
+                           device=x.device)
+        return self._slot_attn(qa, k_buf, v_buf, pos_b), k_buf, v_buf
+
+    def decode_slots(self, x, k_buf, v_buf, pos, in_range=False):
+        """One-token decode with per-slot positions over contiguous slot
+        rows: row b writes its K/V at ``pos[b]`` and attends through
+        ``_slot_attn``.  x [B, 1, E]; k_buf/v_buf [B, L, H, hd], written in
+        place (``scatter_slot_rows``: a position past L is dropped unless
+        the caller vouches ``in_range``); pos int [B].  Returns (out
+        [B, 1, E], k_buf, v_buf)."""
+        if x.shape[1] != 1:
+            raise ValueError(
+                f"decode_slots is a one-token step (got S={x.shape[1]});"
+                " windowed decode keeps the shared-position decode()")
+        qa, ka, va = self._qkv_step(x)
+        scatter_slot_rows(k_buf, pos, ka, in_range)
+        scatter_slot_rows(v_buf, pos, va, in_range)
+        return self._slot_attn(qa, k_buf, v_buf, pos), k_buf, v_buf
+
+    def verify_slots(self, x, k_buf, v_buf, pos, in_range=False):
+        """Speculative verify window over contiguous slot rows: window
+        lane j of slot b writes its K/V at ``pos[b] + j`` and attends
+        through the same ``_slot_attn`` as ``decode_slots``.  x
+        [B, W, E]; k_buf/v_buf [B, L, H, hd], written in place (lanes past
+        L dropped unless ``in_range``); pos int [B].  Returns (out
+        [B, W, E], k_buf, v_buf)."""
+        qa, ka, va = self._qkv_step(x)
+        scatter_slot_rows(k_buf, pos, ka, in_range)
+        scatter_slot_rows(v_buf, pos, va, in_range)
+        return self._slot_attn(qa, k_buf, v_buf, pos), k_buf, v_buf
+
+    def _paged_window(self, x, k_pool, v_pool, block_tables, pos):
+        """The body of ``decode_slots_paged`` / ``verify_slots_paged``:
+        lane j of slot b writes at logical position ``pos[b] + j`` through
+        the slot's table (a column past the table clamps to its last
+        entry, as JAX's gather clamps), then every slot's whole logical
+        row is gathered (dequantized block by block from ``QuantKV``)
+        for ``_slot_attn``."""
+        qa, ka, va = self._qkv_step(x)
+        B, W = qa.shape[0], qa.shape[1]
+        bs = k_pool.shape[1]
+        bps = block_tables.shape[1]
+        H, hd = ka.shape[2], ka.shape[3]
+        offs = pos.long()[:, None] + torch.arange(W, device=x.device)[None]
+        blk = torch.gather(block_tables.long(), 1,
+                           torch.clamp(offs // bs, max=bps - 1))
+        write_window_kv(k_pool, v_pool, ka.reshape(B * W, H, hd),
+                        va.reshape(B * W, H, hd), blk.reshape(-1),
+                        (offs % bs).reshape(-1))
+        out = self._slot_attn(qa, gather_block_rows(k_pool, block_tables),
+                              gather_block_rows(v_pool, block_tables), pos)
+        return out, k_pool, v_pool
+
+    def decode_slots_paged(self, x, k_pool, v_pool, block_tables, pos):
+        """One-token decode through per-slot block tables: the write goes
+        to the block holding ``pos[b]``, the gathered rows through the same
+        ``_slot_attn`` as ``decode_slots``.  x [B, 1, E]; k_pool/v_pool
+        [NB, bs, H, hd] tensors or ``QuantKV`` (``paged_insert`` /
+        ``paged_gather``), written in place; block_tables int [B, L/bs];
+        pos int [B].  Returns (out [B, 1, E], k_pool, v_pool)."""
+        if x.shape[1] != 1:
+            raise ValueError(
+                f"decode_slots_paged is a one-token step "
+                f"(got S={x.shape[1]})")
+        return self._paged_window(x, k_pool, v_pool, block_tables, pos)
+
+    def verify_slots_paged(self, x, k_pool, v_pool, block_tables, pos):
+        """Block-table twin of ``verify_slots``: the W window lanes
+        scatter through each slot's table (fp rows, or ``QuantKV``
+        touched-block inserts) and the gathered rows go through
+        ``_slot_attn``.  Returns (out [B, W, E], k_pool, v_pool)."""
+        return self._paged_window(x, k_pool, v_pool, block_tables, pos)
+
+    def prefill_chunk_paged(self, x, k_pool, v_pool, block_table, pos,
+                            true_len, scratch=0):
+        """Chunked prefill through ONE slot's block table: C prompt
+        tokens at positions ``pos..pos+C-1``; lanes ``>= true_len`` (the
+        pad of a partial final chunk) write row 0 of the slot's scratch
+        block ``scratch``; the queries attend over the slot's whole
+        gathered row.  x [1, C, E]; block_table int [L/bs]; pos,
+        true_len, scratch host ints; the pools (tensors or ``QuantKV``)
+        written in place.  Returns (out [1, C, E], k_pool, v_pool)."""
+        qa, ka, va = self._qkv_step(x)
+        C = qa.shape[1]
+        bs = k_pool.shape[1]
+        bps = block_table.shape[0]
+        dev = x.device
+        lane = torch.arange(C, device=dev)
+        valid = lane < int(true_len)
+        offs_safe = torch.where(valid, lane + int(pos),
+                                torch.zeros_like(lane))
+        blk = block_table.long()[torch.clamp(offs_safe // bs, max=bps - 1)]
+        blk = torch.where(valid, blk, torch.full_like(blk, int(scratch)))
+        off = torch.where(valid, offs_safe % bs, torch.zeros_like(lane))
+        write_window_kv(k_pool, v_pool, ka[0], va[0], blk, off)
+        table = block_table[None]
+        pos_b = torch.full((1,), int(pos), dtype=torch.long, device=dev)
+        out = self._slot_attn(qa, gather_block_rows(k_pool, table),
+                              gather_block_rows(v_pool, table), pos_b)
+        return out, k_pool, v_pool
 
     def _slot_attn(self, qa, k_rows, v_rows, pos):
         """Windowed attention over each slot's gathered cache rows — the
@@ -317,9 +498,52 @@ class GPTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.mlp = GPTMLP(hidden_size, dropout=dropout, use_mp=use_mp)
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
+        """With ``cache`` (GPTAttention.forward): returns (x, cache)."""
+        if cache is not None:
+            attn_out, cache = self.attn(self.ln1(x), cache=cache)
+            x = x + attn_out
+            return x + self.mlp(self.ln2(x)), cache
         x = x + self.attn(self.ln1(x))
         return x + self.mlp(self.ln2(x))
+
+    def _window(self, method, x, *args, **kw):
+        """Run the attention window ``method`` on ln1(x), then the MLP:
+        the shared body of the block's window twins."""
+        attn_out, k_pool, v_pool = getattr(self.attn, method)(
+            self.ln1(x), *args, **kw)
+        x = x + attn_out
+        return x + self.mlp(self.ln2(x)), k_pool, v_pool
+
+    def decode(self, x, k_buf, v_buf, pos):
+        """Shared-position window (GPTAttention.decode)."""
+        return self._window("decode", x, k_buf, v_buf, pos)
+
+    def decode_slots(self, x, k_buf, v_buf, pos, in_range=False):
+        """Per-slot one-token decode (GPTAttention.decode_slots)."""
+        return self._window("decode_slots", x, k_buf, v_buf, pos,
+                            in_range=in_range)
+
+    def decode_slots_paged(self, x, k_pool, v_pool, block_tables, pos):
+        """Block-table one-token decode (GPTAttention.decode_slots_paged)."""
+        return self._window("decode_slots_paged", x, k_pool, v_pool,
+                            block_tables, pos)
+
+    def verify_slots(self, x, k_buf, v_buf, pos, in_range=False):
+        """Speculative verify window (GPTAttention.verify_slots)."""
+        return self._window("verify_slots", x, k_buf, v_buf, pos,
+                            in_range=in_range)
+
+    def verify_slots_paged(self, x, k_pool, v_pool, block_tables, pos):
+        """Block-table verify window (GPTAttention.verify_slots_paged)."""
+        return self._window("verify_slots_paged", x, k_pool, v_pool,
+                            block_tables, pos)
+
+    def prefill_chunk_paged(self, x, k_pool, v_pool, block_table, pos,
+                            true_len, scratch=0):
+        """Block-table chunk prefill (GPTAttention.prefill_chunk_paged)."""
+        return self._window("prefill_chunk_paged", x, k_pool, v_pool,
+                            block_table, pos, true_len, scratch=scratch)
 
     def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
                             width, scratch=None, variant="stream"):
@@ -430,17 +654,26 @@ class GPTModel(nn.Module):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
 
-    def forward(self, input_ids, labels=None, doc_lens=None):
+    def forward(self, input_ids, labels=None, caches=None,
+                position_offset=0, doc_lens=None):
         """Logits ``[B, S, V]``; with ``labels`` (int ``[B, S]``, already
         shifted, -100 ignored) the mean cross entropy instead — fused
         with the LM head per sequence chunk when ``fused_loss`` (in f32;
         the ``[B, S, V]`` logits never exist whole), else over the whole
-        logits in their dtype."""
+        logits in their dtype.  With ``caches`` (one (k, v) ``[B, P, H,
+        hd]`` pair a layer, P may be 0) the tokens run at positions
+        ``position_offset..`` after the cached ones and the result is
+        (logits, the grown caches); ``labels`` are then ignored, as in
+        the JAX package."""
         if doc_lens is not None:
             raise NotImplementedError(
                 "GPTModel.forward(doc_lens=...) (packed pretraining) is not "
                 "ported yet (ROADMAP Queue A 11: doc_lens)")
-        x = self.embeddings(input_ids)
+        if caches is not None:
+            x, caches = self._forward_cached(input_ids, caches,
+                                             position_offset)
+            return self.head(x), caches
+        x = self.embeddings(input_ids, position_offset=position_offset)
         for blk in self.blocks:
             x = blk(x)
         if labels is not None and self.fused_loss:
@@ -596,6 +829,286 @@ class GPTModel(nn.Module):
         # of the embedding the next tick reads
         drawn = torch.clamp(drawn, max=last.shape[-1] - 1).to(torch.int32)
         return torch.where(temperature > 0, drawn, greedy)
+
+    # -- prefill ----------------------------------------------------------
+    def _forward_cached(self, input_ids, caches, position_offset=0):
+        """Embeddings at ``position_offset..`` and every block with its
+        cache (``GPTBlock.forward(cache=)``).  Returns (hidden states
+        before the head, the grown caches)."""
+        x = self.embeddings(input_ids, position_offset=position_offset)
+        new_caches = []
+        for blk, cache in zip(self.blocks, caches):
+            x, cache = blk(x, cache=cache)
+            new_caches.append(cache)
+        return x, new_caches
+
+    def _last_logits(self, x, n):
+        """The LM head at the ``n``-th position (a host int; index n - 1)
+        of x [1, S, E] only: the head is per-position, so the other rows
+        need no vocab matmul.  Returns [1, V]."""
+        i = min(max(int(n) - 1, 0), x.shape[1] - 1)  # dynamic_slice clamp
+        return self.head(x[:, i:i + 1])[:, 0]
+
+    def _prefill_slot(self, ids, k_pools, v_pools, slot, true_len=None):
+        """Whole-prompt prefill of one request into row ``slot`` of the
+        contiguous pools ``[B, L, H, hd]`` (the JAX engine's
+        ``_compiled_prefill_fn`` plus its row insert, in place): the
+        prompt's forward over empty caches, its K/V at positions
+        ``[0, S)`` and zeros over the rest of the row, so nothing of an
+        earlier request stays in it.  Bucketed prefill
+        (``_compiled_bucket_prefill_fn``) passes ``ids`` right-padded to
+        the bucket length S and the prompt's ``true_len``: the logits are
+        read at ``true_len - 1``, and the pad tail's K/V are stored as
+        JAX stores them (causal attention hides them until decode
+        overwrites them).  At S >= 2048 (a multiple of 128) the attention
+        is the flash kernel's.  Returns the last logits [1, V]."""
+        S = ids.shape[1]
+        H, hd = k_pools[0].shape[2], k_pools[0].shape[3]
+        empty = [(kp.new_zeros((1, 0, H, hd)), vp.new_zeros((1, 0, H, hd)))
+                 for kp, vp in zip(k_pools, v_pools)]
+        x, caches = self._forward_cached(ids, empty)
+        for (ck, cv), kp, vp in zip(caches, k_pools, v_pools):
+            kp[slot, :S] = ck[0]
+            vp[slot, :S] = cv[0]
+            kp[slot, S:] = 0
+            vp[slot, S:] = 0
+        return self._last_logits(x, S if true_len is None else true_len)
+
+    def _prefill_paged(self, ids_tail, k_pools, v_pools, ctx_blocks,
+                       tail_blocks):
+        """Block-granular admission prefill (the JAX engine's
+        ``_compiled_paged_prefill_fn``, in place): the adopted prefix
+        blocks ``ctx_blocks`` (int [n_ctx]; ``QuantKV`` pools dequantize
+        only these, ``_ctx_rows``) are the attention context, the
+        prompt's tail ``ids_tail`` [1, s_tail] runs at positions
+        ``n_ctx * bs..``, and its K/V, zero-padded to whole blocks, are
+        stored into ``tail_blocks`` (int [n_tail]; ``QuantKV`` pools
+        quantize each whole fresh block with a fresh scale,
+        ``_store_tail``).  Returns the last logits [1, V]."""
+        s_tail = ids_tail.shape[1]
+        bs, H, hd = k_pools[0].shape[1], k_pools[0].shape[2], \
+            k_pools[0].shape[3]
+        ctx_len = ctx_blocks.shape[0] * bs
+        n_tail = tail_blocks.shape[0]
+
+        def ctx_rows(pool):
+            if isinstance(pool, QuantKV):
+                # in the compute dtype, where the window's K/V join them
+                rows = dequantize_blocks(
+                    pool.codes[ctx_blocks], pool.scale[ctx_blocks]).to(
+                        self.head.ln_f.weight.dtype)
+            else:
+                rows = pool[ctx_blocks]
+            return rows.reshape(1, ctx_len, H, hd)
+
+        def store_tail(pool, rows):
+            tail = F.pad(rows[0, ctx_len:],
+                         (0, 0, 0, 0, 0, n_tail * bs - s_tail)).reshape(
+                             n_tail, bs, H, hd)
+            if isinstance(pool, QuantKV):
+                codes, scale = quantize_blocks(tail)
+                pool.codes[tail_blocks] = codes
+                pool.scale[tail_blocks] = scale
+            else:
+                pool[tail_blocks] = tail.to(pool.dtype)
+
+        caches = [(ctx_rows(kp), ctx_rows(vp))
+                  for kp, vp in zip(k_pools, v_pools)]
+        x, caches = self._forward_cached(ids_tail, caches,
+                                         position_offset=ctx_len)
+        for (ck, cv), kp, vp in zip(caches, k_pools, v_pools):
+            store_tail(kp, ck)
+            store_tail(vp, cv)
+        return self._last_logits(x, s_tail)
+
+    def _chunk_prefill_tick(self, toks, k_bufs, v_bufs, pos, true_len):
+        """One chunk of a prompt against contiguous cache rows: C tokens
+        at positions ``pos..pos+C-1`` through each block's shared-position
+        ``decode``, the head on the last real lane (``true_len - 1``)
+        only.  toks [1, C]; k_bufs/v_bufs [1, L, H, hd] rows (views of the
+        pools, written in place); pos, true_len host ints.  Returns
+        (last logits [1, V], k_bufs, v_bufs)."""
+        x = self.embeddings(toks, position_offset=pos)
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.decode(x, k_bufs[j], v_bufs[j], pos)
+        return self._last_logits(x, true_len), k_bufs, v_bufs
+
+    def _chunk_prefill_slot(self, toks, k_pools, v_pools, slot, pos,
+                            true_len):
+        """The JAX engine's ``_compiled_chunk_prefill_fn``: one chunk into
+        row ``slot`` of the contiguous pools, in place (its rows are
+        views).  Returns the last logits [1, V]."""
+        rows_k = [kp[slot:slot + 1] for kp in k_pools]
+        rows_v = [vp[slot:slot + 1] for vp in v_pools]
+        return self._chunk_prefill_tick(toks, rows_k, rows_v, pos,
+                                        true_len)[0]
+
+    def _chunk_prefill_tick_paged(self, toks, k_pools, v_pools,
+                                  block_table, pos, true_len, scratch=0):
+        """Paged twin of ``_chunk_prefill_tick`` (the JAX engine's
+        ``_compiled_paged_chunk_prefill_fn``): the chunk's K/V scatter
+        through ONE slot's table (pad lanes into its scratch block) and
+        the queries see the slot's whole gathered row.  Returns (last
+        logits [1, V], k_pools, v_pools)."""
+        x = self.embeddings(toks, position_offset=pos)
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.prefill_chunk_paged(
+                x, k_pools[j], v_pools[j], block_table, pos, true_len,
+                scratch=scratch)
+        return self._last_logits(x, true_len), k_pools, v_pools
+
+    # -- XLA engine ticks ------------------------------------------------
+    def _window_positions(self, pos, W):
+        """Positions ``pos[b] + [0, W)`` of a slot window, clamped into
+        the position table as JAX's gather clamps them: [B, W]."""
+        maxp = self.embeddings.position_embeddings.weight.shape[0]
+        return torch.clamp(pos.long()[:, None]
+                           + torch.arange(W, device=pos.device)[None],
+                           max=maxp - 1)
+
+    def _decode_tick_slots(self, tok, k_bufs, v_bufs, pos, in_range=False):
+        """One-token decode over contiguous slot rows (the JAX engine's
+        slot decode): every row b an independent request at ``pos[b]``.
+        tok int [B, 1]; pos int [B]; pools written in place.  Returns
+        (last logits [B, V], k_bufs, v_bufs)."""
+        x = self.embeddings(tok, position_ids=self._window_positions(pos, 1))
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.decode_slots(x, k_bufs[j], v_bufs[j], pos,
+                                       in_range=in_range)
+        return self.head(x)[:, -1], k_bufs, v_bufs
+
+    def _decode_tick_slots_paged(self, tok, k_pools, v_pools, block_tables,
+                                 pos):
+        """One-token decode over a paged slot pool (the JAX engine's slot
+        paged decode).  Returns (last logits [B, V], k_pools, v_pools)."""
+        x = self.embeddings(tok, position_ids=self._window_positions(pos, 1))
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.decode_slots_paged(x, k_pools[j], v_pools[j],
+                                             block_tables, pos)
+        return self.head(x)[:, -1], k_pools, v_pools
+
+    def _spec_verify_tick_slots(self, toks, k_bufs, v_bufs, pos,
+                                in_range=False):
+        """Speculative verify over contiguous slot rows: every slot's W =
+        k+1 window tokens at ``pos[b]..`` in one forward.  Returns (logits
+        [B, W, V], k_bufs, v_bufs)."""
+        x = self.embeddings(toks, position_ids=self._window_positions(
+            pos, toks.shape[1]))
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.verify_slots(x, k_bufs[j], v_bufs[j], pos,
+                                       in_range=in_range)
+        return self.head(x), k_bufs, v_bufs
+
+    def _spec_verify_tick_slots_paged(self, toks, k_pools, v_pools,
+                                      block_tables, pos):
+        """Paged twin of ``_spec_verify_tick_slots``.  Returns (logits
+        [B, W, V], k_pools, v_pools)."""
+        x = self.embeddings(toks, position_ids=self._window_positions(
+            pos, toks.shape[1]))
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.verify_slots_paged(x, k_pools[j], v_pools[j],
+                                             block_tables, pos)
+        return self.head(x), k_pools, v_pools
+
+    def _fused_decode_tick_slots(self, tok, k_bufs, v_bufs, pos, temp,
+                                 top_k, top_p, seed_lo, seed_hi, ctr, eos,
+                                 rem, block_tables=None, any_sampling=None,
+                                 in_range=False):
+        """One-token decode plus the on-device sample and stop condition
+        (the JAX engine's fused decode tick), contiguous or, with
+        ``block_tables``, paged.  Lanes draw through ``_sample_lanes``
+        with key(seed, ctr), as every path does; a lane whose budget
+        (``rem``) is spent is frozen (token, position and counter kept),
+        and eos or the last budgeted token spends it.  ``any_sampling``
+        as in ``_fused_ragged_tick_slots``; ``in_range`` passes to the
+        contiguous rows' writes.  Returns (ids [B], done bool [B],
+        new_tok [B, 1], new_pos [B], new_ctr [B], new_rem [B], k_bufs,
+        v_bufs); nothing is read back."""
+        if block_tables is None:
+            last, _, _ = self._decode_tick_slots(tok, k_bufs, v_bufs, pos,
+                                                 in_range=in_range)
+            L = k_bufs[0].shape[1]
+        else:
+            last, _, _ = self._decode_tick_slots_paged(
+                tok, k_bufs, v_bufs, block_tables, pos)
+            L = block_tables.shape[1] * k_bufs[0].shape[1]
+        keys = (self._slot_sample_keys(seed_lo, seed_hi, ctr)
+                if any_sampling is None or any_sampling else None)
+        sampled = self._sample_lanes(last, temp, top_k, top_p, keys)
+        live = rem > 0
+        zero = torch.zeros_like(rem)
+        ids = torch.where(live, sampled, tok[:, 0])
+        hit_eos = live & (eos >= 0) & (ids == eos)
+        new_rem = torch.where(live, torch.where(hit_eos, zero, rem - 1),
+                              rem)
+        new_pos = torch.where(live, torch.clamp(pos + 1, max=L - 1), pos)
+        new_ctr = torch.where(live, ctr + 1, ctr)
+        return (ids, new_rem <= 0, ids[:, None], new_pos, new_ctr, new_rem,
+                k_bufs, v_bufs)
+
+    def _fused_spec_verify_tick_slots(self, toks, k_bufs, v_bufs, pos,
+                                      lanes, temp, top_k, top_p, seed_lo,
+                                      seed_hi, ctr, eos, rem,
+                                      block_tables=None, any_sampling=None,
+                                      in_range=False):
+        """Speculative verify plus on-device picks, accept scan and stop
+        condition (the JAX engine's fused verify tick): lane j of slot b
+        draws with key(seed, ctr + j), the accepted prefix is the leading
+        run of real draft lanes (j < ``lanes[b]``) whose draft equals the
+        pick, and the slot emits min(accepted + 1, rem, through the first
+        eos pick) tokens; the cursor advances by that, clamped at L - W.
+        Returns (picks [B, W], n_acc [B], n_emit [B], done bool [B],
+        new_tok [B, 1], new_pos [B], new_ctr [B], new_rem [B], k_bufs,
+        v_bufs)."""
+        if block_tables is None:
+            logits, _, _ = self._spec_verify_tick_slots(
+                toks, k_bufs, v_bufs, pos, in_range=in_range)
+            L = k_bufs[0].shape[1]
+        else:
+            logits, _, _ = self._spec_verify_tick_slots_paged(
+                toks, k_bufs, v_bufs, block_tables, pos)
+            L = block_tables.shape[1] * k_bufs[0].shape[1]
+        B, W = toks.shape
+        dev = toks.device
+        i32 = torch.int32
+        lane = torch.arange(W, device=dev)
+        keys = (self._slot_sample_keys(seed_lo[:, None], seed_hi[:, None],
+                                       ctr[:, None] + lane[None, :])
+                .reshape(-1) if any_sampling is None or any_sampling
+                else None)
+
+        def per_lane(t):
+            return t[:, None].expand(B, W).reshape(-1)
+
+        picks = self._sample_lanes(
+            logits.reshape(B * W, -1), per_lane(temp), per_lane(top_k),
+            per_lane(top_p), keys).view(B, W)
+        match = (toks[:, 1:] == picks[:, :-1]) \
+            & (lane[None, :-1] < lanes[:, None])
+        n_acc = torch.argmin(
+            torch.cat([match, torch.zeros(B, 1, dtype=torch.bool,
+                                          device=dev)], dim=1).to(i32),
+            dim=1).to(i32)
+        live = rem > 0
+        zero = torch.zeros_like(rem)
+        hit_eos = (eos[:, None] >= 0) & (picks == eos[:, None])
+        eos_stop = torch.where(hit_eos.any(dim=1),
+                               torch.argmax(hit_eos.to(i32), dim=1) + 1,
+                               W + 1).to(i32)
+        n_emit = torch.where(
+            live, torch.minimum(torch.minimum(n_acc + 1, rem), eos_stop),
+            zero).to(i32)
+        last_idx = torch.clamp(n_emit - 1, min=0).long()
+        new_tok = torch.where(live[:, None],
+                              torch.gather(picks, 1, last_idx[:, None]),
+                              toks[:, :1])
+        new_rem = torch.where(
+            live, torch.where(n_emit == eos_stop, zero, rem - n_emit), rem)
+        new_pos = torch.where(live, torch.clamp(pos + n_emit, max=L - W),
+                              pos).to(i32)
+        return (picks, n_acc, n_emit, new_rem <= 0, new_tok.to(i32),
+                new_pos, (ctr + n_emit).to(i32), new_rem.to(i32), k_bufs,
+                v_bufs)
 
     # -- ragged engine tick -------------------------------------------------
     def _ragged_window_tick_slots(self, toks, k_pools, v_pools,

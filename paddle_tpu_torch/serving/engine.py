@@ -1,16 +1,30 @@
 """Continuous-batching inference engine over a fixed slot pool — the
-PyTorch counterpart of ``paddle_tpu/serving/engine.py`` on its
-``attn_impl="ragged"`` path.
+PyTorch counterpart of ``paddle_tpu/serving/engine.py``.
 
 Each tick admits queued requests into free slots (the paged admission
 gate adopts cached prompt prefixes and reserves every block a request
-could need), then runs ONE ragged window dispatch
-(``GPTModel._fused_ragged_tick_slots``): decoding slots ride as
-one-token lanes (``spec_k + 1``-token verify windows under speculative
-decoding, drafted by a ``serving.spec`` proposer), budgeted prefill
-chunks as lanes of up to ``prefill_chunk`` tokens, and sampling, the
-accept scan and the eos / max_new_tokens stop condition run in the
-dispatch's epilogue on the device.
+could need), prefills them, then runs ONE decode dispatch.  Two
+dispatch families serve it:
+
+* ``attn_impl="ragged"`` (the port's default) / ``"ragged_gather"``:
+  ONE ragged window dispatch (``GPTModel._fused_ragged_tick_slots``)
+  over the paged pools, through the ragged attention kernels: decoding
+  slots ride as one-token lanes (``spec_k + 1``-token verify windows
+  under speculative decoding, drafted by a ``serving.spec`` proposer),
+  budgeted prefill chunks as lanes of up to ``prefill_chunk`` tokens.
+* ``attn_impl="xla"`` (the JAX engine's default): the plain torch
+  windows of the JAX package's XLA programs over contiguous slot rows
+  (``kv_block_size=None``) or block pools — the fused decode or verify
+  tick, and chunks as one dispatch each (``prefill.chunk``).
+
+Either way sampling, the accept scan and the eos / max_new_tokens stop
+condition run in the dispatch's epilogue on the device
+(``sample_mode="device"``), or the logits come home and numpy samples
+them on a per-request ``np.random.default_rng(seed)`` stream
+(``sample_mode="host"``, the JAX engine's exact host numerics).
+``prefill_chunk=None`` prefills each admitted prompt whole at
+admission (``prefill``; on contiguous rows optionally right-padded to
+``prefill_buckets``), on every path.
 
 The loop is pipelined (``async_depth=2``, the default): a tick plans and
 admits while the previous tick computes, dispatches tick N+1, and only
@@ -37,7 +51,7 @@ priority may preempt a running stream, which resumes token-identically.
 Metrics go to a ``monitor.StatRegistry`` under the JAX engine's names,
 spans to a ``monitor.Tracer`` (``Engine.chrome_trace()``).  The JAX
 engine's other knobs — LoRA adapters, the host-RAM offload tier, the
-XLA attention paths, monolithic prefill — raise ``NotImplementedError``
+XLA and monolithic paths over a mesh — raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item; migration and the fault injector wait
 too.
 """
@@ -55,6 +69,7 @@ import torch
 from .. import monitor
 from ..device import require_on
 from ..distributed.mesh import ServingMesh, serving_mesh
+from ..models import gpt as gpt_mod
 from .kvcache import BlockPool, PrefixCache, per_shard_block_bytes
 from .quant import QuantKV, relayout_weights_int8
 from .request import (MAX_SEED, DeadlineShed, QueueFull, RateLimited,
@@ -67,6 +82,33 @@ _NOT_PORTED = {
     "adapters": "Queue A 8 (LoRA adapters)",
     "kv_host_mb": "Queue A 8 (host-RAM offload)",
 }
+
+
+def _softmax_np(x):
+    x = x - x.max()
+    e = np.exp(x)
+    return e / e.sum()
+
+
+def _filter_logits_np(row, temperature, top_k, top_p):
+    """Host-mode sampling filters of one logits row, in float64 numpy:
+    temperature, then top-k, then top-p over the already-masked row (the
+    JAX engine's host numerics, op for op)."""
+    row = row.astype(np.float64)
+    if temperature != 1.0:
+        row = row / temperature
+    if top_k and top_k > 0:
+        kth = np.sort(row)[-min(top_k, len(row))]
+        row = np.where(row < kth, -1e9, row)
+    if top_p < 1.0:
+        p_eff = max(float(top_p), 1e-9)
+        srt = np.sort(row)[::-1]
+        probs = _softmax_np(srt)
+        cum = np.cumsum(probs)
+        keep = (cum - probs) < p_eff
+        cutoff = srt[keep].min()
+        row = np.where(row < cutoff, -1e9, row)
+    return row
 
 
 def _resolve_mesh(mesh):
@@ -116,12 +158,13 @@ class _Staging:
 
 
 class _InflightTick:
-    """One dispatched ragged tick: its staging set (the download lands
-    there), the slot -> request bindings as of dispatch (a slot may be
-    evicted and even re-admitted before this tick is consumed; the
-    identity check ``slot.request is req`` keeps a frozen lane out of a
-    newer request's stream), and per listed slot the lane's (mode,
-    width, draft lanes) as of dispatch."""
+    """One dispatched tick (the ragged window, or an XLA decode or
+    verify tick): its staging set (the download lands there), the slot
+    -> request bindings as of dispatch (a slot may be evicted and even
+    re-admitted before this tick is consumed; the identity check
+    ``slot.request is req`` keeps a frozen lane out of a newer request's
+    stream), and per listed slot the lane's (mode, width, draft lanes)
+    as of dispatch."""
 
     __slots__ = ("tick", "slots", "reqs", "meta_lanes", "staging")
 
@@ -143,8 +186,9 @@ class Engine:
     num_slots : fixed batch-slot pool size (B of every dispatch).
     max_seq_len : per-slot KV length L (prompt + generated must fit);
         defaults to the model's position table.
-    kv_block_size : paged KV block size (required; must divide
-        max_seq_len).
+    kv_block_size : paged KV block size (must divide max_seq_len); None
+        keeps contiguous ``[B, L, H, hd]`` slot rows, which only
+        ``attn_impl="xla"`` serves.
     kv_blocks : physical block count of the pool (default
         ``num_slots * max_seq_len / kv_block_size``), plus one reserved
         scratch block (one per dp shard on a mesh).
@@ -155,14 +199,25 @@ class Engine:
         ``kv_blocks``.
     prefix_cache : keep finished prompts' full blocks in a token trie so
         later requests adopt them (default True).
-    prefill_chunk : prompt tokens a slot prefills per tick (required; must
-        divide max_seq_len); also the dispatch's window width W.
+    prefill_chunk : prompt tokens a slot prefills per tick (must divide
+        max_seq_len); on the ragged path also the dispatch's window width
+        W.  None prefills each admitted prompt whole at admission.
     tick_token_budget : prompt tokens one tick may spend on prefill
         chunks across slots (default: one chunk; must be >= it).
-    attn_impl : ``"ragged"`` — the streaming ragged kernel (B1, or B2
-        with int8 pools); ``"ragged_gather"`` — the gather body (B3),
-        which walks every table entry: the A/B baseline.
-    sample_mode : ``"device"`` — sampling in the dispatch's epilogue.
+    prefill_buckets : contiguous whole-prompt prefill only: None, or
+        ``"pow2"`` (powers of two from 8, plus max_seq_len) or a list of
+        lengths: each prompt is right-padded to the first bucket that
+        holds it (a bucket of 2048 tokens runs the flash kernel).
+    attn_impl : ``"ragged"`` (default) — the streaming ragged kernel (B1,
+        or B2 with int8 pools); ``"ragged_gather"`` — the gather body
+        (B3), which walks every table entry: the A/B baseline; ``"xla"``
+        — the JAX package's XLA windows in plain torch, the only path
+        over contiguous rows.  JAX's ``attn_impl=None`` means ``"xla"``;
+        here the default is the ragged kernel path.
+    sample_mode : ``"device"`` — sampling in the dispatch's epilogue;
+        ``"host"`` — the logits come home and numpy samples each request
+        on its own ``np.random.default_rng(seed)`` stream (needs
+        ``async_depth=1`` and fp pools, as in JAX).
     device : where the engine's pools and state live; None = the CUDA
         card (raises without one; the tests pass ``device="cpu"``), or
         with a mesh its first rank's device (the only one it takes).
@@ -228,7 +283,8 @@ class Engine:
     def __init__(self, model, num_slots=4, max_seq_len=None,
                  kv_block_size=None, kv_blocks=None,
                  prefix_cache=True, prefill_chunk=None,
-                 tick_token_budget=None, attn_impl="ragged",
+                 tick_token_budget=None, prefill_buckets=None,
+                 attn_impl="ragged",
                  sample_mode="device", async_depth=None, device=None,
                  spec_k=None, proposer=None, mesh=None, kv_dtype=None,
                  weight_dtype=None, adapters=None, kv_host_mb=None,
@@ -242,6 +298,11 @@ class Engine:
                 raise NotImplementedError(
                     f"Engine({name}=...) is not ported yet: ROADMAP.md "
                     f"{item}")
+        if sample_mode not in ("device", "host"):
+            raise ValueError(
+                f"sample_mode must be 'device' or 'host', got "
+                f"{sample_mode!r}")
+        self.sample_mode = sample_mode
         if async_depth is None:
             async_depth = 2 if sample_mode == "device" else 1
         depth = int(async_depth)
@@ -249,16 +310,16 @@ class Engine:
             raise ValueError(f"async_depth must be >= 1, got {depth}")
         if depth > 1 and sample_mode != "device":
             raise ValueError(
-                "async_depth > 1 requires sample_mode='device': there is "
-                "no device-compute gap to overlap when the host samples")
+                "async_depth > 1 requires sample_mode='device': the host "
+                "sampling path downloads the logits and samples on the "
+                "host every tick, so there is no device-compute gap to "
+                "overlap")
         self.async_depth = depth
-        if attn_impl == "xla":
-            raise NotImplementedError(
-                "attn_impl='xla' is not ported yet: ROADMAP.md Queue A 5 "
-                "(the XLA paged paths)")
-        if attn_impl not in ("ragged", "ragged_gather"):
-            raise ValueError(f"attn_impl must be 'ragged' or "
-                             f"'ragged_gather', got {attn_impl!r}")
+        if attn_impl not in ("xla", "ragged", "ragged_gather"):
+            raise ValueError(
+                f"attn_impl must be 'xla', 'ragged' or 'ragged_gather', "
+                f"got {attn_impl!r}")
+        self._paged = kv_block_size is not None
         self._weight_quant = weight_dtype is not None
         if self._weight_quant and str(weight_dtype) != "int8":
             raise ValueError(
@@ -269,7 +330,7 @@ class Engine:
             raise ValueError(
                 f"kv_dtype must be 'int8' (or None for the compute "
                 f"dtype), got {kv_dtype!r}")
-        if self._kv_quant and kv_block_size is None:
+        if self._kv_quant and not self._paged:
             raise ValueError(
                 "kv_dtype='int8' requires the paged KV layout "
                 "(kv_block_size=...): quantization is per-block — the "
@@ -277,20 +338,39 @@ class Engine:
                 "scale on")
         if self._kv_quant and sample_mode != "device":
             raise ValueError(
-                "kv_dtype='int8' requires sample_mode='device': only the "
-                "fused device-sampling dispatch threads QuantKV pools")
-        if sample_mode != "device":
-            raise ValueError(
-                f"sample_mode must be 'device', got {sample_mode!r}: "
-                "sampling and the stop condition run in the ragged "
-                "dispatch's epilogue")
-        if prefill_chunk is None:
+                "kv_dtype='int8' requires sample_mode='device': the host "
+                "sampling paths run the fp decode windows, which have no "
+                "dequantizing gather")
+        if attn_impl != "xla":
+            if not self._paged:
+                raise ValueError(
+                    f"attn_impl={attn_impl!r} (the port's default) requires "
+                    "the paged KV layout: the ragged kernels read K/V "
+                    "through per-slot block tables — pass "
+                    "kv_block_size=..., or attn_impl='xla' to serve "
+                    "contiguous slot rows (the JAX engine's default)")
+            if sample_mode != "device":
+                raise ValueError(
+                    f"attn_impl={attn_impl!r} requires "
+                    "sample_mode='device': sampling, the acceptance scan "
+                    "and the stop condition run in the ragged dispatch's "
+                    "epilogue")
+        if mesh is not None and (attn_impl == "xla"
+                                 or prefill_chunk is None):
             raise NotImplementedError(
-                "prefill_chunk=None (monolithic prefill) is not ported "
-                "yet: ROADMAP.md Queue A 5; pass prefill_chunk=C")
-        if kv_block_size is None:
-            raise ValueError("kv_block_size is required: the ragged "
-                             "kernel reads K/V through block tables")
+                "Engine(mesh=..., attn_impl='xla') and Engine(mesh=..., "
+                "prefill_chunk=None) are not ported yet: ROADMAP.md Queue "
+                "A 10 (the XLA paths over a mesh); a mesh serves "
+                "attn_impl='ragged' with prefill_chunk=C")
+        if kv_budget_mb is not None and not self._paged:
+            raise ValueError(
+                "kv_budget_mb requires the paged KV layout "
+                "(kv_block_size=...): the contiguous pools are sized by "
+                "num_slots * max_seq_len, not by a block budget")
+        if tick_token_budget is not None and prefill_chunk is None:
+            raise ValueError(
+                "tick_token_budget requires prefill_chunk (it bounds the "
+                "chunked-prefill spend per tick)")
         self._spec_k = None
         self.proposer = None
         if spec_k is not None:
@@ -422,23 +502,87 @@ class Engine:
             getattr(attn0.qkv_proj, "compute_dtype", None)
             or attn0.qkv_proj.weight.dtype)
         self.attn_impl = attn_impl
+        self._ragged = attn_impl != "xla"
         self._variant = "gather" if attn_impl == "ragged_gather" \
             else "stream"
+        self._prefill_buckets = None
+        if prefill_buckets == "pow2":
+            bs, n = [], 8
+            while n < self.max_seq_len:
+                bs.append(n)
+                n *= 2
+            self._prefill_buckets = bs + [self.max_seq_len]
+        elif prefill_buckets:
+            bs = sorted({int(x) for x in prefill_buckets})
+            if bs[0] < 1 or bs[-1] > self.max_seq_len:
+                raise ValueError(
+                    f"prefill_buckets must lie in [1, {self.max_seq_len}]"
+                    f", got {bs}")
+            if bs[-1] < self.max_seq_len:
+                bs.append(self.max_seq_len)  # every legal prompt fits
+            self._prefill_buckets = bs
+        self._chunk = self._tick_budget = None
+        if prefill_chunk is not None:
+            c = int(prefill_chunk)
+            if c < 1 or self.max_seq_len % c:
+                raise ValueError(
+                    f"prefill_chunk must be >= 1 and divide max_seq_len "
+                    f"({self.max_seq_len}), got {c}")
+            if self._prefill_buckets is not None:
+                raise ValueError(
+                    "prefill_chunk cannot combine with prefill_buckets: "
+                    "the fixed chunk shape already bounds prefill shapes")
+            b = int(tick_token_budget) if tick_token_budget is not None \
+                else c
+            if b < c:
+                raise ValueError(
+                    f"tick_token_budget ({b}) must cover at least one "
+                    f"prefill_chunk ({c}), or no tick could ever make "
+                    "prefill progress")
+            self._chunk = c
+            self._tick_budget = b
+        # no block pool on contiguous rows: its gauges stay 0
+        self._kv_managed = 0
+        self.kv_block_bytes = self.kv_scale_bytes = 0
+        self._prefix_enabled = False
+        if self._paged:
+            if self._prefill_buckets is not None:
+                raise ValueError(
+                    "prefill_buckets cannot combine with kv_block_size: "
+                    "the paged prefill runs per (context, tail) length "
+                    "instead of per bucket")
+            self._size_block_pool(model, int(kv_block_size), kv_blocks,
+                                  kv_budget_mb, prefix_cache)
+        # the ragged dispatch's window: wide enough for a prefill chunk
+        # and the k+1 verify window (each slot's real width is data); an
+        # XLA dispatch's is the verify window (chunks run on their own)
+        self._wmax = (max(self._chunk or 1, self._spec_w) if self._ragged
+                      else self._spec_w)
+        self._rngs = {}  # request id -> host-mode np.random.Generator
+        self.ragged_dispatches = 0  # ragged window dispatches
+        self.ticks = 0
+        self.tracer = (monitor.Tracer(capacity=trace_capacity,
+                                      annotate=trace_annotations)
+                       if tracing else monitor.NullTracer())
+        self._init_metrics(monitor.StatRegistry() if registry is None
+                           else registry)
+        self._last_decode_end = None  # stall anchor: end of the last
+        #   dispatch, cleared when nothing was dispatched
+        self._evicted_in_tick = 0     # monotonic eviction counter; a
+        #   tick reads deltas to keep the occupancy gauge exact
+        self._overlap_acc = 0.0       # per-tick overlapped host work (s)
+        self._thread = None
+        self._stop = threading.Event()
+        self._wake = threading.Event()  # submit() wakes an idle loop
+        self._drain_on_exit = None    # a loop's stop event, when that
+        #   loop must drain on exit
+        self._reset_pools()
 
-        c = int(prefill_chunk)
-        if c < 1 or self.max_seq_len % c:
-            raise ValueError(
-                f"prefill_chunk must be >= 1 and divide max_seq_len "
-                f"({self.max_seq_len}), got {c}")
-        b = int(tick_token_budget) if tick_token_budget is not None else c
-        if b < c:
-            raise ValueError(
-                f"tick_token_budget ({b}) must cover at least one "
-                f"prefill_chunk ({c}), or no tick could ever make "
-                "prefill progress")
-        self._chunk = c
-        self._tick_budget = b
-        bsz = int(kv_block_size)
+    def _size_block_pool(self, model, bsz, kv_blocks, kv_budget_mb,
+                         prefix_cache):
+        """The paged layout's geometry: block size, blocks a slot, one
+        block's bytes, and the pool's size in blocks (by count or by a
+        byte budget)."""
         if bsz < 1 or self.max_seq_len % bsz:
             raise ValueError(
                 f"kv_block_size must be >= 1 and divide max_seq_len "
@@ -481,26 +625,6 @@ class Engine:
                                           else ")"))
         self._kv_managed = managed
         self._prefix_enabled = bool(prefix_cache)
-        # the ragged dispatch's window: wide enough for a prefill chunk
-        # and the k+1 verify window; each slot's real width is data
-        self._wmax = max(self._chunk, self._spec_w)
-        self.ticks = 0
-        self.tracer = (monitor.Tracer(capacity=trace_capacity,
-                                      annotate=trace_annotations)
-                       if tracing else monitor.NullTracer())
-        self._init_metrics(monitor.StatRegistry() if registry is None
-                           else registry)
-        self._last_decode_end = None  # stall anchor: end of the last
-        #   dispatch, cleared when nothing was dispatched
-        self._evicted_in_tick = 0     # monotonic eviction counter; a
-        #   tick reads deltas to keep the occupancy gauge exact
-        self._overlap_acc = 0.0       # per-tick overlapped host work (s)
-        self._thread = None
-        self._stop = threading.Event()
-        self._wake = threading.Event()  # submit() wakes an idle loop
-        self._drain_on_exit = None    # a loop's stop event, when that
-        #   loop must drain on exit
-        self._reset_pools()
 
     def _init_metrics(self, reg):
         """Register the engine's metrics in ``reg`` under the JAX
@@ -554,7 +678,8 @@ class Engine:
             "serving.prefix_evictions", "cached prefix blocks evicted "
             "(LRU) under pool pressure")
         self._m_chunks = reg.counter(
-            "serving.prefill_chunks", "prefill-chunk lanes dispatched")
+            "serving.prefill_chunks", "prefill chunks dispatched (ragged "
+            "chunk lanes, or XLA chunk dispatches)")
         self._m_stall = reg.histogram(
             "serving.decode_stall_ms", "gap between consecutive dispatches "
             "while slots were decoding (ms)")
@@ -580,10 +705,14 @@ class Engine:
             "degraded to an empty draft window")
         self._m_d2h = reg.gauge(
             "serving.d2h_bytes_per_tick", "bytes the latest dispatch "
-            "downloaded to the host (picks + counts + done mask)")
+            "downloaded to the host (device mode: picks + counts + done "
+            "mask; host mode: the [B, V] or [B, W, V] logits)")
+        self._m_sample_ms = reg.histogram(
+            "serving.sample_ms", "host-side sampling + emit loop per tick "
+            "(ms; sample_mode='host' only)")
         self._m_fused_ticks = reg.counter(
-            "serving.fused_sample_ticks", "ragged dispatches, each "
-            "sampling on the device")
+            "serving.fused_sample_ticks", "decode dispatches that sampled "
+            "on the device (sample_mode='device')")
         self._m_kv_blocks_walked = reg.gauge(
             "serving.kv_blocks_walked_per_tick", "KV blocks the ragged "
             "kernel walked in the latest dispatch, summed over lanes")
@@ -618,8 +747,6 @@ class Engine:
             "over the recent emitting ticks)")
 
     # the plain counters of earlier slices, read from the registry
-    ragged_dispatches = property(
-        lambda self: int(self._m_fused_ticks.value))
     tokens_generated = property(lambda self: int(self._m_tokens.value))
     requests_completed = property(lambda self: int(self._m_done.value))
     prefill_tokens = property(
@@ -638,33 +765,37 @@ class Engine:
 
     # ------------------------------------------------------------------
     def _reset_pools(self):
-        """(Re)allocate the per-layer K/V pools, the block pool, prefix
-        cache and block tables, and the per-slot step state — also the
+        """(Re)allocate the per-layer K/V pools — block pools with the
+        block pool, prefix cache and block tables, or contiguous slot
+        rows ``[B, L, H, hd]`` — and the per-slot step state; also the
         step-failure recovery path: cached prefixes die with the rows
         they described."""
-        # +dp: each dp shard's pool range leads with a reserved scratch
-        # block that its parked slots and masked lanes write through (one
-        # block, row 0, without a mesh)
-        nblocks = self._kv_managed + self.dp
-        self.block_pool = BlockPool(nblocks, self._bs, reserved_blocks=1,
-                                    shards=self.dp)
-        self.prefix_cache = (PrefixCache(self.block_pool)
-                             if self._prefix_enabled else None)
-        self._slot_scratch = np.asarray(
-            [self.block_pool.scratch_row(self._slot_shard(i))
-             for i in range(self.num_slots)], np.int32)
-        self._block_tables = np.repeat(
-            self._slot_scratch[:, None], self._bps, axis=1).copy()
-        self._slot_blocks = [[] for _ in range(self.num_slots)]
-        rows = nblocks // self.dp
         heads = self._nh // self.mp
+        if self._paged:
+            # +dp: each dp shard's pool range leads with a reserved
+            # scratch block that its parked slots and masked lanes write
+            # through (one block, row 0, without a mesh)
+            nblocks = self._kv_managed + self.dp
+            self.block_pool = BlockPool(nblocks, self._bs,
+                                        reserved_blocks=1, shards=self.dp)
+            self.prefix_cache = (PrefixCache(self.block_pool)
+                                 if self._prefix_enabled else None)
+            self._slot_scratch = np.asarray(
+                [self.block_pool.scratch_row(self._slot_shard(i))
+                 for i in range(self.num_slots)], np.int32)
+            self._block_tables = np.repeat(
+                self._slot_scratch[:, None], self._bps, axis=1).copy()
+            self._slot_blocks = [[] for _ in range(self.num_slots)]
+            shape = (nblocks // self.dp, self._bs, heads, self._hd)
+        else:
+            self.block_pool = self.prefix_cache = None
+            shape = (self.num_slots, self.max_seq_len, heads, self._hd)
 
         def pool(dev):
-            shape = (rows, self._bs, heads, self._hd)
             if self._kv_quant:
                 return QuantKV(
                     torch.zeros(shape, dtype=torch.int8, device=dev),
-                    torch.zeros((rows, heads), dtype=torch.float32,
+                    torch.zeros((shape[0], heads), dtype=torch.float32,
                                 device=dev))
             return torch.zeros(shape, dtype=self._kv_dtype, device=dev)
 
@@ -898,6 +1029,8 @@ class Engine:
             self._m_timeout.inc(len(timed_out))
             self._m_done.inc(len(timed_out))
             for req in timed_out:
+                self._rngs.pop(req.id, None)  # a preempted-then-expired
+                #   request may hold a host rng stream
                 tr.instant("req.evicted", cat="request", req=req.id,
                            reason="timeout")
         return uniq
@@ -918,7 +1051,7 @@ class Engine:
         ctx = (np.concatenate([req.prompt,
                                np.asarray(req.generated, np.int32)])
                if req.generated else req.prompt)
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None:  # paged layouts only
             n_full = min(slot.pos // self._bs, len(self._slot_blocks[i]))
             if n_full:
                 self.prefix_cache.insert(ctx, self._slot_blocks[i][:n_full])
@@ -959,7 +1092,7 @@ class Engine:
             if pri is None:
                 break
             if not (self.scheduler.free_count() == 0
-                    or self._gate_declined):
+                    or (self._paged and self._gate_declined)):
                 break
             victims = [s for s in self.scheduler.busy_slots()
                        if s.request is not None
@@ -978,13 +1111,13 @@ class Engine:
                     # the drain finished the victim or freed another
                     # slot: admit into that capacity, then probe again
                     self._gate_declined = False
-                    more, t2 = self.scheduler.admit(now, gate=self._kv_gate)
+                    more, t2 = self.scheduler.admit(now, gate=self._gate)
                     admitted += more
                     timed_out += t2
                     continue
             self._preempt(victim, tr)
             self._gate_declined = False
-            more, t2 = self.scheduler.admit(now, gate=self._kv_gate)
+            more, t2 = self.scheduler.admit(now, gate=self._gate)
             admitted += more
             timed_out += t2
         return admitted, timed_out, emitted
@@ -1026,9 +1159,18 @@ class Engine:
         req._kv_plan = (ctx, fresh, m)
         return True
 
+    @property
+    def _gate(self):
+        """The admission gate: the paged one, or none over contiguous
+        rows (a slot's row is all it needs)."""
+        return self._kv_gate if self._paged else None
+
     def _release_slot_kv(self, i):
         """Return slot i's block references (eviction): cached prefix
-        blocks fall back to the cache's reference, the rest free."""
+        blocks fall back to the cache's reference, the rest free.
+        Nothing to return on contiguous rows."""
+        if not self._paged:
+            return
         self.block_pool.decref(self._slot_blocks[i])
         self._slot_blocks[i] = []
         self._block_tables[i, :] = self._slot_scratch[i]
@@ -1148,22 +1290,176 @@ class Engine:
             ctr=self._upload(self._sctr), temp=self._upload(self._temp),
             topk=self._upload(self._topk), topp=self._upload(self._topp),
             slo=self._upload(self._seed_lo), shi=self._upload(self._seed_hi),
-            eos=self._upload(self._eos), rem=self._upload(self._rem),
-            tables=self._upload(self._block_tables),
-            scratch=self._upload(self._slot_scratch))
+            eos=self._upload(self._eos), rem=self._upload(self._rem))
+        if self._paged:
+            self._dev_state.update(
+                tables=self._upload(self._block_tables),
+                scratch=self._upload(self._slot_scratch))
         self._state_dirty = False
 
     def _begin_chunked(self, slot):
         """Chunked admission: bind the block plan (the adopted prefix
         counts as already prefilled) and park the slot PREFILLING; the
-        ragged dispatch spends the tick budget on its chunks."""
+        ragged dispatch, or the XLA chunk loop, spends the tick budget on
+        its chunks.  The decode dispatch's discarded write for the slot
+        lands on the next chunk's start row, which that chunk
+        overwrites."""
         i = slot.index
         self._bind_sample_state(slot)
-        _, _, m = self._bind_kv_plan(slot)
-        slot.prefilled = m
+        slot.prefilled = self._bind_kv_plan(slot)[2] if self._paged else 0
         slot.pos = slot.prefilled
         self._pos[i] = slot.prefilled
         self._cur_tok[i, 0] = 0
+
+    # -- admission prefill (prefill_chunk=None) and the XLA chunk loop ------
+    def _prefill(self, slot):
+        """Admission prefill of the whole context (the prompt, or a
+        preempted request's prompt + emitted snapshot), then the first
+        token's pick and emit.  Paged layouts adopt the cached prefix and
+        store block-granular (``_prefill_paged``); contiguous rows take
+        one whole-prompt forward (right-padded to a bucket under
+        ``prefill_buckets``) written over the slot's whole row."""
+        self._bind_sample_state(slot)
+        if self._paged:
+            return self._prefill_paged(slot)
+        req = slot.request
+        i = slot.index
+        tokens = req.context
+        s = len(tokens)
+        if self._prefill_buckets is not None:
+            S = next(b for b in self._prefill_buckets if b >= s)
+            ids = np.zeros((1, S), np.int32)
+            ids[0, :s] = tokens
+        else:
+            ids = np.asarray(tokens, np.int32)[None, :]
+        with torch.no_grad():
+            last = self.model._prefill_slot(
+                self._upload(ids.astype(np.int64)), self.k_pools,
+                self.v_pools, i, true_len=s)
+        self._m_prefill_tokens.inc(s)
+        slot.pos = slot.prefilled = s
+        self._pos[i] = s
+        self._emit(slot, self._pick(req, last[0]))
+
+    def _prefill_paged(self, slot):
+        """Paged admission prefill: bind the gate's plan, run the
+        context's non-shared tail against the adopted prefix blocks in
+        one pass and store it block-granular into the fresh blocks; the
+        context's full blocks then enter the prefix cache."""
+        req = slot.request
+        ctx, fresh, m = self._bind_kv_plan(slot)
+        tokens = req.context
+        s = len(tokens)
+        n_tail = -(-s // self._bs) - len(ctx)
+        with torch.no_grad():
+            last = self.model._prefill_paged(
+                self._upload(np.asarray(tokens[m:], np.int64)[None, :]),
+                self.k_pools, self.v_pools,
+                self._upload(np.asarray(ctx, np.int64)),
+                self._upload(np.asarray(fresh[:n_tail], np.int64)))
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(tokens,
+                                     (ctx + fresh)[:s // self._bs])
+        self._m_prefill_tokens.inc(s - m)
+        slot.pos = slot.prefilled = s
+        self._pos[slot.index] = s
+        self._emit(slot, self._pick(req, last[0]))
+
+    def _run_chunk(self, slot, n):
+        """One XLA chunk dispatch: K/V (and on the final chunk the
+        first-token logits) for context positions ``[prefilled,
+        prefilled + n)``, right-padded to ``prefill_chunk`` tokens.
+        Dirties the step state (the slot's cursor moved).  Returns 1 when
+        the final chunk emitted a token, else 0."""
+        req = slot.request
+        i = slot.index
+        tokens = req.context
+        s = len(tokens)
+        p0 = slot.prefilled
+        ids = np.zeros((1, self._chunk), np.int64)
+        ids[0, :n] = tokens[p0:p0 + n]
+        with torch.no_grad(), self.tracer.span(
+                "prefill.chunk", req=req.id, pos=p0, n=n,
+                layout="paged" if self._paged else "contiguous"):
+            if self._paged:
+                last = self.model._chunk_prefill_tick_paged(
+                    self._upload(ids), self.k_pools, self.v_pools,
+                    self._upload(self._block_tables[i].astype(np.int64)),
+                    p0, n, scratch=int(self._slot_scratch[i]))[0]
+            else:
+                last = self.model._chunk_prefill_slot(
+                    self._upload(ids), self.k_pools, self.v_pools, i, p0,
+                    n)
+        slot.prefilled = slot.pos = p0 + n
+        self._m_chunks.inc()
+        self._m_prefill_tokens.inc(n)
+        self._state_dirty = True
+        if slot.prefilled < s:
+            self._pos[i] = slot.prefilled
+            return 0
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(tokens,
+                                     self._slot_blocks[i][:s // self._bs])
+        self._pos[i] = s
+        self._emit(slot, self._pick(req, last[0]))
+        return 1
+
+    def _prefill_chunked(self, prefilling):
+        """The XLA chunk loop: spend at most ``tick_token_budget`` prompt
+        tokens, round-robin over the PREFILLING slots in admission order,
+        one chunk a slot a pass.  Returns the tokens final chunks
+        emitted."""
+        budget = self._tick_budget
+        emitted = 0
+        queue = deque(prefilling)
+        while queue and budget > 0:
+            slot = queue.popleft()
+            n = min(self._chunk, len(slot.request.context) - slot.prefilled)
+            if n > budget:
+                break  # a tick's first chunk always fits (budget >= C)
+            budget -= n
+            if self._run_chunk(slot, n):
+                emitted += 1
+            else:
+                queue.append(slot)
+        return emitted
+
+    def _pick(self, req, row):
+        """The next token from one logits row ``row`` [V] (a tensor on any
+        device): the argmax for a greedy request; else the device draw of
+        ``GPTModel._sample_lanes`` with key(seed, tokens emitted), as the
+        dispatch epilogues draw (``sample_mode="device"``), or numpy's
+        draw from the filtered row on the request's own
+        ``np.random.default_rng(seed)`` stream (``"host"``)."""
+        if not req.do_sample:
+            return int(torch.argmax(row))
+        if self.sample_mode == "device":
+            return self._pick_device(req, row)
+        rng = self._rngs.get(req.id)
+        if rng is None:
+            rng = self._rngs[req.id] = np.random.default_rng(
+                req.sample_seed)
+        filt = _filter_logits_np(row.float().cpu().numpy(),
+                                 req.temperature, req.top_k, req.top_p)
+        return int(rng.choice(len(filt), p=_softmax_np(filt)))
+
+    def _pick_device(self, req, row):
+        """Device-mode pick of a prefill's first token: the same filters
+        and key derivation as the fused dispatches, run where ``row``
+        lies."""
+        dev = row.device
+        lo, hi = req.seed_words()
+        ids = gpt_mod.sample_rows(
+            row.float()[None, :],
+            torch.tensor([req.temperature], dtype=torch.float32,
+                         device=dev),
+            torch.tensor([req.top_k], dtype=torch.int32, device=dev),
+            torch.tensor([req.top_p], dtype=torch.float32, device=dev),
+            torch.tensor([lo], dtype=torch.int64, device=dev),
+            torch.tensor([hi], dtype=torch.int64, device=dev),
+            torch.tensor([len(req.generated)], dtype=torch.int32,
+                         device=dev))
+        return int(ids[0])
 
     # -- emission -----------------------------------------------------------
     def _emit(self, slot, tok):
@@ -1189,6 +1485,7 @@ class Engine:
             if n_after_first > 0:
                 self._m_tpot.observe(
                     (now - req.first_token_at) / n_after_first * 1e3)
+            self._rngs.pop(req.id, None)
             self.scheduler.evict(slot)
             self._evicted_in_tick += 1
             self._release_slot_kv(i)
@@ -1295,8 +1592,7 @@ class Engine:
         here (their tokens are known)."""
         W = self._wmax
         spec_w = self._spec_w
-        stg = (self._staging_free.pop() if self._staging_free
-               else _Staging(self.num_slots, W, spec_w, self.device))
+        stg = self._take_staging()
         toks, width = stg.toks.numpy(), stg.width.numpy()
         mode, lanes = stg.mode.numpy(), stg.lanes.numpy()
         for a in (toks, width, mode, lanes):
@@ -1371,6 +1667,7 @@ class Engine:
         st["tok"], st["pos"], st["ctr"], st["rem"] = \
             new_tok, new_pos, new_ctr, new_rem
         self._m_fused_ticks.inc()
+        self.ragged_dispatches += 1
         if self._spec_k is not None and active:
             self._m_spec_windows.inc(len(active))
         return _InflightTick(
@@ -1378,13 +1675,14 @@ class Engine:
             [(int(mode[s.index]), int(width[s.index]),
               int(lanes[s.index])) for s in slots], stg)
 
-    def _consume_ragged(self, inf, mats, tr):
-        """Emit a downloaded ragged tick, per lane mode: chunk lanes
-        (mode 1) emit nothing; a final chunk (mode 2) registers the
-        prompt's full blocks in the prefix cache and emits picks lane 0;
-        decode lanes (mode 0) run ``_emit_window_lane`` (a pure decode
-        lane is the zero-draft case of a verify window).  Drift between
-        the host's and the device's stop condition raises."""
+    def _consume_lanes(self, inf, mats, tr):
+        """Emit a downloaded tick, per lane mode: chunk lanes (mode 1,
+        ragged) emit nothing; a final chunk (mode 2, ragged) registers
+        the prompt's full blocks in the prefix cache and emits picks lane
+        0; decode lanes (mode 0: the ragged window's, or an XLA decode or
+        verify tick's) run ``_emit_window_lane`` (a pure decode lane is
+        the zero-draft case of a verify window).  Drift between the
+        host's and the device's stop condition raises."""
         picks = mats["picks"]
         n_acc = mats["n_acc"]
         n_emit_dev = mats["n_emit"]
@@ -1436,11 +1734,194 @@ class Engine:
                 emitted += n_em
             emit_sp.args.update(emitted=emitted, accepted=total_acc)
         if n_spec:
-            proposed = self._m_spec_proposed.value
-            if proposed:
-                self._m_spec_rate.set(
-                    self._m_spec_accepted.value / proposed)
-            self._m_spec_tpt.set(emitted_spec / n_spec)
+            self._note_acceptance(emitted_spec, n_spec)
+        return emitted
+
+    # -- the XLA dispatches (attn_impl="xla") -------------------------------
+    def _take_staging(self):
+        """A free staging set, or a new one."""
+        return (self._staging_free.pop() if self._staging_free
+                else _Staging(self.num_slots, self._wmax, self._spec_w,
+                              self.device))
+
+    def _layout(self):
+        return "paged" if self._paged else "contiguous"
+
+    def _pack_download(self, stg, cols):
+        """Queue the tick's one download: ``cols`` ([B] or [B, n] int
+        tensors) packed into ``stg.out`` behind a recorded event."""
+        packed = torch.cat([c.to(torch.int32).reshape(self.num_slots, -1)
+                            for c in cols], dim=1)
+        stg.out.copy_(packed, non_blocking=True)
+        if stg.event is not None:
+            stg.event.record(torch.cuda.current_stream(self.device))
+
+    def _dispatch_decode(self, active, tr):
+        """Dispatch one fused decode + sample tick without consuming it:
+        the step state stays on the device between ticks (uploaded only
+        when admission, eviction or a chunk dirtied the mirrors), the
+        sample and the stop condition run in the dispatch, and the ids
+        and done mask come home in the packed download.  Synchronizes
+        nothing."""
+        stg = self._take_staging()
+        if self._state_dirty or self._dev_state is None:
+            self._push_state()
+        st = self._dev_state
+        with torch.no_grad(), tr.span("decode.dispatch", batch=len(active),
+                                      layout=self._layout(), fused=True):
+            # in_range: a cursor stays below L (the epilogue clamps it
+            # at L - 1, admission keeps prompt + max_new_tokens <= L)
+            (ids, done, new_tok, new_pos, new_ctr, new_rem, _, _) = \
+                self.model._fused_decode_tick_slots(
+                    st["tok"], self.k_pools, self.v_pools, st["pos"],
+                    st["temp"], st["topk"], st["topp"], st["slo"],
+                    st["shi"], st["ctr"], st["eos"], st["rem"],
+                    any_sampling=bool((self._temp > 0).any()),
+                    in_range=True, block_tables=st.get("tables"))
+            # a decode lane: no draft accepted, one token emitted live
+            self._pack_download(stg, [ids, torch.zeros_like(ids),
+                                      new_ctr - st["ctr"], done])
+        st["tok"], st["pos"], st["ctr"], st["rem"] = \
+            new_tok, new_pos, new_ctr, new_rem
+        self._m_fused_ticks.inc()
+        return _InflightTick(self.ticks, list(active),
+                             [(0, 1, 0)] * len(active), stg)
+
+    def _dispatch_spec(self, active, tr):
+        """Dispatch one fused speculative verify tick without consuming
+        it: the proposer's draft window goes up through the staging set,
+        and the picks, accept counts, emit counts and done mask come home
+        in one packed download."""
+        W = self._spec_w
+        stg = self._take_staging()
+        toks, lanes = stg.toks.numpy(), stg.lanes.numpy()
+        lanes.fill(0)
+        with tr.span("spec.draft", batch=len(active), spec_k=W - 1):
+            toks[:, :W] = self._draft_window(active)
+        for slot in active:
+            lanes[slot.index] = slot.spec_lanes
+        if self._state_dirty or self._dev_state is None:
+            self._push_state()
+        st = self._dev_state
+        dev = self.device
+
+        def up(t):
+            return t.to(dev, non_blocking=True, copy=True)
+
+        with torch.no_grad(), tr.span("decode.dispatch", batch=len(active),
+                                      layout=self._layout(), spec_w=W,
+                                      fused=True):
+            # in_range: the epilogue clamps a cursor at L - W, admission
+            # keeps prompt + max_new_tokens + spec_k <= L
+            (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
+             new_rem, _, _) = self.model._fused_spec_verify_tick_slots(
+                up(stg.toks), self.k_pools, self.v_pools, st["pos"],
+                up(stg.lanes), st["temp"], st["topk"], st["topp"],
+                st["slo"], st["shi"], st["ctr"], st["eos"], st["rem"],
+                any_sampling=bool((self._temp > 0).any()), in_range=True,
+                block_tables=st.get("tables"))
+            self._pack_download(stg, [picks, n_acc, n_emit, done])
+        st["tok"], st["pos"], st["ctr"], st["rem"] = \
+            new_tok, new_pos, new_ctr, new_rem
+        self._m_fused_ticks.inc()
+        self._m_spec_windows.inc(len(active))
+        return _InflightTick(
+            self.ticks, list(active),
+            [(0, W, int(lanes[s.index])) for s in active], stg)
+
+    def _note_acceptance(self, emitted, n_slots):
+        """The acceptance gauges after a verify tick: the lifetime rate,
+        and tokens emitted a verifying slot."""
+        proposed = self._m_spec_proposed.value
+        if proposed:
+            self._m_spec_rate.set(self._m_spec_accepted.value / proposed)
+        if n_slots:
+            self._m_spec_tpt.set(emitted / n_slots)
+
+    def _host_window(self, active, toks, tr):
+        """Host mode's dispatch: the XLA window over this tick's
+        uploaded cursors (a [B, 1] decode or a [B, k+1] verify window),
+        its logits downloaded whole.  Returns the logits as a CPU tensor
+        [B, V] or [B, W, V]."""
+        m = self.model
+        args = (self._upload(toks), self.k_pools, self.v_pools)
+        pos = self._upload(self._pos)
+        W = toks.shape[1]
+        with torch.no_grad(), tr.span("decode.dispatch", batch=len(active),
+                                      layout=self._layout(),
+                                      **({"spec_w": W} if self._spec_k
+                                         else {})):
+            if self._paged:
+                tick = (m._spec_verify_tick_slots_paged if self._spec_k
+                        else m._decode_tick_slots_paged)
+                last = tick(*args, self._upload(self._block_tables),
+                            pos)[0]
+            else:
+                tick = (m._spec_verify_tick_slots if self._spec_k
+                        else m._decode_tick_slots)
+                last = tick(*args, pos, in_range=True)[0]
+        with tr.span("decode.d2h") as d2h_sp:
+            rows = last.float().cpu()
+            d2h_sp.args["bytes"] = rows.numel() * 4
+        self._m_d2h.set(rows.numel() * 4)
+        return rows
+
+    def _decode_tick(self, active, tr):
+        """One host-mode tick (``sample_mode="host"``, depth 1): the
+        decode or verify window, its logits home, and every live slot's
+        picks drawn on the host (``_pick``) and emitted."""
+        if self._spec_k is not None:
+            return self._spec_decode_tick(active, tr)
+        rows = self._host_window(active, self._cur_tok, tr)
+        t0 = time.monotonic()
+        emitted = 0
+        with tr.span("decode.sample", batch=len(active),
+                     layout=self._layout()) as sample_sp:
+            for slot in active:
+                slot.pos += 1
+                self._pos[slot.index] = slot.pos
+                self._emit(slot, self._pick(slot.request, rows[slot.index]))
+                emitted += 1
+            sample_sp.args["emitted"] = emitted
+        self._m_sample_ms.observe((time.monotonic() - t0) * 1e3)
+        return emitted
+
+    def _spec_decode_tick(self, active, tr):
+        """Host-mode speculative tick: draft, verify the k+1 window, then
+        per slot pick lane j on the host and emit it while it matches the
+        draft (plus the bonus token) — one host draw per emitted token,
+        as the one-token tick draws."""
+        with tr.span("spec.draft", batch=len(active), spec_k=self._spec_k):
+            toks = self._draft_window(active)
+        rows = self._host_window(active, toks, tr)
+        self._m_spec_windows.inc(len(active))
+        t0 = time.monotonic()
+        emitted = total_acc = 0
+        with tr.span("decode.sample", batch=len(active),
+                     layout=self._layout()) as sample_sp:
+            for slot in active:
+                i = slot.index
+                req = slot.request
+                self._m_spec_proposed.inc(slot.spec_lanes)
+                n_acc = j = 0
+                while True:
+                    tok = self._pick(req, rows[i, j])
+                    matched = j < slot.spec_lanes \
+                        and int(toks[i, j + 1]) == tok
+                    n_acc += matched
+                    slot.pos += 1
+                    self._pos[i] = slot.pos
+                    self._emit(slot, tok)
+                    emitted += 1
+                    if slot.request is None or not matched:
+                        break
+                    j += 1
+                slot.spec_lanes = 0
+                self._m_spec_accepted.inc(n_acc)
+                total_acc += n_acc
+            sample_sp.args.update(emitted=emitted, accepted=total_acc)
+        self._m_sample_ms.observe((time.monotonic() - t0) * 1e3)
+        self._note_acceptance(emitted, len(active))
         return emitted
 
     def _d2h_wait(self, stg):
@@ -1472,7 +1953,7 @@ class Engine:
         t1 = time.monotonic()
         with (tr.span("host.overlap", tick=inf.tick) if in_flight
               else nullcontext()):
-            emitted = self._consume_ragged(inf, mats, tr)
+            emitted = self._consume_lanes(inf, mats, tr)
         if in_flight:
             self._overlap_acc += time.monotonic() - t1
         self._staging_free.append(stg)
@@ -1507,6 +1988,7 @@ class Engine:
                 req = self.scheduler.evict(slot, RuntimeError(
                     f"engine step failed: {e!r}"))
                 if req is not None:
+                    self._rngs.pop(req.id, None)
                     self._m_done.inc()
                     self.tracer.instant("req.evicted", cat="request",
                                         req=req.id, reason="step_failure")
@@ -1534,11 +2016,12 @@ class Engine:
 
     def _admit(self, tr, in_flight=False):
         """The admission phase of both tick shapes: queue deadlines and
-        admission through the paged gate (in a ``host.overlap`` span when
-        a tick is in flight), then the preemption round (outside it: it
-        may have to drain the ring) and the chunked binding of every
-        admitted slot.  Returns the tokens a preemption's drain
-        emitted."""
+        admission (through the paged gate on block pools; in a
+        ``host.overlap`` span when a tick is in flight), then the
+        preemption round (outside it: it may have to drain the ring),
+        then each admitted slot's prefill — whole at admission
+        (``prefill``, emitting its first token) or bound PREFILLING for
+        chunks — and the XLA chunk loop.  Returns the tokens emitted."""
         now = time.monotonic()
         self._gate_declined = False
         with (tr.span("host.overlap", phase="plan") if in_flight
@@ -1547,8 +2030,8 @@ class Engine:
                 timed_out = self.queue.expire(now)
                 admitted = []
                 if not self._draining:
-                    admitted, t2 = self.scheduler.admit(
-                        now, gate=self._kv_gate)
+                    admitted, t2 = self.scheduler.admit(now,
+                                                        gate=self._gate)
                     timed_out = timed_out + t2
                 admit_sp.args.update(admitted=len(admitted),
                                      timed_out=len(timed_out))
@@ -1557,28 +2040,56 @@ class Engine:
         p_admitted, p_timed, emitted = self._preempt_round(now, tr)
         for slot in self._post_admit(admitted + p_admitted,
                                      timed_out + p_timed, tr):
-            self._begin_chunked(slot)
+            if self._chunk is not None:
+                self._begin_chunked(slot)
+                continue
+            req = slot.request  # read first: an eos first token evicts
+            with tr.span("prefill", req=req.id, prompt=int(len(req.prompt))):
+                self._prefill(slot)
+            emitted += 1
+        if self._chunk is not None and not self._ragged:
+            # XLA chunks are dispatches of their own, each dirtying the
+            # step state (ragged chunks ride as lanes of the tick's
+            # window instead)
+            prefilling = self.scheduler.snapshot()[2]
+            if prefilling:
+                emitted += self._prefill_chunked(prefilling)
         return emitted
 
     def _finish_tick(self, tick_sp, active, occ, emitted):
         self._m_queue.set(self.queue.depth())
         self._m_occ.set(occ)
-        self._m_kv_blocks.set(self.block_pool.in_use())
         tick_sp.args.update(batch=len(active), emitted=emitted,
-                            occupancy=occ, queue=self.queue.depth(),
-                            kv_blocks_in_use=self.block_pool.in_use())
+                            occupancy=occ, queue=self.queue.depth())
+        if self._paged:
+            self._m_kv_blocks.set(self.block_pool.in_use())
+            tick_sp.args["kv_blocks_in_use"] = self.block_pool.in_use()
+
+    def _dispatch(self, active, plan, tr):
+        """Dispatch this tick without consuming it: the ragged window, or
+        the XLA fused verify or decode tick."""
+        if self._ragged:
+            return self._dispatch_ragged(active, plan, tr)
+        if self._spec_k is not None:
+            return self._dispatch_spec(active, tr)
+        return self._dispatch_decode(active, tr)
 
     def _tick(self, tr, tick_sp):
-        """One synchronous tick (``async_depth=1``): admit -> one ragged
-        dispatch -> consume it."""
+        """One synchronous tick (``async_depth=1``): admit and prefill ->
+        one dispatch -> consume it (host mode: the window, its logits
+        home, host picks)."""
         emitted = self._admit(tr)
         occ, active, prefilling = self.scheduler.snapshot()
-        plan = self._plan_ragged_chunks(prefilling)
+        plan = (self._plan_ragged_chunks(prefilling)
+                if self._ragged and self._chunk is not None else [])
         if active or plan:
             self._note_dispatch_gap(len(active))
             n_before = self._evicted_in_tick
-            inf = self._dispatch_ragged(active, plan, tr)
-            emitted += self._consume(inf, tr)
+            if self.sample_mode == "host":
+                emitted += self._decode_tick(active, tr)
+            else:
+                emitted += self._consume(self._dispatch(active, plan, tr),
+                                         tr)
             occ -= self._evicted_in_tick - n_before
             self._last_decode_end = time.monotonic()
         else:
@@ -1590,9 +2101,9 @@ class Engine:
     def _tick_async(self, tr, tick_sp):
         """One PIPELINED tick (``async_depth`` > 1): admit and plan while
         the previous tick computes, dispatch tick N+1, then consume tick
-        N.  Admission, eviction and preemption dirty the host mirrors;
-        the ring drains before they are uploaded, so greedy streams
-        equal the synchronous tick's."""
+        N.  Admission, eviction, preemption and XLA chunks dirty the host
+        mirrors; the ring drains before they are uploaded, so greedy
+        streams equal the synchronous tick's."""
         self._overlap_acc = 0.0
         emitted = self._admit(tr, in_flight=bool(self._ring))
         # spec barrier: a draft reads the tokens the previous window
@@ -1604,19 +2115,21 @@ class Engine:
         if self._ring and (self._state_dirty or self._dev_state is None):
             emitted += self._drain_ring(tr)
         occ, active, prefilling = self.scheduler.snapshot()
-        if active and self._ring and not prefilling and all(
-                self._rem[s.index] <= len(self._ring) for s in active):
+        if active and self._ring and not (self._ragged and prefilling) \
+                and all(self._rem[s.index] <= len(self._ring)
+                        for s in active):
             # bursty-tail cutoff: every active slot exhausts its budget
             # within the ticks already in flight, so one more dispatch
-            # would compute only frozen lanes.  Pending chunk lanes veto
-            # it: their dispatch still does real work
+            # would compute only frozen lanes.  Pending ragged chunk
+            # lanes veto it: their dispatch still does real work
             emitted += self._drain_ring(tr)
             occ, active, prefilling = self.scheduler.snapshot()
         n_before = self._evicted_in_tick
-        plan = self._plan_ragged_chunks(prefilling)
+        plan = (self._plan_ragged_chunks(prefilling)
+                if self._ragged and self._chunk is not None else [])
         if active or plan:
             self._note_dispatch_gap(len(active))
-            self._ring.append(self._dispatch_ragged(active, plan, tr))
+            self._ring.append(self._dispatch(active, plan, tr))
             self._last_decode_end = time.monotonic()
         else:
             self._m_decode_batch.set(0)

@@ -309,11 +309,12 @@ def _draft_model_knob(model):
 
 
 @pytest.mark.parametrize("knob", [
-    # the mesh is ported; weight-only int8 over a dense dp mesh is not
+    # the mesh is ported; weight-only int8 over a dense dp mesh is not,
+    # nor the XLA paths over a mesh
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), weight_dtype="int8"),
+    dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), attn_impl="xla"),
     dict(weight_dtype="int8", adapters={}), dict(adapters={}),
-    dict(kv_host_mb=64), dict(attn_impl="xla"),
-    dict(kv_dtype="int8", kv_host_mb=64), dict(prefill_chunk=None),
+    dict(kv_host_mb=64), dict(kv_dtype="int8", kv_host_mb=64),
     # built inside the check: the proposer raises when it is made
     _draft_model_knob])
 def test_unported_knobs_raise(models, knob):
