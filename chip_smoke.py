@@ -190,8 +190,34 @@ line:
    prefill runs B5a once a layer (24 launches a prefill, checked); each
    first token is the dense forward's argmax (near ties under a 5e-2
    margin counted, bf16); prints the prefills' wall times.
-17. Prints the ``kernels`` JSON line (B1's launches count phase 4's and
-   phase 16 (c)'s, B5a's phase 6's and phase 16 (f)'s), the card line and
+17. Generation, draft models, adapters, the host tier and streaming on
+   phase 4's fp32 model: (a) ``GPTModel.generate`` of two
+   256-token prompts, 64 new tokens, in the four modes (eager,
+   ``compiled=True``, ``"fused"``, ``"speculative"``): every greedy token
+   the dense argmax (phase 4's near-tie rule), every mode's rows equal the
+   eager ones except at a dense near tie, a seeded fused run repeating;
+   wall time, tokens/s and ``last_spec_forwards`` printed.  (b) phase 4's
+   traffic at ``spec_k=3`` drafted by ``DraftModelProposer`` over an fp32
+   copy of the target (every greedy draft lane the served stream's token,
+   dense near ties excepted; streams equal phase 4's, near ties and
+   near-edge seeded draws excepted), then by the copy at
+   ``weight_dtype="int8"`` on the first 6 requests.  (c) LoRA: adapters
+   "a" (rank 8) and "b" (rank 16), ``max_adapters=4``, the 12 requests
+   spread over base, "a" and "b": adapter streams teacher-forced against
+   ``merge_into`` copies, base streams equal phase 4's; mid-serve a third
+   adapter loads and serves a 13th request, and unloading a pinned
+   adapter is refused; the same traffic at ``attn_impl="xla"`` equal to
+   the ragged run; a ``profile_phase`` window.  (d) the host-RAM tier, a
+   96-block pool and ``kv_host_mb=2048``, fp32 and int8 KV: three waves
+   (cache four prompts, evict them with four others, serve the first four
+   again); demotes, promotes and restored tokens > 0, the restored
+   streams equal a ``prefix_cache=False`` engine's except at its own near
+   ties (1e-4 fp32, 1e-3 int8).  (e) a ``TokenStream`` yields exactly the
+   buffered tokens.  B1 (B2 in (d) int8) launched 24 times a dispatch in
+   every ragged serve, none in (c)'s XLA serve; no flash kernel.
+18. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+   phase 16 (c)'s and phase 17's serves, B2's phase 10's and phase 17
+   (d)'s, B5a's phase 6's and phase 16 (f)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -207,6 +233,7 @@ Needs the repository around it: alone in a directory it exits non-zero.
 """
 from __future__ import annotations
 
+import gc
 import importlib.util
 import json
 import os
@@ -1381,7 +1408,9 @@ def sync_free_phase(card, model, reqs, fp_outs, label="", **engine_kw):
     out of the check.  At least 20 such ticks, one with a sampling lane
     and (on a path with chunk lanes) one with a final-chunk lane among
     them; the streams equal ``fp_outs``.  ``engine_kw`` picks the path
-    (phase 16 runs it over the XLA contiguous path)."""
+    (phase 16 runs it over the XLA contiguous path).  A draft-model
+    proposer reads its drafts back to the host every tick, so this check
+    does not apply to a draft-model serve (phase 17 (b))."""
     import torch
     from paddle_tpu_torch.serving import Engine
     eng, handles = submit_all(model, reqs, Engine, **engine_kw)
@@ -1795,6 +1824,378 @@ def bucket_phase(card, ragged_mod, fa):
     del eng, model
     torch.cuda.empty_cache()
     return counts["fwd"]
+
+
+# -- phase 17 -------------------------------------------------------------
+GEN_B, GEN_PROMPT, GEN_NEW = 2, 256, 64
+GEN_MODES = (False, True, "fused", "speculative")
+GEN_SEEDED = dict(top_k=50, temperature=0.9, seed=5)
+LORA_NAMES = (None, "a", "b")      # request i serves LORA_NAMES[i % 3]
+OFFLOAD_WAVES = ((257, 321, 193, 385), (300, 280, 350, 240))
+OFFLOAD_KW = dict(num_slots=4, kv_blocks=96, kv_host_mb=2048)
+
+
+def generate_phase(card, model):
+    """Phase 17 (a): ``GPTModel.generate`` of two 256-token prompts (numpy
+    seed 4321), 64 new tokens, in the four modes.  Every greedy token is
+    the dense forward's argmax (phase 4's near-tie rule); each mode's rows
+    equal the eager rows except from a first divergence at a dense near
+    tie; a seeded ``"fused"`` run repeats.  Prints each mode's wall time,
+    tokens/s and ``last_spec_forwards``."""
+    import numpy as np
+    import torch
+    V = model.embeddings.word_embeddings.weight.shape[0]
+    ids = np.random.RandomState(4321).randint(0, V, (GEN_B, GEN_PROMPT))
+    reqs = [(ids[b].astype(np.int32), {}) for b in range(GEN_B)]
+    outs = {}
+    for mode in GEN_MODES:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_NEW, compiled=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs[mode] = out.cpu().numpy()
+        check(outs[mode].shape == (GEN_B, GEN_PROMPT + GEN_NEW),
+              f"generate({mode!r}): shape {outs[mode].shape}")
+        checked, near = teacher_forcing(model, reqs, list(outs[mode]))
+        ties = [greedy_equal_or_near_tie(
+                    model, p, outs[mode][b, GEN_PROMPT:],
+                    outs[False][b, GEN_PROMPT:], f"generate({mode!r})")
+                for b, (p, _) in enumerate(reqs)]
+        fwd = (f" last_spec_forwards {model.last_spec_forwards}"
+               if mode == "speculative" else "")
+        print(f"phase 17 (a) generate compiled={mode!r}: B {GEN_B} prompt "
+              f"{GEN_PROMPT} new {GEN_NEW} wall_s {wall:.3f} tokens_per_s "
+              f"{GEN_B * GEN_NEW / wall:.2f} greedy_checked {checked} "
+              f"near_ties {near} rows_equal_to_eager "
+              f"{sum(t is None for t in ties)}/{GEN_B}{fwd} [{card}]",
+              flush=True)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(model.generate(ids, max_new_tokens=GEN_NEW,
+                                   compiled="fused", **GEN_SEEDED).cpu())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(torch.equal(runs[0], runs[1]),
+          "generate(compiled='fused') seeded run did not repeat")
+    print(f"phase 17 (a) generate fused seeded {GEN_SEEDED}: repeats; "
+          f"wall_s {wall:.3f} tokens_per_s {GEN_B * GEN_NEW / wall:.2f}",
+          flush=True)
+
+
+def copy_of(model, adapter=None):
+    """A second gpt2-medium with ``model``'s weights (``adapter`` merged
+    into its out_proj weights when given)."""
+    from paddle_tpu_torch.models import GPTModel
+    m = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    m.load_state_dict(model.state_dict())
+    if adapter is not None:
+        adapter.merge_into(m)
+    return m.eval()
+
+
+def check_against(model, reqs, outs, refs, label):
+    """Streams against reference streams of the same requests: greedy
+    ones equal except from a first divergence at a dense near tie,
+    seeded ones except at a draw shown to sit on a cumulative edge
+    (``seeded_near_tie``).  ``model`` is one model or one per request.
+    Returns (greedy equal, greedy total, seeded equal, seeded total)."""
+    g_eq = g_n = s_eq = s_n = 0
+    for i, ((p, kw), a, b) in enumerate(zip(reqs, outs, refs)):
+        m = model[i] if isinstance(model, (list, tuple)) else model
+        ga, gb = a[len(p):].tolist(), b[len(p):].tolist()
+        kw = {k: v for k, v in kw.items() if k != "adapter"}
+        if kw:
+            s_n += 1
+            s_eq += seeded_near_tie(m, p, kw, ga, gb, label) is None
+        else:
+            g_n += 1
+            g_eq += greedy_equal_or_near_tie(m, p, ga, gb, label) is None
+    return g_eq, g_n, s_eq, s_n
+
+
+class RecordingProposer:
+    """Wraps a proposer and logs every (history, draft)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.vocab_size = inner.vocab_size
+        self.log = []
+
+    def propose(self, history, k):
+        import numpy as np
+        d = np.asarray(self.inner.propose(history, k))
+        self.log.append((np.asarray(history).copy(), d.copy()))
+        return d
+
+
+def draft_agreement(model, reqs, outs, log):
+    """Greedy requests' draft lanes against their served streams: a draft
+    token must be the stream's token at its position, or sit at a dense
+    near tie (margin < 1e-4; the rest of that draft, conditioned on
+    another prefix, is not counted).  Returns (lanes, equal, near
+    ties)."""
+    import numpy as np
+    import torch
+    lanes = equal = ties = 0
+    greedy = [(p, ids) for (p, kw), ids in zip(reqs, outs) if not kw]
+    for history, d in log:
+        ids = next((ids for p, ids in greedy
+                    if np.array_equal(history[:len(p)], p)), None)
+        if ids is None:
+            continue
+        pos = len(history)
+        for j, tok in enumerate(d.tolist()):
+            lanes += 1
+            if int(ids[pos + j]) == tok:
+                equal += 1
+                continue
+            with torch.no_grad():
+                row = model(torch.tensor([ids[:pos + j].tolist()],
+                                         device="cuda"))[0, -1].float()
+            top2 = row.topk(2).values
+            gap = float(top2[0] - top2[1])
+            check(gap < 1e-4, f"draft token {tok} at position {pos + j} is "
+                  f"not the stream's {int(ids[pos + j])} and the dense "
+                  f"top-2 margin is {gap:.3e}, not a near tie")
+            ties += 1
+            break
+    return lanes, equal, ties
+
+
+def spec_line(eng):
+    reg = eng.registry
+    return (f" spec_windows {reg.get('serving.spec_windows').value:.0f}"
+            f" spec_proposed {reg.get('serving.spec_proposed').value:.0f}"
+            f" spec_accepted {reg.get('serving.spec_accepted').value:.0f}"
+            f" spec_acceptance_rate "
+            f"{reg.get('serving.spec_acceptance_rate').value:.4f}")
+
+
+def draft_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 17 (b): ``Engine(spec_k=3)`` drafting with
+    ``DraftModelProposer`` over an fp32 copy of the target, phase 4's
+    traffic: every greedy draft lane equals the served stream (dense near
+    ties excepted: acceptance 1.0 on greedy lanes), streams equal phase
+    4's (near ties excepted), B1 launched 24 times a dispatch.  Then the
+    copy at ``weight_dtype="int8"`` on the first 6 requests: streams
+    equal phase 4's, acceptance printed.  Drafting reads each draft back
+    to the host, so phase 15's sync-free check does not apply to these
+    serves.  Returns B1's launches."""
+    from paddle_tpu_torch.serving import DraftModelProposer, Engine
+    rec = RecordingProposer(DraftModelProposer(copy_of(model)))
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(model, reqs, Engine, spec_k=SPEC_K, proposer=rec)
+    launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                              "draft-model serve")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, "draft serve: a stream is short")
+    lanes, equal, ties = draft_agreement(model, reqs, outs, rec.log)
+    check(lanes > 0, "draft serve: no greedy draft lane")
+    g_eq, g_n, s_eq, s_n = check_against(model, reqs, outs, fp_outs,
+                                         "draft serve")
+    slice_line(
+        f"gpt2-medium fp32 phase 17 (b) spec_k={SPEC_K} draft model fp32",
+        eng, wall, launches, card,
+        spec_line(eng) + f" greedy_draft_lanes {lanes} equal {equal} "
+        f"near_ties {ties} greedy_lane_acceptance {equal / lanes:.4f} "
+        f"greedy_equal_to_phase4 {g_eq}/{g_n} seeded_equal_to_phase4 "
+        f"{s_eq}/{s_n}")
+    del rec, eng
+    head = reqs[:6]
+    zero_ragged_counts(ragged_mod)
+    eng, outs8, wall = serve(
+        model, head, Engine, spec_k=SPEC_K,
+        proposer=DraftModelProposer(copy_of(model), weight_dtype="int8"))
+    n8 = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                        "int8 draft-model serve")
+    g_eq, g_n, s_eq, s_n = check_against(model, head, outs8, fp_outs[:6],
+                                         "int8 draft serve")
+    slice_line(
+        f"gpt2-medium fp32 phase 17 (b) spec_k={SPEC_K} draft model "
+        "weight-only int8, first 6 requests", eng, wall, n8, card,
+        spec_line(eng) + f" greedy_equal_to_phase4 {g_eq}/{g_n} "
+        f"seeded_equal_to_phase4 {s_eq}/{s_n}")
+    return launches + n8
+
+
+def lora_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 17 (c): ``Engine(adapters={"a": rank 8, "b": rank 16},
+    max_adapters=4)``, phase 4's traffic spread over base, "a" and "b"
+    (``LORA_NAMES``).  Adapter streams teacher-forced against the dense
+    forward of a ``merge_into`` copy, base streams equal phase 4's (near
+    ties excepted); mid-serve a third adapter is loaded and serves one
+    more request (teacher-forced against its merged copy), and unloading
+    "a" while its requests pin it is refused; B1 launched 24 times a
+    dispatch.  The same 12 requests at ``attn_impl="xla"``: streams equal
+    the ragged run's.  A ``profile_phase`` window (kernels a tick).
+    Returns B1's launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import AdapterInUse, Engine, LoRAAdapter
+    E, n_layers = model.blocks[0].attn.hidden_size, len(model.blocks)
+    adapters = {"a": LoRAAdapter.random(8, E, n_layers, seed=1),
+                "b": LoRAAdapter.random(16, E, n_layers, seed=2)}
+    third = LoRAAdapter.random(4, E, n_layers, seed=3)
+    lreqs = [(p, dict(kw, adapter=LORA_NAMES[i % 3]) if LORA_NAMES[i % 3]
+              else kw) for i, (p, kw) in enumerate(reqs)]
+    merged = {n: copy_of(model, ad) for n, ad in adapters.items()}
+    merged["c"] = copy_of(model, third)
+    per_req = [merged[kw["adapter"]] if "adapter" in kw else model
+               for _, kw in lreqs]
+    zero_ragged_counts(ragged_mod)
+    eng, handles = submit_all(model, lreqs, Engine, adapters=adapters,
+                              max_adapters=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        eng.step()
+    check(eng.adapters.pins("a") > 0, "lora serve: adapter a not pinned")
+    eng.load_adapter("c", third)
+    try:
+        eng.unload_adapter("a")
+        refused = False
+    except AdapterInUse:
+        refused = True
+    check(refused, "lora serve: unloading a pinned adapter was not refused")
+    V = model.embeddings.word_embeddings.weight.shape[0]
+    extra = np.random.RandomState(77).randint(0, V, 120).astype(np.int32)
+    handles.append(eng.submit(extra, max_new_tokens=32, adapter="c"))
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = [h.result(timeout=1) for h in handles]
+    launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                              "lora serve")
+    checked = near = 0
+    for (p, kw), ids, m in zip(lreqs + [(extra, {"adapter": "c"})], outs,
+                               per_req + [merged["c"]]):
+        check(len(ids) == len(p) + 32, "lora serve: a stream is short")
+        if set(kw) <= {"adapter"}:
+            c, n = teacher_forcing(m, [(p, {})], [ids])
+            checked += c
+            near += n
+    base = [i for i, (_, kw) in enumerate(lreqs) if "adapter" not in kw]
+    g_eq, g_n, s_eq, s_n = check_against(
+        model, [reqs[i] for i in base], [outs[i] for i in base],
+        [fp_outs[i] for i in base], "lora serve base lanes")
+    differs = sum(outs[i].tolist() != fp_outs[i].tolist()
+                  for i, (_, kw) in enumerate(lreqs) if "adapter" in kw)
+    slice_line(
+        "gpt2-medium fp32 phase 17 (c) lora a:r8 b:r16 (+ c:r4 loaded "
+        "mid-serve)", eng, wall, launches, card,
+        f" greedy_checked {checked} near_ties {near} "
+        f"base_greedy_equal_to_phase4 {g_eq}/{g_n} "
+        f"base_seeded_equal_to_phase4 {s_eq}/{s_n} "
+        f"adapter_streams_differing_from_base {differs}/{12 - len(base)} "
+        f"unload_while_pinned refused")
+    zero_ragged_counts(ragged_mod)
+    xeng, xouts, xwall = serve(model, lreqs, Engine, adapters=adapters,
+                               max_adapters=4, **XLA_DEFAULT)
+    check(not any(ragged_counts(ragged_mod).values()),
+          "lora xla serve launched a ragged kernel")
+    g_eq, g_n, s_eq, s_n = check_against(per_req, lreqs, xouts, outs[:12],
+                                         "lora xla serve")
+    slice_line("gpt2-medium fp32 phase 17 (c) lora at attn_impl=xla", xeng,
+               xwall, 0, card,
+               f" greedy_equal_to_ragged {g_eq}/{g_n} seeded_equal_to_ragged "
+               f"{s_eq}/{s_n}")
+    del merged, per_req, xeng, eng
+    profile_phase(model, lreqs, Engine, card, label=" lora",
+                  adapters=adapters, max_adapters=4)
+    return launches
+
+
+def offload_serve(card, ragged_mod, model, label, kernel, **kw):
+    """Phase 17 (d), one pool form: a 96-block pool, a 2048 MiB host tier,
+    three waves (``OFFLOAD_WAVES``: the first wave's prompts cached, the
+    second's evicting them, the first wave again restored from host RAM).
+    Restored streams equal a ``prefix_cache=False`` engine's except where
+    its own top-2 margin is under ``margin`` (fp32 1e-4, int8 1e-3: phase
+    10's rule); demotes, promotes and restored tokens all > 0; the path's
+    kernel launched 24 times a dispatch.  Returns its launches."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import Engine
+    V = model.embeddings.word_embeddings.weight.shape[0]
+    rng = np.random.RandomState(2024)
+    waves = [[(rng.randint(0, V, n).astype(np.int32), {}) for n in lens]
+             for lens in OFFLOAD_WAVES]
+    waves.append(waves[0])
+    zero_ragged_counts(ragged_mod)
+    eng = Engine(model, max_seq_len=1024, kv_block_size=16, prefill_chunk=64,
+                 **OFFLOAD_KW, **kw)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for wave in waves:
+        handles = [eng.submit(p, max_new_tokens=32) for p, _ in wave]
+        eng.run_until_idle()
+        outs.append([h.result(timeout=1) for h in handles])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches(ragged_mod, eng, kernel, f"offload {label}")
+    reg = eng.registry
+    demotes = reg.get("serving.offload_demotes").value
+    promotes = reg.get("serving.offload_promotes").value
+    hit = reg.get("serving.offload_hit_tokens").value
+    check(demotes > 0 and promotes > 0 and hit > 0,
+          f"offload {label}: demotes {demotes} promotes {promotes} "
+          f"hit tokens {hit}")
+    margin = 1e-3 if "kv_dtype" in kw else 1e-4
+    _, ref, _, margins = serve_recording_margins(
+        model, waves[0], prefix_cache=False, num_slots=4, **kw)
+    near, gaps = stream_divergences(model, waves[0], outs[2], ref, margins,
+                                    margin)
+    exact = sum(a.tolist() == b.tolist() for a, b in zip(outs[2], ref))
+    same_as_first = sum(a.tolist() == b.tolist()
+                        for a, b in zip(outs[2], outs[0]))
+    slice_line(
+        f"gpt2-medium fp32 phase 17 (d) offload {label}", eng, wall,
+        launches, card,
+        f" offload_demotes {demotes:.0f} offload_promotes {promotes:.0f} "
+        f"offload_hit_tokens {hit:.0f} kv_host_blocks "
+        f"{reg.get('serving.kv_host_blocks').value:.0f} kv_host_bytes "
+        f"{reg.get('serving.kv_host_bytes').value:.0f} "
+        f"restored_equal_to_no_cache {exact}/4 (near-tie divergences "
+        f"{near} at margins {gaps}) restored_equal_to_first_wave "
+        f"{same_as_first}/4")
+    return launches
+
+
+def stream_phase(card, model, reqs, fp_outs):
+    """Phase 17 (e): a ``TokenStream`` attached to phase 4's first request
+    yields exactly its buffered tokens, which equal phase 4's."""
+    from paddle_tpu_torch.serving import Engine, TokenStream
+    eng, handles = submit_all(model, reqs[:1], Engine)
+    stream = TokenStream(handles[0])
+    eng.run_until_idle()
+    got = stream.drain(timeout=10)
+    want = [int(t) for t in handles[0].generated]
+    check(got == want, "the streamed tokens differ from the buffered ones")
+    p = reqs[0][0]
+    g_eq, _, _, _ = check_against(model, reqs[:1], [handles[0].result(1)],
+                                  fp_outs[:1], "stream")
+    print(f"phase 17 (e) stream: {len(got)} tokens streamed, equal to the "
+          f"buffered result; prompt {len(p)} tokens, greedy_equal_to_phase4 "
+          f"{g_eq}/1", flush=True)
+
+
+def serving_features_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 17: generate, the draft-model spec serve, LoRA, offload and
+    streaming on phase 4's fp32 model.  Returns (B1 launches, B2
+    launches) of its main-path serves."""
+    generate_phase(card, model)
+    b1 = draft_phase(card, ragged_mod, model, reqs, fp_outs)
+    b1 += lora_phase(card, ragged_mod, model, reqs, fp_outs)
+    b1 += offload_serve(card, ragged_mod, model, "fp32",
+                        "ragged_paged_attention")
+    b2 = offload_serve(card, ragged_mod, model, "int8 KV",
+                       "ragged_paged_attention_int8", kv_dtype="int8")
+    stream_phase(card, model, reqs, fp_outs)
+    return b1, b2
 
 
 # -- phase 5 --------------------------------------------------------------
@@ -2243,10 +2644,21 @@ def main(argv):
     check(sum(flash_counts(fa).values()) == 0,
           "the serving path launched a flash kernel")
     launches += xla_phase(card, ragged_mod, fa, model_fp, reqs, fp_outs)
+    lap("16 (a)-(e) (the XLA and monolithic paths)")
+    b1, b2 = serving_features_phase(card, ragged_mod, model_fp, reqs, fp_outs)
+    launches += b1
+    int8_launches += b2
+    lap("17 (generate, draft model, LoRA, offload, streaming)")
+    check(sum(flash_counts(fa).values()) == 0,
+          "phase 17 launched a flash kernel")
     del model_fp, model_q
+    # a host-tier engine is a reference cycle (its prefix cache's evict
+    # hook is a bound method of it): collect phase 17's before the
+    # training phase measures its peak memory
+    gc.collect()
     torch.cuda.empty_cache()
     bucket_fwd = bucket_phase(card, ragged_mod, fa)
-    lap("16 (the XLA and monolithic paths)")
+    lap("16 (f) (bucketed prefill)")
     zero_ragged_counts(ragged_mod)
     flash_launches = train_phase(card, fa)
     flash_launches["fwd"] += bucket_fwd

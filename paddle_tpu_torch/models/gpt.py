@@ -33,10 +33,20 @@ int64 tensor ops (``_slot_sample_keys``), and its draw is the inverse
 CDF of the filtered distribution at a uniform number taken from the key
 (``_sample_lanes``).  The keys do not reproduce jax's draws, only the
 same stream for the same seed.
+
+Per-slot LoRA adapters (``serving/lora.py``) enter through
+``_lora_scope``: inside it every ``GPTAttention._out`` adds each batch
+row's own adapter delta, so every window above serves adapter lanes
+unchanged; outside it ``_out`` is the plain projection.
+``GPTModel.generate`` decodes a batch of prompts on its own (eager, one
+fixed-buffer step a token, the whole decode with no host read, or
+prompt-lookup speculative).
 """
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 from torch import nn
@@ -92,6 +102,33 @@ def _mix64(x):
     x = (x ^ _shr(x, 30)) * m1
     x = (x ^ _shr(x, 27)) * m2
     return x ^ _shr(x, 31)
+
+
+# The per-slot LoRA context of ``_lora_scope``.  Thread-local, as in the
+# JAX package: sibling engines over one model may run on other threads,
+# and one engine's adapter lanes must not reach another's windows.
+_LORA_TLS = threading.local()
+
+
+@contextmanager
+def _lora_scope(lora):
+    """Activate per-slot LoRA deltas for every ``GPTAttention._out`` run
+    on this thread: ``lora`` is ``(adapter_id [B], a_bank [n_lanes,
+    n_layers, r, E], b_bank [n_lanes, n_layers, E, r])``, each batch row
+    gathering its lane once here (lane 0, all zeros, is the base model);
+    empty or None is the base model with no extra kernel at all."""
+    if not lora:
+        yield
+        return
+    aid, a_bank, b_bank = lora
+    aid = aid.long()
+    prev = getattr(_LORA_TLS, "ctx", None)
+    _LORA_TLS.ctx = (a_bank.index_select(0, aid),
+                     b_bank.index_select(0, aid))
+    try:
+        yield
+    finally:
+        _LORA_TLS.ctx = prev
 
 
 def window_write_rows(block_tables, pos, width, scratch, W, block_size):
@@ -226,6 +263,9 @@ class GPTAttention(nn.Module):
         self.hidden_size = hidden_size
         self.dropout = dropout
         self.use_mp = use_mp
+        # the layer whose LoRA factors ``_out`` gathers; GPTModel stamps
+        # each block's index
+        self._layer_idx = 0
         if use_mp:
             H, hd = num_heads, self.head_dim
             self.qkv_weight = nn.Parameter(
@@ -262,12 +302,32 @@ class GPTAttention(nn.Module):
     def _out(self, ctx):
         """Output projection of the attention context [B, S, H, hd] ->
         [B, S, E]: ``out_proj``, or ``einsum("bshd,hde->bse")`` plus the
-        bias in the tensor-parallel form."""
+        bias in the tensor-parallel form.  Inside a ``_lora_scope`` (the
+        JAX package's ``_lora_out``) each batch row adds its own adapter's
+        delta ``(x @ a_sel^T) @ b_sel^T``, the scale folded into b, taken
+        in f32 and cast to the projection's dtype; the tensor-parallel
+        form refuses a scope."""
+        lora = getattr(_LORA_TLS, "ctx", None)
         if self.use_mp:
+            if lora is not None:
+                raise ValueError(
+                    "LoRA adapters ride the dense out_proj form: the "
+                    "tensor-parallel attention takes no adapter lanes")
             return torch.einsum("bshd,hde->bse", ctx, self.out_weight) \
                 + self.out_bias
         b, s = ctx.shape[0], ctx.shape[1]
-        return self.out_proj(ctx.reshape(b, s, self.hidden_size))
+        x = ctx.reshape(b, s, self.hidden_size)
+        y = self.out_proj(x)
+        if lora is None:
+            return y
+        a_sel = lora[0][:, self._layer_idx]               # [B, r, E]
+        b_sel = lora[1][:, self._layer_idx]               # [B, E, r]
+        h = torch.bmm(x.float(), a_sel.transpose(1, 2))   # [B, S, r]
+        if y.dtype == torch.float32:
+            # in place: y is the projection's fresh output, and the
+            # out-of-place form would first copy it
+            return y.baddbmm_(h, b_sel.transpose(1, 2))
+        return y + torch.bmm(h, b_sel.transpose(1, 2)).to(y.dtype)
 
     def forward(self, x, cache=None):
         """Dense causal attention through ``scaled_dot_product_attention``
@@ -618,7 +678,10 @@ class GPTModel(nn.Module):
         self.blocks = nn.ModuleList([
             GPTBlock(hidden_size, num_heads, dropout, use_mp)
             for _ in range(num_layers)])
+        for i, blk in enumerate(self.blocks):
+            blk.attn._layer_idx = i
         self.head = GPTLMHead(hidden_size, vocab_size, use_mp)
+        self.last_spec_forwards = None  # generate(compiled="speculative")
 
     @classmethod
     def from_config(cls, name, device=None, seed=0, **overrides):
@@ -829,6 +892,251 @@ class GPTModel(nn.Module):
         # of the embedding the next tick reads
         drawn = torch.clamp(drawn, max=last.shape[-1] - 1).to(torch.int32)
         return torch.where(temperature > 0, drawn, greedy)
+
+    # -- generation ---------------------------------------------------------
+    def _decode_window(self, toks, k_bufs, v_bufs, pos):
+        """S tokens of every row at the shared positions ``pos..pos+S-1``
+        (a host int) against fixed-size cache buffers [B, L, H, hd], in
+        one forward through each block's ``decode`` (the buffers are
+        written in place).  Returns (logits [B, S, V], k_bufs, v_bufs)."""
+        x = self.embeddings(toks, position_offset=pos)
+        for j, blk in enumerate(self.blocks):
+            x, _, _ = blk.decode(x, k_bufs[j], v_bufs[j], pos)
+        return self.head(x), k_bufs, v_bufs
+
+    def _decode_tick(self, tok, k_bufs, v_bufs, pos):
+        """One-token step of ``_decode_window``: (last logits [B, V],
+        k_bufs, v_bufs)."""
+        logits, k_bufs, v_bufs = self._decode_window(tok, k_bufs, v_bufs,
+                                                     pos)
+        return logits[:, -1], k_bufs, v_bufs
+
+    def _prefill_buffers(self, ids, L):
+        """The prompt's forward over empty caches, its K/V copied into
+        zeroed buffers [B, L, H, hd] a layer (the JAX package's
+        ``_compiled_prefill_fn``).  Returns (last logits [B, V], k_bufs,
+        v_bufs)."""
+        b, s = ids.shape
+        attn0 = self.blocks[0].attn
+        H, hd = attn0.num_heads, attn0.head_dim
+        dtype = self._cache_dtype()
+        empty = [(torch.zeros((b, 0, H, hd), dtype=dtype, device=ids.device),
+                  torch.zeros((b, 0, H, hd), dtype=dtype, device=ids.device))
+                 for _ in self.blocks]
+        x, caches = self._forward_cached(ids, empty)
+        k_bufs, v_bufs = [], []
+        for ck, cv in caches:
+            kb = ck.new_zeros((b, L, H, hd))
+            vb = cv.new_zeros((b, L, H, hd))
+            kb[:, :s] = ck
+            vb[:, :s] = cv
+            k_bufs.append(kb)
+            v_bufs.append(vb)
+        return self.head(x[:, -1:])[:, 0], k_bufs, v_bufs
+
+    def _cache_dtype(self):
+        """The K/V dtype: the QKV projection's compute dtype (read first:
+        a weight-only int8 projection's ``.weight`` would materialize the
+        dequantized matrix)."""
+        attn0 = self.blocks[0].attn
+        if attn0.use_mp:
+            return attn0.qkv_weight.dtype
+        return (getattr(attn0.qkv_proj, "compute_dtype", None)
+                or attn0.qkv_proj.weight.dtype)
+
+    @staticmethod
+    def _generate_pick(last, do_sample, temperature, top_k, top_p, seed,
+                       ctr):
+        """Tokens from logits [N, V]: the argmax (the first maximum), or
+        the draw of ``_sample_lanes`` with key(seed, ``ctr``) per row
+        (``ctr`` int64 [N] on the logits' device).  Reads nothing back.
+        Returns int64 [N]."""
+        last = last.float()
+        if not do_sample:
+            return torch.argmax(last, dim=-1)
+        n, dev = last.shape[0], last.device
+        keys = GPTModel._slot_sample_keys(seed & 0xFFFFFFFF,
+                                          (seed >> 32) & 0xFFFFFFFF, ctr)
+        return GPTModel._sample_lanes(
+            last, torch.full((n,), float(temperature), device=dev),
+            torch.full((n,), int(top_k or 0), dtype=torch.int32, device=dev),
+            torch.full((n,), float(top_p), device=dev), keys).long()
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=20, temperature=1.0,
+                 top_k=0, top_p=1.0, eos_token_id=None, seed=None,
+                 compiled=False, draft_k=8, lookup_ngram=3):
+        """KV-cached autoregressive decoding of a batch of prompts (the JAX
+        package's ``GPTModel.generate``): greedy, or top-k / top-p nucleus
+        sampling (``top_p <= 0`` keeps the top token) when a sampling
+        parameter is set.  ``input_ids`` int [B, S] (a tensor, numpy array
+        or nested list); returns int64 [B, S + new] on the model's device.
+
+        The modes name code paths (nothing is compiled):
+
+        * ``compiled=False``: eager, caches growing from length 0
+          (``forward(caches=)``), one host read a token for the eos stop;
+        * ``compiled=True`` (or any other true value, as in JAX): the
+          prompt's K/V in buffers of length L = S + max_new_tokens, then
+          one ``_decode_tick`` (the shared-position ``decode`` window) a
+          token;
+        * ``compiled="fused"``: the same steps with sampling on the device
+          and no host read until the end, then truncation after the first
+          step where every row emitted ``eos_token_id``;
+        * ``compiled="speculative"``: prompt-lookup drafts of ``draft_k``
+          tokens (the most recent earlier occurrence of the last
+          ``lookup_ngram`` tokens) verified in one ``_decode_window`` of
+          ``draft_k + 1`` tokens; the batch advances by its smallest
+          accepted count, so every row stays its own greedy (or sampled)
+          trajectory.  One host read a window (the cursor);
+          ``last_spec_forwards`` counts the windows.
+
+        Greedy output is token-identical across the modes and to JAX's.
+        Draws use the port's splitmix64 keys (``_slot_sample_keys``), not
+        jax's threefry, so a seed repeats its stream but does not
+        reproduce JAX's: token i of row r draws with key(seed, i * B + r)
+        in the first three modes (they share their draws given the same
+        logits), and as in JAX the speculative windows draw per (window,
+        row, position), key(seed, (n * B + r) * (draft_k + 1) + j), the
+        first token with key(seed, 2**30 + r).  ``seed=None`` takes a
+        seed from torch's default generator."""
+        dev = self.head.lm_head.weight.device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        if ids.dim() != 2:
+            raise ValueError(
+                f"generate: input_ids must be [B, S], got {tuple(ids.shape)}")
+        b, s = ids.shape
+        if max_new_tokens <= 0:
+            return ids  # every path: the prompt unchanged, no sampling
+        max_position = self.embeddings.position_embeddings.weight.shape[0]
+        if s + max_new_tokens > max_position:
+            raise ValueError(
+                f"generate: prompt ({s}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_position ({max_position}) "
+                "— positions past the table would silently clamp")
+        if compiled == "speculative" \
+                and s + max_new_tokens + draft_k > max_position:
+            raise ValueError(
+                "generate(compiled='speculative'): the verify window can "
+                f"reach position {s + max_new_tokens + draft_k - 1} >= "
+                f"max_position ({max_position}) — lower draft_k or "
+                "max_new_tokens")
+        do_sample = bool((top_k and top_k > 0) or temperature != 1.0
+                         or top_p < 1.0)
+        if seed is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,)))
+        seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+        rows = torch.arange(b, device=dev)
+
+        def pick(last, ctr):
+            return self._generate_pick(last, do_sample, temperature, top_k,
+                                       top_p, seed, ctr)
+
+        def truncate_at_eos(toks):
+            # stop after the first step where every row emitted eos, as
+            # the eager loop does
+            if eos_token_id is None:
+                return toks
+            all_eos = (toks == int(eos_token_id)).all(dim=0)
+            if bool(all_eos.any()):
+                toks = toks[:, :int(torch.argmax(all_eos.int())) + 1]
+            return toks
+
+        was_training = self.training
+        self.eval()
+        try:
+            if compiled == "speculative":
+                toks = self._speculative_decode(
+                    ids, max_new_tokens, int(draft_k), int(lookup_ngram),
+                    pick)
+                return torch.cat([ids, truncate_at_eos(toks)], dim=1)
+            if compiled:
+                last, k_bufs, v_bufs = self._prefill_buffers(
+                    ids, s + max_new_tokens)
+            else:
+                H, hd = self.blocks[0].attn.num_heads, \
+                    self.blocks[0].attn.head_dim
+                empty = torch.zeros((b, 0, H, hd), dtype=self._cache_dtype(),
+                                    device=dev)
+                caches = [(empty, empty) for _ in self.blocks]
+                x, caches = self._forward_cached(ids, caches)
+                last = self.head(x[:, -1:])[:, 0]
+            out = []
+            for step in range(max_new_tokens):
+                nxt = pick(last, step * b + rows).view(b, 1)
+                out.append(nxt)
+                if compiled != "fused" and eos_token_id is not None \
+                        and bool((nxt == int(eos_token_id)).all()):
+                    break
+                if step == max_new_tokens - 1:
+                    break  # the last token needs no forward
+                if compiled:
+                    last = self._decode_tick(nxt, k_bufs, v_bufs,
+                                             s + step)[0]
+                else:
+                    logits, caches = self.forward(
+                        nxt, caches=caches, position_offset=s + step)
+                    last = logits[:, -1]
+            toks = torch.cat(out, dim=1)
+            if compiled == "fused":
+                toks = truncate_at_eos(toks)
+            return torch.cat([ids, toks], dim=1)
+        finally:
+            if was_training:
+                self.train()
+
+    def _speculative_decode(self, ids, max_new, draft_k, ngram, pick):
+        """``generate(compiled="speculative")``'s loop (the JAX package's
+        ``_spec_generate_fn``, step for step): returns the new tokens
+        [B, max_new] and sets ``last_spec_forwards``.  ``pick(logits [N,
+        V], ctr [N])`` picks tokens."""
+        b, s = ids.shape
+        dev = ids.device
+        W = draft_k + 1
+        T = s + max_new + W          # margin: a window never clamps
+        last0, k_bufs, v_bufs = self._prefill_buffers(ids, T)
+        rows = torch.arange(b, device=dev)
+        seq = torch.zeros((b, T), dtype=torch.long, device=dev)
+        seq[:, :s] = ids
+        seq[:, s] = pick(last0, 2 ** 30 + rows)
+        t_idx = torch.arange(T, device=dev)
+        win_idx = torch.clamp(
+            t_idx[:, None] + torch.arange(ngram, device=dev)[None], max=T - 1)
+        d_lane = torch.arange(draft_k, device=dev)
+        lanes = torch.arange(W, device=dev)
+        pos, n_out, n_fwd = s, 0, 0
+        while n_out < max_new - 1:
+            cur = seq[:, pos:pos + 1]
+            # the draft: the tokens after the most recent earlier
+            # occurrence of the trailing n-gram (windows ending before
+            # pos), else the current token repeated
+            ps = min(max(pos - (ngram - 1), 0), T - ngram)
+            pat = seq[:, ps:ps + ngram]
+            ok = (seq[:, win_idx] == pat[:, None, :]).all(dim=-1) \
+                & ((t_idx + ngram - 1) < pos)[None]
+            found = ok.any(dim=1)
+            j = torch.where(
+                found, T - 1 - torch.argmax(ok.flip(1).int(), dim=1),
+                torch.zeros_like(rows))
+            dstart = torch.clamp(j + ngram, 0, T - draft_k)
+            d = torch.gather(seq, 1, dstart[:, None] + d_lane[None])
+            d = torch.where(found[:, None], d, cur.expand(b, draft_k))
+            logits = self._decode_window(torch.cat([cur, d], dim=1), k_bufs,
+                                         v_bufs, pos)[0]      # [B, W, V]
+            ctr = (n_fwd * b + rows)[:, None] * W + lanes[None]
+            preds = pick(logits.reshape(b * W, -1),
+                         ctr.reshape(-1)).view(b, W)
+            match = d == preds[:, :draft_k]
+            m_row = torch.argmin(torch.cat(
+                [match, torch.zeros((b, 1), dtype=torch.bool, device=dev)],
+                dim=1).int(), dim=1)
+            seq[:, pos + 1:pos + 1 + W] = preds
+            adv = int(m_row.min()) + 1   # the host read: the cursor
+            pos += adv
+            n_out += adv
+            n_fwd += 1
+        self.last_spec_forwards = n_fwd
+        return seq[:, s:s + max_new]
 
     # -- prefill ----------------------------------------------------------
     def _forward_cached(self, input_ids, caches, position_offset=0):

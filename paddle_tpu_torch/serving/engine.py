@@ -49,11 +49,18 @@ streams to the causal horizon, ``"ragged_gather"`` gathers the whole
 row).  Requests carry priorities, tenants and deadlines: a higher
 priority may preempt a running stream, which resumes token-identically.
 Metrics go to a ``monitor.StatRegistry`` under the JAX engine's names,
-spans to a ``monitor.Tracer`` (``Engine.chrome_trace()``).  The JAX
-engine's other knobs — LoRA adapters, the host-RAM offload tier, the
-XLA and monolithic paths over a mesh — raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item; migration and the fault injector wait
-too.
+spans to a ``monitor.Tracer`` (``Engine.chrome_trace()``).
+
+Per-request LoRA adapters (``adapters=`` / ``max_adapters=``,
+``serving/lora.py``) ride every window as per-slot lanes of two
+fixed-shape banks, hot-loaded between ticks (``load_adapter``); adapter
+lanes never share cached K/V.  The host-RAM offload tier
+(``kv_host_mb=``, ``serving/offload.py``) keeps the blocks the prefix
+cache evicts and restores them at admission.  A
+``serving.stream.TokenStream`` attached to a request receives its tokens
+as they are emitted.  The XLA and monolithic paths over a mesh, and the
+host tier over a mesh, raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item; KV migration and the fault injector wait too.
 """
 from __future__ import annotations
 
@@ -70,7 +77,10 @@ from .. import monitor
 from ..device import require_on
 from ..distributed.mesh import ServingMesh, serving_mesh
 from ..models import gpt as gpt_mod
-from .kvcache import BlockPool, PrefixCache, per_shard_block_bytes
+from .kvcache import (BlockPool, PrefixCache, import_blocks,
+                      per_shard_block_bytes)
+from .lora import AdapterRegistry, LoRAAdapter, UnknownAdapter
+from .offload import HostBlockStore, prefix_key
 from .quant import QuantKV, relayout_weights_int8
 from .request import (MAX_SEED, DeadlineShed, QueueFull, RateLimited,
                       Request, RequestQueue, TenantPolicy, TokenBucket)
@@ -78,10 +88,37 @@ from .scheduler import Scheduler
 from .sharded import ShardedServingModel
 from .spec import PromptLookupProposer
 
-_NOT_PORTED = {
-    "adapters": "Queue A 8 (LoRA adapters)",
-    "kv_host_mb": "Queue A 8 (host-RAM offload)",
-}
+
+class _Demand:
+    """One order registered from any thread and serviced by the engine
+    thread at a tick boundary (a hot adapter load or unload): the same
+    single-writer rule as every other pool and slot mutation."""
+
+    __slots__ = ("kind", "args", "done", "result", "error")
+
+    def __init__(self, kind, **args):
+        self.kind = kind
+        self.args = args
+        self.done = threading.Event()
+        self.result = None
+        self.error = None
+
+    def complete(self, result):
+        self.result = result
+        self.done.set()
+
+    def fail(self, error):
+        self.error = error
+        self.done.set()
+
+    def wait(self, timeout=None):
+        if not self.done.wait(timeout):
+            raise TimeoutError(
+                f"{self.kind} demand: no verdict after {timeout}s (engine "
+                "not stepping?)")
+        if self.error is not None:
+            raise self.error
+        return self.result
 
 
 def _softmax_np(x):
@@ -237,6 +274,22 @@ class Engine:
         serves the checkpoint as it is.
     kv_dtype : ``"int8"`` stores the K/V pools as int8 codes with a f32
         scale per block and head; None stores them in the compute dtype.
+    adapters / max_adapters / max_lora_rank : LoRA serving.
+        ``adapters`` maps names to ``LoRAAdapter``s loaded at
+        construction; ``max_adapters`` lanes (default: as many as
+        ``adapters``, at least 1) and ``max_lora_rank`` (default: their
+        largest rank, else 8) fix the bank shapes, so ``load_adapter``
+        later writes a lane and changes no shape.  ``submit(adapter=)``
+        picks a lane per request; adapter lanes never adopt or insert
+        cached prefixes (the delta on ``out_proj`` changes every later
+        layer's K/V).  Device sampling only, no mesh or tensor-parallel
+        model, as in JAX.
+    kv_host_mb : a host-RAM tier of this many MiB for the blocks the
+        prefix cache evicts (paged layout and ``prefix_cache=True``
+        only): an eviction gathers the block and downloads it behind an
+        event, the next tick boundary parks it; an admission whose
+        prompt continues past the device trie's match restores the
+        stored blocks instead of prefilling them.
     async_depth : pipeline depth (default: 2).  At 2 a tick dispatches
         tick N+1 before it consumes tick N, so admission, chunk planning
         and tick N's emit loop run while the device computes (watch
@@ -287,17 +340,12 @@ class Engine:
                  attn_impl="ragged",
                  sample_mode="device", async_depth=None, device=None,
                  spec_k=None, proposer=None, mesh=None, kv_dtype=None,
-                 weight_dtype=None, adapters=None, kv_host_mb=None,
+                 weight_dtype=None, adapters=None, max_adapters=None,
+                 max_lora_rank=None, kv_host_mb=None,
                  kv_budget_mb=None, max_queue=0, registry=None,
                  tenants=None, preemption=True, shed_deadlines=True,
                  tracing=True, trace_capacity=16384,
                  trace_annotations=False):
-        knobs = dict(adapters=adapters, kv_host_mb=kv_host_mb)
-        for name, item in _NOT_PORTED.items():
-            if knobs[name] is not None:
-                raise NotImplementedError(
-                    f"Engine({name}=...) is not ported yet: ROADMAP.md "
-                    f"{item}")
         if sample_mode not in ("device", "host"):
             raise ValueError(
                 f"sample_mode must be 'device' or 'host', got "
@@ -362,6 +410,11 @@ class Engine:
                 "prefill_chunk=None) are not ported yet: ROADMAP.md Queue "
                 "A 10 (the XLA paths over a mesh); a mesh serves "
                 "attn_impl='ragged' with prefill_chunk=C")
+        if mesh is not None and kv_host_mb is not None:
+            raise NotImplementedError(
+                "Engine(mesh=..., kv_host_mb=...) is not ported yet: "
+                "ROADMAP.md Queue A 10 (the host tier over per-shard "
+                "pools)")
         if kv_budget_mb is not None and not self._paged:
             raise ValueError(
                 "kv_budget_mb requires the paged KV layout "
@@ -448,6 +501,11 @@ class Engine:
         self.device = require_on(
             device, [*model.named_parameters(), *model.named_buffers()],
             "Engine")
+        self.adapters = None
+        if adapters is not None or max_adapters is not None:
+            self.adapters = self._adapter_registry(
+                model, adapters, max_adapters, max_lora_rank, sample_mode,
+                is_tp)
         if self._weight_quant:
             # before the dtype probe and the pools: the codes and scales
             # become buffers of the model's block Linears
@@ -496,11 +554,7 @@ class Engine:
         self._ovl_lock = threading.Lock()  # guards _rate_win and
         #   _preempt_log against readers on other threads
         self._nh, self._hd = attn0.num_heads, attn0.head_dim
-        # compute_dtype first: a weight-only int8 projection's .weight
-        # would materialize the dequantized matrix
-        self._kv_dtype = attn0.qkv_weight.dtype if is_tp else (
-            getattr(attn0.qkv_proj, "compute_dtype", None)
-            or attn0.qkv_proj.weight.dtype)
+        self._kv_dtype = model._cache_dtype()
         self.attn_impl = attn_impl
         self._ragged = attn_impl != "xla"
         self._variant = "gather" if attn_impl == "ragged_gather" \
@@ -558,6 +612,25 @@ class Engine:
         # XLA dispatch's is the verify window (chunks run on their own)
         self._wmax = (max(self._chunk or 1, self._spec_w) if self._ragged
                       else self._spec_w)
+        # -- the host-RAM offload tier (serving/offload.py) ------------
+        self.host_store = None
+        if kv_host_mb is not None:
+            if not self._paged:
+                raise ValueError(
+                    "kv_host_mb requires the paged KV layout "
+                    "(kv_block_size=...): the host tier parks whole "
+                    "blocks — the contiguous pools have none")
+            if not self._prefix_enabled:
+                raise ValueError(
+                    "kv_host_mb requires prefix_cache=True: demotes are fed "
+                    "by the trie's eviction and promotes by admission's "
+                    "prefix match")
+            self.host_store = HostBlockStore(
+                kv_host_mb, self._bs, self._nh, self._hd,
+                len(model.blocks), "int8" if self._kv_quant
+                else str(self._kv_dtype).replace("torch.", ""))
+        self._demands = []            # load/unload orders (_Demand)
+        self._demand_lock = threading.Lock()
         self._rngs = {}  # request id -> host-mode np.random.Generator
         self.ragged_dispatches = 0  # ragged window dispatches
         self.ticks = 0
@@ -577,6 +650,41 @@ class Engine:
         self._drain_on_exit = None    # a loop's stop event, when that
         #   loop must drain on exit
         self._reset_pools()
+
+    def _adapter_registry(self, model, adapters, max_adapters,
+                          max_lora_rank, sample_mode, is_tp):
+        """The LoRA banks on the engine's device, with ``adapters``
+        loaded; refuses what the JAX engine refuses."""
+        if sample_mode != "device":
+            raise ValueError(
+                "adapters require sample_mode='device': the host sampling "
+                "paths do not thread the per-slot LoRA lanes")
+        if self.mesh is not None or is_tp:
+            raise ValueError(
+                "adapters cannot combine with tensor-parallel serving "
+                "(mesh=... / use_mp models): the LoRA delta rides the "
+                "dense out_proj form")
+        init = dict(adapters or {})
+        for name, ad in init.items():
+            if not isinstance(ad, LoRAAdapter):
+                raise TypeError(
+                    f"adapters[{name!r}] must be a LoRAAdapter, got "
+                    f"{type(ad).__name__}")
+        n_ad = (int(max_adapters) if max_adapters is not None
+                else max(len(init), 1))
+        if n_ad < len(init):
+            raise ValueError(
+                f"max_adapters={n_ad} cannot hold the {len(init)} adapters "
+                "passed at construction")
+        r_max = (int(max_lora_rank) if max_lora_rank is not None
+                 else max([a.rank for a in init.values()] or [8]))
+        reg = AdapterRegistry(
+            len(model.blocks),
+            int(model.embeddings.word_embeddings.weight.shape[1]), n_ad,
+            r_max, device=self.device)
+        for name in sorted(init):
+            reg.load(name, init[name])
+        return reg
 
     def _size_block_pool(self, model, bsz, kv_blocks, kv_budget_mb,
                          prefix_cache):
@@ -745,6 +853,22 @@ class Engine:
         self._m_drain_tps = reg.gauge(
             "serving.drain_rate_tps", "measured drain rate (tokens/sec "
             "over the recent emitting ticks)")
+        self._m_kv_host_blocks = reg.gauge(
+            "serving.kv_host_blocks", "KV blocks resident in the host-RAM "
+            "offload tier (kv_host_mb=...)")
+        self._m_kv_host_bytes = reg.gauge(
+            "serving.kv_host_bytes", "bytes the host-RAM offload tier "
+            "holds (codes + scales for int8 pools)")
+        self._m_offload_demotes = reg.counter(
+            "serving.offload_demotes", "KV blocks demoted device -> host "
+            "at eviction (parked at tick boundaries)")
+        self._m_offload_promotes = reg.counter(
+            "serving.offload_promotes", "KV blocks promoted host -> device "
+            "at admission (restored instead of recomputed)")
+        self._m_offload_hit_tokens = reg.counter(
+            "serving.offload_hit_tokens", "prompt tokens whose prefill a "
+            "host-tier restore skipped (the host share of "
+            "prefix_hit_tokens)")
 
     # the plain counters of earlier slices, read from the registry
     tokens_generated = property(lambda self: int(self._m_tokens.value))
@@ -778,8 +902,11 @@ class Engine:
             nblocks = self._kv_managed + self.dp
             self.block_pool = BlockPool(nblocks, self._bs,
                                         reserved_blocks=1, shards=self.dp)
-            self.prefix_cache = (PrefixCache(self.block_pool)
-                                 if self._prefix_enabled else None)
+            self.prefix_cache = (
+                PrefixCache(self.block_pool, evict_hook=(
+                    self._offload_demote_hook if self.host_store is not None
+                    else None))
+                if self._prefix_enabled else None)
             self._slot_scratch = np.asarray(
                 [self.block_pool.scratch_row(self._slot_shard(i))
                  for i in range(self.num_slots)], np.int32)
@@ -822,6 +949,11 @@ class Engine:
         # device-side stop condition: eos id (-1 = none), remaining budget
         self._eos = np.full(self.num_slots, -1, np.int32)
         self._rem = np.zeros(self.num_slots, np.int32)
+        self._aid = np.zeros(self.num_slots, np.int32)  # LoRA lane
+        # demoted blocks whose download is in flight: (key, host data,
+        # host scales or None, event); their content addresses
+        self._offload_pending = []
+        self._offload_pending_keys = set()
         self._dev_state = None
         self._state_dirty = True
         # dispatched-but-unconsumed ticks, oldest first, and the staging
@@ -839,7 +971,7 @@ class Engine:
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, eos_token_id=None,
                timeout=None, temperature=1.0, top_k=0, top_p=1.0,
-               seed=None, priority=0, tenant=None):
+               seed=None, priority=0, tenant=None, adapter=None):
         """Queue one generation request; returns its Request handle
         (block on ``request.result()``).  Greedy unless a sampling
         parameter is set; ``seed`` makes a sampled stream repeat.
@@ -849,6 +981,8 @@ class Engine:
         ``tenant``: the weighted-fair / rate-limit bucket
         (``Engine(tenants=...)``); None = the default tenant.
         ``timeout``: seconds the request may wait in the queue.
+        ``adapter``: a loaded LoRA adapter's name (``UnknownAdapter``
+        otherwise); the request pins it until it finishes.
         Overload sheds here: ``QueueFull``, ``RateLimited`` and
         ``DeadlineShed`` carry a ``retry_after`` estimate."""
         if self._draining:
@@ -872,10 +1006,18 @@ class Engine:
                 f"eos_token_id/seed must be ints or None: {e}") from None
         if seed is not None and not 0 <= seed < MAX_SEED:
             raise ValueError(f"seed must be in [0, 2**63), got {seed}")
+        if adapter is not None:
+            if self.adapters is None:
+                raise UnknownAdapter(
+                    f"adapter {adapter!r} requested but this engine serves "
+                    "none (Engine(adapters=... / max_adapters=N))")
+            adapter = str(adapter)
+            self.adapters.lane(adapter)  # raises UnknownAdapter now, in
+            #   the caller's thread, instead of failing mid-admit
         req = Request(prompt, max_new_tokens, eos_token_id=eos_token_id,
                       timeout=timeout, temperature=temperature,
                       top_k=top_k, top_p=top_p, seed=seed,
-                      priority=priority, tenant=tenant)
+                      priority=priority, tenant=tenant, adapter=adapter)
         if int(req.prompt.max()) >= self.vocab_size \
                 or int(req.prompt.min()) < 0:
             raise ValueError(f"prompt token ids must lie in [0, "
@@ -936,10 +1078,19 @@ class Engine:
         self.tracer.instant("req.queued", cat="request", req=req.id,
                             prompt=int(len(req.prompt)),
                             max_new=req.max_new_tokens,
-                            priority=req.priority, tenant=req.tenant)
+                            priority=req.priority, tenant=req.tenant,
+                            adapter=req.adapter)
+        if adapter is not None:
+            # pinned after every shed check, unpinned by the request's
+            # finish callback (every terminal path runs _finish)
+            req._adapter_id = self.adapters.pin(adapter)
+            req._finish_cbs.append(
+                lambda _r, _n=adapter: self.adapters.unpin(_n))
         try:
             self.queue.put(req)
         except QueueFull as e:
+            if adapter is not None:
+                self.adapters.unpin(adapter)  # never queued: no finish
             if bucket is not None:
                 bucket.refund(req.cost_tokens)
             self._m_shed_queue.inc()
@@ -1051,7 +1202,8 @@ class Engine:
         ctx = (np.concatenate([req.prompt,
                                np.asarray(req.generated, np.int32)])
                if req.generated else req.prompt)
-        if self.prefix_cache is not None:  # paged layouts only
+        if self.prefix_cache is not None and not req._adapter_id:
+            # paged layouts only; adapter lanes never share cached K/V
             n_full = min(slot.pos // self._bs, len(self._slot_blocks[i]))
             if n_full:
                 self.prefix_cache.insert(ctx, self._slot_blocks[i][:n_full])
@@ -1137,13 +1289,19 @@ class Engine:
         past the cursor, into blocks the slot already owns.  A preempted
         request's context is its prompt + emitted snapshot and its
         remaining budget the unemitted rest: the same total, and the
-        blocks its preemption cached match here."""
+        blocks its preemption cached match here.
+
+        Adapter lanes never adopt a cached prefix (LoRA on ``out_proj``
+        shifts the residual stream, so from layer 1 on the K/V depend on
+        the adapter).  With a host tier, the consecutive blocks after the
+        device trie's match are restored from host RAM into the leading
+        fresh blocks (``_promote_blocks``)."""
         tokens = req.context
         shard = self._slot_shard(slot.index)
         s = len(tokens)
         n_total = -(-(s + req.remaining + (self._spec_k or 0)) // self._bs)
         ctx, m = ([], 0)
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not req._adapter_id:
             ctx, m = self.prefix_cache.match(tokens, shard=shard)
         need = n_total - len(ctx)
         short = need - self.block_pool.free_count(shard)
@@ -1156,6 +1314,12 @@ class Engine:
             self._gate_declined = True   # blocks, not slots, hold the
             return False                 # head back: preemption's probe
         fresh = self.block_pool.alloc(need, shard=shard)
+        if self.host_store is not None and not req._adapter_id:
+            n_promo = self._promote_blocks(req, tokens, ctx, m, fresh)
+            if n_promo:
+                ctx = ctx + fresh[:n_promo]
+                fresh = fresh[n_promo:]
+                m += n_promo * self._bs
         req._kv_plan = (ctx, fresh, m)
         return True
 
@@ -1247,6 +1411,7 @@ class Engine:
         self._eos[i] = (-1 if req.eos_token_id is None
                         else int(req.eos_token_id))
         self._rem[i] = req.remaining
+        self._aid[i] = req._adapter_id  # a resumed stream keeps its lane
         self._state_dirty = True
 
     def _park_state(self, i):
@@ -1262,6 +1427,7 @@ class Engine:
         self._sctr[i] = 0
         self._eos[i] = -1
         self._rem[i] = 0
+        self._aid[i] = 0
         self._state_dirty = True
 
     def _upload(self, a, device=None):
@@ -1295,7 +1461,24 @@ class Engine:
             self._dev_state.update(
                 tables=self._upload(self._block_tables),
                 scratch=self._upload(self._slot_scratch))
+        if self.adapters is not None:
+            self._dev_state["aid"] = self._upload(self._aid)
         self._state_dirty = False
+
+    def _lora(self, aid):
+        """The ``models.gpt._lora_scope`` argument of a dispatch: the
+        lane ids ``aid`` (a device tensor) and the banks, or () without
+        adapters (the scope is then no scope at all)."""
+        if self.adapters is None:
+            return ()
+        return (aid, self.adapters.a_bank, self.adapters.b_bank)
+
+    def _lora_slot(self, req):
+        """``_lora`` for one request's B=1 prefill: its lane as [1]."""
+        if self.adapters is None:
+            return ()
+        return self._lora(self._upload(
+            np.asarray([req._adapter_id], np.int64)))
 
     def _begin_chunked(self, slot):
         """Chunked admission: bind the block plan (the adopted prefix
@@ -1332,7 +1515,7 @@ class Engine:
             ids[0, :s] = tokens
         else:
             ids = np.asarray(tokens, np.int32)[None, :]
-        with torch.no_grad():
+        with torch.no_grad(), gpt_mod._lora_scope(self._lora_slot(req)):
             last = self.model._prefill_slot(
                 self._upload(ids.astype(np.int64)), self.k_pools,
                 self.v_pools, i, true_len=s)
@@ -1351,13 +1534,13 @@ class Engine:
         tokens = req.context
         s = len(tokens)
         n_tail = -(-s // self._bs) - len(ctx)
-        with torch.no_grad():
+        with torch.no_grad(), gpt_mod._lora_scope(self._lora_slot(req)):
             last = self.model._prefill_paged(
                 self._upload(np.asarray(tokens[m:], np.int64)[None, :]),
                 self.k_pools, self.v_pools,
                 self._upload(np.asarray(ctx, np.int64)),
                 self._upload(np.asarray(fresh[:n_tail], np.int64)))
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not req._adapter_id:
             self.prefix_cache.insert(tokens,
                                      (ctx + fresh)[:s // self._bs])
         self._m_prefill_tokens.inc(s - m)
@@ -1378,9 +1561,10 @@ class Engine:
         p0 = slot.prefilled
         ids = np.zeros((1, self._chunk), np.int64)
         ids[0, :n] = tokens[p0:p0 + n]
-        with torch.no_grad(), self.tracer.span(
-                "prefill.chunk", req=req.id, pos=p0, n=n,
-                layout="paged" if self._paged else "contiguous"):
+        with torch.no_grad(), gpt_mod._lora_scope(self._lora_slot(req)), \
+                self.tracer.span(
+                    "prefill.chunk", req=req.id, pos=p0, n=n,
+                    layout="paged" if self._paged else "contiguous"):
             if self._paged:
                 last = self.model._chunk_prefill_tick_paged(
                     self._upload(ids), self.k_pools, self.v_pools,
@@ -1397,7 +1581,7 @@ class Engine:
         if slot.prefilled < s:
             self._pos[i] = slot.prefilled
             return 0
-        if self.prefix_cache is not None:
+        if self.prefix_cache is not None and not req._adapter_id:
             self.prefix_cache.insert(tokens,
                                      self._slot_blocks[i][:s // self._bs])
         self._pos[i] = s
@@ -1467,7 +1651,13 @@ class Engine:
         max_new_tokens, else arm the slot for the next tick."""
         req = slot.request
         now = time.monotonic()
-        req._emit_token(int(tok))
+        if req._sinks:
+            # live TokenStream consumers: the fan-out runs under the sink
+            # lock, spanned so the trace prices it
+            with self.tracer.span("stream.emit", cat="serving", req=req.id):
+                req._emit_token(int(tok))
+        else:
+            req._emit_token(int(tok))
         if req.first_token_at is None:
             req.first_token_at = now
             ttft = (now - req.submitted_at) * 1e3
@@ -1644,9 +1834,9 @@ class Engine:
 
         span = ("decode.ragged_stream" if self._variant == "stream"
                 else "decode.ragged")
-        with torch.no_grad(), tr.span(
-                span, batch=len(slots), w=W, chunks=len(plan),
-                chunk_tokens=chunk_toks, kv_blocks_walked=walked):
+        with torch.no_grad(), gpt_mod._lora_scope(self._lora(st.get("aid"))), \
+                tr.span(span, batch=len(slots), w=W, chunks=len(plan),
+                        chunk_tokens=chunk_toks, kv_blocks_walked=walked):
             (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
              new_rem, _, _) = self._runner._fused_ragged_tick_slots(
                 up(stg.toks), self.k_pools, self.v_pools, st["tables"],
@@ -1708,7 +1898,8 @@ class Engine:
                     continue
                 if mode_i == 2:
                     ctxt = req.context
-                    if self.prefix_cache is not None:
+                    if self.prefix_cache is not None \
+                            and not req._adapter_id:
                         self.prefix_cache.insert(
                             ctxt,
                             self._slot_blocks[i][:len(ctxt) // self._bs])
@@ -1767,8 +1958,9 @@ class Engine:
         if self._state_dirty or self._dev_state is None:
             self._push_state()
         st = self._dev_state
-        with torch.no_grad(), tr.span("decode.dispatch", batch=len(active),
-                                      layout=self._layout(), fused=True):
+        with torch.no_grad(), gpt_mod._lora_scope(self._lora(st.get("aid"))), \
+                tr.span("decode.dispatch", batch=len(active),
+                        layout=self._layout(), fused=True):
             # in_range: a cursor stays below L (the epilogue clamps it
             # at L - 1, admission keeps prompt + max_new_tokens <= L)
             (ids, done, new_tok, new_pos, new_ctr, new_rem, _, _) = \
@@ -1808,9 +2000,9 @@ class Engine:
         def up(t):
             return t.to(dev, non_blocking=True, copy=True)
 
-        with torch.no_grad(), tr.span("decode.dispatch", batch=len(active),
-                                      layout=self._layout(), spec_w=W,
-                                      fused=True):
+        with torch.no_grad(), gpt_mod._lora_scope(self._lora(st.get("aid"))), \
+                tr.span("decode.dispatch", batch=len(active),
+                        layout=self._layout(), spec_w=W, fused=True):
             # in_range: the epilogue clamps a cursor at L - W, admission
             # keeps prompt + max_new_tokens + spec_k <= L
             (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
@@ -1975,6 +2167,233 @@ class Engine:
                 (time.monotonic() - self._last_decode_end) * 1e3)
         self._m_decode_batch.set(n_active)
 
+    # -- hot adapter load / unload (serving/lora.py) -----------------------
+    def load_adapter(self, name, adapter, wait=True, timeout=30.0):
+        """Hot-load a LoRA adapter under ``name`` while serving.  The
+        engine thread writes the lane at the next tick boundary after
+        draining the ring, so no dispatched tick straddles the write (with
+        no loop thread running, the caller's thread services it at once).
+        The bank shapes are fixed, so this is pure data movement.  Raises
+        ``RegistryFull`` (no free lane) or ``ValueError`` (shape mismatch,
+        duplicate name).  ``wait=False`` returns the pending order."""
+        if self.adapters is None:
+            raise RuntimeError(
+                "this engine serves no adapters: construct with "
+                "Engine(adapters=...) or max_adapters=N to reserve bank "
+                "lanes")
+        if not isinstance(adapter, LoRAAdapter):
+            raise TypeError(
+                f"expected LoRAAdapter, got {type(adapter).__name__}")
+        return self._await_demand(_Demand(
+            "adapter_load", name=str(name), adapter=adapter), wait, timeout)
+
+    def unload_adapter(self, name, wait=True, timeout=30.0):
+        """Unload adapter ``name``: refused (``AdapterInUse``) while an
+        in-flight request pins it, else its lane is zeroed and freed.
+        Serviced as ``load_adapter`` is."""
+        if self.adapters is None:
+            raise RuntimeError("this engine serves no adapters")
+        return self._await_demand(_Demand("adapter_unload", name=str(name)),
+                                  wait, timeout)
+
+    def _await_demand(self, d, wait, timeout):
+        with self._demand_lock:
+            self._demands.append(d)
+        self._wake.set()
+        t = self._thread
+        if t is None or not t.is_alive():
+            # nothing else is stepping: service it on this thread
+            self._service_demands(self.tracer)
+        if not wait:
+            return d
+        try:
+            return d.wait(timeout)
+        except TimeoutError:
+            with self._demand_lock:  # withdraw it if not yet picked up
+                if d in self._demands:
+                    self._demands.remove(d)
+            raise
+
+    def _demand_pending(self):
+        with self._demand_lock:
+            return bool(self._demands)
+
+    def _service_demands(self, tr):
+        """Engine-thread service point at the top of every tick: each
+        pending load or unload drains the ring first (a dispatched tick
+        read the old banks and is consumed against them), then writes
+        its lane; a failure is the order's verdict, never the tick's.
+        Returns the tokens the drain emitted."""
+        with self._demand_lock:
+            demands, self._demands = self._demands, []
+        emitted = 0
+        for d in demands:
+            emitted += self._drain_ring(tr) if self._ring else 0
+            name = d.args["name"]
+            # the fault injector's adapter_load site waits for ROADMAP
+            # Queue A 9
+            try:
+                with tr.span("lora.swap", cat="serving", op=d.kind,
+                             adapter=name):
+                    if d.kind == "adapter_load":
+                        lane = self.adapters.load(name, d.args["adapter"])
+                        tr.instant("adapter.loaded", cat="serving",
+                                   adapter=name, lane=lane)
+                    else:
+                        lane = self.adapters.unload(name)
+                        tr.instant("adapter.unloaded", cat="serving",
+                                   adapter=name, lane=lane)
+                d.complete({"name": name, "lane": lane})
+            except Exception as e:  # the order's verdict channel
+                d.fail(e)
+        return emitted
+
+    def streams_active(self):
+        """Live ``TokenStream`` sinks across slot-bound and queued
+        requests."""
+        n = 0
+        for s in self.scheduler.busy_slots():
+            if s.request is not None:
+                n += len(s.request._sinks)
+        for r in self.queue.pending():
+            n += len(r._sinks)
+        return n
+
+    # -- the host-RAM offload tier (serving/offload.py) ---------------------
+    def _to_host(self, t):
+        """Queue ``t``'s download: into pinned memory with a
+        ``non_blocking`` copy on a card (read after the event recorded
+        behind it), or ``t`` itself on the CPU."""
+        if t is None or t.device.type != "cuda":
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def _offload_demote_hook(self, tokens, block):
+        """``PrefixCache`` evict hook, called before the block's reference
+        drops: LAUNCH the gather of the dying block's rows (every layer,
+        K and V; codes and scales when int8) into a fresh tensor now, on
+        the engine's stream, and queue its download behind an event.  The
+        pools are written in place, so a gather launched at the next tick
+        would read whatever a newer request wrote into the recycled
+        block.  ``_service_offload`` parks it at the next tick boundary.
+        A prefix already stored or pending is skipped (content-addressed
+        dedup).  Nothing here synchronizes."""
+        # the fault injector's offload_demote site waits for ROADMAP
+        # Queue A 9
+        key = prefix_key(tokens)
+        if key in self.host_store or key in self._offload_pending_keys:
+            return
+        b = int(block)
+        pools = [p for kp, vp in zip(self.k_pools, self.v_pools)
+                 for p in (kp, vp)]
+        if self._kv_quant:
+            data = torch.stack([p.codes[b] for p in pools])
+            scales = torch.stack([p.scale[b] for p in pools])
+        else:
+            data = torch.stack([p[b] for p in pools])
+            scales = None
+        data, scales = self._to_host(data), self._to_host(scales)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        self._offload_pending_keys.add(key)
+        self._offload_pending.append((key, data, scales, event))
+
+    def _service_offload(self, tr):
+        """Tick-boundary demote drain: wait on each pending download's
+        event (it has had a dispatch of device time to finish) and park
+        a numpy copy of the block in the host store."""
+        if self.host_store is None or not self._offload_pending:
+            return
+        pending = self._offload_pending
+        self._offload_pending = []
+        self._offload_pending_keys = set()
+        store = self.host_store
+        L, H = len(self.k_pools), self._nh
+        for key, data, scales, event in pending:
+            with tr.span("offload.demote", cat="serving", key=key) as sp:
+                try:
+                    if event is not None:
+                        event.synchronize()
+                    d = data.numpy().reshape(L, 2, *data.shape[1:]).copy()
+                    sc = (None if scales is None
+                          else scales.numpy().reshape(L, 2, H).copy())
+                    ok = store.put(key, d, sc)
+                except Exception:
+                    ok = False  # a failed demote must not fail the tick
+                if ok:
+                    self._m_offload_demotes.inc()
+                sp.args.update(stored=bool(ok))
+        self._m_kv_host_blocks.set(len(store))
+        self._m_kv_host_bytes.set(store.bytes_used)
+
+    def _flush_offload(self):
+        """Land pending demotes at idle boundaries (``run_until_idle``'s
+        exit, the loop's idle branch, ``_drain``): an eviction in the
+        last tick before idle must not wait for the next burst."""
+        try:
+            self._service_offload(self.tracer)
+        except Exception:
+            self._offload_pending = []
+            self._offload_pending_keys = set()
+
+    def _promote_blocks(self, req, tokens, ctx, m, fresh):
+        """Host-tier leg of paged admission: after the device trie matched
+        ``m`` tokens, probe the store for the consecutive continuation
+        blocks and restore them into the leading ``fresh`` blocks (a
+        pinned upload through ``import_blocks``), seed the device trie
+        with them, and count them.  Returns the promoted block count; 0
+        on a miss or an import failure, and the fresh blocks stay plain
+        prefill targets."""
+        store = self.host_store
+        if not fresh:
+            return 0
+        bs = self._bs
+        first = m // bs
+        limit = (len(tokens) - 1) // bs  # leave >= 1 token to prefill
+        keys = []
+        for i in range(first, min(limit, first + len(fresh))):
+            key = prefix_key(tokens, (i + 1) * bs)
+            if key not in store:  # a presence probe: no LRU touch
+                break
+            keys.append(key)
+        # the fault injector's offload_promote site waits for ROADMAP
+        # Queue A 9
+        ents = []
+        for key in keys:
+            ent = store.get(key)
+            if ent is None:
+                break
+            ents.append(ent)
+        n = len(ents)
+        if not n:
+            return 0
+        blocks = fresh[:n]
+        with self.tracer.span("offload.promote", cat="serving", req=req.id,
+                              blocks=n) as sp:
+            data = np.stack([e[0] for e in ents], axis=2)
+            scales = (np.stack([e[1] for e in ents], axis=2)
+                      if ents[0][1] is not None else None)
+            try:
+                import_blocks(self.k_pools, self.v_pools, blocks, data,
+                              scales)
+            except Exception:
+                return 0  # checked before any write: pools untouched
+            self.prefix_cache.insert(tokens[:(first + n) * bs],
+                                     ctx + blocks)
+            sp.args.update(tokens=n * bs)
+        self._m_offload_promotes.inc(n)
+        self._m_offload_hit_tokens.inc(n * bs)
+        req._host_restored = getattr(req, "_host_restored", 0) + n * bs
+        self.tracer.instant("req.host_restored", cat="request", req=req.id,
+                            blocks=n, tokens=n * bs)
+        self._m_kv_host_blocks.set(len(store))
+        self._m_kv_host_bytes.set(store.bytes_used)
+        return n
+
     # -- the tick -------------------------------------------------------------
     def step(self):
         """One engine tick; returns the tokens emitted.  A tick that
@@ -2077,8 +2496,11 @@ class Engine:
     def _tick(self, tr, tick_sp):
         """One synchronous tick (``async_depth=1``): admit and prefill ->
         one dispatch -> consume it (host mode: the window, its logits
-        home, host picks)."""
-        emitted = self._admit(tr)
+        home, host picks).  Adapter orders and the demote drain come
+        first, at the tick boundary."""
+        emitted = self._service_demands(tr)
+        self._service_offload(tr)
+        emitted += self._admit(tr)
         occ, active, prefilling = self.scheduler.snapshot()
         plan = (self._plan_ragged_chunks(prefilling)
                 if self._ragged and self._chunk is not None else [])
@@ -2105,7 +2527,11 @@ class Engine:
         mirrors; the ring drains before they are uploaded, so greedy
         streams equal the synchronous tick's."""
         self._overlap_acc = 0.0
-        emitted = self._admit(tr, in_flight=bool(self._ring))
+        # tick-boundary service first: adapter orders (they drain the
+        # ring), then last tick's demote downloads
+        emitted = self._service_demands(tr)
+        self._service_offload(tr)
+        emitted += self._admit(tr, in_flight=bool(self._ring))
         # spec barrier: a draft reads the tokens the previous window
         # accepted, so speculative ticks consume before they dispatch
         if self._spec_k is not None and self._ring:
@@ -2155,7 +2581,8 @@ class Engine:
         tokens emitted."""
         total = 0
         for _ in range(max_steps):
-            if self.scheduler.idle():
+            if self.scheduler.idle() and not self._demand_pending():
+                self._flush_offload()  # the last tick's demotes land
                 return total
             total += self.step()
         raise RuntimeError(
@@ -2185,13 +2612,15 @@ class Engine:
                 prev.join()  # never two loops in step()
             try:
                 while not stop_evt.is_set():
-                    if self.scheduler.idle():
+                    if self.scheduler.idle() and not self._demand_pending():
                         self._m_rate.refresh()
+                        self._flush_offload()  # going idle: land demotes
                         # clear, then check again: a submit between the
                         # idle check and the clear is caught here, one
                         # after it sets the event again
                         self._wake.clear()
                         if self.scheduler.idle() \
+                                and not self._demand_pending() \
                                 and not stop_evt.is_set():
                             self._wake.wait(timeout=0.5)
                         continue
@@ -2210,11 +2639,18 @@ class Engine:
         return self._thread
 
     def _drain(self):
-        """Fail every queued and in-flight request (shutdown)."""
+        """Fail every queued and in-flight request and adapter order
+        (shutdown); pending demotes land first (the host tier outlives
+        the loop)."""
+        self._flush_offload()
         # unconsumed ticks die with their requests; every eviction parks
         # its lanes, so a later start() uploads clean cursors
         self._ring = []
         self._staging_free = []
+        with self._demand_lock:
+            demands, self._demands = self._demands, []
+        for d in demands:
+            d.fail(RuntimeError("engine stopped"))
         for _ in self.queue.drain():
             self._m_done.inc()
         for slot in self.scheduler.busy_slots():

@@ -31,11 +31,161 @@ every lane of a parked slot) writes into the slot's reserved scratch
 block — physical row 0 on one card — which no live request ever reads
 (``GPTAttention.ragged_window_paged``).
 
-Block export / import for migration wait for the migration slice.
+Block export and import (``export_blocks`` / ``import_blocks``, the
+data half of KV migration) move a set of blocks' rows, every layer, K
+and V, between the pools and one host array; the host-RAM offload tier
+(``serving/offload.py``) restores through ``import_blocks``.  The
+engine half of migration (``migrate_out`` / ``migrate_in``) is not
+ported yet (ROADMAP Queue A 4).
 """
 from __future__ import annotations
 
+import base64
+
+import numpy as np
 import torch
+
+
+class KVDtypeMismatch(ValueError):
+    """A block payload and the destination pools disagree about KV
+    quantization (int8 codes against fp rows): the import adopts
+    nothing.  A ValueError, so callers that catch geometry errors catch
+    it too."""
+
+
+def _is_quant_pool(pool):
+    return hasattr(pool, "codes") and hasattr(pool, "scale")
+
+
+def export_blocks(k_pools, v_pools, block_ids):
+    """The rows of ``block_ids`` from every layer's pools as ONE host
+    array ``(n_layers, 2, n_blocks, block_size, H, hd)`` (axis 1: K, V),
+    in table order; the rows are gathered on the pools' device, so only
+    the exported blocks come home.  Quantized pools (``QuantKV``) return
+    ``(codes, scales)``: the int8 codes in that shape and their per-block
+    per-head scales ``(n_layers, 2, n_blocks, H)``."""
+    dev = (k_pools[0].codes if _is_quant_pool(k_pools[0])
+           else k_pools[0]).device
+    ids = torch.as_tensor([int(b) for b in block_ids], dtype=torch.long,
+                          device=dev)
+
+    def gather(field):
+        return torch.stack([
+            torch.stack((field(kp).index_select(0, ids),
+                         field(vp).index_select(0, ids)))
+            for kp, vp in zip(k_pools, v_pools)]).cpu().numpy()
+
+    if _is_quant_pool(k_pools[0]):
+        return (gather(lambda p: p.codes), gather(lambda p: p.scale))
+    return gather(lambda p: p)
+
+
+def _to_device(a, dtype, device):
+    """A host array as a ``dtype`` tensor on ``device``: through a pinned
+    staging copy and a ``non_blocking`` transfer on a card (the caching
+    host allocator keeps the pinned block until the copy is done)."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def import_blocks(k_pools, v_pools, block_ids, data, scales=None):
+    """Write an ``export_blocks`` array into rows ``block_ids`` of every
+    layer's pools, in place (``index_copy_``), and return the same
+    ``(k_pools, v_pools)``.  Everything is checked before anything is
+    written: ``KVDtypeMismatch`` when payload and pools disagree about
+    quantization (checked first: int8 codes must never land in fp pools,
+    nor fp rows without scales in quantized ones), ``ValueError`` when
+    the geometry (layers, block size, heads, head dim) or the scale shape
+    does not match.  ``scales`` ``(n_layers, 2, n_blocks, H)`` is needed
+    exactly when the pools are ``QuantKV``."""
+    quant = _is_quant_pool(k_pools[0])
+    if quant and scales is None:
+        raise KVDtypeMismatch(
+            "destination pools are int8-quantized (kv_dtype='int8') "
+            "but the payload carries no scales: refusing to adopt fp "
+            "rows into a quantized pool")
+    if not quant and scales is not None:
+        raise KVDtypeMismatch(
+            "the payload carries int8 codes + scales but the destination "
+            "pools are fp (kv_dtype mismatch): refusing to adopt")
+    data = np.asarray(data)
+    ids = [int(b) for b in block_ids]
+    want = (len(k_pools), 2, len(ids)) + tuple(k_pools[0].shape[1:])
+    if tuple(data.shape) != want:
+        raise ValueError(
+            f"block payload shape {tuple(data.shape)} does not match the "
+            f"destination pools (want {want}: layers x (K,V) x blocks x "
+            "block_size x heads x head_dim)")
+    if quant:
+        scales = np.asarray(scales)
+        want_s = (len(k_pools), 2, len(ids), k_pools[0].shape[2])
+        if tuple(scales.shape) != want_s:
+            raise ValueError(
+                f"block scale shape {tuple(scales.shape)} does not match "
+                f"the destination scale pools (want {want_s}: layers x "
+                "(K,V) x blocks x heads)")
+    if not ids:
+        return k_pools, v_pools
+    codes0 = k_pools[0].codes if quant else k_pools[0]
+    dev = codes0.device
+    idx = _to_device(np.asarray(ids, np.int64), torch.long, dev)
+    rows = _to_device(data, codes0.dtype, dev)
+    if quant:
+        srows = _to_device(scales, k_pools[0].scale.dtype, dev)
+    for li, (kp, vp) in enumerate(zip(k_pools, v_pools)):
+        if quant:
+            kp.codes.index_copy_(0, idx, rows[li, 0])
+            vp.codes.index_copy_(0, idx, rows[li, 1])
+            kp.scale.index_copy_(0, idx, srows[li, 0])
+            vp.scale.index_copy_(0, idx, srows[li, 1])
+        else:
+            kp.index_copy_(0, idx, rows[li, 0])
+            vp.index_copy_(0, idx, rows[li, 1])
+    return k_pools, v_pools
+
+
+def payload_to_json(payload):
+    """JSON-encode a block payload for the wire: ``kv["data"]`` (and a
+    quantized payload's ``kv["scales"]``) become base64 bytes plus dtype
+    and shape (``data_b64`` / ``data_dtype`` / ``data_shape``); the rest
+    of the payload is already JSON-shaped.  ``payload_from_json`` inverts
+    it exactly."""
+    out = {k: v for k, v in payload.items() if k != "kv"}
+    kv = payload.get("kv")
+    if kv is not None:
+        kv = dict(kv)
+        for field in ("data", "scales"):
+            arr = kv.pop(field, None)
+            if arr is not None:
+                arr = np.ascontiguousarray(arr)
+                kv[f"{field}_b64"] = base64.b64encode(
+                    arr.tobytes()).decode("ascii")
+                kv[f"{field}_dtype"] = str(arr.dtype)
+                kv[f"{field}_shape"] = list(arr.shape)
+        out["kv"] = kv
+    return out
+
+
+def payload_from_json(obj):
+    """Decode a ``payload_to_json`` dict back into the in-memory payload
+    (``kv["data"]``, and ``kv["scales"]`` when quantized, as writable
+    numpy arrays)."""
+    out = {k: v for k, v in obj.items() if k != "kv"}
+    kv = obj.get("kv")
+    if kv is not None:
+        kv = dict(kv)
+        for field in ("data", "scales"):
+            b64 = kv.pop(f"{field}_b64", None)
+            if b64 is not None:
+                dtype = np.dtype(kv.pop(f"{field}_dtype"))
+                shape = tuple(kv.pop(f"{field}_shape"))
+                kv[field] = np.frombuffer(
+                    base64.b64decode(b64), dtype=dtype).reshape(shape).copy()
+        out["kv"] = kv
+    return out
+
 
 def per_shard_block_bytes(block_size, num_heads, head_dim, dtype,
                           n_layers, mp=1, scale_dtype=None):
@@ -57,7 +207,6 @@ def per_shard_block_bytes(block_size, num_heads, head_dim, dtype,
     ratio works out to ``4 / (1 + 4/(block_size*head_dim))`` (~3.8x
     for the small test geometries, ~4x at real ones) instead of a
     flattering byte-only 4x."""
-    import numpy as np
     mp = int(mp)
     itemsize = (torch.empty((), dtype=dtype).element_size()
                 if isinstance(dtype, torch.dtype)

@@ -16,9 +16,9 @@ Robustness contract: a proposer that RAISES degrades, it does not kill
 the tick — the engine counts ``serving.proposer_failures`` and runs the
 window with zero drafts for that slot.
 
-``DraftModelProposer`` (a smaller GPT drafting greedily) needs
-``GPTModel.generate``, which the port does not have yet: it raises
-naming its ROADMAP item.
+``PromptLookupProposer`` drafts from the history alone;
+``DraftModelProposer`` drafts with a smaller GPT through
+``GPTModel.generate``.
 """
 from __future__ import annotations
 
@@ -90,12 +90,44 @@ class PromptLookupProposer(Proposer):
 
 
 class DraftModelProposer(Proposer):
-    """Draft with a smaller GPT sharing the target's vocabulary — not
-    ported yet: it re-runs the history through ``GPTModel.generate``,
-    which the port does not have."""
+    """Draft with a smaller GPT sharing the target's vocabulary: greedy
+    ``generate`` of ``k`` continuation tokens of the slot's history.
+
+    The draft runs EAGER (``generate(compiled=False)``): the history
+    grows every tick, and the eager path takes any length without a
+    buffer of its own.  Histories longer than the draft model's position
+    table are cut to their tail: a draft from a clipped context is still
+    a guess, and verification keeps it honest.
+
+    ``weight_dtype="int8"`` relayouts the draft's transformer blocks
+    through weight-only int8 (``serving/quant.py``) first: a draft is the
+    safest model to quantize, since a rounding-flipped draft token costs
+    at most one accepted lane, never output correctness.
+
+    ``propose`` reads the draft's tokens back to the host, so an engine
+    drafting with it synchronizes once a slot a tick."""
 
     def __init__(self, draft_model, weight_dtype=None):
-        raise NotImplementedError(
-            "DraftModelProposer is not ported yet: ROADMAP.md Queue A 13 "
-            "(GPTModel.generate and DraftModelProposer); use "
-            "PromptLookupProposer")
+        if weight_dtype not in (None, "int8"):
+            raise ValueError(
+                f"DraftModelProposer: unsupported weight_dtype "
+                f"{weight_dtype!r} (only 'int8')")
+        draft_model.eval()
+        if weight_dtype == "int8":
+            from .quant import relayout_weights_int8
+            relayout_weights_int8(draft_model)
+        self.model = draft_model
+        self.vocab_size = int(
+            draft_model.embeddings.word_embeddings.weight.shape[0])
+        self._max_position = int(
+            draft_model.embeddings.position_embeddings.weight.shape[0])
+
+    def propose(self, history, k):
+        h = np.asarray(history, np.int64).reshape(-1)
+        keep = self._max_position - int(k)
+        if keep < 1:
+            return h[:0]
+        if len(h) > keep:
+            h = h[-keep:]
+        out = self.model.generate(h[None, :], max_new_tokens=int(k))
+        return out[0, len(h):].cpu().numpy().astype(np.int32)

@@ -27,7 +27,6 @@ from paddle_tpu_torch.distributed import ServingMesh
 from paddle_tpu_torch.models import GPTModel
 from paddle_tpu_torch.serving import Engine
 from paddle_tpu_torch.serving import kvcache as torch_kv
-from paddle_tpu_torch.serving.spec import DraftModelProposer
 
 torch.set_num_threads(1)
 
@@ -251,8 +250,9 @@ def test_block_pool_and_prefix_cache_match_jax_copies():
 
 
 def test_package_imports_no_jax():
-    """Every module of paddle_tpu_torch (the monitor and the proposers
-    among them), and chip_smoke.py, import without pulling in jax or the
+    """Every module of paddle_tpu_torch (the monitor, the proposers, the
+    LoRA lanes, the host tier and the streams among them), and
+    chip_smoke.py, import without pulling in jax or the
     JAX package (exact module names: ``paddle_tpu_torch`` has
     ``paddle_tpu`` as a prefix)."""
     code = r"""
@@ -269,7 +269,9 @@ bad = sorted(k for k in sys.modules
              or k.startswith("jaxlib") or k.startswith("paddle_tpu."))
 new = {"paddle_tpu_torch.monitor", "paddle_tpu_torch.monitor.stats",
        "paddle_tpu_torch.monitor.exposition",
-       "paddle_tpu_torch.monitor.tracing", "paddle_tpu_torch.serving.spec"}
+       "paddle_tpu_torch.monitor.tracing", "paddle_tpu_torch.serving.spec",
+       "paddle_tpu_torch.serving.lora", "paddle_tpu_torch.serving.offload",
+       "paddle_tpu_torch.serving.stream"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 assert not bad, bad
@@ -304,19 +306,15 @@ def test_engine_refuses_weights_elsewhere():
         Engine(m, device="cpu", kv_block_size=8, prefill_chunk=8)
 
 
-def _draft_model_knob(model):
-    return dict(spec_k=2, proposer=DraftModelProposer(model))
-
-
 @pytest.mark.parametrize("knob", [
     # the mesh is ported; weight-only int8 over a dense dp mesh is not,
-    # nor the XLA paths over a mesh
+    # nor the XLA paths or the host-RAM tier over a mesh
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), weight_dtype="int8"),
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), attn_impl="xla"),
-    dict(weight_dtype="int8", adapters={}), dict(adapters={}),
-    dict(kv_host_mb=64), dict(kv_dtype="int8", kv_host_mb=64),
-    # built inside the check: the proposer raises when it is made
-    _draft_model_knob])
+    dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), prefill_chunk=None),
+    dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), kv_host_mb=64),
+    dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), kv_dtype="int8",
+         kv_host_mb=64)])
 def test_unported_knobs_raise(models, knob):
     """Every knob still unported raises naming its ROADMAP item, also
     beside the ported int8 and gather knobs (and before a weight relayout
@@ -324,8 +322,8 @@ def test_unported_knobs_raise(models, knob):
     _, tm = models
     kw = dict(num_slots=2, max_seq_len=48, kv_block_size=8,
               prefill_chunk=8, device="cpu")
+    kw.update(knob)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        kw.update(knob(tm) if callable(knob) else knob)
         Engine(tm, **kw)
 
 

@@ -282,7 +282,8 @@ def test_spec_accepts_on_repetitive_workload(cyclic_model):
 def test_spec_validation(models):
     """``spec_k`` and ``proposer`` are validated as the JAX engine
     validates them; the window margin counts at submit;
-    ``DraftModelProposer`` names its ROADMAP item."""
+    ``DraftModelProposer`` takes the model's vocabulary and refuses a
+    weight dtype other than int8, as JAX's does."""
     _, tm = models
     with pytest.raises(ValueError, match="spec_k must be >= 1"):
         Engine(tm, device="cpu", spec_k=0, **ENGINE_KW)
@@ -303,5 +304,6 @@ def test_spec_validation(models):
     eng.submit(np.arange(20, dtype=np.int32), max_new_tokens=24)
     with pytest.raises(ValueError, match="spec_k"):
         eng.submit(np.arange(20, dtype=np.int32), max_new_tokens=25)
-    with pytest.raises(NotImplementedError, match="Queue A 13"):
-        DraftModelProposer(tm)
+    assert DraftModelProposer(tm).vocab_size == 128
+    with pytest.raises(ValueError, match="weight_dtype"):
+        DraftModelProposer(tm, weight_dtype="fp16")
