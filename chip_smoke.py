@@ -215,9 +215,43 @@ line:
    ties (1e-4 fp32, 1e-3 int8).  (e) a ``TokenStream`` yields exactly the
    buffered tokens.  B1 (B2 in (d) int8) launched 24 times a dispatch in
    every ragged serve, none in (c)'s XLA serve; no flash kernel.
-18. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
-   phase 16 (c)'s and phase 17's serves, B2's phase 10's and phase 17
-   (d)'s, B5a's phase 6's and phase 16 (f)'s), the card line and
+18. Migration, the front ends, faults and the fleet, on phase 4's fp32
+   model and traffic.  (a) Two ragged engines: every request exported
+   from A after 8 tokens (``migrate_out(deliver="return")``, the demands
+   registered at submit) and imported by B, every other payload through
+   its JSON wire form; the streams equal phase 4's (dense near ties and
+   near-edge seeded draws excepted), every block adopted, both pools at
+   refcount 0 afterwards, B1 launched 24 times a dispatch of A and B.
+   Prints bytes a block, the export's gather + download and the import's
+   upload + write a block (wall around a synchronize, best of three), and
+   the JSON encode / decode of the longest stream's payload.  A prefix
+   exported from A's trie warms a fresh engine (its prefix hits rise, its
+   stream equal phase 4's); fp32 blocks into int8 pools raise
+   ``KVDtypeMismatch`` and adopt nothing; the same pair with
+   ``kv_dtype="int8"`` on phase 10's model: streams equal phase 10's
+   except at int8 near ties (margin < 1e-3 on B's own logits), B2 24
+   launches a dispatch.  (b) An ``EngineServer``: 12 concurrent ``POST
+   /generate``, ids equal phase 4's; a ``RouterServer`` over a
+   ``prefill`` and a ``decode`` ``EngineServer`` with
+   ``RouterPolicy(disaggregate=True)``: streams equal phase 4's,
+   ``router_migrations_total`` 12, routed tokens/s printed beside phase
+   4's.  (c) tests/test_faults.py's short storm (its sites and rates;
+   the watchdog at 3 s, hangs of 30 s) over a ``spec_k=2`` ragged engine,
+   twice with seed 11: every request completes equal to phase 4's stream
+   (near ties excepted) or fails with an injected error, the second run
+   replays the same fault log, step errors and seeded survivors, the
+   pools end at refcount 0; then a ``d2h_hang`` at tick 8 under
+   ``watchdog_s=1``: ``WatchdogTimeout``, ``last_flight`` holding the
+   ticks in flight, and the engine serving again, equal to phase 4's.
+   (d) ``spawn_serving_fleet(2, config="gpt2-medium", device="cuda",
+   peers=True)`` behind ``routerd`` (a third process checks that seed 0
+   draws this process's weights, exactly); replica 0 gets SIGTERM once it
+   holds a live stream: its drain line reports ``lost_tokens=0`` and the
+   routed streams equal phase 4's.
+19. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+   phase 16 (c)'s, phase 17's and phase 18's in-process serves, B2's
+   phase 10's, phase 17 (d)'s and phase 18 (a)'s, B5a's phase 6's and
+   phase 16 (f)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -233,6 +267,7 @@ Needs the repository around it: alone in a directory it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib.util
 import json
@@ -533,7 +568,7 @@ def slice_phase(card, ragged_mod):
     print(f"second engine: seeded streams repeat; greedy streams repeat "
           f"{greedy_repeat}; wall_s {wall2:.3f}", flush=True)
     profile_phase(model, reqs, Engine, card)
-    return launches, model, reqs, outs
+    return launches, model, reqs, outs, gen_tokens / wall
 
 
 # torch.profiler labels of the mesh path (ops/ragged_paged_attn.py,
@@ -2198,6 +2233,621 @@ def serving_features_phase(card, ragged_mod, model, reqs, fp_outs):
     return b1, b2
 
 
+# -- phase 18 -------------------------------------------------------------
+# the short chaos storm of tests/test_faults.py: its sites and rates; the
+# watchdog and the hang sized for a gpt2-medium tick (tens of ms)
+STORM_RATES = {"dispatch": 0.04, "d2h_hang": 0.03, "pool_exhaust": 0.03,
+               "host_slow": 0.05, "spec_draft": 0.08}
+STORM_KW = dict(hang_s=30.0, slow_s=0.002)
+STORM_WATCHDOG_S = 3.0
+STORM_TICKS = (5, 60)              # the storm's window, after the start
+STORM_EVERY = 6                    # request i is submitted at tick 6 * i
+MIGRATE_AFTER = 8                  # tokens a stream emits before it moves
+FLEET_DIR = os.path.join(HERE, "build", "phase18_fleet")
+INJECTED = ("InjectedFault", "NoFreeBlocks", "WatchdogTimeout")
+
+
+def migrate_pair(model, reqs, ref_outs, recording=False, **engine_kw):
+    """Phase 18 (a), one pool form: every request of the traffic served
+    on engine A, exported once it has ``MIGRATE_AFTER`` tokens (the
+    demands registered at submit, ``deliver="return"``), imported by
+    engine B, every other payload through its JSON wire form, and decoded
+    to the end there.  Returns (A, B, payloads, streams, wall, margins of
+    B when ``recording``)."""
+    import torch
+    from paddle_tpu_torch.serving import Engine, payload_to_json
+    from paddle_tpu_torch.serving.engine import Migrated
+    ekw = dict(num_slots=8, max_seq_len=1024, kv_block_size=16,
+               prefill_chunk=64)
+    ekw.update(engine_kw)
+    a = Engine(model, **ekw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles, demands = [], []
+    for p, kw in reqs:
+        h = a.submit(p, max_new_tokens=32, **kw)
+        handles.append(h)
+        demands.append(a.migrate_out(request_id=h.id,
+                                     min_tokens=MIGRATE_AFTER,
+                                     deliver="return", wait=False))
+    for _ in range(2000):
+        if all(d.done.is_set() for d in demands):
+            break
+        a.step()
+    verdicts = [d.wait(0) for d in demands]
+    for v, h in zip(verdicts, handles):
+        check(v["completed"] is False and v["payload"] is not None,
+              "phase 18 (a): a stream finished before its export")
+        check(isinstance(h.error, Migrated)
+              and h.error.emitted == v["generated"],
+              "phase 18 (a): the exported waiter did not end in Migrated")
+    payloads = [v["payload"] for v in verdicts]
+    margins, undo = {}, None
+    cls = Engine
+    if recording:
+        cls, margins, undo = recording_engine()
+    try:
+        b = cls(model, **ekw)
+        ins = [b.migrate_in(payload_to_json(pl) if i % 2 else pl,
+                            wait=False)
+               for i, pl in enumerate(payloads)]
+        b.run_until_idle()
+    finally:
+        if undo is not None:
+            undo()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = [d.wait(0) for d in ins]
+    outs = [g["request"].result(timeout=1) for g in got]
+    for g, pl in zip(got, payloads):
+        check(g["blocks"] == pl["kv"]["n_blocks"] >= 1,
+              "phase 18 (a): the import did not adopt every block")
+    b.prefix_cache.clear()
+    check(b.block_pool.in_use() == 0,
+          "phase 18 (a): blocks leaked on the importing engine")
+    return a, b, payloads, outs, wall, margins
+
+
+def check_no_leak(eng, label):
+    """Once its trie lets go, an idle engine's pool is at refcount 0."""
+    eng.prefix_cache.clear()
+    check(eng.block_pool.in_use() == 0, f"{label}: KV blocks leaked")
+
+
+def migration_costs(b, payloads, card):
+    """Per-block costs of the wire, on engine B's pools: the export's
+    gather + download and the import's upload + write (wall clock around
+    a synchronize), the payload's bytes a block, and the JSON encode
+    (``payload_to_json`` + ``json.dumps``) and decode of the longest
+    stream's payload.  Also the engines' own ``migrate.export`` span
+    means (gather + download, a block)."""
+    import torch
+    from paddle_tpu_torch.serving import (export_blocks, import_blocks,
+                                          payload_from_json,
+                                          payload_to_json)
+    longest = max(payloads, key=lambda pl: pl["kv"]["n_blocks"])
+    n = longest["kv"]["n_blocks"]
+    data = longest["kv"]["data"]
+    blocks = b.block_pool.alloc(n)
+    try:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            import_blocks(b.k_pools, b.v_pools, blocks, data)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            back = export_blocks(b.k_pools, b.v_pools, blocks)
+            t2 = time.perf_counter()
+            times.append((t1 - t0, t2 - t1))
+        check(back.tobytes() == data.tobytes(),
+              "phase 18 (a): export after import is not bitwise the payload")
+    finally:
+        b.block_pool.decref(blocks)
+    imp = min(t[0] for t in times) * 1e3 / n
+    exp = min(t[1] for t in times) * 1e3 / n
+    t0 = time.perf_counter()
+    text = json.dumps(payload_to_json(longest))
+    t1 = time.perf_counter()
+    back = payload_from_json(json.loads(text))
+    t2 = time.perf_counter()
+    check(back["kv"]["data"].tobytes() == data.tobytes(),
+          "phase 18 (a): the JSON wire form does not round-trip")
+    print(f"phase 18 (a) wire: bytes_per_block {data.nbytes // n} "
+          f"export_gather_download_ms_per_block {exp:.4f} "
+          f"import_ms_per_block {imp:.4f} (over {n} blocks, best of 3) "
+          f"longest_payload_blocks {n} json_bytes {len(text)} "
+          f"json_encode_ms {(t1 - t0) * 1e3:.1f} json_decode_ms "
+          f"{(t2 - t1) * 1e3:.1f} [{card}]", flush=True)
+
+
+def migration_phase(card, ragged_mod, model, reqs, fp_outs, model_q,
+                    q_outs):
+    """Phase 18 (a).  Returns (B1 launches, B2 launches)."""
+    from paddle_tpu_torch.serving import Engine, KVDtypeMismatch
+    zero_ragged_counts(ragged_mod)
+    a, b, payloads, outs, wall, _ = migrate_pair(model, reqs, fp_outs)
+    b1 = ragged_counts(ragged_mod)["ragged_paged_attention"]
+    check(b1 == (a.ragged_dispatches + b.ragged_dispatches) * N_LAYERS,
+          f"phase 18 (a): B1 launched {b1} times, not (A {a.ragged_dispatches}"
+          f" + B {b.ragged_dispatches}) dispatches x {N_LAYERS}")
+    g_eq, g_n, s_eq, s_n = check_against(model, reqs, outs, fp_outs,
+                                         "phase 18 (a) migration")
+    blocks = sum(pl["kv"]["n_blocks"] for pl in payloads)
+    check(a.registry.get("serving.kv_blocks_migrated").value == blocks,
+          "phase 18 (a): serving.kv_blocks_migrated != blocks exported")
+    print(f"phase 18 (a) migration fp32: 12 streams A -> B after "
+          f"{MIGRATE_AFTER} tokens (6 live, 6 JSON wire), blocks {blocks}, "
+          f"greedy_equal_to_phase4 {g_eq}/{g_n} seeded_equal {s_eq}/{s_n}, "
+          f"B1 launches {b1} (A {a.ragged_dispatches} + B "
+          f"{b.ragged_dispatches} dispatches) wall_s {wall:.3f} "
+          f"export_span_ms_mean {span_ms(a, ('migrate.export',)):.4f} "
+          f"import_span_ms_mean {span_ms(b, ('migrate.import',)):.4f} "
+          f"[{card}]", flush=True)
+    migration_costs(b, payloads, card)
+    # prefix warming: A's trie keeps the exported prompts' blocks
+    sys_req = reqs[5]
+    c = Engine(model, num_slots=8, max_seq_len=1024, kv_block_size=16,
+               prefill_chunk=64)
+    d = a.export_prefix(sys_req[0], wait=False)
+    a.step()
+    payload = d.wait(0)
+    check(payload is not None, "phase 18 (a): export_prefix found nothing")
+    d = c.import_prefix(payload, wait=False)
+    c.step()
+    warmed = d.wait(0)
+    h = c.submit(sys_req[0], max_new_tokens=32, **sys_req[1])
+    c.run_until_idle()
+    check(c.prefix_hits >= 1
+          and c.prefix_hit_tokens >= warmed["tokens"] > 0,
+          f"phase 18 (a): the warmed engine's prefix hits did not rise "
+          f"({c.prefix_hits}, {c.prefix_hit_tokens} tokens)")
+    check_against(model, [sys_req], [h.result(timeout=1)], [fp_outs[5]],
+                  "phase 18 (a) prefix warming")
+    dispatches = (a.ragged_dispatches + b.ragged_dispatches
+                  + c.ragged_dispatches)
+    b1 = ragged_counts(ragged_mod)["ragged_paged_attention"]
+    check(b1 == dispatches * N_LAYERS,
+          f"phase 18 (a): B1 launched {b1} times over the migration pair "
+          f"and the warmed engine, not {dispatches} dispatches x "
+          f"{N_LAYERS}")
+    print(f"phase 18 (a) prefix warming: {warmed['blocks']} blocks "
+          f"({payload['tier']}) into a fresh engine, its prefix hits "
+          f"{c.prefix_hits} ({c.prefix_hit_tokens} tokens), stream equal "
+          f"to phase 4's", flush=True)
+    check_no_leak(a, "phase 18 (a) exporting engine")
+    check_no_leak(c, "phase 18 (a) warmed engine")
+    # fp32 blocks into int8 pools adopt nothing
+    cq = Engine(model_q, num_slots=8, max_seq_len=1024, kv_block_size=16,
+                prefill_chunk=64, kv_dtype="int8")
+    d = cq.migrate_in(payloads[0], wait=False)
+    cq.step()
+    try:
+        d.wait(0)
+        check(False, "phase 18 (a): fp32 blocks imported into int8 pools")
+    except KVDtypeMismatch:
+        pass
+    check(cq.block_pool.in_use() == 0 and cq.queue.depth() == 0,
+          "phase 18 (a): a refused import left state behind")
+    del a, b, c, cq
+    # the int8-KV pair on phase 10's relayouted model
+    zero_ragged_counts(ragged_mod)
+    a, b, payloads, outs, wall, margins = migrate_pair(
+        model_q, reqs, q_outs, recording=True, kv_dtype="int8")
+    counts = ragged_counts(ragged_mod)
+    b2 = counts["ragged_paged_attention_int8"]
+    check(b2 == (a.ragged_dispatches + b.ragged_dispatches) * N_LAYERS
+          and sum(counts.values()) == b2,
+          f"phase 18 (a) int8: ragged launches {counts} for "
+          f"{a.ragged_dispatches} + {b.ragged_dispatches} dispatches")
+    check(all(pl["kv"]["dtype"] == "int8" and "scales" in pl["kv"]
+              for pl in payloads), "phase 18 (a): int8 payloads lack scales")
+    check_no_leak(a, "phase 18 (a) int8 exporting engine")
+    near, gaps = stream_divergences(model_q, reqs, q_outs, outs, margins,
+                                    1e-3)
+    same = sum(x.tolist() == y.tolist()
+               for (_, kw), x, y in zip(reqs, q_outs, outs) if not kw)
+    print(f"phase 18 (a) migration int8 KV: greedy streams equal to phase "
+          f"10's {same} of 10, near-tie divergences (int8 margin < 1e-3) "
+          f"{near} at margins {gaps}; B2 launches {b2} wall_s {wall:.3f} "
+          f"[{card}]", flush=True)
+    return b1, b2
+
+
+def post_json(url, obj, timeout=600.0):
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def post_all(url, reqs):
+    """Every request as a concurrent ``POST /generate``; returns (ids as
+    arrays, wall)."""
+    import threading
+    import numpy as np
+    outs = [None] * len(reqs)
+    errs = []
+
+    def call(k):
+        p, kw = reqs[k]
+        try:
+            outs[k] = np.asarray(post_json(url + "/generate", dict(
+                {"prompt": [int(t) for t in p], "max_new_tokens": 32},
+                **kw))["ids"])
+        except Exception as e:  # reported below, then the phase fails
+            errs.append(repr(e))
+
+    threads = [threading.Thread(target=call, args=(k,), daemon=True)
+               for k in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    check(not errs and all(o is not None for o in outs),
+          f"requests failed: {errs}")
+    return outs, wall
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Wrap each ``(owner, attribute, label)`` callable so that every
+    call appends its wall time (ms, host clock) to ``times[label]``;
+    yields ``times`` and puts the originals back on exit."""
+    times = {label: [] for _, _, label in targets}
+    saved = []
+
+    def timed(fn, label):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        return call
+
+    for owner, attr, label in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed(fn, label))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def span_list_ms(eng, name):
+    """Durations (ms, host clock) of the engine tracer's spans of this
+    name."""
+    return [e["dur"] / 1e3 for e in eng.chrome_trace()["traceEvents"]
+            if e.get("ph") == "X" and e["name"] == name]
+
+
+def breakdown_text(parts):
+    """``label n= sum_s= mean_ms=`` for each measured part."""
+    return "; ".join(
+        f"{label} n={len(ms)} sum_s={sum(ms) / 1e3:.3f} "
+        f"mean_ms={sum(ms) / len(ms) if ms else 0.0:.2f}"
+        for label, ms in parts)
+
+
+def front_end_phase(card, ragged_mod, model, reqs, fp_outs, phase4_tps):
+    """Phase 18 (b).  Returns B1 launches (counted, in the engines'
+    threads).  The routed serve's wall is broken down by measurement:
+    the router's two calls a request, the handlers' JSON work and the
+    engines' migration spans, all in this process."""
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.serving import (Engine, EngineServer,
+                                          HttpReplicaClient, Router,
+                                          RouterPolicy, RouterServer)
+    from paddle_tpu_torch.serving import httpd as httpd_mod
+    ekw = dict(num_slots=8, max_seq_len=1024, kv_block_size=16,
+               prefill_chunk=64)
+    zero_ragged_counts(ragged_mod)
+    with EngineServer(Engine(model, **ekw)) as srv:
+        outs, wall = post_all(srv.address, reqs)
+        g_eq, g_n, s_eq, s_n = check_against(model, reqs, outs, fp_outs,
+                                             "phase 18 (b) httpd")
+        eng = srv.engine
+    print(f"phase 18 (b) EngineServer: 12 concurrent POST /generate, "
+          f"greedy_equal_to_phase4 {g_eq}/{g_n} seeded_equal {s_eq}/{s_n} "
+          f"tokens_per_s {12 * 32 / wall:.2f} wall_s {wall:.3f} [{card}]",
+          flush=True)
+    dispatches = eng.ragged_dispatches
+    with EngineServer(Engine(model, **ekw), role="prefill") as pre, \
+            EngineServer(Engine(model, **ekw), role="decode") as dec:
+        router = Router({"prefill": HttpReplicaClient(pre.address,
+                                                      timeout_s=600),
+                         "decode": HttpReplicaClient(dec.address,
+                                                     timeout_s=600)},
+                        policy=RouterPolicy(disaggregate=True, seed=0),
+                        kv_block_size=16, registry=monitor.StatRegistry())
+        targets = [
+            (HttpReplicaClient, "migrate_export",
+             "router POST /migrate/export (submit to payload received)"),
+            (HttpReplicaClient, "migrate_import",
+             "router POST /migrate/import (payload sent to last token)"),
+            (httpd_mod, "payload_to_json", "handler base64 encode"),
+            (httpd_mod._Handler, "_send_json",
+             "handler json.dumps + write"),
+            (httpd_mod._Handler, "_read_body", "handler read + json.loads")]
+        with RouterServer(router) as rs, timed_calls(targets) as times:
+            router.probe_once()
+            outs, wall = post_all(rs.address, reqs)
+        migrations = router.registry.get("router.migrations_total").value
+        dispatches += (pre.engine.ragged_dispatches
+                       + dec.engine.ragged_dispatches)
+        parts = [(label, times[label]) for _, _, label in targets] + [
+            ("prefill engine migrate.export",
+             span_list_ms(pre.engine, "migrate.export")),
+            ("decode engine migrate.wire (base64 decode)",
+             span_list_ms(dec.engine, "migrate.wire")),
+            ("decode engine migrate.import",
+             span_list_ms(dec.engine, "migrate.import")),
+            ("prefill engine tick", span_list_ms(pre.engine, "tick")),
+            ("decode engine tick", span_list_ms(dec.engine, "tick"))]
+    g_eq, g_n, s_eq, s_n = check_against(model, reqs, outs, fp_outs,
+                                         "phase 18 (b) routed")
+    check(migrations == len(reqs),
+          f"phase 18 (b): router_migrations_total {migrations} != "
+          f"{len(reqs)}")
+    b1 = ragged_counts(ragged_mod)["ragged_paged_attention"]
+    check(b1 == dispatches * N_LAYERS,
+          f"phase 18 (b): B1 launched {b1} times, not {dispatches} "
+          f"dispatches x {N_LAYERS}")
+    print(f"phase 18 (b) routed (disaggregated prefill -> decode over "
+          f"routerd): greedy_equal_to_phase4 {g_eq}/{g_n} seeded_equal "
+          f"{s_eq}/{s_n} router_migrations_total {migrations:.0f} "
+          f"tokens_per_s {12 * 32 / wall:.2f} (phase 4 "
+          f"{phase4_tps:.2f}) wall_s {wall:.3f} B1 launches {b1} "
+          f"[{card}]", flush=True)
+    print(f"phase 18 (b) routed breakdown (host clock, 12 concurrent "
+          f"requests, so parts overlap): {breakdown_text(parts)} "
+          f"[{card}]", flush=True)
+    return b1
+
+
+def storm_run(model, reqs, seed):
+    """One seeded storm (``STORM_RATES``) over a ragged engine at
+    ``spec_k=2`` with a watchdog: phase 4's request i submitted before
+    tick ``STORM_EVERY * i`` (the last ones after the window), every tick
+    stepped, errors absorbed as the background loop absorbs them.
+    Returns (engine, handles, fault log, errors)."""
+    from paddle_tpu_torch.serving import Engine, FaultInjector
+    inj = FaultInjector(seed=seed, rates=STORM_RATES,
+                        first_tick=STORM_TICKS[0],
+                        last_tick=STORM_TICKS[1], **STORM_KW)
+    eng = Engine(model, num_slots=8, max_seq_len=1024, kv_block_size=16,
+                 prefill_chunk=64, spec_k=2, faults=inj,
+                 watchdog_s=STORM_WATCHDOG_S)
+    handles, errors = [], []
+    for t in range(3000):
+        if t % STORM_EVERY == 0 and len(handles) < len(reqs):
+            p, kw = reqs[len(handles)]
+            handles.append(eng.submit(p, max_new_tokens=32, **kw))
+        elif eng.scheduler.idle() and len(handles) == len(reqs):
+            break
+        try:
+            eng.step()
+        except Exception as e:  # step() already recovered the engine
+            errors.append(type(e).__name__)
+    check(eng.scheduler.idle() and not eng._ring,
+          "phase 18 (c): the engine did not drain after the storm")
+    eng.stop()
+    return eng, handles, list(inj.log), errors
+
+
+def fault_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 18 (c).  Returns B1 launches."""
+    from paddle_tpu_torch.serving import (Engine, FaultInjector,
+                                          NoFreeBlocks, WatchdogTimeout)
+    zero_ragged_counts(ragged_mod)
+    runs = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        runs.append(storm_run(model, reqs, seed=11))
+    wall = time.perf_counter() - t0
+    eng, handles, log, errors = runs[0]
+    ok = [i for i, h in enumerate(handles) if h.error is None]
+    for h in handles:
+        if h.error is not None:
+            check(any(n in repr(h.error) for n in INJECTED),
+                  f"phase 18 (c): a request failed with {h.error!r}, not "
+                  "an injected error")
+    check(ok, "phase 18 (c): no request survived the storm")
+    g_eq, g_n, s_eq, s_n = check_against(
+        model, [reqs[i] for i in ok], [handles[i].result(0) for i in ok],
+        [fp_outs[i] for i in ok], "phase 18 (c) storm survivors")
+    for i in ok:
+        if reqs[i][1]:
+            check(runs[1][1][i].error is None
+                  and runs[1][1][i].result(0).tolist()
+                  == handles[i].result(0).tolist(),
+                  "phase 18 (c): a seeded survivor did not repeat")
+    check(runs[1][2] == log and runs[1][3] == errors,
+          "phase 18 (c): the same seed replayed another fault log")
+    check(len(log) >= 3, f"phase 18 (c): the storm fired {len(log)} faults")
+    for e, _, _, _ in runs:
+        e.prefix_cache.clear()
+        check(e.block_pool.in_use() == 0,
+              "phase 18 (c): the storm leaked KV blocks")
+    dispatches = sum(r[0].ragged_dispatches for r in runs)
+    b1 = ragged_counts(ragged_mod)["ragged_paged_attention"]
+    check(b1 == dispatches * N_LAYERS,
+          f"phase 18 (c): B1 launched {b1} times, not {dispatches} "
+          f"dispatches x {N_LAYERS}")
+    sites = sorted({s for _, s in log})
+    print(f"phase 18 (c) storm (seed 11, ticks {STORM_TICKS}, rates "
+          f"{STORM_RATES}, watchdog_s {STORM_WATCHDOG_S}): faults fired "
+          f"{len(log)} at sites {sites}, step errors {errors}, survivors "
+          f"{len(ok)}/12 (greedy equal to phase 4's {g_eq}/{g_n}, seeded "
+          f"{s_eq}/{s_n}), the second run replayed the same log and "
+          f"outcomes, pools at refcount 0, watchdog_fires "
+          f"{eng.registry.get('serving.watchdog_fires').value:.0f}, "
+          f"wall_s {wall:.3f} for both runs [{card}]", flush=True)
+    # a pool exhaustion at the admission gate (tick 3): the popped
+    # request goes back to the queue's head and nothing is lost
+    inj = FaultInjector(seed=0).at(3, "pool_exhaust")
+    eng = Engine(model, num_slots=8, max_seq_len=1024, kv_block_size=16,
+                 prefill_chunk=64, faults=inj)
+    eng.step()
+    eng.step()
+    handles = [eng.submit(p, max_new_tokens=32, **kw) for p, kw in reqs[:4]]
+    raised = None
+    try:
+        eng.step()
+    except NoFreeBlocks as e:
+        raised = e
+    check(raised is not None and inj.log == [(3, "pool_exhaust")],
+          f"phase 18 (c): the pinned pool_exhaust did not raise at tick 3 "
+          f"({inj.log})")
+    check(not any(h.done() for h in handles)
+          and eng.queue.depth() == len(handles),
+          "phase 18 (c): a pool exhaustion at the gate lost a request")
+    eng.run_until_idle()
+    check_against(model, reqs[:4], [h.result(1) for h in handles],
+                  fp_outs[:4], "phase 18 (c) after the pool exhaustion")
+    check(eng.registry.get("serving.faults_injected").value == 1,
+          "phase 18 (c): serving.faults_injected != 1")
+    check_no_leak(eng, "phase 18 (c) pool exhaustion")
+    dispatches += eng.ragged_dispatches
+    print(f"phase 18 (c) pool_exhaust: NoFreeBlocks at tick 3's admission "
+          f"gate, the 4 queued requests kept their places and served equal "
+          f"to phase 4's, pool at refcount 0", flush=True)
+    # a d2h hang under the watchdog: recorded with its in-flight ticks
+    inj = FaultInjector(seed=0, hang_s=30.0).at(8, "d2h_hang")
+    eng = Engine(model, num_slots=8, max_seq_len=1024, kv_block_size=16,
+                 prefill_chunk=64, faults=inj, watchdog_s=1.0)
+    for p, kw in reqs[:4]:
+        eng.submit(p, max_new_tokens=32, **kw)
+    raised = None
+    t0 = time.perf_counter()
+    for _ in range(40):
+        try:
+            eng.step()
+        except WatchdogTimeout as e:
+            raised = e
+            break
+    stalled = time.perf_counter() - t0
+    check(raised is not None, "phase 18 (c): the watchdog never fired")
+    fr = eng.last_flight["metadata"]["flight-recorder"]
+    in_flight = fr["async"]["in_flight"]
+    check(eng.registry.get("serving.watchdog_fires").value >= 1
+          and in_flight and fr["tick"] == 8,
+          f"phase 18 (c): flight record without in-flight ticks: {fr}")
+    handles = [eng.submit(p, max_new_tokens=32, **kw) for p, kw in reqs[:4]]
+    eng.run_until_idle()
+    check_against(model, reqs[:4], [h.result(1) for h in handles],
+                  fp_outs[:4], "phase 18 (c) after the watchdog")
+    eng.stop()
+    dispatches += eng.ragged_dispatches
+    b1 = ragged_counts(ragged_mod)["ragged_paged_attention"]
+    check(b1 == dispatches * N_LAYERS,
+          f"phase 18 (c): B1 launched {b1} times, not {dispatches} "
+          f"dispatches x {N_LAYERS}")
+    print(f"phase 18 (c) watchdog: a d2h_hang at tick 8 converted to "
+          f"WatchdogTimeout after {stalled:.3f} s (watchdog_s 1.0); "
+          f"last_flight holds ticks {[t['tick'] for t in in_flight]} in "
+          f"flight; the engine served 4 requests again, equal to phase 4's",
+          flush=True)
+    return b1
+
+
+def fleet_phase(card, model, reqs, fp_outs):
+    """Phase 18 (d): ``spawn_serving_fleet`` of two gpt2-medium replicas
+    on the card behind ``routerd``; replica 0 gets SIGTERM mid-stream.
+    The replicas draw their weights from seed 0 as this process did: the
+    routed and drained streams equal to phase 4's show that they hold
+    the same ones."""
+    import numpy as np
+    import urllib.request
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.distributed.launch import spawn_serving_fleet
+    from paddle_tpu_torch.serving import (HttpReplicaClient, Router,
+                                          RouterPolicy, RouterServer)
+    t0 = time.perf_counter()
+    with spawn_serving_fleet(2, config="gpt2-medium", device="cuda",
+                             seed=0, num_slots=8, max_seq_len=1024,
+                             kv_block_size=16, prefill_chunk=64, peers=True,
+                             log_dir=FLEET_DIR,
+                             ready_timeout_s=300.0) as fleet:
+        boot = time.perf_counter() - t0
+        router = Router({f"r{i}": HttpReplicaClient(u, timeout_s=600)
+                         for i, u in enumerate(fleet.urls)},
+                        policy=RouterPolicy(seed=0), kv_block_size=16,
+                        registry=monitor.StatRegistry())
+        with RouterServer(router) as rs:
+            router.probe_once()
+            box = {}
+
+            def run():
+                box["outs"], box["wall"] = post_all(rs.address, reqs)
+
+            import threading
+            th = threading.Thread(target=run, daemon=True)
+            th.start()
+            deadline = time.monotonic() + 120.0
+            live = 0
+            while time.monotonic() < deadline and th.is_alive():
+                with urllib.request.urlopen(fleet.urls[0]
+                                            + "/debug/requests",
+                                            timeout=30) as r:
+                    dbg = json.loads(r.read())
+                live = sum(1 for s in dbg["slots"]
+                           if s["state"] == "decoding"
+                           and s.get("generated", 0) >= 1)
+                if live:
+                    break
+                time.sleep(0.005)
+            check(live, "phase 18 (d): replica 0 never held a live stream")
+            fleet.procs[0].terminate()
+            fleet.procs[0].wait(timeout=300)
+            th.join(timeout=900)
+            check(not th.is_alive(), "phase 18 (d): routed requests hung")
+        outs, wall = box["outs"], box["wall"]
+    with open(os.path.join(FLEET_DIR, "replica.0.log")) as f:
+        log = f.read()
+    m = re.search(r"drain: migrated=(\d+) fallback=(\d+) lost_tokens=(\d+)",
+                  log)
+    check(m is not None, f"phase 18 (d): no drain line in replica 0's log:"
+          f"\n{log[-2000:]}")
+    check(int(m.group(3)) == 0, f"phase 18 (d): {m.group(0)}")
+    g_eq, g_n, s_eq, s_n = check_against(
+        model, reqs, [np.asarray(o) for o in outs], fp_outs,
+        "phase 18 (d) fleet")
+    print(f"phase 18 (d) fleet: 2 gpt2-medium replicas up in {boot:.1f} s, "
+          f"12 requests over routerd, "
+          f"replica 0 SIGTERM with {live} live streams -> {m.group(0)}; "
+          f"greedy_equal_to_phase4 {g_eq}/{g_n} seeded_equal {s_eq}/{s_n} "
+          f"wall_s {wall:.3f} [{card}]", flush=True)
+
+
+def fleet_features_phase(card, ragged_mod, model, reqs, fp_outs, model_q,
+                         q_outs, phase4_tps):
+    """Phase 18: migration, the front ends, faults and a real-process
+    fleet on phase 4's model and traffic.  Returns (B1 launches, B2
+    launches) of its in-process serves."""
+    t0 = time.perf_counter()
+    b1, b2 = migration_phase(card, ragged_mod, model, reqs, fp_outs,
+                             model_q, q_outs)
+    gc.collect()
+    b1 += front_end_phase(card, ragged_mod, model, reqs, fp_outs,
+                          phase4_tps)
+    gc.collect()
+    b1 += fault_phase(card, ragged_mod, model, reqs, fp_outs)
+    gc.collect()
+    import torch
+    torch.cuda.empty_cache()
+    fleet_phase(card, model, reqs, fp_outs)
+    print(f"phase 18 wall_s {time.perf_counter() - t0:.1f}", flush=True)
+    return b1, b2
+
+
 # -- phase 5 --------------------------------------------------------------
 # (B, H, S, D, dtype, n_documents): the training slice's shape first
 FLASH_CASES = {
@@ -2621,7 +3271,8 @@ def main(argv):
     lap("5 (flash kernels)")
     zero_flash_counts(fa)
     zero_ragged_counts(ragged_mod)
-    launches, model_fp, reqs, fp_outs = slice_phase(card, ragged_mod)
+    launches, model_fp, reqs, fp_outs, fp_tps = slice_phase(card,
+                                                            ragged_mod)
     lap("4 (fp32 slice)")
     w_outs = weight_slice_phase(card, ragged_mod, reqs)
     lap("9 (weight-only int8 slice)")
@@ -2651,6 +3302,13 @@ def main(argv):
     lap("17 (generate, draft model, LoRA, offload, streaming)")
     check(sum(flash_counts(fa).values()) == 0,
           "phase 17 launched a flash kernel")
+    b1, b2 = fleet_features_phase(card, ragged_mod, model_fp, reqs, fp_outs,
+                                  model_q, q_outs, fp_tps)
+    launches += b1
+    int8_launches += b2
+    lap("18 (migration, front ends, faults, fleet)")
+    check(sum(flash_counts(fa).values()) == 0,
+          "phase 18 launched a flash kernel")
     del model_fp, model_q
     # a host-tier engine is a reference cycle (its prefix cache's evict
     # hook is a bound method of it): collect phase 17's before the

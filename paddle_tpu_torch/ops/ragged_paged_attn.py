@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -293,6 +294,16 @@ def _check_operands(who, q, k_flat, v_flat, bs, k_scale, v_scale):
 _smem_sizes = {}   # (W, hd, bs) -> bytes one block needs
 _prepared = {}     # (dtype, quant, card) -> the limit set so far
 _counters = {}     # (card, stream) -> the merge counters
+# engines on threads of their own (the front ends' loop threads) launch
+# at once: a read-add-store of ``launches`` is not atomic
+_count_lock = threading.Lock()
+
+
+def _count(*ops):
+    """Add one to each wrapper's ``launches``."""
+    with _count_lock:
+        for op in ops:
+            op.launches += 1
 
 
 def _prepare(lib, dtype_code, quant, dims, card):
@@ -466,7 +477,7 @@ def _unsharded(who, op, gather, q, k_flat, v_flat, block_tables, pos,
                    block_size=bs, k_scale=k_scale, v_scale=v_scale)
     out = _launch(who, gather, [(q, k_flat, v_flat, k_scale, v_scale, 0)],
                   block_tables, pos, width, bs)
-    op.launches += 1
+    _count(op)
     return out
 
 
@@ -642,8 +653,7 @@ def sharded_ragged_paged_attention(q_shards, k_shards, v_shards,
                 op = (ragged_gather_attention if gather
                       else ragged_paged_attention if k_scale_shards is None
                       else ragged_paged_attention_int8)
-                op.launches += 1
-                sharded_ragged_paged_attention.launches += 1
+                _count(op, sharded_ragged_paged_attention)
             for r, o in zip(ranks, out.split(bl)):
                 outs[r] = o
         return outs

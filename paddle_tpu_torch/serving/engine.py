@@ -58,12 +58,24 @@ lanes never share cached K/V.  The host-RAM offload tier
 (``kv_host_mb=``, ``serving/offload.py``) keeps the blocks the prefix
 cache evicts and restores them at admission.  A
 ``serving.stream.TokenStream`` attached to a request receives its tokens
-as they are emitted.  The XLA and monolithic paths over a mesh, and the
-host tier over a mesh, raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item; KV migration and the fault injector wait too.
+as they are emitted.
+
+A live decoding stream migrates between engines (``migrate_out`` /
+``migrate_in``: its full KV blocks and its resume snapshot, in the JAX
+package's payload format, live or JSON), and a cached prefix warms a
+peer (``export_prefix`` / ``import_prefix``); every order is serviced by
+the engine thread at a tick boundary after the ring drains.  A
+``serving.faults.FaultInjector`` (``faults=``) fires seeded failures at
+the JAX engine's sites; ``watchdog_s=`` arms a ``TickWatchdog`` that
+turns a wedged tick into a recorded recovery; a failing tick leaves its
+flight record in ``last_flight`` (and ``flight_dir``).  The XLA and
+monolithic paths over a mesh, the host tier over a mesh, and migration
+over a mesh raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -77,7 +89,9 @@ from .. import monitor
 from ..device import require_on
 from ..distributed.mesh import ServingMesh, serving_mesh
 from ..models import gpt as gpt_mod
-from .kvcache import (BlockPool, PrefixCache, import_blocks,
+from .faults import TickWatchdog, WatchdogTimeout
+from .kvcache import (BlockPool, KVDtypeMismatch, PrefixCache,
+                      export_blocks, import_blocks, payload_from_json,
                       per_shard_block_bytes)
 from .lora import AdapterRegistry, LoRAAdapter, UnknownAdapter
 from .offload import HostBlockStore, prefix_key
@@ -89,19 +103,41 @@ from .sharded import ShardedServingModel
 from .spec import PromptLookupProposer
 
 
-class _Demand:
-    """One order registered from any thread and serviced by the engine
-    thread at a tick boundary (a hot adapter load or unload): the same
-    single-writer rule as every other pool and slot mutation."""
+class Migrated(RuntimeError):
+    """The request was handed off to another replica mid-stream (KV block
+    migration): the terminal verdict its waiter receives on the SOURCE
+    engine.  ``emitted`` is the token prefix generated here before the
+    handoff (a holder that cannot complete the migration can always fail
+    over with prompt + emitted as context).  ``payload`` is the full
+    migration payload when ``migrate_out(..., deliver="error")`` routed it
+    through the waiter (the waiter owns the import), else None."""
 
-    __slots__ = ("kind", "args", "done", "result", "error")
+    def __init__(self, msg, payload=None, emitted=None):
+        super().__init__(msg)
+        self.payload = payload
+        self.emitted = list(emitted or [])
+
+
+class _MigrateDemand:
+    """One order registered from any thread and serviced by the engine
+    thread at a tick boundary (a migration export or import, a prefix
+    export or import, an adapter load or unload): the same single-writer
+    rule as every other pool and slot mutation."""
+
+    __slots__ = ("kind", "args", "done", "result", "error",
+                 "registered_at", "waiting")
 
     def __init__(self, kind, **args):
-        self.kind = kind
+        self.kind = kind  # "out" | "in" | "prefix_out" | "prefix_in" |
+        #   "adapter_load" | "adapter_unload"
         self.args = args
         self.done = threading.Event()
         self.result = None
         self.error = None
+        self.registered_at = time.monotonic()
+        self.waiting = False  # an "out" whose target is not yet
+        #   exportable: retried every tick, but it must not keep an idle
+        #   loop spinning (the submit that makes it actionable wakes it)
 
     def complete(self, result):
         self.result = result
@@ -114,8 +150,8 @@ class _Demand:
     def wait(self, timeout=None):
         if not self.done.wait(timeout):
             raise TimeoutError(
-                f"{self.kind} demand: no verdict after {timeout}s (engine "
-                "not stepping?)")
+                f"migration {self.kind} demand: no verdict after "
+                f"{timeout}s (engine not stepping?)")
         if self.error is not None:
             raise self.error
         return self.result
@@ -201,16 +237,38 @@ class _InflightTick:
     re-admitted before this tick is consumed; the identity check
     ``slot.request is req`` keeps a frozen lane out of a newer request's
     stream), and per listed slot the lane's (mode, width, draft lanes)
-    as of dispatch."""
+    as of dispatch; plus the flight recorder's view: the tick's kind and
+    layout, when it was dispatched, and host copies of the cursors and
+    budgets its dispatch chained from."""
 
-    __slots__ = ("tick", "slots", "reqs", "meta_lanes", "staging")
+    __slots__ = ("tick", "kind", "layout", "slots", "reqs", "meta_lanes",
+                 "staging", "dispatched_at", "cursors")
 
-    def __init__(self, tick, slots, meta_lanes, staging):
+    def __init__(self, tick, kind, layout, slots, meta_lanes, staging,
+                 cursors):
         self.tick = tick
+        self.kind = kind              # "decode" | "spec" | "ragged"
+        self.layout = layout
         self.slots = slots
         self.reqs = [s.request for s in slots]
         self.meta_lanes = meta_lanes
         self.staging = staging
+        self.dispatched_at = time.monotonic()
+        self.cursors = cursors        # (pos, rem) numpy copies
+
+    def meta(self):
+        """JSON-able metadata for the flight recorder (host state only:
+        a dump must never wait on a wedged dispatch)."""
+        return {
+            "tick": self.tick, "kind": self.kind, "batch": len(self.slots),
+            "layout": self.layout,
+            "slots": [s.index for s in self.slots],
+            "requests": [r.id for r in self.reqs],
+            "in_flight_ms": round(
+                (time.monotonic() - self.dispatched_at) * 1e3, 3),
+            "cursors": {"pos": self.cursors[0].tolist(),
+                        "rem": self.cursors[1].tolist()},
+        }
 
 
 class Engine:
@@ -327,6 +385,22 @@ class Engine:
         swaps in a ``NullTracer``; ``trace_annotations=True`` also
         enters ``torch.profiler.record_function`` per span.  Export with
         ``chrome_trace()``.
+    flight_dir : directory for flight-recorder dumps.  A failing
+        ``step()`` snapshots the trace ring, the request states and the
+        in-flight ring into ``last_flight`` (always, before recovery
+        tears the slots down) and, with ``flight_dir``, also writes it
+        there as ``flight_tick<N>_<pid>_<ms>.json``.
+    faults : a ``serving.faults.FaultInjector``: seeded failure points
+        (dispatch raise, d2h hang, pool exhaustion, slow host tick,
+        proposer failure, migration export / import, adapter load,
+        offload demote / promote) at the JAX engine's sites, on the tick
+        counter ``tick_no``; None (default) costs one attribute read a
+        site.
+    watchdog_s : arm a ``TickWatchdog``: a tick running longer than this
+        is flight-recorded by the watchdog thread and marked, and the
+        consume's wait raises ``WatchdogTimeout`` into step recovery
+        instead of hanging (the wait polls its CUDA event while a
+        watchdog is armed).
 
     ``step()`` is single-threaded — run it from one loop
     (``run_until_idle`` or the ``start()`` background thread);
@@ -345,7 +419,8 @@ class Engine:
                  kv_budget_mb=None, max_queue=0, registry=None,
                  tenants=None, preemption=True, shed_deadlines=True,
                  tracing=True, trace_capacity=16384,
-                 trace_annotations=False):
+                 trace_annotations=False, flight_dir=None, faults=None,
+                 watchdog_s=None):
         if sample_mode not in ("device", "host"):
             raise ValueError(
                 f"sample_mode must be 'device' or 'host', got "
@@ -515,8 +590,7 @@ class Engine:
         # what runs the tick: the model itself, or its per-rank shards
         self._runner = model
         if self.mesh is not None:
-            self._runner = ShardedServingModel(
-                model if is_tp else model.to_tensor_parallel(), self.mesh)
+            self._runner = self._shard_model()
         max_position = model.embeddings.position_embeddings.weight.shape[0]
         self.max_seq_len = int(max_seq_len or max_position)
         if self.max_seq_len > max_position:
@@ -553,8 +627,25 @@ class Engine:
         #   tick: the measured drain rate behind deadline shedding
         self._ovl_lock = threading.Lock()  # guards _rate_win and
         #   _preempt_log against readers on other threads
+        self.faults = faults
+        self.watchdog_s = None if watchdog_s is None else float(watchdog_s)
+        self._watchdog = None
+        self._watchdog_fired = False
+        self._tick_started_at = None  # watchdog heartbeat: set at tick
+        #   entry, cleared at exit
+        self._reshard = False  # refresh_params() on a mesh: re-cut the
+        #   per-rank weight shards at the next tick boundary
+        self._flight_dir = flight_dir
+        self.last_flight = None       # chrome-trace dict of the latest
+        self.last_flight_path = None  #   step failure (+ its file)
+        self._max_context_len = 0     # prompt + generated high-water
         self._nh, self._hd = attn0.num_heads, attn0.head_dim
         self._kv_dtype = model._cache_dtype()
+        # the dtype labels of /healthz and the migration wire, spelled as
+        # the JAX package spells them ("float32", "int8")
+        fp = str(self._kv_dtype).replace("torch.", "")
+        self._kv_dtype_str = "int8" if self._kv_quant else fp
+        self._weight_dtype_str = "int8" if self._weight_quant else fp
         self.attn_impl = attn_impl
         self._ragged = attn_impl != "xla"
         self._variant = "gather" if attn_impl == "ragged_gather" \
@@ -595,7 +686,8 @@ class Engine:
                     "prefill progress")
             self._chunk = c
             self._tick_budget = b
-        # no block pool on contiguous rows: its gauges stay 0
+        # no block pool on contiguous rows: its gauges stay 0 (and the
+        # per-shard byte labels None, as in JAX)
         self._kv_managed = 0
         self.kv_block_bytes = self.kv_scale_bytes = 0
         self._prefix_enabled = False
@@ -629,8 +721,10 @@ class Engine:
                 kv_host_mb, self._bs, self._nh, self._hd,
                 len(model.blocks), "int8" if self._kv_quant
                 else str(self._kv_dtype).replace("torch.", ""))
-        self._demands = []            # load/unload orders (_Demand)
-        self._demand_lock = threading.Lock()
+        # cross-thread orders (_MigrateDemand) and the migration log
+        self._migrate_demands = []
+        self._migration_log = deque(maxlen=64)
+        self._mig_lock = threading.Lock()
         self._rngs = {}  # request id -> host-mode np.random.Generator
         self.ragged_dispatches = 0  # ragged window dispatches
         self.ticks = 0
@@ -650,6 +744,14 @@ class Engine:
         self._drain_on_exit = None    # a loop's stop event, when that
         #   loop must drain on exit
         self._reset_pools()
+
+    def _shard_model(self):
+        """The mesh's per-rank weight shards, cut from ``self.model`` (a
+        dense model goes through its tensor-parallel form first)."""
+        m = self.model
+        if not getattr(m.blocks[0].attn, "use_mp", False):
+            m = m.to_tensor_parallel()
+        return ShardedServingModel(m, self.mesh)
 
     def _adapter_registry(self, model, adapters, max_adapters,
                           max_lora_rank, sample_mode, is_tp):
@@ -869,6 +971,16 @@ class Engine:
             "serving.offload_hit_tokens", "prompt tokens whose prefill a "
             "host-tier restore skipped (the host share of "
             "prefix_hit_tokens)")
+        self._m_watchdog = reg.counter(
+            "serving.watchdog_fires", "ticks the watchdog declared wedged "
+            "(flight-recorded; the consume's wait raises into recovery)")
+        self._m_faults = reg.counter(
+            "serving.faults_injected", "fault-injection sites fired "
+            "(serving/faults.py; nonzero only under a chaos harness)")
+        self._m_kv_migrated = reg.counter(
+            "serving.kv_blocks_migrated", "paged KV blocks exported toward "
+            "another replica (stream migration + prefix warming; counted "
+            "on the export side only)")
 
     # the plain counters of earlier slices, read from the registry
     tokens_generated = property(lambda self: int(self._m_tokens.value))
@@ -880,12 +992,36 @@ class Engine:
         lambda self: int(self._m_prefix_hit_tokens.value))
     kv_blocks_walked = property(
         lambda self: int(self._m_kv_walked_total.value))
+    # the JAX engine's name of the tick counter: the fault schedule's and
+    # the watchdog's clock
+    tick_no = property(lambda self: self.ticks)
+    # the JAX engine's per-shard byte labels (``/healthz`` and the
+    # flight recorder read them): None on contiguous rows
+    _kv_code_bytes_per_shard = property(
+        lambda self: self.kv_block_bytes if self._paged else None)
+    _kv_block_bytes_per_shard = property(
+        lambda self: self.kv_block_bytes + self.kv_scale_bytes
+        if self._paged else None)
+    _kv_scale_bytes_per_shard = property(
+        lambda self: self.kv_scale_bytes if self._paged else None)
 
     def chrome_trace(self):
         """The trace ring as a Catapult JSON dict (chrome://tracing,
         Perfetto)."""
         return self.tracer.chrome_trace(
             process_name=f"paddle_tpu_torch-serving pid={os.getpid()}")
+
+    def refresh_params(self):
+        """After an external weight mutation: cached prefixes hold K/V
+        computed under the OLD weights, so the prefix trie is flushed
+        (blocks still referenced by live slots stay until their
+        eviction), and a mesh engine's per-rank weight shards, the one
+        derived copy of the weights the port keeps, are re-cut from the
+        model at the next tick boundary."""
+        if self._paged and self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        if self.mesh is not None:
+            self._reshard = True
 
     # ------------------------------------------------------------------
     def _reset_pools(self):
@@ -900,8 +1036,9 @@ class Engine:
             # scratch block that its parked slots and masked lanes write
             # through (one block, row 0, without a mesh)
             nblocks = self._kv_managed + self.dp
-            self.block_pool = BlockPool(nblocks, self._bs,
-                                        reserved_blocks=1, shards=self.dp)
+            self.block_pool = BlockPool(
+                nblocks, self._bs, reserved_blocks=1, shards=self.dp,
+                fault_hook=lambda n: self._fault("pool_exhaust"))
             self.prefix_cache = (
                 PrefixCache(self.block_pool, evict_hook=(
                     self._offload_demote_hook if self.host_store is not None
@@ -1157,6 +1294,24 @@ class Engine:
             return 1.0
         return round(max(self.queue.backlog_tokens() / rate / depth,
                          0.05), 3)
+
+    def _fault(self, site):
+        """Consult the fault injector at a named failure point: with no
+        injector (or an unscheduled tick) one attribute read; a scheduled
+        site counts, traces and performs its action (which may raise into
+        step recovery)."""
+        f = self.faults
+        if f is not None and f.scheduled(site, self.ticks):
+            self._m_faults.inc()
+            self.tracer.instant("fault.injected", cat="fault", site=site,
+                                tick=self.ticks)
+            f.fire(site, self.ticks, self)
+
+    def _preempt_history(self):
+        """Locked snapshot of the preemption log (handler and watchdog
+        threads read it while the engine thread appends)."""
+        with self._ovl_lock:
+            return list(self._preempt_log)
 
     def _post_admit(self, admitted, timed_out, tr):
         """Reconcile the admitted list against the preemption round (a
@@ -1666,6 +1821,9 @@ class Engine:
                                 req=req.id, ttft_ms=round(ttft, 3))
         self._m_tokens.inc()
         self._m_rate.add(1, now)
+        ctx_len = len(req.prompt) + len(req.generated)
+        if ctx_len > self._max_context_len:
+            self._max_context_len = ctx_len
         finished = (len(req.generated) >= req.max_new_tokens or
                     (req.eos_token_id is not None
                      and int(tok) == int(req.eos_token_id)))
@@ -1757,6 +1915,7 @@ class Engine:
                 history = np.concatenate(
                     [req.prompt, np.asarray(req.generated, np.int32)])
                 try:
+                    self._fault("spec_draft")
                     d = np.asarray(self.proposer.propose(history, n_lanes),
                                    np.int32).reshape(-1)[:n_lanes]
                 except Exception as e:
@@ -1834,6 +1993,7 @@ class Engine:
 
         span = ("decode.ragged_stream" if self._variant == "stream"
                 else "decode.ragged")
+        self._fault("dispatch")
         with torch.no_grad(), gpt_mod._lora_scope(self._lora(st.get("aid"))), \
                 tr.span(span, batch=len(slots), w=W, chunks=len(plan),
                         chunk_tokens=chunk_toks, kv_blocks_walked=walked):
@@ -1861,9 +2021,10 @@ class Engine:
         if self._spec_k is not None and active:
             self._m_spec_windows.inc(len(active))
         return _InflightTick(
-            self.ticks, slots,
+            self.ticks, "ragged", "paged", slots,
             [(int(mode[s.index]), int(width[s.index]),
-              int(lanes[s.index])) for s in slots], stg)
+              int(lanes[s.index])) for s in slots], stg,
+            (self._pos.copy(), self._rem.copy()))
 
     def _consume_lanes(self, inf, mats, tr):
         """Emit a downloaded tick, per lane mode: chunk lanes (mode 1,
@@ -1958,6 +2119,7 @@ class Engine:
         if self._state_dirty or self._dev_state is None:
             self._push_state()
         st = self._dev_state
+        self._fault("dispatch")
         with torch.no_grad(), gpt_mod._lora_scope(self._lora(st.get("aid"))), \
                 tr.span("decode.dispatch", batch=len(active),
                         layout=self._layout(), fused=True):
@@ -1976,8 +2138,9 @@ class Engine:
         st["tok"], st["pos"], st["ctr"], st["rem"] = \
             new_tok, new_pos, new_ctr, new_rem
         self._m_fused_ticks.inc()
-        return _InflightTick(self.ticks, list(active),
-                             [(0, 1, 0)] * len(active), stg)
+        return _InflightTick(self.ticks, "decode", self._layout(),
+                             list(active), [(0, 1, 0)] * len(active), stg,
+                             (self._pos.copy(), self._rem.copy()))
 
     def _dispatch_spec(self, active, tr):
         """Dispatch one fused speculative verify tick without consuming
@@ -2000,6 +2163,7 @@ class Engine:
         def up(t):
             return t.to(dev, non_blocking=True, copy=True)
 
+        self._fault("dispatch")
         with torch.no_grad(), gpt_mod._lora_scope(self._lora(st.get("aid"))), \
                 tr.span("decode.dispatch", batch=len(active),
                         layout=self._layout(), spec_w=W, fused=True):
@@ -2018,8 +2182,9 @@ class Engine:
         self._m_fused_ticks.inc()
         self._m_spec_windows.inc(len(active))
         return _InflightTick(
-            self.ticks, list(active),
-            [(0, W, int(lanes[s.index])) for s in active], stg)
+            self.ticks, "spec", self._layout(), list(active),
+            [(0, W, int(lanes[s.index])) for s in active], stg,
+            (self._pos.copy(), self._rem.copy()))
 
     def _note_acceptance(self, emitted, n_slots):
         """The acceptance gauges after a verify tick: the lifetime rate,
@@ -2039,6 +2204,7 @@ class Engine:
         args = (self._upload(toks), self.k_pools, self.v_pools)
         pos = self._upload(self._pos)
         W = toks.shape[1]
+        self._fault("dispatch")
         with torch.no_grad(), tr.span("decode.dispatch", batch=len(active),
                                       layout=self._layout(),
                                       **({"spec_w": W} if self._spec_k
@@ -2118,9 +2284,22 @@ class Engine:
 
     def _d2h_wait(self, stg):
         """The consume's one sync: wait for the event recorded after the
-        tick's download (a CPU engine's download is already done)."""
-        if stg.event is not None:
-            stg.event.synchronize()
+        tick's download (a CPU engine's download is already done).  With
+        a watchdog armed the wait polls the event instead of blocking in
+        ``synchronize()``, so a fired watchdog raises ``WatchdogTimeout``
+        here, into step recovery."""
+        ev = stg.event
+        if ev is None:
+            return
+        if self.watchdog_s is None:
+            ev.synchronize()
+            return
+        while not ev.query():
+            if self._watchdog_fired:
+                raise WatchdogTimeout(
+                    f"watchdog converted a wedged d2h at tick "
+                    f"{self.tick_no} into step recovery")
+            time.sleep(0.0002)
 
     def _consume(self, inf, tr):
         """Wait for one dispatched tick's download (``decode.d2h_wait``;
@@ -2132,6 +2311,9 @@ class Engine:
         wait_name = ("decode.d2h_wait" if self.async_depth > 1
                      else "decode.d2h")
         nbytes = stg.out.numel() * stg.out.element_size()
+        # the injectable wedge: a scheduled d2h_hang blocks at the
+        # engine's real sync point until the watchdog converts it
+        self._fault("d2h_hang")
         t0 = time.monotonic()
         with tr.span(wait_name, tick=inf.tick, bytes=nbytes):
             self._d2h_wait(stg)
@@ -2167,6 +2349,157 @@ class Engine:
                 (time.monotonic() - self._last_decode_end) * 1e3)
         self._m_decode_batch.set(n_active)
 
+    # -- cross-thread orders: KV migration, prefix warming, adapters -------
+    # Migration hands a LIVE decoding stream to another engine: the
+    # slot's full KV blocks (every layer, K and V, int8 codes with their
+    # scales) plus the request's resume snapshot (prompt, emitted tokens,
+    # sampling parameters, the effective seed, the host rng state), in the
+    # JAX package's payload format.  The destination adopts the blocks
+    # into its pool and prefix trie and queues an equivalent request;
+    # admission prefix-matches the adopted blocks and binds the sample
+    # state at counter len(generated): the preemption-resume path, so the
+    # resumed stream is token-identical.  Every entry point registers a
+    # _MigrateDemand that the ENGINE THREAD services at the next tick
+    # boundary (``_service_migrations``), after draining the ring.  Fault
+    # sites: ``migrate_export`` declines an export with the stream
+    # untouched, ``migrate_import`` rolls the destination's allocation
+    # back to refcount 0; ``migrate_wire`` is the transports'.
+
+    def _register_demand(self, demand):
+        with self._mig_lock:
+            self._migrate_demands.append(demand)
+        self._wake.set()
+        return demand
+
+    def _migrate_pending(self):
+        with self._mig_lock:
+            return len(self._migrate_demands)
+
+    def _migrate_actionable(self):
+        """True when a registered order can make progress on the next
+        tick (the idle loop's wake condition); a waiting export is left
+        out: whatever makes it actionable wakes the loop itself."""
+        with self._mig_lock:
+            return any(not d.waiting for d in self._migrate_demands)
+
+    def _migration_history(self):
+        """Locked snapshot of the migration log."""
+        with self._mig_lock:
+            return list(self._migration_log)
+
+    def _await_demand(self, d, wait, timeout):
+        if not wait:
+            return d
+        try:
+            return d.wait(timeout)
+        except TimeoutError:
+            # withdraw the order if the engine has not picked it up yet
+            with self._mig_lock:
+                if d in self._migrate_demands:
+                    self._migrate_demands.remove(d)
+            raise
+
+    def _no_mesh(self, what):
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"Engine.{what} over a serving mesh is not ported yet: "
+                "ROADMAP.md Queue A 10 (migration, prefix warming and the "
+                "drain over per-shard pools)")
+
+    def live_request_ids(self):
+        """Ids of the requests bound to slots (prefilling included), in
+        slot order: the SIGTERM drain's worklist.  Queued requests are
+        absent: a draining engine admits nothing, so they have emitted
+        nothing and fail over with no lost work."""
+        return [s.request.id for s in self.scheduler.busy_slots()
+                if s.request is not None]
+
+    def migrate_out(self, request_id=None, min_tokens=1,
+                    deliver="return", wait=True, timeout=30.0):
+        """Export a LIVE decoding stream off this engine.  With
+        ``request_id=None`` the engine picks a victim (lowest priority,
+        most work remaining); otherwise the named request is exported
+        once it is decoding with ``min_tokens`` emitted.  The stream's
+        waiter unblocks with ``Migrated`` (its ``emitted`` carries the
+        tokens generated here).  ``deliver="return"``: the payload is
+        this call's result (``{"payload", "generated", "completed":
+        False}``); ``"error"``: the payload rides inside the waiter's
+        ``Migrated`` and this call's payload is None.  A request that
+        finishes first returns ``{"completed": True, "generated": [...],
+        "payload": None}``; a scheduled ``migrate_export`` fault raises
+        here and leaves the stream running."""
+        self._no_mesh("migrate_out")
+        if deliver not in ("return", "error"):
+            raise ValueError(f"deliver must be 'return' or 'error', "
+                             f"got {deliver!r}")
+        d = self._register_demand(_MigrateDemand(
+            "out", request_id=request_id, min_tokens=int(min_tokens),
+            deliver=deliver))
+        return self._await_demand(d, wait, timeout)
+
+    def migrate_in(self, payload, wait=True, timeout=30.0):
+        """Adopt a migrated stream: its KV blocks into this engine's pool
+        and prefix trie (all-or-nothing), then an equivalent request that
+        resumes the stream token-identically.  Takes the live payload
+        (``kv["data"]`` an ndarray) or the JSON wire form
+        (``kv["data_b64"]``, decoded here on the caller's thread under
+        the ``migrate.wire`` span).  Returns ``{"request": Request,
+        "blocks": n}``.  Raises ValueError (geometry / malformed),
+        ``KVDtypeMismatch``, QueueFull (draining or full), or an injected
+        ``migrate_import`` fault; on any failure this engine owns
+        nothing."""
+        self._no_mesh("migrate_in")
+        kv = payload.get("kv") if isinstance(payload, dict) else None
+        with self.tracer.span(
+                "migrate.wire", cat="serving",
+                blocks=int(kv.get("n_blocks") or 0) if kv else 0):
+            if not isinstance(payload, dict) \
+                    or not isinstance(payload.get("request"), dict):
+                raise ValueError(
+                    "migration payload must carry a 'request' dict (see "
+                    "Engine.migrate_out)")
+            if kv is not None and "data_b64" in kv:
+                payload = payload_from_json(payload)
+                kv = payload.get("kv")
+            if not payload["request"].get("prompt"):
+                raise ValueError("migration payload request has no prompt")
+            if kv is not None and kv.get("n_blocks") \
+                    and kv.get("data") is None:
+                raise ValueError(
+                    "migration payload kv names n_blocks but carries no "
+                    "data")
+        d = self._register_demand(_MigrateDemand("in", payload=payload))
+        return self._await_demand(d, wait, timeout)
+
+    def export_prefix(self, tokens, wait=True, timeout=30.0):
+        """Cross-replica prefix warming, export side: gather the longest
+        cached prefix of ``tokens`` (device trie, then the host tier's
+        continuation).  Returns a payload with ``request=None`` and a
+        ``prefix`` token list, or None when nothing is cached."""
+        self._no_mesh("export_prefix")
+        d = self._register_demand(_MigrateDemand(
+            "prefix_out", tokens=[int(t) for t in tokens]))
+        return self._await_demand(d, wait, timeout)
+
+    def import_prefix(self, payload, wait=True, timeout=30.0):
+        """Cross-replica prefix warming, import side: adopt a peer's
+        exported blocks into this engine's prefix trie, so the next
+        admission sharing the prefix skips its prefill.  Returns
+        ``{"blocks": n, "tokens": n * block_size}``.  Live or JSON wire
+        form, as ``migrate_in``."""
+        self._no_mesh("import_prefix")
+        if payload is None:
+            return {"blocks": 0, "tokens": 0}
+        kv = payload.get("kv") if isinstance(payload, dict) else None
+        with self.tracer.span(
+                "migrate.wire", cat="serving",
+                blocks=int(kv.get("n_blocks") or 0) if kv else 0):
+            if kv is not None and "data_b64" in kv:
+                payload = payload_from_json(payload)
+        d = self._register_demand(_MigrateDemand(
+            "prefix_in", payload=payload))
+        return self._await_demand(d, wait, timeout)
+
     # -- hot adapter load / unload (serving/lora.py) -----------------------
     def load_adapter(self, name, adapter, wait=True, timeout=30.0):
         """Hot-load a LoRA adapter under ``name`` while serving.  The
@@ -2174,8 +2507,10 @@ class Engine:
         draining the ring, so no dispatched tick straddles the write (with
         no loop thread running, the caller's thread services it at once).
         The bank shapes are fixed, so this is pure data movement.  Raises
-        ``RegistryFull`` (no free lane) or ``ValueError`` (shape mismatch,
-        duplicate name).  ``wait=False`` returns the pending order."""
+        ``RegistryFull`` (no free lane), ``ValueError`` (shape mismatch,
+        duplicate name), or an injected ``adapter_load`` fault (banks and
+        inventory untouched).  ``wait=False`` returns the pending
+        order."""
         if self.adapters is None:
             raise RuntimeError(
                 "this engine serves no adapters: construct with "
@@ -2184,8 +2519,8 @@ class Engine:
         if not isinstance(adapter, LoRAAdapter):
             raise TypeError(
                 f"expected LoRAAdapter, got {type(adapter).__name__}")
-        return self._await_demand(_Demand(
-            "adapter_load", name=str(name), adapter=adapter), wait, timeout)
+        return self._adapter_await(self._register_demand(_MigrateDemand(
+            "adapter_load", name=str(name), adapter=adapter)), wait, timeout)
 
     def unload_adapter(self, name, wait=True, timeout=30.0):
         """Unload adapter ``name``: refused (``AdapterInUse``) while an
@@ -2193,60 +2528,432 @@ class Engine:
         Serviced as ``load_adapter`` is."""
         if self.adapters is None:
             raise RuntimeError("this engine serves no adapters")
-        return self._await_demand(_Demand("adapter_unload", name=str(name)),
-                                  wait, timeout)
+        return self._adapter_await(self._register_demand(_MigrateDemand(
+            "adapter_unload", name=str(name))), wait, timeout)
 
-    def _await_demand(self, d, wait, timeout):
-        with self._demand_lock:
-            self._demands.append(d)
-        self._wake.set()
+    def _adapter_await(self, d, wait, timeout):
         t = self._thread
         if t is None or not t.is_alive():
             # nothing else is stepping: service it on this thread
-            self._service_demands(self.tracer)
-        if not wait:
-            return d
-        try:
-            return d.wait(timeout)
-        except TimeoutError:
-            with self._demand_lock:  # withdraw it if not yet picked up
-                if d in self._demands:
-                    self._demands.remove(d)
-            raise
+            self._service_migrations(self.tracer)
+        return self._await_demand(d, wait, timeout)
 
-    def _demand_pending(self):
-        with self._demand_lock:
-            return bool(self._demands)
-
-    def _service_demands(self, tr):
-        """Engine-thread service point at the top of every tick: each
-        pending load or unload drains the ring first (a dispatched tick
-        read the old banks and is consumed against them), then writes
-        its lane; a failure is the order's verdict, never the tick's.
+    def _service_adapter(self, d, tr):
+        """Engine-thread half of load / unload: drain the ring first (a
+        dispatched tick read the old banks and is consumed against
+        them), then write the lane; a failure is the order's verdict.
         Returns the tokens the drain emitted."""
-        with self._demand_lock:
-            demands, self._demands = self._demands, []
+        emitted = self._drain_ring(tr) if self._ring else 0
+        name = d.args["name"]
+        try:
+            with tr.span("lora.swap", cat="serving", op=d.kind,
+                         adapter=name):
+                self._fault("adapter_load")
+                if d.kind == "adapter_load":
+                    lane = self.adapters.load(name, d.args["adapter"])
+                    tr.instant("adapter.loaded", cat="serving",
+                               adapter=name, lane=lane)
+                else:
+                    lane = self.adapters.unload(name)
+                    tr.instant("adapter.unloaded", cat="serving",
+                               adapter=name, lane=lane)
+            d.complete({"name": name, "lane": lane})
+        except Exception as e:  # the order's verdict channel
+            d.fail(e)
+        return emitted
+
+    def _service_migrations(self, tr):
+        """Engine-thread service point at the top of every tick: act on
+        each registered order (an export whose target is not yet
+        exportable waits for a later tick); a per-order failure is that
+        order's verdict, never the tick's.  Returns the tokens emitted by
+        the ring drains the orders forced (and by a re-shard's)."""
         emitted = 0
-        for d in demands:
+        if self._reshard:
             emitted += self._drain_ring(tr) if self._ring else 0
-            name = d.args["name"]
-            # the fault injector's adapter_load site waits for ROADMAP
-            # Queue A 9
+            self._runner = self._shard_model()
+            self._reshard = False
+        with self._mig_lock:
+            if not self._migrate_demands:
+                return emitted
+            demands = list(self._migrate_demands)
+            self._migrate_demands = []
+        keep = []
+        for d in demands:
             try:
-                with tr.span("lora.swap", cat="serving", op=d.kind,
-                             adapter=name):
-                    if d.kind == "adapter_load":
-                        lane = self.adapters.load(name, d.args["adapter"])
-                        tr.instant("adapter.loaded", cat="serving",
-                                   adapter=name, lane=lane)
-                    else:
-                        lane = self.adapters.unload(name)
-                        tr.instant("adapter.unloaded", cat="serving",
-                                   adapter=name, lane=lane)
-                d.complete({"name": name, "lane": lane})
+                if d.kind == "out":
+                    verdict, n = self._service_migrate_out(d, tr)
+                    emitted += n
+                    if verdict == "wait":
+                        d.waiting = True
+                        keep.append(d)
+                elif d.kind == "in":
+                    emitted += self._service_migrate_in(d, tr)
+                elif d.kind in ("adapter_load", "adapter_unload"):
+                    emitted += self._service_adapter(d, tr)
+                elif d.kind == "prefix_out":
+                    emitted += self._service_prefix_out(d, tr)
+                else:
+                    emitted += self._service_prefix_in(d, tr)
             except Exception as e:  # the order's verdict channel
                 d.fail(e)
+        if keep:
+            with self._mig_lock:
+                # orders registered while servicing went to the emptied
+                # list; the waiting ones go back ahead of them
+                self._migrate_demands = keep + self._migrate_demands
         return emitted
+
+    def _find_out_candidate(self, d):
+        """Resolve an export order to its current (slot, request).  An
+        unpinned order picks a victim among decoding slots past
+        ``min_tokens``: lowest priority, then most work remaining, then
+        lowest slot; the request handle is pinned so later ticks track
+        the same stream across its eviction.  (None, req) when the
+        request exists off a slot, (None, None) when unknown."""
+        req = d.args.get("req")
+        if req is not None:
+            return self.scheduler.find(req.id), req
+        rid = d.args["request_id"]
+        if rid is None:
+            cands = [s for s in self.scheduler.busy_slots()
+                     if s.request is not None and s.decoding
+                     and not s.request._adapter_id
+                     and len(s.request.generated) >= d.args["min_tokens"]]
+            if not cands:
+                return None, None
+            victim = min(cands, key=lambda s: (s.request.priority,
+                                               -s.request.remaining,
+                                               s.index))
+            d.args["req"] = victim.request
+            return victim, victim.request
+        slot = self.scheduler.find(rid)
+        if slot is not None:
+            d.args["req"] = slot.request
+            return slot, slot.request
+        for r in self.queue.pending():
+            if r.id == rid:
+                d.args["req"] = r
+                return None, r
+        return None, None
+
+    @staticmethod
+    def _finish_out_done(d, req):
+        """The export target ended before the export landed: a clean
+        finish completes the order (nothing to migrate), a failed or
+        already-migrated stream fails it with that verdict."""
+        if req.error is not None:
+            d.fail(req.error)
+        else:
+            d.complete({"completed": True, "payload": None,
+                        "generated": [int(t) for t in req.generated]})
+
+    def _service_migrate_out(self, d, tr):
+        """One export attempt.  Returns (verdict, emitted): "wait"
+        re-registers the order for the next tick, "done" has completed
+        or failed it."""
+        slot, req = self._find_out_candidate(d)
+        if req is None:
+            if d.args["request_id"] is not None:
+                d.fail(KeyError(
+                    f"no live request {d.args['request_id']} to migrate"))
+                return "done", 0
+            return "wait", 0  # no eligible victim yet
+        if req.done():
+            self._finish_out_done(d, req)
+            return "done", 0
+        if req._adapter_id:
+            # the payload carries no adapter identity: a destination
+            # would resume on its base lane, changing the model mid-stream
+            d.fail(RuntimeError(
+                f"request {req.id} decodes through adapter "
+                f"{req.adapter!r}: KV migration does not carry adapter "
+                "lanes — drain it, or let the caller fail over with "
+                "prompt+emitted"))
+            return "done", 0
+        if slot is None or not slot.decoding \
+                or len(req.generated) < d.args["min_tokens"]:
+            return "wait", 0
+        emitted = 0
+        if self._ring:
+            # freeze point: the slot's host mirrors must be the consumed
+            # view before its rows are gathered, and no in-flight lane may
+            # outlive its request (the preemption discipline)
+            emitted += self._drain_ring(tr)
+            if req.done():
+                self._finish_out_done(d, req)
+                return "done", emitted
+            slot = self.scheduler.find(req.id)
+            if slot is None or not slot.decoding:
+                return "wait", emitted
+        try:
+            self._fault("migrate_export")
+        except Exception as e:  # an injected decline: the stream stays
+            d.fail(e)
+            return "done", emitted
+        payload = self._export_slot(slot, tr, deliver=d.args["deliver"])
+        d.complete({
+            "completed": False,
+            "generated": list(payload["request"]["generated"]),
+            "payload": payload if d.args["deliver"] == "return" else None})
+        return "done", emitted
+
+    def _export_slot(self, slot, tr, deliver):
+        """Gather and tear down one decoding slot (ring drained, fault
+        site consulted).  The slot's full blocks are gathered on the
+        engine's stream and downloaded BEFORE the slot releases them: the
+        pools are written in place, so a block released first could be
+        rewritten by a newer request before the gather ran.  The
+        teardown is preemption-shaped (full blocks into the trie, release,
+        park) but terminal: the waiter unblocks with ``Migrated``."""
+        req = slot.request
+        i = slot.index
+        ctx = (np.concatenate([req.prompt,
+                               np.asarray(req.generated, np.int32)])
+               if req.generated else req.prompt)
+        kv = None
+        n_full = 0
+        with tr.span("migrate.export", cat="serving", req=req.id) as sp:
+            if self._paged:
+                # a decoding slot holds slot.pos computed rows (the last
+                # emitted token's row is pending): only full blocks below
+                # that travel, the destination recomputes the tail
+                n_full = min(slot.pos // self._bs,
+                             len(self._slot_blocks[i]))
+                blocks = self._slot_blocks[i][:n_full]
+                if n_full:
+                    data = export_blocks(self.k_pools, self.v_pools, blocks)
+                    kv = {"block_size": self._bs, "num_heads": self._nh,
+                          "head_dim": self._hd,
+                          "n_layers": len(self.k_pools),
+                          "dtype": self._kv_dtype_str, "n_blocks": n_full}
+                    if self._kv_quant:
+                        kv["data"], kv["scales"] = data
+                    else:
+                        kv["data"] = data
+                if self.prefix_cache is not None and n_full:
+                    self.prefix_cache.insert(ctx, blocks)
+            rng = self._rngs.pop(req.id, None)
+            # a numpy Generator's state is a JSON-able dict of ints: the
+            # destination rebuilds the exact host-sampling stream
+            rng_state = rng.bit_generator.state if rng is not None else None
+            payload = {
+                "version": 1,
+                "request": {
+                    "source_id": req.id,
+                    "prompt": [int(t) for t in req.prompt],
+                    "generated": [int(t) for t in req.generated],
+                    "max_new_tokens": req.max_new_tokens,
+                    "eos_token_id": req.eos_token_id,
+                    "temperature": req.temperature,
+                    "top_k": req.top_k, "top_p": req.top_p,
+                    # the EFFECTIVE seed: an unseeded sampled stream draws
+                    # from its request id, and the destination mints a new
+                    # id
+                    "seed": (int(req.sample_seed) if req.do_sample
+                             else req.seed),
+                    "priority": req.priority, "tenant": req.tenant,
+                    "preemptions": req.preemptions,
+                    "rng_state": rng_state,
+                },
+                "kv": kv,
+            }
+            sp.args.update(blocks=n_full, tokens=len(req.generated))
+        self.scheduler.release(slot)
+        self._release_slot_kv(i)
+        self._park_state(i)
+        self._m_kv_migrated.inc(n_full)
+        self._m_done.inc()  # terminal here, like a timeout
+        with self._mig_lock:
+            self._migration_log.append({
+                "tick": self.tick_no, "dir": "out", "request": req.id,
+                "blocks": n_full, "tokens": len(req.generated)})
+        tr.instant("req.migrated_out", cat="request", req=req.id,
+                   blocks=n_full, tokens=len(req.generated))
+        req._finish(Migrated(
+            f"request {req.id} migrated out after {len(req.generated)} "
+            "token(s)",
+            payload=payload if deliver == "error" else None,
+            emitted=req.generated))
+        return payload
+
+    def _adopt_blocks(self, kv, ctx, tr):
+        """Check, allocate, write and trie-adopt a payload's KV blocks
+        (engine thread).  Returns the adopted block ids, or [] when the
+        payload carries none or this engine cannot hold them (contiguous
+        rows, no trie: the request still imports and re-prefills).
+        All-or-nothing: a dtype or geometry mismatch, a scheduled
+        ``migrate_import`` fault or a failed write returns the fresh
+        blocks to refcount 0 and raises."""
+        if kv is None or not kv.get("n_blocks"):
+            return []
+        if not self._paged or self.prefix_cache is None:
+            return []
+        n = int(kv["n_blocks"])
+        # dtype first, as its own refusal: int8 codes in fp pools (or fp
+        # rows in quantized ones) would be garbage
+        peer_dtype = str(kv.get("dtype"))
+        if peer_dtype != self._kv_dtype_str:
+            raise KVDtypeMismatch(
+                f"migration payload kv dtype {peer_dtype!r} does not match "
+                f"this engine's {self._kv_dtype_str!r}: adopting nothing "
+                "(peers must serve the same kv_dtype)")
+        want = {"block_size": self._bs, "num_heads": self._nh,
+                "head_dim": self._hd, "n_layers": len(self.k_pools)}
+        got = {k: kv.get(k) for k in want}
+        if got != want:
+            raise ValueError(
+                f"migration payload geometry {got} does not match this "
+                f"engine ({want}): adopting nothing")
+        # the adopted run lands in ONE dp shard (the emptiest)
+        shard = max(range(self.dp),
+                    key=lambda d: self.block_pool.free_count(d))
+        short = n - self.block_pool.free_count(shard)
+        if short > 0:
+            evicted = self.prefix_cache.evict(short, shard=shard)
+            if evicted:
+                self._m_prefix_evictions.inc(len(evicted))
+        blocks = self.block_pool.alloc(n, shard=shard)  # may raise
+        try:
+            self._fault("migrate_import")
+            with tr.span("migrate.import", cat="serving", blocks=n):
+                import_blocks(self.k_pools, self.v_pools, blocks,
+                              kv["data"], scales=kv.get("scales"))
+            # the trie takes one reference per new node, then the alloc
+            # reference drops: the blocks are the cache's, as a finished
+            # request's are
+            self.prefix_cache.insert(ctx, blocks)
+        except BaseException:
+            self.block_pool.decref(blocks)  # refcount 0, freed
+            raise
+        self.block_pool.decref(blocks)
+        return blocks
+
+    def _service_migrate_in(self, d, tr):
+        """Adopt one migrated stream: blocks into pool and trie, then an
+        equivalent request through the queue, resumed as a preempted
+        request resumes.  Returns 0 (no tokens emitted)."""
+        if self._draining:
+            raise QueueFull("engine is draining: not accepting migrations")
+        payload = d.args["payload"]
+        rq = payload["request"]
+        generated = [int(t) for t in rq.get("generated") or []]
+        ctx = [int(t) for t in rq["prompt"]] + generated
+        blocks = self._adopt_blocks(payload.get("kv"), ctx, tr)
+        req = Request(
+            rq["prompt"], rq["max_new_tokens"],
+            eos_token_id=rq.get("eos_token_id"),
+            temperature=rq.get("temperature", 1.0),
+            top_k=rq.get("top_k", 0), top_p=rq.get("top_p", 1.0),
+            seed=rq.get("seed"), priority=rq.get("priority", 0),
+            tenant=rq.get("tenant"))
+        req.generated = generated
+        req._ctx = np.asarray(ctx, np.int32)
+        req.preemptions = int(rq.get("preemptions") or 0) + 1
+        #   counts the handoff; admission emits req.resumed for it
+        state = rq.get("rng_state")
+        if state is not None and self.sample_mode == "host":
+            g = np.random.default_rng(req.sample_seed)
+            g.bit_generator.state = state
+            self._rngs[req.id] = g
+        self.queue.put(req)
+        self._m_reqs.inc()
+        with self._mig_lock:
+            self._migration_log.append({
+                "tick": self.tick_no, "dir": "in", "request": req.id,
+                "source": rq.get("source_id"), "blocks": len(blocks),
+                "tokens": len(generated)})
+        tr.instant("req.migrated_in", cat="request", req=req.id,
+                   source=rq.get("source_id"), blocks=len(blocks),
+                   tokens=len(generated))
+        d.complete({"request": req, "blocks": len(blocks)})
+        return 0
+
+    def _service_prefix_out(self, d, tr):
+        """Prefix-warming export: gather the trie's longest cached prefix
+        of the order's tokens, then the host tier's consecutive
+        continuation blocks.  Completes with None when nothing is cached.
+        Returns 0."""
+        tokens = d.args["tokens"]
+        if not self._paged or self.prefix_cache is None:
+            d.complete(None)
+            return 0
+        try:
+            self._fault("migrate_export")
+        except Exception as e:  # an injected decline
+            d.fail(e)
+            return 0
+        blocks, m = self.prefix_cache.match(tokens)
+        host_parts = []
+        if self.host_store is not None:
+            i = m // self._bs
+            limit = (len(tokens) - 1) // self._bs
+            while i < limit:
+                ent = self.host_store.get(
+                    prefix_key(tokens, (i + 1) * self._bs))
+                if ent is None:
+                    break
+                host_parts.append(ent)
+                i += 1
+        if not blocks and not host_parts:
+            d.complete(None)
+            return 0
+        data = scales = None
+        if blocks:
+            try:
+                with tr.span("migrate.export", cat="serving",
+                             blocks=len(blocks), prefix=True):
+                    data = export_blocks(self.k_pools, self.v_pools, blocks)
+            finally:
+                self.block_pool.decref(blocks)  # drop match's references
+            if self._kv_quant:
+                data, scales = data
+        if host_parts:
+            hd = np.stack([p[0] for p in host_parts], axis=2)
+            hs = (np.stack([p[1] for p in host_parts], axis=2)
+                  if host_parts[0][1] is not None else None)
+            data = hd if data is None else np.concatenate((data, hd), axis=2)
+            if hs is not None:
+                scales = (hs if scales is None
+                          else np.concatenate((scales, hs), axis=2))
+        n_blocks = len(blocks) + len(host_parts)
+        m_total = m + len(host_parts) * self._bs
+        tier = ("mixed" if blocks and host_parts
+                else "host" if host_parts else "device")
+        kv = {"block_size": self._bs, "num_heads": self._nh,
+              "head_dim": self._hd, "n_layers": len(self.k_pools),
+              "dtype": self._kv_dtype_str, "n_blocks": n_blocks}
+        if self._kv_quant:
+            kv["data"], kv["scales"] = data, scales
+        else:
+            kv["data"] = data
+        payload = {"version": 1, "request": None,
+                   "prefix": [int(t) for t in tokens[:m_total]],
+                   "tier": tier, "kv": kv}
+        self._m_kv_migrated.inc(n_blocks)
+        with self._mig_lock:
+            self._migration_log.append({
+                "tick": self.tick_no, "dir": "prefix_out",
+                "blocks": n_blocks, "tokens": m_total, "tier": tier})
+        d.complete(payload)
+        return 0
+
+    def _service_prefix_in(self, d, tr):
+        """Prefix-warming import: adopt a peer trie's blocks (the prefix
+        covers exactly n_blocks * block_size tokens).  Returns 0."""
+        payload = d.args["payload"]
+        tokens = [int(t) for t in payload.get("prefix") or []]
+        blocks = self._adopt_blocks(payload.get("kv"), tokens, tr)
+        if blocks:
+            with self._mig_lock:
+                self._migration_log.append({
+                    "tick": self.tick_no, "dir": "prefix_in",
+                    "blocks": len(blocks),
+                    "tokens": len(blocks) * self._bs})
+            tr.instant("prefix.warmed", cat="serving", blocks=len(blocks))
+        d.complete({"blocks": len(blocks),
+                    "tokens": len(blocks) * self._bs if blocks else 0})
+        return 0
 
     def streams_active(self):
         """Live ``TokenStream`` sinks across slot-bound and queued
@@ -2258,6 +2965,137 @@ class Engine:
         for r in self.queue.pending():
             n += len(r._sinks)
         return n
+
+    def debug_requests(self):
+        """Slot and request states, the queue, and the recent preemption
+        and migration logs as plain JSON-able dicts: the
+        ``/debug/requests`` payload and the flight recorder's context.
+        Readable from any thread while the engine ticks: host state only
+        (one locked scheduler pass; the request fields it reads are
+        single-writer ints), no device tensor is read."""
+        now = time.monotonic()
+        # the newest in-flight tick each slot's device cursor belongs to
+        # (None: the consumed host view is current)
+        ring = list(self._ring)
+        cursor_tick = {}
+        for inf in ring:
+            for s in inf.slots:
+                cursor_tick[s.index] = inf.tick
+        slots = []
+        streams_active = 0
+        for view in self.scheduler.debug_view():
+            view["cursor_tick"] = cursor_tick.get(view["slot"])
+            req = view.pop("request")
+            if req is not None:
+                view["request_id"] = req.id
+                view["prompt_len"] = int(len(req.prompt))
+                view["generated"] = len(req.generated)
+                view["max_new_tokens"] = req.max_new_tokens
+                view["do_sample"] = bool(req.do_sample)
+                view["first_token"] = req.first_token_at is not None
+                view["age_ms"] = round((now - req.submitted_at) * 1e3, 3)
+                view["preemptions"] = req.preemptions
+                view["adapter"] = req.adapter
+                view["streams"] = len(req._sinks)
+                view["restored_from_host"] = getattr(
+                    req, "_host_restored", 0)
+                streams_active += len(req._sinks)
+            if self._paged:
+                view["kv_blocks"] = len(self._slot_blocks[view["slot"]])
+            slots.append(view)
+        queued = []
+        for r in self.queue.pending():
+            streams_active += len(r._sinks)
+            queued.append({
+                "request_id": r.id, "prompt_len": int(len(r.prompt)),
+                "max_new_tokens": r.max_new_tokens,
+                "priority": r.priority, "tenant": r.tenant,
+                "preemptions": r.preemptions, "adapter": r.adapter,
+                "queued_ms": round((now - r.submitted_at) * 1e3, 3),
+                "deadline_in_s": (None if r.deadline is None
+                                  else round(r.deadline - now, 3)),
+            })
+        return {
+            "tick": self.tick_no, "slots": slots, "queue": queued,
+            "streams_active": streams_active,
+            "in_flight_ticks": [inf.tick for inf in ring],
+            "preemptions": self._preempt_history()[-16:],
+            "migrations": self._migration_history()[-16:],
+            "migrations_pending": self._migrate_pending(),
+            "offload": (None if self.host_store is None
+                        else self.host_store.stats()),
+            "engine": {
+                "num_slots": self.num_slots,
+                "max_seq_len": self.max_seq_len,
+                "layout": self._layout(),
+                "prefill_chunk": self._chunk,
+                "spec_k": self._spec_k,
+                "sample_mode": self.sample_mode,
+                "attn_impl": self.attn_impl,
+                "max_context_len": self._max_context_len,
+                "mesh_shape": self.mesh_axes,
+                "mp": self.mp,
+                "dp": self.dp,
+                "kv_block_bytes_per_shard": self._kv_block_bytes_per_shard,
+                "weight_dtype": self._weight_dtype_str,
+                "kv_dtype": self._kv_dtype_str,
+                "kv_block_bytes": self._kv_code_bytes_per_shard,
+                "kv_scale_bytes": self._kv_scale_bytes_per_shard,
+                "async_depth": self.async_depth,
+                "tracing": bool(self.tracer.enabled),
+                "preemption": self._preemption,
+                "draining": self._draining,
+                "watchdog_s": self.watchdog_s,
+                "adapters_loaded": (0 if self.adapters is None
+                                    else len(self.adapters)),
+                "adapters": (None if self.adapters is None
+                             else self.adapters.describe()),
+            }}
+
+    def _record_flight(self, exc):
+        """Flight recorder: snapshot the trace ring, the request states
+        and the in-flight ring at a step failure, BEFORE recovery tears
+        the slots down, into ``last_flight`` (and ``flight_dir`` when
+        set).  Host state only, so the watchdog thread can dump a tick
+        whose kernel is wedged; never masks the real failure."""
+        try:
+            trace = self.chrome_trace()
+            trace["metadata"] = {
+                "flight-recorder": {
+                    "error": repr(exc),
+                    "tick": self.tick_no,
+                    "dumped_at_unix": round(time.time(), 3),
+                    "requests": self.debug_requests(),
+                    "preemptions": self._preempt_history(),
+                    # the pipeline at the failure: the host mirrors (the
+                    # buffer admissions and evictions dirty) and, per
+                    # unconsumed tick, the cursors its dispatch chained
+                    # from
+                    "async": {
+                        "async_depth": self.async_depth,
+                        "state_dirty": bool(self._state_dirty),
+                        "in_flight": [inf.meta() for inf in list(self._ring)],
+                        "next_buffer": {
+                            "pos": self._pos.tolist(),
+                            "cur_tok": self._cur_tok[:, 0].tolist(),
+                            "rem": self._rem.tolist(),
+                            "eos": self._eos.tolist(),
+                            "ctr": self._sctr.tolist(),
+                        },
+                    },
+                }}
+            self.last_flight = trace
+            if self._flight_dir:
+                os.makedirs(self._flight_dir, exist_ok=True)
+                path = os.path.join(
+                    self._flight_dir,
+                    f"flight_tick{self.tick_no}_{os.getpid()}_"
+                    f"{int(time.time() * 1e3)}.json")
+                with open(path, "w") as f:
+                    json.dump(trace, f)
+                self.last_flight_path = path
+        except Exception:
+            pass
 
     # -- the host-RAM offload tier (serving/offload.py) ---------------------
     def _to_host(self, t):
@@ -2280,8 +3118,10 @@ class Engine:
         block.  ``_service_offload`` parks it at the next tick boundary.
         A prefix already stored or pending is skipped (content-addressed
         dedup).  Nothing here synchronizes."""
-        # the fault injector's offload_demote site waits for ROADMAP
-        # Queue A 9
+        try:
+            self._fault("offload_demote")
+        except Exception:
+            return  # a scheduled demote failure: free without spilling
         key = prefix_key(tokens)
         if key in self.host_store or key in self._offload_pending_keys:
             return
@@ -2360,8 +3200,13 @@ class Engine:
             if key not in store:  # a presence probe: no LRU touch
                 break
             keys.append(key)
-        # the fault injector's offload_promote site waits for ROADMAP
-        # Queue A 9
+        if not keys:
+            return 0
+        try:
+            self._fault("offload_promote")
+        except Exception:
+            return 0  # a scheduled promote failure: recompute instead;
+            #   the store entries stay
         ents = []
         for key in keys:
             ent = store.get(key)
@@ -2399,10 +3244,14 @@ class Engine:
         """One engine tick; returns the tokens emitted.  A tick that
         raises fails every bound request loudly (their waiters unblock),
         drops the ring, rebuilds the pools, and re-raises, so the engine
-        works again afterwards."""
+        works again afterwards.  The flight recorder snapshots the
+        failure first (``last_flight``), before the evictions."""
+        if self.watchdog_s is not None and self._watchdog is None:
+            self._watchdog = TickWatchdog(self, self.watchdog_s).start()
         try:
             return self._step_inner()
         except Exception as e:
+            self._record_flight(e)
             for slot in self.scheduler.busy_slots():
                 req = self.scheduler.evict(slot, RuntimeError(
                     f"engine step failed: {e!r}"))
@@ -2419,11 +3268,19 @@ class Engine:
     def _step_inner(self):
         self.ticks += 1
         tr = self.tracer
-        with tr.span("tick", cat="tick", tick=self.ticks) as tick_sp:
-            if self.async_depth > 1:
-                emitted = self._tick_async(tr, tick_sp)
-            else:
-                emitted = self._tick(tr, tick_sp)
+        # watchdog heartbeat, stamped for the whole tick: a stale stamp is
+        # how the watchdog sees a wedged tick
+        self._watchdog_fired = False
+        self._tick_started_at = time.monotonic()
+        try:
+            self._fault("host_slow")
+            with tr.span("tick", cat="tick", tick=self.ticks) as tick_sp:
+                if self.async_depth > 1:
+                    emitted = self._tick_async(tr, tick_sp)
+                else:
+                    emitted = self._tick(tr, tick_sp)
+        finally:
+            self._tick_started_at = None
         if emitted:
             now = time.monotonic()
             with self._ovl_lock:
@@ -2498,7 +3355,7 @@ class Engine:
         one dispatch -> consume it (host mode: the window, its logits
         home, host picks).  Adapter orders and the demote drain come
         first, at the tick boundary."""
-        emitted = self._service_demands(tr)
+        emitted = self._service_migrations(tr)
         self._service_offload(tr)
         emitted += self._admit(tr)
         occ, active, prefilling = self.scheduler.snapshot()
@@ -2529,7 +3386,7 @@ class Engine:
         self._overlap_acc = 0.0
         # tick-boundary service first: adapter orders (they drain the
         # ring), then last tick's demote downloads
-        emitted = self._service_demands(tr)
+        emitted = self._service_migrations(tr)
         self._service_offload(tr)
         emitted += self._admit(tr, in_flight=bool(self._ring))
         # spec barrier: a draft reads the tokens the previous window
@@ -2581,7 +3438,7 @@ class Engine:
         tokens emitted."""
         total = 0
         for _ in range(max_steps):
-            if self.scheduler.idle() and not self._demand_pending():
+            if self.scheduler.idle() and not self._migrate_actionable():
                 self._flush_offload()  # the last tick's demotes land
                 return total
             total += self.step()
@@ -2610,9 +3467,14 @@ class Engine:
         def loop():
             if prev is not None:
                 prev.join()  # never two loops in step()
+            if self.device.type == "cuda" and self.device.index is not None:
+                # the current device is per thread: launch where the
+                # engine's pools live
+                torch.cuda.set_device(self.device.index)
             try:
                 while not stop_evt.is_set():
-                    if self.scheduler.idle() and not self._demand_pending():
+                    if self.scheduler.idle() \
+                            and not self._migrate_actionable():
                         self._m_rate.refresh()
                         self._flush_offload()  # going idle: land demotes
                         # clear, then check again: a submit between the
@@ -2620,7 +3482,7 @@ class Engine:
                         # after it sets the event again
                         self._wake.clear()
                         if self.scheduler.idle() \
-                                and not self._demand_pending() \
+                                and not self._migrate_actionable() \
                                 and not stop_evt.is_set():
                             self._wake.wait(timeout=0.5)
                         continue
@@ -2647,11 +3509,12 @@ class Engine:
         # its lanes, so a later start() uploads clean cursors
         self._ring = []
         self._staging_free = []
-        with self._demand_lock:
-            demands, self._demands = self._demands, []
+        with self._mig_lock:
+            demands, self._migrate_demands = self._migrate_demands, []
         for d in demands:
             d.fail(RuntimeError("engine stopped"))
-        for _ in self.queue.drain():
+        for req in self.queue.drain():
+            self._rngs.pop(req.id, None)
             self._m_done.inc()
         for slot in self.scheduler.busy_slots():
             req = self.scheduler.evict(slot, RuntimeError("engine stopped"))
@@ -2689,6 +3552,9 @@ class Engine:
             self._drain_on_exit = evt
         evt.set()
         self._wake.set()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None  # a later step() re-arms it
         if t is not None:
             t.join(timeout=join_timeout)
             if t.is_alive():

@@ -34,9 +34,10 @@ block — physical row 0 on one card — which no live request ever reads
 Block export and import (``export_blocks`` / ``import_blocks``, the
 data half of KV migration) move a set of blocks' rows, every layer, K
 and V, between the pools and one host array; the host-RAM offload tier
-(``serving/offload.py``) restores through ``import_blocks``.  The
-engine half of migration (``migrate_out`` / ``migrate_in``) is not
-ported yet (ROADMAP Queue A 4).
+(``serving/offload.py``) restores through ``import_blocks``, and the
+engine's ``migrate_out`` / ``migrate_in`` and ``export_prefix`` /
+``import_prefix`` carry them in the JAX package's payload format
+(``payload_to_json`` / ``payload_from_json`` are its wire form).
 """
 from __future__ import annotations
 

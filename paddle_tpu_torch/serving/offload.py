@@ -31,8 +31,9 @@ evicted blocks a second, larger home:
 
 Host-side only: nothing here touches a device tensor.  Single-writer
 (the engine loop thread) like the rest of the KV metadata.  The fault
-injector's ``offload_demote`` / ``offload_promote`` sites wait for the
-fault injector (ROADMAP Queue A 9).
+injector's ``offload_demote`` site fires in the engine's evict hook (the
+block frees without spilling) and ``offload_promote`` in its admission
+consult (the span is recomputed, the entries stay).
 """
 from __future__ import annotations
 

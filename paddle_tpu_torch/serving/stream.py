@@ -1,22 +1,28 @@
 """Token streaming: per-tick emission fanned out to caller threads (a
 copy of ``paddle_tpu/serving/stream.py``).
 
-The engine emits token by token (``Engine._emit`` runs once per
-generated token inside the tick loop); ``TokenStream`` is a thread-safe
-sink that a caller ATTACHES to a live ``Request``.  Attachment replays
-the tokens already emitted and subscribes under the request's sink lock,
-so delivery is exactly-once however it races the engine, and then
-receives every later token the moment ``_emit`` records it.  The
-terminal event carries the request's outcome: normal completion, or the
-engine's error (shed, timeout, step failure), so a consumer never sees a
-silently truncated stream.
+The engine already emits token-by-token — ``_emit`` runs once per
+generated token inside the tick loop — but every front-end so far
+buffered the whole response before answering.  ``TokenStream`` closes
+that gap: it is a thread-safe sink a handler thread ATTACHES to a live
+``Request``; attachment atomically replays the tokens already emitted
+(attach races the engine, so replay-then-subscribe under the request's
+sink lock is what makes delivery exactly-once) and then receives every
+subsequent token the moment ``_emit`` records it.  The terminal event
+carries the request's outcome — normal completion, or the engine error
+(shed, preempt-timeout, migrated) the HTTP edge turns into a terminal
+SSE ``error`` event instead of a silently truncated body.
 
-Iteration yields ``StreamEvent``s; with ``heartbeat_s`` set, quiet gaps
-yield ``heartbeat`` events so a writer can send keep-alives.
-``sse_format`` / ``parse_sse`` are the two halves of the Server-Sent
-Events wire format.  The ``stream_disconnect`` fault site
-(``TokenStream(faults=...)``) waits for the fault injector (ROADMAP
-Queue A 9).
+Iteration yields ``StreamEvent``s; with ``heartbeat_s`` set, quiet
+gaps yield ``heartbeat`` events so an SSE writer can emit keep-alive
+comments and detect dead clients between tokens.
+
+Chaos integration: the ``stream_disconnect`` fault site (same pure
+(seed, site, tick) schedule as every other site) simulates a client
+vanishing mid-response — ``TokenStream(faults=..., ordinal=n)`` aborts
+iteration with ``StreamDisconnect`` after a schedule-derived number of
+tokens, which is exactly what a TCP reset mid-SSE looks like to the
+server loop.
 """
 from __future__ import annotations
 
@@ -66,23 +72,26 @@ class TokenStream:
         # terminal "done"/"error" ends iteration; .error holds failure
 
     The stream buffers internally, so a slow client never back-
-    pressures the engine thread: ``feed`` is a ``Queue.put``.
+    pressures the engine thread — ``feed`` is a lock-free Queue.put.
     """
 
     def __init__(self, req=None, heartbeat_s=None, faults=None,
                  ordinal=0):
-        if faults is not None:
-            raise NotImplementedError(
-                "TokenStream(faults=...) is not ported yet: the "
-                "stream_disconnect fault site waits for the fault injector "
-                "(ROADMAP.md Queue A 9)")
         self._q = queue.Queue()
         self.heartbeat_s = heartbeat_s
         self.error = None
         self.closed = False
         self.tokens = []          # every token this stream delivered
         self.first_token_t = None  # client-side TTFT anchor
+        self._disconnect_after = None
+        self._faults = faults
         self._ordinal = int(ordinal)
+        if faults is not None and faults.scheduled("stream_disconnect",
+                                                   self._ordinal):
+            # deterministic mid-response client kill: vanish after a
+            # schedule-derived number of tokens (>= 1 so the stream is
+            # genuinely mid-body, not refused)
+            self._disconnect_after = 1 + self._ordinal % 3
         if req is not None:
             self.attach(req)
 
@@ -120,6 +129,13 @@ class TokenStream:
             if ev.kind == "token":
                 if self.first_token_t is None:
                     self.first_token_t = ev.t
+                if (self._disconnect_after is not None
+                        and len(self.tokens) >= self._disconnect_after):
+                    # the scheduled client kill: log through the
+                    # injector (chaos forensics) and vanish
+                    self.closed = True
+                    self._faults.fire("stream_disconnect",
+                                      self._ordinal)
                 self.tokens.append(ev.token)
             else:
                 self.closed = True
@@ -160,7 +176,8 @@ def parse_sse(line_iter):
     """Incremental SSE parser over an iterator of raw lines (bytes or
     str, newline-stripped or not) — the client half ``sse_format`` is
     the server half of.  Yields (event, data_str) per frame; comments
-    and blank keep-alives are skipped."""
+    and blank keep-alives are skipped.  Used by the router's HTTP
+    transport to follow a replica's stream token-by-token."""
     event, data = None, []
     for raw in line_iter:
         line = raw.decode() if isinstance(raw, bytes) else raw

@@ -427,8 +427,10 @@ def test_stream_terminal_error_and_emit_span(models):
 
 def test_sse_roundtrip_and_unported_faults():
     """``sse_format`` frames parse back through ``parse_sse`` (comments
-    skipped), as the JAX pair does; ``TokenStream(faults=...)`` names its
-    ROADMAP item."""
+    skipped), as the JAX pair does; ``TokenStream(faults=...)`` (ported
+    since: the name is kept) fires the ``stream_disconnect`` site as
+    JAX's does: a stream whose ordinal the schedule names vanishes after
+    ``1 + ordinal % 3`` tokens, and the injector logs it."""
     from paddle_tpu.serving.stream import sse_format as jax_sse
     frames = (sse_format({"token": 5}, event="token")
               + sse_format(comment="keep-alive")
@@ -439,8 +441,19 @@ def test_sse_roundtrip_and_unported_faults():
     got = list(parse_sse(frames.decode().splitlines(keepends=True)))
     assert got == [("token", '{"token": 5}'),
                    ("done", '{"done": true, "ids": [1, 2]}')]
-    with pytest.raises(NotImplementedError, match="Queue A 9"):
-        TokenStream(faults=object())
+    from paddle_tpu_torch.serving import FaultInjector
+    from paddle_tpu_torch.serving.faults import StreamDisconnect
+    from paddle_tpu_torch.serving.request import Request
+    inj = FaultInjector(seed=0).at(4, "stream_disconnect")
+    req = Request(np.arange(3, dtype=np.int32), 5)
+    stream = TokenStream(req, faults=inj, ordinal=4)
+    for t in (7, 8, 9):
+        req._emit_token(t)
+    got = []
+    with pytest.raises(StreamDisconnect):
+        for ev in stream:
+            got.append(ev.token)
+    assert got == [7, 8] and inj.log == [(4, "stream_disconnect")]
 
 
 # -- on the card ----------------------------------------------------------

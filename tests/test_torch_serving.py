@@ -251,7 +251,8 @@ def test_block_pool_and_prefix_cache_match_jax_copies():
 
 def test_package_imports_no_jax():
     """Every module of paddle_tpu_torch (the monitor, the proposers, the
-    LoRA lanes, the host tier and the streams among them), and
+    LoRA lanes, the host tier, the streams, the fault injector and the
+    front ends and fleet among them), and
     chip_smoke.py, import without pulling in jax or the
     JAX package (exact module names: ``paddle_tpu_torch`` has
     ``paddle_tpu`` as a prefix)."""
@@ -271,7 +272,11 @@ new = {"paddle_tpu_torch.monitor", "paddle_tpu_torch.monitor.stats",
        "paddle_tpu_torch.monitor.exposition",
        "paddle_tpu_torch.monitor.tracing", "paddle_tpu_torch.serving.spec",
        "paddle_tpu_torch.serving.lora", "paddle_tpu_torch.serving.offload",
-       "paddle_tpu_torch.serving.stream"}
+       "paddle_tpu_torch.serving.stream", "paddle_tpu_torch.serving.faults",
+       "paddle_tpu_torch.serving.httpd", "paddle_tpu_torch.serving.router",
+       "paddle_tpu_torch.serving.routerd",
+       "paddle_tpu_torch.serving.supervisor",
+       "paddle_tpu_torch.distributed.launch"}
 assert new <= set(names), sorted(new - set(names))
 print(len(names), bad)
 assert not bad, bad
