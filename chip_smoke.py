@@ -248,10 +248,34 @@ line:
    draws this process's weights, exactly); replica 0 gets SIGTERM once it
    holds a live stream: its drain line reports ``lost_tokens=0`` and the
    routed streams equal phase 4's.
-19. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+19. The GPT pretraining recipe at full width and depth.  (a)
+   ``GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.1,
+   fused_loss=True, use_recompute=True)`` in fp32 under
+   ``TrainStep(amp_level="O1")``, ``AdamW`` over
+   ``LinearWarmup(CosineAnnealingDecay(1e-4, T_max=100), 3, 0, 1e-4)``
+   with ``ClipGradByGlobalNorm(1.0)``, B=4, S=2048, rows packed with 3-6
+   documents of uneven lengths (numpy seed 0; the last row padded)
+   through ``forward(..., labels, doc_lens=...)``; one warm-up step and 5
+   timed steps.  Checks: losses finite, the first within 0.1 of ln V +
+   E * 0.02^2 / 2, falling; each step's learning rate the scheduler's
+   Python sequence; B5a launched 48 times a step (the recompute), B5b and
+   B5c 24; no launch on the scalar fp32 route; the peak memory below one
+   more step's without recompute.  Prints tokens/s (and the ratio to
+   phase 6's), both peaks and a ``torch.profiler`` breakdown of one
+   step.  (b) the same model with ``scan_layers=True``,
+   ``amp.decorate(level="O2")`` to bf16, ``strategy.amp`` with
+   ``use_pure_fp16`` and ``AdamW(multi_precision=False)``: 1 + 3 steps,
+   the same loss checks, bf16 moments (its attention runs in f32, on
+   the scalar kernels, as the JAX package's O2 promotes it).  (d)
+   ``generate`` of 16 greedy tokens on (b)'s model equals an unrolled
+   copy's.  (c) phase 7's comparison on this path: 2 layers, fp32
+   weights, O1, recompute, a packed padded row, kernels against plain
+   versions (loss rtol 1e-3, gradients relative L2 2e-2; B5a twice a
+   layer).
+20. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
    phase 16 (c)'s, phase 17's and phase 18's in-process serves, B2's
-   phase 10's, phase 17 (d)'s and phase 18 (a)'s, B5a's phase 6's and
-   phase 16 (f)'s), the card line and
+   phase 10's, phase 17 (d)'s and phase 18 (a)'s, B5a-B5c's phase 6's
+   and phase 19 (a)'s, B5a's phase 16 (f)'s too), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -3128,13 +3152,13 @@ def train_phase(card, fa):
           f"{wall / TRAIN_TIMED:.4f} tokens_per_s {tokens / wall:.1f} "
           f"peak_mem_gb {peak_gb:.2f} flash_launches {launches} [{card}]",
           flush=True)
-    train_profile(step, x, y, card)
+    train_profile(step, [x, y], card)
     del step, opt, model
     torch.cuda.empty_cache()
-    return launches
+    return launches, tokens / wall
 
 
-def train_profile(step, x, y, card):
+def train_profile(step, batch, card, label="train"):
     """One more step under torch.profiler: device time by kernel and the
     device's busy share of the step's wall time."""
     import torch
@@ -3142,17 +3166,18 @@ def train_profile(step, x, y, card):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step.step([x, y])
+        step.step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    print(f"train profile: one step wall_s {wall:.3f} device_busy_s "
+    print(f"{label} profile: one step wall_s {wall:.3f} device_busy_s "
           f"{busy_ms / 1e3:.3f} busy_share {busy_ms / 1e3 / wall:.3f} "
           f"[{card}]", flush=True)
     dev.sort(key=lambda e: -e.self_device_time_total)
     for e in dev[:12]:
-        print(f"train profile kernel: {e.self_device_time_total / 1e3:10.3f}"
+        print(f"{label} profile kernel: "
+              f"{e.self_device_time_total / 1e3:10.3f}"
               f" ms {e.count:6d}x {100 * e.self_device_time_total / 1e3 / busy_ms:5.1f}% "
               f"{e.key[:90]}", flush=True)
 
@@ -3201,6 +3226,301 @@ def model_compare_phase(fa):
           f"gradient relative L2 error {worst:.3e} over {len(g_plain)} "
           f"parameters (tolerance loss rtol 1e-3, gradients 2e-2)",
           flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+# -- phase 19 -------------------------------------------------------------
+RECIPE_TIMED = 5                   # (a): steps after the warm-up step
+RECIPE_DOCS = (3, 6)               # documents a packed row, inclusive
+O2_STEPS = 3                       # (b): steps after the warm-up step
+RECIPE_GEN_PROMPT, RECIPE_GEN_NEW = 64, 16   # (d)
+
+
+def packed_lm(model):
+    """``model`` behind the positional signature ``TrainStep`` calls,
+    ``(ids, labels, doc_lens)``, as a JAX pretraining script wraps it."""
+    import torch
+
+    class PackedLM(torch.nn.Module):
+        def __init__(self, lm):
+            super().__init__()
+            self.lm = lm
+
+        def forward(self, ids, labels, doc_lens):
+            return self.lm(ids, labels=labels, doc_lens=doc_lens)
+
+    return PackedLM(model)
+
+
+def packed_batch(vocab, batch, seq, seed):
+    """Ids and shifted labels ``[batch, seq]`` on the card, and int32
+    ``doc_lens [batch, 6]`` on the host: each row packs 3-6 documents of
+    uneven lengths; the last row stops seq/32 to seq/4 tokens short
+    (padding: 64-511 at S=2048)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, vocab, (batch, seq + 1))
+    doc_lens = np.zeros((batch, RECIPE_DOCS[1]), np.int32)
+    for b in range(batch):
+        n = rng.randint(RECIPE_DOCS[0], RECIPE_DOCS[1] + 1)
+        total = seq if b < batch - 1 else seq - rng.randint(seq // 32,
+                                                            seq // 4)
+        cuts = np.sort(rng.choice(np.arange(16, total - 16), n - 1,
+                                  replace=False))
+        doc_lens[b, :n] = np.diff(np.concatenate([[0], cuts, [total]]))
+    ids = torch.tensor(ids.astype(np.int64), device="cuda")
+    return ids[:, :-1], ids[:, 1:], doc_lens
+
+
+def recipe_schedule():
+    from paddle_tpu_torch.optimizer import lr
+    return lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, T_max=100),
+                           warmup_steps=3, start_lr=0.0, end_lr=1e-4)
+
+
+def check_losses(losses, V, E, label):
+    import math
+    expect0 = math.log(V) + E * 0.02 ** 2 / 2
+    check(all(math.isfinite(l) for l in losses),
+          f"{label}: non-finite loss {losses}")
+    check(abs(losses[0] - expect0) < 0.1,
+          f"{label}: step-0 loss {losses[0]:.4f} is not within 0.1 of "
+          f"ln V + E * 0.02^2 / 2 = {expect0:.4f}")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: "
+          f"{losses}")
+    return expect0
+
+
+def recipe_phase(card, fa, phase6_tps):
+    """Phase 19: the GPT pretraining recipe at full width and depth
+    ((a), (b)), its kernel and plain paths ((c)) and ``generate`` on the
+    scan model ((d)).  Returns (a)'s flash launches by kernel."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.parallel import TrainStep
+
+    # (a) fp32 weights, O1, AdamW over warmup + cosine with a global-norm
+    # clip, recompute, packed documents
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.1,
+                                 fused_loss=True, use_recompute=True)
+    check(len(model.blocks) == N_LAYERS, "gpt3-1.3b has 24 layers")
+    E = model.blocks[0].attn.hidden_size
+    V = model.head.lm_head.weight.shape[0]
+    sched = recipe_schedule()
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.parameters())
+    step = TrainStep(packed_lm(model), opt, amp_level="O1")
+    x, y, dl = packed_batch(V, TRAIN_B, TRAIN_S, seed=0)
+    batch = [x, y, dl]
+    ref = recipe_schedule()
+    want_lr = []
+    for _ in range(RECIPE_TIMED + 1):
+        want_lr.append(ref())
+        ref.step()
+    zero_flash_counts(fa)
+    scalar0 = fa.ROUTE_LAUNCHES["scalar"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, used = [], []
+
+    def one_step():
+        losses.append(step.step(batch))
+        used.append(opt.last_step_lr)
+        sched.step()
+
+    t_warm = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm_s = t0 - t_warm
+    for _ in range(RECIPE_TIMED):
+        one_step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts(fa)
+    peak_rc = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    steps = RECIPE_TIMED + 1
+    check(launches == {"fwd": 2 * N_LAYERS * steps,
+                       "bwd_dkv": N_LAYERS * steps,
+                       "bwd_dq": N_LAYERS * steps},
+          f"recipe: flash launches {launches} in {steps} steps, not "
+          f"{2 * N_LAYERS} forwards (recompute) and {N_LAYERS} of each "
+          "backward a step")
+    check(fa.ROUTE_LAUNCHES["scalar"] == scalar0,
+          "recipe: a flash launch took the scalar fp32 route under O1")
+    check(used == want_lr, f"recipe: learning rates {used} are not the "
+          f"scheduler's {want_lr}")
+    expect0 = check_losses(losses, V, E, "recipe (a)")
+    tokens = TRAIN_B * TRAIN_S * RECIPE_TIMED
+    kept = int((dl.sum(axis=1) - (dl > 0).sum(axis=1)).sum()) * RECIPE_TIMED
+    tps = tokens / wall
+    print(f"phase 19 (a) recipe gpt3-1.3b fp32 O1 recompute packed: B "
+          f"{TRAIN_B} S {TRAIN_S} docs/row "
+          f"{[int((r > 0).sum()) for r in dl]} padding "
+          f"{TRAIN_B * TRAIN_S - int(dl.sum())} losses "
+          + " ".join(f"{l:.4f}" for l in losses)
+          + f" (step-0 expected {expect0:.4f}) lr "
+          + " ".join(f"{v:.3e}" for v in used)
+          + f" warmup_s {warm_s:.3f} timed_steps {RECIPE_TIMED} wall_s "
+          f"{wall:.3f} s_per_step {wall / RECIPE_TIMED:.4f} tokens_per_s "
+          f"{tps:.1f} (x phase 6 {tps / phase6_tps:.3f}) "
+          f"scored_tokens_per_s {kept / wall:.1f} peak_mem_gb "
+          f"{peak_rc:.2f} flash_launches {launches} [{card}]", flush=True)
+    train_profile(step, batch, card, label="recipe")
+    for blk in model.blocks:
+        blk.use_recompute = False
+    zero_flash_counts(fa)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step.step(batch)
+    torch.cuda.synchronize()
+    peak_full = torch.cuda.max_memory_allocated() / 1e9
+    check(flash_counts(fa)["fwd"] == N_LAYERS,
+          "recipe without recompute: not one flash forward a layer")
+    check(peak_rc < peak_full,
+          f"recipe: peak with recompute {peak_rc:.2f} GB is not below "
+          f"the peak without it {peak_full:.2f} GB")
+    print(f"phase 19 (a) peak memory: recompute {peak_rc:.2f} GB, without "
+          f"recompute {peak_full:.2f} GB (one step) [{card}]", flush=True)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) O2 (bf16 weights, strategy.amp with use_pure_fp16), scan_layers,
+    # bf16 moments
+    import types
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.1,
+                                 fused_loss=True, scan_layers=True)
+    amp.decorate(model, level="O2")
+    check(model.blocks.attn.qkv_proj.weight.dtype == torch.bfloat16
+          and model.blocks.attn.qkv_proj.weight.shape[0] == N_LAYERS,
+          "O2 scan model: bf16 stacked weights")
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                multi_precision=False, parameters=model.parameters())
+    strategy = types.SimpleNamespace(amp=True,
+                                     amp_configs={"use_pure_fp16": True})
+    step = TrainStep(packed_lm(model), opt, strategy=strategy)
+    check(step.amp_level == "O2", "strategy.amp use_pure_fp16 is O2")
+    zero_flash_counts(fa)
+    scalar0 = fa.ROUTE_LAUNCHES["scalar"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step.step(batch)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(O2_STEPS):
+        losses.append(step.step(batch))
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    losses = [float(l) for l in losses]
+    check_losses(losses, V, E, "recipe (b) O2 scan")
+    moments = {st["moment1"].dtype for st in opt.state.values()} | {
+        st["moment2"].dtype for st in opt.state.values()}
+    check(moments == {torch.bfloat16} and len(opt.state) == len(
+        list(model.parameters())), f"O2: moments {moments}, not bf16")
+    counts_b = flash_counts(fa)
+    scalar_b = fa.ROUTE_LAUNCHES["scalar"] - scalar0
+    check(counts_b["fwd"] == N_LAYERS * (O2_STEPS + 1),
+          f"O2 scan: flash launches {counts_b}")
+    print(f"phase 19 (b) gpt3-1.3b O2 bf16 weights scan_layers "
+          f"multi_precision=False packed: losses "
+          + " ".join(f"{l:.4f}" for l in losses)
+          + f" s_per_step {wall_b / O2_STEPS:.4f} tokens_per_s "
+          f"{TRAIN_B * TRAIN_S * O2_STEPS / wall_b:.1f} peak_mem_gb "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} moments "
+          f"{sorted(str(m) for m in moments)} flash_launches {counts_b} "
+          f"(scalar fp32 route {scalar_b}: O2 runs attention in f32, as "
+          f"the JAX package's O2 promotes it) [{card}]", flush=True)
+    del step, opt
+
+    # (d) generate on the scan model against an unrolled copy
+    import numpy as np
+    un = GPTModel.from_config("gpt3-1.3b", seed=1, dropout=0.0,
+                              fused_loss=True).to(torch.bfloat16)
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, p in un.named_parameters():
+            m = re.fullmatch(r"blocks\.(\d+)\.(.+)", n)
+            p.copy_(src[f"blocks.{m.group(2)}"][int(m.group(1))] if m
+                    else src[n])
+    prompts = np.random.RandomState(7).randint(0, V, (2, RECIPE_GEN_PROMPT))
+    t0 = time.perf_counter()
+    got = model.generate(prompts, max_new_tokens=RECIPE_GEN_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    want = un.generate(prompts, max_new_tokens=RECIPE_GEN_NEW)
+    check(torch.equal(got, want),
+          "generate on the scan model differs from its unrolled copy's")
+    print(f"phase 19 (d) generate on the O2 scan model (after (b)'s "
+          f"steps): 2 prompts of {RECIPE_GEN_PROMPT}, {RECIPE_GEN_NEW} "
+          f"greedy tokens equal the unrolled copy's; wall_s {gen_s:.3f} "
+          f"[{card}]", flush=True)
+    del model, un, src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    recipe_compare_phase(fa, card)
+    return launches
+
+
+def recipe_compare_phase(fa, card):
+    """Phase 19 (c): phase 7's comparison on the recipe's path — 2 layers
+    of gpt3-1.3b in fp32 under O1 with recompute and packed rows, B=1,
+    S=2048, through the kernels and through the plain versions."""
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.0,
+                                 fused_loss=True, num_layers=2,
+                                 use_recompute=True)
+    V = model.head.lm_head.weight.shape[0]
+    x, y, dl = packed_batch(V, 2, TRAIN_S, seed=3)
+    x, y, dl = x[1:], y[1:], dl[1:]          # the row with padding
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        with amp.auto_cast(level="O1"):
+            loss = model(x, labels=y, doc_lens=dl)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float().clone()
+                                      for n, p in model.named_parameters()}
+
+    before = flash_counts(fa)
+    l_kernel, g_kernel = loss_and_grads()
+    after = flash_counts(fa)
+    check(after["fwd"] - before["fwd"] == 4
+          and after["bwd_dkv"] - before["bwd_dkv"] == 2
+          and after["bwd_dq"] - before["bwd_dq"] == 2,
+          f"recipe kernel path: flash launches {before} -> {after}, not 2 "
+          "forwards and 1 of each backward a layer")
+    real = attn_mod.flash_attention
+    attn_mod.flash_attention = fa.flash_attention_ref
+    try:
+        l_plain, g_plain = loss_and_grads()
+    finally:
+        attn_mod.flash_attention = real
+    check(abs(l_kernel - l_plain) <= 1e-3 * abs(l_plain),
+          f"recipe: loss through the kernels {l_kernel} vs plain {l_plain}")
+    worst = 0.0
+    for n, gp in g_plain.items():
+        rel = float((g_kernel[n] - gp).norm() / gp.norm().clamp(min=1e-30))
+        check(rel <= 2e-2, f"recipe gradient {n}: relative L2 error "
+              f"{rel:.3e}")
+        worst = max(worst, rel)
+    print(f"phase 19 (c) recipe kernel vs plain (gpt3-1.3b width, 2 "
+          f"layers, fp32 weights, O1, recompute, {int((dl > 0).sum())} "
+          f"packed documents, B=1, S={TRAIN_S}): loss {l_kernel:.6f} vs "
+          f"{l_plain:.6f}, worst gradient relative L2 error {worst:.3e} "
+          f"over {len(g_plain)} parameters (tolerance loss rtol 1e-3, "
+          f"gradients 2e-2) [{card}]", flush=True)
     del model
     torch.cuda.empty_cache()
 
@@ -3318,12 +3638,18 @@ def main(argv):
     bucket_fwd = bucket_phase(card, ragged_mod, fa)
     lap("16 (f) (bucketed prefill)")
     zero_ragged_counts(ragged_mod)
-    flash_launches = train_phase(card, fa)
+    flash_launches, phase6_tps = train_phase(card, fa)
     flash_launches["fwd"] += bucket_fwd
     check(sum(ragged_counts(ragged_mod).values()) == 0,
           "the training path launched a ragged kernel")
     model_compare_phase(fa)
     lap("6, 7 (training)")
+    recipe_launches = recipe_phase(card, fa, phase6_tps)
+    for name, n in recipe_launches.items():
+        flash_launches[name] += n
+    check(sum(ragged_counts(ragged_mod).values()) == 0,
+          "the pretraining recipe launched a ragged kernel")
+    lap("19 (the pretraining recipe)")
 
     f32 = kres["float32"]
     kernels = [{

@@ -27,21 +27,75 @@ kept.  Missing names, unexpected names, shape and dtype mismatches are
 refused before anything is copied.  ``export_paddle_tpu_state(model)`` is
 the reverse: the model's state as numpy arrays in ``paddle_tpu``'s layout
 and names.
+
+A ``scan_layers`` model stacks its blocks as the JAX package does:
+``blocks.ln1.weight [L, E]``, ``blocks.attn.qkv_proj.weight [L, E, 3E]``
+in ``paddle_tpu`` (``[L, 3E, E]`` here: the transposes swap the last two
+axes).  ``load_paddle_tpu_state`` takes either layout for either form —
+unrolled arrays are stacked into a scan model, stacked ones sliced into
+an unrolled model — and ``export_paddle_tpu_state`` gives the model's
+own.
+
+``export_optimizer_state(optimizer, model)`` /
+``load_optimizer_state(optimizer, model, state)`` carry an optimizer's
+state in the JAX package's ``state_dict`` format — ``__step__``,
+``LR_Scheduler`` and ``{name}__{state key}`` numpy arrays, each moment
+of a linear weight transposed like the weight — so a run begun in one
+package resumes in the other.  ``names`` maps the port's parameter names
+to the names the JAX state keys carry (its parameters' ``.name``:
+``{n: p.name for n, p in jax_model.named_parameters()}``).
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 from torch import nn
 
-
+from .nn.layer import ScanLayers
 from .quantization.weight_only import WeightOnlyInt8Linear
+
+
+def _flip(a):
+    """Swap the last two axes (``[in, out]`` <-> ``[out, in]``, under
+    any stacked leading axis)."""
+    return a.swapaxes(-1, -2)
+
+
+_LAYER = re.compile(r"(.+)\.(\d+)\.(.+)")   # prefix.{i}.rest
+
+
+def _to_model_layout(model, arrays):
+    """``arrays`` with their blocks stacked or sliced to the layout of
+    ``model`` (see the module docstring); other names untouched."""
+    out = dict(arrays)
+    for prefix, mod in model.named_modules():
+        if not isinstance(mod, ScanLayers):
+            continue
+        for rest in mod._stack_names:
+            parts = [f"{prefix}.{i}.{rest}" for i in range(mod.num_layers)]
+            if f"{prefix}.{rest}" not in out and all(k in out
+                                                     for k in parts):
+                out[f"{prefix}.{rest}"] = np.stack(
+                    [np.asarray(out.pop(k)) for k in parts])
+    sliced = set()
+    for name in _state(model):
+        m = _LAYER.fullmatch(name)
+        stacked = m and f"{m.group(1)}.{m.group(3)}"
+        if name not in out and stacked in out:
+            out[name] = np.asarray(out[stacked])[int(m.group(2))]
+            sliced.add(stacked)
+    for k in sliced:
+        del out[k]
+    return out
 
 
 def _linear_weights(model):
     """Names stored ``[in, out]`` by ``paddle_tpu`` and ``[out, in]``
     here: Linear weights and weight-only int8 codes (the parallel layers
-    of the tensor-parallel form store ``[in, out]`` in both)."""
+    of the tensor-parallel form store ``[in, out]`` in both); a stacked
+    block's are ``[L, ...]`` of the same."""
     names = set()
     for name, mod in model.named_modules():
         if isinstance(mod, nn.Linear):
@@ -66,6 +120,7 @@ def load_paddle_tpu_state(model, arrays):
     into ``model``'s parameters and int8 weight buffers, in place, on the
     model's device and in its dtype.  Returns the model."""
     params = _state(model)
+    arrays = _to_model_layout(model, arrays)
     missing = sorted(set(params) - set(arrays))
     unexpected = sorted(set(arrays) - set(params))
     if missing or unexpected:
@@ -78,7 +133,7 @@ def load_paddle_tpu_state(model, arrays):
     for name, p in params.items():
         arr = np.asarray(arrays[name])
         if name in linear:
-            arr = arr.T
+            arr = _flip(arr)
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(
                 f"load_paddle_tpu_state: {name} has shape "
@@ -107,6 +162,61 @@ def export_paddle_tpu_state(model):
         for name, p in _state(model).items():
             p = p.detach()
             arr = (p if p.dtype == torch.int8 else p.float()).cpu().numpy()
-            out[name] = np.ascontiguousarray(arr.T if name in linear
+            out[name] = np.ascontiguousarray(_flip(arr) if name in linear
                                              else arr)
     return out
+
+
+def _state_array(v):
+    """A state value as numpy: floats as float32 (numpy has no bf16),
+    integer counters as they are."""
+    if not torch.is_tensor(v):
+        return np.asarray(v)
+    v = v.detach().cpu()
+    return (v.float() if v.is_floating_point() else v).numpy()
+
+
+def export_optimizer_state(optimizer, model, names=None):
+    """``optimizer``'s state in the JAX package's ``state_dict`` format,
+    as numpy arrays keyed ``{names.get(n, n)}__{key}`` for each parameter
+    ``n`` of ``model`` that has state (moments of linear weights in
+    ``paddle_tpu``'s ``[in, out]`` layout), plus ``__step__`` and the
+    scheduler's ``LR_Scheduler``."""
+    names = names or {}
+    linear = _linear_weights(model)
+    paddle = optimizer.paddle_state_dict()
+    out = {k: paddle[k] for k in ("__step__", "LR_Scheduler")
+           if k in paddle}
+    for name, p in model.named_parameters():
+        for key, v in optimizer.state.get(p, {}).items():
+            arr = _state_array(v)
+            if name in linear and arr.ndim >= 2:
+                arr = _flip(arr)
+            out[f"{names.get(name, name)}__{key}"] = \
+                np.ascontiguousarray(arr)
+    return out
+
+
+def load_optimizer_state(optimizer, model, state, names=None):
+    """Load ``state`` (the JAX package's ``state_dict`` format: tensors,
+    jax arrays or numpy, keyed as ``export_optimizer_state`` keys them)
+    into ``optimizer`` over ``model``'s parameters; each state tensor
+    takes the dtype and device the optimizer gives it."""
+    names = names or {}
+    linear = _linear_weights(model)
+    own = {id(p): n for n, p in optimizer._state_names()}
+    staged = {k: state[k] for k in ("__step__", "LR_Scheduler")
+              if k in state}
+    for name, p in model.named_parameters():
+        prefix = f"{names.get(name, name)}__"
+        for k, v in state.items():
+            if not (isinstance(k, str) and k.startswith(prefix)):
+                continue
+            arr = (_state_array(v) if torch.is_tensor(v) else
+                   np.asarray(v.numpy() if hasattr(v, "numpy") else v))
+            if name in linear and arr.ndim >= 2:
+                arr = _flip(arr)
+            staged[f"{own[id(p)]}__{k[len(prefix):]}"] = \
+                torch.from_numpy(np.array(arr, copy=True))
+    optimizer.set_state_dict(staged)
+    return optimizer

@@ -22,6 +22,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..nn.functional.common import linear
+
 # The serving engine's layouts on the (mp, dp) mesh, one table for the
 # engine, the sharded ragged-attention wrapper and the tests:
 # * kv — [NB, bs, H, hd] pools: block rows by dp shard (each shard a
@@ -142,7 +144,7 @@ class ColumnParallelLinear(nn.Module):
             self.bias = None
 
     def forward(self, x):
-        return F.linear(x, self.weight.t(), self.bias)
+        return linear(x, self.weight, self.bias)
 
 
 class RowParallelLinear(nn.Module):
@@ -158,7 +160,7 @@ class RowParallelLinear(nn.Module):
         self.bias.partition_spec = ()
 
     def forward(self, x):
-        return F.linear(x, self.weight.t(), self.bias)
+        return linear(x, self.weight, self.bias)
 
 
 class VocabParallelEmbedding(nn.Module):

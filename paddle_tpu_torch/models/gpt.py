@@ -52,11 +52,15 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .. import amp
 from ..device import resolve_device
+from ..distributed.fleet.utils import recompute
 from ..distributed.sharding import (ColumnParallelLinear, RowParallelLinear,
                                     VocabParallelEmbedding)
-from ..nn.functional import (cross_entropy, fused_linear_cross_entropy,
+from ..nn.functional import (apply_layer_norm, apply_linear, cross_entropy,
+                             fused_linear_cross_entropy, gelu,
                              scaled_dot_product_attention)
+from ..nn.layer import ScanLayers, owner_of
 from ..ops.ragged_paged_attn import ragged_paged_attention
 from ..serving.quant import (QuantKV, dequantize_blocks, paged_gather,
                              paged_insert, quantize_blocks)
@@ -285,8 +289,8 @@ class GPTAttention(nn.Module):
     def _qkv_mp(self, x):
         """The tensor-parallel form's QKV: ``einsum("bse,ethd->btshd")``
         plus the bias; (q, k, v) each [B, S, H, hd]."""
-        qkv = torch.einsum("bse,ethd->btshd", x, self.qkv_weight) \
-            + self.qkv_bias
+        x, w = amp.promote(*amp.cast_inputs("einsum", x, self.qkv_weight))
+        qkv = torch.einsum("bse,ethd->btshd", x, w) + self.qkv_bias
         return qkv[:, 0], qkv[:, 1], qkv[:, 2]
 
     def _qkv_step(self, x):
@@ -296,7 +300,8 @@ class GPTAttention(nn.Module):
         if self.use_mp:
             return self._qkv_mp(x)
         b, s = x.shape[0], x.shape[1]
-        qkv = self.qkv_proj(x).view(b, s, 3, self.num_heads, self.head_dim)
+        qkv = apply_linear(self.qkv_proj, x).view(b, s, 3, self.num_heads,
+                                                  self.head_dim)
         return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
     def _out(self, ctx):
@@ -313,11 +318,12 @@ class GPTAttention(nn.Module):
                 raise ValueError(
                     "LoRA adapters ride the dense out_proj form: the "
                     "tensor-parallel attention takes no adapter lanes")
-            return torch.einsum("bshd,hde->bse", ctx, self.out_weight) \
-                + self.out_bias
+            ctx, w = amp.promote(*amp.cast_inputs("einsum", ctx,
+                                                  self.out_weight))
+            return torch.einsum("bshd,hde->bse", ctx, w) + self.out_bias
         b, s = ctx.shape[0], ctx.shape[1]
         x = ctx.reshape(b, s, self.hidden_size)
-        y = self.out_proj(x)
+        y = apply_linear(self.out_proj, x)
         if lora is None:
             return y
         a_sel = lora[0][:, self._layer_idx]               # [B, r, E]
@@ -329,14 +335,16 @@ class GPTAttention(nn.Module):
             return y.baddbmm_(h, b_sel.transpose(1, 2))
         return y + torch.bmm(h, b_sel.transpose(1, 2)).to(y.dtype)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, doc_segments=None):
         """Dense causal attention through ``scaled_dot_product_attention``
         (the flash kernels at long sequences, the reference attention
         otherwise).  In training, dropout applies to the attention
-        output, before ``out_proj``, as in the JAX package.  With
-        ``cache`` (k, v ``[B, P, H, hd]``, P may be 0) the window's K/V
-        are appended to it and the queries attend over all P + S keys
-        under the bottom-right causal diagonal; returns (out, (k, v))."""
+        output, before ``out_proj``, as in the JAX package.
+        ``doc_segments`` int ``[B, S]`` (packed documents) keeps each
+        query to its own document's keys.  With ``cache`` (k, v ``[B, P,
+        H, hd]``, P may be 0) the window's K/V are appended to it and the
+        queries attend over all P + S keys under the bottom-right causal
+        diagonal; returns (out, (k, v))."""
         q, k, v = self._qkv_step(x)
         if cache is not None:
             if cache[0].shape[1]:
@@ -345,7 +353,7 @@ class GPTAttention(nn.Module):
             cache = (k, v)
         out = self._out(scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.dropout,
-            training=self.training))
+            training=self.training, segment_ids=doc_segments))
         return out if cache is None else (out, cache)
 
     def decode(self, x, k_buf, v_buf, pos):
@@ -544,36 +552,49 @@ class GPTMLP(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x):
-        return self.dropout(self.fc2(F.gelu(self.fc1(x),
-                                            approximate="tanh")))
+        return self.dropout(apply_linear(
+            self.fc2, gelu(apply_linear(self.fc1, x))))
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block.  ``use_recompute`` runs the block's
+    training forward (``_inner``) through ``fleet.utils.recompute`` with
+    ``recompute_policy``."""
 
-    def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False):
+    def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False,
+                 use_recompute=False, recompute_policy=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.attn = GPTAttention(hidden_size, num_heads, dropout, use_mp)
         self.ln2 = nn.LayerNorm(hidden_size, eps=1e-5)
         self.mlp = GPTMLP(hidden_size, dropout=dropout, use_mp=use_mp)
+        self.use_recompute = use_recompute
+        self.recompute_policy = recompute_policy
 
-    def forward(self, x, cache=None):
+    def _inner(self, x, doc_segments=None):
+        x = x + self.attn(apply_layer_norm(self.ln1, x),
+                          doc_segments=doc_segments)
+        return x + self.mlp(apply_layer_norm(self.ln2, x))
+
+    def forward(self, x, cache=None, doc_segments=None):
         """With ``cache`` (GPTAttention.forward): returns (x, cache)."""
         if cache is not None:
-            attn_out, cache = self.attn(self.ln1(x), cache=cache)
+            attn_out, cache = self.attn(apply_layer_norm(self.ln1, x),
+                                        cache=cache)
             x = x + attn_out
-            return x + self.mlp(self.ln2(x)), cache
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+            return x + self.mlp(apply_layer_norm(self.ln2, x)), cache
+        if self.use_recompute:
+            return recompute(self._inner, x, doc_segments,
+                             policy=self.recompute_policy)
+        return self._inner(x, doc_segments)
 
     def _window(self, method, x, *args, **kw):
         """Run the attention window ``method`` on ln1(x), then the MLP:
         the shared body of the block's window twins."""
         attn_out, k_pool, v_pool = getattr(self.attn, method)(
-            self.ln1(x), *args, **kw)
+            apply_layer_norm(self.ln1, x), *args, **kw)
         x = x + attn_out
-        return x + self.mlp(self.ln2(x)), k_pool, v_pool
+        return x + self.mlp(apply_layer_norm(self.ln2, x)), k_pool, v_pool
 
     def decode(self, x, k_buf, v_buf, pos):
         """Shared-position window (GPTAttention.decode)."""
@@ -609,11 +630,29 @@ class GPTBlock(nn.Module):
                             width, scratch=None, variant="stream"):
         """Ragged paged window (GPTAttention.ragged_window_paged)."""
         attn_out, k_pool, v_pool = self.attn.ragged_window_paged(
-            self.ln1(x), k_pool, v_pool, block_tables, pos, width,
-            scratch=scratch, variant=variant)
+            apply_layer_norm(self.ln1, x), k_pool, v_pool, block_tables, pos,
+            width, scratch=scratch, variant=variant)
         x = x + attn_out
-        x = x + self.mlp(self.ln2(x))
+        x = x + self.mlp(apply_layer_norm(self.ln2, x))
         return x, k_pool, v_pool
+
+
+class GPTScanBlocks(ScanLayers):
+    """All transformer blocks as one stacked-parameter stack (see
+    ``nn.layer.ScanLayers``): the JAX package's ``GPTScanBlocks``, its
+    parameters named ``ln1.weight`` ``[L, E]``, ``attn.qkv_proj.weight``
+    ``[L, 3E, E]`` and so on.  Init equals the unrolled ``ModuleList``'s
+    under the same seed.  Scope: the dense and packed (``doc_segments``)
+    training forward; KV-cache decode and serving run through
+    ``GPTModel._sync_decode_twin``.  Tensor/sequence-parallel and MoE
+    blocks stay unrolled."""
+
+    def __init__(self, num_layers, hidden_size, num_heads, dropout=0.1,
+                 use_recompute=False, recompute_policy=None):
+        super().__init__(
+            lambda: GPTBlock(hidden_size, num_heads, dropout),
+            num_layers, use_recompute=use_recompute,
+            recompute_policy=recompute_policy)
 
 
 class GPTLMHead(nn.Module):
@@ -628,7 +667,7 @@ class GPTLMHead(nn.Module):
             if use_mp else nn.Linear(hidden_size, vocab_size, bias=False))
 
     def forward(self, x):
-        return self.lm_head(self.ln_f(x))
+        return apply_linear(self.lm_head, apply_layer_norm(self.ln_f, x))
 
 
 # knobs of the JAX GPTModel that the port does not carry yet, each with
@@ -636,9 +675,51 @@ class GPTLMHead(nn.Module):
 _UNPORTED = {
     "use_sp": "Queue A 12 (distributed ring/ulysses)",
     "moe_experts": "Queue A 12 (distributed moe)",
-    "use_recompute": "Queue A 11 (training: use_recompute)",
-    "scan_layers": "Queue A 11 (training: scan_layers)",
 }
+
+
+def packed_doc_inputs(doc_lens, seq, device=None):
+    """Packed-sequence (several documents a row) attention inputs, the
+    JAX package's ``packed_doc_inputs``.
+
+    ``doc_lens`` int ``[B, D]`` (or ``[D]`` for one row): zero-padded
+    document lengths per row, each row summing to at most ``seq``
+    (checked on the host when ``doc_lens`` is a host array, else with one
+    read back).  Returns int32 ``position_ids [B, seq]`` restarting at 0
+    at each document, int32 ``doc_segments [B, seq]`` (the document id
+    of every position; padding gets the one-past id D, which matches no
+    live document) and bool ``label_keep [B, seq]`` (False at each
+    document's last token and at padding, whose next-token target lies
+    outside the document), on ``device`` (``doc_lens``'s by default)."""
+    dl = torch.as_tensor(doc_lens)
+    if dl.dim() == 1:
+        dl = dl[None, :]
+    worst = int(dl.sum(dim=1).max())
+    if worst > seq:
+        raise ValueError(
+            f"packed_doc_inputs: doc_lens sum to {worst} > seq {seq} — the "
+            "tail would be silently truncated and its labels scored "
+            "against phantom targets")
+    dl = dl.to(device=device if device is not None else dl.device,
+               dtype=torch.int32)
+    dev = dl.device
+    splits = torch.cat([torch.zeros((dl.shape[0], 1), dtype=torch.int32,
+                                    device=dev),
+                        torch.cumsum(dl, dim=1, dtype=torch.int32)], dim=1)
+    pos = torch.arange(seq, dtype=torch.int32, device=dev)[None, :]
+    # pos >= total implies pos >= every split, so padding lands on the
+    # one-past id D with no extra masking
+    doc_ids = (pos[:, :, None] >= splits[:, None, 1:]).sum(
+        dim=-1, dtype=torch.int32)
+    total = splits[:, -1:]
+    live = pos < total
+    starts = torch.gather(splits, 1, doc_ids.long())
+    position_ids = torch.where(live, pos - starts,
+                               torch.zeros_like(starts))
+    nxt = torch.clamp(pos + 1, max=seq - 1).long().expand(doc_ids.shape)
+    next_doc = torch.gather(doc_ids, 1, nxt)
+    label_keep = live & (doc_ids == next_doc) & (pos + 1 < total)
+    return position_ids, doc_ids, label_keep
 
 
 class GPTModel(nn.Module):
@@ -647,16 +728,28 @@ class GPTModel(nn.Module):
     form (einsum-layout attention, column/row-parallel MLP,
     vocab-parallel embedding, column-parallel head) that
     ``Engine(mesh=...)`` shards; ``to_tensor_parallel()`` relayouts a
-    dense model into it."""
+    dense model into it.  ``use_recompute`` recomputes each block's
+    activations in backward (``recompute_policy``: a
+    ``fleet.utils.REMAT_POLICIES`` key); ``scan_layers`` stacks the
+    blocks' parameters (``GPTScanBlocks``; the dense block only).
+    ``moe_every`` is the JAX package's MoE spacing, inert without
+    ``moe_experts``, which is not ported."""
 
     def __init__(self, num_layers=12, hidden_size=768, num_heads=12,
                  vocab_size=50304, max_position=1024, dropout=0.1,
                  fused_loss=False, fused_loss_chunk=128, use_mp=False,
                  use_sp=False, moe_experts=0, use_recompute=False,
-                 scan_layers=False):
+                 scan_layers=False, moe_every=2, recompute_policy=None):
         super().__init__()
-        knobs = dict(use_sp=use_sp, moe_experts=moe_experts,
-                     use_recompute=use_recompute, scan_layers=scan_layers)
+        if moe_experts and moe_every < 1:
+            raise ValueError(f"moe_every must be >= 1, got {moe_every}")
+        if scan_layers and (use_mp or use_sp or moe_experts):
+            raise ValueError(
+                "scan_layers supports the dense block only — "
+                "tensor/sequence-parallel and MoE variants use the "
+                "unrolled form (their blocks are not homogeneous "
+                "scan bodies)")
+        knobs = dict(use_sp=use_sp, moe_experts=moe_experts)
         for name, value in knobs.items():
             if value:
                 raise NotImplementedError(
@@ -675,11 +768,20 @@ class GPTModel(nn.Module):
             fused_loss=fused_loss, fused_loss_chunk=fused_loss_chunk)
         self.embeddings = GPTEmbeddings(vocab_size, hidden_size,
                                         max_position, dropout, use_mp)
-        self.blocks = nn.ModuleList([
-            GPTBlock(hidden_size, num_heads, dropout, use_mp)
-            for _ in range(num_layers)])
-        for i, blk in enumerate(self.blocks):
-            blk.attn._layer_idx = i
+        self.scan_layers = bool(scan_layers)
+        if self.scan_layers:
+            self.blocks = GPTScanBlocks(
+                num_layers, hidden_size, num_heads, dropout,
+                use_recompute=use_recompute,
+                recompute_policy=recompute_policy)
+        else:
+            self.blocks = nn.ModuleList([
+                GPTBlock(hidden_size, num_heads, dropout, use_mp,
+                         use_recompute=use_recompute,
+                         recompute_policy=recompute_policy)
+                for _ in range(num_layers)])
+            for i, blk in enumerate(self.blocks):
+                blk.attn._layer_idx = i
         self.head = GPTLMHead(hidden_size, vocab_size, use_mp)
         self.last_spec_forwards = None  # generate(compiled="speculative")
 
@@ -699,50 +801,70 @@ class GPTModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
-        """Redraw every weight from ``seed`` (see ``from_config``)."""
+        """Redraw every weight from ``seed`` (see ``from_config``).  A
+        ``scan_layers`` model draws layer by layer into its stacked
+        parameters, in the unrolled model's order, so both forms get the
+        same weights from a seed."""
         gen = torch.Generator(device=self.head.lm_head.weight.device)
         gen.manual_seed(int(seed))
+        scan = self.blocks if self.scan_layers else None
+        inside = {id(m) for m in scan.modules()} if scan else set()
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Embedding, ColumnParallelLinear,
-                                RowParallelLinear, VocabParallelEmbedding)):
-                mod.weight.normal_(0.0, 0.02, generator=gen)
-                if getattr(mod, "bias", None) is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, GPTAttention) and mod.use_mp:
-                mod.qkv_weight.normal_(0.0, 0.02, generator=gen)
-                mod.out_weight.normal_(0.0, 0.02, generator=gen)
-                mod.qkv_bias.zero_()
-                mod.out_bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
-                mod.weight.fill_(1.0)
-                mod.bias.zero_()
+            if mod is scan:
+                for i in range(scan.num_layers):
+                    for sub in scan.children():
+                        for leaf in sub.modules():
+                            _init_module(leaf, gen, i)
+            elif id(mod) not in inside:
+                _init_module(mod, gen)
 
     def forward(self, input_ids, labels=None, caches=None,
                 position_offset=0, doc_lens=None):
         """Logits ``[B, S, V]``; with ``labels`` (int ``[B, S]``, already
         shifted, -100 ignored) the mean cross entropy instead — fused
-        with the LM head per sequence chunk when ``fused_loss`` (in f32;
-        the ``[B, S, V]`` logits never exist whole), else over the whole
-        logits in their dtype.  With ``caches`` (one (k, v) ``[B, P, H,
-        hd]`` pair a layer, P may be 0) the tokens run at positions
-        ``position_offset..`` after the cached ones and the result is
-        (logits, the grown caches); ``labels`` are then ignored, as in
-        the JAX package."""
+        with the LM head per sequence chunk when ``fused_loss`` (the
+        ``[B, S, V]`` logits never exist whole), else over the whole
+        logits in their dtype.  ``doc_lens`` (int ``[B, D]``) packs
+        several documents a row (``packed_doc_inputs``): positions
+        restart at each document, attention stays within it (segment
+        ids into ``scaled_dot_product_attention``), and labels at each
+        document's last token and at padding become -100.  With
+        ``caches`` (one (k, v) ``[B, P, H, hd]`` pair a layer, P may be
+        0) the tokens run at positions ``position_offset..`` after the
+        cached ones and the result is (logits, the grown caches);
+        ``labels`` are then ignored, as in the JAX package."""
+        doc_segments = position_ids = None
         if doc_lens is not None:
-            raise NotImplementedError(
-                "GPTModel.forward(doc_lens=...) (packed pretraining) is not "
-                "ported yet (ROADMAP Queue A 11: doc_lens)")
+            if caches is not None:
+                raise ValueError(
+                    "doc_lens (packed sequences) cannot combine with "
+                    "KV-cache decoding")
+            position_ids, doc_segments, label_keep = packed_doc_inputs(
+                doc_lens, input_ids.shape[-1], device=input_ids.device)
+            if labels is not None:
+                labels = torch.where(label_keep, labels,
+                                     torch.full_like(labels, -100))
         if caches is not None:
+            if self.scan_layers:
+                raise NotImplementedError(
+                    "scan_layers covers the training/forward path; for "
+                    "KV-cache decode call generate(), which serves through "
+                    "an unrolled twin (_sync_decode_twin)")
             x, caches = self._forward_cached(input_ids, caches,
                                              position_offset)
             return self.head(x), caches
-        x = self.embeddings(input_ids, position_offset=position_offset)
-        for blk in self.blocks:
-            x = blk(x)
+        x = self.embeddings(input_ids, position_offset=position_offset,
+                            position_ids=position_ids)
+        if self.scan_layers:
+            x = self.blocks(x, None, doc_segments)
+        else:
+            for blk in self.blocks:
+                x = blk(x, doc_segments=doc_segments)
         if labels is not None and self.fused_loss:
             w = self.head.lm_head.weight
             return fused_linear_cross_entropy(
-                self.head.ln_f(x), w if self.head.use_mp else w.t(), labels,
+                apply_layer_norm(self.head.ln_f, x),
+                w if self.head.use_mp else w.t(), labels,
                 chunk_size=self.fused_loss_chunk, ignore_index=-100)
         logits = self.head(x)
         if labels is not None:
@@ -750,6 +872,43 @@ class GPTModel(nn.Module):
             return cross_entropy(logits.reshape(b * s, v),
                                  labels.reshape(b * s))
         return logits
+
+    def _sync_decode_twin(self):
+        """The unrolled twin a ``scan_layers`` model decodes and serves
+        through: built once (on the meta device, so it allocates and draws
+        nothing) from the dense hyperparameters, then every call re-points
+        its parameters at the live weights — block ``i``'s at views of the
+        stacked parameters' ``[i]`` slices, the rest at the same tensors —
+        so a model trained in place decodes its current weights.  The twin
+        sits in ``__dict__``, outside the module tree: the scan model's
+        ``state_dict`` and ``parameters`` stay twin-free."""
+        twin = self.__dict__.get("_decode_twin_obj")
+        if twin is None:
+            with torch.device("meta"):
+                twin = GPTModel(**self._config)
+            twin.eval()
+            self.__dict__["_decode_twin_obj"] = twin
+        names = set(dict(twin.named_parameters()))
+        synced = set()
+
+        def rebind(name, t):
+            owner, leaf = owner_of(twin, name)  # KeyError = loud
+            owner._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+            synced.add(name)
+
+        for name, p in self.named_parameters():
+            if name.startswith("blocks."):
+                rest = name[len("blocks."):]
+                for i, view in enumerate(p.detach().unbind(0)):
+                    rebind(f"blocks.{i}.{rest}", view)
+            else:
+                rebind(name, p.detach())
+        leftover = names - synced
+        if leftover:
+            raise RuntimeError(
+                "decode twin has parameters the scan model never synced: "
+                f"{sorted(leftover)[:5]}")
+        return twin
 
     @torch.no_grad()
     def to_tensor_parallel(self):
@@ -763,7 +922,10 @@ class GPTModel(nn.Module):
         float summation order.  A tensor-parallel model returns itself;
         blocks that are not the dense variant (MoE, sequence-parallel,
         weight-only int8) are refused.  The new model lies on this one's
-        device and dtype, in eval mode."""
+        device and dtype, in eval mode.  A ``scan_layers`` model relayouts
+        its unrolled twin."""
+        if self.scan_layers:
+            return self._sync_decode_twin().to_tensor_parallel()
         if self.blocks[0].attn.use_mp:
             return self
         for i, blk in enumerate(self.blocks):
@@ -999,7 +1161,17 @@ class GPTModel(nn.Module):
         logits), and as in JAX the speculative windows draw per (window,
         row, position), key(seed, (n * B + r) * (draft_k + 1) + j), the
         first token with key(seed, 2**30 + r).  ``seed=None`` takes a
-        seed from torch's default generator."""
+        seed from torch's default generator.  A ``scan_layers`` model
+        decodes through its unrolled twin (``_sync_decode_twin``)."""
+        if self.scan_layers:
+            twin = self._sync_decode_twin()
+            out = twin.generate(
+                input_ids, max_new_tokens=max_new_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_token_id=eos_token_id, seed=seed, compiled=compiled,
+                draft_k=draft_k, lookup_ngram=lookup_ngram)
+            self.last_spec_forwards = twin.last_spec_forwards
+            return out
         dev = self.head.lm_head.weight.device
         ids = torch.as_tensor(input_ids, device=dev).long()
         if ids.dim() != 2:
@@ -1485,6 +1657,39 @@ class GPTModel(nn.Module):
             block_size=k_pools[0].shape[1], scratch=scratch, emit_w=emit_w,
             variant=variant, any_sampling=any_sampling,
             any_final=any_final)
+
+
+def _init_module(mod, gen, layer=None):
+    """The reference initialization of one module's own weights:
+    Normal(0, 0.02) for embeddings and linear weights, zero biases,
+    LayerNorm at 1 / 0.  ``layer`` selects index ``layer`` of stacked
+    parameters."""
+    def at(t):
+        return t if layer is None else t[layer]
+
+    if isinstance(mod, (nn.Linear, nn.Embedding, ColumnParallelLinear,
+                        RowParallelLinear, VocabParallelEmbedding)):
+        at(mod.weight).normal_(0.0, 0.02, generator=gen)
+        if getattr(mod, "bias", None) is not None:
+            at(mod.bias).zero_()
+    elif isinstance(mod, GPTAttention) and mod.use_mp:
+        at(mod.qkv_weight).normal_(0.0, 0.02, generator=gen)
+        at(mod.out_weight).normal_(0.0, 0.02, generator=gen)
+        at(mod.qkv_bias).zero_()
+        at(mod.out_bias).zero_()
+    elif isinstance(mod, nn.LayerNorm):
+        at(mod.weight).fill_(1.0)
+        at(mod.bias).zero_()
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token CE over shifted logits (PaddleNLP GPT criterion shape):
+    ``[B, S, V]`` logits against int ``[B, S]`` labels, -100 ignored."""
+
+    def forward(self, logits, labels):
+        b, s, v = logits.shape
+        return cross_entropy(logits.reshape(b * s, v),
+                             labels.reshape(b * s))
 
 
 def fused_ragged_tick(model, toks, k_pools, v_pools, block_tables, width,

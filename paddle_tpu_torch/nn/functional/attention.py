@@ -24,6 +24,7 @@ import math
 import torch
 from torch.nn import functional as F
 
+from ... import amp
 # looked up at call time, so a comparison can route the same model
 # through the plain versions (flash_attention_ref)
 from ...ops.flash_attention import flash_attention
@@ -84,7 +85,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Inputs ``[batch, seq, num_heads, head_dim]``.  ``segment_ids``
     ``[B, S]`` int32 blocks attention to same-segment pairs.  Dropout
     (``dropout_p`` in training) applies to the attention OUTPUT, as the
-    JAX package applies it."""
+    JAX package applies it.  q, k and v pass the
+    ``scaled_dot_product_attention`` amp site (O1 casts them to bf16)."""
+    query, key, value = amp.cast_inputs("scaled_dot_product_attention",
+                                        query, key, value)
     if attn_mask is not None and segment_ids is not None:
         raise ValueError(
             "scaled_dot_product_attention: pass attn_mask OR "

@@ -8,12 +8,17 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ... import amp
+
 
 def cross_entropy(input, label, ignore_index=-100):
     """Mean softmax cross entropy over the last axis of ``input`` with
     hard integer labels.  Positions whose label is ``ignore_index`` count
     neither in the sum nor in the mean's normalizer (mean over KEPT
-    tokens, at least 1)."""
+    tokens, at least 1).  The inputs pass the JAX package's
+    ``softmax_with_cross_entropy`` amp site (O2 computes it in f32)."""
+    input, label = amp.cast_inputs("softmax_with_cross_entropy", input,
+                                   label)
     logp = torch.log_softmax(input, dim=-1)
     lab = label.long()
     valid = lab != ignore_index
@@ -50,7 +55,12 @@ def fused_linear_cross_entropy(hidden, weight, labels, chunk_size=128,
     layout — pass ``lm_head.weight.t()`` from a torch ``nn.Linear``);
     labels int ``[B, S]``.  ``ignore_index`` excludes those labels from
     the sum and the mean (mean over kept tokens).  Returns the f32 mean
-    loss."""
+    loss.  The inputs pass the ``fused_linear_cross_entropy`` amp site
+    (on no list: the head and CE stay in their dtype), then hidden and
+    weight take their common dtype, as jnp's matmul promotes them."""
+    hidden, weight, labels = amp.cast_inputs(
+        "fused_linear_cross_entropy", hidden, weight, labels)
+    hidden, weight = amp.promote(hidden, weight)
     b, s, _ = hidden.shape
     chunk = min(int(chunk_size), s)
     while s % chunk:

@@ -76,7 +76,9 @@ def route(dtype, head_dim):
     """
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention: dtype {dtype} not supported "
-                        "(float32 or bfloat16)")
+                        "(float32 or bfloat16); float16, which "
+                        "auto_cast(dtype='float16') gives q, k and v, waits "
+                        "for ROADMAP item 'fp16 instantiation of B5a-B5c'")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash attention: head dim {head_dim} not "
                          f"supported {HEAD_DIMS}")
@@ -282,6 +284,7 @@ def _launch(kernel, q, *args):
     if rc != 0:
         raise RuntimeError(f"flash {kernel}: kernel launch failed with "
                            f"CUDA error {rc}")
+    ROUTE_LAUNCHES[path] += 1
 
 
 def flash_fwd(q, k, v, segment_ids=None, *, causal, sm_scale):
@@ -338,6 +341,10 @@ def flash_bwd_dq(q, k, v, do, lse, di, segment_ids=None, *, causal,
 flash_fwd.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
+# launches of the three kernels by route, beside each wrapper's own count:
+# what a caller reads to show which kernels (bf16 tensor-core or fp32
+# scalar) a path took
+ROUTE_LAUNCHES = {"tensor_core": 0, "scalar": 0}
 KERNEL_OPS = {"fwd": flash_fwd, "bwd_dkv": flash_bwd_dkv,
               "bwd_dq": flash_bwd_dq}
 PLAIN_OPS = {"fwd": flash_fwd_ref, "bwd_dkv": flash_bwd_dkv_ref,

@@ -1,14 +1,31 @@
 """Optimizers — counterpart of ``paddle_tpu/optimizer/__init__.py``
-(``Optimizer``, ``Adam``, ``AdamW``) and of ``paddle_tpu/nn/clip.py``
-``ClipGradByGlobalNorm``.
+(``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Adamax``,
+``Adagrad``, ``RMSProp``, ``Adadelta``, ``Lamb``, ``LarsMomentum``), of
+``paddle_tpu/optimizer/lr.py`` (``lr``, the port's copy) and of
+``paddle_tpu/nn/clip.py`` ``ClipGradByGlobalNorm``; ``extras`` holds the
+long-tail rules and the parameter-averaging utilities.
 
 These are ``torch.optim.Optimizer`` subclasses with Paddle's semantics,
-not torch's ``Adam``/``AdamW``:
+not torch's: each rule is the JAX package's ``_update`` written as
+in-place torch ops, with its state keys and dtypes.
 
-* bf16 and fp16 parameters keep f32 moments (the reference's default
-  ``multi_precision=True``) and no f32 master copy; the update is
-  computed in f32 and cast back to the parameter's dtype.
-* each parameter carries its own f32 ``beta1_pow`` / ``beta2_pow``.
+* ``learning_rate`` is a float or an ``lr.LRScheduler``.  ``get_lr()``
+  reads the scheduler's Python float once a step, so a step makes no
+  host sync; the user steps the scheduler, as in the JAX package.
+  ``last_step_lr`` is the rate the last ``step`` applied.
+* ``step()`` is the JAX package's eager step: each parameter's rate is
+  ``get_lr()`` times its ``optimize_attr["learning_rate"]`` (an
+  attribute a caller may set on a parameter; 1 without it), and
+  ``Lamb``'s ``exclude_from_weight_decay_fn`` gets the parameter.
+  ``TrainStep`` runs the compiled step's form instead
+  (``apply_gradients``): one rate for every parameter, and the exclude
+  function gets the parameter's NAME, as ``apply_gradients_tree`` gives
+  it.
+* bf16 and fp16 parameters keep f32 moments under ``Adam`` / ``AdamW`` /
+  ``Lamb`` (``multi_precision=True``, the default) and no f32 master
+  copy; ``multi_precision=False`` keeps ``Adam``'s moments in the
+  parameter's dtype.  Where the JAX rule promotes to f32 (a bf16 moment
+  divided by an f32 bias correction), so does the port.
 * ``Adam(weight_decay=c)`` folds ``c * param`` into the gradient (L2);
   ``AdamW`` adds ``c * param`` to the update (``update += c * p``, then
   ``p -= lr * update``), where torch's AdamW scales ``p`` by
@@ -17,17 +34,27 @@ not torch's ``Adam``/``AdamW``:
   NAME ``f`` accepts; names come from ``named_parameters()`` pairs passed
   as ``parameters``, or from the model a ``TrainStep`` binds.
 
+State dicts: ``state_dict()`` / ``load_state_dict()`` are torch's format
+(``load_state_dict`` keeps each state tensor's own dtype, where torch
+would cast it to the parameter's).  ``paddle_state_dict()`` is the JAX
+package's format: ``__step__``, ``LR_Scheduler`` and ``{parameter
+name}__{state key}``; ``set_state_dict`` takes either format.
+``convert.export_optimizer_state`` / ``load_optimizer_state`` carry the
+JAX format across the packages as numpy arrays.
+
 ``device=None`` is the CUDA card (raising without one); every parameter
 must already lie on the optimizer's device, or the constructor raises,
 so an optimizer runs on the CPU only when ``device="cpu"`` says so.  The
-state lives on that device; a step makes no host sync.  Updates are
-written into the parameters in place.
+state lives on that device; updates are written into the parameters in
+place.
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import require_on
+from . import lr  # noqa: F401
+from .lr import LRScheduler
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
 
@@ -36,7 +63,7 @@ class ClipGradByGlobalNorm:
     """Scale every gradient by ``clip_norm / max(global_norm,
     clip_norm)``, the global norm taken in f32 over all gradients."""
 
-    def __init__(self, clip_norm):
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
 
     @torch.no_grad()
@@ -67,34 +94,74 @@ def _named(parameters):
     return params, names
 
 
+def _parse_wd(weight_decay):
+    """A float, or a regularizer object's ``_coeff`` / ``coeff``."""
+    if weight_decay is None:
+        return 0.0
+    if isinstance(weight_decay, (int, float)):
+        return float(weight_decay)
+    return float(getattr(weight_decay, "_coeff",
+                         getattr(weight_decay, "coeff", 0.0)))
+
+
+def _wide(t):
+    """The dtype an update computes in: ``t``'s promoted with f32 (the JAX
+    rules' f32 scalars promote bf16 and fp16 operands)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 class Optimizer(torch.optim.Optimizer):
-    """Base of the port's optimizers: learning rate, weight decay,
-    gradient clipping and parameter names."""
+    """Base of the port's optimizers: learning rate or scheduler, weight
+    decay, gradient clipping, parameter names and the JAX package's state
+    format."""
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, grad_clip=None, device=None):
+                 weight_decay=None, grad_clip=None, name=None, device=None):
         if parameters is None:
             raise ValueError(
                 f"{type(self).__name__}: pass parameters= (a model's "
                 "parameters() or named_parameters())")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"{type(self).__name__}: learning-rate schedulers are not "
-                "ported yet (ROADMAP Queue A 11: LR schedulers)")
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError(
+                f"{type(self).__name__}: learning_rate must be a float or "
+                f"an optimizer.lr.LRScheduler, got "
+                f"{type(learning_rate).__name__}")
         params, names = _named(parameters)
         self.device = require_on(
             device, [(n or f"#{i}", p) for i, (p, n) in
                      enumerate(zip(params, names))], type(self).__name__)
         self._param_names = {id(p): n for p, n in zip(params, names)
                              if n is not None}
-        self._learning_rate = float(learning_rate)
-        self._weight_decay = float(weight_decay or 0.0)
+        self._learning_rate = (learning_rate
+                               if isinstance(learning_rate, LRScheduler)
+                               else float(learning_rate))
+        self._weight_decay = _parse_wd(weight_decay)
         self._grad_clip = grad_clip
+        self._step_count = 0
+        self._tree = False
+        self.last_step_lr = None
         super().__init__(params, {})
 
+    # -- learning rate -----------------------------------------------------
     def get_lr(self):
+        """The rate as a Python float (the scheduler's current value)."""
+        if isinstance(self._learning_rate, LRScheduler):
+            return self._learning_rate()
         return self._learning_rate
 
+    def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._learning_rate = float(value)
+
+    def _get_param_lr(self, p):
+        mult = 1.0
+        attr = getattr(p, "optimize_attr", None)
+        if attr:
+            mult = attr.get("learning_rate", 1.0)
+        return self.get_lr() * mult
+
+    # -- names ---------------------------------------------------------------
     def bind_names(self, named_parameters):
         """Name the parameters the optimizer holds from ``(name, tensor)``
         pairs (a model's ``named_parameters()``); names already given
@@ -105,90 +172,246 @@ class Optimizer(torch.optim.Optimizer):
     def param_name(self, p):
         return self._param_names.get(id(p))
 
-    def _params_with_grads(self):
-        return [p for group in self.param_groups for p in group["params"]
-                if p.grad is not None]
+    def _params(self):
+        return [p for group in self.param_groups for p in group["params"]]
 
+    def _params_with_grads(self):
+        return [p for p in self._params() if p.grad is not None]
+
+    # -- the rule (overridden per optimizer) -------------------------------
     def _init_state(self, p):
         return {}
 
-    def _update(self, p, state, lr):
+    def _update(self, p, g, state, lr):
+        """Write the new parameter into ``p`` and the new state into
+        ``state``, in place, from the gradient ``g`` (``p``'s dtype)."""
         raise NotImplementedError
 
+    # -- steps ----------------------------------------------------------------
     @torch.no_grad()
     def step(self, closure=None):
+        """One eager step over the parameters that have a gradient."""
         if closure is not None:
             raise NotImplementedError(
                 f"{type(self).__name__}.step(closure) is not supported")
+        self._apply(tree=False)
+
+    @torch.no_grad()
+    def apply_gradients(self):
+        """The compiled step's form of ``step`` (``TrainStep``'s): one rate
+        for every parameter, name-keyed decay predicates."""
+        self._apply(tree=True)
+
+    def _apply(self, tree):
+        self._step_count += 1
         params = self._params_with_grads()
         if self._grad_clip is not None:
             self._grad_clip([p.grad for p in params])
         lr = self.get_lr()
-        for p in params:
-            state = self.state[p]
-            if not state:
-                state.update(self._init_state(p))
-            self._update(p, state, lr)
+        self.last_step_lr = lr
+        self._tree = tree
+        try:
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state.update(self._init_state(p))
+                self._update(p, p.grad.to(p.dtype), state,
+                             lr if tree else self._get_param_lr(p))
+        finally:
+            self._tree = False
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """Backward (when no parameter has a gradient yet) and a step;
+        returns ``(None, [(param, grad)])``."""
+        params = self._params()
+        if all(p.grad is None for p in params) and loss.requires_grad:
+            loss.backward()
+        self.step()
+        return None, [(p, p.grad) for p in params]
+
+    def clear_grad(self, set_to_zero=True):
+        """Drop every gradient (the JAX package sets them to None)."""
+        self.zero_grad(set_to_none=True)
+
+    clear_gradients = clear_grad
+
+    # -- state ------------------------------------------------------------
+    def _state_names(self):
+        """``[(name, param)]``: bound names, ``param_{i}`` for the rest."""
+        return [(self.param_name(p) or f"param_{i}", p)
+                for i, p in enumerate(self._params())]
+
+    def paddle_state_dict(self):
+        """The JAX package's format: ``__step__``, ``LR_Scheduler`` (with
+        a scheduler) and ``{name}__{key}`` for every state tensor."""
+        out = {"__step__": self._step_count}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        for name, p in self._state_names():
+            for k, v in self.state.get(p, {}).items():
+                out[f"{name}__{k}"] = v
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state):
+        """Load the JAX package's format (``paddle_state_dict``; tensors or
+        numpy arrays, each state tensor taking the dtype and device this
+        optimizer would give it) or torch's (``state_dict()``)."""
+        if "state" in state and "param_groups" in state:
+            self.load_state_dict(state)
+            return
+        self._step_count = int(state.get("__step__", 0))
+        if isinstance(self._learning_rate, LRScheduler) and \
+                "LR_Scheduler" in state:
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
+        for name, p in self._state_names():
+            prefix = f"{name}__"
+            got = {k[len(prefix):]: v for k, v in state.items()
+                   if isinstance(k, str) and k.startswith(prefix)}
+            if not got:
+                continue
+            template = self._init_state(p)
+            st = {}
+            for k, v in got.items():
+                v = torch.as_tensor(v)
+                ref = template.get(k)
+                if ref is None:
+                    st[k] = v.to(p.device).clone()
+                    continue
+                if tuple(v.shape) != tuple(ref.shape):
+                    raise ValueError(
+                        f"set_state_dict: {name}__{k} has shape "
+                        f"{tuple(v.shape)}, the optimizer keeps "
+                        f"{tuple(ref.shape)}")
+                st[k] = v.to(device=ref.device, dtype=ref.dtype).clone()
+            self.state[p] = st
+
+    set_dict = set_state_dict
+
+    def load_state_dict(self, state_dict):
+        """torch's ``load_state_dict``, keeping each state tensor's dtype
+        (torch casts floating state to the parameter's dtype, which would
+        turn the f32 moments of a bf16 parameter into bf16)."""
+        super().load_state_dict(state_dict)
+        saved = state_dict["state"]
+        ids = [i for g in state_dict["param_groups"] for i in g["params"]]
+        for i, p in zip(ids, self._params()):
+            for k, v in saved.get(i, {}).items():
+                if torch.is_tensor(v):
+                    self.state[p][k] = v.to(p.device).clone()
+
+
+class SGD(Optimizer):
+    """reference: operators/optimizers/sgd_op.cc"""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None, device=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device)
+
+    def _update(self, p, g, state, lr):
+        if self._weight_decay:
+            g = g + self._weight_decay * p
+        p.copy_(p - lr * g)
+
+
+class Momentum(Optimizer):
+    """reference: operators/optimizers/momentum_op.cc"""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, device=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device)
+        self._momentum = float(momentum)
+        self._nesterov = bool(use_nesterov)
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def _update(self, p, g, state, lr):
+        if self._weight_decay:
+            g = g + self._weight_decay * p
+        v = state["velocity"]
+        v.copy_(self._momentum * v + g)
+        if self._nesterov:
+            p.copy_(p - lr * (g + self._momentum * v))
+        else:
+            p.copy_(p - lr * v)
 
 
 class Adam(Optimizer):
-    """Adam with bias correction (reference: adam_op)."""
+    """Adam with bias correction (reference: adam_op).
+
+    ``multi_precision`` (default True): bf16 / fp16 parameters keep f32
+    moments; False keeps them in the parameter's dtype (half the state's
+    memory), the update still computed in f32 as the JAX rule computes
+    it.  ``lazy_mode`` changes only the sparse (``SelectedRows``) update,
+    which the port does not have yet (ROADMAP Queue A 12, sparse
+    embedding gradients); with dense gradients it is ignored, as in the
+    JAX package."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, device=None):
+                 grad_clip=None, lazy_mode=False, multi_precision=True,
+                 name=None, device=None):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
-                         device)
+                         name, device)
         self._beta1 = float(beta1)
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
+        self._lazy = bool(lazy_mode)
+        self._multi_precision = bool(multi_precision)
 
     def _init_state(self, p):
-        mdtype = torch.float32 if p.dtype in _LOW_PRECISION else p.dtype
+        mdtype = p.dtype
+        if p.dtype in _LOW_PRECISION and self._multi_precision:
+            mdtype = torch.float32
         one = torch.ones((), dtype=torch.float32, device=p.device)
         return {"moment1": torch.zeros_like(p, dtype=mdtype),
                 "moment2": torch.zeros_like(p, dtype=mdtype),
                 "beta1_pow": one.clone(), "beta2_pow": one.clone()}
 
-    def _l2_on(self, p):
-        """Fold ``weight_decay * p`` into the gradient (Adam's L2)."""
-        return bool(self._weight_decay)
-
     def _decay_on(self, p):
         """Add ``weight_decay * p`` to the update (AdamW's decay)."""
         return False
 
-    def _update(self, p, state, lr):
+    def _update(self, p, g, state, lr):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
         m, v = state["moment1"], state["moment2"]
-        g = p.grad.to(m.dtype)
-        if self._l2_on(p):
+        g = g.to(m.dtype)
+        if self._weight_decay and not isinstance(self, AdamW):
             g = g + self._weight_decay * p.to(g.dtype)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g.square())
-        state["beta1_pow"].mul_(b1)
-        state["beta2_pow"].mul_(b2)
-        update = (m / (1 - state["beta1_pow"])) / (
-            (v / (1 - state["beta2_pow"])).sqrt() + eps)
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        wide = _wide(m)
+        update = (m.to(wide) / (1 - b1p)) / (
+            (v.to(wide) / (1 - b2p)).sqrt() + eps)
         if self._decay_on(p):
-            update = update + self._weight_decay * p.to(update.dtype)
-        p.copy_((p.to(update.dtype) - lr * update).to(p.dtype))
+            update = update + self._weight_decay * p.to(wide)
+        p.copy_((p.to(wide) - lr * update).to(p.dtype))
 
 
 class AdamW(Adam):
     """Adam with decoupled weight decay (reference: adamw):
     ``update += weight_decay * param`` for the parameters
-    ``apply_decay_param_fun(name)`` accepts (all of them without one)."""
+    ``apply_decay_param_fun(name)`` accepts (all of them without one).
+    ``lr_ratio`` is accepted and ignored: the JAX package's ``AdamW``
+    stores it nowhere."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None, device=None):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=True, name=None,
+                 device=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, grad_clip, device)
+                         weight_decay, grad_clip, lazy_mode,
+                         multi_precision, name, device)
         self._decay_param_fun = apply_decay_param_fun
-
-    def _l2_on(self, p):
-        return False
 
     def _decay_on(self, p):
         if not self._weight_decay:
@@ -202,3 +425,193 @@ class AdamW(Adam):
                 "pass named_parameters() as parameters, or train through "
                 "a TrainStep, which binds the model's names")
         return bool(self._decay_param_fun(name))
+
+
+class Adamax(Optimizer):
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, device=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _init_state(self, p):
+        return {"moment": torch.zeros_like(p),
+                "inf_norm": torch.zeros_like(p),
+                "beta1_pow": torch.ones((), dtype=torch.float32,
+                                        device=p.device)}
+
+    def _update(self, p, g, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        if self._weight_decay:
+            g = g + self._weight_decay * p
+        m, u, b1p = state["moment"], state["inf_norm"], state["beta1_pow"]
+        m.copy_(b1 * m + (1 - b1) * g)
+        u.copy_(torch.maximum(b2 * u, g.abs()))
+        b1p.mul_(b1)
+        wide = _wide(p)
+        p.copy_((p.to(wide) - lr / (1 - b1p) * m.to(wide)
+                 / (u + eps).to(wide)).to(p.dtype))
+
+
+class Adagrad(Optimizer):
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None, device=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device)
+        self._epsilon = float(epsilon)
+        self._init_value = float(initial_accumulator_value)
+
+    def _init_state(self, p):
+        return {"moment": torch.full_like(p, self._init_value)}
+
+    def _update(self, p, g, state, lr):
+        if self._weight_decay:
+            g = g + self._weight_decay * p
+        m = state["moment"]
+        m.copy_(m + g.square())
+        p.copy_(p - lr * g / (m.sqrt() + self._epsilon))
+
+
+class RMSProp(Optimizer):
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None, device=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device)
+        self._rho, self._epsilon = float(rho), float(epsilon)
+        self._momentum, self._centered = float(momentum), bool(centered)
+
+    def _init_state(self, p):
+        return {"mean_square": torch.zeros_like(p),
+                "mean_grad": torch.zeros_like(p),
+                "velocity": torch.zeros_like(p)}
+
+    def _update(self, p, g, state, lr):
+        if self._weight_decay:
+            g = g + self._weight_decay * p
+        rho, eps = self._rho, self._epsilon
+        ms, mg, v = state["mean_square"], state["mean_grad"], \
+            state["velocity"]
+        ms.copy_(rho * ms + (1 - rho) * g.square())
+        if self._centered:
+            mg.copy_(rho * mg + (1 - rho) * g)
+            denom = (ms - mg.square() + eps).sqrt()
+        else:
+            denom = (ms + eps).sqrt()
+        v.copy_(self._momentum * v + lr * g / denom)
+        p.copy_(p - v)
+
+
+class Adadelta(Optimizer):
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None, device=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, device)
+        self._rho, self._epsilon = float(rho), float(epsilon)
+
+    def _init_state(self, p):
+        return {"avg_squared_grad": torch.zeros_like(p),
+                "avg_squared_update": torch.zeros_like(p)}
+
+    def _update(self, p, g, state, lr):
+        if self._weight_decay:
+            g = g + self._weight_decay * p
+        rho, eps = self._rho, self._epsilon
+        asg, asu = state["avg_squared_grad"], state["avg_squared_update"]
+        asg.copy_(rho * asg + (1 - rho) * g.square())
+        update = g * (asu + eps).sqrt() / (asg + eps).sqrt()
+        asu.copy_(rho * asu + (1 - rho) * update.square())
+        p.copy_(p - lr * update)
+
+
+class Lamb(Optimizer):
+    """reference: operators/optimizers/lamb_op.cc (layer-wise adaptation).
+    ``exclude_from_weight_decay_fn`` gets the parameter in ``step()`` (as
+    paddle passes it) and the parameter's name under ``TrainStep`` (as
+    the JAX package's compiled step passes it; a predicate that raises
+    on a name keeps the decay)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 name=None, device=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip, name, device)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _decay_for(self, p):
+        if self._exclude_fn is None:
+            return True
+        if not self._tree:
+            return not bool(self._exclude_fn(p))
+        try:
+            return not bool(self._exclude_fn(self.param_name(p)))
+        except Exception:
+            return True
+
+    def _init_state(self, p):
+        mdtype = torch.float32 if p.dtype in _LOW_PRECISION else p.dtype
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        return {"moment1": torch.zeros_like(p, dtype=mdtype),
+                "moment2": torch.zeros_like(p, dtype=mdtype),
+                "beta1_pow": one.clone(), "beta2_pow": one.clone()}
+
+    def _update(self, p, g, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m, v = state["moment1"], state["moment2"]
+        g = g.to(m.dtype)
+        m.mul_(b1).add_((1 - b1) * g)
+        v.mul_(b2).add_((1 - b2) * g.square())
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        wide = _wide(m)
+        r = (m.to(wide) / (1 - b1p)) / ((v.to(wide) / (1 - b2p)).sqrt()
+                                        + eps)
+        if self._weight_decay and self._decay_for(p):
+            r = r + self._weight_decay * p.to(r.dtype)
+        w_norm = torch.linalg.vector_norm(p.float())
+        r_norm = torch.linalg.vector_norm(r.float())
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        p.copy_((p.to(r.dtype) - lr * trust * r).to(p.dtype))
+
+
+class LarsMomentum(Momentum):
+    """reference: operators/optimizers/lars_momentum_op.cc"""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9,
+                 lars_coeff=0.001, lars_weight_decay=0.0005,
+                 parameters=None, grad_clip=None, epsilon=1e-9, name=None,
+                 device=None):
+        super().__init__(learning_rate, momentum, parameters,
+                         weight_decay=None, grad_clip=grad_clip,
+                         device=device)
+        self._lars_coeff = float(lars_coeff)
+        self._lars_wd = float(lars_weight_decay)
+        self._eps = float(epsilon)
+
+    def _update(self, p, g, state, lr):
+        w_norm = torch.linalg.vector_norm(p.float())
+        g_norm = torch.linalg.vector_norm(g.float())
+        local_lr = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            lr * self._lars_coeff * w_norm
+            / (g_norm + self._lars_wd * w_norm + self._eps),
+            torch.full_like(w_norm, lr))
+        g = g + self._lars_wd * p
+        v = state["velocity"]
+        v.copy_(self._momentum * v + local_lr * g)
+        p.copy_(p - v)
+
+
+Lars = LarsMomentum
+
+from .extras import (DecayedAdagrad, Dpsgd, ExponentialMovingAverage,  # noqa: E402,F401
+                     Ftrl, LookaheadOptimizer, ModelAverage)

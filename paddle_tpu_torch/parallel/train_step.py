@@ -4,28 +4,46 @@
 ``TrainStep(model, optimizer, loss_fn=None, device=None).step(inputs,
 labels=())`` runs the forward (``model(*inputs)``; with a ``loss_fn``,
 ``loss_fn(out, *labels)``, else the model's output is the loss), the
-backward, and the optimizer update, and returns the f32 loss tensor
-without reading it back: the step makes no host sync.  Where the JAX
-package compiles one program and returns new parameter arrays, the port
-runs eagerly and updates the model's parameters in place, so
-``sync_to_layer()`` has nothing to copy.
+backward, and the optimizer update (``optimizer.apply_gradients()``, the
+compiled step's form: the rate read once as a Python float), and returns
+the f32 loss tensor without reading it back: the step makes no host
+sync.  Where the JAX package compiles one program and returns new
+parameter arrays, the port runs eagerly and updates the model's
+parameters in place, so ``sync_to_layer()`` has nothing to copy and
+``donate`` changes nothing.
 
 ``device=None`` is the CUDA card (raising without one); the model's
 parameters must already lie on the step's device, or the constructor
 raises: the step never moves weights, and trains on the CPU only when
 ``device="cpu"`` says so.
 
-``strategy.gradient_merge`` (``k_steps`` micro-batches) splits the batch
-along dim 0 and averages the micro-batch losses and gradients, as the
-reference's scan does.  Meshes, sharding, tensor/pipeline parallelism,
-recompute and AMP raise ``NotImplementedError`` naming their ROADMAP
-item.
+* ``amp_level`` ("O1" / "O2") or ``strategy.amp`` (O2 when
+  ``amp_configs["use_pure_fp16"]``, else O1) runs the forward and the
+  loss under ``amp.auto_cast(level=...)`` in bf16, as the JAX step does;
+  O2 expects the model already cast (``amp.decorate``).
+* ``strategy.gradient_merge`` (``k_steps`` micro-batches) splits the
+  batch along dim 0 and averages the micro-batch losses and gradients,
+  as the reference's scan does.
+* ``strategy.recompute`` is accepted and changes nothing: the JAX flat
+  step ignores it too (only its pipeline reads it); a model recomputes
+  through its own ``use_recompute``.
+* Each step adds one to the ``train.steps`` counter and observes its
+  host time in the ``train.step_time_ms`` histogram of the port's
+  ``monitor`` default registry.
+
+Meshes, sharding, pipeline parallelism and the hybrid degrees raise
+``NotImplementedError`` naming ROADMAP Queue A 10; ``metrics=`` names
+A 12 (``paddle_tpu/metric`` is not ported).
 """
 from __future__ import annotations
+
+import contextlib
+import time
 
 import numpy as np
 import torch
 
+from .. import amp, monitor
 from ..device import require_on
 
 
@@ -40,21 +58,28 @@ class TrainStep:
     (see the module docstring)."""
 
     def __init__(self, model, optimizer, loss_fn=None, strategy=None,
-                 mesh=None, amp_level=None, train=True, device=None):
+                 mesh=None, amp_level=None, donate=True, train=True,
+                 metrics=None, device=None):
         if mesh is not None:
             raise NotImplementedError(
                 "TrainStep(mesh=...) is not ported yet (ROADMAP Queue A "
                 "10: the mesh)")
-        if amp_level is not None:
+        if metrics:
             raise NotImplementedError(
-                "TrainStep(amp_level=...) is not ported yet (ROADMAP Queue "
-                "A 11: amp O1/O2); cast the model to bfloat16 instead")
+                "TrainStep(metrics=...) is not ported yet (ROADMAP Queue "
+                "A 12: paddle_tpu/metric)")
+        s = strategy
         self.grad_merge_k = 1
-        if strategy is not None:
-            self._check_strategy(strategy)
-            if getattr(strategy, "gradient_merge", False):
+        if s is not None:
+            self._check_strategy(s)
+            if getattr(s, "gradient_merge", False):
                 self.grad_merge_k = int(
-                    strategy.gradient_merge_configs.get("k_steps", 1))
+                    s.gradient_merge_configs.get("k_steps", 1))
+        self.use_amp = bool(amp_level) or bool(s and getattr(s, "amp",
+                                                             False))
+        amp_configs = (getattr(s, "amp_configs", None) or {}) if s else {}
+        self.amp_level = amp_level or (
+            "O2" if amp_configs.get("use_pure_fp16") else "O1")
         self.device = require_on(device, model.named_parameters(),
                                  "TrainStep")
         self.model = model
@@ -63,14 +88,17 @@ class TrainStep:
         self.strategy = strategy
         self.training = train
         optimizer.bind_names(model.named_parameters())
+        self._m_steps = monitor.counter("train.steps",
+                                        "TrainStep.step calls")
+        self._m_step_time = monitor.histogram(
+            "train.step_time_ms",
+            "host-side dispatch time per train step (ms)")
 
     @staticmethod
     def _check_strategy(s):
         unported = {
             "sharding": "Queue A 10 (the mesh: ZeRO sharding)",
             "pipeline": "Queue A 10 (the mesh: pipeline parallelism)",
-            "recompute": "Queue A 11 (training: use_recompute)",
-            "amp": "Queue A 11 (training: amp O1/O2)",
         }
         for knob, item in unported.items():
             if getattr(s, knob, False):
@@ -85,14 +113,19 @@ class TrainStep:
                     "not ported yet (ROADMAP Queue A 10: the mesh)")
 
     def _loss(self, inputs, labels):
-        out = self.model(*inputs)
-        if isinstance(out, tuple):
-            out = out[0]
-        loss = out if self.loss_fn is None else self.loss_fn(out, *labels)
+        ctx = (amp.auto_cast(enable=True, level=self.amp_level)
+               if self.use_amp else contextlib.nullcontext())
+        with ctx:
+            out = self.model(*inputs)
+            if isinstance(out, tuple):
+                out = out[0]
+            loss = out if self.loss_fn is None \
+                else self.loss_fn(out, *labels)
         return loss.float()
 
     def step(self, inputs, labels=()):
         """One optimization step on a batch; returns the f32 loss."""
+        t0 = time.perf_counter()
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
         if not isinstance(labels, (list, tuple)):
@@ -118,7 +151,9 @@ class TrainStep:
                                   [c[i] for c in micro_lab]) / k
                 part.backward()
                 loss = loss + part.detach()
-        self.optimizer.step()
+        self.optimizer.apply_gradients()
+        self._m_steps.inc()
+        self._m_step_time.observe((time.perf_counter() - t0) * 1e3)
         return loss
 
     def sync_to_layer(self):

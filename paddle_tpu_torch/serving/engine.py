@@ -421,6 +421,9 @@ class Engine:
                  tracing=True, trace_capacity=16384,
                  trace_annotations=False, flight_dir=None, faults=None,
                  watchdog_s=None):
+        if getattr(model, "scan_layers", False):
+            # a stacked-layer model serves through its unrolled twin
+            model = model._sync_decode_twin()
         if sample_mode not in ("device", "host"):
             raise ValueError(
                 f"sample_mode must be 'device' or 'host', got "

@@ -16,7 +16,10 @@ reference attention, and a device without a kernel raises.
 
 Tests marked ``cuda`` hold the three CUDA kernels to their plain
 versions on the card and skip without one (jax is imported only inside
-the CPU tests: the card has none).
+the CPU tests: the card has none).  Two of them drive the kernels
+through the model: under ``use_recompute`` and O1 the forward kernel
+launches twice a layer and each backward kernel once, all on the
+tensor-core route; fp16 q, k, v are refused naming their ROADMAP item.
 """
 import numpy as np
 import pytest
@@ -422,3 +425,41 @@ def test_strided_segment_ids_serve_on_card(dtype):
     for got in results[1:]:
         for g, w in zip(got, results[0]):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["full", "dots", "everything"])
+def test_recompute_relaunches_the_flash_forward_on_card(monkeypatch,
+                                                        policy):
+    """O1 over fp32 weights, packed rows, recompute: B5a launches twice a
+    layer, B5b and B5c once, all on the tensor-core route."""
+    _need_cuda()
+    monkeypatch.setattr(attn_mod, "FLASH_MIN_SEQ", 256)
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTModel
+    m = GPTModel.from_config("tiny", device="cuda", hidden_size=256,
+                             num_heads=2, max_position=256, dropout=0.1,
+                             fused_loss=True, use_recompute=True,
+                             recompute_policy=policy)
+    ids = torch.randint(0, 128, (2, 257), device="cuda")
+    dl = torch.tensor([[100, 90, 50], [200, 0, 0]])
+    before = {k: op.launches for k, op in fa.KERNEL_OPS.items()}
+    routes = dict(fa.ROUTE_LAUNCHES)
+    with amp.auto_cast(level="O1"):
+        loss = m(ids[:, :-1], labels=ids[:, 1:], doc_lens=dl)
+    loss.backward()
+    torch.cuda.synchronize()
+    got = {k: op.launches - before[k] for k, op in fa.KERNEL_OPS.items()}
+    assert got == {"fwd": 4, "bwd_dkv": 2, "bwd_dq": 2}
+    assert fa.ROUTE_LAUNCHES["scalar"] == routes["scalar"]
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.cuda
+def test_fp16_auto_cast_refuses_on_the_flash_route():
+    _need_cuda()
+    from paddle_tpu_torch import amp
+    q = torch.zeros(1, 2048, 2, 64, device="cuda")
+    with amp.auto_cast(dtype="float16"):
+        with pytest.raises(TypeError, match="fp16 instantiation of B5a"):
+            attn_mod.scaled_dot_product_attention(q, q, q, is_causal=True)

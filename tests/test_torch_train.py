@@ -23,7 +23,8 @@
   Adam divides each gradient by its own magnitude, so where a gradient
   is near zero the two frameworks' float-order differences move the
   update by up to a step of lr 1e-3, and 2e-4 is a fifth of one.
-* Knobs the port does not carry raise ``NotImplementedError``.
+* Knobs the port does not carry raise ``NotImplementedError`` naming
+  their ROADMAP item (the mesh's, and ``metrics=``).
 """
 import math
 
@@ -312,41 +313,49 @@ def test_first_loss_is_near_uniform_plus_init_lift():
 
 # -- what the slice leaves out ---------------------------------------------
 @pytest.mark.parametrize("knob", ["use_mp", "use_sp", "moe_experts",
-                                  "use_recompute", "scan_layers"])
+                                  "moe_every"])
 def test_unported_model_knobs_raise(knob):
     """Each knob raises naming its ROADMAP item.  The tensor-parallel form
     (``use_mp``) is built now, for serving on a mesh; training it over a
-    mesh is what stays unported."""
+    mesh is what stays unported.  ``moe_every`` is in the signature and
+    inert alone; with ``moe_experts`` the model raises."""
     if knob == "use_mp":
         m = GPTModel(**SLICE, dropout=0.0, use_mp=True)
         opt = AdamW(parameters=m.parameters(), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TrainStep(m, opt, mesh=object(), device="cpu")
         return
+    if knob == "moe_every":
+        GPTModel(**SLICE, moe_every=1)
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 12"):
+            GPTModel(**SLICE, moe_experts=4, moe_every=1)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GPTModel(**SLICE, **{knob: 2 if knob == "moe_experts" else True})
 
 
 def test_unported_train_knobs_raise():
+    """The mesh knobs raise naming Queue A 10, ``metrics=`` Queue A 12;
+    a learning rate that is neither a float nor a scheduler is a
+    TypeError."""
     m = GPTModel(**SLICE, dropout=0.0)
     ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="doc_lens"):
-        m(ids, labels=ids, doc_lens=torch.tensor([[8]]))
     opt = AdamW(parameters=m.parameters(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         TrainStep(m, opt, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="amp"):
-        TrainStep(m, opt, amp_level="O2", device="cpu")
-    for knob in ("sharding", "pipeline", "recompute", "amp"):
+    with pytest.raises(NotImplementedError, match="A 12"):
+        TrainStep(m, opt, metrics=[object()], device="cpu")
+    for knob in ("sharding", "pipeline"):
         s = DistributedStrategy()
         setattr(s, knob, True)
         with pytest.raises(NotImplementedError, match=knob):
             TrainStep(m, opt, strategy=s, device="cpu")
-    s = DistributedStrategy()
-    s.hybrid_configs["mp_degree"] = 2
-    with pytest.raises(NotImplementedError, match="mp_degree"):
-        TrainStep(m, opt, strategy=s, device="cpu")
-    with pytest.raises(NotImplementedError, match="scheduler"):
+    for knob in ("mp_degree", "pp_degree", "sharding_degree"):
+        s = DistributedStrategy()
+        s.hybrid_configs[knob] = 2
+        with pytest.raises(NotImplementedError, match=knob):
+            TrainStep(m, opt, strategy=s, device="cpu")
+    with pytest.raises(TypeError, match="LRScheduler"):
         AdamW(parameters=m.parameters(), learning_rate=object(),
               device="cpu")
     with pytest.raises(ValueError, match="names"):
