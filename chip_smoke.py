@@ -17,8 +17,8 @@ line:
    kernel the tensor-core instructions in its SASS (``HGMMA`` for wgmma,
    ``HMMA`` for mma.sync; ``cuobjdump -sass``, the toolkit's or the copy
    in Triton's package; "cuobjdump not found" when neither exists): the
-   bf16 forward, dK/dV and dQ kernels of ``flash_attention_sm90.cu`` beside
-   the scalar ones.
+   bf16 and fp16 instantiations of the forward, dK/dV and dQ kernels of
+   ``flash_attention_sm90.cu`` beside the scalar ones.
 3. Kernels against their plain versions at gpt2-medium's shapes on the
    serving path (H=16, hd=64, block 16, 8 slots, a 64-lane window, 64
    table entries, 513 pool blocks), with decode lanes, prefill-chunk
@@ -45,19 +45,22 @@ line:
    of a whole serve takes minutes to process).
 5. Flash kernels against their plain versions (``ops/flash_attention.py``):
    the training slice's shape (B=4, H=16, S=2048, hd=128, bf16,
-   causal), an fp32 case, an hd=64 case and a case with segment ids
-   (four packed documents of uneven lengths).  bf16 runs the
-   tensor-core kernels (``csrc/flash_attention_sm90.cu``), fp32 the scalar
-   ones (``csrc/flash_attention.cu``).  fp32 holds o
-   and lse at atol 1e-5 and the gradients at atol 1e-4 (summation
-   order); bf16 holds every output at rtol 2e-2 / atol 2e-2 against the
-   plain version computed in f32 from the same bf16 values (bf16
-   rounding of the outputs, and of P and dS before their products, as
-   the TPU kernel rounds them); every case also holds each output to a
-   relative L2 error of 1e-2, which a small but systematic fault on the
-   late causal rows (where o is ~0.03 in size) would pass per element
-   but not in norm.  At the slice's shape it times the forward, dK/dV and dQ
-   kernels, their plain versions and ``scaled_dot_product_attention``
+   causal), an fp32 case, an hd=64 case, a case with segment ids
+   (four packed documents of uneven lengths), and the slice's shape in
+   fp16 with and without segment ids (what ``auto_cast(dtype=
+   "float16")`` gives the kernels).  bf16 and fp16 run the tensor-core
+   kernels (``csrc/flash_attention_sm90.cu``, one template instantiated
+   for each), fp32 the scalar ones (``csrc/flash_attention.cu``).  fp32
+   holds o and lse at atol 1e-5 and the gradients at atol 1e-4
+   (summation order); bf16 and fp16 hold every output at rtol 2e-2 /
+   atol 2e-2 against the plain version computed in f32 from the same
+   bf16 / fp16 values (rounding of the outputs, and of P and dS before
+   their products, as the TPU kernel rounds them); every case also holds
+   each output to a relative L2 error of 1e-2, which a small but
+   systematic fault on the late causal rows (where o is ~0.03 in size)
+   would pass per element but not in norm.  At the slice's shape, in
+   bf16 and in fp16, it times the forward, dK/dV and dQ kernels, their
+   plain versions and ``scaled_dot_product_attention`` in the same dtype
    (is_causal; forward, and backward through autograd — the library
    yardstick; the port never calls it) with CUDA events, and computes
    each kernel's bound from causal FLOPs and bytes.  It also times the
@@ -100,7 +103,9 @@ line:
    another fresh model.  Checks: B2 launched 24 times a dispatch and B1
    and B3 not at all, ``QuantKV`` pools, prefix hits > 0, seeded streams
    repeat on a second engine, and the greedy streams equal those of the
-   same engine with B2 swapped for its plain version, except from a
+   same engine with B2 swapped for its plain version over the four
+   requests with prompts of at most 400 tokens (the plain version walks
+   the blocks in Python: the whole traffic took 114 s), except from a
    first divergence where the logits that engine picked the token from
    have a top-2 margin under 1e-3 (counted and printed, with the dense
    fp forward's margin beside it: an int8 near tie is one of the int8
@@ -272,10 +277,40 @@ line:
    weights, O1, recompute, a packed padded row, kernels against plain
    versions (loss rtol 1e-3, gradients relative L2 2e-2; B5a twice a
    layer).
-20. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
-   phase 16 (c)'s, phase 17's and phase 18's in-process serves, B2's
-   phase 10's, phase 17 (d)'s and phase 18 (a)'s, B5a-B5c's phase 6's
-   and phase 19 (a)'s, B5a's phase 16 (f)'s too), the card line and
+20. The MoE and sequence-parallel GPT blocks, BERT and fp16.  (a)
+   ``GPTModel.from_config("gpt2-medium", moe_experts=8, moe_every=2)``
+   in fp32 from seed 0 (12 MoE blocks of 8 experts, k=2, capacity factor
+   2.0) serves phase 4's traffic with phase 4's engine: B1 launched 24
+   times a dispatch, the streams repeat on a second run, and over the
+   four requests with prompts of at most 400 tokens the kernel path's
+   greedy streams equal the same engine's with B1 swapped for its plain
+   version, except from a first divergence at a near tie (margin < 1e-4
+   on the plain engine's own logits); tokens/s, kernels a tick and busy
+   share beside phase 4's.  (b) the same model trained at B=8, S=1024
+   (AdamW, recompute, fused head + CE), 1 + 3 steps: losses finite and
+   falling, the first within 0.1 of ln V + E * 0.02^2 / 2 once its aux
+   loss is taken off; the aux loss and the peak printed.  (c)
+   ``BertForSequenceClassification(BertModel.from_config("bert-base"),
+   2)`` (``BASELINE.md`` config 3), B=32, S=128, attention masks of
+   lengths 32-128 and labels from numpy seed 0 (a class-1 row is token
+   type 1 throughout: a learnable synthetic pair task),
+   ``TrainStep(amp_level="O1")`` with AdamW at ``bench.py``'s 2e-5, 1 + 5
+   steps: losses finite and falling, no attention kernel
+   launched (no TPU kernel runs on this path); samples/s and the peak.
+   (d) ``ring_attention`` and ``ulysses_attention`` over ``build_mesh(
+   sp=4)`` (four ranks on the card) at gpt2-medium's attention shape
+   (B=2, S=1024, H=16, hd=64, fp32, causal): the output at atol 2e-5
+   and dq/dk/dv at 1e-4 against the dense reference attention; then two
+   steps of gpt2-medium with ``use_sp="ring"`` and no sp mesh (the
+   degenerate single block), B=4, S=1024: losses finite, falling, no
+   flash launch.  (e) one ``gpt3-1.3b`` step (fp32 weights) at B=4,
+   S=2048 under ``auto_cast(dtype="float16")``: B5a, B5b and B5c launched
+   24 times each, all in fp16, the loss and every gradient finite.
+21. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+   phase 16 (c)'s, phase 17's and phase 18's in-process serves and phase
+   20 (a)'s first serve, B2's phase 10's, phase 17 (d)'s and phase 18
+   (a)'s, B5a-B5c's phase 6's and phase 19 (a)'s, B5a's phase 16 (f)'s
+   too; the fp16 entries phase 20 (e)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -304,7 +339,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 N_LAYERS = 24                      # gpt2-medium and gpt3-1.3b
 FLASH_KERNELS = ("fwd", "bwd_dkv", "bwd_dq")
 FLASH_REL_TOL = 1e-2               # relative L2 error of each flash output
@@ -634,6 +669,9 @@ def ragged_device_ms(fn, iters=20):
 PROFILE_TICKS = (32, 24)
 
 
+PROFILES = {}                      # label -> (busy share, kernels a tick)
+
+
 def profile_phase(model, reqs, engine_cls, card, label="",
                   **engine_kw):
     """Where a tick's time goes: the same traffic once more, ticks
@@ -663,6 +701,7 @@ def profile_phase(model, reqs, engine_cls, card, label="",
     dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     launches = sum(e.count for e in dev)
+    PROFILES[label] = (busy_ms / 1e3 / wall, launches / count)
     print(f"profile{label}: ticks {first}-{first + count - 1} of "
           f"{eng.ticks} async_depth {eng.async_depth} wall_s {wall:.3f} "
           f"device_busy_s {busy_ms / 1e3:.3f} busy_share "
@@ -1069,6 +1108,38 @@ def stream_divergences(model, reqs, outs_a, outs_b, margins_b, margin):
     return len(gaps), gaps
 
 
+PLAIN_REQS, PLAIN_MAX_PROMPT = 4, 400
+
+
+def plain_comparison(model, reqs, owner, name, plain, margin, **engine_kw):
+    """A serve through the kernel path against the same engine with the
+    kernel ``owner.name`` swapped for ``plain``, over the first
+    ``PLAIN_REQS`` requests with prompts of at most ``PLAIN_MAX_PROMPT``
+    tokens (the plain versions walk the blocks in Python: the whole
+    traffic took 114 s through B2's).  Greedy streams must be equal but
+    from a first divergence at a near tie under ``margin`` of the plain
+    engine's own logits (``stream_divergences``).  Returns (the requests,
+    greedy streams equal, divergences, their margins, seeded streams
+    equal, kernel wall, plain wall)."""
+    from paddle_tpu_torch.serving import Engine
+    sub = [r for r in reqs if len(r[0]) <= PLAIN_MAX_PROMPT][:PLAIN_REQS]
+    _, outs, wall = serve(model, sub, Engine, **engine_kw)
+    real = getattr(owner, name)
+    setattr(owner, name, plain)
+    try:
+        _, outs_p, wall_p, margins = serve_recording_margins(model, sub,
+                                                             **engine_kw)
+    finally:
+        setattr(owner, name, real)
+    near, gaps = stream_divergences(model, sub, outs, outs_p, margins,
+                                    margin)
+    same = sum(a.tolist() == b.tolist()
+               for (_, kw), a, b in zip(sub, outs, outs_p) if not kw)
+    seeded = all(a.tolist() == b.tolist()
+                 for (_, kw), a, b in zip(sub, outs, outs_p) if kw)
+    return sub, same, near, gaps, seeded, wall, wall_p
+
+
 def greedy_agreement(reqs, outs_a, outs_b):
     """Share of generated greedy tokens equal at the same position."""
     same = total = 0
@@ -1149,32 +1220,26 @@ def int8_slice_phase(card, ragged_mod, reqs, w_outs):
         if kw:
             check(a.tolist() == b.tolist(),
                   "int8: a seeded stream did not repeat on a second engine")
-    real = ragged_mod.ragged_paged_attention_int8
-
     def plain(q, k, v, tables, pos, width, k_scale, v_scale, *,
               block_size):
         return ragged_mod.ragged_paged_attention_ref(
             q, k, v, tables, pos, width, block_size=block_size,
             k_scale=k_scale, v_scale=v_scale)
 
-    ragged_mod.ragged_paged_attention_int8 = plain
-    try:
-        eng3, outs3, wall3, margins3 = serve_recording_margins(
-            model, reqs, kv_dtype="int8")
-    finally:
-        ragged_mod.ragged_paged_attention_int8 = real
-    near, gaps = stream_divergences(model, reqs, outs, outs3, margins3,
-                                    1e-3)
-    same = sum(a.tolist() == b.tolist()
-               for (_, kw), a, b in zip(reqs, outs, outs3) if not kw)
+    sub, same, near, gaps, seeded, wall3, wall4 = plain_comparison(
+        model, reqs, ragged_mod, "ragged_paged_attention_int8", plain,
+        1e-3, kv_dtype="int8")
     print(f"int8 slice: seeded streams repeat on a second engine (wall_s "
-          f"{wall2:.3f}); greedy streams equal to B2's plain version "
-          f"{same} of 10, near-tie divergences (int8 margin < 1e-3) {near}"
-          f" at margins {gaps} (plain-version wall_s {wall3:.3f})",
+          f"{wall2:.3f}); over the {len(sub)} requests with prompts <= "
+          f"{PLAIN_MAX_PROMPT} tokens ({[len(p) for p, _ in sub]}) greedy "
+          f"streams equal to B2's plain version {same} of "
+          f"{sum(1 for _, kw in sub if not kw)}, near-tie divergences (int8 "
+          f"margin < 1e-3) {near} at margins {gaps}, seeded equal {seeded} "
+          f"(kernel wall_s {wall3:.3f}, plain-version wall_s {wall4:.3f})",
           flush=True)
     profile_phase(model, reqs, Engine, card, label=" int8",
                   kv_dtype="int8")
-    del eng, eng2, eng3
+    del eng, eng2
     return model, outs, launches
 
 
@@ -2879,7 +2944,11 @@ FLASH_CASES = {
     "fp32": (1, 16, 2048, 128, "float32", 0),
     "hd64_bf16": (2, 16, 2048, 64, "bfloat16", 0),
     "segments_bf16": (2, 16, 2048, 128, "bfloat16", 4),
+    "slice_fp16": (4, 16, 2048, 128, "float16", 0),
+    "segments_fp16": (4, 16, 2048, 128, "float16", 4),
 }
+# the cases phase 5 times (kernels, plain versions, SDPA, bounds)
+FLASH_TIMED = ("slice_bf16", "slice_fp16")
 
 
 def flash_inputs(case):
@@ -2941,10 +3010,13 @@ def cuobjdump():
 def flash_sass_counts(build):
     """{flash kernel function: (HGMMA, HMMA)}: the tensor-core instructions
     (wgmma, mma.sync) in each flash kernel's SASS, by ``cuobjdump -sass``
-    on the built libraries.  None when no cuobjdump exists."""
+    on the built libraries; every instantiation (element type, head dim)
+    apart, demangled where ``c++filt`` exists.  None when no cuobjdump
+    exists."""
     exe = cuobjdump()
     if exe is None:
         return None
+    filt = shutil.which("c++filt")
     counts = {}
     for name in ("flash_attention", "flash_attention_sm90"):
         lib = build._paths(name)[1]
@@ -2955,6 +3027,9 @@ def flash_sass_counts(build):
             found = re.search(r"Function : (\S+)", line)
             if found:
                 fn = found.group(1)
+                if filt:
+                    fn = subprocess.run([filt, fn], capture_output=True,
+                                        text=True).stdout.strip() or fn
                 counts[fn] = [0, 0]
             elif fn is not None and "HGMMA" in line:
                 counts[fn][0] += 1
@@ -2974,8 +3049,8 @@ def print_flash_sass(build):
 
 def flash_phase(fa):
     """Every case: the three kernels against their plain versions; at the
-    slice's shape, times and bounds.  Returns {kernel: result} for the
-    slice's shape."""
+    slice's shape in bf16 and fp16, times and bounds.  Returns {(kernel,
+    dtype): result} for the ``FLASH_TIMED`` cases."""
     import torch
     import torch.nn.functional as F
     results = {}
@@ -3035,7 +3110,7 @@ def flash_phase(fa):
             print(f"flash {case} (scalar route) ms: "
                   + " ".join(f"{n} {t:.4f}" for n, t in scalar_ms.items()),
                   flush=True)
-        if case != "slice_bf16":
+        if case not in FLASH_TIMED:
             continue
         kernel_fns = {
             "fwd": lambda: fa.flash_fwd(q, k, v, seg, **kw),
@@ -3055,24 +3130,27 @@ def flash_phase(fa):
         sdpa_bwd = cuda_time_ms(lambda: torch.autograd.grad(
             sout, (sq, sk, sv), sdo, retain_graph=True), iters=10)
         print(f"flash library: scaled_dot_product_attention(is_causal) "
-              f"bf16 forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv in one "
-              f"autograd call) {sdpa_bwd:.4f} ms, forward+backward "
+              f"{dtype} forward {sdpa_fwd:.4f} ms, backward (dq, dk, dv in "
+              f"one autograd call) {sdpa_bwd:.4f} ms, forward+backward "
               f"{sdpa_fwd + sdpa_bwd:.4f} ms", flush=True)
         # SDPA's backward gives dq, dk and dv in one call: it is the
         # yardstick of the two backward kernels together
-        library = {"fwd": (sdpa_fwd, ["flash_fwd"]),
-                   "bwd_dkv": (sdpa_bwd, ["flash_bwd_dkv", "flash_bwd_dq"]),
-                   "bwd_dq": (sdpa_bwd, ["flash_bwd_dkv", "flash_bwd_dq"])}
+        tag = "" if dtype == "bfloat16" else "_fp16"
+        library = {"fwd": (sdpa_fwd, [f"flash_fwd{tag}"]),
+                   "bwd_dkv": (sdpa_bwd, [f"flash_bwd_dkv{tag}",
+                                          f"flash_bwd_dq{tag}"]),
+                   "bwd_dq": (sdpa_bwd, [f"flash_bwd_dkv{tag}",
+                                         f"flash_bwd_dq{tag}"])}
         for kernel in FLASH_KERNELS:
             ms = cuda_time_ms(kernel_fns[kernel], iters=10, warmup=2)
             plain_ms = cuda_time_ms(plain_fns[kernel], iters=3, warmup=1)
             bound, bound_by = flash_bound_ms(kernel, q)
-            results[kernel] = dict(
+            results[kernel, dtype] = dict(
                 max_abs_err=errs[kernel], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by,
                 library_ms=library[kernel][0],
                 library_covers=library[kernel][1])
-            print(f"kernel flash_{kernel} bf16: max_abs_err "
+            print(f"kernel flash_{kernel} {dtype}: max_abs_err "
                   f"{errs[kernel]:.3e} ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"bound_ms {bound:.4f} ({bound_by})", flush=True)
         del sq, sk, sv, sout
@@ -3525,6 +3603,357 @@ def recipe_compare_phase(fa, card):
     torch.cuda.empty_cache()
 
 
+# -- phase 20 -------------------------------------------------------------
+MOE_CFG = dict(moe_experts=8, moe_every=2)   # MoELayer defaults: k 2, cf 2
+MOE_TRAIN_B, MOE_TRAIN_S, MOE_TIMED = 8, 1024, 3
+BERT_B, BERT_S, BERT_TIMED, BERT_LR = 32, 128, 5, 2e-5
+SP_SHAPE = (2, 1024, 16, 64)       # gpt2-medium's attention, B=2
+SP_DEGREE = 4
+SP_TOL = (2e-5, 1e-4)              # f32: atol of the output, of dq/dk/dv
+
+
+def moe_aux(model):
+    from paddle_tpu_torch.distributed import collect_moe_aux_loss
+    aux = collect_moe_aux_loss(model)
+    return float(aux.detach())
+
+
+def moe_serve_phase(card, ragged_mod, reqs, fp_tps):
+    """Phase 20 (a): an MoE gpt2-medium (every second block 8 experts)
+    serves phase 4's traffic with phase 4's engine; returns (the model,
+    B1's launches)."""
+    import torch
+    from paddle_tpu_torch.distributed import MoELayer
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.models import gpt as gpt_mod
+    from paddle_tpu_torch.serving import Engine
+
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0,
+                                 **MOE_CFG)
+    n_moe = sum(isinstance(b.mlp, MoELayer) for b in model.blocks)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_moe == N_LAYERS // 2, f"{n_moe} MoE blocks, not {N_LAYERS // 2}")
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(model, reqs, Engine)
+    launches = check_launches(ragged_mod, eng, "ragged_paged_attention",
+                              "phase 20 (a) MoE serve")
+    for (p, _), ids in zip(reqs, outs):
+        check(len(ids) == len(p) + 32, "a stream is not 32 tokens long")
+    eng2, outs2, wall2 = serve(model, reqs, Engine)
+    check(all(a.tolist() == b.tolist() for a, b in zip(outs, outs2)),
+          "phase 20 (a): the MoE streams did not repeat on a second run")
+    slice_line(f"gpt2-medium MoE {MOE_CFG} fp32 phase 20 (a)", eng, wall,
+               launches, card, f" params {n_params} moe_blocks {n_moe} "
+               f"repeat_wall_s {wall2:.3f} (phase 4 tokens_per_s "
+               f"{fp_tps:.2f})")
+    # the kernel path against B1's plain version over the same (shorter)
+    # traffic: capacity makes the rows of a window interact, so the two
+    # must see the same windows
+    def plain(q, k, v, tables, pos, width, *, block_size, k_scale=None,
+              v_scale=None, variant="stream"):
+        return ragged_mod.ragged_paged_attention_ref(
+            q, k, v, tables, pos, width, block_size=block_size,
+            k_scale=k_scale, v_scale=v_scale)
+
+    sub, same, near, gaps, seeded, wall3, wall4 = plain_comparison(
+        model, reqs, gpt_mod, "ragged_paged_attention", plain, 1e-4)
+    print(f"phase 20 (a) MoE kernel vs plain B1 path ({len(sub)} requests "
+          f"with prompts <= {PLAIN_MAX_PROMPT} tokens, prompts "
+          f"{[len(p) for p, _ in sub]}): greedy streams equal {same} of "
+          f"{sum(1 for _, kw in sub if not kw)}, near-tie divergences "
+          f"(margin < 1e-4) {near} at margins {gaps}, seeded equal "
+          f"{seeded}; kernel wall_s {wall3:.3f}, plain wall_s {wall4:.3f} "
+          f"[{card}]",
+          flush=True)
+    profile_phase(model, reqs, Engine, card, label=" moe")
+    share, kpt = PROFILES[" moe"]
+    share4, kpt4 = PROFILES.get("", (float("nan"), float("nan")))
+    print(f"phase 20 (a) MoE serve: tokens_per_s "
+          f"{eng.tokens_generated / wall:.2f} kernels_per_tick {kpt:.1f} "
+          f"busy_share {share:.3f}; phase 4: tokens_per_s {fp_tps:.2f} "
+          f"kernels_per_tick {kpt4:.1f} busy_share {share4:.3f} [{card}]",
+          flush=True)
+    del eng, eng2
+    return model, launches
+
+
+def moe_train_phase(card, fa, model):
+    """Phase 20 (b): the MoE gpt2-medium trained at B=8, S=1024 (AdamW,
+    recompute, fused head + CE): losses finite and falling, the first
+    within 0.1 of ln V + E * 0.02^2 / 2 once its aux loss is taken
+    off."""
+    import math
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    model.fused_loss = True
+    for blk in model.blocks:
+        blk.use_recompute = True
+    model.train()
+    E = model.blocks[0].attn.hidden_size
+    V = model.head.lm_head.weight.shape[0]
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, opt)
+    x, y = train_batch(V, MOE_TRAIN_B, MOE_TRAIN_S, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(fa)
+    losses = [step.step([x, y])]
+    aux0 = moe_aux(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_TIMED):
+        losses.append(step.step([x, y]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    aux_last = moe_aux(model)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    check(all(math.isfinite(l) for l in losses),
+          f"phase 20 (b): non-finite loss {losses}")
+    expect0 = math.log(V) + E * 0.02 ** 2 / 2
+    check(abs(losses[0] - aux0 - expect0) < 0.1,
+          f"phase 20 (b): step-0 CE {losses[0] - aux0:.4f} (loss "
+          f"{losses[0]:.4f} - aux {aux0:.4f}) is not within 0.1 of "
+          f"{expect0:.4f}")
+    check(losses[-1] < losses[0], f"phase 20 (b): the loss did not fall: "
+          f"{losses}")
+    check(sum(flash_counts(fa).values()) == 0,
+          "phase 20 (b): S=1024 launched a flash kernel")
+    tokens = MOE_TRAIN_B * MOE_TRAIN_S * MOE_TIMED
+    print(f"phase 20 (b) train gpt2-medium MoE {MOE_CFG} fp32 recompute: "
+          f"B {MOE_TRAIN_B} S {MOE_TRAIN_S} losses "
+          + " ".join(f"{l:.4f}" for l in losses)
+          + f" (aux in them: step 0 {aux0:.4f}, last {aux_last:.4f}; step-0 "
+          f"CE expected {expect0:.4f}) timed_steps {MOE_TIMED} wall_s "
+          f"{wall:.3f} s_per_step {wall / MOE_TIMED:.4f} tokens_per_s "
+          f"{tokens / wall:.1f} peak_mem_gb {peak_gb:.2f} [{card}]",
+          flush=True)
+    del step, opt
+    torch.cuda.empty_cache()
+
+
+def bert_phase(card, fa, ragged_mod):
+    """Phase 20 (c): BERT-base fine-tune (``BASELINE.md`` config 3) under
+    ``TrainStep(amp_level="O1")``: losses finite and falling."""
+    import math
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (BertForSequenceClassification,
+                                         BertModel)
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    torch.manual_seed(0)
+    model = BertForSequenceClassification(
+        BertModel.from_config("bert-base", seed=0), 2)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(0)
+    lens = rng.randint(32, BERT_S + 1, BERT_B)
+    ids = rng.randint(0, 30522, (BERT_B, BERT_S))
+    mask = (np.arange(BERT_S)[None] < lens[:, None]).astype(np.int64)
+    labels = rng.randint(0, 2, BERT_B)
+    # a synthetic pair task: a row of class 1 is segment B throughout, so
+    # the label rides the token types.  Labels independent of the inputs
+    # leave a randomly initialized encoder's loss at ln 2: its rows'
+    # pooled outputs start nearly equal, and 6 steps of AdamW only move
+    # the shared logit back and forth
+    types = np.repeat(labels[:, None], BERT_S, axis=1)
+    batch = [torch.tensor(a, device="cuda") for a in (ids, types, mask)]
+    y = torch.tensor(labels, device="cuda")
+    # bench.py's BERT fine-tune rate
+    opt = AdamW(learning_rate=BERT_LR, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, opt, loss_fn=cross_entropy, amp_level="O1")
+    zero_flash_counts(fa)
+    zero_ragged_counts(ragged_mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step.step(batch, [y])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BERT_TIMED):
+        losses.append(step.step(batch, [y]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(l) for l in losses]
+    check(all(math.isfinite(l) for l in losses),
+          f"phase 20 (c): non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"phase 20 (c): the loss did not fall: "
+          f"{losses}")
+    kernels = sum(flash_counts(fa).values()) + sum(
+        ragged_counts(ragged_mod).values())
+    check(kernels == 0, f"phase 20 (c): BERT launched {kernels} "
+          "attention kernels")
+    print(f"phase 20 (c) BERT-base fine-tune O1: params {n_params} B "
+          f"{BERT_B} S {BERT_S} mask lengths {int(lens.min())}-"
+          f"{int(lens.max())} losses " + " ".join(f"{l:.4f}" for l in losses)
+          + f" timed_steps {BERT_TIMED} wall_s {wall:.3f} s_per_step "
+          f"{wall / BERT_TIMED:.4f} samples_per_s "
+          f"{BERT_B * BERT_TIMED / wall:.1f} peak_mem_gb {peak_gb:.2f}; no "
+          f"TPU kernel runs on this path (the JAX package computes BERT in "
+          f"XLA; flash and ragged launches 0) [{card}]", flush=True)
+    del step, opt, model
+    torch.cuda.empty_cache()
+
+
+def sp_phase(card, fa):
+    """Phase 20 (d): ring and Ulysses attention over ``build_mesh(sp=4)``
+    on one card against the dense reference; then two gpt2-medium training
+    steps with ``use_sp="ring"`` on the degenerate one-card path."""
+    import math
+    import torch
+    from paddle_tpu_torch.distributed import (build_mesh, get_mesh,
+                                              ring_attention, set_mesh,
+                                              ulysses_attention)
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.nn.functional.attention import \
+        _reference_attention
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = build_mesh(sp=SP_DEGREE, devices=[dev] * SP_DEGREE)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(*SP_SHAPE, generator=gen, device="cuda")
+                   for _ in range(4))
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    want = run(lambda a, b, c: _reference_attention(a, b, c, None, None,
+                                                    True))
+    ms = {"reference": cuda_time_ms(lambda: run(
+        lambda a, b, c: _reference_attention(a, b, c, None, None, True)),
+        iters=5, warmup=1)}
+    for name, fn in (("ring", ring_attention),
+                     ("ulysses", ulysses_attention)):
+        call = (lambda f: lambda a, b, c: f(a, b, c, causal=True,
+                                            mesh=mesh))(fn)
+        got = run(call)
+        errs = []
+        for part, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            tol = SP_TOL[0] if part == "o" else SP_TOL[1]
+            check(bool(torch.isfinite(g).all()),
+                  f"phase 20 (d) {name}: non-finite {part}")
+            err = float((g - w).abs().max())
+            check(err <= tol, f"phase 20 (d) {name}: {part} max_abs_err "
+                  f"{err:.3e} over {tol}")
+            errs.append(err)
+        ms[name] = cuda_time_ms(lambda: run(call), iters=5, warmup=1)
+        print(f"phase 20 (d) {name}_attention sp={SP_DEGREE} (4 ranks on "
+              f"cuda:0) B,S,H,hd {SP_SHAPE} fp32 causal: max_abs_err o "
+              f"{errs[0]:.3e} dq {errs[1]:.3e} dk {errs[2]:.3e} dv "
+              f"{errs[3]:.3e} (tolerance {SP_TOL[0]} output, {SP_TOL[1]} "
+              f"gradients) fwd+bwd ms {ms[name]:.3f} (dense reference "
+              f"{ms['reference']:.3f}) [{card}]", flush=True)
+    del q, k, v, do, want
+    prev = get_mesh()
+    set_mesh(None)
+    try:
+        model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.1,
+                                     fused_loss=True, use_sp="ring")
+        E = model.blocks[0].attn.hidden_size
+        V = model.head.lm_head.weight.shape[0]
+        step = TrainStep(model, AdamW(learning_rate=1e-4,
+                                      parameters=model.parameters()))
+        x, y = train_batch(V, 4, 1024, seed=0)
+        zero_flash_counts(fa)
+        t0 = time.perf_counter()
+        losses = [float(step.step([x, y])) for _ in range(2)]
+        wall = time.perf_counter() - t0
+    finally:
+        set_mesh(prev)
+    check_losses(losses, V, E, "phase 20 (d) use_sp=ring")
+    check(sum(flash_counts(fa).values()) == 0,
+          "phase 20 (d): the degenerate ring launched a flash kernel")
+    print(f"phase 20 (d) gpt2-medium use_sp='ring' (no sp mesh: the "
+          f"degenerate single block, f32, dropout on the probabilities) B 4 "
+          f"S 1024: losses {losses[0]:.4f} {losses[1]:.4f} wall_s "
+          f"{wall:.3f} for 2 steps [{card}]", flush=True)
+    del step, model
+    torch.cuda.empty_cache()
+
+
+def fp16_train_phase(card, fa):
+    """Phase 20 (e): one gpt3-1.3b step (fp32 weights) at B=4, S=2048
+    under ``auto_cast(dtype="float16")``: the flash kernels run in fp16
+    (24 launches each), the loss is finite.  Returns the launches."""
+    import math
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.1,
+                                 fused_loss=True)
+    V = model.head.lm_head.weight.shape[0]
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    x, y = train_batch(V, TRAIN_B, TRAIN_S, seed=0)
+    zero_flash_counts(fa)
+    halves = fa.DTYPE_LAUNCHES[torch.float16]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt.zero_grad(set_to_none=True)
+    with amp.auto_cast(dtype="float16"):
+        loss = model(x, labels=y)
+    loss.backward()
+    opt.apply_gradients()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts(fa)
+    fp16 = fa.DTYPE_LAUNCHES[torch.float16] - halves
+    finite = sum(bool(torch.isfinite(p.grad).all())
+                 for p in model.parameters() if p.grad is not None)
+    n_grads = sum(p.grad is not None for p in model.parameters())
+    check(math.isfinite(float(loss)), f"phase 20 (e): loss {float(loss)}")
+    for name, n in launches.items():
+        check(n == N_LAYERS, f"phase 20 (e): flash {name} launched {n} "
+              f"times, not {N_LAYERS}")
+    check(fp16 == 3 * N_LAYERS, f"phase 20 (e): {fp16} fp16 launches, not "
+          f"{3 * N_LAYERS}")
+    check(finite == n_grads, f"phase 20 (e): {n_grads - finite} gradients "
+          "not finite")
+    print(f"phase 20 (e) gpt3-1.3b fp32 weights auto_cast(float16) B "
+          f"{TRAIN_B} S {TRAIN_S}: loss {float(loss):.4f} flash_launches "
+          f"{launches} (fp16 {fp16}) finite gradients {finite}/{n_grads} "
+          f"step_s {wall:.3f} peak_mem_gb "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} [{card}]",
+          flush=True)
+    del opt, model, loss
+    torch.cuda.empty_cache()
+    return launches
+
+
+def slice13_phase(card, fa, ragged_mod, reqs, fp_tps):
+    """Phase 20 (a)-(e).  Returns (B1's launches, the fp16 flash
+    launches)."""
+    import torch
+    t0 = time.perf_counter()
+    zero_flash_counts(fa)
+    model, b1 = moe_serve_phase(card, ragged_mod, reqs, fp_tps)
+    check(sum(flash_counts(fa).values()) == 0,
+          "phase 20 (a) launched a flash kernel")
+    moe_train_phase(card, fa, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    bert_phase(card, fa, ragged_mod)
+    sp_phase(card, fa)
+    fp16 = fp16_train_phase(card, fa)
+    print(f"phase 20 wall_s {time.perf_counter() - t0:.1f}", flush=True)
+    return b1, fp16
+
+
 def main(argv):
     import torch
     cards = int(argv[argv.index("--cards") + 1]) if "--cards" in argv else 1
@@ -3650,6 +4079,11 @@ def main(argv):
     check(sum(ragged_counts(ragged_mod).values()) == 0,
           "the pretraining recipe launched a ragged kernel")
     lap("19 (the pretraining recipe)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    b1, fp16_launches = slice13_phase(card, fa, ragged_mod, reqs, fp_tps)
+    launches += b1
+    lap("20 (MoE, BERT, sequence parallelism, fp16)")
 
     f32 = kres["float32"]
     kernels = [{
@@ -3705,26 +4139,27 @@ def main(argv):
         "mesh": list(MESH_SHAPE),
         "device_ms": r["device_ms"],
     })
-    for kernel in FLASH_KERNELS:
-        r = fres[kernel]
-        # the slice's bf16 calls: the tensor-core kernels
-        source = {"tensor_core": "flash_attention_sm90.cu",
-                  "scalar": "flash_attention.cu"}[
-                      fa.entry(kernel, torch.bfloat16, 128)[0]]
-        kernels.append({
-            "name": f"flash_{kernel}",
-            "route": "cuda",
-            "source": f"paddle_tpu_torch/csrc/{source}",
-            "replaces": FLASH_REPLACES[kernel],
-            "launches": flash_launches[kernel],
-            "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "library_covers": r["library_covers"],
-        })
+    for dtype, tag in (("bfloat16", ""), ("float16", "_fp16")):
+        for kernel in FLASH_KERNELS:
+            r = fres[kernel, dtype]
+            source = {"tensor_core": "flash_attention_sm90.cu",
+                      "scalar": "flash_attention.cu"}[
+                          fa.entry(kernel, getattr(torch, dtype), 128)[0]]
+            kernels.append({
+                "name": f"flash_{kernel}{tag}",
+                "route": "cuda",
+                "source": f"paddle_tpu_torch/csrc/{source}",
+                "replaces": FLASH_REPLACES[kernel],
+                "launches": (flash_launches[kernel] if dtype == "bfloat16"
+                             else fp16_launches[kernel]),
+                "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"],
+                "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"],
+                "library_covers": r["library_covers"],
+            })
     line = {"kernels": kernels, "card": card}
     print(json.dumps(line), flush=True)
     print(f"{card}", flush=True)

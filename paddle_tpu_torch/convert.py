@@ -1,18 +1,28 @@
-"""Weight bridge: ``paddle_tpu`` GPT parameters into the torch model.
+"""Weight bridge: ``paddle_tpu`` model parameters into the torch models.
 
 ``load_paddle_tpu_state(model, arrays)`` takes a dict of parameter name
--> numpy array, as ``paddle_tpu``'s ``GPTModel.named_parameters()`` names
-them, and copies it into a ``paddle_tpu_torch`` ``GPTModel``:
+-> numpy array, as ``paddle_tpu``'s ``named_parameters()`` names them, and
+copies it into the ``paddle_tpu_torch`` model of the same structure.  For
+a ``GPTModel``:
 
 * ``embeddings.{word,position}_embeddings.weight``
 * ``blocks.{i}.{ln1,ln2}.{weight,bias}``
 * ``blocks.{i}.attn.{qkv_proj,out_proj}.{weight,bias}``
-* ``blocks.{i}.mlp.{fc1,fc2}.{weight,bias}``
+* ``blocks.{i}.mlp.{fc1,fc2}.{weight,bias}``, or in an MoE block the
+  router ``blocks.{i}.mlp.gate [D, E]`` and the expert stacks
+  ``blocks.{i}.mlp.experts.{w1 [E, D, H], b1, w2 [E, H, D], b2}``
 * ``head.ln_f.{weight,bias}``, ``head.lm_head.weight``
 
+and for BERT (``models/bert.py``) the three embeddings and their
+``layer_norm``, each encoder layer's ``self_attn.{q,k,v,out}_proj``,
+``linear1``, ``linear2``, ``norm1``, ``norm2``, the ``pooler.dense`` and
+the heads' linears and norm.
+
 ``paddle_tpu``'s ``nn.Linear`` stores its weight ``[in, out]`` and
-torch's ``[out, in]``, so every linear weight is transposed on the way
-in.  The tensor-parallel form (``use_mp=True``, ``to_tensor_parallel()``)
+torch's ``[out, in]``, so every ``nn.Linear`` weight is transposed on the
+way in; every other parameter (embeddings, norms, the MoE router and
+expert stacks, which are parameters of their own in both packages) is
+copied as it is.  The tensor-parallel form (``use_mp=True``, ``to_tensor_parallel()``)
 keeps the JAX layouts and names — ``blocks.{i}.attn.qkv_weight [E, 3, H,
 hd]``, ``qkv_bias [3, 1, H, hd]``, ``out_weight [H, hd, E]``,
 ``out_bias [E]``, the column/row-parallel ``mlp.fc{1,2}.weight [in,

@@ -1,7 +1,7 @@
-// Flash attention for Hopper's tensor cores (sm_90a), bf16: the forward
-// kernel (B5a), the dK/dV kernel (B5b) and the dQ kernel (B5c).
+// Flash attention for Hopper's tensor cores (sm_90a), bf16 and fp16: the
+// forward kernel (B5a), the dK/dV kernel (B5b) and the dQ kernel (B5c).
 //
-// Replaces, for bf16 inputs at head dims 64 and 128, the three
+// Replaces, for bf16 and fp16 inputs at head dims 64 and 128, the three
 // pallas_calls of the upstream TPU flash-attention kernel that
 // paddle_tpu/nn/functional/attention.py (_flash_attention) calls,
 // jax/experimental/pallas/ops/tpu/flash_attention.py:
@@ -11,7 +11,9 @@
 // float32 inputs keep the scalar kernels of flash_attention.cu.
 //
 // Contract, as flash_attention.cu's: q, k, v, o, do, dq, dk, dv contiguous
-// [B, S, H, D] bf16; lse and di f32 [B, H, S]; segment ids int32 [B, S] or
+// [B, S, H, D] in one element type T, bf16 or fp16 (every kernel is a
+// template over T: wgmma takes .bf16 and .f16 operands at the same shapes,
+// and the TMA maps name the element type); lse and di f32 [B, H, S]; segment ids int32 [B, S] or
 // null; one length S for q and k, a multiple of 64; masks causal (key j
 // visible to query i iff j <= i) and segment ids, combined.
 //
@@ -20,10 +22,12 @@
 // tensor cores' 989 TFLOP/s set the bounds (0.0695, 0.139 and 0.104 ms),
 // well above HBM's (0.04 ms).  The design follows from that:
 // * Every product of a tile runs on the tensor cores as wgmma m64nNk16,
-//   bf16 operands and f32 accumulators in registers, one consumer
-//   warpgroup per 64 rows.  Rounding P and dS to bf16 before their
+//   T operands and f32 accumulators in registers, one consumer
+//   warpgroup per 64 rows.  Rounding P and dS to T before their
 //   products is what the TPU kernel does (p.astype(v.dtype),
-//   ds.T.astype(do.dtype), ds.astype(k.dtype)).
+//   ds.T.astype(do.dtype), ds.astype(k.dtype)).  In fp16 the rounded P is
+//   at most 1 and the scores stay in f32, so only dS and the outputs can
+//   leave fp16's range, as they can in the TPU kernel's fp16.
 // * Q K^T (forward, dQ), K Q^T and V dO^T (dK/dV) and dO V^T (dQ) read both
 //   operands from shared memory, K-major.  P V, P^T dO, dS^T Q and dS K
 //   take P, P^T, dS^T, dS as the register A operand, converted from the
@@ -35,7 +39,7 @@
 //   tensor maps over [B, S, H, D], so the H*D row stride costs nothing and
 //   rows past S arrive as zeros), and two consumer warpgroups; setmaxnreg
 //   moves registers from the producer (24) to the consumers (240).  Tiles
-//   land as bf16 in the 128-byte swizzle that wgmma reads without bank
+//   land as T in the 128-byte swizzle that wgmma reads without bank
 //   conflicts, in a ring of two stages handed over by mbarriers (full:
 //   the copies' bytes arrived; empty: every consumer warp is done).
 // * Forward: tile kt's Q K^T is issued together with tile kt-1's P V, and
@@ -70,13 +74,24 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
+using fp16 = __half;
+
+// dtype codes of the C entry points (ops/flash_attention.py _DTYPE_CODE)
+constexpr int kCodeBf16 = 1;
+constexpr int kCodeFp16 = 2;
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, fp16>::value;
 
 constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -137,9 +152,21 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two floats rounded to T (nearest even) as one 32-bit word, lo in the low
+// half: the register A operand of a wgmma, and a paired output store.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store2(T* dst, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2<T>(lo, hi);
 }
 
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile starting at
@@ -155,75 +182,102 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 }
 
 // -- wgmma -------------------------------------------------------------------
+// The accumulator operand lists of the wgmma shapes used here.
+#define WG_D32                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define WG_D64                                                              \
+  WG_D32, "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),  \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),      \
+      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),      \
+      "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),      \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),      \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),      \
+      "+f"(d[62]), "+f"(d[63])
+#define WG_R32                                                              \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define WG_R64                                                              \
+  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+         "%57, %58, %59, %60, %61, %62, %63"
+
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B in shared memory, both
-// K-major; bf16 in, f32 accumulators.  accumulate = 0 overwrites D.
+// K-major; TY ("bf16" or "f16") in, f32 accumulators.
+#define WGMMA_SS_N64(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+               WG_R32 "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                     \
+               : WG_D32                                                      \
+               : "l"(da), "l"(db), "r"(accumulate))
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], as WGMMA_SS_N64.
+#define WGMMA_SS_N128(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                   \
+               "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+               WG_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                      \
+               : WG_D64                                                       \
+               : "l"(da), "l"(db), "r"(accumulate))
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (T pairs in the
+// accumulator's row/column layout), B in shared memory, MN-major.
+#define WGMMA_RS_N64(TY)                                                     \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                  \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+               WG_R32 "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"       \
+               : WG_D32                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B in shared memory, both
+// K-major; T in, f32 accumulators.  accumulate = 0 overwrites D.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+  if constexpr (kIsHalf<T>)
+    WGMMA_SS_N64("f16");
+  else
+    WGMMA_SS_N64("bf16");
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B in shared memory, both
-// K-major; bf16 in, f32 accumulators.  accumulate = 0 overwrites D.
+// K-major; T in, f32 accumulators.  accumulate = 0 overwrites D.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+                                              uint64_t db, int accumulate) {
+  if constexpr (kIsHalf<T>)
+    WGMMA_SS_N128("f16");
+  else
+    WGMMA_SS_N128("bf16");
 }
 
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (bf16 pairs in the
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A in registers (T pairs in the
 // accumulator's row/column layout), B in shared memory, MN-major.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (kIsHalf<T>)
+    WGMMA_RS_N64("f16");
+  else
+    WGMMA_RS_N64("bf16");
 }
 
 // acc[D/64][32] += A (registers, 64 x 16) B, where B is 16 rows of a
 // swizzled [D/64 atoms][rows][64] tile, MN-major: one m64n64k16 product per
 // 64-column atom (the LBO field of the descriptor is then never read).
-template <int NA>
+template <typename T, int NA>
 __device__ __forceinline__ void wgmma_rs_atoms(float (&acc)[NA][32],
                                                const uint32_t (&a)[4],
                                                uint32_t b_addr,
                                                uint32_t atom_bytes) {
 #pragma unroll
   for (int hh = 0; hh < NA; ++hh)
-    wgmma_rs_n64(acc[hh], a, desc_sw128(b_addr + hh * atom_bytes, 16, 1024));
+    wgmma_rs_n64<T>(acc[hh], a,
+                    desc_sw128(b_addr + hh * atom_bytes, 16, 1024));
 }
 
 // -- mbarriers and TMA --------------------------------------------------------
@@ -320,12 +374,12 @@ struct FwdSmem {  // byte offsets from the 1024-aligned base
 };
 enum { kKFull, kVFull, kKEmpty, kVEmpty };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_sm90_kernel(__grid_constant__ const CUtensorMap tq,
                           __grid_constant__ const CUtensorMap tk,
                           __grid_constant__ const CUtensorMap tv,
-                          const int* __restrict__ seg, bf16* __restrict__ o,
+                          const int* __restrict__ seg, T* __restrict__ o,
                           float* __restrict__ lse, int H, int S, int causal,
                           float scale_log2) {
   using L = FwdSmem<D>;
@@ -431,7 +485,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
           16, 1024);
       const uint64_t db = desc_sw128(
           base + L::k_k(st) + (ks / 4) * (kFwdBN * 128) + step, 16, 1024);
-      wgmma_ss_n128(s, da, db, ks > 0);
+      wgmma_ss_n128<T>(s, da, db, ks > 0);
     }
     wgmma_commit();
   };
@@ -439,12 +493,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   auto issue_pv = [&](const uint32_t (&pa)[kFwdBN / 16][4], int st) {
 #pragma unroll
     for (int kk = 0; kk < kFwdBN / 16; ++kk)
-      wgmma_rs_atoms(oacc, pa[kk], base + L::k_v(st) + kk * (16 * 128),
+      wgmma_rs_atoms<T>(oacc, pa[kk], base + L::k_v(st) + kk * (16 * 128),
                      kFwdBN * 128);
     wgmma_commit();
   };
   // Online softmax of tile kt's raw scores (log2 domain: m is the row
-  // max times sm_scale log2 e): P (bf16, the A operand of P V) and the
+  // max times sm_scale log2 e): P (T, the A operand of P V) and the
   // rescale of the rows' earlier sums.  Masked scores become -inf, whose
   // exp2 is exactly 0; m starts at -1e30 and stays finite.  Releases the
   // tile's K once its segment ids are read.
@@ -488,7 +542,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         const float p0 = ex2(fmaf(s[8 * kk + 2 * i], scale_log2, -mi));
         const float p1 = ex2(fmaf(s[8 * kk + 2 * i + 1], scale_log2, -mi));
         l[i & 1] += p0 + p1;
-        pa[kk][i] = pack_bf16(p0, p1);
+        pa[kk][i] = pack2<T>(p0, p1);
       }
     }
   };
@@ -574,12 +628,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     const int row = row0 + 8 * r;
     const float inv = 1.f / l[r];
-    bf16* orow = o + ((size_t)(b * S + row) * H + h) * D;
+    T* orow = o + ((size_t)(b * S + row) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + cq) =
-          __floats2bfloat162_rn(oacc[j / 8][4 * (j % 8) + 2 * r] * inv,
-                                oacc[j / 8][4 * (j % 8) + 2 * r + 1] * inv);
+      store2<T>(orow + 8 * j + cq, oacc[j / 8][4 * (j % 8) + 2 * r] * inv,
+                oacc[j / 8][4 * (j % 8) + 2 * r + 1] * inv);
     if (lane % 4 == 0)
       lse[((size_t)b * H + h) * S + row] = (m[r] + log2f(l[r])) * kLn2;
   }
@@ -628,7 +681,7 @@ struct DkvSmem {  // byte offsets from the 1024-aligned base
   static constexpr uint32_t kBytes = kBarKV + 40 + 1024;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_bwd_dkv_sm90_kernel(
         __grid_constant__ const CUtensorMap tq,
@@ -636,8 +689,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         __grid_constant__ const CUtensorMap tv,
         __grid_constant__ const CUtensorMap tdo,
         const float* __restrict__ lse, const float* __restrict__ di,
-        const int* __restrict__ seg, bf16* __restrict__ dk,
-        bf16* __restrict__ dv, int H, int S, int causal, float scale,
+        const int* __restrict__ seg, T* __restrict__ dk,
+        T* __restrict__ dv, int H, int S, int causal, float scale,
         float scale_log2) {
   using L = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -734,7 +787,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const uint32_t a_off = (ks / 4) * (kBwdBN * 128) + cw * (64 * 128) +
                                (ks % 4) * 32;
         const uint32_t b_off = (ks / 4) * (kBwdBM * 128) + (ks % 4) * 32;
-        wgmma_ss_n64(sacc, desc_sw128(base + L::kK + a_off, 16, 1024),
+        wgmma_ss_n64<T>(sacc, desc_sw128(base + L::kK + a_off, 16, 1024),
                      desc_sw128(base + L::k_q(st) + b_off, 16, 1024), ks > 0);
       }
 #pragma unroll
@@ -742,7 +795,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         const uint32_t a_off = (ks / 4) * (kBwdBN * 128) + cw * (64 * 128) +
                                (ks % 4) * 32;
         const uint32_t b_off = (ks / 4) * (kBwdBM * 128) + (ks % 4) * 32;
-        wgmma_ss_n64(dpacc, desc_sw128(base + L::kV + a_off, 16, 1024),
+        wgmma_ss_n64<T>(dpacc, desc_sw128(base + L::kV + a_off, 16, 1024),
                      desc_sw128(base + L::k_do(st) + b_off, 16, 1024),
                      ks > 0);
       }
@@ -790,9 +843,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       for (int kk = 0; kk < kBwdBM / 16; ++kk) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          pa[kk][i] = pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+          pa[kk][i] = pack2<T>(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
           dsa[kk][i] =
-              pack_bf16(dpacc[8 * kk + 2 * i], dpacc[8 * kk + 2 * i + 1]);
+              pack2<T>(dpacc[8 * kk + 2 * i], dpacc[8 * kk + 2 * i + 1]);
         }
       }
 
@@ -805,11 +858,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBwdBM / 16; ++kk)
-        wgmma_rs_atoms(dv_acc, pa[kk], base + L::k_do(st) + kk * (16 * 128),
+        wgmma_rs_atoms<T>(dv_acc, pa[kk], base + L::k_do(st) + kk * (16 * 128),
                        kBwdBM * 128);
 #pragma unroll
       for (int kk = 0; kk < kBwdBM / 16; ++kk)
-        wgmma_rs_atoms(dk_acc, dsa[kk], base + L::k_q(st) + kk * (16 * 128),
+        wgmma_rs_atoms<T>(dk_acc, dsa[kk], base + L::k_q(st) + kk * (16 * 128),
                        kBwdBM * 128);
       wgmma_commit();
       wgmma_wait<0>();
@@ -826,10 +879,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     for (int j = 0; j < D / 8; ++j) {
       const float* dkj = &dk_acc[j / 8][4 * (j % 8) + 2 * r];
       const float* dvj = &dv_acc[j / 8][4 * (j % 8) + 2 * r];
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + cq) =
-          __floats2bfloat162_rn(dkj[0] * scale, dkj[1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + cq) =
-          __floats2bfloat162_rn(dvj[0], dvj[1]);
+      store2<T>(dk + off + 8 * j + cq, dkj[0] * scale, dkj[1] * scale);
+      store2<T>(dv + off + 8 * j + cq, dvj[0], dvj[1]);
     }
   }
 }
@@ -870,7 +921,7 @@ struct DqSmem {  // byte offsets from the 1024-aligned base
   static constexpr uint32_t kBytes = kBarQ + 40 + 1024;
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_sm90_kernel(
         __grid_constant__ const CUtensorMap tq,
@@ -878,7 +929,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         __grid_constant__ const CUtensorMap tv,
         __grid_constant__ const CUtensorMap tdo,
         const float* __restrict__ lse, const float* __restrict__ di,
-        const int* __restrict__ seg, bf16* __restrict__ dq, int H, int S,
+        const int* __restrict__ seg, T* __restrict__ dq, int H, int S,
         int causal, float scale, float scale_log2) {
   using L = DqSmem<D>;
   extern __shared__ uint8_t smem_raw[];
@@ -976,7 +1027,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         const uint32_t a_off =
             (ks / 4) * (kDqBM * 128) + cw * (64 * 128) + (ks % 4) * 32;
         const uint32_t b_off = (ks / 4) * (kDqBN * 128) + (ks % 4) * 32;
-        wgmma_ss_n64(sacc, desc_sw128(base + L::kQ + a_off, 16, 1024),
+        wgmma_ss_n64<T>(sacc, desc_sw128(base + L::kQ + a_off, 16, 1024),
                      desc_sw128(base + L::k_k(st) + b_off, 16, 1024), ks > 0);
       }
 #pragma unroll
@@ -984,7 +1035,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
         const uint32_t a_off =
             (ks / 4) * (kDqBM * 128) + cw * (64 * 128) + (ks % 4) * 32;
         const uint32_t b_off = (ks / 4) * (kDqBN * 128) + (ks % 4) * 32;
-        wgmma_ss_n64(dpacc, desc_sw128(base + L::kDo + a_off, 16, 1024),
+        wgmma_ss_n64<T>(dpacc, desc_sw128(base + L::kDo + a_off, 16, 1024),
                      desc_sw128(base + L::k_v(st) + b_off, 16, 1024),
                      ks > 0);
       }
@@ -994,7 +1045,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       fence_regs(dpacc);
 
       // P = exp2(S scale log2e - lse log2e), dS = P (dP - di), rounded to
-      // bf16 as the A operand of dS K; masked entries are exactly 0
+      // T as the A operand of dS K; masked entries are exactly 0
       const int* seg_k = reinterpret_cast<const int*>(gbase + L::seg_k(st));
       uint32_t dsa[kDqBN / 16][4];
       auto probs = [&](auto masked) {
@@ -1017,7 +1068,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
               }
               ds[e] = p * (dpacc[x] - dis[r]);
             }
-            dsa[kk][i] = pack_bf16(ds[0], ds[1]);
+            dsa[kk][i] = pack2<T>(ds[0], ds[1]);
           }
         }
       };
@@ -1033,7 +1084,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqBN / 16; ++kk)
-        wgmma_rs_atoms(dq_acc, dsa[kk], base + L::k_k(st) + kk * (16 * 128),
+        wgmma_rs_atoms<T>(dq_acc, dsa[kk], base + L::k_k(st) + kk * (16 * 128),
                        kDqBN * 128);
       wgmma_commit();
       wgmma_wait<0>();
@@ -1044,12 +1095,11 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bf16* drow = dq + ((size_t)(b * S + row0 + 8 * r) * H + h) * D;
+    T* drow = dq + ((size_t)(b * S + row0 + 8 * r) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * j + cq) =
-          __floats2bfloat162_rn(dq_acc[j / 8][4 * (j % 8) + 2 * r] * scale,
-                                dq_acc[j / 8][4 * (j % 8) + 2 * r + 1] * scale);
+      store2<T>(drow + 8 * j + cq, dq_acc[j / 8][4 * (j % 8) + 2 * r] * scale,
+                dq_acc[j / 8][4 * (j % 8) + 2 * r + 1] * scale);
   }
 }
 
@@ -1061,15 +1111,21 @@ size_t smem_bytes(int kernel, int D) {
   return D == 128 ? DqSmem<128>::kBytes : DqSmem<64>::kBytes;
 }
 
-const void* kernel_fn(int kernel, int D) {
+template <typename T>
+const void* kernel_fn_t(int kernel, int D) {
   if (kernel == 0)
-    return D == 128 ? (const void*)flash_fwd_sm90_kernel<128>
-                    : (const void*)flash_fwd_sm90_kernel<64>;
+    return D == 128 ? (const void*)flash_fwd_sm90_kernel<T, 128>
+                    : (const void*)flash_fwd_sm90_kernel<T, 64>;
   if (kernel == 1)
-    return D == 128 ? (const void*)flash_bwd_dkv_sm90_kernel<128>
-                    : (const void*)flash_bwd_dkv_sm90_kernel<64>;
-  return D == 128 ? (const void*)flash_bwd_dq_sm90_kernel<128>
-                  : (const void*)flash_bwd_dq_sm90_kernel<64>;
+    return D == 128 ? (const void*)flash_bwd_dkv_sm90_kernel<T, 128>
+                    : (const void*)flash_bwd_dkv_sm90_kernel<T, 64>;
+  return D == 128 ? (const void*)flash_bwd_dq_sm90_kernel<T, 128>
+                  : (const void*)flash_bwd_dq_sm90_kernel<T, 64>;
+}
+
+const void* kernel_fn(int kernel, int dtype, int D) {
+  return dtype == kCodeFp16 ? kernel_fn_t<fp16>(kernel, D)
+                            : kernel_fn_t<bf16>(kernel, D);
 }
 
 // cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPoint: the library
@@ -1100,9 +1156,11 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The TMA map of a [B, S, H, D] bf16 tensor as 4-d (D, H, S, B): boxes of
-// 64 columns of one head over `rows` rows of S, 128-byte swizzled; rows
-// past S read as zeros.  0, or a nonzero code when the map cannot be made.
+// The TMA map of a [B, S, H, D] tensor of T (2-byte bf16 or fp16) as 4-d
+// (D, H, S, B): boxes of 64 columns of one head over `rows` rows of S,
+// 128-byte swizzled; rows past S read as zeros.  0, or a nonzero code when
+// the map cannot be made.
+template <typename T>
 int tensor_map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H,
                     int D, int rows) {
   const EncodeTiledFn encode = encode_tiled();
@@ -1114,114 +1172,156 @@ int tensor_map_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H,
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -3;
 }
 
-bool supported(int kernel, int D, int S) {
-  return kernel >= 0 && kernel <= 2 && (D == 64 || D == 128) && S > 0 &&
-         S % 64 == 0;
+bool supported(int kernel, int dtype, int D, int S) {
+  return kernel >= 0 && kernel <= 2 &&
+         (dtype == kCodeBf16 || dtype == kCodeFp16) && (D == 64 || D == 128) &&
+         S > 0 && S % 64 == 0;
+}
+
+template <typename T>
+int launch_fwd(const void* q, const void* k, const void* v, const void* seg,
+               void* o, void* lse, int B, int H, int S, int D, int causal,
+               float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  int rc = 0;
+  if ((rc = tensor_map_bshd<T>(&tq, q, B, S, H, D, kFwdBM)) ||
+      (rc = tensor_map_bshd<T>(&tk, k, B, S, H, D, kFwdBN)) ||
+      (rc = tensor_map_bshd<T>(&tv, v, B, S, H, D, kFwdBN)))
+    return rc;
+  const dim3 grid(B * H, (S + kFwdBM - 1) / kFwdBM);
+  const float sl2 = scale * kLog2e;
+  if (D == 128)
+    flash_fwd_sm90_kernel<T, 128><<<grid, kFwdThreads, smem_bytes(0, D), st>>>(
+        tq, tk, tv, (const int*)seg, (T*)o, (float*)lse, H, S, causal, sl2);
+  else
+    flash_fwd_sm90_kernel<T, 64><<<grid, kFwdThreads, smem_bytes(0, D), st>>>(
+        tq, tk, tv, (const int*)seg, (T*)o, (float*)lse, H, S, causal, sl2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_dkv(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* di,
+                   const void* seg, void* dk, void* dv, int B, int H, int S,
+                   int D, int causal, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = 0;
+  if ((rc = tensor_map_bshd<T>(&tq, q, B, S, H, D, kBwdBM)) ||
+      (rc = tensor_map_bshd<T>(&tk, k, B, S, H, D, kBwdBN)) ||
+      (rc = tensor_map_bshd<T>(&tv, v, B, S, H, D, kBwdBN)) ||
+      (rc = tensor_map_bshd<T>(&tdo, dout, B, S, H, D, kBwdBM)))
+    return rc;
+  const dim3 grid(B * H, (S + kBwdBN - 1) / kBwdBN);
+  const float sl2 = scale * kLog2e;
+  if (D == 128)
+    flash_bwd_dkv_sm90_kernel<T, 128>
+        <<<grid, kBwdThreads, smem_bytes(1, D), st>>>(
+            tq, tk, tv, tdo, (const float*)lse, (const float*)di,
+            (const int*)seg, (T*)dk, (T*)dv, H, S, causal, scale, sl2);
+  else
+    flash_bwd_dkv_sm90_kernel<T, 64>
+        <<<grid, kBwdThreads, smem_bytes(1, D), st>>>(
+            tq, tk, tv, tdo, (const float*)lse, (const float*)di,
+            (const int*)seg, (T*)dk, (T*)dv, H, S, causal, scale, sl2);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_dq(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* di,
+                  const void* seg, void* dq, int B, int H, int S, int D,
+                  int causal, float scale, cudaStream_t st) {
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = 0;
+  if ((rc = tensor_map_bshd<T>(&tq, q, B, S, H, D, kDqBM)) ||
+      (rc = tensor_map_bshd<T>(&tk, k, B, S, H, D, kDqBN)) ||
+      (rc = tensor_map_bshd<T>(&tv, v, B, S, H, D, kDqBN)) ||
+      (rc = tensor_map_bshd<T>(&tdo, dout, B, S, H, D, kDqBM)))
+    return rc;
+  const dim3 grid(B * H, (S + kDqBM - 1) / kDqBM);
+  const float sl2 = scale * kLog2e;
+  if (D == 128)
+    flash_bwd_dq_sm90_kernel<T, 128>
+        <<<grid, kDqThreads, smem_bytes(2, D), st>>>(
+            tq, tk, tv, tdo, (const float*)lse, (const float*)di,
+            (const int*)seg, (T*)dq, H, S, causal, scale, sl2);
+  else
+    flash_bwd_dq_sm90_kernel<T, 64>
+        <<<grid, kDqThreads, smem_bytes(2, D), st>>>(
+            tq, tk, tv, tdo, (const float*)lse, (const float*)di,
+            (const int*)seg, (T*)dq, H, S, causal, scale, sl2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// kernel 0 = fwd, 1 = bwd_dkv, 2 = bwd_dq; D = 64 or 128.
+// kernel 0 = fwd, 1 = bwd_dkv, 2 = bwd_dq; dtype 1 = bf16, 2 = fp16 (the
+// codes of flash_attention.cu's entry points); D = 64 or 128.
 size_t flash_sm90_smem_bytes(int kernel, int D) {
-  return supported(kernel, D, 64) ? smem_bytes(kernel, D) : 0;
+  return supported(kernel, kCodeBf16, D, 64) ? smem_bytes(kernel, D) : 0;
 }
 
 // Raise a kernel's dynamic shared-memory ceiling to what it uses, on the
-// current device; once per (kernel, D, device), before the first launch.
-int flash_sm90_prepare(int kernel, int D) {
-  if (!supported(kernel, D, 64)) return -1;
-  return (int)cudaFuncSetAttribute(kernel_fn(kernel, D),
+// current device; once per (kernel, dtype, D, device), before the first
+// launch.
+int flash_sm90_prepare(int kernel, int dtype, int D) {
+  if (!supported(kernel, dtype, D, 64)) return -1;
+  return (int)cudaFuncSetAttribute(kernel_fn(kernel, dtype, D),
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem_bytes(kernel, D));
 }
 
-int flash_fwd_sm90_launch(const void* q, const void* k, const void* v,
-                          const void* seg, void* o, void* lse, int B, int H,
-                          int S, int D, int causal, float scale,
+int flash_fwd_sm90_launch(int dtype, const void* q, const void* k,
+                          const void* v, const void* seg, void* o, void* lse,
+                          int B, int H, int S, int D, int causal, float scale,
                           void* stream) {
-  if (!supported(0, D, S)) return -1;
-  CUtensorMap tq, tk, tv;
-  int rc = 0;
-  if ((rc = tensor_map_bshd(&tq, q, B, S, H, D, kFwdBM)) ||
-      (rc = tensor_map_bshd(&tk, k, B, S, H, D, kFwdBN)) ||
-      (rc = tensor_map_bshd(&tv, v, B, S, H, D, kFwdBN)))
-    return rc;
-  const dim3 grid(B * H, (S + kFwdBM - 1) / kFwdBM);
-  const float sl2 = scale * kLog2e;
+  if (!supported(0, dtype, D, S)) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    flash_fwd_sm90_kernel<128><<<grid, kFwdThreads, smem_bytes(0, D), st>>>(
-        tq, tk, tv, (const int*)seg, (bf16*)o, (float*)lse, H, S, causal,
-        sl2);
-  else
-    flash_fwd_sm90_kernel<64><<<grid, kFwdThreads, smem_bytes(0, D), st>>>(
-        tq, tk, tv, (const int*)seg, (bf16*)o, (float*)lse, H, S, causal,
-        sl2);
-  return (int)cudaGetLastError();
+  return dtype == kCodeFp16
+             ? launch_fwd<fp16>(q, k, v, seg, o, lse, B, H, S, D, causal,
+                                scale, st)
+             : launch_fwd<bf16>(q, k, v, seg, o, lse, B, H, S, D, causal,
+                                scale, st);
 }
 
-int flash_bwd_dkv_sm90_launch(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* di, const void* seg, void* dk,
-                              void* dv, int B, int H, int S, int D,
-                              int causal, float scale, void* stream) {
-  if (!supported(1, D, S)) return -1;
-  CUtensorMap tq, tk, tv, tdo;
-  int rc = 0;
-  if ((rc = tensor_map_bshd(&tq, q, B, S, H, D, kBwdBM)) ||
-      (rc = tensor_map_bshd(&tk, k, B, S, H, D, kBwdBN)) ||
-      (rc = tensor_map_bshd(&tv, v, B, S, H, D, kBwdBN)) ||
-      (rc = tensor_map_bshd(&tdo, dout, B, S, H, D, kBwdBM)))
-    return rc;
-  const dim3 grid(B * H, (S + kBwdBN - 1) / kBwdBN);
-  const float sl2 = scale * kLog2e;
+int flash_bwd_dkv_sm90_launch(int dtype, const void* q, const void* k,
+                              const void* v, const void* dout,
+                              const void* lse, const void* di,
+                              const void* seg, void* dk, void* dv, int B,
+                              int H, int S, int D, int causal, float scale,
+                              void* stream) {
+  if (!supported(1, dtype, D, S)) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    flash_bwd_dkv_sm90_kernel<128>
-        <<<grid, kBwdThreads, smem_bytes(1, D), st>>>(
-            tq, tk, tv, tdo, (const float*)lse, (const float*)di,
-            (const int*)seg, (bf16*)dk, (bf16*)dv, H, S, causal, scale, sl2);
-  else
-    flash_bwd_dkv_sm90_kernel<64><<<grid, kBwdThreads, smem_bytes(1, D), st>>>(
-        tq, tk, tv, tdo, (const float*)lse, (const float*)di,
-        (const int*)seg, (bf16*)dk, (bf16*)dv, H, S, causal, scale, sl2);
-  return (int)cudaGetLastError();
+  return dtype == kCodeFp16
+             ? launch_bwd_dkv<fp16>(q, k, v, dout, lse, di, seg, dk, dv, B,
+                                    H, S, D, causal, scale, st)
+             : launch_bwd_dkv<bf16>(q, k, v, dout, lse, di, seg, dk, dv, B,
+                                    H, S, D, causal, scale, st);
 }
 
-int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
+int flash_bwd_dq_sm90_launch(int dtype, const void* q, const void* k,
+                             const void* v, const void* dout, const void* lse,
                              const void* di, const void* seg, void* dq, int B,
                              int H, int S, int D, int causal, float scale,
                              void* stream) {
-  if (!supported(2, D, S)) return -1;
-  CUtensorMap tq, tk, tv, tdo;
-  int rc = 0;
-  if ((rc = tensor_map_bshd(&tq, q, B, S, H, D, kDqBM)) ||
-      (rc = tensor_map_bshd(&tk, k, B, S, H, D, kDqBN)) ||
-      (rc = tensor_map_bshd(&tv, v, B, S, H, D, kDqBN)) ||
-      (rc = tensor_map_bshd(&tdo, dout, B, S, H, D, kDqBM)))
-    return rc;
-  const dim3 grid(B * H, (S + kDqBM - 1) / kDqBM);
-  const float sl2 = scale * kLog2e;
+  if (!supported(2, dtype, D, S)) return -1;
   cudaStream_t st = (cudaStream_t)stream;
-  if (D == 128)
-    flash_bwd_dq_sm90_kernel<128><<<grid, kDqThreads, smem_bytes(2, D), st>>>(
-        tq, tk, tv, tdo, (const float*)lse, (const float*)di, (const int*)seg,
-        (bf16*)dq, H, S, causal, scale, sl2);
-  else
-    flash_bwd_dq_sm90_kernel<64><<<grid, kDqThreads, smem_bytes(2, D), st>>>(
-        tq, tk, tv, tdo, (const float*)lse, (const float*)di, (const int*)seg,
-        (bf16*)dq, H, S, causal, scale, sl2);
-  return (int)cudaGetLastError();
+  return dtype == kCodeFp16
+             ? launch_bwd_dq<fp16>(q, k, v, dout, lse, di, seg, dq, B, H, S,
+                                   D, causal, scale, st)
+             : launch_bwd_dq<bf16>(q, k, v, dout, lse, di, seg, dq, B, H, S,
+                                   D, causal, scale, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,5 @@
-"""The ``(mp, dp)`` serving mesh — counterpart of
-``paddle_tpu/distributed/mesh.py`` (``serving_mesh``, ``set_mesh``,
-``get_mesh``).
+"""Device meshes — counterpart of ``paddle_tpu/distributed/mesh.py``
+(``build_mesh``, ``serving_mesh``, ``set_mesh``, ``get_mesh``).
 
 The JAX engine is a single controller: one host process drives GSPMD
 over ``mp * dp`` devices.  The port keeps that shape.  A mesh is a list of
@@ -15,10 +14,23 @@ back quietly: a mesh gets the devices it is given.
 Rank order is the JAX ``build_mesh(mp=, dp=)`` order: the device list
 reshapes to ``[dp, mp]`` (dp outer, mp inner), so rank ``(m, d)`` is
 ``devices[d * mp + m]`` in both packages and holds the same shard.
+
+``build_mesh`` is the hybrid-parallel grid over the six axes of the JAX
+package (``dp, sharding, pp, mp, sp, ep``, outer to inner), one device a
+rank: a ``DeviceMesh``.  Sequence parallelism
+(``distributed/ring.py``) runs over its ``sp`` axis.  Training over a
+mesh (``TrainStep(mesh=...)``) is ROADMAP Queue A 10's.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+
+# canonical hybrid-parallel axis order (outer -> inner), as the JAX
+# package's
+AXES = ("dp", "sharding", "pp", "mp", "sp", "ep")
 
 _global_mesh = None
 
@@ -106,6 +118,55 @@ def serving_mesh(mp=1, dp=1, devices=None):
             f"them explicitly, e.g. ServingMesh({mp}, {dp}, "
             f"devices=[torch.device('cuda:0')] * {need})")
     return ServingMesh(mp, dp, devices[:need])
+
+
+class DeviceMesh:
+    """A grid of ranks over the six ``AXES``, one device a rank (repeats
+    allowed: several ranks on one card).  ``shape`` maps every axis to its
+    size; ``devices`` is the ``[dp, sharding, pp, mp, sp, ep]`` object
+    array of ``torch.device``s, the JAX mesh's device order."""
+
+    def __init__(self, sizes, devices):
+        self.shape = {a: int(sizes[a]) for a in AXES}
+        self.devices = np.empty(len(devices), dtype=object)
+        self.devices[:] = devices
+        self.devices = self.devices.reshape([self.shape[a] for a in AXES])
+
+    def axis_devices(self, axis):
+        """The devices along ``axis``, every other axis at index 0, in rank
+        order."""
+        return list(self.devices[tuple(slice(None) if a == axis else 0
+                                       for a in AXES)])
+
+
+def build_mesh(dp=1, sharding=1, pp=1, mp=1, sp=1, ep=1, devices=None):
+    """A hybrid-parallel ``DeviceMesh``, as the JAX package's
+    ``build_mesh``: every axis exists (size 1 when not asked for); all
+    sizes 1 puts every device on ``dp``; ``dp=-1`` fills dp with what the
+    other axes leave.  ``devices``: the ranks' devices (default every
+    CUDA card); their count must be the axes' product."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [_indexed(torch.device(d)) for d in devices]
+    n = len(devices)
+    sizes = {"dp": dp, "sharding": sharding, "pp": pp, "mp": mp, "sp": sp,
+             "ep": ep}
+    used = math.prod(sizes.values())
+    if used == 1:
+        sizes["dp"] = n
+        used = n
+    elif sizes["dp"] == -1:
+        rest = math.prod(v for k, v in sizes.items() if k != "dp")
+        if rest == 0 or n % rest != 0:
+            raise ValueError(
+                f"cannot fill dp: {n} devices not divisible by {rest}")
+        sizes["dp"] = n // rest
+        used = math.prod(sizes.values())
+    if used != n:
+        raise ValueError(
+            f"mesh axes {sizes} require {used} devices, have {n}")
+    return DeviceMesh(sizes, devices)
 
 
 def set_mesh(mesh):

@@ -44,6 +44,7 @@ prompt-lookup speculative).
 """
 from __future__ import annotations
 
+import copy
 import math
 import threading
 from contextlib import contextmanager
@@ -55,6 +56,8 @@ from torch.nn import functional as F
 from .. import amp
 from ..device import resolve_device
 from ..distributed.fleet.utils import recompute
+from ..distributed.moe import ExpertFFN, MoELayer
+from ..distributed.ring import ring_attention, ulysses_attention
 from ..distributed.sharding import (ColumnParallelLinear, RowParallelLinear,
                                     VocabParallelEmbedding)
 from ..nn.functional import (apply_layer_norm, apply_linear, cross_entropy,
@@ -258,15 +261,23 @@ class GPTAttention(nn.Module):
     explicitly, as in the JAX package — ``qkv_weight [E, 3, H, hd]``,
     ``qkv_bias [3, 1, H, hd]``, ``out_weight [H, hd, E]``, ``out_bias
     [E]`` — so a mesh splits heads without a reshape across a split
-    dimension; outside a mesh it computes the dense form's math."""
+    dimension; outside a mesh it computes the dense form's math.
 
-    def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False):
+    ``use_sp`` (True / ``"ring"`` or ``"ulysses"``) runs the training
+    forward's attention through ``distributed.ring``'s sequence-parallel
+    attention over the process mesh's ``sp`` axis (``set_mesh``), as the
+    JAX package does; a KV-cache forward and the serving windows keep the
+    plain attention."""
+
+    def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False,
+                 use_sp=False):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = hidden_size // num_heads
         self.hidden_size = hidden_size
         self.dropout = dropout
         self.use_mp = use_mp
+        self.use_sp = use_sp
         # the layer whose LoRA factors ``_out`` gathers; GPTModel stamps
         # each block's index
         self._layer_idx = 0
@@ -344,16 +355,40 @@ class GPTAttention(nn.Module):
         query to its own document's keys.  With ``cache`` (k, v ``[B, P,
         H, hd]``, P may be 0) the window's K/V are appended to it and the
         queries attend over all P + S keys under the bottom-right causal
-        diagonal; returns (out, (k, v))."""
+        diagonal; returns (out, (k, v)).
+
+        Under ``use_sp`` (no cache) the causal attention is
+        ``ring_attention`` or ``ulysses_attention`` over the ``sp`` axis;
+        with no ``sp`` mesh set that is the single block of the JAX
+        package's degenerate ring: ``_reference_attention`` in the
+        activations' dtype (never the flash op, at any length), or in
+        training with dropout the f32 block with dropout on the
+        probabilities.  Packed documents are refused there."""
+        if doc_segments is not None and self.use_sp and cache is None:
+            raise NotImplementedError(
+                "packed-sequence attention is not supported under "
+                "sequence parallelism (the ring/all-to-all kernels "
+                "build their own causal masks)")
         q, k, v = self._qkv_step(x)
         if cache is not None:
             if cache[0].shape[1]:
                 k = torch.cat([cache[0], k], dim=1)
                 v = torch.cat([cache[1], v], dim=1)
             cache = (k, v)
-        out = self._out(scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=self.dropout,
-            training=self.training, segment_ids=doc_segments))
+        if self.use_sp and cache is None:
+            dp = self.dropout if (self.training and self.dropout) else 0.0
+            gen = None
+            if dp:
+                gen = (torch.cuda.default_generators[q.device.index or 0]
+                       if q.device.type == "cuda" else torch.default_generator)
+            sp_attn = (ulysses_attention if self.use_sp == "ulysses"
+                       else ring_attention)
+            out = self._out(sp_attn(q, k, v, axis="sp", causal=True,
+                                    dropout_p=dp, rng_key=gen))
+        else:
+            out = self._out(scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout,
+                training=self.training, segment_ids=doc_segments))
         return out if cache is None else (out, cache)
 
     def decode(self, x, k_buf, v_buf, pos):
@@ -553,21 +588,30 @@ class GPTMLP(nn.Module):
 
     def forward(self, x):
         return self.dropout(apply_linear(
-            self.fc2, gelu(apply_linear(self.fc1, x))))
+            self.fc2, gelu(apply_linear(self.fc1, x), approximate=True)))
 
 
 class GPTBlock(nn.Module):
     """Pre-LN transformer block.  ``use_recompute`` runs the block's
     training forward (``_inner``) through ``fleet.utils.recompute`` with
-    ``recompute_policy``."""
+    ``recompute_policy``.  ``moe_experts`` > 0 swaps the MLP for a
+    ``MoELayer`` of that many experts (its defaults: k=2, capacity factor
+    2.0); every window below then feeds the MoE the whole ``[B, W, E]``
+    window, padding and idle lanes included, as the JAX package's
+    windows do."""
 
     def __init__(self, hidden_size, num_heads, dropout=0.1, use_mp=False,
-                 use_recompute=False, recompute_policy=None):
+                 use_recompute=False, moe_experts=0, recompute_policy=None,
+                 use_sp=False):
         super().__init__()
         self.ln1 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.attn = GPTAttention(hidden_size, num_heads, dropout, use_mp)
+        self.attn = GPTAttention(hidden_size, num_heads, dropout, use_mp,
+                                 use_sp=use_sp)
         self.ln2 = nn.LayerNorm(hidden_size, eps=1e-5)
-        self.mlp = GPTMLP(hidden_size, dropout=dropout, use_mp=use_mp)
+        if moe_experts:
+            self.mlp = MoELayer(hidden_size, num_experts=moe_experts)
+        else:
+            self.mlp = GPTMLP(hidden_size, dropout=dropout, use_mp=use_mp)
         self.use_recompute = use_recompute
         self.recompute_policy = recompute_policy
 
@@ -670,14 +714,6 @@ class GPTLMHead(nn.Module):
         return apply_linear(self.lm_head, apply_layer_norm(self.ln_f, x))
 
 
-# knobs of the JAX GPTModel that the port does not carry yet, each with
-# the ROADMAP item that ports it
-_UNPORTED = {
-    "use_sp": "Queue A 12 (distributed ring/ulysses)",
-    "moe_experts": "Queue A 12 (distributed moe)",
-}
-
-
 def packed_doc_inputs(doc_lens, seq, device=None):
     """Packed-sequence (several documents a row) attention inputs, the
     JAX package's ``packed_doc_inputs``.
@@ -732,8 +768,10 @@ class GPTModel(nn.Module):
     activations in backward (``recompute_policy``: a
     ``fleet.utils.REMAT_POLICIES`` key); ``scan_layers`` stacks the
     blocks' parameters (``GPTScanBlocks``; the dense block only).
-    ``moe_every`` is the JAX package's MoE spacing, inert without
-    ``moe_experts``, which is not ported."""
+    ``moe_experts`` > 0 makes every ``moe_every``-th block (1-based) an
+    MoE block (``distributed.moe.MoELayer``); ``TrainStep`` adds their
+    aux loss.  ``use_sp`` (True / ``"ring"`` / ``"ulysses"``) runs the
+    training attention sequence-parallel (``GPTAttention``)."""
 
     def __init__(self, num_layers=12, hidden_size=768, num_heads=12,
                  vocab_size=50304, max_position=1024, dropout=0.1,
@@ -749,12 +787,6 @@ class GPTModel(nn.Module):
                 "tensor/sequence-parallel and MoE variants use the "
                 "unrolled form (their blocks are not homogeneous "
                 "scan bodies)")
-        knobs = dict(use_sp=use_sp, moe_experts=moe_experts)
-        for name, value in knobs.items():
-            if value:
-                raise NotImplementedError(
-                    f"GPTModel({name}={value!r}) is not ported yet "
-                    f"(ROADMAP {_UNPORTED[name]})")
         # sequence-chunk size of the fused head + CE (see
         # nn/functional/loss.py fused_linear_cross_entropy)
         self.fused_loss = fused_loss
@@ -778,8 +810,12 @@ class GPTModel(nn.Module):
             self.blocks = nn.ModuleList([
                 GPTBlock(hidden_size, num_heads, dropout, use_mp,
                          use_recompute=use_recompute,
-                         recompute_policy=recompute_policy)
-                for _ in range(num_layers)])
+                         moe_experts=(moe_experts
+                                      if moe_experts
+                                      and (i + 1) % moe_every == 0
+                                      else 0),
+                         recompute_policy=recompute_policy, use_sp=use_sp)
+                for i in range(num_layers)])
             for i, blk in enumerate(self.blocks):
                 blk.attn._layer_idx = i
         self.head = GPTLMHead(hidden_size, vocab_size, use_mp)
@@ -924,12 +960,21 @@ class GPTModel(nn.Module):
         weight-only int8) are refused.  The new model lies on this one's
         device and dtype, in eval mode.  A ``scan_layers`` model relayouts
         its unrolled twin."""
+        return self._tensor_parallel()
+
+    @torch.no_grad()
+    def _tensor_parallel(self, keep_moe=False):
+        """``to_tensor_parallel``; with ``keep_moe`` an MoE block keeps its
+        ``MoELayer`` (a copy: router and expert stacks replicated over
+        mp), the form the serving mesh shards, as the JAX engine's GSPMD
+        shards an MoE model's attention and leaves its experts whole."""
         if self.scan_layers:
             return self._sync_decode_twin().to_tensor_parallel()
         if self.blocks[0].attn.use_mp:
             return self
         for i, blk in enumerate(self.blocks):
-            if not hasattr(blk.mlp, "fc1"):
+            moe = isinstance(blk.mlp, MoELayer)
+            if not hasattr(blk.mlp, "fc1") and not (moe and keep_moe):
                 raise ValueError(
                     "to_tensor_parallel supports the dense GPT variant "
                     "only — MoE blocks already carry their expert-parallel "
@@ -939,10 +984,11 @@ class GPTModel(nn.Module):
                     "to_tensor_parallel supports the dense GPT variant "
                     "only — sequence-parallel attention shards the "
                     "sequence axis, not heads")
-            for name, lin in (("attn.qkv_proj", blk.attn.qkv_proj),
-                              ("attn.out_proj", blk.attn.out_proj),
-                              ("mlp.fc1", blk.mlp.fc1),
-                              ("mlp.fc2", blk.mlp.fc2)):
+            lins = [("attn.qkv_proj", blk.attn.qkv_proj),
+                    ("attn.out_proj", blk.attn.out_proj)]
+            if not moe:
+                lins += [("mlp.fc1", blk.mlp.fc1), ("mlp.fc2", blk.mlp.fc2)]
+            for name, lin in lins:
                 if not isinstance(lin, nn.Linear):
                     raise ValueError(
                         f"to_tensor_parallel cannot relayout blocks[{i}]."
@@ -972,6 +1018,9 @@ class GPTModel(nn.Module):
                 (ta.qkv_bias, sa.qkv_proj.bias.reshape(3, H, hd)[:, None]),
                 (ta.out_weight, sa.out_proj.weight.t().reshape(H, hd, E)),
                 (ta.out_bias, sa.out_proj.bias)]
+            if isinstance(sb.mlp, MoELayer):
+                tb.mlp = copy.deepcopy(sb.mlp)
+                continue
             for fc in ("fc1", "fc2"):
                 copies += [
                     (getattr(tb.mlp, fc).weight,
@@ -1661,9 +1710,9 @@ class GPTModel(nn.Module):
 
 def _init_module(mod, gen, layer=None):
     """The reference initialization of one module's own weights:
-    Normal(0, 0.02) for embeddings and linear weights, zero biases,
-    LayerNorm at 1 / 0.  ``layer`` selects index ``layer`` of stacked
-    parameters."""
+    Normal(0, 0.02) for embeddings, linear weights, MoE routers and
+    expert stacks, zero biases, LayerNorm at 1 / 0.  ``layer`` selects
+    index ``layer`` of stacked parameters."""
     def at(t):
         return t if layer is None else t[layer]
 
@@ -1672,6 +1721,13 @@ def _init_module(mod, gen, layer=None):
         at(mod.weight).normal_(0.0, 0.02, generator=gen)
         if getattr(mod, "bias", None) is not None:
             at(mod.bias).zero_()
+    elif isinstance(mod, MoELayer):
+        at(mod.gate).normal_(0.0, 0.02, generator=gen)
+    elif isinstance(mod, ExpertFFN):
+        at(mod.w1).normal_(0.0, 0.02, generator=gen)
+        at(mod.w2).normal_(0.0, 0.02, generator=gen)
+        at(mod.b1).zero_()
+        at(mod.b2).zero_()
     elif isinstance(mod, GPTAttention) and mod.use_mp:
         at(mod.qkv_weight).normal_(0.0, 0.02, generator=gen)
         at(mod.out_weight).normal_(0.0, 0.02, generator=gen)

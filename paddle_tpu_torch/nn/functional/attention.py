@@ -6,7 +6,11 @@
 explicit mask, at ``seq >= FLASH_MIN_SEQ``, with both lengths multiples
 of 128 and ``head_dim % 64 == 0``, attention goes to the flash op
 (``ops/flash_attention.py``); everything else takes
-``_reference_attention``, which materializes the scores.  The flash op
+``_reference_attention``, which materializes the scores.  A call with
+``attn_mask`` is ``scaled_dot_product_attention_masked`` (the JAX
+package's primitive of that name): the reference attention under a bool
+or additive mask, through its own amp site, which is on no list, so O1
+leaves it in its inputs' dtype.  The flash op
 also needs one length for q and k: the upstream kernel's causal
 diagonal is top-left and the reference's bottom-right, and the two agree
 only when the lengths are equal (training always has them equal).
@@ -78,6 +82,18 @@ def _sdpa(q, k, v, segment_ids=None, mask=None, scale=None,
     return _reference_attention(q, k, v, mask, scale, is_causal)
 
 
+def scaled_dot_product_attention_masked(query, key, value, mask, scale=None,
+                                        is_causal=False):
+    """``_reference_attention`` under ``mask`` ``[B or 1, H or 1, Sq,
+    Sk]``: bool (False masks a pair at the scores' dtype minimum) or
+    additive (added to the scores, which promotes bf16 scores beside an
+    f32 mask to f32, as jnp does).  q, k, v and the mask pass the
+    ``scaled_dot_product_attention_masked`` amp site."""
+    query, key, value, mask = amp.cast_inputs(
+        "scaled_dot_product_attention_masked", query, key, value, mask)
+    return _reference_attention(query, key, value, mask, scale, is_causal)
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None,
@@ -85,19 +101,21 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Inputs ``[batch, seq, num_heads, head_dim]``.  ``segment_ids``
     ``[B, S]`` int32 blocks attention to same-segment pairs.  Dropout
     (``dropout_p`` in training) applies to the attention OUTPUT, as the
-    JAX package applies it.  q, k and v pass the
-    ``scaled_dot_product_attention`` amp site (O1 casts them to bf16)."""
-    query, key, value = amp.cast_inputs("scaled_dot_product_attention",
-                                        query, key, value)
+    JAX package applies it.  Without a mask, q, k and v pass the
+    ``scaled_dot_product_attention`` amp site (O1 casts them to bf16);
+    with one, the call is ``scaled_dot_product_attention_masked``."""
     if attn_mask is not None and segment_ids is not None:
         raise ValueError(
             "scaled_dot_product_attention: pass attn_mask OR "
             "segment_ids, not both (fold any padding mask into the "
             "segment ids instead)")
     if attn_mask is not None:
-        out = _reference_attention(query, key, value, attn_mask, scale,
-                                   is_causal)
+        out = scaled_dot_product_attention_masked(query, key, value,
+                                                  attn_mask, scale,
+                                                  is_causal)
     else:
+        query, key, value = amp.cast_inputs("scaled_dot_product_attention",
+                                            query, key, value)
         out = _sdpa(query, key, value, segment_ids, scale=scale,
                     is_causal=is_causal)
     if dropout_p > 0.0 and training:

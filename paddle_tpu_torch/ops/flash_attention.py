@@ -22,9 +22,10 @@ Three wrappers, one per kernel: ``flash_fwd``, ``flash_bwd_dkv`` and
 same FlashAttention-2 recurrence in f32) for CPU tensors, and for CUDA
 tensors launches its kernel on the current stream without synchronizing
 and adds one to its ``launches``.  ``route`` names the kernel a CUDA call
-takes: bf16 runs on the tensor cores (``csrc/flash_attention_sm90.cu``;
-the kernels round P and dS to bf16 before their products, as the TPU
-kernel does), float32 on the scalar kernels
+takes: bf16 and fp16 run on the tensor cores
+(``csrc/flash_attention_sm90.cu``, one template instantiated for each;
+the kernels round P and dS to the input dtype before their products, as
+the TPU kernel does), float32 on the scalar kernels
 (``csrc/flash_attention.cu``).  A dtype, head dim, length, alignment or
 device no kernel takes raises; nothing falls back.
 
@@ -45,14 +46,17 @@ import torch
 
 from . import _build
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype codes of the C entry points: 0 the scalar kernels' f32, 1 and
+# 2 the tensor-core kernels' bf16 and fp16
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128)
 BLOCK = 64               # the kernels' q and k tile rows
 _MAX_SMEM = 227 * 1024   # an H100 block's shared-memory ceiling
 _MASK = -1e30
 _KERNEL_ID = {"fwd": 0, "bwd_dkv": 1, "bwd_dq": 2}
-# the C entry points of each route: csrc/flash_attention.cu (scalar, a
-# dtype code first) and csrc/flash_attention_sm90.cu (tensor cores, bf16)
+# the C entry points of each route, a dtype code first:
+# csrc/flash_attention.cu (scalar) and csrc/flash_attention_sm90.cu
+# (tensor cores, bf16 and fp16)
 _ENTRY = {("scalar", "fwd"): "flash_fwd_launch",
           ("scalar", "bwd_dkv"): "flash_bwd_dkv_launch",
           ("scalar", "bwd_dq"): "flash_bwd_dq_launch",
@@ -64,9 +68,10 @@ _ENTRY = {("scalar", "fwd"): "flash_fwd_launch",
 def route(dtype, head_dim):
     """The kernels a CUDA call of ``flash_fwd``, ``flash_bwd_dkv`` or
     ``flash_bwd_dq`` takes for inputs of ``dtype`` and ``head_dim``:
-    ``"tensor_core"`` (bf16; wgmma, ``csrc/flash_attention_sm90.cu``) or
-    ``"scalar"`` (float32; ``csrc/flash_attention.cu``).  Raises TypeError
-    for another dtype and ValueError for a head dim outside
+    ``"tensor_core"`` (bf16 and fp16, the one ``auto_cast(dtype=
+    "float16")`` gives q, k and v; wgmma, ``csrc/flash_attention_sm90.cu``)
+    or ``"scalar"`` (float32; ``csrc/flash_attention.cu``).  Raises
+    TypeError for another dtype and ValueError for a head dim outside
     ``HEAD_DIMS``.
 
     float32 stays on the scalar kernels on purpose: on the tensor cores
@@ -76,13 +81,11 @@ def route(dtype, head_dim):
     """
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"flash attention: dtype {dtype} not supported "
-                        "(float32 or bfloat16); float16, which "
-                        "auto_cast(dtype='float16') gives q, k and v, waits "
-                        "for ROADMAP item 'fp16 instantiation of B5a-B5c'")
+                        "(float32, bfloat16 or float16)")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash attention: head dim {head_dim} not "
                          f"supported {HEAD_DIMS}")
-    return "tensor_core" if dtype == torch.bfloat16 else "scalar"
+    return "scalar" if dtype == torch.float32 else "tensor_core"
 
 
 # -- plain versions -------------------------------------------------------
@@ -253,7 +256,8 @@ def _prepare(lib, path, kernel, q):
         raise ValueError(f"flash {kernel}: head dim {D} needs {smem} B of "
                          f"shared memory per block, over {_MAX_SMEM}")
     if path == "tensor_core":
-        rc = lib.flash_sm90_prepare(_KERNEL_ID[kernel], D)
+        rc = lib.flash_sm90_prepare(_KERNEL_ID[kernel],
+                                    _DTYPE_CODE[q.dtype], D)
     else:
         rc = lib.flash_prepare(_KERNEL_ID[kernel], _DTYPE_CODE[q.dtype], D)
     if rc != 0:
@@ -275,8 +279,7 @@ def _launch(kernel, q, *args):
     path, name = entry(kernel, q.dtype, q.shape[-1])
     lib = _load_sm90() if path == "tensor_core" else _load()
     fn = getattr(lib, name)
-    if path == "scalar":
-        args = (_DTYPE_CODE[q.dtype], *args)
+    args = (_DTYPE_CODE[q.dtype], *args)
     with torch.cuda.device(q.device):
         _prepare(lib, path, kernel, q)
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -285,6 +288,7 @@ def _launch(kernel, q, *args):
         raise RuntimeError(f"flash {kernel}: kernel launch failed with "
                            f"CUDA error {rc}")
     ROUTE_LAUNCHES[path] += 1
+    DTYPE_LAUNCHES[q.dtype] += 1
 
 
 def flash_fwd(q, k, v, segment_ids=None, *, causal, sm_scale):
@@ -342,9 +346,10 @@ flash_fwd.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches = 0
 # launches of the three kernels by route, beside each wrapper's own count:
-# what a caller reads to show which kernels (bf16 tensor-core or fp32
-# scalar) a path took
+# what a caller reads to show which kernels (bf16 / fp16 tensor-core or
+# fp32 scalar) a path took; DTYPE_LAUNCHES counts them by input dtype
 ROUTE_LAUNCHES = {"tensor_core": 0, "scalar": 0}
+DTYPE_LAUNCHES = {torch.float32: 0, torch.bfloat16: 0, torch.float16: 0}
 KERNEL_OPS = {"fwd": flash_fwd, "bwd_dkv": flash_bwd_dkv,
               "bwd_dq": flash_bwd_dq}
 PLAIN_OPS = {"fwd": flash_fwd_ref, "bwd_dkv": flash_bwd_dkv_ref,
@@ -375,15 +380,15 @@ def _load_sm90():
     if not getattr(lib, "_argtypes_set", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [i, i, i, i, i, f, p]      # B, H, S, D, causal, scale, stream
-        lib.flash_fwd_sm90_launch.argtypes = [p] * 6 + tail
-        lib.flash_bwd_dkv_sm90_launch.argtypes = [p] * 9 + tail
-        lib.flash_bwd_dq_sm90_launch.argtypes = [p] * 8 + tail
+        lib.flash_fwd_sm90_launch.argtypes = [i] + [p] * 6 + tail
+        lib.flash_bwd_dkv_sm90_launch.argtypes = [i] + [p] * 9 + tail
+        lib.flash_bwd_dq_sm90_launch.argtypes = [i] + [p] * 8 + tail
         for fn in (lib.flash_fwd_sm90_launch, lib.flash_bwd_dkv_sm90_launch,
                    lib.flash_bwd_dq_sm90_launch):
             fn.restype = i
         lib.flash_sm90_smem_bytes.argtypes = [i, i]
         lib.flash_sm90_smem_bytes.restype = ctypes.c_size_t
-        lib.flash_sm90_prepare.argtypes = [i, i]
+        lib.flash_sm90_prepare.argtypes = [i, i, i]
         lib.flash_sm90_prepare.restype = i
         lib._argtypes_set = True
     return lib

@@ -27,6 +27,10 @@ raises: the step never moves weights, and trains on the CPU only when
 * ``strategy.recompute`` is accepted and changes nothing: the JAX flat
   step ignores it too (only its pipeline reads it); a model recomputes
   through its own ``use_recompute``.
+* A model with MoE layers (``GPTModel(moe_experts=...)``) gets the sum of
+  their scaled load-balancing losses of this forward added to the loss
+  (``distributed.moe.collect_moe_aux_loss``), as the JAX step's
+  ``forward_loss`` adds it; each micro-batch adds its own.
 * Each step adds one to the ``train.steps`` counter and observes its
   host time in the ``train.step_time_ms`` histogram of the port's
   ``monitor`` default registry.
@@ -45,6 +49,7 @@ import torch
 
 from .. import amp, monitor
 from ..device import require_on
+from ..distributed.moe import collect_moe_aux_loss
 
 
 def _as_tensor(x, device):
@@ -121,6 +126,9 @@ class TrainStep:
                 out = out[0]
             loss = out if self.loss_fn is None \
                 else self.loss_fn(out, *labels)
+            aux = collect_moe_aux_loss(self.model)
+            if aux is not None:
+                loss = loss + aux
         return loss.float()
 
     def step(self, inputs, labels=()):

@@ -750,10 +750,11 @@ class Engine:
 
     def _shard_model(self):
         """The mesh's per-rank weight shards, cut from ``self.model`` (a
-        dense model goes through its tensor-parallel form first)."""
+        dense model goes through its tensor-parallel form first, its MoE
+        blocks kept whole)."""
         m = self.model
         if not getattr(m.blocks[0].attn, "use_mp", False):
-            m = m.to_tensor_parallel()
+            m = m._tensor_parallel(keep_moe=True)
         return ShardedServingModel(m, self.mesh)
 
     def _adapter_registry(self, model, adapters, max_adapters,

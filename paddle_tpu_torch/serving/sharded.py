@@ -19,6 +19,11 @@ of its own.  One controller drives every rank (see
   through B4 (``ops.ragged_paged_attn.sharded_ragged_paged_attention``);
   each rank's partial ``einsum("bshd,hde->bse")`` and ``fc2`` product is
   summed over mp (``all_reduce_sum``) before the bias;
+* an MoE block (``distributed.moe.MoELayer``) runs once over the whole
+  batch: every dp group's ln2 rows meet on the mesh's first device in
+  slot order, the router, capacity and experts (replicated: the serving
+  mesh has no ``ep`` axis) see the global window as GSPMD's one program
+  does in the JAX engine, and each group takes its rows back;
 * the vocab-parallel embedding reads zeros for ids outside a rank's rows
   and is summed over mp; the column-parallel head's logits are gathered
   over vocab (``all_gather``), and every dp group's rows meet on the
@@ -42,6 +47,7 @@ import torch
 from torch.nn import functional as F
 
 from ..distributed.collective import all_gather, all_reduce_sum
+from ..distributed.moe import MoELayer, moe_ffn
 from ..distributed.sharding import shard
 # the module, not its names: models.gpt imports serving.quant, which
 # runs this package's __init__ while models.gpt is still loading
@@ -81,10 +87,16 @@ class ShardedServingModel:
             tp_model.embeddings.position_embeddings.weight.shape[0]
         self.vocab_rows = V // mesh.mp          # embedding rows per rank
         self.ln_eps = tp_model.head.ln_f.eps
-        # per-rank weight shards by parameter name, in rank order
-        self.w = {name: shard(p.detach(), getattr(p, "partition_spec", ()),
-                              mesh)
+        # per-rank weight shards by parameter name, in rank order; an axis
+        # the serving mesh lacks (an MoE stack's "ep") replicates
+        self.w = {name: shard(p.detach(), tuple(
+                      a if a in ("mp", "dp") else None
+                      for a in getattr(p, "partition_spec", ())), mesh)
                   for name, p in tp_model.named_parameters()}
+        # MoE layers: index -> (k, capacity factor)
+        self.moe = {j: (blk.mlp.k, blk.mlp.capacity_factor)
+                    for j, blk in enumerate(tp_model.blocks)
+                    if isinstance(blk.mlp, MoELayer)}
 
     # -- helpers ----------------------------------------------------------
     def _reduce(self, parts, d):
@@ -144,6 +156,27 @@ class ShardedServingModel:
         y = self._reduce(parts, d)
         return self._per_device(d, lambda dev, r: x[dev] + (
             y[dev] + w[f"{pre}.mlp.fc2.bias"][r]))
+
+    def _moe_residual(self, j, xs):
+        """Every dp group's attention-free half of MoE layer ``j`` at once
+        (``xs[d]``: group ``d``'s rows by device): ln2 per group, the MoE
+        over the groups' rows joined in slot order on the mesh's first
+        device, each group's rows back, the residual."""
+        mesh, w = self.mesh, self.w
+        pre = f"blocks.{j}"
+        dev0 = mesh.devices[0]
+        rows = torch.cat([
+            self._ln(xs[d][mesh.device(0, d)], f"{pre}.ln2",
+                     mesh.rank(0, d)).to(dev0)
+            for d in range(mesh.dp)], dim=0)
+        k, cf = self.moe[j]
+        out, _ = moe_ffn(rows, *(w[f"{pre}.mlp.{n}"][0] for n in (
+            "gate", "experts.w1", "experts.b1", "experts.w2", "experts.b2")),
+            k, cf)
+        parts = out.chunk(mesh.dp, dim=0)
+        return [self._per_device(d, lambda dev, r: xs[d][dev]
+                                 + parts[d].to(dev))
+                for d in range(mesh.dp)]
 
     # -- the tick ---------------------------------------------------------
     @torch.no_grad()
@@ -213,9 +246,12 @@ class ShardedServingModel:
                     [torch.einsum("bshd,hde->bse", ctx[r],
                                   w[f"{pre}.attn.out_weight"][r])
                      for r in (mesh.rank(m, d) for m in range(mp))], d)
-                xd = self._per_device(d, lambda dev, r: x[d][dev] + (
+                x[d] = self._per_device(d, lambda dev, r: x[d][dev] + (
                     attn[dev] + w[f"{pre}.attn.out_bias"][r]))
-                x[d] = self._mlp_residual(j, d, xd)
+                if j not in self.moe:
+                    x[d] = self._mlp_residual(j, d, x[d])
+            if j in self.moe:
+                x = self._moe_residual(j, x)
         # the column-parallel head: each rank's vocab columns, gathered
         # over mp; the dp groups' rows meet on the batch's device
         logits = []

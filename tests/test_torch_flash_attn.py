@@ -19,7 +19,10 @@ versions on the card and skip without one (jax is imported only inside
 the CPU tests: the card has none).  Two of them drive the kernels
 through the model: under ``use_recompute`` and O1 the forward kernel
 launches twice a layer and each backward kernel once, all on the
-tensor-core route; fp16 q, k, v are refused naming their ROADMAP item.
+tensor-core route; under ``auto_cast(dtype="float16")`` the fp16 q, k, v
+take the tensor-core route too and match the plain versions.  On the
+CPU, the plain route in fp16 is held to the JAX package's
+``scaled_dot_product_attention`` under its fp16 ``auto_cast``.
 """
 import numpy as np
 import pytest
@@ -285,11 +288,12 @@ def test_segment_ids_of_any_integer_layout_take_the_flash_route(monkeypatch):
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.float16, 64, "tensor_core"), (torch.float16, 128, "tensor_core"),
     (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar")])
 def test_route_by_dtype_and_head_dim(dtype, head_dim, want):
-    """bf16 takes the tensor-core kernels, float32 the scalar ones (TF32
-    would break its tolerances); the forward, dK/dV and dQ all follow the
-    route."""
+    """bf16 and fp16 take the tensor-core kernels, float32 the scalar ones
+    (TF32 would break its tolerances); the forward, dK/dV and dQ all follow
+    the route."""
     assert fa.route(dtype, head_dim) == want
     sm90 = want == "tensor_core"
     assert fa.entry("fwd", dtype, head_dim) == (
@@ -302,7 +306,7 @@ def test_route_by_dtype_and_head_dim(dtype, head_dim, want):
 
 
 @pytest.mark.parametrize("dtype,head_dim,err,match", [
-    (torch.float16, 128, TypeError, "float16"),
+    (torch.float64, 128, TypeError, "float64"),
     (torch.int8, 64, TypeError, "int8"),
     (torch.bfloat16, 32, ValueError, "head dim 32"),
     (torch.float32, 256, ValueError, "head dim 256")])
@@ -344,13 +348,13 @@ def _need_cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_kernels_match_plain_versions_on_card(case, dtype):
     """The three CUDA kernels against their plain versions on the same
     inputs.  fp32: o and lse at atol 1e-5, gradients at atol 1e-4
-    (summation order); bf16: every output at rtol 2e-2 / atol 2e-2
-    against the plain version computed in f32 from the same bf16 values
-    (bf16 rounding of the outputs)."""
+    (summation order); bf16 and fp16: every output at rtol 2e-2 / atol
+    2e-2 against the plain version computed in f32 from the same bf16 /
+    fp16 values (rounding of the outputs, and of P and dS)."""
     _need_cuda()
     q, k, v, do, seg, causal = _inputs(case)
     dt = getattr(torch, dtype)
@@ -396,8 +400,8 @@ def test_kernel_wrappers_raise_on_card():
     q = torch.zeros(1, 96, 2, 64, device="cuda")
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0)
-    q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float16)
-    with pytest.raises(TypeError, match="float16"):
+    q = torch.zeros(1, 128, 2, 64, device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         fa.flash_fwd(q, q, q, causal=True, sm_scale=1.0)
 
 
@@ -456,10 +460,83 @@ def test_recompute_relaunches_the_flash_forward_on_card(monkeypatch,
 
 
 @pytest.mark.cuda
-def test_fp16_auto_cast_refuses_on_the_flash_route():
+def test_fp16_auto_cast_takes_the_tensor_core_route_on_card():
+    """Under ``auto_cast(dtype="float16")`` a causal attention at S=2048
+    (the flash gate) runs the three tensor-core kernels in fp16 and
+    matches the plain versions on the same fp16 values: o and the
+    gradients at rtol 2e-2 / atol 2e-2, as bf16."""
     _need_cuda()
     from paddle_tpu_torch import amp
-    q = torch.zeros(1, 2048, 2, 64, device="cuda")
+    rng = np.random.RandomState(3)
+    q, k, v, do = (torch.tensor(rng.randn(1, 2048, 2, 64).astype(np.float32),
+                                device="cuda") for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = {n: op.launches for n, op in fa.KERNEL_OPS.items()}
+    routes = dict(fa.ROUTE_LAUNCHES)
+    halves = fa.DTYPE_LAUNCHES[torch.float16]
     with amp.auto_cast(dtype="float16"):
-        with pytest.raises(TypeError, match="fp16 instantiation of B5a"):
-            attn_mod.scaled_dot_product_attention(q, q, q, is_causal=True)
+        o = attn_mod.scaled_dot_product_attention(*leaves, is_causal=True)
+    assert o.dtype == torch.float16
+    o.backward(do.half())
+    torch.cuda.synchronize()
+    assert {n: op.launches - before[n]
+            for n, op in fa.KERNEL_OPS.items()} == \
+        {"fwd": 1, "bwd_dkv": 1, "bwd_dq": 1}
+    assert fa.ROUTE_LAUNCHES["tensor_core"] == routes["tensor_core"] + 3
+    assert fa.ROUTE_LAUNCHES["scalar"] == routes["scalar"]
+    assert fa.DTYPE_LAUNCHES[torch.float16] == halves + 3
+    ref = [t.half().float().requires_grad_() for t in (q, k, v)]
+    want = fa.flash_attention_ref(*ref, causal=True)
+    want.backward(do.half().float())
+    for got, w in ((o, want), *((a.grad, b.grad)
+                                for a, b in zip(leaves, ref))):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got.float(), w.detach(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+def test_fp16_plain_route_matches_jax_auto_cast(monkeypatch):
+    """The port's ``scaled_dot_product_attention`` under ``auto_cast(dtype=
+    "float16")`` at S=2048 (the flash gate; on the CPU the plain versions)
+    against the JAX package's under its own fp16 ``auto_cast`` on the same
+    f32 inputs: JAX casts q, k, v to fp16 and, off the TPU, runs
+    ``_reference_attention`` in fp16 (fp16 scores and value product, an f32
+    softmax rounded to fp16).  The output and dq/dk/dv at atol 2e-3 (the
+    fp16 rounding of JAX's scores and probabilities, against the plain
+    versions' f32 arithmetic on the same fp16 values; outputs ~1), and a
+    relative L2 error of 2e-3."""
+    import paddle_tpu as paddle
+    from paddle_tpu import amp as jamp
+    from paddle_tpu.nn import functional as JF
+    from paddle_tpu_torch import amp
+    calls = []
+    real = fa.KERNEL_OPS["fwd"]
+
+    def counted(*a, **kw):
+        calls.append(a[0].dtype)
+        return real(*a, **kw)
+
+    monkeypatch.setitem(fa.KERNEL_OPS, "fwd", counted)
+    rng = np.random.RandomState(5)
+    q, k, v, do = (rng.randn(1, 2048, 2, 64).astype(np.float32)
+                   for _ in range(4))
+    jq, jk, jv = (paddle.to_tensor(a, stop_gradient=False)
+                  for a in (q, k, v))
+    with jamp.auto_cast(dtype="float16"):
+        jo = JF.scaled_dot_product_attention(jq, jk, jv, is_causal=True)
+    assert str(jo.dtype).endswith("float16")
+    (jo.astype("float32") * paddle.to_tensor(do)).sum().backward()
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    with amp.auto_cast(dtype="float16"):
+        to = attn_mod.scaled_dot_product_attention(tq, tk, tv,
+                                                   is_causal=True)
+    assert to.dtype == torch.float16 and calls == [torch.float16]
+    (to.float() * torch.tensor(do)).sum().backward()
+    for name, got, want in (("o", to.detach(), jo), ("dq", tq.grad, jq.grad),
+                            ("dk", tk.grad, jk.grad),
+                            ("dv", tv.grad, jv.grad)):
+        g = got.float().numpy()
+        w = np.asarray(want.numpy(), np.float32)
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-3, err_msg=name)
+        rel = np.linalg.norm(g - w) / np.linalg.norm(w)
+        assert rel <= 2e-3, f"{name}: relative L2 error {rel:.3e}"

@@ -7,7 +7,8 @@ then go through both.  Dense logits and one ragged window tick agree at
 rtol 1e-5 / atol 1e-5 in fp32 (the two frameworks' matmuls and
 reductions sum in other orders); the ragged tick's K/V pools agree row
 for row, scratch-block writes included; the sampling filter agrees at
-the same tolerance.
+the same tolerance.  ``__graft_entry__.entry()``'s gpt2-medium forward
+at B=2, S=512 agrees with the port's on the same weights at atol 1e-4.
 """
 import numpy as np
 import pytest
@@ -241,3 +242,25 @@ def test_sample_lanes_greedy_seeded_and_distribution():
     # an all-greedy batch never needs keys
     assert GPTModel._sample_lanes(last, torch.zeros(2), top_k, top_p,
                                   None).tolist() == [1, 1]
+
+
+def test_entry_shape_forward_matches_jax():
+    """``__graft_entry__.entry()``'s forward (gpt2-medium at full width and
+    depth, seed 0, dropout 0, B=2, S=512) against the port's forward with
+    the same weights carried across: logits at atol 1e-4 (f32 over 24
+    layers in another summation order; measured 5.7e-6 at logits up to
+    3.4)."""
+    import __graft_entry__ as graft
+    fn, (p_list, ids) = graft.entry()
+    want = np.asarray(fn(p_list, ids))
+    tm = GPTModel.from_config("gpt2-medium", device="cpu", dropout=0.0)
+    names = sorted(n for n, _ in tm.named_parameters())
+    assert len(names) == len(p_list)
+    load_paddle_tpu_state(tm, {n: np.asarray(a)
+                               for n, a in zip(names, p_list)})
+    del p_list, fn
+    tm.eval()
+    with torch.no_grad():
+        got = tm(torch.tensor(np.asarray(ids)).long()).numpy()
+    assert got.shape == want.shape == (2, 512, 50304)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

@@ -40,6 +40,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu.parallel.train_step import TrainStep as JaxTrainStep
 from paddle_tpu_torch.convert import (export_paddle_tpu_state,
                                       load_paddle_tpu_state)
+from paddle_tpu_torch.distributed import MoELayer
 from paddle_tpu_torch.models import GPTAttention, GPTModel
 from paddle_tpu_torch.nn.functional import attention as attn_mod
 from paddle_tpu_torch.nn.functional import (cross_entropy,
@@ -315,23 +316,26 @@ def test_first_loss_is_near_uniform_plus_init_lift():
 @pytest.mark.parametrize("knob", ["use_mp", "use_sp", "moe_experts",
                                   "moe_every"])
 def test_unported_model_knobs_raise(knob):
-    """Each knob raises naming its ROADMAP item.  The tensor-parallel form
-    (``use_mp``) is built now, for serving on a mesh; training it over a
-    mesh is what stays unported.  ``moe_every`` is in the signature and
-    inert alone; with ``moe_experts`` the model raises."""
-    if knob == "use_mp":
-        m = GPTModel(**SLICE, dropout=0.0, use_mp=True)
-        opt = AdamW(parameters=m.parameters(), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TrainStep(m, opt, mesh=object(), device="cpu")
-        return
+    """Each knob builds its form (the tensor-parallel form for serving on
+    a mesh; sequence-parallel attention; MoE blocks, every ``moe_every``-th
+    one, ``moe_every`` inert alone), and what stays unported of it raises
+    naming its ROADMAP item: training it over a mesh
+    (``TrainStep(mesh=...)``, Queue A 10)."""
+    kw = {"use_mp": dict(use_mp=True), "use_sp": dict(use_sp=True),
+          "moe_experts": dict(moe_experts=2),
+          "moe_every": dict(moe_experts=4, moe_every=1)}[knob]
     if knob == "moe_every":
-        GPTModel(**SLICE, moe_every=1)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 12"):
-            GPTModel(**SLICE, moe_experts=4, moe_every=1)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTModel(**SLICE, **{knob: 2 if knob == "moe_experts" else True})
+        assert not any(isinstance(b.mlp, MoELayer)
+                       for b in GPTModel(**SLICE, moe_every=1).blocks)
+    m = GPTModel(**SLICE, dropout=0.0, **kw)
+    moe_blocks = [isinstance(b.mlp, MoELayer) for b in m.blocks]
+    assert moe_blocks == {"moe_experts": [False, True],
+                          "moe_every": [True, True]}.get(
+                              knob, [False, False])
+    assert m.blocks[0].attn.use_sp == (knob == "use_sp")
+    opt = AdamW(parameters=m.parameters(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
+        TrainStep(m, opt, mesh=object(), device="cpu")
 
 
 def test_unported_train_knobs_raise():
