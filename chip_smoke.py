@@ -48,7 +48,9 @@ line:
    causal), an fp32 case, an hd=64 case, a case with segment ids
    (four packed documents of uneven lengths), and the slice's shape in
    fp16 with and without segment ids (what ``auto_cast(dtype=
-   "float16")`` gives the kernels).  bf16 and fp16 run the tensor-core
+   "float16")`` gives the kernels), and phase 21's per-rank shapes in
+   bf16 ([2, 2048, 8, 128] on an mp rank, [1, 2048, 16, 128] on a data
+   rank and a pipeline micro-batch).  bf16 and fp16 run the tensor-core
    kernels (``csrc/flash_attention_sm90.cu``, one template instantiated
    for each), fp32 the scalar ones (``csrc/flash_attention.cu``).  fp32
    holds o and lse at atol 1e-5 and the gradients at atol 1e-4
@@ -306,11 +308,43 @@ line:
    flash launch.  (e) one ``gpt3-1.3b`` step (fp32 weights) at B=4,
    S=2048 under ``auto_cast(dtype="float16")``: B5a, B5b and B5c launched
    24 times each, all in fp16, the loss and every gradient finite.
-21. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+21. Training over a mesh: ``GPTModel.from_config("gpt3-1.3b",
+   dropout=0.0, fused_loss=True, use_recompute=True)`` in fp32 from seed
+   0 under ``amp_level="O1"`` (B5a-B5c in bf16) with ``AdamW(1e-4,
+   0.01)``, B=4, S=2048, ids from numpy seed 0, over four meshes of four
+   ranks on this card (``build_mesh(..., devices=[cuda:0] * 4)``): (1)
+   ``dp=2, sharding=2`` with ``strategy.sharding`` stage 2, (2)
+   ``sharding=4`` stage 3, (3) ``dp=2, mp=2`` on ``to_tensor_parallel()``
+   of the same weights, (4) ``gpt_pipe_model("gpt3-1.3b")`` (the same
+   weights from the same seed) over ``pp=4`` at B=8, ``accumulate_steps=8``
+   (one row a micro-batch, so that 1F1B's bound of 2P - 1 live
+   micro-batches a stage is below M), once GPipe with
+   ``strategy.recompute`` and once 1F1B.  One one-device ``TrainStep`` of
+   the dense model on the same weights and batch (B=4, and B=8 for mesh
+   4) is the reference.  Each run takes one warm-up step and three
+   steps.  Checks:
+   the first step's gradients, gathered to full tensors (``full_grads``;
+   the TP and pipeline names and layouts mapped back to the dense
+   model's), within a relative L2 error of 2e-2 of the reference's each;
+   the four losses within rtol 1e-2 of the reference's; a second run of
+   mesh 3 and of 1F1B from the same seed repeats its first two losses
+   exactly; B5a launched 192 times a step and B5b and B5c 96 on meshes
+   1-3 (4 ranks x 24 layers, the forward twice under recompute), 384 and
+   192 on mesh 4 (8 micro-batches), none on the scalar route; 1F1B's
+   peak below GPipe's (the peak of the three steps after the warm-up;
+   both engines free the gradients at the start of a step).  Prints for
+   each run s a step,
+   tokens/s, the peak,
+   the state reckoned over the ranks and the flash kernels a step; for
+   mesh 3 a ``torch.profiler`` step (busy share, kernels a step, the
+   device time under the collectives' ``mesh.*`` labels).  Before the
+   runs it times B5a-B5c at mesh 3's per-rank shape ([2, 2048, 8, 128]
+   bf16) beside ``scaled_dot_product_attention`` at that shape.
+22. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
    phase 16 (c)'s, phase 17's and phase 18's in-process serves and phase
    20 (a)'s first serve, B2's phase 10's, phase 17 (d)'s and phase 18
-   (a)'s, B5a-B5c's phase 6's and phase 19 (a)'s, B5a's phase 16 (f)'s
-   too; the fp16 entries phase 20 (e)'s), the card line and
+   (a)'s, B5a-B5c's phase 6's, phase 19 (a)'s and phase 21's, B5a's phase
+   16 (f)'s too; the fp16 entries phase 20 (e)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -2946,6 +2980,10 @@ FLASH_CASES = {
     "segments_bf16": (2, 16, 2048, 128, "bfloat16", 4),
     "slice_fp16": (4, 16, 2048, 128, "float16", 0),
     "segments_fp16": (4, 16, 2048, 128, "float16", 4),
+    # phase 21's per-rank shapes: dp2 x mp2 (8 heads a rank), and a data
+    # or sharding rank of B=4 over 4 (and a pipeline micro-batch)
+    "mesh_mp_bf16": (2, 8, 2048, 128, "bfloat16", 0),
+    "mesh_row_bf16": (1, 16, 2048, 128, "bfloat16", 0),
 }
 # the cases phase 5 times (kernels, plain versions, SDPA, bounds)
 FLASH_TIMED = ("slice_bf16", "slice_fp16")
@@ -3954,6 +3992,334 @@ def slice13_phase(card, fa, ragged_mod, reqs, fp_tps):
     return b1, fp16
 
 
+# -- phase 21 -------------------------------------------------------------
+MESH_TIMED = 3                     # steps after the warm-up step
+MESH_REPEAT = 2                    # steps of the same-seed rerun
+MESH_REPEATED = ("dp2_mp2", "pp4_1f1b")   # the runs rerun from the seed
+MESH_GRAD_TOL, MESH_LOSS_RTOL = 2e-2, 1e-2
+MESH_RUNS = ("dp2_sharding2_stage2", "sharding4_stage3", "dp2_mp2",
+             "pp4_gpipe", "pp4_1f1b")
+PIPE_B = PIPE_MICRO = 8            # mesh 4: one row a micro-batch
+MP_SHAPE = (2, 2048, 8, 128)       # mesh 3's per-rank attention, bf16
+
+
+def mesh_model(kind):
+    """gpt3-1.3b from seed 0 in fp32 at dropout 0, in the form ``kind``
+    trains: the dense model with recompute and the fused head + CE (the
+    reference and meshes 1-2), its tensor-parallel form (mesh 3), or
+    ``gpt_pipe_model`` (mesh 4; the same weights from the same seed)."""
+    from paddle_tpu_torch.models import GPTModel, gpt_pipe_model
+    if kind.startswith("pp4"):
+        return gpt_pipe_model("gpt3-1.3b", dropout=0.0, seed=0)
+    model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.0,
+                                 fused_loss=True, use_recompute=True)
+    if kind == "dp2_mp2":
+        tp = model.to_tensor_parallel()
+        del model
+        for blk in tp.blocks:
+            blk.use_recompute = True
+        return tp
+    return model
+
+
+def mesh_step(kind, model, opt):
+    """The ``TrainStep`` of run ``kind``: every rank on this card."""
+    import torch
+    from paddle_tpu_torch.distributed import build_mesh
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.models import GPTPretrainingCriterion
+    from paddle_tpu_torch.parallel import TrainStep
+    shape = {"dp2_sharding2_stage2": dict(dp=2, sharding=2),
+             "sharding4_stage3": dict(sharding=4),
+             "dp2_mp2": dict(dp=2, mp=2)}.get(kind, dict(pp=4))
+    s = DistributedStrategy()
+    if "stage" in kind:
+        s.sharding = True
+        s.sharding_configs["stage"] = int(kind[-1])
+    loss_fn = None
+    if kind.startswith("pp4"):
+        s.pipeline = True
+        s.pipeline_configs.update(accumulate_steps=PIPE_MICRO,
+                                  schedule_mode="1F1B" if "1f1b" in kind
+                                  else "F-then-B")
+        s.recompute = "gpipe" in kind
+        loss_fn = GPTPretrainingCriterion()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = build_mesh(devices=[dev] * 4, **shape)
+    return TrainStep(model, opt, loss_fn=loss_fn, strategy=s, mesh=mesh,
+                     amp_level="O1")
+
+
+def dense_grad_name(kind, name, g):
+    """``(name, gradient)`` of a run's parameter in the dense model's
+    names and layouts: the pipeline's ``pre`` / ``post``, and the
+    tensor-parallel form's relayouts undone (``to_tensor_parallel``)."""
+    if kind.startswith("pp4"):
+        return (re.sub(r"^post\.", "head.",
+                       re.sub(r"^pre\.", "embeddings.", name)), g)
+    if kind != "dp2_mp2":
+        return name, g
+    E = g.shape[0]
+    for tp, dense, fn in (
+            ("attn.qkv_weight", "attn.qkv_proj.weight",
+             lambda t: t.reshape(E, -1).t()),
+            ("attn.qkv_bias", "attn.qkv_proj.bias", lambda t: t.reshape(-1)),
+            ("attn.out_weight", "attn.out_proj.weight",
+             lambda t: t.reshape(-1, t.shape[-1]).t()),
+            ("attn.out_bias", "attn.out_proj.bias", lambda t: t),
+            ("mlp.fc1.weight", "mlp.fc1.weight", lambda t: t.t()),
+            ("mlp.fc2.weight", "mlp.fc2.weight", lambda t: t.t()),
+            ("head.lm_head.weight", "head.lm_head.weight", lambda t: t.t())):
+        if name.endswith(tp):
+            return name[:-len(tp)] + dense, fn(g)
+    return name, g
+
+
+def mesh_state_gb(step):
+    """(parameters + optimizer state of every rank, their gradients) in
+    GB, each storage counted once (a rank that shares the model's
+    storage adds nothing)."""
+    eng = step.engine
+    leaves = [t for lv in eng.leaves for t in lv.values()]
+    states = [t for st in eng.opt_state for sub in st.values()
+              for t in sub.values()]
+    seen, total = set(), 0
+    for t in leaves + states:
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in seen:
+            seen.add(ptr)
+            total += t.untyped_storage().nbytes()
+    grads = sum(t.numel() * t.element_size() for t in leaves
+                if t.requires_grad)
+    return total / 1e9, grads / 1e9
+
+
+def mesh_run(kind, batch, fa, card, ref=None, steps=1 + MESH_TIMED,
+             profile=False):
+    """One run of ``kind`` (see ``mesh_train_phase``).  Returns (losses,
+    flash launches, peak GB, s a step, tokens/s)."""
+    import math
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    model = mesh_model(kind)
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    step = mesh_step(kind, model, opt)
+    state_gb, grads_gb = mesh_state_gb(step)
+    x, y = batch
+    pipe = kind.startswith("pp4")
+    args = ([x], [y]) if pipe else ([x, y],)
+    zero_flash_counts(fa)
+    scalar0 = fa.ROUTE_LAUNCHES["scalar"]
+    torch.cuda.synchronize()
+    step.keep_grads = ref is not None
+    t_warm = time.perf_counter()
+    losses = [step.step(*args)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_warm
+    worst = None
+    if ref is not None:
+        worst = (0.0, "")
+        for name, g in step.full_grads(device="cpu").items():
+            name, g = dense_grad_name(kind, name, g)
+            want = ref[name]
+            rel = float((g.float() - want).norm()
+                        / want.norm().clamp(min=1e-30))
+            check(rel <= MESH_GRAD_TOL,
+                  f"phase 21 {kind}: gradient {name} relative L2 error "
+                  f"{rel:.3e} over {MESH_GRAD_TOL}")
+            worst = max(worst, (rel, name))
+        step.keep_grads = False
+        step.engine.last_grads = None
+    # the peak of the steps after the warm-up (whose first allocations
+    # and gradient read-back are not the schedule's)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        losses.append(step.step(*args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    launches = flash_counts(fa)
+    check(fa.ROUTE_LAUNCHES["scalar"] == scalar0,
+          f"phase 21 {kind}: a flash launch took the scalar fp32 route")
+    units = PIPE_MICRO if pipe else 4
+    want = {"fwd": 2 * units * N_LAYERS, "bwd_dkv": units * N_LAYERS,
+            "bwd_dq": units * N_LAYERS}
+    check(launches == {n: c * steps for n, c in want.items()},
+          f"phase 21 {kind}: flash launches {launches} in {steps} steps, "
+          f"not {want} a step ({units} "
+          f"{'micro-batches' if pipe else 'ranks'} x {N_LAYERS} layers, "
+          "the forward twice under recompute)")
+    losses = [float(l) for l in losses]
+    check(all(math.isfinite(l) for l in losses),
+          f"phase 21 {kind}: non-finite loss {losses}")
+    if ref is None:
+        del step, opt, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return losses, launches, peak, None, None
+    timed = steps - 1
+    tps = x.numel() * timed / wall
+    print(f"phase 21 {kind}: losses " + " ".join(f"{l:.5f}" for l in losses)
+          + f" worst gradient rel L2 {worst[0]:.3e} ({worst[1]}) warmup_s "
+          f"{warm_s:.3f} s_per_step {wall / timed:.4f} tokens_per_s "
+          f"{tps:.1f} peak_mem_gb {peak:.2f} state_gb (params + moments, "
+          f"4 ranks) {state_gb:.2f} grads_gb {grads_gb:.2f} flash a step "
+          + " ".join(f"{n} {c // steps}" for n, c in launches.items())
+          + f" [{card}]", flush=True)
+    if profile:
+        mesh_profile(kind, step, args, card)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, launches, peak, wall / timed, tps
+
+
+def mesh_profile(kind, step, args, card):
+    """One more step under torch.profiler: the device's busy share, the
+    kernels a step, and the device time under the collectives' labels
+    (``mesh.all_reduce``, ``mesh.all_gather`` and their ``.backward``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step.step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = device_kernels(prof)
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    n_kernels = sum(e.count for e in dev)
+    labels = {e.key: (e.count, e.device_time_total / 1e3) for e in events
+              if e.key.startswith("mesh.")}
+    print(f"phase 21 {kind} profile: one step wall_s {wall:.3f} "
+          f"device_busy_s {busy_ms / 1e3:.3f} busy_share "
+          f"{busy_ms / 1e3 / wall:.3f} kernels_a_step {n_kernels} "
+          f"collectives " + " ".join(
+              f"{k} {c}x {ms:.3f}ms" for k, (c, ms) in sorted(labels.items()))
+          + f" [{card}]", flush=True)
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    for e in dev[:8]:
+        print(f"phase 21 {kind} profile kernel: "
+              f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}", flush=True)
+
+
+def mesh_flash_timing(fa, card):
+    """B5a-B5c at mesh 3's per-rank shape beside SDPA at that shape."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, D = MP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, sm_scale=D ** -0.5)
+    o, lse = fa.flash_fwd(q, k, v, None, **kw)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, di, None)
+    fns = {"fwd": lambda: fa.flash_fwd(q, k, v, None, **kw),
+           "bwd_dkv": lambda: fa.flash_bwd_dkv(*args, **kw),
+           "bwd_dq": lambda: fa.flash_bwd_dq(*args, **kw)}
+    out = {}
+    for kernel, fn in fns.items():
+        ms = cuda_time_ms(fn, iters=20, warmup=3)
+        bound, by = flash_bound_ms(kernel, q)
+        out[kernel] = ms
+        print(f"phase 21 flash_{kernel} at [{B}, {S}, {H}, {D}] bf16: ms "
+              f"{ms:.4f} bound_ms {bound:.4f} ({by}) [{card}]", flush=True)
+    sq, sk, sv = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    sdo = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        fwd = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True), iters=20)
+    sout = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        sout, (sq, sk, sv), sdo, retain_graph=True), iters=20)
+    print(f"phase 21 library at [{B}, {S}, {H}, {D}] bf16: "
+          f"scaled_dot_product_attention forward {fwd:.4f} ms, backward "
+          f"{bwd:.4f} ms; kernels fwd {out['fwd']:.4f} ms, dkv + dq "
+          f"{out['bwd_dkv'] + out['bwd_dq']:.4f} ms [{card}]", flush=True)
+    # the launches of the comparison are not the main path's
+    zero_flash_counts(fa)
+
+
+def mesh_reference(batch, card):
+    """The one-device ``TrainStep`` on the dense model: its losses, its
+    first step's gradients on the host, and its s a step."""
+    import torch
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import TrainStep
+    model = mesh_model("ref")
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, opt, amp_level="O1")
+    losses = [step.step(list(batch))]
+    grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED):
+        losses.append(step.step(list(batch)))
+    torch.cuda.synchronize()
+    secs = (time.perf_counter() - t0) / MESH_TIMED
+    losses = [float(l) for l in losses]
+    print(f"phase 21 reference (one device, O1, recompute, B="
+          f"{batch[0].shape[0]}): losses "
+          + " ".join(f"{l:.5f}" for l in losses)
+          + f" s_per_step {secs:.4f} [{card}]", flush=True)
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, grads
+
+
+def mesh_train_phase(card, fa):
+    """Phase 21: gpt3-1.3b trained over four meshes of four ranks on this
+    card, against the one-device ``TrainStep``.  Returns the flash
+    launches of the five runs by kernel."""
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    t_phase = time.perf_counter()
+    mesh_flash_timing(fa, card)
+    V = GPT_CONFIGS["gpt3-1.3b"]["vocab_size"]
+    total = {n: 0 for n in FLASH_KERNELS}
+    peaks = {}
+    for rows, kinds in ((TRAIN_B, MESH_RUNS[:3]), (PIPE_B, MESH_RUNS[3:])):
+        batch = train_batch(V, rows, TRAIN_S, seed=0)
+        ref_losses, ref_grads = mesh_reference(batch, card)
+        for kind in kinds:
+            losses, launches, peak, _, _ = mesh_run(
+                kind, batch, fa, card, ref=ref_grads,
+                profile=kind == "dp2_mp2")
+            for n in total:
+                total[n] += launches[n]
+            peaks[kind] = peak
+            np.testing.assert_allclose(losses, ref_losses,
+                                       rtol=MESH_LOSS_RTOL,
+                                       err_msg=f"phase 21 {kind}: losses")
+            if kind in MESH_REPEATED:
+                again, _, _, _, _ = mesh_run(kind, batch, fa, card,
+                                             steps=MESH_REPEAT)
+                check(again == losses[:MESH_REPEAT],
+                      f"phase 21 {kind}: the same seed gave losses {again}, "
+                      f"not {losses[:MESH_REPEAT]}")
+        del ref_grads
+    check(peaks["pp4_1f1b"] < peaks["pp4_gpipe"],
+          f"phase 21: 1F1B's peak {peaks['pp4_1f1b']:.2f} GB is not below "
+          f"GPipe's {peaks['pp4_gpipe']:.2f} GB at M={PIPE_MICRO}")
+    print(f"phase 21: five runs within rtol {MESH_LOSS_RTOL} of the "
+          f"one-device losses and gradient rel L2 {MESH_GRAD_TOL}; "
+          f"{', '.join(MESH_REPEATED)} repeated exactly from the same "
+          f"seed; 1F1B peak "
+          f"{peaks['pp4_1f1b']:.2f} GB < GPipe {peaks['pp4_gpipe']:.2f} GB "
+          f"at M={PIPE_MICRO}; wall_s {time.perf_counter() - t_phase:.1f} "
+          f"[{card}]", flush=True)
+    return total
+
+
 def main(argv):
     import torch
     cards = int(argv[argv.index("--cards") + 1]) if "--cards" in argv else 1
@@ -4084,6 +4450,13 @@ def main(argv):
     b1, fp16_launches = slice13_phase(card, fa, ragged_mod, reqs, fp_tps)
     launches += b1
     lap("20 (MoE, BERT, sequence parallelism, fp16)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in mesh_train_phase(card, fa).items():
+        flash_launches[name] += n
+    check(sum(ragged_counts(ragged_mod).values()) == 0,
+          "the mesh training phase launched a ragged kernel")
+    lap("21 (training over a mesh)")
 
     f32 = kres["float32"]
     kernels = [{

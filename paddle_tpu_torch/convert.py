@@ -108,10 +108,11 @@ def _linear_weights(model):
     block's are ``[L, ...]`` of the same."""
     names = set()
     for name, mod in model.named_modules():
+        prefix = f"{name}." if name else ""
         if isinstance(mod, nn.Linear):
-            names.add(f"{name}.weight")
+            names.add(f"{prefix}weight")
         elif isinstance(mod, WeightOnlyInt8Linear):
-            names.add(f"{name}.weight_int8")
+            names.add(f"{prefix}weight_int8")
     return names
 
 

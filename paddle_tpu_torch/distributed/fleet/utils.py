@@ -28,9 +28,19 @@ generators, which is all the port's dropouts draw from) and casts as the
 first did: the segment runs under the ``amp.auto_cast`` state taken when
 it was first called, since backward runs outside the caller's
 ``auto_cast``.
+
+On a rank of a mesh run (``collective.run_ranks``) the segment's first
+run records the results of the collectives inside it, and the
+recomputation — one rank at a time, in backward, with no other rank to
+meet — takes them back in order (``collective.in_region``); the
+collectives' backward is the first run's graph.  A recomputed segment
+that reads a rank's random stream draws what the first run drew: the
+checkpoint restores the generators, which hold the rank's stream while
+it runs.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -38,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ... import amp
+from .. import collective
 
 _aten = torch.ops.aten
 _DOTS = (_aten.mm.default, _aten.addmm.default, _aten.bmm.default)
@@ -81,9 +92,13 @@ def recompute(function, *args, policy=None, **kwargs):
     if not torch.is_grad_enabled():
         return function(*args, **kwargs)
     state = amp.current_state()
+    rank = collective.current_rank()
+    region = collective.Region() if rank is not None else None
 
     def run(*a, **kw):
-        with amp.restored(state):
+        with amp.restored(state), (
+                collective.in_region(rank, region) if rank is not None
+                else contextlib.nullcontext()):
             return function(*a, **kw)
 
     if policy is None:

@@ -17,9 +17,17 @@ reshapes to ``[dp, mp]`` (dp outer, mp inner), so rank ``(m, d)`` is
 
 ``build_mesh`` is the hybrid-parallel grid over the six axes of the JAX
 package (``dp, sharding, pp, mp, sp, ep``, outer to inner), one device a
-rank: a ``DeviceMesh``.  Sequence parallelism
-(``distributed/ring.py``) runs over its ``sp`` axis.  Training over a
-mesh (``TrainStep(mesh=...)``) is ROADMAP Queue A 10's.
+rank: a ``DeviceMesh``.  Its flat rank order is the JAX mesh's device
+order (row-major over ``AXES``); ``coords`` / ``group`` name a rank's
+place and the ranks it meets in a collective over some axes.  Sequence
+parallelism (``distributed/ring.py``) runs over its ``sp`` axis, and
+``TrainStep(mesh=...)`` (``parallel/train_step.py``) trains over all six.
+
+``DATA_AXES`` are the axes a batch's leading dimension splits over
+(``batch_partition_spec``); ``ensure_mesh`` sets the process mesh over
+every card when none is set.  ``host_local_to_global`` and
+``global_from_replicated`` assemble multi-process JAX arrays: the port
+is one process and raises for them (ROADMAP Queue A 12).
 """
 from __future__ import annotations
 
@@ -31,6 +39,9 @@ import torch
 # canonical hybrid-parallel axis order (outer -> inner), as the JAX
 # package's
 AXES = ("dp", "sharding", "pp", "mp", "sp", "ep")
+
+# the axes a data batch's leading dim shards over (dp + ZeRO sharding)
+DATA_AXES = ("dp", "sharding")
 
 _global_mesh = None
 
@@ -87,6 +98,17 @@ class ServingMesh:
     def device(self, m, d):
         return self.devices[self.rank(m, d)]
 
+    @property
+    def flat_devices(self):
+        return list(self.devices)
+
+    def axis_size(self, axis):
+        return {"mp": self.mp, "dp": self.dp}.get(axis, 1)
+
+    def coords(self, r):
+        """``{"mp": m, "dp": d}`` of flat rank ``r``."""
+        return {"mp": int(r) % self.mp, "dp": int(r) // self.mp}
+
     def mp_group(self, d):
         """Devices of dp group ``d``'s ranks ``(0..mp-1, d)``: the group
         a row-parallel sum or a vocab all-gather runs over."""
@@ -132,11 +154,51 @@ class DeviceMesh:
         self.devices[:] = devices
         self.devices = self.devices.reshape([self.shape[a] for a in AXES])
 
+    @property
+    def size(self):
+        return int(self.devices.size)
+
+    @property
+    def flat_devices(self):
+        """Every rank's device, in flat rank order."""
+        return list(self.devices.flat)
+
+    def axis_size(self, axis):
+        return self.shape.get(axis, 1)
+
     def axis_devices(self, axis):
         """The devices along ``axis``, every other axis at index 0, in rank
         order."""
         return list(self.devices[tuple(slice(None) if a == axis else 0
                                        for a in AXES)])
+
+    def coords(self, r):
+        """``{axis: index}`` of flat rank ``r``."""
+        idx = np.unravel_index(int(r), self.devices.shape)
+        return {a: int(i) for a, i in zip(AXES, idx)}
+
+    def rank_of(self, coords):
+        """The flat rank at ``coords`` (missing axes at 0)."""
+        return int(np.ravel_multi_index(
+            tuple(int(coords.get(a, 0)) for a in AXES), self.devices.shape))
+
+    def group(self, r, axes):
+        """The flat ranks that differ from rank ``r`` only along ``axes``,
+        in rank order: the ranks a collective over ``axes`` joins."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        c = self.coords(r)
+        idx = np.arange(self.size).reshape(self.devices.shape)
+        return [int(x) for x in idx[tuple(
+            slice(None) if a in axes else c[a] for a in AXES)].flat]
+
+    def index_in(self, r, axes):
+        """Rank ``r``'s position in its group over ``axes`` (row-major over
+        them: ``dp * sharding_size + sharding`` for ``DATA_AXES``)."""
+        return self.group(r, axes).index(int(r))
+
+    def __repr__(self):
+        shape = {a: n for a, n in self.shape.items() if n > 1}
+        return f"DeviceMesh({shape or {'dp': 1}}, {self.size} ranks)"
 
 
 def build_mesh(dp=1, sharding=1, pp=1, mp=1, sp=1, ep=1, devices=None):
@@ -177,3 +239,52 @@ def set_mesh(mesh):
 
 def get_mesh():
     return _global_mesh
+
+
+def ensure_mesh():
+    """The process mesh, built over every CUDA card (all on dp) when none
+    is set; raises when there is no card and no mesh."""
+    global _global_mesh
+    if _global_mesh is None:
+        if torch.cuda.device_count() == 0:
+            raise RuntimeError(
+                "ensure_mesh: no mesh is set and no CUDA card is present — "
+                "set_mesh(build_mesh(..., devices=[...])) first")
+        _global_mesh = build_mesh()
+    return _global_mesh
+
+
+def axis_size(name):
+    """Size of axis ``name`` on the process mesh (1 without one)."""
+    return 1 if _global_mesh is None else _global_mesh.axis_size(name)
+
+
+def data_parallel_size():
+    """Combined data-sharding degree (dp x sharding) of the process
+    mesh."""
+    return axis_size("dp") * axis_size("sharding")
+
+
+def data_axes_size(mesh=None):
+    mesh = mesh if mesh is not None else ensure_mesh()
+    return math.prod(mesh.axis_size(a) for a in DATA_AXES)
+
+
+def batch_partition_spec(shape, mesh=None):
+    """Leading-dim data sharding when divisible, replicated otherwise (the
+    single source of the batch-spec policy; TrainStep reuses it)."""
+    if shape and shape[0] % data_axes_size(mesh) == 0:
+        return (DATA_AXES,) + (None,) * (len(shape) - 1)
+    return ()
+
+
+def host_local_to_global(array, mesh=None, *spec):
+    raise NotImplementedError(
+        "host_local_to_global assembles a multi-process JAX array; the "
+        "port drives every rank from one process (ROADMAP Queue A 12)")
+
+
+def global_from_replicated(array, mesh=None, *spec):
+    raise NotImplementedError(
+        "global_from_replicated builds a multi-process JAX array; the "
+        "port drives every rank from one process (ROADMAP Queue A 12)")

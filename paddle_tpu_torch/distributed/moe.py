@@ -26,9 +26,10 @@ before it, padding rows included.
 
 The expert stacks keep the JAX layout (``gate [D, E]``, ``w1 [E, D,
 H]``, ``b1 [E, H]``, ``w2 [E, H, D]``, ``b2 [E, D]``), so the weight
-bridge copies them as they are.  The JAX package shards them over the
-``ep`` mesh axis; here ``partition_spec`` records that and nothing
-reads it yet.
+bridge copies them as they are.  Their ``partition_spec`` puts them
+over the ``ep`` mesh axis, as the JAX package does; the train step
+shards them by it, and ``moe_ffn`` on a mesh rank routes over the whole
+batch and gathers the experts' outputs over ep (see there).
 """
 from __future__ import annotations
 
@@ -37,6 +38,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from .. import amp
+from .collective import (current_rank, mesh_all_gather, mesh_all_reduce,
+                         mesh_exchange, mesh_split)
+from .mesh import DATA_AXES
 
 
 def _aux_loss(probs):
@@ -102,33 +106,99 @@ def top_k_routing(logits, k, capacity):
     return choice, pos, pos < capacity, gates, aux
 
 
+def _global_routing(probs, k, capacity, ctx):
+    """Top-k routing of this rank's tokens as one program over the whole
+    batch routes them: the capacity queue of each expert runs round-major
+    over every data rank's tokens in rank order, so a token's slot counts
+    the earlier rounds of every rank and this round of the ranks before
+    it.  Returns ``(choice, pos`` (the global slot), ``slot`` (a local
+    buffer row, unique per expert), ``gates``) each ``[T, k]``."""
+    t, e = probs.shape
+    gates, choice = torch.topk(probs, k, dim=-1)               # [T, k]
+    onehot = F.one_hot(choice.t(), e)                          # [k, T, E]
+    within = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1).t()
+    cnt = onehot.sum(dim=1)                                    # [k, E]
+    earlier_local = torch.cumsum(cnt, dim=0) - cnt             # rounds < r
+    rounds = torch.arange(k, device=probs.device)[None, :]
+    slot = within + earlier_local[rounds, choice]
+    all_cnt = mesh_exchange(
+        cnt, DATA_AXES, lambda parts: [torch.stack(
+            [p.to(q.device) for p in parts]) for q in parts],
+        "moe.route_counts") if ctx.batch_split else None
+    if all_cnt is None:
+        return choice, slot, slot, gates
+    me = ctx.mesh.index_in(ctx.rank, DATA_AXES)
+    tot = all_cnt.sum(0)                                       # [k, E]
+    before = all_cnt[:me].sum(0)                               # [k, E]
+    offset = (torch.cumsum(tot, dim=0) - tot) + before
+    pos = within + offset[rounds, choice]
+    return choice, pos, slot, gates
+
+
+def _global_aux(probs, ctx):
+    """The aux loss over the whole batch: top-1 counts and probability
+    sums summed over the data ranks (the sums differentiably)."""
+    e = probs.shape[-1]
+    top1 = F.one_hot(probs.argmax(dim=-1), e).float().sum(0)
+    psum = probs.sum(0)
+    n = torch.full((), probs.shape[0], dtype=torch.float32,
+                   device=probs.device)
+    top1 = mesh_all_reduce(top1.detach(), DATA_AXES)
+    psum = mesh_all_reduce(psum, DATA_AXES)
+    n = mesh_all_reduce(n, DATA_AXES)
+    return e * ((top1 / n) * (psum / n)).sum()
+
+
 def moe_ffn(x, gate_w, w1, b1, w2, b2, k, capacity_factor):
     """The MoE FFN of ``x [B, S, D]``: ``(out [B, S, D], aux)`` (the
-    body of the JAX package's ``moe_ffn`` primitive)."""
+    body of the JAX package's ``moe_ffn`` primitive).
+
+    Run as a rank of a mesh (``collective.run_ranks``), the routing and
+    the aux loss cover the whole batch when it is split over the data
+    axes (the capacity from every rank's tokens, each queue filled in
+    global order: ``_global_routing``), and with ``ep > 1`` the rank's
+    expert stacks hold its ``E / ep`` experts, whose outputs are gathered
+    over ep before the combine."""
     b, s, d = x.shape
-    e = w1.shape[0]
+    e = gate_w.shape[1]
     t = b * s
-    capacity = max(1, int(capacity_factor * t * k / e))
+    ctx = current_rank()
+    split = ctx is not None and ctx.batch_split and len(
+        ctx.group(DATA_AXES)) > 1
+    t_all = t * len(ctx.group(DATA_AXES)) if split else t
+    capacity = max(1, int(capacity_factor * t_all * k / e))
     tokens = x.reshape(t, d)
     logits = tokens @ gate_w.to(x.dtype)
-    choice, pos, keep, gates, aux = top_k_routing(logits, k, capacity)
-    # scatter tokens into the [E, C, D] expert-major buffer; a dropped
+    if ctx is None:
+        choice, pos, keep, gates, aux = top_k_routing(logits, k, capacity)
+        slot, rows = pos, capacity
+    else:
+        probs = torch.softmax(logits.float(), dim=-1)
+        aux = _global_aux(probs, ctx) if split else _aux_loss(probs)
+        choice, pos, slot, gates = _global_routing(probs, k, capacity, ctx)
+        keep = pos < capacity
+        rows = min(capacity, k * t)
+    # scatter tokens into the [E, rows, D] expert-major buffer; a dropped
     # (over-capacity) lane lands on one extra dump row, cut away after
-    slot = choice * capacity + pos                             # [T, k]
-    dump = torch.full_like(slot, e * capacity)
+    slot = choice * rows + slot                                # [T, k]
+    dump = torch.full_like(slot, e * rows)
     slot_f = torch.where(keep, slot, dump).reshape(-1)
     tok_f = torch.arange(t, device=x.device)[:, None].expand(t, k) \
         .reshape(-1)
-    xs = torch.zeros(e * capacity + 1, d, dtype=x.dtype,
+    xs = torch.zeros(e * rows + 1, d, dtype=x.dtype,
                      device=x.device).index_add(0, slot_f, tokens[tok_f])
-    xs = xs[:-1].reshape(e, capacity, d)
+    xs = xs[:-1].reshape(e, rows, d)
+    if w1.shape[0] != e:
+        # this rank's experts only (ep-sharded stacks)
+        xs = mesh_split(xs, 0, "ep")
     h = F.gelu(torch.einsum("ecd,edh->ech", xs, w1.to(x.dtype))
                + b1[:, None, :].to(x.dtype), approximate="tanh")
     ys = (torch.einsum("ech,ehd->ecd", h, w2.to(x.dtype))
           + b2[:, None, :].to(x.dtype))
+    if w1.shape[0] != e:
+        ys = mesh_all_gather(ys, 0, "ep")
     # combine: gather each (token, round)'s slot, weight by its gate
-    got = ys.reshape(e * capacity, d)[torch.clamp(slot_f, max=e * capacity
-                                                  - 1)]
+    got = ys.reshape(e * rows, d)[torch.clamp(slot_f, max=e * rows - 1)]
     wts = gates.to(x.dtype).reshape(-1) * keep.reshape(-1).to(x.dtype)
     out = (got * wts[:, None]).reshape(t, k, d).sum(dim=1)
     return out.reshape(b, s, d), aux.to(x.dtype)

@@ -41,6 +41,7 @@ import torch
 # the module, not its names: nn.functional.attention imports ops, whose
 # ragged wrapper imports this package while attention is still loading
 from ..nn.functional import attention as attn_mod
+from . import collective
 from . import mesh as mesh_mod
 
 _FLOOR = -1e30
@@ -105,23 +106,11 @@ def _shards(x, devices):
     return [c.to(d) for c, d in zip(x.chunk(n, dim=1), devices)]
 
 
-def ring_attention(query, key, value, axis="sp", causal=False, scale=None,
-                   mesh=None, dropout_p=0.0, rng_key=None):
-    """Ring attention of global ``[B, S, H, D]`` q, k, v over the ``axis``
-    ranks of ``mesh`` (default the process mesh, ``set_mesh``); the
-    result on the query's device and in its dtype.  ``dropout_p`` with a
-    ``rng_key`` generator drops attention probabilities, one mask a
-    block pair."""
-    devices = _sp_devices(mesh, axis)
-    if devices is None:
-        return _degenerate(query, key, value, scale, causal, dropout_p,
-                           rng_key)
+def _ring(qs, kv, devices, scale, causal, rng_key, drop, dtype):
+    """The ring over ``len(devices)`` ranks: rank i holds query shard
+    ``qs[i]`` and K/V shard ``kv[i]`` on ``devices[i]``; returns each
+    rank's output shard ``[B, S/n, H, D]`` in ``dtype`` on its device."""
     n = len(devices)
-    scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
-    drop = dropout_p if rng_key is not None else 0.0
-    qs = _shards(query, devices)
-    kv = list(zip(_shards(key, devices), _shards(value, devices)))
-    outs = []
     acc = [None] * n          # per rank: (o, m, l)
     for step in range(n):
         for my in range(n):
@@ -145,11 +134,68 @@ def ring_attention(query, key, value, axis="sp", causal=False, scale=None,
             # K/V rotate one rank on: rank i takes rank i - 1's block
             kv = [(kv[(i - 1) % n][0].to(devices[i]),
                    kv[(i - 1) % n][1].to(devices[i])) for i in range(n)]
+    outs = []
     for my in range(n):
         o, _, l = acc[my]
         out = o / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.transpose(1, 2).to(query.dtype).to(query.device))
-    return torch.cat(outs, dim=1)
+        outs.append(out.transpose(1, 2).to(dtype))
+    return outs
+
+
+def _on_rank(mesh, axis, q, k, v, combine, name):
+    """On a rank of a mesh run (``collective.run_ranks``) and no ``mesh``
+    given: with the rank's ``axis`` group larger than one, every rank of
+    it hands in its (replicated) q, k, v and ``combine(parts, devices)``
+    returns each rank's full output; with a group of one, None for the
+    degenerate single block.  ``False`` off a rank."""
+    ctx = collective.current_rank()
+    if ctx is None or mesh is not None:
+        return False
+    group = ctx.group(axis)
+    if len(group) == 1:
+        return None
+    if q.shape[1] % len(group):
+        raise ValueError(f"sequence length {q.shape[1]} is not divisible "
+                         f"by the sp degree {len(group)}")
+    devs = ctx.devices(group)
+    return collective.mesh_exchange((q, k, v), axis,
+                                    lambda parts: combine(parts, devs), name)
+
+
+def ring_attention(query, key, value, axis="sp", causal=False, scale=None,
+                   mesh=None, dropout_p=0.0, rng_key=None):
+    """Ring attention of global ``[B, S, H, D]`` q, k, v over the ``axis``
+    ranks of ``mesh`` (default the process mesh, ``set_mesh``); the
+    result on the query's device and in its dtype.  ``dropout_p`` with a
+    ``rng_key`` generator drops attention probabilities, one mask a
+    block pair.  Run as a rank of a mesh (``collective.run_ranks``), the
+    ranks of the rank's ``axis`` group each hand in their copy and rank
+    i takes shard i of it: the ring runs over their devices and every
+    rank gets the whole output (the sequence gathered back)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(query.shape[-1])
+    drop = dropout_p if rng_key is not None else 0.0
+
+    def over_ranks(parts, devs):
+        n = len(devs)
+        qs = [p[0].chunk(n, dim=1)[i] for i, p in enumerate(parts)]
+        kv = [(p[1].chunk(n, dim=1)[i], p[2].chunk(n, dim=1)[i])
+              for i, p in enumerate(parts)]
+        outs = _ring(qs, kv, devs, scale, causal, rng_key, drop,
+                     query.dtype)
+        return [torch.cat([o.to(d) for o in outs], dim=1) for d in devs]
+
+    got = _on_rank(mesh, axis, query, key, value, over_ranks,
+                   "ring_attention")
+    if got is not False and got is not None:
+        return got
+    devices = None if got is None else _sp_devices(mesh, axis)
+    if devices is None:
+        return _degenerate(query, key, value, scale, causal, dropout_p,
+                           rng_key)
+    outs = _ring(_shards(query, devices),
+                 list(zip(_shards(key, devices), _shards(value, devices))),
+                 devices, scale, causal, rng_key, drop, query.dtype)
+    return torch.cat([o.to(query.device) for o in outs], dim=1)
 
 
 def ulysses_attention(query, key, value, axis="sp", causal=False,
@@ -158,34 +204,56 @@ def ulysses_attention(query, key, value, axis="sp", causal=False,
     q, k, v over the ``axis`` ranks of ``mesh``: rank i attends over the
     whole sequence for heads ``i H/sp .. (i + 1) H/sp`` (the all-to-all
     from sequence to head shards), then the output goes back to sequence
-    shards and meets on the query's device.  Raises ValueError when the
-    head count does not divide by the sp degree."""
-    devices = _sp_devices(mesh, axis)
+    shards and meets on the query's device (on a mesh run's rank: every
+    rank of the group gets it, rank j's sequence shard coming from its
+    own copy).  Raises ValueError when the head count does not divide by
+    the sp degree."""
+    heads = query.shape[2]
+    use_drop = dropout_p > 0.0 and rng_key is not None
+
+    def check(n):
+        if heads % n:
+            raise ValueError(
+                f"ulysses_attention: local head count {heads} is not "
+                f"divisible by the '{axis}' degree {n} — use ring attention "
+                "(use_sp=True) for head counts the all-to-all cannot split")
+
+    def attend(seq, devices):
+        # the all-to-all: each rank's sequence shards of its head group
+        hl = heads // len(devices)
+        outs = []
+        for i, dev in enumerate(devices):
+            qg, kg, vg = (torch.cat([c[:, :, i * hl:(i + 1) * hl].to(dev)
+                                     for c in parts], dim=1)
+                          for parts in seq)
+            if use_drop:
+                outs.append(_single_block_attention(qg, kg, vg, scale,
+                                                    causal, rng_key,
+                                                    dropout_p))
+            else:
+                outs.append(attn_mod._reference_attention(qg, kg, vg, None,
+                                                          scale, causal))
+        return outs
+
+    def over_ranks(parts, devs):
+        n = len(devs)
+        check(n)
+        seq = [[p[j].chunk(n, dim=1)[i] for i, p in enumerate(parts)]
+               for j in range(3)]
+        outs = attend(seq, devs)
+        # back from head shards to sequence shards: the head groups side
+        # by side are the global output
+        return [torch.cat([o.to(d) for o in outs], dim=2) for d in devs]
+
+    got = _on_rank(mesh, axis, query, key, value, over_ranks,
+                   "ulysses_attention")
+    if got is not False and got is not None:
+        return got
+    devices = None if got is None else _sp_devices(mesh, axis)
     if devices is None:
         return _degenerate(query, key, value, scale, causal, dropout_p,
                            rng_key)
-    n = len(devices)
-    heads = query.shape[2]
-    if heads % n:
-        raise ValueError(
-            f"ulysses_attention: local head count {heads} is not "
-            f"divisible by the '{axis}' degree {n} — use ring attention "
-            "(use_sp=True) for head counts the all-to-all cannot split")
-    use_drop = dropout_p > 0.0 and rng_key is not None
-    # the all-to-all: each rank's sequence shards of its head group
-    seq = [_shards(t, devices) for t in (query, key, value)]
-    hl = heads // n
-    outs = []
-    for i, dev in enumerate(devices):
-        qg, kg, vg = (torch.cat([c[:, :, i * hl:(i + 1) * hl].to(dev)
-                                 for c in parts], dim=1) for parts in seq)
-        if use_drop:
-            out = _single_block_attention(qg, kg, vg, scale, causal,
-                                          rng_key, dropout_p)
-        else:
-            out = attn_mod._reference_attention(qg, kg, vg, None, scale,
-                                                causal)
-        outs.append(out.to(query.device))
-    # back from head shards to sequence shards: the head groups side by
-    # side are the global output
-    return torch.cat(outs, dim=2)
+    check(len(devices))
+    outs = attend([_shards(t, devices) for t in (query, key, value)],
+                  devices)
+    return torch.cat([o.to(query.device) for o in outs], dim=2)

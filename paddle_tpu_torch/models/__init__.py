@@ -7,5 +7,5 @@ from .bert import (  # noqa: F401
 from .gpt import (  # noqa: F401
     GPT_CONFIGS, GPTAttention, GPTBlock, GPTEmbeddings, GPTLMHead, GPTMLP,
     GPTModel, GPTPretrainingCriterion, GPTScanBlocks, packed_doc_inputs,
-    sample_rows,
+    gpt_pipe_model, sample_rows,
 )

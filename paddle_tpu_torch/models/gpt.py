@@ -55,6 +55,7 @@ from torch.nn import functional as F
 
 from .. import amp
 from ..device import resolve_device
+from ..distributed.collective import mesh_all_reduce
 from ..distributed.fleet.utils import recompute
 from ..distributed.moe import ExpertFFN, MoELayer
 from ..distributed.ring import ring_attention, ulysses_attention
@@ -62,7 +63,8 @@ from ..distributed.sharding import (ColumnParallelLinear, RowParallelLinear,
                                     VocabParallelEmbedding)
 from ..nn.functional import (apply_layer_norm, apply_linear, cross_entropy,
                              fused_linear_cross_entropy, gelu,
-                             scaled_dot_product_attention)
+                             scaled_dot_product_attention,
+                             vocab_parallel_linear_cross_entropy)
 from ..nn.layer import ScanLayers, owner_of
 from ..ops.ragged_paged_attn import ragged_paged_attention
 from ..serving.quant import (QuantKV, dequantize_blocks, paged_gather,
@@ -331,7 +333,10 @@ class GPTAttention(nn.Module):
                     "tensor-parallel attention takes no adapter lanes")
             ctx, w = amp.promote(*amp.cast_inputs("einsum", ctx,
                                                   self.out_weight))
-            return torch.einsum("bshd,hde->bse", ctx, w) + self.out_bias
+            # on a mesh each rank holds its heads: the partial products
+            # meet over mp before the bias (the identity elsewhere)
+            return mesh_all_reduce(torch.einsum("bshd,hde->bse", ctx, w),
+                                   "mp") + self.out_bias
         b, s = ctx.shape[0], ctx.shape[1]
         x = ctx.reshape(b, s, self.hidden_size)
         y = apply_linear(self.out_proj, x)
@@ -579,8 +584,10 @@ class GPTMLP(nn.Module):
         super().__init__()
         ffn_hidden = ffn_hidden or 4 * hidden_size
         if use_mp:
-            self.fc1 = ColumnParallelLinear(hidden_size, ffn_hidden)
-            self.fc2 = RowParallelLinear(ffn_hidden, hidden_size)
+            self.fc1 = ColumnParallelLinear(hidden_size, ffn_hidden,
+                                            gather_output=False)
+            self.fc2 = RowParallelLinear(ffn_hidden, hidden_size,
+                                         input_is_parallel=True)
         else:
             self.fc1 = nn.Linear(hidden_size, ffn_hidden)
             self.fc2 = nn.Linear(ffn_hidden, hidden_size)
@@ -898,10 +905,16 @@ class GPTModel(nn.Module):
                 x = blk(x, doc_segments=doc_segments)
         if labels is not None and self.fused_loss:
             w = self.head.lm_head.weight
+            h = apply_layer_norm(self.head.ln_f, x)
+            if self.head.use_mp:
+                # a mesh rank holds its vocab columns and computes their
+                # part of the CE (the whole CE off a mesh)
+                return vocab_parallel_linear_cross_entropy(
+                    h, w, labels, "mp", chunk_size=self.fused_loss_chunk,
+                    ignore_index=-100)
             return fused_linear_cross_entropy(
-                apply_layer_norm(self.head.ln_f, x),
-                w if self.head.use_mp else w.t(), labels,
-                chunk_size=self.fused_loss_chunk, ignore_index=-100)
+                h, w.t(), labels, chunk_size=self.fused_loss_chunk,
+                ignore_index=-100)
         logits = self.head(x)
         if labels is not None:
             b, s, v = logits.shape
@@ -1746,6 +1759,35 @@ class GPTPretrainingCriterion(nn.Module):
         b, s, v = logits.shape
         return cross_entropy(logits.reshape(b * s, v),
                              labels.reshape(b * s))
+
+
+def gpt_pipe_model(name="gpt2-medium", device=None, seed=0, **overrides):
+    """The ``PipelineLayer`` form of a ``GPT_CONFIGS`` model, as the JAX
+    package's ``gpt_pipe_model``: ``pre`` the embeddings, the blocks,
+    ``post`` the head (logits; train it with ``GPTPretrainingCriterion``),
+    ``use_mp`` honoured.  Built on ``device`` (None = the CUDA card) with
+    weights drawn from ``seed`` in ``GPTModel.from_config``'s order, so the
+    same name, overrides and seed give the same weights as that model."""
+    from ..distributed.fleet.meta_parallel import PipelineLayer
+    dev = resolve_device(device)
+    cfg = dict(GPT_CONFIGS[name])
+    cfg.update(overrides)
+    hidden, heads = cfg.pop("hidden_size"), cfg.pop("num_heads")
+    vocab, use_mp = cfg.pop("vocab_size"), cfg.pop("use_mp", False)
+    dropout = cfg.pop("dropout", 0.1)
+    with torch.device(dev):
+        pipe = PipelineLayer(
+            pre=GPTEmbeddings(vocab, hidden, cfg.pop("max_position"),
+                              dropout, use_mp),
+            blocks=[GPTBlock(hidden, heads, dropout, use_mp)
+                    for _ in range(cfg.pop("num_layers"))],
+            post=GPTLMHead(hidden, vocab, use_mp))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    with torch.no_grad():
+        for mod in pipe.modules():
+            _init_module(mod, gen)
+    return pipe
 
 
 def fused_ragged_tick(model, toks, k_pools, v_pools, block_tables, width,

@@ -53,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from ..device import require_on
+from ..distributed import collective
 from . import lr  # noqa: F401
 from .lr import LRScheduler
 
@@ -73,11 +74,25 @@ class ClipGradByGlobalNorm:
         if not grads:
             return
         sq = torch.stack([g.float().square().sum() for g in grads])
-        global_norm = sq.sum().sqrt()
-        scale = self.clip_norm / torch.clamp(global_norm,
-                                             min=self.clip_norm)
+        scale = self.scale(sq.sum().sqrt())
         for g in grads:
             g.copy_((g * scale).to(g.dtype))
+
+    def scale(self, global_norm):
+        """The factor every gradient takes at this global norm (a train
+        step over a mesh sums the squares over the shards itself)."""
+        return self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
+
+
+def _norm(t):
+    """The L2 norm of ``t`` in f32: of the whole parameter when ``t`` is
+    a rank's piece of it in a train step over a mesh (the squares summed
+    over the ranks holding the other pieces, ``RankContext.norm_axes``)."""
+    ctx = collective.current_rank()
+    if ctx is None or not ctx.norm_axes:
+        return torch.linalg.vector_norm(t.float())
+    sq = collective.mesh_all_reduce(t.float().square().sum(), ctx.norm_axes)
+    return sq.sqrt()
 
 
 def _named(parameters):
@@ -576,8 +591,8 @@ class Lamb(Optimizer):
                                         + eps)
         if self._weight_decay and self._decay_for(p):
             r = r + self._weight_decay * p.to(r.dtype)
-        w_norm = torch.linalg.vector_norm(p.float())
-        r_norm = torch.linalg.vector_norm(r.float())
+        w_norm = _norm(p)
+        r_norm = _norm(r)
         trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
         p.copy_((p.to(r.dtype) - lr * trust * r).to(p.dtype))
@@ -598,8 +613,8 @@ class LarsMomentum(Momentum):
         self._eps = float(epsilon)
 
     def _update(self, p, g, state, lr):
-        w_norm = torch.linalg.vector_norm(p.float())
-        g_norm = torch.linalg.vector_norm(g.float())
+        w_norm = _norm(p)
+        g_norm = _norm(g)
         local_lr = torch.where(
             (w_norm > 0) & (g_norm > 0),
             lr * self._lars_coeff * w_norm

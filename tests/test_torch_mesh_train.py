@@ -1,0 +1,492 @@
+"""The port's ``TrainStep`` over a mesh held to the JAX package's.
+
+Both sides start from the same weights (``convert.py``) and take three
+steps on the same numpy batch in fp32 at dropout 0: the JAX step over
+the 8-device CPU mesh tests/conftest.py forces, the port's over a CPU
+``DeviceMesh`` of the same shape (every rank on the CPU, each with its
+own shards, gradients and optimizer-state slice).  Losses at rtol 1e-4,
+parameters at atol 1e-5 / rtol 1e-4.  The GPT cases train with
+``Momentum``: Adam divides each gradient by its own magnitude, so where
+a gradient is near zero the two frameworks' float-order differences move
+an update by up to a step of lr (the slice-wide test in
+test_torch_train.py bounds that case separately); the MLP cases keep
+Adam and Lamb, whose moments are what ZeRO shards.
+
+* the MLP of tests/test_distributed.py at dp=8 (SGD and Adam);
+* ZeRO stages 1-3 at ``dp=2, sharding=4`` (``min_shard_size=1``): the
+  ``param_specs`` / ``opt_specs`` tables equal JAX's entry by entry (a
+  torch ``nn.Linear`` weight's spec read in the JAX ``[in, out]``
+  layout);
+* the column/row-parallel pair and ``VocabParallelEmbedding`` at
+  ``dp=2, mp=2, pp=2``; the tiny GPT's tensor-parallel form at ``dp=2,
+  mp=2``; gradient merge k=2 over dp=4;
+* ``use_sp="ring"`` at ``dp=2, sp=2``; MoE at ``dp=2, ep=2`` with
+  ``capacity_factor=0.5`` (tokens dropped, the queues over the whole
+  batch);
+* packed rows with uneven ``label_keep`` over dp=4 (the token mean is
+  the whole batch's); the global-norm clip under stage 3 and under mp=2;
+  Lamb under stage 2;
+* a batch that does not divide over the data axes is replicated;
+  batch norm over a split batch raises (JAX normalizes by the whole
+  batch; ROADMAP Queue C);
+  ``full_grads`` equals the one-device step's gradients;
+  ``save_train_state`` / ``load_train_state`` under stage 3 continue
+  exactly as an uninterrupted run.
+"""
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu import nn as jnn
+from paddle_tpu import optimizer as jopt
+from paddle_tpu.distributed import sharding as jsh
+from paddle_tpu.distributed.fleet.strategy import \
+    DistributedStrategy as JaxStrategy
+from paddle_tpu.models import GPTModel as JaxGPT
+from paddle_tpu.models.gpt import \
+    GPTPretrainingCriterion as JaxCriterion
+from paddle_tpu.nn import functional as JF
+from paddle_tpu.parallel.train_step import TrainStep as JaxTrainStep
+from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.distributed import (ColumnParallelLinear,
+                                          RowParallelLinear,
+                                          VocabParallelEmbedding, build_mesh)
+from paddle_tpu_torch.distributed.checkpoint import (load_train_state,
+                                                     save_train_state)
+from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+from paddle_tpu_torch.models import GPTModel
+from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+from paddle_tpu_torch.parallel import TrainStep
+
+from torch_mesh_helpers import (TINY, assert_params_close, bridge, flip,
+                                meshes, run_both, strip)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def jax_process_mesh():
+    from paddle_tpu.distributed import mesh as jmesh
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    prev, tprev = jmesh.get_mesh(), tmesh.get_mesh()
+    yield
+    jmesh.set_mesh(prev)
+    tmesh.set_mesh(tprev)
+
+
+def _regression(n=64, din=8, dout=4, seed=0):
+    r = np.random.RandomState(seed)
+    w = r.rand(din, dout).astype(np.float32)
+    x = r.rand(n, din).astype(np.float32)
+    return x, x @ w + 0.1
+
+
+def _mlp_pair(seed=11):
+    paddle.seed(seed)
+    jm = jnn.Sequential(jnn.Linear(8, 32), jnn.ReLU(), jnn.Linear(32, 4))
+    tm = torch.nn.Sequential(torch.nn.Linear(8, 32), torch.nn.ReLU(),
+                             torch.nn.Linear(32, 4))
+    return jm, bridge(jm, tm)
+
+
+def _opts(name, jm, tm, lr, **kw):
+    return (getattr(jopt, name)(learning_rate=lr,
+                                parameters=jm.parameters(), **kw),
+            getattr(topt, name)(learning_rate=lr,
+                                parameters=tm.parameters(), device="cpu",
+                                **kw))
+
+
+def _strategies(**attrs):
+    js, ts = JaxStrategy(), DistributedStrategy()
+    for s in (js, ts):
+        for k, v in attrs.items():
+            if isinstance(v, dict):
+                getattr(s, k).update(v)
+            else:
+                setattr(s, k, v)
+    return js, ts
+
+
+def _mlp_case(shape, opt_name, lr=0.05, strategy=None, **opt_kw):
+    jm, tm = _mlp_pair()
+    jmesh_, tmesh_ = meshes(**shape)
+    jo, to = _opts(opt_name, jm, tm, lr, **opt_kw)
+    js_, ts_ = strategy or (None, None)
+    jst = JaxTrainStep(jm, jo, loss_fn=jnn.MSELoss(), strategy=js_,
+                       mesh=jmesh_)
+    tst = TrainStep(tm, to, loss_fn=torch.nn.MSELoss(), strategy=ts_,
+                    mesh=tmesh_)
+    x, y = _regression()
+    run_both(jst, tst, [x], [y])
+    jst.sync_to_layer()
+    tst.sync_to_layer()
+    assert_params_close(jm, tm)
+    return jst, tst, tm
+
+
+@pytest.mark.parametrize("opt_name", ["SGD", "Adam"])
+def test_mlp_dp8_matches_jax(opt_name):
+    _mlp_case(dict(dp=8), opt_name)
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])
+def test_zero_stages_match_jax_with_equal_spec_tables(stage):
+    strat = _strategies(sharding=True, sharding_configs=dict(
+        stage=stage, min_shard_size=1))
+    jst, tst, tm = _mlp_case(dict(dp=2, sharding=4), "Adam",
+                             strategy=strat)
+    linear = {"0.weight", "2.weight"}
+    shapes = dict(tm.named_parameters())
+    for name, jspec in jst.param_specs.items():
+        spec = tst.param_specs[name]
+        if name in linear:
+            spec = flip(spec, shapes[name].dim())
+        assert strip(spec) == strip(jspec), (name, spec, jspec)
+        for key, jsub in jst.opt_specs[name].items():
+            sub = tst.opt_specs[name][key]
+            if name in linear and sub:
+                sub = flip(sub, shapes[name].dim())
+            assert strip(sub) == strip(jsub), (name, key, sub, jsub)
+    sharded = [n for n, s in tst.param_specs.items() if "sharding" in s]
+    assert bool(sharded) == (stage == 3)
+    # every rank holds its own slice of the moments
+    st = tst.engine
+    if stage >= 1:
+        m = [st.opt_state[r]["0.weight"]["moment1"] for r in range(8)]
+        assert m[0].shape == (32, 2) and m[0].data_ptr() != m[1].data_ptr()
+
+
+class _JaxTP(jnn.Layer):
+    def __init__(self):
+        super().__init__()
+        self.emb = jsh.VocabParallelEmbedding(64, 32)
+        self.fc1 = jsh.ColumnParallelLinear(32, 64, gather_output=False)
+        self.fc2 = jsh.RowParallelLinear(64, 32, input_is_parallel=True)
+        self.head = jsh.ColumnParallelLinear(32, 64, has_bias=False,
+                                             gather_output=True)
+
+    def forward(self, ids):
+        h = self.emb(ids)
+        h = h + self.fc2(JF.relu(self.fc1(h)))
+        return self.head(h)
+
+
+class _TorchTP(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.emb = VocabParallelEmbedding(64, 32)
+        self.fc1 = ColumnParallelLinear(32, 64, gather_output=False)
+        self.fc2 = RowParallelLinear(64, 32, input_is_parallel=True)
+        self.head = ColumnParallelLinear(32, 64, has_bias=False,
+                                         gather_output=True)
+
+    def forward(self, ids):
+        h = self.emb(ids)
+        h = h + self.fc2(torch.relu(self.fc1(h)))
+        return self.head(h)
+
+
+def _ids(vocab, shape, seed=3):
+    ids = np.random.RandomState(seed).randint(0, vocab, shape)
+    return ids[:, :-1].astype(np.int64), ids[:, 1:].astype(np.int64)
+
+
+def test_tp_layers_match_jax_at_dp2_mp2_pp2():
+    """The vocab-parallel embedding's gradient lands on its own rows, the
+    row-parallel bias is added after the mp sum and reduces over the data
+    axes only: the parameters after three steps equal JAX's."""
+    paddle.seed(5)
+    jm = _JaxTP()
+    tm = bridge(jm, _TorchTP())
+    jmesh_, tmesh_ = meshes(dp=2, pp=2, mp=2)
+    jo, to = _opts("Momentum", jm, tm, 0.5)
+    jst = JaxTrainStep(jm, jo, loss_fn=JaxCriterion(), mesh=jmesh_)
+    tst = TrainStep(tm, to, loss_fn=GPTPretrainingCriterion(),
+                    mesh=tmesh_)
+    assert tst.param_specs["emb.weight"] == ("mp", None)
+    assert tst.param_specs["fc2.bias"] == ()
+    x, y = _ids(64, (8, 9))
+    run_both(jst, tst, [x], [y])
+    jst.sync_to_layer()
+    tst.sync_to_layer()
+    assert_params_close(jm, tm)
+
+
+def _gpt_pair(seed=0, tp=False, **kw):
+    paddle.seed(seed)
+    jm = JaxGPT(**TINY, **kw)
+    tm = bridge(jm, GPTModel(**TINY, **kw))
+    if tp:
+        jm, tm = jm.to_tensor_parallel(), tm.to_tensor_parallel()
+    return jm, tm
+
+
+def _gpt_case(shape, jm, tm, strategy=None, lr=0.1, batch=8, seq=17,
+              clip=None, inputs=None):
+    jmesh_, tmesh_ = meshes(**shape)
+    kw = {}
+    jo, to = _opts("Momentum", jm, tm, lr)
+    if clip is not None:
+        jo._grad_clip = jnn.ClipGradByGlobalNorm(clip)
+        to._grad_clip = topt.ClipGradByGlobalNorm(clip)
+    js_, ts_ = strategy or (None, None)
+    jst = JaxTrainStep(jm, jo, strategy=js_, mesh=jmesh_, **kw)
+    tst = TrainStep(tm, to, strategy=ts_, mesh=tmesh_)
+    if inputs is None:
+        x, y = _ids(128, (batch, seq))
+        inputs = [x, y]
+    losses = run_both(jst, tst, inputs)
+    jst.sync_to_layer()
+    tst.sync_to_layer()
+    assert_params_close(jm, tm)
+    return tst, losses
+
+
+@pytest.mark.parametrize("clip", [None, 0.05])
+def test_tiny_gpt_tensor_parallel_matches_jax(clip):
+    """The TP form at dp=2, mp=2, with and without the global-norm clip
+    (each replicated piece counted once in the norm)."""
+    jm, tm = _gpt_pair(tp=True)
+    tst, _ = _gpt_case(dict(dp=2, mp=2), jm, tm, clip=clip)
+    assert tst.param_specs["blocks.0.attn.qkv_weight"] == (
+        None, None, "mp", None)
+    assert tst.param_specs["blocks.0.ln1.weight"] == ()
+
+
+def test_tiny_gpt_vocab_parallel_fused_loss_matches_jax():
+    """The TP form's fused head + CE at dp=2, mp=2: each mp rank computes
+    its vocab columns' part of the CE (the all-gathered logsumexps, the
+    all-reduced label logits), with ignored labels spread unevenly over
+    the data ranks."""
+    jm, tm = _gpt_pair(tp=True, fused_loss=True)
+    x, y = _ids(128, (8, 17))
+    y = y.copy()
+    y[:4, ::3] = -100
+    y[6, :11] = -100
+    _gpt_case(dict(dp=2, mp=2), jm, tm, inputs=[x, y])
+
+
+def test_gradient_merge_over_dp4_matches_jax():
+    jm, tm = _gpt_pair()
+    strat = _strategies(gradient_merge=True,
+                        gradient_merge_configs=dict(k_steps=2))
+    _gpt_case(dict(dp=4), jm, tm, strategy=strat)
+
+
+def test_sequence_parallel_ring_matches_jax():
+    jm, tm = _gpt_pair(use_sp="ring")
+    _gpt_case(dict(dp=2, sp=2), jm, tm, batch=4)
+
+
+def test_moe_over_ep_with_drops_matches_jax():
+    """Capacity 0.5 drops tokens; the queues fill over the whole batch in
+    global order and the aux loss's fractions are the whole batch's."""
+    from paddle_tpu_torch.distributed import moe
+    jm, tm = _gpt_pair(moe_experts=4, moe_every=1)
+    for m in (jm, tm):
+        for blk in m.blocks:
+            blk.mlp.capacity_factor = 0.5
+    dropped = []
+    real = moe._global_routing
+
+    def counting(probs, k, capacity, ctx):
+        out = real(probs, k, capacity, ctx)
+        dropped.append(int((out[1] >= capacity).sum()))
+        return out
+
+    moe._global_routing = counting
+    try:
+        tst, _ = _gpt_case(dict(dp=2, ep=2), jm, tm, lr=0.05)
+    finally:
+        moe._global_routing = real
+    assert sum(dropped) > 0
+    assert tst.param_specs["blocks.0.mlp.experts.w1"][0] == "ep"
+
+
+class _JaxPacked(jnn.Layer):
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, ids, labels, doc_lens):
+        return self.m(ids, labels=labels, doc_lens=doc_lens)
+
+
+class _TorchPacked(torch.nn.Module):
+    def __init__(self, m):
+        super().__init__()
+        self.m = m
+
+    def forward(self, ids, labels, doc_lens):
+        return self.m(ids, labels=labels, doc_lens=doc_lens)
+
+
+def test_uneven_label_keep_over_dp4_is_the_global_token_mean():
+    jm, tm = _gpt_pair()
+    x, y = _ids(128, (8, 17))
+    doc_lens = np.array([[16, 0], [8, 8], [3, 2], [5, 0], [16, 0], [1, 1],
+                         [10, 6], [2, 0]], np.int32)
+    _gpt_case(dict(dp=4), _JaxPacked(jm), _TorchPacked(tm),
+              inputs=[x, y, doc_lens])
+
+
+def test_global_norm_clip_under_stage3_matches_jax():
+    strat = _strategies(sharding=True, sharding_configs=dict(
+        stage=3, min_shard_size=1))
+    jm, tm = _mlp_pair()
+    jmesh_, tmesh_ = meshes(dp=2, sharding=4)
+    jo, to = _opts("SGD", jm, tm, 0.5)
+    jo._grad_clip = jnn.ClipGradByGlobalNorm(0.01)
+    to._grad_clip = topt.ClipGradByGlobalNorm(0.01)
+    jst = JaxTrainStep(jm, jo, loss_fn=jnn.MSELoss(), strategy=strat[0],
+                       mesh=jmesh_)
+    tst = TrainStep(tm, to, loss_fn=torch.nn.MSELoss(), strategy=strat[1],
+                    mesh=tmesh_)
+    x, y = _regression()
+    run_both(jst, tst, [x], [y])
+    jst.sync_to_layer()
+    tst.sync_to_layer()
+    assert_params_close(jm, tm)
+
+
+def test_lamb_under_stage2_matches_jax():
+    strat = _strategies(sharding=True, sharding_configs=dict(stage=2))
+    _mlp_case(dict(dp=2, sharding=4), "Lamb", lr=0.01, strategy=strat)
+
+
+def test_indivisible_batch_is_replicated():
+    """6 rows over dp=4 do not divide: every data rank trains on the whole
+    batch, which equals the one-device step."""
+    x, y = _regression(n=6)
+    out = []
+    for mesh in (None, build_mesh(dp=4, devices=["cpu"] * 4)):
+        _, tm = _mlp_pair()
+        st = TrainStep(tm, topt.SGD(learning_rate=0.1,
+                                    parameters=tm.parameters(),
+                                    device="cpu"),
+                       loss_fn=torch.nn.MSELoss(), mesh=mesh, device="cpu")
+        out.append([float(st.step([x], [y])) for _ in range(2)])
+    np.testing.assert_allclose(out[1], out[0], rtol=1e-6)
+
+
+def test_batch_norm_over_a_split_batch_raises():
+    """The JAX step normalizes by the whole batch's statistics; the port
+    refuses rather than normalize each rank's rows alone."""
+    net = torch.nn.Sequential(torch.nn.Linear(8, 4),
+                              torch.nn.BatchNorm1d(4))
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        TrainStep(net, topt.SGD(parameters=net.parameters(), device="cpu"),
+                  mesh=build_mesh(dp=2, devices=["cpu"] * 2))
+
+
+def test_full_grads_equal_the_one_device_step():
+    _, tm = _gpt_pair(tp=True)
+    one = GPTModel(**TINY, use_mp=True)
+    one.load_state_dict(tm.state_dict())
+    x, y = _ids(128, (4, 17))
+    st = TrainStep(tm, topt.SGD(learning_rate=0.0, parameters=tm.parameters(),
+                                device="cpu"),
+                   mesh=build_mesh(dp=2, mp=2, devices=["cpu"] * 4))
+    st.keep_grads = True
+    st.step([x, y])
+    ref = TrainStep(one, topt.SGD(learning_rate=0.0,
+                                  parameters=one.parameters(),
+                                  device="cpu"), device="cpu")
+    ref.step([x, y])
+    got = st.full_grads()
+    for n, p in one.named_parameters():
+        torch.testing.assert_close(got[n], p.grad, atol=1e-6, rtol=1e-5)
+
+
+def test_train_state_round_trip_under_stage3(tmp_path):
+    strat = DistributedStrategy()
+    strat.sharding = True
+    strat.sharding_configs.update(stage=3, min_shard_size=1)
+    x, y = _regression()
+
+    def make():
+        _, tm = _mlp_pair()
+        return TrainStep(tm, topt.Adam(learning_rate=0.05,
+                                       parameters=tm.parameters(),
+                                       device="cpu"),
+                         loss_fn=torch.nn.MSELoss(), strategy=strat,
+                         mesh=build_mesh(dp=2, sharding=4,
+                                         devices=["cpu"] * 8)), tm
+
+    a, am = make()
+    a.step([x], [y])
+    want = float(a.step([x], [y]))
+    a.sync_to_layer()
+    b, _ = make()
+    b.step([x], [y])
+    save_train_state(b, str(tmp_path / "state"))
+    c, cm = make()
+    load_train_state(c, str(tmp_path / "state"))
+    assert c.optimizer._step_count == 1
+    assert float(c.step([x], [y])) == pytest.approx(want, rel=1e-6)
+    c.sync_to_layer()
+    for (n, p), q in zip(am.named_parameters(), cm.parameters()):
+        torch.testing.assert_close(q, p, atol=1e-7, rtol=1e-6, msg=n)
+
+
+def test_vocab_parallel_cross_entropy_equals_the_whole_vocab():
+    """Over mp=2, each rank's loss equals the fused CE over the whole
+    weight, and the backward of rank 0's loss alone (as the step takes
+    it) leaves every rank its own columns' gradient."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.nn.functional import (
+        fused_linear_cross_entropy, vocab_parallel_linear_cross_entropy)
+    r = np.random.RandomState(7)
+    h = torch.tensor(r.randn(2, 6, 8), dtype=torch.float32)
+    w = torch.tensor(r.randn(8, 10), dtype=torch.float32,
+                     requires_grad=True)
+    lab = torch.tensor(r.randint(0, 10, (2, 6)))
+    lab[0, :2] = -100
+    want = fused_linear_cross_entropy(h, w, lab, chunk_size=4,
+                                      ignore_index=-100)
+    want.backward()
+    mesh = build_mesh(mp=2, devices=["cpu"] * 2)
+    ws = [c.detach().clone().requires_grad_() for c in w.chunk(2, dim=1)]
+    losses = collective.run_ranks(mesh, {
+        i: (lambda i=i: vocab_parallel_linear_cross_entropy(
+            h, ws[i], lab, "mp", chunk_size=4, ignore_index=-100))
+        for i in range(2)})
+    for i in range(2):
+        torch.testing.assert_close(losses[i], want, atol=1e-6, rtol=1e-6)
+    losses[0].backward()
+    torch.testing.assert_close(torch.cat([t.grad for t in ws], dim=1),
+                               w.grad, atol=1e-6, rtol=1e-6)
+
+
+def test_token_mean_takes_the_count_the_step_names():
+    """A loss's token mean on a mesh rank divides by the rank's own kept
+    tokens unless the running step names a count
+    (``RankContext.token_count``); ``TrainStep`` names the whole batch's
+    (test_uneven_label_keep_over_dp4_is_the_global_token_mean)."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    r = np.random.RandomState(8)
+    logits = [torch.tensor(r.randn(6, 5), dtype=torch.float32)
+              for _ in range(2)]
+    labels = [torch.tensor([0, 1, -100, -100, -100, 4]),
+              torch.tensor([2, 3, 4, 0, 1, -100])]
+    mesh = build_mesh(dp=2, devices=["cpu"] * 2)
+
+    def run(named):
+        def body(i):
+            if named:
+                collective.current_rank().token_count = \
+                    lambda kept: torch.full_like(kept, 10.0)
+            return cross_entropy(logits[i], labels[i])
+        return collective.run_ranks(mesh, {i: (lambda i=i: body(i))
+                                           for i in range(2)},
+                                    batch_split=True)
+
+    own, named = run(False), run(True)
+    for i in range(2):
+        torch.testing.assert_close(own[i], cross_entropy(logits[i],
+                                                         labels[i]))
+        kept = int((labels[i] != -100).sum())
+        torch.testing.assert_close(named[i], own[i] * kept / 10.0)

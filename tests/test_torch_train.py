@@ -24,7 +24,8 @@
   is near zero the two frameworks' float-order differences move the
   update by up to a step of lr 1e-3, and 2e-4 is a fifth of one.
 * Knobs the port does not carry raise ``NotImplementedError`` naming
-  their ROADMAP item (the mesh's, and ``metrics=``).
+  their ROADMAP item (the serving half of the mesh's, ``metrics=`` and
+  the multi-process helpers); the mesh knobs train.
 """
 import math
 
@@ -34,13 +35,15 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import optimizer as jopt
-from paddle_tpu.distributed.fleet.strategy import DistributedStrategy
+from paddle_tpu.distributed.fleet.strategy import \
+    DistributedStrategy as JaxStrategy
 from paddle_tpu.models import GPTModel as JaxGPT
 from paddle_tpu.nn import functional as JF
 from paddle_tpu.parallel.train_step import TrainStep as JaxTrainStep
 from paddle_tpu_torch.convert import (export_paddle_tpu_state,
                                       load_paddle_tpu_state)
 from paddle_tpu_torch.distributed import MoELayer
+from paddle_tpu_torch.distributed.fleet import DistributedStrategy
 from paddle_tpu_torch.models import GPTAttention, GPTModel
 from paddle_tpu_torch.nn.functional import attention as attn_mod
 from paddle_tpu_torch.nn.functional import (cross_entropy,
@@ -234,10 +237,10 @@ def _slice_pair(merge_k):
               apply_decay_param_fun=_decay_fun)
     jstrat = tstrat = None
     if merge_k > 1:
-        jstrat = DistributedStrategy()
-        jstrat.gradient_merge = True
-        jstrat.gradient_merge_configs = {"k_steps": merge_k, "avg": True}
-        tstrat = jstrat
+        jstrat, tstrat = JaxStrategy(), DistributedStrategy()
+        for s in (jstrat, tstrat):
+            s.gradient_merge = True
+            s.gradient_merge_configs = {"k_steps": merge_k, "avg": True}
     jstep = JaxTrainStep(jm, jopt.AdamW(parameters=jm.parameters(), **kw),
                          loss_fn=None, strategy=jstrat, donate=False)
     tstep = TrainStep(tm, AdamW(parameters=tm.parameters(), device="cpu",
@@ -318,9 +321,11 @@ def test_first_loss_is_near_uniform_plus_init_lift():
 def test_unported_model_knobs_raise(knob):
     """Each knob builds its form (the tensor-parallel form for serving on
     a mesh; sequence-parallel attention; MoE blocks, every ``moe_every``-th
-    one, ``moe_every`` inert alone), and what stays unported of it raises
-    naming its ROADMAP item: training it over a mesh
-    (``TrainStep(mesh=...)``, Queue A 10)."""
+    one, ``moe_every`` inert alone), trains over a mesh, and what stays
+    unported of it raises naming its ROADMAP item: serving it through the
+    XLA paths over a mesh (the serving half of Queue A 10)."""
+    from paddle_tpu_torch.distributed import ServingMesh, build_mesh
+    from paddle_tpu_torch.serving import Engine
     kw = {"use_mp": dict(use_mp=True), "use_sp": dict(use_sp=True),
           "moe_experts": dict(moe_experts=2),
           "moe_every": dict(moe_experts=4, moe_every=1)}[knob]
@@ -334,31 +339,52 @@ def test_unported_model_knobs_raise(knob):
                               knob, [False, False])
     assert m.blocks[0].attn.use_sp == (knob == "use_sp")
     opt = AdamW(parameters=m.parameters(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 10"):
-        TrainStep(m, opt, mesh=object(), device="cpu")
+    shape = {"use_mp": dict(mp=2), "use_sp": dict(sp=2)}.get(knob,
+                                                            dict(ep=2))
+    st = TrainStep(m, opt, mesh=build_mesh(devices=["cpu"] * 2, **shape))
+    ids = torch.zeros(2, 128, dtype=torch.long)
+    assert math.isfinite(float(st.step([ids, ids])))
+    mesh = ServingMesh(2 if knob == "use_mp" else 1,
+                       1 if knob == "use_mp" else 2, devices=["cpu"] * 2)
+    with pytest.raises(NotImplementedError, match="Queue A 10"):
+        Engine(m, mesh=mesh, attn_impl="xla", device="cpu")
 
 
 def test_unported_train_knobs_raise():
-    """The mesh knobs raise naming Queue A 10, ``metrics=`` Queue A 12;
-    a learning rate that is neither a float nor a scheduler is a
-    TypeError."""
+    """What stays refused on the training side: ``metrics=`` and the
+    multi-process helpers (``spawn``, ``host_local_to_global``,
+    ``global_from_replicated``) name Queue A 12, a pipeline beside data
+    parallelism names Queue A 10; the mesh knobs of the port's own
+    ``DistributedStrategy`` run.  A learning rate that is neither a float
+    nor a scheduler is a TypeError."""
+    from paddle_tpu_torch.distributed import build_mesh, mesh, spawn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
     m = GPTModel(**SLICE, dropout=0.0)
-    ids = torch.zeros(1, 8, dtype=torch.long)
+    ids = torch.zeros(4, 8, dtype=torch.long)
     opt = AdamW(parameters=m.parameters(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TrainStep(m, opt, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A 12"):
         TrainStep(m, opt, metrics=[object()], device="cpu")
+    for helper in (lambda: spawn(print), lambda: mesh.host_local_to_global(
+            np.zeros(2)), lambda: mesh.global_from_replicated(np.zeros(2))):
+        with pytest.raises(NotImplementedError, match="Queue A 12"):
+            helper()
     for knob in ("sharding", "pipeline"):
         s = DistributedStrategy()
         setattr(s, knob, True)
-        with pytest.raises(NotImplementedError, match=knob):
-            TrainStep(m, opt, strategy=s, device="cpu")
+        st = TrainStep(m, opt, strategy=s,
+                       mesh=build_mesh(dp=2, sharding=2,
+                                       devices=["cpu"] * 4))
+        assert math.isfinite(float(st.step([ids, ids])))
     for knob in ("mp_degree", "pp_degree", "sharding_degree"):
         s = DistributedStrategy()
         s.hybrid_configs[knob] = 2
-        with pytest.raises(NotImplementedError, match=knob):
-            TrainStep(m, opt, strategy=s, device="cpu")
+        st = TrainStep(m, opt, strategy=s, device="cpu")
+        assert math.isfinite(float(st.step([ids, ids])))
+    pipe = PipelineLayer(blocks=list(m.blocks))
+    with pytest.raises(NotImplementedError, match="Queue A 10"):
+        TrainStep(pipe, opt, mesh=build_mesh(dp=2, pp=2,
+                                             devices=["cpu"] * 4))
     with pytest.raises(TypeError, match="LRScheduler"):
         AdamW(parameters=m.parameters(), learning_rate=object(),
               device="cpu")
