@@ -340,9 +340,27 @@ line:
    device time under the collectives' ``mesh.*`` labels).  Before the
    runs it times B5a-B5c at mesh 3's per-rank shape ([2, 2048, 8, 128]
    bf16) beside ``scaled_dot_product_attention`` at that shape.
-22. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
-   phase 16 (c)'s, phase 17's and phase 18's in-process serves and phase
-   20 (a)'s first serve, B2's phase 10's, phase 17 (d)'s and phase 18
+22. The rest of serving over the mesh (run after phase 18, on phase 4's
+   fp32 model and traffic): (a) phase 16's five serves on phase 14's
+   (2, 2) mesh of ``to_tensor_parallel()`` — every greedy token the dense
+   argmax (phase 4's near-tie rule), every stream equal to phase 16's of
+   the same serve except at near ties (host-mode seeded ones counted),
+   the XLA serves launching no ragged kernel, (c) B4 over B1 24 times a
+   dispatch — and a profiled window of (a) with its kernels a tick by
+   launching op beside phase 16's; (b) ``weight_dtype="int8"`` on a ``(1,
+   2)`` mesh, streams equal to phase 9's; (c) phase 17 (d)'s host-tier
+   waves on the (2, 2) mesh at ``max_seq_len=512`` (fp32 pools, B1 under
+   B4), restored streams equal to a no-cache mesh engine's; (d)
+   phase 4's first six requests migrated after 8 tokens from the mesh to
+   one device and back, streams equal to phase 4's, B4 and B1 counted
+   per engine; each with its tokens/s, kernels a tick and busy share;
+   (e) a conv net with the port's ``BatchNorm2D`` trained over dp2 on
+   the card, losses, weights and running statistics within 1e-4 of the
+   one-device step's.
+23. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+   phase 16 (c)'s, phase 17's and phase 18's in-process serves, phase
+   20 (a)'s first serve and phase 22 (d)'s unsharded engines, B4's phase
+   14's and phase 22's mesh serves, B2's phase 10's, phase 17 (d)'s and phase 18
    (a)'s, B5a-B5c's phase 6's, phase 19 (a)'s and phase 21's, B5a's phase
    16 (f)'s too; the fp16 entries phase 20 (e)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
@@ -352,6 +370,9 @@ line:
 
 With ``--depth-ab N`` it builds the kernels and runs only
 ``depth_ab_phase``: N pairs of the fp32 serve at async_depth 1 and 2.
+With ``--profile-mesh`` it builds the kernels and runs only
+``profile_mesh_phase``: phase 4's serve profiled unsharded and on the
+(2, 2) mesh, each window's kernels a tick by launching op.
 With ``--cards 4`` it builds the kernels and runs only
 ``four_card_phase``: the (2, 2) mesh serve over four cards beside the
 same mesh on one card, both at the default ``async_depth=2``.
@@ -704,43 +725,141 @@ PROFILE_TICKS = (32, 24)
 
 
 PROFILES = {}                      # label -> (busy share, kernels a tick)
+BREAKDOWNS = {}                    # label -> kernel_breakdown(...)
+BREAKDOWN_TICKS = 4                # a breakdown's own window, when apart
+
+
+def kernel_breakdown(prof, ticks):
+    """Kernels a tick by the torch op that launched them (the innermost
+    CPU op a kernel is attached to; the ragged kernels, launched through
+    ctypes, under their wrapper's ``record_function``), and the kernels
+    launched under each mesh label.  Returns ({op: (kernels a tick,
+    device ms a tick)}, {label: kernels a tick})."""
+    ops, regions = {}, {}
+    evs = [e for e in prof.events() if e.device_type.name == "CPU"]
+
+    def kernels_under(e):
+        return len(e.kernels) + sum(kernels_under(c)
+                                    for c in e.cpu_children)
+
+    for e in evs:
+        if e.kernels:
+            n, ms = ops.get(e.name, (0, 0.0))
+            ops[e.name] = (n + len(e.kernels),
+                           ms + sum(k.duration for k in e.kernels) / 1e3)
+        if e.name in MESH_REGIONS:
+            regions[e.name] = regions.get(e.name, 0) + kernels_under(e)
+    return ({k: (n / ticks, ms / ticks) for k, (n, ms) in ops.items()},
+            {k: n / ticks for k, n in regions.items()})
+
+
+def print_breakdown(label, base_label=None, top=25):
+    """The kernels a tick of profile ``label`` by launching op, beside
+    those of profile ``base_label`` (same window, another engine)."""
+    ops, regions = BREAKDOWNS[label]
+    base = BREAKDOWNS[base_label][0] if base_label is not None else {}
+    total = sum(n for n, _ in ops.values())
+    print(f"breakdown{label}: {total:.1f} kernels a tick attributed to "
+          f"{len(ops)} ops" + (f" (against {sum(n for n, _ in base.values()):.1f}"
+                               f" in profile{base_label})" if base else ""),
+          flush=True)
+    for name in sorted(ops, key=lambda k: -ops[k][0])[:top]:
+        n, ms = ops[name]
+        was = (f" was {base.get(name, (0.0, 0.0))[0]:8.1f} "
+               f"delta {n - base.get(name, (0.0, 0.0))[0]:+8.1f}"
+               if base_label is not None else "")
+        print(f"breakdown{label} op: {n:8.1f} kernels/tick {ms:8.3f} "
+              f"ms/tick{was} {name[:70]}", flush=True)
+    for name, n in sorted(regions.items()):
+        print(f"breakdown{label} region: {name} {n:.1f} kernels/tick",
+              flush=True)
+
+
+def profile_mesh_phase(card):
+    """``--profile-mesh``: phase 4's traffic on a fresh gpt2-medium (seed
+    0) profiled over ticks ``PROFILE_TICKS``, unsharded and on phase 14's
+    (2, 2) mesh, both ragged; prints each window's kernels a tick by
+    launching op, the mesh's beside the unsharded one's."""
+    import torch
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    reqs = traffic(model.embeddings.word_embeddings.weight.shape[0])
+    profile_phase(model, reqs, Engine, card, label=" unsharded",
+                  ops=True, breakdown=True)
+    tp = model.to_tensor_parallel()
+    profile_phase(tp, reqs, Engine, card, label=" mesh", ops=True,
+                  breakdown=True, mesh=one_card_mesh())
+    print_breakdown(" unsharded")
+    print_breakdown(" mesh", " unsharded")
+    del tp, model
+    torch.cuda.empty_cache()
 
 
 def profile_phase(model, reqs, engine_cls, card, label="",
-                  **engine_kw):
+                  breakdown=False, ops=False, **engine_kw):
     """Where a tick's time goes: the same traffic once more, ticks
-    ``PROFILE_TICKS`` under torch.profiler; prints the device's busy
-    share of that window's wall time, the kernels that took the most
-    device time in it, and the device time of the kernels launched
-    under the mesh's profiler labels (B4, the collectives) where the
-    path has them.  Profiler overhead stretches the window's wall time;
-    the share is of this window.  The serve then runs to its end;
-    returns its streams."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    ``PROFILE_TICKS`` under torch.profiler (``profile_window``, with the
+    kernels by launching op when ``breakdown``).  The serve then runs to
+    its end; returns its streams."""
     first, count = PROFILE_TICKS
     eng, handles = submit_all(model, reqs, engine_cls, **engine_kw)
     for _ in range(first):
         eng.step()
+    profile_window(eng, count, card, label, first=first, ops=ops,
+                   breakdown=breakdown)
+    eng.run_until_idle()
+    return [h.result(timeout=1) for h in handles]
+
+
+def profile_window(eng, count, card, label, first=None, ops=False,
+                   breakdown=False):
+    """``count`` ticks of ``eng`` under torch.profiler: prints the
+    device's busy share of that window's wall time, its kernels a tick,
+    the kernels that took the most device time in it, and (``ops``: the
+    host's ops traced too) the device time of the kernels launched under
+    the mesh's profiler labels (B4, the collectives) where the path has
+    them; records the window in ``PROFILES`` under ``label``, and with
+    ``breakdown`` the kernels a tick by launching op in ``BREAKDOWNS``:
+    from this window when ``ops``, else from the ``BREAKDOWN_TICKS``
+    ticks right after it, traced with the host's ops.  Profiler overhead
+    stretches the window's wall time; the share is of this window.
+    Tracing the host's ops costs tens of seconds of trace processing a
+    mesh window, so the windows that report only busy share and kernels
+    a tick trace the device alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_first = eng.ticks if first is None else first
+    acts = ([ProfilerActivity.CPU] if ops else []) + [ProfilerActivity.CUDA]
+    t_trace = time.perf_counter()
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(count):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    eng.run_until_idle()
-    outs = [h.result(timeout=1) for h in handles]
     dev = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     launches = sum(e.count for e in dev)
     PROFILES[label] = (busy_ms / 1e3 / wall, launches / count)
-    print(f"profile{label}: ticks {first}-{first + count - 1} of "
+    if breakdown and ops:
+        BREAKDOWNS[label] = kernel_breakdown(prof, count)
+    elif breakdown:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as traced:
+            for _ in range(BREAKDOWN_TICKS):
+                eng.step()
+            torch.cuda.synchronize()
+        BREAKDOWNS[label] = kernel_breakdown(traced, BREAKDOWN_TICKS)
+        print(f"breakdown{label}: ticks {eng.ticks - BREAKDOWN_TICKS}-"
+              f"{eng.ticks - 1} traced with the host's ops", flush=True)
+    print(f"profile{label}: ticks {t_first}-{t_first + count - 1} of "
           f"{eng.ticks} async_depth {eng.async_depth} wall_s {wall:.3f} "
           f"device_busy_s {busy_ms / 1e3:.3f} busy_share "
           f"{busy_ms / 1e3 / wall:.3f} kernels_per_tick "
-          f"{launches / count:.1f} [{card}]", flush=True)
+          f"{launches / count:.1f} trace_s "
+          f"{time.perf_counter() - t_trace:.1f} [{card}]", flush=True)
     dev.sort(key=lambda e: -e.self_device_time_total)
     for e in dev[:10]:
         share = 100 * e.self_device_time_total / 1e3 / busy_ms
@@ -757,7 +876,7 @@ def profile_phase(model, reqs, engine_cls, card, label="",
     if regions:
         ragged = sum(e.self_device_time_total for e in dev
                      if RAGGED_KERNEL_NAMES.search(e.key)) / 1e3
-        ms, n = regions.pop("sharded_ragged_paged_attention")
+        ms, n = regions.pop("sharded_ragged_paged_attention", (0.0, 0))
         print(f"profile{label} region: sharded_ragged_paged_attention "
               f"{ragged + ms:10.3f} ms device {n:6d}x "
               f"{100 * (ragged + ms) / busy_ms:5.1f}% of busy (its kernels "
@@ -765,7 +884,6 @@ def profile_phase(model, reqs, engine_cls, card, label="",
         for key, (ms, n) in regions.items():
             print(f"profile{label} region: {key} {ms:10.3f} ms device "
                   f"{n:6d}x {100 * ms / busy_ms:5.1f}% of busy", flush=True)
-    return outs
 
 
 # -- phase 8 --------------------------------------------------------------
@@ -1397,7 +1515,7 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
     slice_line(f"gpt2-medium mesh {MESH_SHAPE} fp32", eng, wall, n, card,
                f" kv_blocks {eng.block_pool.managed_blocks} greedy_checked "
                f"{checked} near_ties {near}")
-    again = profile_phase(tp, reqs, Engine, card, label=" mesh",
+    again = profile_phase(tp, reqs, Engine, card, label=" mesh", ops=True,
                           mesh=one_card_mesh())
     for (_, kw), a, b in zip(reqs, outs, again):
         if kw:
@@ -1892,13 +2010,15 @@ def xla_phase(card, ragged_mod, fa, model, reqs, fp_outs):
     """Phase 16, the XLA and monolithic paths on phase 4's fp32 model and
     traffic, served five ways (``XLA_SERVES``), then the sync-free check
     over (a)'s clean ticks, (e) once more (seeded host streams repeat),
-    and a ``profile_phase`` window of (a).  Returns B1's launches in
-    (c)."""
+    and a ``profile_phase`` window of (a).  Returns (B1's launches in
+    (c), each serve's streams by tag: phase 22 (a)'s references)."""
     b1 = 0
+    by_tag = {}
     for tag, name, kw in XLA_SERVES:
         eng, outs, launches = xla_serve(card, ragged_mod, fa, model, reqs,
                                         fp_outs, tag, name, kw)
         b1 += launches
+        by_tag[tag] = outs
         if tag == "a":
             a_outs = outs
         if tag == "e":
@@ -1915,10 +2035,11 @@ def xla_phase(card, ragged_mod, fa, model, reqs, fp_outs):
     sync_free_phase(card, model, reqs, a_outs, label=" (phase 16 a)",
                     **XLA_DEFAULT)
     from paddle_tpu_torch.serving import Engine
-    profile_phase(model, reqs, Engine, card, label=" xla", **XLA_DEFAULT)
+    profile_phase(model, reqs, Engine, card, label=" xla",
+                  breakdown=True, **XLA_DEFAULT)
     check(not any(ragged_counts(ragged_mod).values()),
           "phase 16 (a): the XLA path launched a ragged kernel")
-    return b1
+    return b1, by_tag
 
 
 def bucket_phase(card, ragged_mod, fa):
@@ -2266,14 +2387,20 @@ def lora_phase(card, ragged_mod, model, reqs, fp_outs):
     return launches
 
 
-def offload_serve(card, ragged_mod, model, label, kernel, **kw):
+def offload_serve(card, ragged_mod, model, label, kernel, mesh=False,
+                  **kw):
     """Phase 17 (d), one pool form: a 96-block pool, a 2048 MiB host tier,
     three waves (``OFFLOAD_WAVES``: the first wave's prompts cached, the
     second's evicting them, the first wave again restored from host RAM).
     Restored streams equal a ``prefix_cache=False`` engine's except where
     its own top-2 margin is under ``margin`` (fp32 1e-4, int8 1e-3: phase
     10's rule); demotes, promotes and restored tokens all > 0; the path's
-    kernel launched 24 times a dispatch.  Returns its launches."""
+    kernel launched 24 times a dispatch.  With ``mesh`` (phase 22 (c)) the
+    engines serve on phase 14's (2, 2) mesh at ``max_seq_len=512`` (the
+    96 blocks split over two dp shards must each hold a max-length
+    request), the kernel launched through B4, and a profiled window of
+    the first wave served once more follows.  Returns its launches (B4's
+    with ``mesh``)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving import Engine
@@ -2283,8 +2410,10 @@ def offload_serve(card, ragged_mod, model, label, kernel, **kw):
              for lens in OFFLOAD_WAVES]
     waves.append(waves[0])
     zero_ragged_counts(ragged_mod)
-    eng = Engine(model, max_seq_len=1024, kv_block_size=16, prefill_chunk=64,
-                 **OFFLOAD_KW, **kw)
+    geo = dict(max_seq_len=512) if mesh else {}
+    eng = Engine(model, **dict(dict(max_seq_len=1024, kv_block_size=16,
+                                    prefill_chunk=64, **OFFLOAD_KW), **geo),
+                 **(dict(mesh=one_card_mesh()) if mesh else {}), **kw)
     outs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2294,7 +2423,8 @@ def offload_serve(card, ragged_mod, model, label, kernel, **kw):
         outs.append([h.result(timeout=1) for h in handles])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = check_launches(ragged_mod, eng, kernel, f"offload {label}")
+    launches = (check_mesh_launches if mesh else check_launches)(
+        ragged_mod, eng, kernel, f"offload {label}")
     reg = eng.registry
     demotes = reg.get("serving.offload_demotes").value
     promotes = reg.get("serving.offload_promotes").value
@@ -2304,14 +2434,16 @@ def offload_serve(card, ragged_mod, model, label, kernel, **kw):
           f"hit tokens {hit}")
     margin = 1e-3 if "kv_dtype" in kw else 1e-4
     _, ref, _, margins = serve_recording_margins(
-        model, waves[0], prefix_cache=False, num_slots=4, **kw)
+        model, waves[0], mesh=mesh, prefix_cache=False, num_slots=4,
+        **geo, **kw)
     near, gaps = stream_divergences(model, waves[0], outs[2], ref, margins,
                                     margin)
     exact = sum(a.tolist() == b.tolist() for a, b in zip(outs[2], ref))
     same_as_first = sum(a.tolist() == b.tolist()
                         for a, b in zip(outs[2], outs[0]))
     slice_line(
-        f"gpt2-medium fp32 phase 17 (d) offload {label}", eng, wall,
+        f"gpt2-medium fp32 phase {'22 (c)' if mesh else '17 (d)'} offload "
+        f"{label}", eng, wall,
         launches, card,
         f" offload_demotes {demotes:.0f} offload_promotes {promotes:.0f} "
         f"offload_hit_tokens {hit:.0f} kv_host_blocks "
@@ -2320,6 +2452,20 @@ def offload_serve(card, ragged_mod, model, label, kernel, **kw):
         f"restored_equal_to_no_cache {exact}/4 (near-tie divergences "
         f"{near} at margins {gaps}) restored_equal_to_first_wave "
         f"{same_as_first}/4")
+    if mesh:
+        # the second wave once more (its blocks now on the device or the
+        # host), a window of it profiled; its launches count too
+        for p, _ in waves[1]:
+            eng.submit(p, max_new_tokens=32)
+        zero_ragged_counts(ragged_mod)
+        d0 = eng.ragged_dispatches
+        profile_window(eng, PROFILE_TICKS[1], card, f" {label}")
+        eng.run_until_idle()
+        n = ragged_counts(ragged_mod)["sharded_ragged_paged_attention"]
+        check(n == (eng.ragged_dispatches - d0) * N_LAYERS,
+              f"offload {label}: B4 launched {n} times in the profiled wave, "
+              f"not {eng.ragged_dispatches - d0} dispatches x {N_LAYERS}")
+        launches += n
     return launches
 
 
@@ -2370,13 +2516,17 @@ FLEET_DIR = os.path.join(HERE, "build", "phase18_fleet")
 INJECTED = ("InjectedFault", "NoFreeBlocks", "WatchdogTimeout")
 
 
-def migrate_pair(model, reqs, ref_outs, recording=False, **engine_kw):
+def migrate_pair(model, reqs, ref_outs, recording=False, b_model=None,
+                 b_kw=None, profile=None, **engine_kw):
     """Phase 18 (a), one pool form: every request of the traffic served
     on engine A, exported once it has ``MIGRATE_AFTER`` tokens (the
     demands registered at submit, ``deliver="return"``), imported by
-    engine B, every other payload through its JSON wire form, and decoded
-    to the end there.  Returns (A, B, payloads, streams, wall, margins of
-    B when ``recording``)."""
+    engine B (over ``b_model``, its keywords updated by ``b_kw``: phase
+    22 (d) moves streams between a mesh and one device), every other
+    payload through its JSON wire form, and decoded to the end there;
+    ``profile`` = (card, label) profiles B's first ticks after the
+    imports (``profile_window``).  Returns (A, B, payloads, streams, wall,
+    margins of B when ``recording``)."""
     import torch
     from paddle_tpu_torch.serving import Engine, payload_to_json
     from paddle_tpu_torch.serving.engine import Migrated
@@ -2410,10 +2560,13 @@ def migrate_pair(model, reqs, ref_outs, recording=False, **engine_kw):
     if recording:
         cls, margins, undo = recording_engine()
     try:
-        b = cls(model, **ekw)
+        b = cls(model if b_model is None else b_model,
+                **dict(ekw, **(b_kw or {})))
         ins = [b.migrate_in(payload_to_json(pl) if i % 2 else pl,
                             wait=False)
                for i, pl in enumerate(payloads)]
+        if profile is not None:
+            profile_window(b, PROFILE_TICKS[1], *profile)
         b.run_until_idle()
     finally:
         if undo is not None:
@@ -4320,6 +4473,254 @@ def mesh_train_phase(card, fa):
     return total
 
 
+# -- phase 22 -------------------------------------------------------------
+MESH_MIGRATE_REQS = 6              # phase 22 (d): phase 4's first requests
+BN_SHAPE = (16, 3, 32, 32)         # phase 22 (e): images a step, NCHW
+BN_STEPS = 4
+BN_RTOL = 1e-4
+
+
+def mesh_line(label, eng, wall, extra, card):
+    """A phase 22 sub-phase's line: tokens/s beside its profiled window's
+    kernels a tick and busy share (``PROFILES``)."""
+    share, kpt = PROFILES[label]
+    print(f"phase 22{label}: tokens_per_s "
+          f"{eng.tokens_generated / wall:.2f} kernels_per_tick {kpt:.1f} "
+          f"busy_share {share:.3f}{extra} [{card}]", flush=True)
+
+
+def mesh_xla_phase(card, ragged_mod, fa, model, reqs, xla_outs):
+    """Phase 22 (a): phase 16's five serves (``XLA_SERVES``) on phase
+    14's (2, 2) mesh of the tensor-parallel model.  Each greedy token is
+    the dense argmax (phase 4's near-tie rule), each stream equals phase
+    16's stream of its serve except from a near tie (device-mode seeded
+    ones, except at a draw shown on a cumulative edge; host-mode seeded
+    ones are counted), no flash kernel launches, the XLA serves no ragged
+    kernel, the ragged decode after a monolithic prefill (c) B4 over B1.
+    A profiled window of (a), its kernels a tick by launching op beside
+    phase 16's.  Returns (c)'s B4 launches."""
+    from paddle_tpu_torch.serving import Engine
+    tp = model.to_tensor_parallel()
+    b4 = 0
+    for tag, name, kw in XLA_SERVES:
+        label = f"phase 22 (a) mesh {tag} {name}"
+        zero_ragged_counts(ragged_mod)
+        zero_flash_counts(fa)
+        eng, outs, wall = serve(tp, reqs, Engine, mesh=one_card_mesh(), **kw)
+        if eng._ragged:
+            b4 += check_mesh_launches(ragged_mod, eng,
+                                      "ragged_paged_attention", label)
+        else:
+            check(not any(ragged_counts(ragged_mod).values()),
+                  f"{label}: a ragged kernel launched")
+        check(not any(flash_counts(fa).values()),
+              f"{label}: a flash kernel launched")
+        for (p, _), ids in zip(reqs, outs):
+            check(len(ids) == len(p) + 32, f"{label}: a stream is short")
+        checked, near = teacher_forcing(model, reqs, outs)
+        host = eng.sample_mode == "host"
+        if host:
+            greedy = [(r, a, b) for r, a, b in zip(reqs, outs, xla_outs[tag])
+                      if not r[1]]
+            g_eq, g_n, _, _ = check_against(model, *zip(*greedy), label)
+            s_eq = sum(a.tolist() == b.tolist() for (_, rkw), a, b in
+                       zip(reqs, outs, xla_outs[tag]) if rkw)
+            s_n = 2
+        else:
+            g_eq, g_n, s_eq, s_n = check_against(model, reqs, outs,
+                                                 xla_outs[tag], label)
+        slice_line(f"gpt2-medium fp32 phase 22 (a) mesh {MESH_SHAPE} {tag} "
+                   f"{name}", eng, wall, b4 if eng._ragged else 0, card,
+                   f" greedy_checked {checked} near_ties {near} "
+                   f"greedy_equal_to_phase16 {g_eq}/{g_n} "
+                   f"seeded_equal_to_phase16 {s_eq}/{s_n}")
+        if tag == "a":
+            a_eng, a_wall = eng, wall
+        del eng
+    profile_phase(tp, reqs, Engine, card, label=" (a) mesh xla",
+                  breakdown=True, mesh=one_card_mesh(), **XLA_DEFAULT)
+    mesh_line(" (a) mesh xla", a_eng, a_wall, " (serve a: contiguous, "
+              "whole-prompt prefill)", card)
+    print_breakdown(" (a) mesh xla", " xla")
+    check(not any(ragged_counts(ragged_mod).values()),
+          "phase 22 (a): the XLA mesh path launched a ragged kernel")
+    return b4
+
+
+def mesh_int8_weights_phase(card, ragged_mod, reqs, w_outs):
+    """Phase 22 (b): a fresh gpt2-medium (seed 0) with ``weight_dtype=
+    "int8"`` on a ``(1, 2)`` mesh of ``cuda:0`` (the dense int8 blocks
+    served as they are on both dp ranks): B4 over B1 24 times a dispatch,
+    greedy tokens the argmax of the int8 model's dense forward, streams
+    equal phase 9's unsharded int8-weight streams except at near ties.
+    Returns B4's launches."""
+    import torch
+    from paddle_tpu_torch.distributed import ServingMesh
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.serving import Engine
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    mesh = ServingMesh(1, 2, devices=[torch.device("cuda", 0)] * 2)
+    zero_ragged_counts(ragged_mod)
+    eng, outs, wall = serve(model, reqs, Engine, mesh=mesh,
+                            weight_dtype="int8")
+    label = "phase 22 (b) int8 weights (1, 2)"
+    b4 = check_mesh_launches(ragged_mod, eng, "ragged_paged_attention",
+                             label)
+    check(eng._runner.dense is not None,
+          f"{label}: the mesh did not serve the dense int8 blocks")
+    checked, near = teacher_forcing(model, reqs, outs)
+    g_eq, g_n, s_eq, s_n = check_against(model, reqs, outs, w_outs, label)
+    slice_line("gpt2-medium weight_dtype=int8 phase 22 (b) mesh (1, 2)",
+               eng, wall, b4, card,
+               f" greedy_checked {checked} near_ties {near} "
+               f"greedy_equal_to_phase9 {g_eq}/{g_n} seeded_equal_to_phase9 "
+               f"{s_eq}/{s_n}")
+    zero_ragged_counts(ragged_mod)
+    profile_phase(model, reqs, Engine, card, label=" (b) mesh int8w",
+                  mesh=mesh)
+    b4 += ragged_counts(ragged_mod)["sharded_ragged_paged_attention"]
+    mesh_line(" (b) mesh int8w", eng, wall, "", card)
+    del model, eng
+    torch.cuda.empty_cache()
+    return b4
+
+
+def mesh_migration_phase(card, ragged_mod, model, reqs, fp_outs):
+    """Phase 22 (d): phase 4's first ``MESH_MIGRATE_REQS`` requests
+    exported after ``MIGRATE_AFTER`` tokens from phase 14's (2, 2) mesh
+    into one device, and from one device into the mesh (every other
+    payload through the JSON wire): every stream equal to phase 4's
+    except at near ties, B4 launched 24 times a mesh dispatch and B1
+    24 times an unsharded one besides; the second direction's importing
+    mesh profiled.  Returns (B4 launches, B1 launches)."""
+    tp = model.to_tensor_parallel()
+    sub = reqs[:MESH_MIGRATE_REQS]
+    refs = fp_outs[:MESH_MIGRATE_REQS]
+    b4 = b1 = 0
+    for direction, a_model, b_model, a_kw, b_kw, prof in (
+            ("mesh -> one device", tp, model, dict(mesh=one_card_mesh()),
+             dict(mesh=None), None),
+            ("one device -> mesh", model, tp, {},
+             dict(mesh=one_card_mesh()), (card, " (d) mesh migration"))):
+        label = f"phase 22 (d) {direction}"
+        zero_ragged_counts(ragged_mod)
+        a, b, payloads, outs, wall, _ = migrate_pair(
+            a_model, sub, refs, b_model=b_model, b_kw=b_kw, profile=prof,
+            **a_kw)
+        mesh_eng, one_eng = (a, b) if a.mesh is not None else (b, a)
+        counts = ragged_counts(ragged_mod)
+        n4 = counts["sharded_ragged_paged_attention"]
+        n1 = counts["ragged_paged_attention"]
+        check(n4 == mesh_eng.ragged_dispatches * N_LAYERS,
+              f"{label}: B4 launched {n4} times, not "
+              f"{mesh_eng.ragged_dispatches} mesh dispatches x {N_LAYERS}")
+        check(n1 == n4 + one_eng.ragged_dispatches * N_LAYERS,
+              f"{label}: B1 launched {n1} times, not B4's {n4} + "
+              f"{one_eng.ragged_dispatches} dispatches x {N_LAYERS}")
+        b4 += n4
+        b1 += n1 - n4
+        g_eq, g_n, s_eq, s_n = check_against(model, sub, outs, refs, label)
+        blocks = sum(pl["kv"]["n_blocks"] for pl in payloads)
+        heads = model.blocks[0].attn.num_heads
+        check(all(pl["kv"]["data"].shape[4] == heads for pl in payloads),
+              f"{label}: a payload is not in the global head layout")
+        print(f"{label}: {len(sub)} streams after {MIGRATE_AFTER} tokens, "
+              f"blocks {blocks}, greedy_equal_to_phase4 {g_eq}/{g_n} "
+              f"seeded_equal {s_eq}/{s_n}, export_span_ms_mean "
+              f"{span_ms(a, ('migrate.export',)):.4f} import_span_ms_mean "
+              f"{span_ms(b, ('migrate.import',)):.4f} wall_s {wall:.3f} "
+              f"tokens_per_s {(a.tokens_generated + b.tokens_generated) / wall:.2f}"
+              + (" (a window of B profiled)" if prof else "")
+              + f" [{card}]", flush=True)
+    share, kpt = PROFILES[" (d) mesh migration"]
+    print(f"phase 22 (d): the importing mesh's kernels_per_tick {kpt:.1f} "
+          f"busy_share {share:.3f} [{card}]", flush=True)
+    return b4, b1
+
+
+def mesh_bn_phase(card):
+    """Phase 22 (e): a conv net with the port's ``BatchNorm2D`` trained
+    ``BN_STEPS`` SGD steps by ``TrainStep`` over a dp2 mesh of two ranks
+    on ``cuda:0``, the batch split, against the one-device step on the
+    same weights and batch: losses, parameters and running statistics
+    within ``BN_RTOL`` (the statistics are the whole batch's on every
+    rank)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import build_mesh
+    from paddle_tpu_torch.nn.layer import BatchNorm2D
+    from paddle_tpu_torch.parallel import TrainStep
+    dev = torch.device("cuda", 0)
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 32, 3, padding=1), BatchNorm2D(32),
+        torch.nn.ReLU(), torch.nn.AdaptiveAvgPool2d(1), torch.nn.Flatten(),
+        torch.nn.Linear(32, 10)).to(dev)
+    nets = [net, copy.deepcopy(net)]
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(*BN_SHAPE).astype(np.float32), device=dev)
+    y = torch.tensor(rng.randn(BN_SHAPE[0], 10).astype(np.float32),
+                     device=dev)
+    out = []
+    for net, mesh in ((nets[0], build_mesh(dp=2, devices=[dev] * 2)),
+                      (nets[1], None)):
+        st = TrainStep(net, topt.SGD(learning_rate=0.1,
+                                     parameters=net.parameters(),
+                                     device=dev),
+                       loss_fn=torch.nn.MSELoss(), mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(st.step([x], [y])) for _ in range(BN_STEPS)]
+        torch.cuda.synchronize()
+        out.append((losses, (time.perf_counter() - t0) / BN_STEPS))
+        st.sync_to_layer()
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=BN_RTOL,
+                               err_msg="phase 22 (e): losses")
+    worst = 0.0
+    for (n, a), (_, b) in zip(
+            [*nets[0].named_parameters(), *nets[0].named_buffers()],
+            [*nets[1].named_parameters(), *nets[1].named_buffers()]):
+        a, b = a.detach(), b.detach()
+        if a.is_floating_point():
+            err = float((a - b).abs().max() / (b.abs().max() + 1e-12))
+            check(err < BN_RTOL, f"phase 22 (e): {n} differs by {err:.3e} "
+                  "of its largest entry from the one-device step's")
+            worst = max(worst, err)
+    print(f"phase 22 (e) batch norm over dp2: {BN_STEPS} steps of "
+          f"{BN_SHAPE}, losses {out[0][0]} (one device {out[1][0]}), worst "
+          f"relative parameter / statistic difference {worst:.3e}, s a step "
+          f"{out[0][1]:.4f} (one device {out[1][1]:.4f}) [{card}]",
+          flush=True)
+
+
+def mesh_serving_phase(card, ragged_mod, fa, model, reqs, fp_outs, xla_outs,
+                       w_outs):
+    """Phase 22: the rest of serving over the mesh, and batch norm over a
+    split batch.  Returns (B4 launches, B1 launches) of its serves."""
+    t0 = time.perf_counter()
+
+    def lap(sub):
+        print(f"phase 22 ({sub}) done at {time.perf_counter() - t0:.1f} s "
+              "into phase 22", flush=True)
+
+    b4 = mesh_xla_phase(card, ragged_mod, fa, model, reqs, xla_outs)
+    lap("a")
+    b4 += mesh_int8_weights_phase(card, ragged_mod, reqs, w_outs)
+    lap("b")
+    b4 += offload_serve(card, ragged_mod, model.to_tensor_parallel(),
+                        "mesh host tier fp32", "ragged_paged_attention",
+                        mesh=True)
+    lap("c")
+    n4, b1 = mesh_migration_phase(card, ragged_mod, model, reqs, fp_outs)
+    lap("d")
+    mesh_bn_phase(card)
+    lap("e")
+    return b4 + n4, b1
+
+
 def main(argv):
     import torch
     cards = int(argv[argv.index("--cards") + 1]) if "--cards" in argv else 1
@@ -4370,6 +4771,14 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--profile-mesh" in argv:
+        profile_mesh_phase(card)
+        lap("mesh profile")
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if cards == 4:
         four_card_phase(card, ragged_mod)
         lap("four-card mesh")
@@ -4409,7 +4818,8 @@ def main(argv):
     lap("15 (pipelined, speculative and preempted serving)")
     check(sum(flash_counts(fa).values()) == 0,
           "the serving path launched a flash kernel")
-    launches += xla_phase(card, ragged_mod, fa, model_fp, reqs, fp_outs)
+    b1, xla_outs = xla_phase(card, ragged_mod, fa, model_fp, reqs, fp_outs)
+    launches += b1
     lap("16 (a)-(e) (the XLA and monolithic paths)")
     b1, b2 = serving_features_phase(card, ragged_mod, model_fp, reqs, fp_outs)
     launches += b1
@@ -4424,6 +4834,13 @@ def main(argv):
     lap("18 (migration, front ends, faults, fleet)")
     check(sum(flash_counts(fa).values()) == 0,
           "phase 18 launched a flash kernel")
+    b4, b1 = mesh_serving_phase(card, ragged_mod, fa, model_fp, reqs,
+                                fp_outs, xla_outs, w_outs)
+    mesh_launches += b4
+    launches += b1
+    check(sum(flash_counts(fa).values()) == 0,
+          "phase 22 launched a flash kernel")
+    lap("22 (the rest of serving over the mesh, batch norm over dp2)")
     del model_fp, model_q
     # a host-tier engine is a reference cycle (its prefix cache's evict
     # hook is a bound method of it): collect phase 17's before the

@@ -45,7 +45,8 @@ class _PerRankStep:
         if others:
             raise NotImplementedError(
                 f"{type(self).__name__}: a mesh with {others} beside the "
-                "data axes is not ported yet (ROADMAP Queue A 10)")
+                "data axes is not ported yet (ROADMAP Queue A 10: the "
+                "meta-optimizers beside non-data axes)")
         self.dp = self.mesh.size
         self.devs = self.mesh.flat_devices
         optimizer.bind_names(model.named_parameters())

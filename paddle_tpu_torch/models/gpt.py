@@ -44,7 +44,6 @@ prompt-lookup speculative).
 """
 from __future__ import annotations
 
-import copy
 import math
 import threading
 from contextlib import contextmanager
@@ -219,6 +218,83 @@ def scatter_slot_rows(buf, pos, vals, in_range=False):
         vals = torch.where(valid[..., None, None], vals,
                            flat[(base + keep).reshape(-1)].view_as(vals))
     flat[(base + cols).reshape(-1)] = vals.reshape(B * W, *buf.shape[2:])
+
+
+def slot_attention(qa, k_rows, v_rows, pos):
+    """Windowed attention over each slot's gathered cache rows — the
+    plain oracle the ragged kernel is held to: f32 scores, the query at
+    window offset q of slot b sees cache positions <= pos[b] + q, softmax,
+    value contraction.  qa [B, S, H, hd]; k_rows/v_rows [B, L, H, hd]; pos
+    [B].  Returns the context [B, S, H, hd] in qa's dtype."""
+    S = qa.shape[1]
+    scale = 1.0 / math.sqrt(qa.shape[-1])
+    scores = torch.einsum("bqhd,bkhd->bhqk", qa.float(),
+                          k_rows.float()) * scale
+    L = k_rows.shape[1]
+    dev = qa.device
+    visible = (torch.arange(L, device=dev)[None, None, :]
+               <= (pos.long()[:, None]
+                   + torch.arange(S, device=dev)[None, :])[:, :, None])
+    scores = torch.where(visible[:, None], scores,
+                         torch.full_like(scores, _MASK))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs,
+                        v_rows.float()).to(qa.dtype)
+
+
+def paged_window_rows(block_tables, pos, W, block_size):
+    """Where lane j of slot b of an XLA paged window writes: the block
+    holding ``pos[b] + j`` (a column past the table clamps to its last
+    entry, as JAX's gather clamps) and the row in it.  Returns (blk, off),
+    int64 ``[B * W]``."""
+    bs = int(block_size)
+    offs = pos.long()[:, None] + torch.arange(W, device=pos.device)[None]
+    blk = torch.gather(block_tables.long(), 1,
+                       torch.clamp(offs // bs, max=block_tables.shape[1] - 1))
+    return blk.reshape(-1), (offs % bs).reshape(-1)
+
+
+def chunk_write_rows(block_table, pos, true_len, scratch, C, block_size):
+    """Where lane s of a C-token prefill chunk at ``pos`` (host ints)
+    writes through ONE slot's table: lanes ``>= true_len`` into row 0 of
+    the scratch block ``scratch``.  Returns (blk, off), int64 ``[C]``."""
+    bs = int(block_size)
+    dev = block_table.device
+    lane = torch.arange(C, device=dev)
+    valid = lane < int(true_len)
+    offs = torch.where(valid, lane + int(pos), torch.zeros_like(lane))
+    blk = block_table.long()[torch.clamp(offs // bs,
+                                         max=block_table.shape[0] - 1)]
+    blk = torch.where(valid, blk, torch.full_like(blk, int(scratch)))
+    return blk, torch.where(valid, offs % bs, torch.zeros_like(lane))
+
+
+def paged_ctx_rows(pool, blocks, dtype):
+    """The adopted prefix blocks ``blocks`` (int [n]) of one pool as a
+    ``[1, n * bs, H, hd]`` attention context in ``dtype`` (``QuantKV``
+    pools dequantize only these blocks)."""
+    if isinstance(pool, QuantKV):
+        rows = dequantize_blocks(pool.codes[blocks],
+                                 pool.scale[blocks]).to(dtype)
+    else:
+        rows = pool[blocks]
+    return rows.reshape(1, -1, *rows.shape[2:])
+
+
+def store_tail_blocks(pool, tail, blocks):
+    """A prompt tail's K or V rows ``[s_tail, H, hd]``, zero-padded to
+    whole blocks, into ``blocks`` (int [n]) of one pool, in place
+    (``QuantKV`` pools quantize each whole fresh block with a fresh
+    scale)."""
+    n, bs = blocks.shape[0], pool.shape[1]
+    tail = F.pad(tail, (0, 0, 0, 0, 0, n * bs - tail.shape[0])).reshape(
+        n, bs, *tail.shape[1:])
+    if isinstance(pool, QuantKV):
+        codes, scale = quantize_blocks(tail)
+        pool.codes[blocks] = codes
+        pool.scale[blocks] = scale
+    else:
+        pool[blocks] = tail.to(pool.dtype)
 
 
 def sample_rows(last, temperature, top_k, top_p, seed_lo, seed_hi, ctr):
@@ -450,15 +526,10 @@ class GPTAttention(nn.Module):
         for ``_slot_attn``."""
         qa, ka, va = self._qkv_step(x)
         B, W = qa.shape[0], qa.shape[1]
-        bs = k_pool.shape[1]
-        bps = block_tables.shape[1]
         H, hd = ka.shape[2], ka.shape[3]
-        offs = pos.long()[:, None] + torch.arange(W, device=x.device)[None]
-        blk = torch.gather(block_tables.long(), 1,
-                           torch.clamp(offs // bs, max=bps - 1))
+        blk, off = paged_window_rows(block_tables, pos, W, k_pool.shape[1])
         write_window_kv(k_pool, v_pool, ka.reshape(B * W, H, hd),
-                        va.reshape(B * W, H, hd), blk.reshape(-1),
-                        (offs % bs).reshape(-1))
+                        va.reshape(B * W, H, hd), blk, off)
         out = self._slot_attn(qa, gather_block_rows(k_pool, block_tables),
                               gather_block_rows(v_pool, block_tables), pos)
         return out, k_pool, v_pool
@@ -493,46 +564,18 @@ class GPTAttention(nn.Module):
         true_len, scratch host ints; the pools (tensors or ``QuantKV``)
         written in place.  Returns (out [1, C, E], k_pool, v_pool)."""
         qa, ka, va = self._qkv_step(x)
-        C = qa.shape[1]
-        bs = k_pool.shape[1]
-        bps = block_table.shape[0]
-        dev = x.device
-        lane = torch.arange(C, device=dev)
-        valid = lane < int(true_len)
-        offs_safe = torch.where(valid, lane + int(pos),
-                                torch.zeros_like(lane))
-        blk = block_table.long()[torch.clamp(offs_safe // bs, max=bps - 1)]
-        blk = torch.where(valid, blk, torch.full_like(blk, int(scratch)))
-        off = torch.where(valid, offs_safe % bs, torch.zeros_like(lane))
+        blk, off = chunk_write_rows(block_table, pos, true_len, scratch,
+                                    qa.shape[1], k_pool.shape[1])
         write_window_kv(k_pool, v_pool, ka[0], va[0], blk, off)
         table = block_table[None]
-        pos_b = torch.full((1,), int(pos), dtype=torch.long, device=dev)
+        pos_b = torch.full((1,), int(pos), dtype=torch.long, device=x.device)
         out = self._slot_attn(qa, gather_block_rows(k_pool, table),
                               gather_block_rows(v_pool, table), pos_b)
         return out, k_pool, v_pool
 
     def _slot_attn(self, qa, k_rows, v_rows, pos):
-        """Windowed attention over each slot's gathered cache rows — the
-        plain oracle the ragged kernel is held to: f32 scores, the query
-        at window offset q of slot b sees cache positions <= pos[b] + q,
-        softmax, value contraction, output projection.
-        qa [B, S, H, hd]; k_rows/v_rows [B, L, H, hd]; pos [B].
-        Returns [B, S, E]."""
-        B, S = qa.shape[0], qa.shape[1]
-        scale = 1.0 / math.sqrt(self.head_dim)
-        scores = torch.einsum("bqhd,bkhd->bhqk", qa.float(),
-                              k_rows.float()) * scale
-        L = k_rows.shape[1]
-        dev = qa.device
-        visible = (torch.arange(L, device=dev)[None, None, :]
-                   <= (pos.long()[:, None]
-                       + torch.arange(S, device=dev)[None, :])[:, :, None])
-        scores = torch.where(visible[:, None], scores,
-                             torch.full_like(scores, _MASK))
-        probs = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhqk,bkhd->bqhd", probs,
-                           v_rows.float()).to(qa.dtype)
-        return self._out(ctx)
+        """``slot_attention`` then the output projection: [B, S, E]."""
+        return self._out(slot_attention(qa, k_rows, v_rows, pos))
 
     def ragged_window_paged(self, x, k_pool, v_pool, block_tables, pos,
                             width, scratch=None, variant="stream"):
@@ -784,8 +827,16 @@ class GPTModel(nn.Module):
                  vocab_size=50304, max_position=1024, dropout=0.1,
                  fused_loss=False, fused_loss_chunk=128, use_mp=False,
                  use_sp=False, moe_experts=0, use_recompute=False,
-                 scan_layers=False, moe_every=2, recompute_policy=None):
+                 scan_layers=False, moe_every=2, recompute_policy=None,
+                 attn_impl="ragged"):
         super().__init__()
+        if attn_impl not in ("xla", "ragged", "ragged_gather"):
+            raise ValueError(
+                f"attn_impl must be 'xla', 'ragged' or "
+                f"'ragged_gather', got {attn_impl!r}")
+        # the serving attention an Engine(attn_impl=None) takes: the
+        # ragged kernels by default (JAX's default is "xla")
+        self.attn_impl = attn_impl
         if moe_experts and moe_every < 1:
             raise ValueError(f"moe_every must be >= 1, got {moe_every}")
         if scan_layers and (use_mp or use_sp or moe_experts):
@@ -804,7 +855,8 @@ class GPTModel(nn.Module):
             num_layers=num_layers, hidden_size=hidden_size,
             num_heads=num_heads, vocab_size=vocab_size,
             max_position=max_position, dropout=dropout,
-            fused_loss=fused_loss, fused_loss_chunk=fused_loss_chunk)
+            fused_loss=fused_loss, fused_loss_chunk=fused_loss_chunk,
+            attn_impl=attn_impl)
         self.embeddings = GPTEmbeddings(vocab_size, hidden_size,
                                         max_position, dropout, use_mp)
         self.scan_layers = bool(scan_layers)
@@ -973,21 +1025,12 @@ class GPTModel(nn.Module):
         weight-only int8) are refused.  The new model lies on this one's
         device and dtype, in eval mode.  A ``scan_layers`` model relayouts
         its unrolled twin."""
-        return self._tensor_parallel()
-
-    @torch.no_grad()
-    def _tensor_parallel(self, keep_moe=False):
-        """``to_tensor_parallel``; with ``keep_moe`` an MoE block keeps its
-        ``MoELayer`` (a copy: router and expert stacks replicated over
-        mp), the form the serving mesh shards, as the JAX engine's GSPMD
-        shards an MoE model's attention and leaves its experts whole."""
         if self.scan_layers:
             return self._sync_decode_twin().to_tensor_parallel()
         if self.blocks[0].attn.use_mp:
             return self
         for i, blk in enumerate(self.blocks):
-            moe = isinstance(blk.mlp, MoELayer)
-            if not hasattr(blk.mlp, "fc1") and not (moe and keep_moe):
+            if not hasattr(blk.mlp, "fc1"):
                 raise ValueError(
                     "to_tensor_parallel supports the dense GPT variant "
                     "only — MoE blocks already carry their expert-parallel "
@@ -997,11 +1040,10 @@ class GPTModel(nn.Module):
                     "to_tensor_parallel supports the dense GPT variant "
                     "only — sequence-parallel attention shards the "
                     "sequence axis, not heads")
-            lins = [("attn.qkv_proj", blk.attn.qkv_proj),
-                    ("attn.out_proj", blk.attn.out_proj)]
-            if not moe:
-                lins += [("mlp.fc1", blk.mlp.fc1), ("mlp.fc2", blk.mlp.fc2)]
-            for name, lin in lins:
+            for name, lin in (("attn.qkv_proj", blk.attn.qkv_proj),
+                              ("attn.out_proj", blk.attn.out_proj),
+                              ("mlp.fc1", blk.mlp.fc1),
+                              ("mlp.fc2", blk.mlp.fc2)):
                 if not isinstance(lin, nn.Linear):
                     raise ValueError(
                         f"to_tensor_parallel cannot relayout blocks[{i}]."
@@ -1031,9 +1073,6 @@ class GPTModel(nn.Module):
                 (ta.qkv_bias, sa.qkv_proj.bias.reshape(3, H, hd)[:, None]),
                 (ta.out_weight, sa.out_proj.weight.t().reshape(H, hd, E)),
                 (ta.out_bias, sa.out_proj.bias)]
-            if isinstance(sb.mlp, MoELayer):
-                tb.mlp = copy.deepcopy(sb.mlp)
-                continue
             for fc in ("fc1", "fc2"):
                 copies += [
                     (getattr(tb.mlp, fc).weight,
@@ -1428,39 +1467,17 @@ class GPTModel(nn.Module):
         quantize each whole fresh block with a fresh scale,
         ``_store_tail``).  Returns the last logits [1, V]."""
         s_tail = ids_tail.shape[1]
-        bs, H, hd = k_pools[0].shape[1], k_pools[0].shape[2], \
-            k_pools[0].shape[3]
-        ctx_len = ctx_blocks.shape[0] * bs
-        n_tail = tail_blocks.shape[0]
-
-        def ctx_rows(pool):
-            if isinstance(pool, QuantKV):
-                # in the compute dtype, where the window's K/V join them
-                rows = dequantize_blocks(
-                    pool.codes[ctx_blocks], pool.scale[ctx_blocks]).to(
-                        self.head.ln_f.weight.dtype)
-            else:
-                rows = pool[ctx_blocks]
-            return rows.reshape(1, ctx_len, H, hd)
-
-        def store_tail(pool, rows):
-            tail = F.pad(rows[0, ctx_len:],
-                         (0, 0, 0, 0, 0, n_tail * bs - s_tail)).reshape(
-                             n_tail, bs, H, hd)
-            if isinstance(pool, QuantKV):
-                codes, scale = quantize_blocks(tail)
-                pool.codes[tail_blocks] = codes
-                pool.scale[tail_blocks] = scale
-            else:
-                pool[tail_blocks] = tail.to(pool.dtype)
-
-        caches = [(ctx_rows(kp), ctx_rows(vp))
+        ctx_len = ctx_blocks.shape[0] * k_pools[0].shape[1]
+        # in the compute dtype, where the window's K/V join them
+        dt = self.head.ln_f.weight.dtype
+        caches = [(paged_ctx_rows(kp, ctx_blocks, dt),
+                   paged_ctx_rows(vp, ctx_blocks, dt))
                   for kp, vp in zip(k_pools, v_pools)]
         x, caches = self._forward_cached(ids_tail, caches,
                                          position_offset=ctx_len)
         for (ck, cv), kp, vp in zip(caches, k_pools, v_pools):
-            store_tail(kp, ck)
-            store_tail(vp, cv)
+            store_tail_blocks(kp, ck[0, ctx_len:], tail_blocks)
+            store_tail_blocks(vp, cv[0, ctx_len:], tail_blocks)
         return self._last_logits(x, s_tail)
 
     def _chunk_prefill_tick(self, toks, k_bufs, v_bufs, pos, true_len):
@@ -1558,35 +1575,15 @@ class GPTModel(nn.Module):
                                  in_range=False):
         """One-token decode plus the on-device sample and stop condition
         (the JAX engine's fused decode tick), contiguous or, with
-        ``block_tables``, paged.  Lanes draw through ``_sample_lanes``
-        with key(seed, ctr), as every path does; a lane whose budget
-        (``rem``) is spent is frozen (token, position and counter kept),
-        and eos or the last budgeted token spends it.  ``any_sampling``
-        as in ``_fused_ragged_tick_slots``; ``in_range`` passes to the
-        contiguous rows' writes.  Returns (ids [B], done bool [B],
-        new_tok [B, 1], new_pos [B], new_ctr [B], new_rem [B], k_bufs,
-        v_bufs); nothing is read back."""
-        if block_tables is None:
-            last, _, _ = self._decode_tick_slots(tok, k_bufs, v_bufs, pos,
-                                                 in_range=in_range)
-            L = k_bufs[0].shape[1]
-        else:
-            last, _, _ = self._decode_tick_slots_paged(
-                tok, k_bufs, v_bufs, block_tables, pos)
-            L = block_tables.shape[1] * k_bufs[0].shape[1]
-        keys = (self._slot_sample_keys(seed_lo, seed_hi, ctr)
-                if any_sampling is None or any_sampling else None)
-        sampled = self._sample_lanes(last, temp, top_k, top_p, keys)
-        live = rem > 0
-        zero = torch.zeros_like(rem)
-        ids = torch.where(live, sampled, tok[:, 0])
-        hit_eos = live & (eos >= 0) & (ids == eos)
-        new_rem = torch.where(live, torch.where(hit_eos, zero, rem - 1),
-                              rem)
-        new_pos = torch.where(live, torch.clamp(pos + 1, max=L - 1), pos)
-        new_ctr = torch.where(live, ctr + 1, ctr)
-        return (ids, new_rem <= 0, ids[:, None], new_pos, new_ctr, new_rem,
-                k_bufs, v_bufs)
+        ``block_tables``, paged: ``fused_decode_tick``.  Returns (ids [B],
+        done bool [B], new_tok [B, 1], new_pos [B], new_ctr [B], new_rem
+        [B], k_bufs, v_bufs); nothing is read back."""
+        L = (k_bufs[0].shape[1] if block_tables is None
+             else block_tables.shape[1] * k_bufs[0].shape[1])
+        return fused_decode_tick(
+            self, tok, k_bufs, v_bufs, pos, temp, top_k, top_p, seed_lo,
+            seed_hi, ctr, eos, rem, L=L, block_tables=block_tables,
+            any_sampling=any_sampling, in_range=in_range)
 
     def _fused_spec_verify_tick_slots(self, toks, k_bufs, v_bufs, pos,
                                       lanes, temp, top_k, top_p, seed_lo,
@@ -1594,63 +1591,16 @@ class GPTModel(nn.Module):
                                       block_tables=None, any_sampling=None,
                                       in_range=False):
         """Speculative verify plus on-device picks, accept scan and stop
-        condition (the JAX engine's fused verify tick): lane j of slot b
-        draws with key(seed, ctr + j), the accepted prefix is the leading
-        run of real draft lanes (j < ``lanes[b]``) whose draft equals the
-        pick, and the slot emits min(accepted + 1, rem, through the first
-        eos pick) tokens; the cursor advances by that, clamped at L - W.
-        Returns (picks [B, W], n_acc [B], n_emit [B], done bool [B],
-        new_tok [B, 1], new_pos [B], new_ctr [B], new_rem [B], k_bufs,
-        v_bufs)."""
-        if block_tables is None:
-            logits, _, _ = self._spec_verify_tick_slots(
-                toks, k_bufs, v_bufs, pos, in_range=in_range)
-            L = k_bufs[0].shape[1]
-        else:
-            logits, _, _ = self._spec_verify_tick_slots_paged(
-                toks, k_bufs, v_bufs, block_tables, pos)
-            L = block_tables.shape[1] * k_bufs[0].shape[1]
-        B, W = toks.shape
-        dev = toks.device
-        i32 = torch.int32
-        lane = torch.arange(W, device=dev)
-        keys = (self._slot_sample_keys(seed_lo[:, None], seed_hi[:, None],
-                                       ctr[:, None] + lane[None, :])
-                .reshape(-1) if any_sampling is None or any_sampling
-                else None)
-
-        def per_lane(t):
-            return t[:, None].expand(B, W).reshape(-1)
-
-        picks = self._sample_lanes(
-            logits.reshape(B * W, -1), per_lane(temp), per_lane(top_k),
-            per_lane(top_p), keys).view(B, W)
-        match = (toks[:, 1:] == picks[:, :-1]) \
-            & (lane[None, :-1] < lanes[:, None])
-        n_acc = torch.argmin(
-            torch.cat([match, torch.zeros(B, 1, dtype=torch.bool,
-                                          device=dev)], dim=1).to(i32),
-            dim=1).to(i32)
-        live = rem > 0
-        zero = torch.zeros_like(rem)
-        hit_eos = (eos[:, None] >= 0) & (picks == eos[:, None])
-        eos_stop = torch.where(hit_eos.any(dim=1),
-                               torch.argmax(hit_eos.to(i32), dim=1) + 1,
-                               W + 1).to(i32)
-        n_emit = torch.where(
-            live, torch.minimum(torch.minimum(n_acc + 1, rem), eos_stop),
-            zero).to(i32)
-        last_idx = torch.clamp(n_emit - 1, min=0).long()
-        new_tok = torch.where(live[:, None],
-                              torch.gather(picks, 1, last_idx[:, None]),
-                              toks[:, :1])
-        new_rem = torch.where(
-            live, torch.where(n_emit == eos_stop, zero, rem - n_emit), rem)
-        new_pos = torch.where(live, torch.clamp(pos + n_emit, max=L - W),
-                              pos).to(i32)
-        return (picks, n_acc, n_emit, new_rem <= 0, new_tok.to(i32),
-                new_pos, (ctr + n_emit).to(i32), new_rem.to(i32), k_bufs,
-                v_bufs)
+        condition (the JAX engine's fused verify tick):
+        ``fused_spec_verify_tick``.  Returns (picks [B, W], n_acc [B],
+        n_emit [B], done bool [B], new_tok [B, 1], new_pos [B], new_ctr
+        [B], new_rem [B], k_bufs, v_bufs)."""
+        L = (k_bufs[0].shape[1] if block_tables is None
+             else block_tables.shape[1] * k_bufs[0].shape[1])
+        return fused_spec_verify_tick(
+            self, toks, k_bufs, v_bufs, pos, lanes, temp, top_k, top_p,
+            seed_lo, seed_hi, ctr, eos, rem, L=L, block_tables=block_tables,
+            any_sampling=any_sampling, in_range=in_range)
 
     # -- ragged engine tick -------------------------------------------------
     def _ragged_window_tick_slots(self, toks, k_pools, v_pools,
@@ -1877,3 +1827,93 @@ def fused_ragged_tick(model, toks, k_pools, v_pools, block_tables, width,
     picks[:, 0] = torch.where(is_final, last_pick, picks[:, 0])
     return (picks, n_acc, n_emit, done, new_tok.to(i32), new_pos,
             new_ctr, new_rem.to(i32), k_pools, v_pools)
+
+def fused_decode_tick(model, tok, k_bufs, v_bufs, pos, temp, top_k, top_p,
+                      seed_lo, seed_hi, ctr, eos, rem, *, L,
+                      block_tables=None, any_sampling=None, in_range=False):
+    """The body of ``GPTModel._fused_decode_tick_slots`` for any ``model``
+    with its ``_decode_tick_slots`` / ``_decode_tick_slots_paged`` (the
+    dense or tensor-parallel ``GPTModel``, or the mesh's
+    ``serving.sharded.ShardedServingModel``); ``L`` is a slot's row length.
+    Lanes draw through ``_sample_lanes`` with key(seed, ctr), as every path
+    does; a lane whose budget (``rem``) is spent is frozen (token, position
+    and counter kept), and eos or the last budgeted token spends it.
+    ``any_sampling`` as in ``fused_ragged_tick``; ``in_range`` passes to
+    the contiguous rows' writes."""
+    if block_tables is None:
+        last, _, _ = model._decode_tick_slots(tok, k_bufs, v_bufs, pos,
+                                              in_range=in_range)
+    else:
+        last, _, _ = model._decode_tick_slots_paged(
+            tok, k_bufs, v_bufs, block_tables, pos)
+    keys = (GPTModel._slot_sample_keys(seed_lo, seed_hi, ctr)
+            if any_sampling is None or any_sampling else None)
+    sampled = GPTModel._sample_lanes(last, temp, top_k, top_p, keys)
+    live = rem > 0
+    zero = torch.zeros_like(rem)
+    ids = torch.where(live, sampled, tok[:, 0])
+    hit_eos = live & (eos >= 0) & (ids == eos)
+    new_rem = torch.where(live, torch.where(hit_eos, zero, rem - 1), rem)
+    new_pos = torch.where(live, torch.clamp(pos + 1, max=L - 1), pos)
+    new_ctr = torch.where(live, ctr + 1, ctr)
+    return (ids, new_rem <= 0, ids[:, None], new_pos, new_ctr, new_rem,
+            k_bufs, v_bufs)
+
+
+def fused_spec_verify_tick(model, toks, k_bufs, v_bufs, pos, lanes, temp,
+                           top_k, top_p, seed_lo, seed_hi, ctr, eos, rem, *,
+                           L, block_tables=None, any_sampling=None,
+                           in_range=False):
+    """The body of ``GPTModel._fused_spec_verify_tick_slots`` for any
+    ``model`` with its verify windows (as ``fused_decode_tick``): lane j of
+    slot b draws with key(seed, ctr + j), the accepted prefix is the
+    leading run of real draft lanes (j < ``lanes[b]``) whose draft equals
+    the pick, and the slot emits min(accepted + 1, rem, through the first
+    eos pick) tokens; the cursor advances by that, clamped at L - W."""
+    if block_tables is None:
+        logits, _, _ = model._spec_verify_tick_slots(
+            toks, k_bufs, v_bufs, pos, in_range=in_range)
+    else:
+        logits, _, _ = model._spec_verify_tick_slots_paged(
+            toks, k_bufs, v_bufs, block_tables, pos)
+    B, W = toks.shape
+    dev = toks.device
+    i32 = torch.int32
+    lane = torch.arange(W, device=dev)
+    keys = (GPTModel._slot_sample_keys(seed_lo[:, None], seed_hi[:, None],
+                                       ctr[:, None] + lane[None, :])
+            .reshape(-1) if any_sampling is None or any_sampling
+            else None)
+
+    def per_lane(t):
+        return t[:, None].expand(B, W).reshape(-1)
+
+    picks = GPTModel._sample_lanes(
+        logits.reshape(B * W, -1), per_lane(temp), per_lane(top_k),
+        per_lane(top_p), keys).view(B, W)
+    match = (toks[:, 1:] == picks[:, :-1]) \
+        & (lane[None, :-1] < lanes[:, None])
+    n_acc = torch.argmin(
+        torch.cat([match, torch.zeros(B, 1, dtype=torch.bool,
+                                      device=dev)], dim=1).to(i32),
+        dim=1).to(i32)
+    live = rem > 0
+    zero = torch.zeros_like(rem)
+    hit_eos = (eos[:, None] >= 0) & (picks == eos[:, None])
+    eos_stop = torch.where(hit_eos.any(dim=1),
+                           torch.argmax(hit_eos.to(i32), dim=1) + 1,
+                           W + 1).to(i32)
+    n_emit = torch.where(
+        live, torch.minimum(torch.minimum(n_acc + 1, rem), eos_stop),
+        zero).to(i32)
+    last_idx = torch.clamp(n_emit - 1, min=0).long()
+    new_tok = torch.where(live[:, None],
+                          torch.gather(picks, 1, last_idx[:, None]),
+                          toks[:, :1])
+    new_rem = torch.where(
+        live, torch.where(n_emit == eos_stop, zero, rem - n_emit), rem)
+    new_pos = torch.where(live, torch.clamp(pos + n_emit, max=L - W),
+                          pos).to(i32)
+    return (picks, n_acc, n_emit, new_rem <= 0, new_tok.to(i32),
+            new_pos, (ctr + n_emit).to(i32), new_rem.to(i32), k_bufs,
+            v_bufs)

@@ -43,7 +43,8 @@ activation changes, as the JAX package's ``_check_recompute_buffer_
 safety`` refuses it.
 
 The pipeline path runs over a mesh whose other axes are 1; with data
-or model parallelism beside ``pp`` it raises (ROADMAP Queue A 10).
+or model parallelism beside ``pp`` it raises (ROADMAP Queue A 10, the
+training remainder).
 """
 from __future__ import annotations
 
@@ -74,7 +75,8 @@ class PipelineEngine(_MeshEngine):
         if others:
             raise NotImplementedError(
                 f"TrainStep: a pipeline over a mesh with {others} beside pp "
-                "is not ported yet (ROADMAP Queue A 10: the mesh)")
+                "is not ported yet (ROADMAP Queue A 10: a pipeline beside "
+                "data or model parallelism)")
         nblocks = len(model.blocks)
         if nblocks % pp:
             raise ValueError(f"n_blocks {nblocks} must divide pp degree "

@@ -52,6 +52,11 @@ JAX step's spec semantics:
   read by ``nn.functional.loss``), so that a masked token mean is the
   whole batch's, and the MoE aux loss covers the whole batch; the
   tensor-parallel head's CE is vocab-parallel (each mp rank its columns);
+  a batch norm (the port's ``nn.layer.BatchNorm*``, or torch's, whose
+  forward a replica swaps for ``nn.functional.norm.
+  torch_batch_norm_forward``) normalizes each data rank's rows by the
+  whole batch's statistics and advances its running ones once, from the
+  whole batch;
 * each gradient is summed over the ranks holding the same piece (every
   axis its spec does not name: the collectives' exact transposes leave
   each replica's share on it), then clipped by the global norm over the
@@ -84,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import time
+import types
 
 import numpy as np
 import torch
@@ -95,6 +101,7 @@ from ..distributed import mesh as mesh_mod
 from ..distributed.moe import collect_moe_aux_loss
 from ..distributed.sharding import (_axes_of, _flipped_linear_weights,
                                     piece_slices, shard_params_specs)
+from ..nn.functional.norm import torch_batch_norm_forward
 from ..nn.layer import owner_of
 from ..optimizer import ClipGradByGlobalNorm
 
@@ -388,14 +395,6 @@ class _FlatMesh(_MeshEngine):
             min_size = int((getattr(s, "sharding_configs", None) or {}).get(
                 "min_shard_size", 1024))
         self.stage = stage
-        if mesh_mod.data_axes_size(mesh) > 1 and any(
-                isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
-                for m in model.modules()):
-            raise NotImplementedError(
-                "TrainStep over a mesh with data axes > 1: batch-norm "
-                "statistics over the whole split batch (the JAX step's) "
-                "are not ported; each rank would normalize by its own rows "
-                "(ROADMAP Queue C)")
         params = dict(model.named_parameters())
         buffers = {k: v for k, v in model.named_buffers() if v is not None}
         self.pnames = sorted(params)
@@ -452,6 +451,12 @@ class _FlatMesh(_MeshEngine):
                     for k in self.bnames}
             bind(rep, {k: self.leaves[r][k] for k in self.pnames
                        if k not in self.gathered}, bufs)
+            # a torch batch norm normalizes by the whole split batch's
+            # statistics, as the port's own BatchNorm layers do
+            for mod in rep.modules():
+                if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+                    mod.forward = types.MethodType(torch_batch_norm_forward,
+                                                   mod)
             self.replicas.append(rep)
             self.buffers.append(bufs)
         self.opt_state = [{} for _ in range(mesh.size)]

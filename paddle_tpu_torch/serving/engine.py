@@ -68,10 +68,11 @@ the engine thread at a tick boundary after the ring drains.  A
 ``serving.faults.FaultInjector`` (``faults=``) fires seeded failures at
 the JAX engine's sites; ``watchdog_s=`` arms a ``TickWatchdog`` that
 turns a wedged tick into a recorded recovery; a failing tick leaves its
-flight record in ``last_flight`` (and ``flight_dir``).  The XLA and
-monolithic paths over a mesh, the host tier over a mesh, and migration
-over a mesh raise ``NotImplementedError`` naming their ``ROADMAP.md``
-item.
+flight record in ``last_flight`` (and ``flight_dir``).  Every path,
+the host tier and migration serve over a mesh too: the XLA ticks and
+prefills run per rank (``serving/sharded.py``), and whole blocks move
+between the rank shards and the JAX package's global layout of a payload
+or a host block.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ from .quant import QuantKV, relayout_weights_int8
 from .request import (MAX_SEED, DeadlineShed, QueueFull, RateLimited,
                       Request, RequestQueue, TenantPolicy, TokenBucket)
 from .scheduler import Scheduler
-from .sharded import ShardedServingModel
+from .sharded import ShardedServingModel, gather_blocks, scatter_blocks
 from .spec import PromptLookupProposer
 
 
@@ -307,8 +308,9 @@ class Engine:
         or B2 with int8 pools); ``"ragged_gather"`` — the gather body
         (B3), which walks every table entry: the A/B baseline; ``"xla"``
         — the JAX package's XLA windows in plain torch, the only path
-        over contiguous rows.  JAX's ``attn_impl=None`` means ``"xla"``;
-        here the default is the ragged kernel path.
+        over contiguous rows.  None (the default) takes the model's
+        ``GPTModel(attn_impl=...)``, as the JAX engine does; only that
+        model default differs: ``"ragged"`` here, ``"xla"`` in JAX.
     sample_mode : ``"device"`` — sampling in the dispatch's epilogue;
         ``"host"`` — the logits come home and numpy samples each request
         on its own ``np.random.default_rng(seed)`` stream (needs
@@ -325,8 +327,12 @@ class Engine:
         model's weights are read from ``device`` and sliced per rank; the
         KV pools hold ``H/mp`` heads per rank, and dp shard ``d`` owns
         slots ``[d*B/dp, (d+1)*B/dp)`` and one contiguous pool range with
-        its own scratch block.  ``kv_budget_mb`` is then a per-rank
-        budget, and ``kv_blocks`` rounds up to a multiple of dp.
+        its own scratch block (contiguous rows: its slots' rows).
+        ``kv_budget_mb`` is then a per-rank budget, and ``kv_blocks``
+        rounds up to a multiple of dp.  Every path serves over a mesh;
+        ``weight_dtype="int8"`` over ``(1, dp)`` only (the int8 codes
+        replicate, as in JAX).  An ``(1, dp)`` mesh serves a dense model
+        as it is (every block replicated), whatever its blocks.
     weight_dtype : ``"int8"`` relayouts every transformer-block Linear of
         ``model`` (in place) to weight-only int8 at construction; None
         serves the checkpoint as it is.
@@ -411,7 +417,7 @@ class Engine:
                  kv_block_size=None, kv_blocks=None,
                  prefix_cache=True, prefill_chunk=None,
                  tick_token_budget=None, prefill_buckets=None,
-                 attn_impl="ragged",
+                 attn_impl=None,
                  sample_mode="device", async_depth=None, device=None,
                  spec_k=None, proposer=None, mesh=None, kv_dtype=None,
                  weight_dtype=None, adapters=None, max_adapters=None,
@@ -441,6 +447,10 @@ class Engine:
                 "host every tick, so there is no device-compute gap to "
                 "overlap")
         self.async_depth = depth
+        if attn_impl is None:
+            # the model's choice (GPTModel(attn_impl=...), "ragged" by
+            # default), as the JAX engine inherits its model's
+            attn_impl = getattr(model, "attn_impl", "ragged")
         if attn_impl not in ("xla", "ragged", "ragged_gather"):
             raise ValueError(
                 f"attn_impl must be 'xla', 'ragged' or 'ragged_gather', "
@@ -481,18 +491,6 @@ class Engine:
                     "sample_mode='device': sampling, the acceptance scan "
                     "and the stop condition run in the ragged dispatch's "
                     "epilogue")
-        if mesh is not None and (attn_impl == "xla"
-                                 or prefill_chunk is None):
-            raise NotImplementedError(
-                "Engine(mesh=..., attn_impl='xla') and Engine(mesh=..., "
-                "prefill_chunk=None) are not ported yet: ROADMAP.md Queue "
-                "A 10 (the XLA paths over a mesh); a mesh serves "
-                "attn_impl='ragged' with prefill_chunk=C")
-        if mesh is not None and kv_host_mb is not None:
-            raise NotImplementedError(
-                "Engine(mesh=..., kv_host_mb=...) is not ported yet: "
-                "ROADMAP.md Queue A 10 (the host tier over per-shard "
-                "pools)")
         if kv_budget_mb is not None and not self._paged:
             raise ValueError(
                 "kv_budget_mb requires the paged KV layout "
@@ -560,11 +558,6 @@ class Engine:
                     f"num_slots ({num_slots}) must divide by the mesh's dp "
                     f"degree ({mesh.dp}) — each dp shard owns an equal "
                     "contiguous range of batch slots")
-            if self._weight_quant:
-                raise NotImplementedError(
-                    "Engine(mesh=..., weight_dtype='int8') is not ported "
-                    "yet: ROADMAP.md Queue A 10 (the mesh: weight-only int8 "
-                    "over a dense dp mesh)")
             first = mesh.devices[0]
             if device is not None and torch.device(device) != first:
                 raise ValueError(
@@ -749,13 +742,11 @@ class Engine:
         self._reset_pools()
 
     def _shard_model(self):
-        """The mesh's per-rank weight shards, cut from ``self.model`` (a
-        dense model goes through its tensor-parallel form first, its MoE
-        blocks kept whole)."""
-        m = self.model
-        if not getattr(m.blocks[0].attn, "use_mp", False):
-            m = m._tensor_parallel(keep_moe=True)
-        return ShardedServingModel(m, self.mesh)
+        """The mesh's per-rank weight shards, cut from ``self.model``: a
+        tensor-parallel model's by their specs; a dense one (an ``(1,
+        dp)`` mesh) is served dense, its block modules replicated, as the
+        JAX engine replicates a dense model over dp."""
+        return ShardedServingModel(self.model, self.mesh)
 
     def _adapter_registry(self, model, adapters, max_adapters,
                           max_lora_rank, sample_mode, is_tp):
@@ -1056,8 +1047,10 @@ class Engine:
             self._slot_blocks = [[] for _ in range(self.num_slots)]
             shape = (nblocks // self.dp, self._bs, heads, self._hd)
         else:
+            # each dp shard's slot rows: [B/dp, L, H/mp, hd] a rank
             self.block_pool = self.prefix_cache = None
-            shape = (self.num_slots, self.max_seq_len, heads, self._hd)
+            shape = (self.num_slots // self.dp, self.max_seq_len, heads,
+                     self._hd)
 
         def pool(dev):
             if self._kv_quant:
@@ -1070,7 +1063,7 @@ class Engine:
         def layer_pools():
             if self.mesh is None:
                 return pool(self.device)
-            # one shard per rank, in rank order: [NB/dp, bs, H/mp, hd]
+            # one shard per rank, in rank order
             return [pool(dev) for dev in self.mesh.devices]
 
         self.k_pools = [layer_pools() for _ in self.model.blocks]
@@ -1108,6 +1101,35 @@ class Engine:
         ``dp`` contiguous ranges of ``num_slots/dp`` (always 0 without a
         dp mesh)."""
         return int(i) // (self.num_slots // self.dp)
+
+    # -- whole blocks in the global layout (migration, the host tier) ------
+    def _global_blocks(self, blocks):
+        """Per layer (K, V) the rows of GLOBAL ``blocks`` as pools of their
+        own (block i at row i), each rank's head slice joined in mp rank
+        order (``sharded.gather_blocks``): the JAX package's layout of a
+        payload or a host block.  Mesh only."""
+        rps = self.block_pool.rows_per_shard
+        return ([gather_blocks(kp, blocks, self.mesh, rps, self.device)
+                 for kp in self.k_pools],
+                [gather_blocks(vp, blocks, self.mesh, rps, self.device)
+                 for vp in self.v_pools])
+
+    def _export_blocks(self, blocks):
+        """``export_blocks`` of ``blocks``, over a mesh from every rank's
+        head slice of them."""
+        if self.mesh is None:
+            return export_blocks(self.k_pools, self.v_pools, blocks)
+        return export_blocks(*self._global_blocks(blocks),
+                             range(len(blocks)))
+
+    def _import_blocks(self, blocks, data, scales=None):
+        """``import_blocks`` into ``blocks``, over a mesh split by heads
+        into the owning dp shard's ranks (``sharded.scatter_blocks``)."""
+        if self.mesh is None:
+            import_blocks(self.k_pools, self.v_pools, blocks, data, scales)
+        else:
+            scatter_blocks(self.k_pools, self.v_pools, blocks, data, scales,
+                           self.mesh, self.block_pool.rows_per_shard)
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens=16, eos_token_id=None,
@@ -1675,7 +1697,7 @@ class Engine:
         else:
             ids = np.asarray(tokens, np.int32)[None, :]
         with torch.no_grad(), gpt_mod._lora_scope(self._lora_slot(req)):
-            last = self.model._prefill_slot(
+            last = self._runner._prefill_slot(
                 self._upload(ids.astype(np.int64)), self.k_pools,
                 self.v_pools, i, true_len=s)
         self._m_prefill_tokens.inc(s)
@@ -1694,11 +1716,13 @@ class Engine:
         s = len(tokens)
         n_tail = -(-s // self._bs) - len(ctx)
         with torch.no_grad(), gpt_mod._lora_scope(self._lora_slot(req)):
-            last = self.model._prefill_paged(
+            last = self._runner._prefill_paged(
                 self._upload(np.asarray(tokens[m:], np.int64)[None, :]),
                 self.k_pools, self.v_pools,
                 self._upload(np.asarray(ctx, np.int64)),
-                self._upload(np.asarray(fresh[:n_tail], np.int64)))
+                self._upload(np.asarray(fresh[:n_tail], np.int64)),
+                **({} if self.mesh is None
+                   else {"shard": self._slot_shard(slot.index)}))
         if self.prefix_cache is not None and not req._adapter_id:
             self.prefix_cache.insert(tokens,
                                      (ctx + fresh)[:s // self._bs])
@@ -1725,12 +1749,12 @@ class Engine:
                     "prefill.chunk", req=req.id, pos=p0, n=n,
                     layout="paged" if self._paged else "contiguous"):
             if self._paged:
-                last = self.model._chunk_prefill_tick_paged(
+                last = self._runner._chunk_prefill_tick_paged(
                     self._upload(ids), self.k_pools, self.v_pools,
                     self._upload(self._block_tables[i].astype(np.int64)),
                     p0, n, scratch=int(self._slot_scratch[i]))[0]
             else:
-                last = self.model._chunk_prefill_slot(
+                last = self._runner._chunk_prefill_slot(
                     self._upload(ids), self.k_pools, self.v_pools, i, p0,
                     n)
         slot.prefilled = slot.pos = p0 + n
@@ -2130,7 +2154,7 @@ class Engine:
             # in_range: a cursor stays below L (the epilogue clamps it
             # at L - 1, admission keeps prompt + max_new_tokens <= L)
             (ids, done, new_tok, new_pos, new_ctr, new_rem, _, _) = \
-                self.model._fused_decode_tick_slots(
+                self._runner._fused_decode_tick_slots(
                     st["tok"], self.k_pools, self.v_pools, st["pos"],
                     st["temp"], st["topk"], st["topp"], st["slo"],
                     st["shi"], st["ctr"], st["eos"], st["rem"],
@@ -2174,7 +2198,7 @@ class Engine:
             # in_range: the epilogue clamps a cursor at L - W, admission
             # keeps prompt + max_new_tokens + spec_k <= L
             (picks, n_acc, n_emit, done, new_tok, new_pos, new_ctr,
-             new_rem, _, _) = self.model._fused_spec_verify_tick_slots(
+             new_rem, _, _) = self._runner._fused_spec_verify_tick_slots(
                 up(stg.toks), self.k_pools, self.v_pools, st["pos"],
                 up(stg.lanes), st["temp"], st["topk"], st["topp"],
                 st["slo"], st["shi"], st["ctr"], st["eos"], st["rem"],
@@ -2204,7 +2228,7 @@ class Engine:
         uploaded cursors (a [B, 1] decode or a [B, k+1] verify window),
         its logits downloaded whole.  Returns the logits as a CPU tensor
         [B, V] or [B, W, V]."""
-        m = self.model
+        m = self._runner
         args = (self._upload(toks), self.k_pools, self.v_pools)
         pos = self._upload(self._pos)
         W = toks.shape[1]
@@ -2403,13 +2427,6 @@ class Engine:
                     self._migrate_demands.remove(d)
             raise
 
-    def _no_mesh(self, what):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"Engine.{what} over a serving mesh is not ported yet: "
-                "ROADMAP.md Queue A 10 (migration, prefix warming and the "
-                "drain over per-shard pools)")
-
     def live_request_ids(self):
         """Ids of the requests bound to slots (prefilling included), in
         slot order: the SIGTERM drain's worklist.  Queued requests are
@@ -2432,7 +2449,6 @@ class Engine:
         finishes first returns ``{"completed": True, "generated": [...],
         "payload": None}``; a scheduled ``migrate_export`` fault raises
         here and leaves the stream running."""
-        self._no_mesh("migrate_out")
         if deliver not in ("return", "error"):
             raise ValueError(f"deliver must be 'return' or 'error', "
                              f"got {deliver!r}")
@@ -2452,7 +2468,6 @@ class Engine:
         ``KVDtypeMismatch``, QueueFull (draining or full), or an injected
         ``migrate_import`` fault; on any failure this engine owns
         nothing."""
-        self._no_mesh("migrate_in")
         kv = payload.get("kv") if isinstance(payload, dict) else None
         with self.tracer.span(
                 "migrate.wire", cat="serving",
@@ -2480,7 +2495,6 @@ class Engine:
         cached prefix of ``tokens`` (device trie, then the host tier's
         continuation).  Returns a payload with ``request=None`` and a
         ``prefix`` token list, or None when nothing is cached."""
-        self._no_mesh("export_prefix")
         d = self._register_demand(_MigrateDemand(
             "prefix_out", tokens=[int(t) for t in tokens]))
         return self._await_demand(d, wait, timeout)
@@ -2491,7 +2505,6 @@ class Engine:
         admission sharing the prefix skips its prefill.  Returns
         ``{"blocks": n, "tokens": n * block_size}``.  Live or JSON wire
         form, as ``migrate_in``."""
-        self._no_mesh("import_prefix")
         if payload is None:
             return {"blocks": 0, "tokens": 0}
         kv = payload.get("kv") if isinstance(payload, dict) else None
@@ -2726,7 +2739,7 @@ class Engine:
                              len(self._slot_blocks[i]))
                 blocks = self._slot_blocks[i][:n_full]
                 if n_full:
-                    data = export_blocks(self.k_pools, self.v_pools, blocks)
+                    data = self._export_blocks(blocks)
                     kv = {"block_size": self._bs, "num_heads": self._nh,
                           "head_dim": self._hd,
                           "n_layers": len(self.k_pools),
@@ -2821,8 +2834,7 @@ class Engine:
         try:
             self._fault("migrate_import")
             with tr.span("migrate.import", cat="serving", blocks=n):
-                import_blocks(self.k_pools, self.v_pools, blocks,
-                              kv["data"], scales=kv.get("scales"))
+                self._import_blocks(blocks, kv["data"], kv.get("scales"))
             # the trie takes one reference per new node, then the alloc
             # reference drops: the blocks are the cache's, as a finished
             # request's are
@@ -2907,7 +2919,7 @@ class Engine:
             try:
                 with tr.span("migrate.export", cat="serving",
                              blocks=len(blocks), prefix=True):
-                    data = export_blocks(self.k_pools, self.v_pools, blocks)
+                    data = self._export_blocks(blocks)
             finally:
                 self.block_pool.decref(blocks)  # drop match's references
             if self._kv_quant:
@@ -3130,8 +3142,12 @@ class Engine:
         if key in self.host_store or key in self._offload_pending_keys:
             return
         b = int(block)
-        pools = [p for kp, vp in zip(self.k_pools, self.v_pools)
-                 for p in (kp, vp)]
+        k_pools, v_pools = self.k_pools, self.v_pools
+        if self.mesh is not None:
+            # each rank's head slice from its dp shard's range, joined
+            k_pools, v_pools = self._global_blocks([b])
+            b = 0
+        pools = [p for kp, vp in zip(k_pools, v_pools) for p in (kp, vp)]
         if self._kv_quant:
             data = torch.stack([p.codes[b] for p in pools])
             scales = torch.stack([p.scale[b] for p in pools])
@@ -3227,8 +3243,7 @@ class Engine:
             scales = (np.stack([e[1] for e in ents], axis=2)
                       if ents[0][1] is not None else None)
             try:
-                import_blocks(self.k_pools, self.v_pools, blocks, data,
-                              scales)
+                self._import_blocks(blocks, data, scales)
             except Exception:
                 return 0  # checked before any write: pools untouched
             self.prefix_cache.insert(tokens[:(first + n) * bs],

@@ -91,6 +91,40 @@ def _to_device(a, dtype, device):
     return t.to(device)
 
 
+def check_block_payload(quant, n_layers, geometry, n_blocks, data,
+                        scales=None):
+    """What ``import_blocks`` checks before it writes, for pools of
+    ``n_layers`` layers whose blocks are ``geometry`` = (block_size, H,
+    hd) and quantized or not (``quant``): ``KVDtypeMismatch`` first, then
+    the payload's and the scales' shapes.  Returns (data, scales) as
+    arrays."""
+    if quant and scales is None:
+        raise KVDtypeMismatch(
+            "destination pools are int8-quantized (kv_dtype='int8') "
+            "but the payload carries no scales: refusing to adopt fp "
+            "rows into a quantized pool")
+    if not quant and scales is not None:
+        raise KVDtypeMismatch(
+            "the payload carries int8 codes + scales but the destination "
+            "pools are fp (kv_dtype mismatch): refusing to adopt")
+    data = np.asarray(data)
+    want = (n_layers, 2, n_blocks) + tuple(geometry)
+    if tuple(data.shape) != want:
+        raise ValueError(
+            f"block payload shape {tuple(data.shape)} does not match the "
+            f"destination pools (want {want}: layers x (K,V) x blocks x "
+            "block_size x heads x head_dim)")
+    if quant:
+        scales = np.asarray(scales)
+        want_s = (n_layers, 2, n_blocks, geometry[1])
+        if tuple(scales.shape) != want_s:
+            raise ValueError(
+                f"block scale shape {tuple(scales.shape)} does not match "
+                f"the destination scale pools (want {want_s}: layers x "
+                "(K,V) x blocks x heads)")
+    return data, scales
+
+
 def import_blocks(k_pools, v_pools, block_ids, data, scales=None):
     """Write an ``export_blocks`` array into rows ``block_ids`` of every
     layer's pools, in place (``index_copy_``), and return the same
@@ -102,31 +136,10 @@ def import_blocks(k_pools, v_pools, block_ids, data, scales=None):
     does not match.  ``scales`` ``(n_layers, 2, n_blocks, H)`` is needed
     exactly when the pools are ``QuantKV``."""
     quant = _is_quant_pool(k_pools[0])
-    if quant and scales is None:
-        raise KVDtypeMismatch(
-            "destination pools are int8-quantized (kv_dtype='int8') "
-            "but the payload carries no scales: refusing to adopt fp "
-            "rows into a quantized pool")
-    if not quant and scales is not None:
-        raise KVDtypeMismatch(
-            "the payload carries int8 codes + scales but the destination "
-            "pools are fp (kv_dtype mismatch): refusing to adopt")
-    data = np.asarray(data)
+    data, scales = check_block_payload(
+        quant, len(k_pools), tuple(k_pools[0].shape[1:]), len(block_ids),
+        data, scales)
     ids = [int(b) for b in block_ids]
-    want = (len(k_pools), 2, len(ids)) + tuple(k_pools[0].shape[1:])
-    if tuple(data.shape) != want:
-        raise ValueError(
-            f"block payload shape {tuple(data.shape)} does not match the "
-            f"destination pools (want {want}: layers x (K,V) x blocks x "
-            "block_size x heads x head_dim)")
-    if quant:
-        scales = np.asarray(scales)
-        want_s = (len(k_pools), 2, len(ids), k_pools[0].shape[2])
-        if tuple(scales.shape) != want_s:
-            raise ValueError(
-                f"block scale shape {tuple(scales.shape)} does not match "
-                f"the destination scale pools (want {want_s}: layers x "
-                "(K,V) x blocks x heads)")
     if not ids:
         return k_pools, v_pools
     codes0 = k_pools[0].codes if quant else k_pools[0]

@@ -526,22 +526,23 @@ def test_kv_budget_blocks_equal_jax(models):
     ("dp2", dict(num_slots=3), ValueError, "divide by the mesh's dp"),
     ("tp_dp2", dict(weight_dtype="int8"), ValueError,
      "tensor-parallel einsum form"),
-    ("dp2", dict(weight_dtype="int8"), NotImplementedError,
-     "ROADMAP.md Queue A 10"),
+    ("dense_mp2dp2", dict(weight_dtype="int8"), ValueError,
+     "tensor-parallel model form"),
     ("tp_dp2", dict(device="cuda:1"), ValueError, "first rank's device"),
     ("dp2", dict(kv_blocks=10), ValueError, "per dp shard"),
 ], ids=["dense_mp", "three_axes", "not_a_mesh", "no_cards", "heads",
         "slots", "int8_weights_tp", "int8_weights_dp", "device",
         "too_few_blocks"])
 def test_mesh_validation(models, mesh, kw, err, match):
-    """Each mesh error the JAX engine raises, and what this slice does not
-    port (weight-only int8 over a dense dp mesh) names its ROADMAP item;
-    nothing is relayouted before the error."""
+    """Each mesh error the JAX engine raises (weight-only int8 beside mp >
+    1 included: its dense model cannot shard heads); nothing is
+    relayouted before the error."""
     _, _, tm = models
     tp = tm.to_tensor_parallel()
     model, mesh = {
         "dense_mp2": (tm, _cpu_mesh(2, 1)), "tp_mp3": (tp, _cpu_mesh(3, 1)),
         "dp2": (tm, _cpu_mesh(1, 2)), "tp_dp2": (tp, _cpu_mesh(1, 2)),
+        "dense_mp2dp2": (tm, _cpu_mesh(2, 2)),
     }.get(mesh if isinstance(mesh, str) else "", (tp, mesh))
     cfg = dict(ENGINE_KW, **kw)
     with pytest.raises(err, match=match):

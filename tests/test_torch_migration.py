@@ -19,7 +19,8 @@
   imported by the JAX engine, continue the greedy stream
   token-identically (the wire format is one format).
 * fp32 blocks into int8 pools raise ``KVDtypeMismatch``; a mesh engine
-  refuses migration naming ROADMAP Queue A 10.
+  migrates and warms prefixes too (every direction in
+  tests/test_torch_mesh_serving_features.py).
 """
 import numpy as np
 import pytest
@@ -272,10 +273,11 @@ def test_prefix_export_import_raises_hits(tiny_gpt):
     assert a.block_pool.in_use() == 0
 
 
-def test_live_request_ids_refresh_params_and_mesh_refusal(tiny_gpt):
+def test_live_request_ids_refresh_params_and_mesh_refusal(tiny_gpt, jax_ref):
     """``live_request_ids`` lists the bound requests; ``refresh_params``
-    flushes the prefix trie; a mesh engine refuses migration naming
-    Queue A 10."""
+    flushes the prefix trie; a mesh engine (where the name's refusal
+    was) exports a live stream that resumes on an unsharded engine as
+    JAX ``generate``, and imports a prefix."""
     eng = _port(tiny_gpt, kv_block_size=8, prefill_chunk=8)
     r = eng.submit(PROMPT, max_new_tokens=4)
     eng.step()
@@ -290,9 +292,17 @@ def test_live_request_ids_refresh_params_and_mesh_refusal(tiny_gpt):
     mesh_eng = mirror.port_engine(
         tp, num_slots=2, max_seq_len=64, kv_block_size=8, prefill_chunk=8,
         mesh=ServingMesh(2, 1, devices=["cpu"] * 2))
-    for call in (lambda: mesh_eng.migrate_out(),
-                 lambda: mesh_eng.migrate_in({"request": {}}),
-                 lambda: mesh_eng.export_prefix(PROMPT),
-                 lambda: mesh_eng.import_prefix({})):
-        with pytest.raises(NotImplementedError, match="Queue A 10"):
-            call()
+    verdict, _ = _export(mesh_eng)
+    got = _import(_port(tiny_gpt, kv_block_size=8, prefill_chunk=8),
+                  payload_to_json(verdict["payload"]))
+    assert got["blocks"] >= 2
+    assert got["request"].result(timeout=1).tolist() == jax_ref
+    d = mesh_eng.export_prefix(PROMPT, wait=False)
+    mesh_eng.step()
+    payload = d.wait(0)
+    fresh = mirror.port_engine(
+        tp, num_slots=2, max_seq_len=64, kv_block_size=8, prefill_chunk=8,
+        mesh=ServingMesh(2, 1, devices=["cpu"] * 2))
+    d = fresh.import_prefix(payload, wait=False)
+    fresh.step()
+    assert d.wait(0)["blocks"] == payload["kv"]["n_blocks"] >= 2

@@ -410,11 +410,21 @@ def test_adapter_lanes_never_promote(tiny):
 
 
 def test_mesh_host_tier_names_its_roadmap_item(tiny):
+    """The host tier over a ``(1, 2)`` mesh (this test's name is the
+    refusal's it replaced): serve, spill, serve again restores the three
+    full blocks into the owning dp shard, and the stream equals the
+    unsharded engine's; tests/test_torch_mesh_serving_features.py holds
+    ``(2, 2)`` to the JAX engine."""
     from paddle_tpu_torch.distributed import ServingMesh
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        Engine(tiny, mesh=ServingMesh(1, 2, devices=["cpu"] * 2),
-               num_slots=2, max_seq_len=64, kv_block_size=8,
-               prefill_chunk=8, kv_host_mb=64)
+    eng = Engine(tiny, mesh=ServingMesh(1, 2, devices=["cpu"] * 2),
+                 num_slots=2, max_seq_len=64, kv_block_size=8,
+                 prefill_chunk=8, kv_host_mb=64)
+    first = _serve_one(eng)
+    _spill_all(eng)
+    assert eng._m_offload_demotes.value == 3
+    assert _serve_one(eng) == first
+    assert eng._m_offload_promotes.value == 3
+    assert first == _serve_one(_engine(tiny, prefill_chunk=8))
 
 
 # -- on the card ----------------------------------------------------------

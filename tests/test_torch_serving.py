@@ -312,8 +312,7 @@ def test_engine_refuses_weights_elsewhere():
 
 
 @pytest.mark.parametrize("knob", [
-    # the mesh is ported; weight-only int8 over a dense dp mesh is not,
-    # nor the XLA paths or the host-RAM tier over a mesh
+    # the knobs that raised over a mesh until the mesh served them all
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), weight_dtype="int8"),
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), attn_impl="xla"),
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), prefill_chunk=None),
@@ -321,15 +320,27 @@ def test_engine_refuses_weights_elsewhere():
     dict(mesh=ServingMesh(1, 2, devices=["cpu"] * 2), kv_dtype="int8",
          kv_host_mb=64)])
 def test_unported_knobs_raise(models, knob):
-    """Every knob still unported raises naming its ROADMAP item, also
-    beside the ported int8 and gather knobs (and before a weight relayout
-    could touch the model)."""
+    """Each knob that raised over a ``(1, 2)`` mesh (this test's name is
+    the refusal's it replaced) now serves there: the mesh engine's greedy
+    streams equal the unsharded engine's of the same knobs.  Weight-only
+    int8 relayouts a copy of the model per engine."""
     _, tm = models
     kw = dict(num_slots=2, max_seq_len=48, kv_block_size=8,
               prefill_chunk=8, device="cpu")
     kw.update(knob)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Engine(tm, **kw)
+    mesh = kw.pop("mesh")
+    prompts = _prompts(3)
+    outs = []
+    for extra in (dict(mesh=mesh), {}):
+        m = tm
+        if "weight_dtype" in kw:
+            m = GPTModel.from_config("tiny", device="cpu", dropout=0.0)
+            m.load_state_dict(tm.state_dict())
+        eng = Engine(m, **kw, **extra)
+        reqs = [eng.submit(p, max_new_tokens=MAX_NEW) for p in prompts]
+        eng.run_until_idle()
+        outs.append([r.result(timeout=5).tolist() for r in reqs])
+    assert outs[0] == outs[1]
 
 
 def test_step_failure_fails_requests_and_recovers(models, monkeypatch):

@@ -322,8 +322,8 @@ def test_unported_model_knobs_raise(knob):
     """Each knob builds its form (the tensor-parallel form for serving on
     a mesh; sequence-parallel attention; MoE blocks, every ``moe_every``-th
     one, ``moe_every`` inert alone), trains over a mesh, and what stays
-    unported of it raises naming its ROADMAP item: serving it through the
-    XLA paths over a mesh (the serving half of Queue A 10)."""
+    serves through the XLA paths over a mesh (where the name's refusal
+    was): its greedy streams equal the unsharded XLA engine's."""
     from paddle_tpu_torch.distributed import ServingMesh, build_mesh
     from paddle_tpu_torch.serving import Engine
     kw = {"use_mp": dict(use_mp=True), "use_sp": dict(use_sp=True),
@@ -346,8 +346,14 @@ def test_unported_model_knobs_raise(knob):
     assert math.isfinite(float(st.step([ids, ids])))
     mesh = ServingMesh(2 if knob == "use_mp" else 1,
                        1 if knob == "use_mp" else 2, devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        Engine(m, mesh=mesh, attn_impl="xla", device="cpu")
+    prompts = [np.arange(1, 6 + k) for k in range(2)]
+    outs = []
+    for kw in (dict(mesh=mesh), dict(device="cpu")):
+        eng = Engine(m, attn_impl="xla", num_slots=2, max_seq_len=64, **kw)
+        reqs = [eng.submit(p, max_new_tokens=5) for p in prompts]
+        eng.run_until_idle()
+        outs.append([r.result(timeout=5).tolist() for r in reqs])
+    assert outs[0] == outs[1]
 
 
 def test_unported_train_knobs_raise():

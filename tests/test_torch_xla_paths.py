@@ -21,7 +21,11 @@ from a seed is bridged into the port (``load_paddle_tpu_state``).
   engine's (both draw with numpy), a divergence tolerated only where the
   draw from JAX's logits row and from the port's differ at that step.
 - Depth 1 equals depth 2, preemption resumes unchanged, a failed step
-  recovers, and the validation errors are JAX's.
+  recovers, and the validation errors are JAX's.  Over a ``(1, 2)`` mesh
+  the XLA and monolithic paths serve the unsharded engine's streams.
+- ``GPTModel(attn_impl=...)`` validates as JAX's does, and
+  ``Engine(attn_impl=None)`` takes the model's; only the model's default
+  differs (``"ragged"``, JAX's ``"xla"``).
 
 JAX is imported inside the fixtures, so the ``cuda`` test runs on a card
 without it.
@@ -712,15 +716,49 @@ def test_default_attn_impl_needs_a_layout(models):
     assert "attn_impl='xla'" in str(err.value)
 
 
+def test_engine_inherits_the_models_attn_impl(models):
+    """``GPTModel(attn_impl=)`` takes JAX's values and refuses others with
+    JAX's error; ``Engine(attn_impl=None)`` serves the model's choice, an
+    explicit ``attn_impl`` wins, and the choice survives
+    ``to_tensor_parallel()``."""
+    from paddle_tpu.models import GPTModel as JaxGPT
+    _, tm = models
+    with pytest.raises(ValueError) as terr:
+        GPTModel(num_layers=1, hidden_size=32, num_heads=2, vocab_size=64,
+                 max_position=32, attn_impl="flash")
+    with pytest.raises(ValueError) as jerr:
+        JaxGPT(num_layers=1, hidden_size=32, num_heads=2, vocab_size=64,
+               max_position=32, attn_impl="flash")
+    assert str(terr.value) == str(jerr.value)
+    assert GPTModel.from_config("tiny", device="cpu").attn_impl == "ragged"
+    xm = GPTModel.from_config("tiny", device="cpu", dropout=0.0,
+                              attn_impl="xla")
+    xm.load_state_dict(tm.state_dict())
+    assert xm.to_tensor_parallel().attn_impl == "xla"
+    eng = Engine(xm, device="cpu", **BASE)
+    assert eng.attn_impl == "xla" and not eng._ragged
+    prompts = _prompts(3)
+    assert _run(eng, prompts) == _run(_port_engine(tm), prompts)
+    assert Engine(xm, device="cpu", kv_block_size=8, attn_impl="ragged",
+                  **BASE).attn_impl == "ragged"
+
+
 @pytest.mark.parametrize("kw", [dict(attn_impl="xla", kv_block_size=8),
                                 dict(kv_block_size=8, prefill_chunk=None)],
                          ids=["xla", "monolithic"])
 def test_xla_and_monolithic_paths_refuse_a_mesh(models, kw):
+    """The XLA path and the monolithic prefill over a ``(1, 2)`` mesh
+    (this test's name is the refusal's it replaced): greedy and seeded
+    streams equal the unsharded engine's of the same configuration
+    (tests/test_torch_mesh_xla.py holds every mesh layout to JAX)."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        Engine(tm, device="cpu", mesh=ServingMesh(1, 2,
-                                                  devices=["cpu"] * 2),
-               num_slots=2, max_seq_len=48, **kw)
+    prompts = _prompts(4)
+    mesh = Engine(tm, device="cpu", mesh=ServingMesh(1, 2,
+                                                     devices=["cpu"] * 2),
+                  num_slots=2, max_seq_len=48, **kw)
+    one = Engine(tm, device="cpu", num_slots=2, max_seq_len=48, **kw)
+    assert _run(mesh, prompts, seeded=(1, 3)) == _run(one, prompts,
+                                                      seeded=(1, 3))
 
 
 # -- on the card ----------------------------------------------------------
