@@ -143,8 +143,9 @@ line:
    traffic served three ways.  fp32 pools: every greedy token
    teacher-forced against the dense forward (phase 4's near-tie rule),
    seeded streams equal to phase 4's unsharded ones and repeating on a
-   second run profiled as phase 4's (busy share, top kernels, and the
-   device time under B4's and the collectives' profiler labels).  int8 pools: greedy
+   second run profiled as phase 4's over ticks 32-39 (busy share, top
+   kernels, and the device time under B4's and the collectives' profiler
+   labels).  int8 pools: greedy
    streams equal to an unsharded ``kv_dtype="int8"`` engine's on the
    same fp32 weights except at int8 near ties (phase 10's rule, margin
    < 1e-3 on the mesh engine's own logits).  Gather body: greedy streams
@@ -314,11 +315,12 @@ line:
    0.01)``, B=4, S=2048, ids from numpy seed 0, over four meshes of four
    ranks on this card (``build_mesh(..., devices=[cuda:0] * 4)``): (1)
    ``dp=2, sharding=2`` with ``strategy.sharding`` stage 2, (2)
-   ``sharding=4`` stage 3, (3) ``dp=2, mp=2`` on ``to_tensor_parallel()``
-   of the same weights, (4) ``gpt_pipe_model("gpt3-1.3b")`` (the same
-   weights from the same seed) over ``pp=4`` at B=8, ``accumulate_steps=8``
-   (one row a micro-batch, so that 1F1B's bound of 2P - 1 live
-   micro-batches a stage is below M), once GPipe with
+   ``sharding=4`` stage 3 (a unit gathered at a time), (3) ``dp=2,
+   mp=2`` on ``to_tensor_parallel()`` of the same weights, (4)
+   ``gpt_pipe_model("gpt3-1.3b")`` (the same weights from the same seed)
+   over ``pp=4`` at B=8, ``accumulate_steps=8`` (one row a micro-batch,
+   so that 1F1B's bound of 2P - 1 live micro-batches a stage is below
+   M), once GPipe with
    ``strategy.recompute`` and once 1F1B.  One one-device ``TrainStep`` of
    the dense model on the same weights and batch (B=4, and B=8 for mesh
    4) is the reference.  Each run takes one warm-up step and three
@@ -330,10 +332,15 @@ line:
    mesh 3 and of 1F1B from the same seed repeats its first two losses
    exactly; B5a launched 192 times a step and B5b and B5c 96 on meshes
    1-3 (4 ranks x 24 layers, the forward twice under recompute), 384 and
-   192 on mesh 4 (8 micro-batches), none on the scalar route; 1F1B's
-   peak below GPipe's (the peak of the three steps after the warm-up;
-   both engines free the gradients at the start of a step).  Prints for
-   each run s a step,
+   192 on mesh 4 (8 micro-batches), none on the scalar route; 1F1B
+   holding at most 2P - 1 = 7 stage inputs a stage between ticks, where
+   GPipe holds M = 8 (``max_stored_inputs``), and peaking at most at
+   GPipe's peak plus one gradient of ``post`` in bf16 and fp32 (0.62 GB:
+   1F1B adds a micro-batch's gradient to the accumulated one, where
+   GPipe's one backward makes it the accumulated one;
+   ``check_1f1b_memory``; the peak of the three steps after the warm-up,
+   both engines freeing the gradients at the start of a step).  Prints
+   for each run s a step,
    tokens/s, the peak,
    the state reckoned over the ranks and the flash kernels a step; for
    mesh 3 a ``torch.profiler`` step (busy share, kernels a step, the
@@ -346,9 +353,10 @@ line:
    argmax (phase 4's near-tie rule), every stream equal to phase 16's of
    the same serve except at near ties (host-mode seeded ones counted),
    the XLA serves launching no ragged kernel, (c) B4 over B1 24 times a
-   dispatch — and a profiled window of (a) with its kernels a tick by
-   launching op beside phase 16's; (b) ``weight_dtype="int8"`` on a ``(1,
-   2)`` mesh, streams equal to phase 9's; (c) phase 17 (d)'s host-tier
+   dispatch — and a profiled window of (a) (ticks 32-39) with its
+   kernels a tick by launching op beside phase 16's; (b)
+   ``weight_dtype="int8"`` on a ``(1, 2)`` mesh, streams equal to phase
+   9's; (c) phase 17 (d)'s host-tier
    waves on the (2, 2) mesh at ``max_seq_len=512`` (fp32 pools, B1 under
    B4), restored streams equal to a no-cache mesh engine's; (d)
    phase 4's first six requests migrated after 8 tokens from the mesh to
@@ -357,12 +365,35 @@ line:
    (e) a conv net with the port's ``BatchNorm2D`` trained over dp2 on
    the card, losses, weights and running statistics within 1e-4 of the
    one-device step's.
-23. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+23. The rest of training over a mesh, after phase 21 and on its B=8
+   batch and one-device reference: (a) ``gpt_pipe_model("gpt3-1.3b")``
+   over ``dp=2, pp=2`` at ``accumulate_steps=4`` (each micro-batch's two
+   rows split over dp: one pipeline a data rank), GPipe with
+   ``strategy.recompute`` and then 1F1B; (b) the same over ``mp=2,
+   pp=2`` under GPipe, its embedding and head vocab-parallel
+   (``tp_ends``) around dense blocks; each run one warm-up step and two
+   steps, held as phase 21 holds its runs (gradients, losses, the flash
+   launches a step: B5a 384 a step in (a), 192 in (b)), and (a)'s 1F1B
+   held to its GPipe as phase 21 holds pp4's (2P - 1 = 3 < M = 4 stage
+   inputs; the peak bound with a gradient of ``post`` a pipeline).  (c)
+   ZeRO-3 a unit at a time: phase 21's ``sharding=4`` stage-3 peak
+   printed beside its ``dp=2, sharding=2`` stage-2 peak and the
+   gather-all's 53.26 GB, and required below the stage-2 peak.  (d)
+   ``gpt2-medium`` in fp32 (seed 0, dropout 0, AdamW), two steps at B=4,
+   S=1024: LocalSGD (k=2) over ``dp=2, mp=2`` against LocalSGD written
+   out (two models, each with its own AdamW, two eager steps a call over
+   its rows, then the mean of every parameter), and DGC over ``dp=2,
+   mp=2`` against DGC over ``dp=2`` alone; every parameter within
+   relative L2 1e-6, DGC's losses equal and LocalSGD's within 1e-6; no
+   flash launch.  Each run prints s a step, tokens/s, the peak and the
+   flash launches a step.
+24. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
    phase 16 (c)'s, phase 17's and phase 18's in-process serves, phase
    20 (a)'s first serve and phase 22 (d)'s unsharded engines, B4's phase
-   14's and phase 22's mesh serves, B2's phase 10's, phase 17 (d)'s and phase 18
-   (a)'s, B5a-B5c's phase 6's, phase 19 (a)'s and phase 21's, B5a's phase
-   16 (f)'s too; the fp16 entries phase 20 (e)'s), the card line and
+   14's and phase 22's mesh serves, B2's phase 10's, phase 17 (d)'s and
+   phase 18 (a)'s, B5a-B5c's phase 6's, phase 19 (a)'s, phase 21's and
+   phase 23's, B5a's phase 16 (f)'s too; the fp16 entries phase 20
+   (e)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -373,6 +404,9 @@ With ``--depth-ab N`` it builds the kernels and runs only
 With ``--profile-mesh`` it builds the kernels and runs only
 ``profile_mesh_phase``: phase 4's serve profiled unsharded and on the
 (2, 2) mesh, each window's kernels a tick by launching op.
+With ``--stage3`` it builds the kernels and runs only ``stage3_phase``:
+phase 21's ``sharding=4`` stage-3 run with and without the blocks'
+``use_recompute``.
 With ``--cards 4`` it builds the kernels and runs only
 ``four_card_phase``: the (2, 2) mesh serve over four cards beside the
 same mesh on one card, both at the default ``async_depth=2``.
@@ -722,6 +756,10 @@ def ragged_device_ms(fn, iters=20):
 # prefill chunks and decode lanes, the same in every profiled serve;
 # profiling a whole serve costs minutes of trace processing
 PROFILE_TICKS = (32, 24)
+# phase 14's and phase 22 (a)'s mesh windows, whose traces took the
+# longest to process (55.8 and 36.9 s at 24 ticks): a third of the ticks,
+# to keep the whole run inside its time limit
+MESH_PROFILE_TICKS = (32, 8)
 
 
 PROFILES = {}                      # label -> (busy share, kernels a tick)
@@ -797,12 +835,13 @@ def profile_mesh_phase(card):
 
 
 def profile_phase(model, reqs, engine_cls, card, label="",
-                  breakdown=False, ops=False, **engine_kw):
+                  breakdown=False, ops=False, ticks=PROFILE_TICKS,
+                  **engine_kw):
     """Where a tick's time goes: the same traffic once more, ticks
-    ``PROFILE_TICKS`` under torch.profiler (``profile_window``, with the
-    kernels by launching op when ``breakdown``).  The serve then runs to
-    its end; returns its streams."""
-    first, count = PROFILE_TICKS
+    ``ticks`` (first, count) under torch.profiler (``profile_window``,
+    with the kernels by launching op when ``breakdown``).  The serve then
+    runs to its end; returns its streams."""
+    first, count = ticks
     eng, handles = submit_all(model, reqs, engine_cls, **engine_kw)
     for _ in range(first):
         eng.step()
@@ -1516,7 +1555,7 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
                f" kv_blocks {eng.block_pool.managed_blocks} greedy_checked "
                f"{checked} near_ties {near}")
     again = profile_phase(tp, reqs, Engine, card, label=" mesh", ops=True,
-                          mesh=one_card_mesh())
+                          ticks=MESH_PROFILE_TICKS, mesh=one_card_mesh())
     for (_, kw), a, b in zip(reqs, outs, again):
         if kw:
             check(a.tolist() == b.tolist(),
@@ -4152,20 +4191,91 @@ MESH_REPEATED = ("dp2_mp2", "pp4_1f1b")   # the runs rerun from the seed
 MESH_GRAD_TOL, MESH_LOSS_RTOL = 2e-2, 1e-2
 MESH_RUNS = ("dp2_sharding2_stage2", "sharding4_stage3", "dp2_mp2",
              "pp4_gpipe", "pp4_1f1b")
-PIPE_B = PIPE_MICRO = 8            # mesh 4: one row a micro-batch
+PIPE_B = 8                         # the pipelines' batch (phases 21, 23)
 MP_SHAPE = (2, 2048, 8, 128)       # mesh 3's per-rank attention, bf16
+# every run's mesh (a pipeline's by its name before the schedule) and a
+# pipeline's micro-batches: pp4's one row a micro-batch, phase 23's two,
+# which split over dp
+MESH_SHAPES = {"dp2_sharding2_stage2": dict(dp=2, sharding=2),
+               "sharding4_stage3": dict(sharding=4),
+               "dp2_mp2": dict(dp=2, mp=2), "pp4": dict(pp=4),
+               "dp2_pp2": dict(dp=2, pp=2), "mp2_pp2": dict(mp=2, pp=2)}
+PIPE_MICRO = {"pp4": 8, "dp2_pp2": 4, "mp2_pp2": 4}
+STORED_INPUTS = {}                 # 1F1B run -> its most inputs a stage
+POST_NUMEL = {}                    # 1F1B run -> the elements of its post
 
 
-def mesh_model(kind):
+def check_1f1b_memory(label, peaks, pipe):
+    """1F1B's memory against GPipe's (with recompute) on the mesh
+    ``pipe``: at most 2P - 1 < M stage inputs a stage between ticks
+    (``max_stored_inputs``), and a peak at most GPipe's plus one gradient
+    of ``post`` in bf16 and fp32 a running pipeline.  The last stage adds
+    a micro-batch's gradient of ``post`` (the matmul's bf16 one and its
+    fp32 cast) to the one accumulated so far, where GPipe's one backward
+    over the batch makes its gradient the accumulated one; every other
+    tensor 1F1B holds GPipe holds too (its M stage inputs a stage, one
+    micro-batch's stage recomputed at a time).  Returns the line's
+    text."""
+    f1b, gpipe = pipe + "_1f1b", pipe + "_gpipe"
+    M, P = PIPE_MICRO[pipe], MESH_SHAPES[pipe]["pp"]
+    held = STORED_INPUTS[f1b]
+    check(held == 2 * P - 1 < M,
+          f"phase {label}: 1F1B held {held} stage inputs a stage between "
+          f"ticks, not 2P - 1 = {2 * P - 1} (GPipe holds M = {M})")
+    n = MESH_SHAPES[pipe].get("dp", 1)
+    slack = POST_NUMEL[f1b] * (2 + 4) * n / 1e9
+    check(peaks[f1b] <= peaks[gpipe] + slack,
+          f"phase {label}: 1F1B's peak {peaks[f1b]:.2f} GB is over GPipe's "
+          f"{peaks[gpipe]:.2f} GB plus {n} gradient(s) of post in bf16 and "
+          f"fp32 ({slack:.2f} GB) at M={M}, P={P}")
+    return (f"1F1B held at most {held} stage inputs a stage (GPipe {M}), "
+            f"peak {peaks[f1b]:.2f} GB <= GPipe {peaks[gpipe]:.2f} + post's "
+            f"gradient transient {slack:.2f} GB at M={M}")
+
+
+def is_pipe(kind):
+    return kind.endswith(("_gpipe", "_1f1b"))
+
+
+def mesh_shape(kind):
+    return MESH_SHAPES[kind.rsplit("_", 1)[0] if is_pipe(kind) else kind]
+
+
+def tp_ends(pipe):
+    """``pipe`` with its embedding and head swapped for their
+    vocab-parallel forms (``use_mp=True``) on the same weights; the
+    blocks stay dense."""
+    import torch
+    from paddle_tpu_torch.models.gpt import GPTEmbeddings, GPTLMHead
+    pre, post = pipe.pre, pipe.post
+    V, E = pre.word_embeddings.weight.shape
+    S = pre.position_embeddings.weight.shape[0]
+    with torch.device(post.ln_f.weight.device):
+        tpre = GPTEmbeddings(V, E, S, 0.0, use_mp=True)
+        tpost = GPTLMHead(E, V, use_mp=True)
+    with torch.no_grad():
+        tpre.word_embeddings.weight.copy_(pre.word_embeddings.weight)
+        tpre.position_embeddings.weight.copy_(
+            pre.position_embeddings.weight)
+        tpost.ln_f.weight.copy_(post.ln_f.weight)
+        tpost.ln_f.bias.copy_(post.ln_f.bias)
+        tpost.lm_head.weight.copy_(post.lm_head.weight.t())
+    pipe.pre, pipe.post = tpre, tpost
+    return pipe
+
+
+def mesh_model(kind, recompute=True):
     """gpt3-1.3b from seed 0 in fp32 at dropout 0, in the form ``kind``
     trains: the dense model with recompute and the fused head + CE (the
     reference and meshes 1-2), its tensor-parallel form (mesh 3), or
-    ``gpt_pipe_model`` (mesh 4; the same weights from the same seed)."""
+    ``gpt_pipe_model`` (the pipelines; the same weights from the same
+    seed), over mp with a vocab-parallel embedding and head."""
     from paddle_tpu_torch.models import GPTModel, gpt_pipe_model
-    if kind.startswith("pp4"):
-        return gpt_pipe_model("gpt3-1.3b", dropout=0.0, seed=0)
+    if is_pipe(kind):
+        pipe = gpt_pipe_model("gpt3-1.3b", dropout=0.0, seed=0)
+        return tp_ends(pipe) if "mp" in mesh_shape(kind) else pipe
     model = GPTModel.from_config("gpt3-1.3b", seed=0, dropout=0.0,
-                                 fused_loss=True, use_recompute=True)
+                                 fused_loss=True, use_recompute=recompute)
     if kind == "dp2_mp2":
         tp = model.to_tensor_parallel()
         del model
@@ -4182,19 +4292,17 @@ def mesh_step(kind, model, opt):
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     from paddle_tpu_torch.models import GPTPretrainingCriterion
     from paddle_tpu_torch.parallel import TrainStep
-    shape = {"dp2_sharding2_stage2": dict(dp=2, sharding=2),
-             "sharding4_stage3": dict(sharding=4),
-             "dp2_mp2": dict(dp=2, mp=2)}.get(kind, dict(pp=4))
+    shape = mesh_shape(kind)
     s = DistributedStrategy()
     if "stage" in kind:
         s.sharding = True
         s.sharding_configs["stage"] = int(kind[-1])
     loss_fn = None
-    if kind.startswith("pp4"):
+    if is_pipe(kind):
         s.pipeline = True
-        s.pipeline_configs.update(accumulate_steps=PIPE_MICRO,
-                                  schedule_mode="1F1B" if "1f1b" in kind
-                                  else "F-then-B")
+        s.pipeline_configs.update(
+            accumulate_steps=PIPE_MICRO[kind.rsplit("_", 1)[0]],
+            schedule_mode="1F1B" if "1f1b" in kind else "F-then-B")
         s.recompute = "gpipe" in kind
         loss_fn = GPTPretrainingCriterion()
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -4206,10 +4314,14 @@ def mesh_step(kind, model, opt):
 def dense_grad_name(kind, name, g):
     """``(name, gradient)`` of a run's parameter in the dense model's
     names and layouts: the pipeline's ``pre`` / ``post``, and the
-    tensor-parallel form's relayouts undone (``to_tensor_parallel``)."""
-    if kind.startswith("pp4"):
-        return (re.sub(r"^post\.", "head.",
-                       re.sub(r"^pre\.", "embeddings.", name)), g)
+    tensor-parallel form's relayouts undone (``to_tensor_parallel``,
+    ``tp_ends``)."""
+    if is_pipe(kind):
+        name = re.sub(r"^post\.", "head.",
+                      re.sub(r"^pre\.", "embeddings.", name))
+        if "mp" in mesh_shape(kind) and name == "head.lm_head.weight":
+            g = g.t()
+        return name, g
     if kind != "dp2_mp2":
         return name, g
     E = g.shape[0]
@@ -4248,19 +4360,20 @@ def mesh_state_gb(step):
 
 
 def mesh_run(kind, batch, fa, card, ref=None, steps=1 + MESH_TIMED,
-             profile=False):
-    """One run of ``kind`` (see ``mesh_train_phase``).  Returns (losses,
+             profile=False, phase="21", recompute=True):
+    """One run of ``kind`` (see ``mesh_train_phase``; a flat one's blocks
+    without ``use_recompute`` when not ``recompute``).  Returns (losses,
     flash launches, peak GB, s a step, tokens/s)."""
     import math
     import torch
     from paddle_tpu_torch.optimizer import AdamW
-    model = mesh_model(kind)
+    model = mesh_model(kind, recompute)
     opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
                 parameters=model.parameters())
     step = mesh_step(kind, model, opt)
     state_gb, grads_gb = mesh_state_gb(step)
     x, y = batch
-    pipe = kind.startswith("pp4")
+    pipe = is_pipe(kind)
     args = ([x], [y]) if pipe else ([x, y],)
     zero_flash_counts(fa)
     scalar0 = fa.ROUTE_LAUNCHES["scalar"]
@@ -4279,7 +4392,7 @@ def mesh_run(kind, batch, fa, card, ref=None, steps=1 + MESH_TIMED,
             rel = float((g.float() - want).norm()
                         / want.norm().clamp(min=1e-30))
             check(rel <= MESH_GRAD_TOL,
-                  f"phase 21 {kind}: gradient {name} relative L2 error "
+                  f"phase {phase} {kind}: gradient {name} relative L2 error "
                   f"{rel:.3e} over {MESH_GRAD_TOL}")
             worst = max(worst, (rel, name))
         step.keep_grads = False
@@ -4296,18 +4409,23 @@ def mesh_run(kind, batch, fa, card, ref=None, steps=1 + MESH_TIMED,
     peak = torch.cuda.max_memory_allocated() / 1e9
     launches = flash_counts(fa)
     check(fa.ROUTE_LAUNCHES["scalar"] == scalar0,
-          f"phase 21 {kind}: a flash launch took the scalar fp32 route")
-    units = PIPE_MICRO if pipe else 4
-    want = {"fwd": 2 * units * N_LAYERS, "bwd_dkv": units * N_LAYERS,
-            "bwd_dq": units * N_LAYERS}
+          f"phase {phase} {kind}: a flash launch took the scalar fp32 route")
+    shape = mesh_shape(kind)
+    units = (PIPE_MICRO[kind.rsplit("_", 1)[0]] * shape.get("dp", 1)
+             if pipe else 4)
+    want = {"fwd": (1 + recompute) * units * N_LAYERS,
+            "bwd_dkv": units * N_LAYERS, "bwd_dq": units * N_LAYERS}
     check(launches == {n: c * steps for n, c in want.items()},
-          f"phase 21 {kind}: flash launches {launches} in {steps} steps, "
-          f"not {want} a step ({units} "
+          f"phase {phase} {kind}: flash launches {launches} in {steps} "
+          f"steps, not {want} a step ({units} "
           f"{'micro-batches' if pipe else 'ranks'} x {N_LAYERS} layers, "
           "the forward twice under recompute)")
     losses = [float(l) for l in losses]
     check(all(math.isfinite(l) for l in losses),
-          f"phase 21 {kind}: non-finite loss {losses}")
+          f"phase {phase} {kind}: non-finite loss {losses}")
+    if kind.endswith("_1f1b"):
+        STORED_INPUTS[kind] = step.engine.max_stored_inputs
+        POST_NUMEL[kind] = sum(p.numel() for p in model.post.parameters())
     if ref is None:
         del step, opt, model
         gc.collect()
@@ -4315,7 +4433,8 @@ def mesh_run(kind, batch, fa, card, ref=None, steps=1 + MESH_TIMED,
         return losses, launches, peak, None, None
     timed = steps - 1
     tps = x.numel() * timed / wall
-    print(f"phase 21 {kind}: losses " + " ".join(f"{l:.5f}" for l in losses)
+    print(f"phase {phase} {kind}{'' if recompute else ' (no recompute)'}: "
+          "losses " + " ".join(f"{l:.5f}" for l in losses)
           + f" worst gradient rel L2 {worst[0]:.3e} ({worst[1]}) warmup_s "
           f"{warm_s:.3f} s_per_step {wall / timed:.4f} tokens_per_s "
           f"{tps:.1f} peak_mem_gb {peak:.2f} state_gb (params + moments, "
@@ -4432,7 +4551,8 @@ def mesh_reference(batch, card):
 def mesh_train_phase(card, fa):
     """Phase 21: gpt3-1.3b trained over four meshes of four ranks on this
     card, against the one-device ``TrainStep``.  Returns the flash
-    launches of the five runs by kernel."""
+    launches of the five runs by kernel, and for phase 23 each run's
+    peak and the B=8 batch with its reference losses and gradients."""
     import numpy as np
     from paddle_tpu_torch.models.gpt import GPT_CONFIGS
     t_phase = time.perf_counter()
@@ -4459,17 +4579,211 @@ def mesh_train_phase(card, fa):
                 check(again == losses[:MESH_REPEAT],
                       f"phase 21 {kind}: the same seed gave losses {again}, "
                       f"not {losses[:MESH_REPEAT]}")
+        ref = (batch, ref_losses, ref_grads)
         del ref_grads
-    check(peaks["pp4_1f1b"] < peaks["pp4_gpipe"],
-          f"phase 21: 1F1B's peak {peaks['pp4_1f1b']:.2f} GB is not below "
-          f"GPipe's {peaks['pp4_gpipe']:.2f} GB at M={PIPE_MICRO}")
+    memory = check_1f1b_memory("21", peaks, "pp4")
     print(f"phase 21: five runs within rtol {MESH_LOSS_RTOL} of the "
           f"one-device losses and gradient rel L2 {MESH_GRAD_TOL}; "
           f"{', '.join(MESH_REPEATED)} repeated exactly from the same "
-          f"seed; 1F1B peak "
-          f"{peaks['pp4_1f1b']:.2f} GB < GPipe {peaks['pp4_gpipe']:.2f} GB "
-          f"at M={PIPE_MICRO}; wall_s {time.perf_counter() - t_phase:.1f} "
+          f"seed; {memory}; wall_s {time.perf_counter() - t_phase:.1f} "
           f"[{card}]", flush=True)
+    return total, {"peaks": peaks, "ref8": ref}
+
+
+def stage3_phase(card, fa):
+    """``--stage3``: phase 21's ``sharding4_stage3`` run (B=4), its blocks
+    with and then without ``use_recompute``, each held to the one-device
+    step: what a stage-3 unit gathered a time costs beside the
+    recomputation."""
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    batch = train_batch(GPT_CONFIGS["gpt3-1.3b"]["vocab_size"], TRAIN_B,
+                        TRAIN_S, seed=0)
+    ref_losses, ref_grads = mesh_reference(batch, card)
+    for recompute in (True, False):
+        losses, _, _, _, _ = mesh_run("sharding4_stage3", batch, fa, card,
+                                      ref=ref_grads, phase="stage3",
+                                      recompute=recompute)
+        np.testing.assert_allclose(losses, ref_losses, rtol=MESH_LOSS_RTOL,
+                                   err_msg="stage 3: losses")
+
+
+# -- phase 23 -------------------------------------------------------------
+MESH23_RUNS = ("dp2_pp2_gpipe", "dp2_pp2_1f1b", "mp2_pp2_gpipe")
+MESH23_STEPS = 1 + 2               # a warm-up step and two timed steps
+STAGE3_GATHER_ALL_GB = 53.26       # phase 21's stage-3 peak when every
+                                   # parameter was gathered at once
+META_MESHES = {"dp2_mp2": dict(dp=2, mp=2), "dp2": dict(dp=2)}
+META_B, META_S, META_STEPS, META_K = 4, 1024, 2, 2
+META_RTOL = 1e-6                   # (d): relative L2 of every parameter
+
+
+def meta_model():
+    """gpt2-medium from seed 0 in fp32 at dropout 0 with its AdamW."""
+    from paddle_tpu_torch.models import GPTModel
+    from paddle_tpu_torch.optimizer import AdamW
+    model = GPTModel.from_config("gpt2-medium", seed=0, dropout=0.0)
+    return model, AdamW(learning_rate=1e-4, weight_decay=0.01,
+                        parameters=model.parameters())
+
+
+def meta_run(kind, shape, batch):
+    """(d): ``meta_model`` under ``kind``'s meta-optimizer over ``shape``
+    (every rank on this card), ``META_STEPS`` steps.  Returns (losses,
+    each data rank's parameters on the host, s a step, peak GB)."""
+    import math
+    import torch
+    from paddle_tpu_torch.distributed import build_mesh
+    from paddle_tpu_torch.distributed.fleet import meta_optimizers as meta
+    model, opt = meta_model()
+    n = math.prod(shape.values())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = build_mesh(devices=[dev] * n, **shape)
+    step = (meta.LocalSGDStep(model, opt, mesh=mesh, k_steps=META_K)
+            if kind == "localsgd" else meta.DGCStep(model, opt, mesh=mesh))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [step.step(list(batch)) for _ in range(META_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    params = [{k: t.detach().cpu() for k, t in p.items()}
+              for p in step.params]
+    del step, opt, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [float(l) for l in losses], params, wall / META_STEPS, peak
+
+
+def local_sgd_reference(batch, dp):
+    """LocalSGD written out, independent of the meta-optimizer: ``dp``
+    models, each with its own AdamW, each taking ``META_K`` eager steps a
+    call over its ``1 / META_K`` shares of its ``1 / dp`` of the rows,
+    then every parameter set to the models' mean.  Returns (losses, each
+    model's parameters on the host)."""
+    import torch
+    pairs = [meta_model() for _ in range(dp)]
+    x, y = (a.reshape((dp, META_K, -1) + tuple(a.shape[1:])) for a in batch)
+    losses = []
+    for _ in range(META_STEPS):
+        last = []
+        for d, (model, opt) in enumerate(pairs):
+            for i in range(META_K):
+                loss = model(x[d, i], y[d, i])
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+            last.append(float(loss.detach()))
+        losses.append(sum(last) / dp)
+        with torch.no_grad():
+            named = [dict(m.named_parameters()) for m, _ in pairs]
+            for k in named[0]:
+                mean = sum(p[k] for p in named) / dp
+                for p in named:
+                    p[k].copy_(mean)
+    params = [{k: t.detach().cpu() for k, t in m.named_parameters()}
+              for m, _ in pairs]
+    del pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, params
+
+
+def worst_rel(pa, pb):
+    """The largest relative L2 error of a parameter of ``pa`` against
+    ``pb`` (lists of name -> tensor), with its name."""
+    worst = (0.0, "none")
+    for ra, rb in zip(pa, pb):
+        for k, want in rb.items():
+            rel = float((ra[k] - want).norm() / want.norm().clamp(min=1e-30))
+            worst = max(worst, (rel, k))
+    return worst
+
+
+def meta_phase(card, fa):
+    """Phase 23 (d): LocalSGD (k=2) over dp2 x mp2 against LocalSGD
+    written out over two models, and DGC over dp2 x mp2 against DGC over
+    dp2 alone from the same seed."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    batch = train_batch(GPT_CONFIGS["gpt2-medium"]["vocab_size"], META_B,
+                        META_S, seed=0)
+    # run -> what it is held to: losses within META_RTOL of LocalSGD's
+    # written out, equal to DGC's over dp2 alone
+    runs = {("localsgd", "dp2_mp2"): "the same written out over two models",
+            ("dgc", "dp2_mp2"): "dgc over dp2 alone", ("dgc", "dp2"): None}
+    res = {}
+    for (kind, mesh), against in runs.items():
+        zero_flash_counts(fa)
+        losses, params, sps, peak = meta_run(kind, META_MESHES[mesh], batch)
+        launches = flash_counts(fa)
+        check(not any(launches.values()),
+              f"phase 23 (d) {kind} {mesh}: S={META_S} launched a flash "
+              f"kernel ({launches})")
+        check(all(math.isfinite(l) for l in losses),
+              f"phase 23 (d) {kind} {mesh}: non-finite loss {losses}")
+        print(f"phase 23 (d) {kind} {mesh} gpt2-medium fp32 B={META_B} "
+              f"S={META_S}: losses " + " ".join(f"{l:.5f}" for l in losses)
+              + f" s_per_step {sps:.4f} tokens_per_s "
+              f"{META_B * META_S / sps:.1f} peak_mem_gb {peak:.2f} "
+              "flash a step 0 [" + card + "]", flush=True)
+        res[kind, mesh] = losses, params
+    res["ref"] = local_sgd_reference(batch, META_MESHES["dp2"]["dp"])
+    for (kind, mesh), against in runs.items():
+        if against is None:
+            continue
+        (la, pa) = res[kind, mesh]
+        lb, pb = res["ref"] if kind == "localsgd" else res[kind, "dp2"]
+        worst = worst_rel(pa, pb)
+        same = (np.allclose(la, lb, rtol=META_RTOL, atol=0)
+                if kind == "localsgd" else la == lb)
+        check(worst[0] <= META_RTOL and same,
+              f"phase 23 (d) {kind} {mesh} against {against}: losses {la} / "
+              f"{lb}, parameter {worst[1]} relative L2 {worst[0]:.3e} over "
+              f"{META_RTOL}")
+        print(f"phase 23 (d) {kind} {mesh} equals {against}: losses "
+              + " / ".join(f"{l:.5f}" for l in lb) + ", worst parameter "
+              f"relative L2 {worst[0]:.3e} ({worst[1]}; limit {META_RTOL}) "
+              f"[{card}]", flush=True)
+
+
+def mesh_rest_phase(card, fa, phase21):
+    """Phase 23: (a) gpt3-1.3b over dp2 x pp2, GPipe with recompute then
+    1F1B, and (b) over mp2 x pp2 (GPipe, a vocab-parallel embedding and
+    head), held to phase 21's one-device reference at B=8; (c) ZeRO-3 a
+    unit at a time: phase 21's stage-3 peak beside its stage-2 peak and
+    the gather-all's; (d) the meta-optimizers beside mp.  Returns the
+    flash launches of (a) and (b) by kernel."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    total = {n: 0 for n in FLASH_KERNELS}
+    batch, ref_losses, ref_grads = phase21["ref8"]
+    peaks23 = {}
+    for kind in MESH23_RUNS:
+        label = "23 (a)" if kind.startswith("dp2") else "23 (b)"
+        losses, launches, peaks23[kind], _, _ = mesh_run(
+            kind, batch, fa, card, ref=ref_grads, steps=MESH23_STEPS,
+            phase=label)
+        np.testing.assert_allclose(
+            losses, ref_losses[:MESH23_STEPS], rtol=MESH_LOSS_RTOL,
+            err_msg=f"phase {label} {kind}: losses")
+        for n in total:
+            total[n] += launches[n]
+    print(f"phase 23 (a): {check_1f1b_memory('23 (a)', peaks23, 'dp2_pp2')}"
+          f" [{card}]", flush=True)
+    peaks = phase21["peaks"]
+    s3, s2 = peaks["sharding4_stage3"], peaks["dp2_sharding2_stage2"]
+    print(f"phase 23 (c) ZeRO-3 a unit at a time: sharding4_stage3 "
+          f"peak_mem_gb {s3:.2f} beside dp2_sharding2_stage2 {s2:.2f} "
+          f"(both phase 21, this run) and the gather-all stage 3's "
+          f"{STAGE3_GATHER_ALL_GB:.2f} (PERF.md) [{card}]", flush=True)
+    check(s3 < s2, f"phase 23 (c): stage 3's peak {s3:.2f} GB is not "
+          f"below stage 2's {s2:.2f} GB")
+    meta_phase(card, fa)
+    print(f"phase 23 wall_s {time.perf_counter() - t_phase:.1f} [{card}]",
+          flush=True)
     return total
 
 
@@ -4538,7 +4852,8 @@ def mesh_xla_phase(card, ragged_mod, fa, model, reqs, xla_outs):
             a_eng, a_wall = eng, wall
         del eng
     profile_phase(tp, reqs, Engine, card, label=" (a) mesh xla",
-                  breakdown=True, mesh=one_card_mesh(), **XLA_DEFAULT)
+                  breakdown=True, ticks=MESH_PROFILE_TICKS,
+                  mesh=one_card_mesh(), **XLA_DEFAULT)
     mesh_line(" (a) mesh xla", a_eng, a_wall, " (serve a: contiguous, "
               "whole-prompt prefill)", card)
     print_breakdown(" (a) mesh xla", " xla")
@@ -4779,6 +5094,14 @@ def main(argv):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if "--stage3" in argv:
+        stage3_phase(card, fa)
+        lap("stage 3 with and without recompute")
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if cards == 4:
         four_card_phase(card, ragged_mod)
         lap("four-card mesh")
@@ -4869,11 +5192,19 @@ def main(argv):
     lap("20 (MoE, BERT, sequence parallelism, fp16)")
     gc.collect()
     torch.cuda.empty_cache()
-    for name, n in mesh_train_phase(card, fa).items():
+    mesh_flash, phase21 = mesh_train_phase(card, fa)
+    for name, n in mesh_flash.items():
         flash_launches[name] += n
     check(sum(ragged_counts(ragged_mod).values()) == 0,
           "the mesh training phase launched a ragged kernel")
     lap("21 (training over a mesh)")
+    for name, n in mesh_rest_phase(card, fa, phase21).items():
+        flash_launches[name] += n
+    del phase21
+    check(sum(ragged_counts(ragged_mod).values()) == 0,
+          "phase 23 launched a ragged kernel")
+    lap("23 (pipelines beside dp and mp, ZeRO-3 a unit at a time, the "
+        "meta-optimizers beside mp)")
 
     f32 = kres["float32"]
     kernels = [{

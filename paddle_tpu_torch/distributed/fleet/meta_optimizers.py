@@ -9,15 +9,20 @@ momentum-corrected allreduce with local residuals),
 ``fp16_allreduce_optimizer.py`` (gradients cast to fp16 for the wire).
 
 The JAX package makes the per-rank state explicit with a leading
-``[dp]`` axis and ``vmap``\\ s the local step over it.  The port holds one
-state a data rank, as the reference's processes do: every rank of the
-mesh's data axes (``dp`` x ``sharding``; the other axes must be 1) has
+``[dp]`` axis and ``vmap``\\ s the local step over it, ``dp`` the product
+of the ``DATA_AXES`` sizes, its state at ``P(DATA_AXES)``: every other
+axis holds replicas.  The port holds one state a data rank, as the
+reference's processes do: each data rank (the mesh rank at index 0 of
+every axis outside ``dp`` x ``sharding``, ``data_representatives``) has
 its own parameter copy on its device, its own optimizer state, and
-DGC's momentum ``u`` and residual ``v``; the rank's forward and backward
-run on a replica of the model holding its tensors over its rows of the
-batch (``[dp, -1]``, as the JAX package reshapes it), and the cross-rank
-mean is the collective (``collective.reduce_parts``).  Steps are
-``step(inputs, labels)`` -> the mean of the ranks' losses;
+DGC's momentum ``u`` and residual ``v``; a rank that differs from it only
+on ``mp``, ``pp``, ``sp`` or ``ep`` is a replica and reads the same
+tensors (``rank_params``), so the port computes once a data rank what
+the JAX program replicates over those axes.  The data rank's forward
+and backward run on a replica of the model holding its tensors over its
+rows of the batch (``[dp, -1]``, as the JAX package reshapes it), and
+the cross-rank mean is the collective (``collective.reduce_parts``).
+Steps are ``step(inputs, labels)`` -> the mean of the ranks' losses;
 ``sync_to_layer()`` writes the (averaged) parameters into the model.
 """
 from __future__ import annotations
@@ -35,20 +40,15 @@ class _PerRankStep:
     replica a data rank."""
 
     def __init__(self, model, optimizer, loss_fn=None, mesh=None):
-        from ...parallel.train_step import bind, meta_replica
+        from ...parallel.train_step import (bind, data_representatives,
+                                            meta_replica)
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
         self.mesh = mesh if mesh is not None else mesh_mod.ensure_mesh()
-        others = {a: n for a, n in self.mesh.shape.items()
-                  if a not in DATA_AXES and n > 1}
-        if others:
-            raise NotImplementedError(
-                f"{type(self).__name__}: a mesh with {others} beside the "
-                "data axes is not ported yet (ROADMAP Queue A 10: the "
-                "meta-optimizers beside non-data axes)")
-        self.dp = self.mesh.size
-        self.devs = self.mesh.flat_devices
+        self.data_ranks = data_representatives(self.mesh)
+        self.dp = len(self.data_ranks)
+        self.devs = [self.mesh.flat_devices[r] for r in self.data_ranks]
         optimizer.bind_names(model.named_parameters())
         params = dict(model.named_parameters())
         self.pnames = sorted(k for k in params if params[k].requires_grad)
@@ -71,6 +71,11 @@ class _PerRankStep:
             self.opt_state.append({k: optimizer._init_state(mine[k])
                                    for k in self.pnames})
             self.replicas.append(rep)
+
+    def rank_params(self, r):
+        """Mesh rank ``r``'s parameters: those of its data rank, which
+        every rank differing from it only outside the data axes shares."""
+        return self.params[self.mesh.index_in(r, DATA_AXES)]
 
     # -- one rank's loss over its rows -----------------------------------
     def _rank_rows(self, arrays, r):

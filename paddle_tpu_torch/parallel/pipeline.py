@@ -4,15 +4,18 @@
 The JAX package stacks the identical blocks' parameters on a leading
 ``pp``-sharded axis and runs ONE ``shard_map`` program that rotates
 activations around the ring with ``ppermute``.  The port keeps the
-schedule and drives the stages from one controller: stage ``s`` (the
-mesh rank at ``pp = s``) holds blocks ``s * bps .. (s + 1) * bps`` as its
-own modules (replicas of the model's blocks holding the stage's tensors
-on its device), and an activation or a cotangent moves to the next stage
-with ``.to`` (a copy between cards, nothing on one).  ``pre`` and
-``post`` are replicated: every stage holds a copy, ``pre`` runs on stage
-0 and ``post`` on the last, and their gradients are summed over the
-stages (the others contribute nothing) before every copy takes the same
-update.
+schedule and drives the stages from one controller: stage ``s`` of a
+pipeline (the mesh rank at ``pp = s`` of the pipeline's coordinates)
+holds blocks ``s * bps .. (s + 1) * bps`` as its own modules (replicas
+of the model's blocks holding the stage's tensors on its device), and an
+activation or a cotangent moves to the next stage with ``.to`` (a copy
+between cards, nothing on one).  ``pre`` and ``post`` are replicated:
+every stage holds a copy, ``pre`` runs on stage 0 and ``post`` on the
+last, and their gradients are summed over the stages (the others
+contribute nothing) before every copy takes the same update.  A tick
+whose calls may meet in a collective (below) runs them as ranks of the
+mesh (``collective.run_ranks``); any other runs them in turn on the
+controller (a rank thread costs milliseconds of host time a call).
 
 * **GPipe** (``schedule_mode`` "F-then-B", the default): ``pre`` over the
   whole batch, then ``M + P - 1`` forward ticks, stage ``s`` running
@@ -26,8 +29,9 @@ update.
   s)``, which recomputes the stage forward from the stored input and
   runs ``torch.autograd.backward(stage_out, cotangent from stage s +
   1)`` (on the last stage, of ``post`` + the micro-batch's loss / M).
-  At most ``2P - 1`` inputs a stage are stored: live activations O(P),
-  not O(M).  The loss is the mean of the micro-batch losses (GPipe's
+  At most ``2P - 1`` inputs a stage are stored between ticks
+  (``max_stored_inputs``, the most seen): live activations O(P), not
+  O(M).  The loss is the mean of the micro-batch losses (GPipe's
   whole-batch loss for a mean criterion over equal micro-batches), and
   exactly one labels array is accepted, as in the JAX package.
 
@@ -37,22 +41,52 @@ it; 1F1B's runs against them and restores them).  1F1B's recomputation
 sees the buffers after every forward of the step, where its forward
 saw them mid-step, which is sound only when the training forward never
 READS a buffer's value (BN writes its statistics but normalizes with
-the batch's): the first step checks that per stage, running the forward
-once more with every buffer set to NaN, and refuses a stage whose
-activation changes, as the JAX package's ``_check_recompute_buffer_
-safety`` refuses it.
+the batch's): the first step checks that per stage of every pipeline,
+running the forward once more with every buffer set to NaN, and refuses
+a stage whose activation changes, as the JAX package's
+``_check_recompute_buffer_safety`` refuses it.
 
-The pipeline path runs over a mesh whose other axes are 1; with data
-or model parallelism beside ``pp`` it raises (ROADMAP Queue A 10, the
-training remainder).
+Beside ``pp`` the JAX program runs the same pipeline on every coordinate
+of the other axes, each over the whole global batch (its micro-batches
+at ``P()``), every stage's blocks whole, ``pre`` and ``post`` under their
+own ``partition_spec``.  The port keeps its numbers and splits the work:
+
+* over the data axes (``dp`` x ``sharding``) one pipeline a data rank,
+  numbered as ``mesh.index_in`` numbers them.  Micro-batch ``m`` stays
+  the rows ``[m * mb, (m + 1) * mb)`` of the batch, and pipeline ``d``
+  runs its ``d``-th equal share of every micro-batch's rows (when ``mb``
+  divides over the data ranks; else pipeline 0 runs whole micro-batches
+  and the others take its update).  A tick runs the same stage of every
+  pipeline together with the batch split (``RankContext.batch_split``),
+  so a batch norm normalizes by the whole micro-batch
+  (``nn.functional.norm``), and a loss's token mean divides by the kept
+  tokens of every pipeline's rows: the whole batch's under GPipe, the
+  micro-batch's under 1F1B.  The step's loss is the mean of the
+  pipelines' losses, and each gradient is summed over the pipelines;
+* ``mp``: the blocks run whole once, on the rank at mp index 0.  A
+  ``pre`` or ``post`` with a parameter whose ``partition_spec`` names
+  ``mp`` (``VocabParallelEmbedding``, a column-parallel head) runs on
+  every rank of its mp group with that rank's piece, through the
+  tensor-parallel layers' collectives, as the flat step runs them; its
+  update's norms (``Lamb``, ``LarsMomentum``) cover the whole parameter.
+  Blocks with a parameter split over ``mp`` refuse a mesh with mp > 1
+  (``ValueError``), as the JAX ``shard_map`` refuses their sharding
+  constraints;
+* ``sp``, ``ep`` (and ``mp`` around dense ends) hold replicas, which the
+  port computes once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 
 import torch
 
+from ..distributed import collective
 from ..distributed.fleet.utils import recompute
+from ..distributed.mesh import DATA_AXES, data_axes_size
+from ..distributed.sharding import _axes_of, piece_slices
 from .train_step import _as_tensor, _MeshEngine, bind, meta_replica
 
 
@@ -65,22 +99,32 @@ def _owned(t, device, taken):
     return t.detach().to(device, copy=True)
 
 
+def _names_mp(spec):
+    return "mp" in [a for e in (spec or ()) for a in _axes_of(e)]
+
+
 class PipelineEngine(_MeshEngine):
     """The pipeline path of ``TrainStep`` (module docstring)."""
 
     def __init__(self, step, model, mesh):
         super().__init__(step, mesh)
         pp = mesh.axis_size("pp")
-        others = {a: n for a, n in mesh.shape.items() if a != "pp" and n > 1}
-        if others:
-            raise NotImplementedError(
-                f"TrainStep: a pipeline over a mesh with {others} beside pp "
-                "is not ported yet (ROADMAP Queue A 10: a pipeline beside "
-                "data or model parallelism)")
+        mp = mesh.axis_size("mp")
         nblocks = len(model.blocks)
         if nblocks % pp:
             raise ValueError(f"n_blocks {nblocks} must divide pp degree "
                              f"{pp}")
+        for i, blk in enumerate(model.blocks):
+            for n, p in blk.named_parameters():
+                spec = getattr(p, "partition_spec", None)
+                if mp > 1 and _names_mp(spec):
+                    raise ValueError(
+                        f"TrainStep: a pipeline runs every stage's blocks "
+                        f"whole, but blocks.{i}.{n} is split over mp "
+                        f"({spec}) on a mesh with mp={mp}; the JAX "
+                        "package's shard_map refuses that sharding "
+                        "constraint too.  Keep the blocks dense (a "
+                        "tensor-parallel pre or post is fine).")
         self.pp = pp
         self.bps = nblocks // pp
         s = step.strategy
@@ -94,69 +138,126 @@ class PipelineEngine(_MeshEngine):
         self.schedule = "1F1B" if schedule.upper() == "1F1B" else "F-then-B"
         self.use_remat = bool(s is not None and getattr(s, "recompute",
                                                         False))
-        self.devs = [mesh.flat_devices[mesh.rank_of({"pp": i})]
-                     for i in range(pp)]
+        self.n_data = data_axes_size(mesh)
+        self.devs = mesh.flat_devices
+        # each end's mp ranks: its mp group when it holds an mp piece
+        self.end_mp = {}
+        self.local_specs = {}
+        for end in ("pre", "post"):
+            mod = getattr(model, end)
+            tp = mod is not None and mp > 1 and any(
+                _names_mp(getattr(p, "partition_spec", None))
+                for p in mod.parameters())
+            self.end_mp[end] = mp if tp else 1
+            for n, p in (mod.named_parameters() if mod is not None else ()):
+                spec = getattr(p, "partition_spec", None)
+                self.local_specs[f"{end}.{n}"] = tuple(spec) if tp and \
+                    _names_mp(spec) else ()
         taken = set()
-        # leaves[s]: the model's parameter name -> stage s's leaf
-        self.leaves = [{} for _ in range(pp)]
-        self.stages = []
-        self.buffers = [{} for _ in range(pp)]
+        self.leaves = [{} for _ in range(mesh.size)]
+        self.buffers = [{} for _ in range(mesh.size)]
+        self.stage_of, self.shapes = {}, {}
+        # stages[d][s]: pipeline d's stage s, a list of block replicas
+        self.stages = [[[] for _ in range(pp)] for _ in range(self.n_data)]
         for i, blk in enumerate(model.blocks):
             st = i // self.bps
-            rep = meta_replica(blk)
-            params = {}
             for n, p in blk.named_parameters():
-                t = _owned(p, self.devs[st], taken).requires_grad_(
-                    p.requires_grad)
-                params[n] = t
-                self.leaves[st][f"blocks.{i}.{n}"] = t
-            bufs = {n: b.detach().to(self.devs[st], copy=True)
-                    for n, b in blk.named_buffers() if b is not None}
-            bind(rep, params, bufs)
-            for n, b in bufs.items():
-                self.buffers[st][f"blocks.{i}.{n}"] = b
-            if i % self.bps == 0:
-                self.stages.append([])
-            self.stages[st].append(rep)
+                self.stage_of[f"blocks.{i}.{n}"] = st
+                self.local_specs[f"blocks.{i}.{n}"] = ()
+                self.shapes[f"blocks.{i}.{n}"] = tuple(p.shape)
+            for d in range(self.n_data):
+                r = self.rank(d, st)
+                rep = meta_replica(blk)
+                params = {}
+                for n, p in blk.named_parameters():
+                    t = _owned(p, self.devs[r], taken).requires_grad_(
+                        p.requires_grad)
+                    params[n] = t
+                    self.leaves[r][f"blocks.{i}.{n}"] = t
+                bufs = {n: b.detach().to(self.devs[r], copy=True)
+                        for n, b in blk.named_buffers() if b is not None}
+                bind(rep, params, bufs)
+                for n, b in bufs.items():
+                    self.buffers[r][f"blocks.{i}.{n}"] = b
+                self.stages[d][st].append(rep)
+        # ends[end][d][s][j]: the replica on rank (d, s, mp j), or None
         self.ends = {}
         for end in ("pre", "post"):
             mod = getattr(model, end)
-            self.ends[end] = []
-            for st in range(pp):
-                if mod is None:
-                    self.ends[end].append(None)
-                    continue
-                rep = meta_replica(mod)
-                params = {}
-                for n, p in mod.named_parameters():
-                    t = _owned(p, self.devs[st], taken).requires_grad_(
-                        p.requires_grad)
-                    params[n] = t
-                    self.leaves[st][f"{end}.{n}"] = t
-                bind(rep, params, {n: b.detach().to(self.devs[st], copy=True)
-                                   for n, b in mod.named_buffers()
-                                   if b is not None})
-                self.ends[end].append(rep)
+            if mod is None:
+                self.ends[end] = None
+                continue
+            for n, p in mod.named_parameters():
+                self.stage_of[f"{end}.{n}"] = 0 if end == "pre" else pp - 1
+                self.shapes[f"{end}.{n}"] = tuple(p.shape)
+            self.ends[end] = [[[self._end_replica(mod, end, d, st, j, taken)
+                                for j in range(self.end_mp[end])]
+                               for st in range(pp)]
+                              for d in range(self.n_data)]
         opt = step.optimizer
         self.opt_state = [{k: opt._init_state(t) for k, t in lv.items()
                            if t.requires_grad} for lv in self.leaves]
-        self.pnames = sorted({k for lv in self.leaves for k in lv})
-        self.param_specs = {k: ("pp",) if k.startswith("blocks.") else ()
-                            for k in self.pnames}
+        self.holders = [r for r, lv in enumerate(self.leaves) if lv]
+        self.pnames = sorted(self.stage_of)
+        self.param_specs = {k: ("pp",) if k.startswith("blocks.")
+                            else self.local_specs[k] for k in self.pnames}
         self.opt_specs = {}
         self._checked = False
+        self.max_stored_inputs = 0
+
+    def rank(self, d, s, j=0):
+        """The mesh rank of pipeline ``d``'s stage ``s`` at mp index
+        ``j``."""
+        n_sh = self.mesh.axis_size("sharding")
+        return self.mesh.rank_of({"dp": d // n_sh, "sharding": d % n_sh,
+                                  "pp": s, "mp": j})
+
+    def _end_replica(self, mod, end, d, st, j, taken):
+        r = self.rank(d, st, j)
+        rep = meta_replica(mod)
+        params = {}
+        for n, p in mod.named_parameters():
+            k = f"{end}.{n}"
+            spec = self.local_specs[k]
+            t = (self._piece(r, p.detach(), spec).to(
+                self.devs[r], copy=True).contiguous() if spec
+                 else _owned(p, self.devs[r], taken))
+            params[n] = self.leaves[r][k] = t.requires_grad_(
+                p.requires_grad)
+        bind(rep, params, {n: b.detach().to(self.devs[r], copy=True)
+                           for n, b in mod.named_buffers() if b is not None})
+        return rep
+
+    def _replicas(self):
+        for pipe in self.stages:
+            for reps in pipe:
+                yield from reps
+        for per_end in self.ends.values():
+            for pipe in per_end or ():
+                for reps in pipe:
+                    yield from reps
 
     # -- stages ----------------------------------------------------------
-    def _run_stage(self, s, h):
-        for blk in self.stages[s]:
+    def _run(self, fns, n, mp=1):
+        """``fns`` (rank -> function) run as ranks of the mesh, the batch
+        split over the data axes, when ``n`` pipelines run or ``mp``
+        ranks hold an end's pieces (the ranks then meet in the batch
+        norm's or the loss's sums, or the tensor-parallel layers'
+        collectives); else in turn, here."""
+        if n == 1 and mp == 1:
+            return {r: fn() for r, fn in fns.items()}
+        return collective.run_ranks(self.mesh, fns, batch_split=n > 1)
+
+    def _run_stage(self, d, s, h):
+        for blk in self.stages[d][s]:
             h = blk(h)
         return h
 
     @contextlib.contextmanager
-    def _frozen_buffers(self, s):
-        """The stage's buffers as they are now, restored on exit: a
+    def _frozen_buffers(self, r):
+        """Rank ``r``'s buffers as they are now, restored on exit: a
         recomputation does not advance them again."""
-        saved = [(b, b.clone()) for b in self.buffers[s].values()]
+        saved = [(b, b.clone()) for b in self.buffers[r].values()]
         try:
             yield
         finally:
@@ -164,201 +265,344 @@ class PipelineEngine(_MeshEngine):
                 for b, v in saved:
                     b.copy_(v)
 
-    def _stage_call(self, s, x):
+    def _stage_call(self, d, s, x):
         if not self.use_remat:
-            return self._run_stage(s, x)
+            return self._run_stage(d, s, x)
         calls = [0]
 
         def body(h):
             calls[0] += 1
             if calls[0] == 1:
-                return self._run_stage(s, h)
-            with self._frozen_buffers(s):
-                return self._run_stage(s, h)
+                return self._run_stage(d, s, h)
+            with self._frozen_buffers(self.rank(d, s)):
+                return self._run_stage(d, s, h)
 
         return recompute(body, x)
 
-    def _check_buffer_reads(self, x):
-        """1F1B's guard (module docstring): refuse a stage whose training
-        forward reads a buffer's value."""
+    def _check_buffer_reads(self, firsts):
+        """1F1B's guard (module docstring), on every stage of every
+        pipeline that runs: refuse a stage whose training forward reads
+        a buffer's value."""
         if self._checked or not self.step_.training:
             return
-        for s in range(self.pp):
-            if not self.buffers[s]:
-                continue
-            owners = []
-            for rep in self.stages[s]:
-                for mod in rep.modules():
-                    for leaf, b in mod._buffers.items():
-                        if b is not None:
-                            owners.append((mod, leaf, b))
-            xs = x.detach().to(self.devs[s])
-            outs = []
-            for poison in (False, True):
-                for mod, leaf, b in owners:
-                    c = b.clone()
-                    if poison and c.is_floating_point():
-                        c.fill_(float("nan"))
-                    elif poison:
-                        c.add_(1)
-                    mod._buffers[leaf] = c
-                with torch.no_grad(), torch.random.fork_rng(
-                        devices=[d.index for d in self.devs
-                                 if d.type == "cuda"]):
-                    torch.manual_seed(0)
-                    outs.append(self._run_stage(s, xs))
-            for mod, leaf, b in owners:
-                mod._buffers[leaf] = b
-            same = torch.equal(outs[0], outs[1]) if outs[0].dtype != \
-                torch.bool else bool((outs[0] == outs[1]).all())
-            if not same:
-                raise NotImplementedError(
-                    f"1F1B: stage {s}'s TRAINING forward reads buffer "
-                    "values; the per-tick recompute would replay it against "
-                    "buffers other than the forward saw and silently diverge "
-                    "from the actual forward.  Use the GPipe schedule "
-                    "(schedule_mode='F-then-B') for buffer-READING training "
-                    "forwards.")
+        for d, x in enumerate(firsts):
+            for s in range(self.pp):
+                r = self.rank(d, s)
+                if self.buffers[r]:
+                    self._check_stage(d, s, x.detach().to(self.devs[r]))
         self._checked = True
+
+    def _check_stage(self, d, s, xs):
+        owners = []
+        for rep in self.stages[d][s]:
+            for mod in rep.modules():
+                for leaf, b in mod._buffers.items():
+                    if b is not None:
+                        owners.append((mod, leaf, b))
+        outs = []
+        for poison in (False, True):
+            for mod, leaf, b in owners:
+                c = b.clone()
+                if poison and c.is_floating_point():
+                    c.fill_(float("nan"))
+                elif poison:
+                    c.add_(1)
+                mod._buffers[leaf] = c
+            with torch.no_grad(), torch.random.fork_rng(
+                    devices=[dv.index for dv in set(self.devs)
+                             if dv.type == "cuda"]):
+                torch.manual_seed(0)
+                outs.append(self._run_stage(d, s, xs))
+        for mod, leaf, b in owners:
+            mod._buffers[leaf] = b
+        same = torch.equal(outs[0], outs[1]) if outs[0].dtype != \
+            torch.bool else bool((outs[0] == outs[1]).all())
+        if not same:
+            raise NotImplementedError(
+                f"1F1B: stage {s}'s TRAINING forward reads buffer "
+                "values; the per-tick recompute would replay it against "
+                "buffers other than the forward saw and silently diverge "
+                "from the actual forward.  Use the GPipe schedule "
+                "(schedule_mode='F-then-B') for buffer-READING training "
+                "forwards.")
 
     # -- the step --------------------------------------------------------
     def _set_train(self):
         mode = self.step_.training
-        for reps in self.stages:
-            for rep in reps:
-                rep.train(mode)
-        for reps in self.ends.values():
-            for rep in reps:
-                if rep is not None:
-                    rep.train(mode)
+        for rep in self._replicas():
+            rep.train(mode)
 
     def _loss(self, out, labels):
         fn = self.step_.loss_fn
         loss = out if fn is None else fn(out, *labels)
         return loss.float()
 
+    def _rows(self, a, n, s):
+        """Each running pipeline's rows of every micro-batch of ``a`` (its
+        share of each, in micro-batch order), on its stage ``s``'s
+        device."""
+        if n == 1:
+            return [a.to(self.devs[self.rank(0, s)])]
+        M = self.num_microbatches
+        idx = torch.arange(a.shape[0], device=a.device).view(M, n, -1)
+        return [a.index_select(0, idx[:, d].reshape(-1)).to(
+            self.devs[self.rank(d, s)]) for d in range(n)]
+
     def step(self, inputs, labels):
         st = self.step_
         self._free_grads()
         self._set_train()
-        x = _as_tensor(inputs[0], self.devs[0])
-        last = self.devs[-1]
-        labels = [_as_tensor(y, last) for y in labels]
-        M = self.num_microbatches
+        P, M = self.pp, self.num_microbatches
+        x = _as_tensor(inputs[0], self.devs[self.rank(0, 0)])
         if x.shape[0] % M:
             raise ValueError(f"pipeline: accumulate_steps={M} must divide "
                              f"the batch ({x.shape[0]})")
+        n = self.n_data if (x.shape[0] // M) % self.n_data == 0 else 1
+        xs = self._rows(x, n, 0)
+        last = self.devs[self.rank(0, P - 1)]
+        ys = [self._rows(_as_tensor(y, last), n, P - 1) for y in labels]
+        labs = [[y[d] for y in ys] for d in range(n)]
         with st._amp():
-            pre = self.ends["pre"][0]
-            h = pre(x) if pre is not None else x
+            h = self._pre(xs, n)
             if self.schedule == "1F1B":
-                loss = self._one_f_one_b(h, labels)
+                loss = self._one_f_one_b(h, labs, n)
             else:
-                loss = self._gpipe(h, labels)
+                loss = self._gpipe(h, labs, n)
         self._apply()
         return loss
 
-    def _gpipe(self, h, labels):
+    def _pre(self, xs, n):
+        """``pre`` over each running pipeline's rows, on its mp group
+        when it holds mp pieces; the activations of mp index 0."""
+        pre = self.ends["pre"]
+        if pre is None:
+            return xs
+        fns = {}
+        for d in range(n):
+            for j in range(self.end_mp["pre"]):
+                r = self.rank(d, 0, j)
+                fns[r] = functools.partial(pre[d][0][j],
+                                           xs[d].to(self.devs[r]))
+        outs = self._run(fns, n, self.end_mp["pre"])
+        return [outs[self.rank(d, 0)] for d in range(n)]
+
+    def _token_count(self, n, kept):
+        """A loss's token-mean denominator on a pipeline's last stage: the
+        kept tokens of every running pipeline over their number
+        (``RankContext.token_count``)."""
+        return collective.mesh_all_reduce(kept.detach(), DATA_AXES) / n
+
+    def _rank_loss(self, d, j, n, out, labels):
+        if n > 1:
+            collective.current_rank().token_count = functools.partial(
+                self._token_count, n)
+        post = self.ends["post"]
+        if post is not None:
+            out = post[d][self.pp - 1][j](out)
+        return self._loss(out, labels)
+
+    def _post_loss(self, outs, labs, n):
+        """The mean over the running pipelines of ``post`` and the loss
+        over each one's rows (``post`` on its mp group when it holds mp
+        pieces; the loss of mp index 0)."""
+        P = self.pp
+        fns = {}
+        for d in range(n):
+            for j in range(self.end_mp["post"]):
+                r = self.rank(d, P - 1, j)
+                dev = self.devs[r]
+                fns[r] = functools.partial(
+                    self._rank_loss, d, j, n, outs[d].to(dev),
+                    [y.to(dev) for y in labs[d]])
+        res = self._run(fns, n, self.end_mp["post"])
+        dev = self.devs[self.rank(0, P - 1)]
+        return sum(res[self.rank(d, P - 1)].to(dev) for d in range(n)) / n
+
+    def _gpipe(self, h, labs, n):
         P, M = self.pp, self.num_microbatches
-        carry = list(h.chunk(M))
+        carry = [list(hd.chunk(M)) for hd in h]
         for t in range(M + P - 1):
+            work = {}
             for s in range(P):
                 m = t - s
                 if 0 <= m < M:
-                    carry[m] = self._stage_call(s, carry[m].to(self.devs[s]))
-        out = torch.cat(carry)
-        post = self.ends["post"][-1]
-        if post is not None:
-            out = post(out)
-        loss = self._loss(out, labels)
+                    for d in range(n):
+                        r = self.rank(d, s)
+                        work[r] = (d, m, functools.partial(
+                            self._stage_call, d, s,
+                            carry[d][m].to(self.devs[r])))
+            outs = self._run({r: w[2] for r, w in work.items()}, n)
+            for r, (d, m, _) in work.items():
+                carry[d][m] = outs[r]
+        loss = self._post_loss([torch.cat(c) for c in carry], labs, n)
         loss.backward()
         return loss.detach()
 
-    def _one_f_one_b(self, h, labels):
+    def _one_f_one_b(self, h, labs, n):
         P, M = self.pp, self.num_microbatches
         fn = self.step_.loss_fn
-        if fn is not None and len(labels) != 1:
+        if fn is not None and len(labs[0]) != 1:
             raise ValueError(
                 "1F1B pipeline expects exactly one labels array "
-                f"(got {len(labels)}); GPipe (schedule_mode='F-then-B') "
+                f"(got {len(labs[0])}); GPipe (schedule_mode='F-then-B') "
                 "supports multi-label losses")
-        hm = [c.detach().requires_grad_(h.requires_grad) for c in
-              h.chunk(M)]
-        lab = labels[0].chunk(M) if labels else [None] * M
-        self._check_buffer_reads(hm[0])
-        post = self.ends["post"][-1]
-        stored = [dict() for _ in range(P)]
-        act_in, cot_in = {}, {}
-        total = torch.zeros((), dtype=torch.float32, device=self.devs[-1])
+        hm = [[c.detach().requires_grad_(hd.requires_grad)
+               for c in hd.chunk(M)] for hd in h]
+        lab = [[y.chunk(M) for y in labs[d]] for d in range(n)]
+        self._check_buffer_reads([hm[d][0] for d in range(n)])
+        stored, act_in, cot_in = {}, {}, {}
+        total = torch.zeros((), dtype=torch.float32,
+                            device=self.devs[self.rank(0, P - 1)])
         for t in range(M + 2 * P - 1):
-            acts, cots = {}, {}
+            acts, cots, work = {}, {}, {}
             for s in range(P):                      # forward sub-ticks
                 m = t - s
-                if not 0 <= m < M:
-                    continue
-                inp = hm[m].detach() if s == 0 else act_in.pop(s)
+                if 0 <= m < M:
+                    for d in range(n):
+                        inp = hm[d][m].detach() if s == 0 else \
+                            act_in.pop((d, s))
+                        stored[d, s, m] = inp
+                        work[self.rank(d, s)] = (d, s, inp)
+            if work:
                 with torch.no_grad():
-                    out = self._run_stage(s, inp)
-                stored[s][m] = inp
-                if s + 1 < P:
-                    acts[s + 1] = out.to(self.devs[s + 1])
+                    outs = self._run({r: functools.partial(
+                        self._run_stage, d, s, inp)
+                        for r, (d, s, inp) in work.items()}, n)
+                for r, (d, s, _) in work.items():
+                    if s + 1 < P:
+                        acts[d, s + 1] = outs[r].to(
+                            self.devs[self.rank(d, s + 1)])
             for s in range(P):                      # backward sub-ticks
                 m = t - (2 * P - 1 - s)
-                if not 0 <= m < M:
-                    continue
-                inp = stored[s].pop(m)
-                x_in = hm[m] if s == 0 else inp.requires_grad_(True)
-                with self._frozen_buffers(s):
-                    out = self._run_stage(s, x_in)
-                    if s == P - 1:
-                        y = post(out) if post is not None else out
-                        loss_m = (y if fn is None else fn(y, lab[m])
-                                  ).float() / M
-                        torch.autograd.backward(loss_m)
-                        total = total + loss_m.detach()
-                    else:
-                        torch.autograd.backward(out, cot_in.pop(s))
-                if s > 0:
-                    cots[s - 1] = x_in.grad.to(self.devs[s - 1])
+                if 0 <= m < M:
+                    total = total + self._backward_tick(
+                        s, m, n, hm, lab, stored, cot_in, cots)
             act_in.update(acts)
             cot_in.update(cots)
-        if h.requires_grad:
-            torch.autograd.backward(h, torch.cat([c.grad for c in hm]))
+            held = collections.Counter(key[:2] for key in stored)
+            self.max_stored_inputs = max(self.max_stored_inputs,
+                                         max(held.values(), default=0))
+        for d in range(n):
+            if h[d].requires_grad:
+                torch.autograd.backward(h[d],
+                                        torch.cat([c.grad for c in hm[d]]))
         return total
 
+    def _backward_tick(self, s, m, n, hm, lab, stored, cot_in, cots):
+        """Stage ``s``'s backward of micro-batch ``m`` on every running
+        pipeline: recompute from the stored input against frozen buffers,
+        then one backward (of ``post`` + the loss / M on the last stage,
+        else of the output against the next stage's cotangent).  Returns
+        the micro-batch's loss share (0 off the last stage)."""
+        P, M = self.pp, self.num_microbatches
+        xin = {}
+        for d in range(n):
+            inp = stored.pop((d, s, m))
+            xin[d] = hm[d][m] if s == 0 else inp.requires_grad_(True)
+        with contextlib.ExitStack() as frozen:
+            for d in range(n):
+                frozen.enter_context(self._frozen_buffers(self.rank(d, s)))
+            outs = self._run({self.rank(d, s): functools.partial(
+                self._run_stage, d, s, xin[d]) for d in range(n)}, n)
+            outs = [outs[self.rank(d, s)] for d in range(n)]
+            if s == P - 1:
+                loss_m = self._post_loss(
+                    outs, [[y[m] for y in lab[d]] for d in range(n)], n) / M
+                torch.autograd.backward(loss_m)
+                share = loss_m.detach()
+            else:
+                torch.autograd.backward(
+                    outs, [cot_in.pop((d, s)) for d in range(n)])
+                share = 0.0
+        if s > 0:
+            for d in range(n):
+                cots[d, s - 1] = xin[d].grad.to(
+                    self.devs[self.rank(d, s - 1)])
+        return share
+
     def _groups(self):
-        """A block's one stage, or every stage holding a copy of ``pre``
-        or ``post`` (the gradient lands on one; all take the update)."""
-        return {k: [[s for s in range(self.pp) if k in self.leaves[s]]]
-                for k in self.pnames if self._leaf(k).requires_grad}
+        """The ranks holding the same piece of each trainable parameter:
+        a block's stage in every pipeline, every rank holding a copy of a
+        dense ``pre`` or ``post`` parameter, or each mp piece's holders
+        (the gradient lands on the ranks that ran it; all take the
+        update)."""
+        out = {}
+        for k in self.pnames:
+            if not self._leaf(k).requires_grad:
+                continue
+            groups = {}
+            for r in self.holders:
+                if k in self.leaves[r]:
+                    key = tuple(start for _, start, _ in piece_slices(
+                        self.local_specs[k], self.shapes[k], self.mesh, r))
+                    groups.setdefault(key, []).append(r)
+            out[k] = list(groups.values())
+        return out
 
     def _apply(self):
         red = self._reduce_and_clip()
+
+        def update(r, lr):
+            ctx = collective.current_rank()
+            for k in self.pnames:
+                if r not in red.get(k, ()):
+                    continue
+                axes = tuple(a for e in self.local_specs[k]
+                             for a in _axes_of(e))
+                if axes:
+                    ctx.norm_axes = axes
+                try:
+                    self._update_piece(k, self.leaves[r][k], red[k][r],
+                                       self.opt_state[r][k], lr)
+                finally:
+                    if axes:
+                        ctx.norm_axes = ()
+
         with self._updating() as lr:
-            for k, per in red.items():
-                for s, g in per.items():
-                    self._update_piece(k, self.leaves[s][k], g,
-                                       self.opt_state[s][k], lr)
+            # the mp pieces' norms (Lamb, LarsMomentum) meet over mp
+            self._run({r: functools.partial(update, r, lr)
+                       for r in self.holders}, 1, max(self.end_mp.values()))
         self.last_grads = red if self.keep_grads else None
 
     # -- reading the state back ---------------------------------------------
-    def _owner(self, k):
-        """The stage whose copy of ``k`` is the reference one: a block's
-        stage, ``pre``'s first, ``post``'s last."""
-        owners = [s for s in range(self.pp) if k in self.leaves[s]]
-        return owners[-1] if k.startswith("post.") else owners[0]
+    def _refs(self, k):
+        """The ranks whose pieces make the reference copy of ``k``, in
+        pipeline 0: a block's stage, ``pre``'s first, ``post``'s last (its
+        mp group when ``k`` is split over it)."""
+        js = range(self.mesh.axis_size("mp")) if self.local_specs[k] else (0,)
+        return [self.rank(0, self.stage_of[k], j) for j in js]
 
     def _leaf(self, k):
-        return self.leaves[self._owner(k)][k]
+        return self.leaves[self._refs(k)[0]][k]
 
     def _local_spec(self, k, sk=None):
-        return ()           # each stage holds its tensors whole
+        spec = self.local_specs[k]
+        if spec and sk is not None and \
+                self.opt_state[self._refs(k)[0]][k][sk].dim() == 0:
+            return ()
+        return spec
 
-    def _assemble(self, k, by_stage, spec, device=None):
-        return by_stage[self._owner(k)].detach().to(device or self.devs[0])
+    def _assemble(self, k, by_rank, spec, device=None):
+        refs = self._refs(k)
+        first = by_rank[refs[0]].detach()
+        dev = device or first.device
+        if not spec:
+            return first.to(dev)
+        shape = list(first.shape)
+        for dim, entry in enumerate(spec):
+            for a in _axes_of(entry):
+                shape[dim] *= self.mesh.axis_size(a)
+        out = torch.empty(shape, dtype=first.dtype, device=dev)
+        for r in refs:
+            view = out
+            for dim, start, n in piece_slices(spec, shape, self.mesh, r):
+                view = view.narrow(dim, start, n)
+            view.copy_(by_rank[r].detach())
+        return out
 
     def full_buffers(self):
-        return {k: v for b in self.buffers for k, v in b.items()}
+        return {k: v for s in range(self.pp)
+                for k, v in self.buffers[self.rank(0, s)].items()}
 
 
 def stack_block_params(blocks):

@@ -37,8 +37,8 @@ JAX step's spec semantics:
   ``partition_spec``\\ s (the TP layers' over ``mp``, the MoE expert
   stacks' over ``ep``); stage 3 shards them over ``sharding``
   (``sharding.shard_params_specs``, ``sharding_configs["min_shard_size"]``
-  default 1024), gathered for the forward by an all-gather whose backward
-  is a reduce-scatter;
+  default 1024), and a rank holds the whole of one unit's parameters at
+  a time (below);
 * stages >= 1 shard the moments of a replicated parameter over
   ``sharding`` on the JAX layout's first dimension, when it divides; each
   rank updates its slice, and the slices are gathered back;
@@ -63,6 +63,25 @@ JAX step's spec semantics:
   distinct pieces (``ClipGradByGlobalNorm``) and applied; ``Lamb``'s and
   ``LarsMomentum``'s norms cover the whole parameter.
 
+* stage 3 gathers a unit at a time, as FSDP does: a unit is a child
+  module of the model (a GPT block, the embeddings, the head; a
+  ``ModuleList`` or ``ModuleDict`` is looked through) and the parameters
+  the model owns itself are one more.  A replica's stage-3 slot is a
+  parametrization that reads its rank's ``_UnitGather``: the first read
+  of a unit's parameter all-gathers every stage-3 parameter of the unit
+  over the rank's ``sharding`` group (``_GatherOne``) and drops the unit
+  held before.  The rank's forward runs under saved-tensor hooks, so an
+  op that saves a gathered parameter, its cast or a view of either for
+  the backward saves its name instead, and the backward gathers it again
+  from the shards (a pure function of them, never a replayed
+  collective); a unit that recomputes itself (``use_recompute``) reads
+  its parameters again in the recomputation.  Each gathered copy's
+  gradient goes back to the shards it came from as soon as every op
+  that read it has run its backward (the reduce-scatter).  A rank so
+  holds at most one unit's gathered parameters and one unit's whole
+  gradients beside its shards (``max_live_units`` counts them); a
+  parameter that two units read (a tied embedding and head) keeps its
+  whole gradient until the backward reaches the first of them;
 * ``amp_level`` ("O1" / "O2") or ``strategy.amp`` (O2 when
   ``amp_configs["use_pure_fp16"]``, else O1) runs the forward and the
   loss under ``amp.auto_cast(level=...)`` in bf16, as the JAX step does;
@@ -86,13 +105,16 @@ not ported).
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import time
 import types
+import weakref
 
 import numpy as np
 import torch
+from torch.nn.utils import parametrize
 
 from .. import amp, monitor
 from ..device import require_on
@@ -233,6 +255,118 @@ def split_batch(arrays, mesh):
             part = chunks[mesh.index_in(r, DATA_AXES)] if spec else a
             per_rank[r].append(_as_tensor(part, devs[r]))
     return per_rank, bool(split)
+
+
+def _unit_name(model, name):
+    """The unit of the parameter ``name`` (module docstring): the path of
+    the first module on its path below the root that is not a
+    ``ModuleList`` / ``ModuleDict``, or ``""`` for one the root (or such
+    a container) owns."""
+    mod, path = model, []
+    for part in name.split(".")[:-1]:
+        mod = mod._modules[part]
+        path.append(part)
+        if not isinstance(mod, (torch.nn.ModuleList, torch.nn.ModuleDict)):
+            return ".".join(path)
+    return ""
+
+
+class _GatherOne(torch.autograd.Function):
+    """One rank's whole copy of a stage-3 parameter: its ``sharding``
+    group's shards concatenated on ``dim`` on the rank's device, tagged
+    with ``key`` (rank, name) for ``_UnitGather.pack``.  The backward
+    hands each shard its piece of the rank's gradient at once; the shards
+    sum every rank's piece, which is the reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, key, dim, device, *parts):
+        ctx.stage3_key = key
+        ctx.dim = dim
+        ctx.sizes = [p.shape[dim] for p in parts]
+        ctx.devices = [p.device for p in parts]
+        with torch.profiler.record_function("mesh.all_gather"):
+            return torch.cat([p.to(device) for p in parts], dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.profiler.record_function("mesh.all_gather.backward"):
+            return (None, None, None) + tuple(
+                piece.to(dev, copy=True).contiguous() for piece, dev in
+                zip(grad.split(ctx.sizes, dim=ctx.dim), ctx.devices))
+
+
+class _UnitGather:
+    """A rank's stage-3 parameters, one unit's at a time: ``get`` returns
+    the rank's whole copy of a parameter, gathering its unit first (and
+    dropping the unit held before) when another is held.  ``pack`` /
+    ``unpack`` are the rank's saved-tensor hooks over its forward: a
+    gathered parameter that an op saves for the backward, its cast or a
+    view of either, is saved as its name and view and gathered again from
+    the shards when the backward reads it."""
+
+    def __init__(self, engine, r):
+        self.engine = engine
+        self.r = r
+        self.unit = None
+        self.fulls = {}
+
+    def get(self, k):
+        eng = self.engine
+        unit = eng.unit_of[k]
+        if unit != self.unit:
+            self.release()
+            self.fulls = {n: eng._gather(self.r, n) for n in eng.units[unit]}
+            self.unit = unit
+            for n, t in self.fulls.items():
+                eng._note_live(self.r, n, t)
+        return self.fulls[k]
+
+    def release(self):
+        self.unit, self.fulls = None, {}
+
+    def pack(self, t):
+        base = t if t._base is None else t._base
+        fn, dtype = base.grad_fn, None
+        if fn is not None and fn.name() == "ToCopyBackward0" and \
+                base.is_contiguous():
+            fn, dtype = fn.next_functions[0][0], base.dtype
+        key = getattr(fn, "stage3_key", None)
+        if key is not None and key[0] == self.r:
+            return key[1], dtype, t.size(), t.stride(), t.storage_offset()
+        # saved as it is: counted alive while it is, if made of one
+        # gathered parameter alone
+        fn = t.grad_fn
+        while fn is not None:
+            key = getattr(fn, "stage3_key", None)
+            if key is not None:
+                self.engine._note_live(*key, t)
+                break
+            nxt = fn.next_functions
+            fn = nxt[0][0] if len(nxt) == 1 else None
+        return t
+
+    def unpack(self, saved):
+        if isinstance(saved, torch.Tensor):
+            return saved
+        k, dtype, size, stride, offset = saved
+        with torch.no_grad():
+            full = self.engine._gather(self.r, k)
+            self.engine._note_live(self.r, k, full)
+            if dtype is not None:
+                full = full.to(dtype)
+            return full.as_strided(size, stride, offset)
+
+
+class _Stage3Slot(torch.nn.Module):
+    """A replica's stage-3 parameter slot, read through its rank's
+    ``_UnitGather`` (a parametrization: ``owner.<leaf>`` calls it)."""
+
+    def __init__(self, gather, k):
+        super().__init__()
+        self.gather, self.k = gather, k
+
+    def forward(self, _meta):
+        return self.gather.get(self.k)
 
 
 class _MeshEngine:
@@ -466,6 +600,8 @@ class _FlatMesh(_MeshEngine):
                     self.opt_state[r][k] = opt._init_state(
                         self._target(r, k))
         self.reps = data_representatives(mesh)
+        if self.gathered:
+            self._install_units(model)
 
     # -- pieces ----------------------------------------------------------
     def _target(self, r, k):
@@ -477,21 +613,59 @@ class _FlatMesh(_MeshEngine):
             return leaf
         return self._piece(r, leaf, uspec)
 
-    def _bind_gathered(self):
-        """Stage 3: every rank's full parameters, all-gathered over
-        ``sharding`` (backward: a reduce-scatter)."""
-        mesh = self.mesh
+    # -- stage 3: a unit at a time (module docstring) ---------------------
+    def _install_units(self, model):
+        """Each rank's ``_UnitGather`` behind its replica's stage-3
+        parameter slots."""
+        self.unit_of = {k: _unit_name(model, k) for k in self.gathered}
+        self.units = {}
         for k in self.gathered:
-            spec = self.param_specs[k]
-            dim = next(i for i, e in enumerate(spec)
-                       if "sharding" in _axes_of(e))
-            for group in {tuple(mesh.group(r, "sharding"))
-                          for r in range(mesh.size)}:
-                fulls = collective.gather_parts(
-                    [self.leaves[r][k] for r in group], dim,
-                    [self.devs[r] for r in group])
-                for r, t in zip(group, fulls):
-                    bind(self.replicas[r], {k: t})
+            self.units.setdefault(self.unit_of[k], []).append(k)
+        self.held = [collections.Counter() for _ in range(self.mesh.size)]
+        self.live = [0] * self.mesh.size
+        self.max_live_units = {"forward": 0, "backward": 0}
+        self._phase = "forward"
+        self.gatherers = []
+        for r, rep in enumerate(self.replicas):
+            gather = _UnitGather(self, r)
+            self.gatherers.append(gather)
+            first, slots = {}, []
+            for name, p in rep.named_parameters(remove_duplicate=False):
+                k = first.setdefault(id(p), name)
+                if k in self.unit_of:
+                    slots.append((name, k))
+            for name, k in slots:
+                owner, leaf = owner_of(rep, name)
+                parametrize.register_parametrization(
+                    owner, leaf, _Stage3Slot(gather, k), unsafe=True)
+
+    def _gather(self, r, k):
+        """Rank ``r``'s whole copy of the stage-3 parameter ``k``."""
+        spec = self.param_specs[k]
+        dim = next(i for i, e in enumerate(spec)
+                   if "sharding" in _axes_of(e))
+        group = self.mesh.group(r, "sharding")
+        return _GatherOne.apply((r, k), dim, self.devs[r],
+                                *[self.leaves[g][k] for g in group])
+
+    def _note_live(self, r, k, t):
+        """Count ``t`` (a gathered copy of ``k``) alive on rank ``r`` until
+        it is freed: ``live[r]`` is the number of units with a copy alive;
+        keep the most in this phase."""
+        held, unit = self.held[r], self.unit_of[k]
+
+        def count(n):
+            held[unit] += n
+            self.live[r] = sum(1 for c in held.values() if c)
+
+        count(1)
+        peak = self.max_live_units
+        peak[self._phase] = max(peak[self._phase], self.live[r])
+        weakref.finalize(t, count, -1)
+
+    def _release_units(self):
+        for gather in getattr(self, "gatherers", ()):
+            gather.release()
 
     # -- the step --------------------------------------------------------
     def _token_count(self, kept):
@@ -510,13 +684,19 @@ class _FlatMesh(_MeshEngine):
             collective.current_rank().token_count = self._token_count
         rep = self.replicas[r]
         rep.train(st.training)
-        out = rep(*ins)
-        if isinstance(out, tuple):
-            out = out[0]
-        loss = out if st.loss_fn is None else st.loss_fn(out, *labs)
-        aux = collect_moe_aux_loss(rep)
-        if aux is not None:
-            loss = loss + aux
+        gather = self.gatherers[r] if self.gathered else None
+        with (torch.autograd.graph.saved_tensors_hooks(gather.pack,
+                                                       gather.unpack)
+              if gather else contextlib.nullcontext()):
+            out = rep(*ins)
+            if isinstance(out, tuple):
+                out = out[0]
+            loss = out if st.loss_fn is None else st.loss_fn(out, *labs)
+            aux = collect_moe_aux_loss(rep)
+            if aux is not None:
+                loss = loss + aux
+        if gather:
+            gather.release()
         return loss.float()
 
     def step(self, inputs, labels):
@@ -533,7 +713,7 @@ class _FlatMesh(_MeshEngine):
         n_in = len(inputs)
         for i in range(k):
             per_rank, split = split_batch([c[i] for c in chunks], mesh)
-            self._bind_gathered()
+            self._phase = "forward"
             with st._amp():
                 losses = collective.run_ranks(
                     mesh, {r: (lambda r=r: self._forward(
@@ -541,7 +721,11 @@ class _FlatMesh(_MeshEngine):
                         for r in range(mesh.size)}, batch_split=split)
             loss = sum(losses[r].to(dev0) for r in self.reps) / (
                 len(self.reps) * k)
-            loss.backward()
+            self._phase = "backward"
+            try:
+                loss.backward()
+            finally:
+                self._release_units()
             total = total + loss.detach()
         self._apply()
         return total

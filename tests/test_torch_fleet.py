@@ -12,6 +12,9 @@ JAX package's.
   LocalSGD, DGC and fp16 allreduce — losses at rtol 1e-4, parameters at
   atol 1e-5 / rtol 1e-4 — and LocalSGD k=1 equal to the synchronous
   ``TrainStep``.  Every rank holds its own parameter copy and state.
+  Beside ``mp=2`` or ``pp=2`` (at ``dp=2``) the four hold one state a
+  data rank, as JAX's do, and every mesh rank reads its data rank's
+  parameters, equal to JAX's per-rank ones.
 * The paddle collective API inside ``parallel_region`` over dp=8 against
   JAX's ``shard_map`` region (``p2p_shift``, ``all_reduce``), and the
   rest against their definitions; the training collectives'
@@ -176,10 +179,42 @@ def test_localsgd_k1_equals_synchronous_sgd():
 
 @pytest.mark.parametrize("kind", ["localsgd", "adaptive", "dgc", "fp16"])
 def test_meta_optimizer_matches_jax(kind):
+    _meta_case(kind, *_dp8())
+
+
+MESHES = {"dp2_mp2": dict(dp=2, mp=2), "dp2_pp2": dict(dp=2, pp=2)}
+
+
+@pytest.mark.parametrize("kind", ["localsgd", "adaptive", "dgc", "fp16"])
+@pytest.mark.parametrize("mesh", sorted(MESHES))
+def test_meta_optimizer_beside_non_data_axes_matches_jax(mesh, kind):
+    """Over dp=2 beside mp=2 or pp=2: one state a data rank (JAX's
+    ``dp`` is the data axes' product), and every rank of the mesh reads
+    its data rank's parameters, which equal JAX's per-rank ones."""
+    shape = MESHES[mesh]
+
+    def replicas(js, ts):
+        assert ts.dp == 2 and ts.data_ranks == [0, 2]
+        for r in range(4):
+            for k, t in ts.rank_params(r).items():
+                want = np.asarray(js.params[k])
+                if js.stack_params:
+                    want = want[ts.mesh.index_in(r, ("dp", "sharding"))]
+                np.testing.assert_allclose(t.detach().numpy(), want.T,
+                                           atol=1e-5, rtol=1e-4, err_msg=k)
+
+    _meta_case(kind, jdist.build_mesh(devices=jax.devices()[:4], **shape),
+               build_mesh(devices=["cpu"] * 4, **shape), replicas)
+
+
+def _meta_case(kind, jmesh_, tmesh_, before_sync=None):
+    """Both packages' ``kind`` meta-optimizer on the same weights and
+    batch: losses at rtol 1e-4, parameters after ``sync_to_layer`` at
+    atol 1e-5 / rtol 1e-4; ``before_sync(js, ts)`` checks the steps
+    before it."""
     din = 16 if kind == "dgc" else 8
     x, y = _problem(2, din=din)
     jm, tm = _pair(4, din=din)
-    jmesh_, tmesh_ = _dp8()
     jo = jopt.SGD(learning_rate=0.1, parameters=jm.parameters())
     to = topt.SGD(learning_rate=0.1, parameters=tm.parameters(),
                   device="cpu")
@@ -206,10 +241,12 @@ def test_meta_optimizer_matches_jax(kind):
         assert ts.k_steps == js.k_steps and ts._last_sync == js._last_sync
     if kind == "dgc":
         v = np.stack([ts.dgc_state[r]["weight"]["v"].numpy()
-                      for r in range(8)])
+                      for r in range(ts.dp)])
         np.testing.assert_allclose(
             v, np.asarray(js.dgc_state["weight"]["v"]).transpose(0, 2, 1),
             atol=1e-5, rtol=1e-4)
+    if before_sync is not None:
+        before_sync(js, ts)
     js.sync_to_layer()
     ts.sync_to_layer()
     assert_params_close(jm, tm)

@@ -33,7 +33,11 @@ Adam and Lamb, whose moments are what ZeRO shards.
   one-device step;
   ``full_grads`` equals the one-device step's gradients;
   ``save_train_state`` / ``load_train_state`` under stage 3 continue
-  exactly as an uninterrupted run.
+  exactly as an uninterrupted run;
+* stage 3 gathers a unit at a time: the tiny GPT at ``sharding=4`` and
+  ``dp=2, sharding=2`` equals JAX's, and a rank never holds more than
+  one unit's gathered parameters, in the forward or the backward, with
+  or without ``use_recompute``, its losses those of stage 2.
 """
 import copy
 
@@ -566,3 +570,54 @@ def test_token_mean_takes_the_count_the_step_names():
                                                          labels[i]))
         kept = int((labels[i] != -100).sum())
         torch.testing.assert_close(named[i], own[i] * kept / 10.0)
+
+
+STAGE3_MESHES = {"sharding4": dict(sharding=4),
+                 "dp2_sharding2": dict(dp=2, sharding=2)}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE3_MESHES))
+def test_tiny_gpt_stage3_matches_jax(case):
+    """Stage 3 over the tiny GPT, every parameter of at least 64 elements
+    split over sharding: the units (embeddings, blocks, head) gathered
+    one at a time still give JAX's losses and parameters."""
+    jm, tm = _gpt_pair()
+    strat = _strategies(sharding=True, sharding_configs=dict(
+        stage=3, min_shard_size=64))
+    tst, _ = _gpt_case(STAGE3_MESHES[case], jm, tm, strategy=strat)
+    assert tst.param_specs["blocks.0.attn.qkv_proj.weight"] == (
+        None, "sharding")
+    assert sorted(tst.engine.units) == ["blocks.0", "blocks.1",
+                                        "embeddings", "head"]
+
+
+@pytest.mark.parametrize("recompute,fused,amp_level", [
+    pytest.param(False, False, None, id="False-False"),
+    pytest.param(True, True, None, id="True-True"),
+    pytest.param(False, True, "O1", id="False-True-O1")])
+def test_stage3_holds_one_unit_at_a_time(recompute, fused, amp_level):
+    """``engine.max_live_units``: the most units whose gathered parameters
+    were alive at once on a rank (counted until every gathered tensor, or
+    a saved tensor made of one alone, is freed, wherever it is held).
+    One in the forward and one in the backward, which gathers each unit
+    again, with the blocks recomputing themselves or not, with the fused
+    head + CE reading the head's weight outside its forward, and under
+    O1, whose ops save bf16 casts of the weights; the losses equal stage
+    2's."""
+    x, y = _ids(128, (8, 17))
+    losses = {}
+    for stage in (2, 3):
+        torch.manual_seed(0)
+        tm = GPTModel(**TINY, use_recompute=recompute, fused_loss=fused)
+        s = DistributedStrategy()
+        s.sharding = True
+        s.sharding_configs.update(stage=stage, min_shard_size=1)
+        st = TrainStep(tm, topt.Momentum(learning_rate=0.1,
+                                         parameters=tm.parameters(),
+                                         device="cpu"),
+                       strategy=s, amp_level=amp_level, mesh=build_mesh(
+                           dp=2, sharding=2, devices=["cpu"] * 4))
+        losses[stage] = [float(st.step([x, y])) for _ in range(3)]
+    assert st.engine.max_live_units == {"forward": 1, "backward": 1}
+    assert st.engine.live == [0] * 4
+    np.testing.assert_allclose(losses[3], losses[2], rtol=1e-6)

@@ -359,13 +359,15 @@ def test_unported_model_knobs_raise(knob):
 def test_unported_train_knobs_raise():
     """What stays refused on the training side: ``metrics=`` and the
     multi-process helpers (``spawn``, ``host_local_to_global``,
-    ``global_from_replicated``) name Queue A 12, a pipeline beside data
-    parallelism names Queue A 10; the mesh knobs of the port's own
-    ``DistributedStrategy`` run.  A learning rate that is neither a float
-    nor a scheduler is a TypeError."""
+    ``global_from_replicated``) name Queue A 12; the mesh knobs of the
+    port's own ``DistributedStrategy`` run, and so does a pipeline beside
+    data parallelism, whose loss equals the one-device model's.  A
+    learning rate that is neither a float nor a scheduler is a
+    TypeError."""
     from paddle_tpu_torch.distributed import build_mesh, mesh, spawn
     from paddle_tpu_torch.distributed.fleet.meta_parallel import \
         PipelineLayer
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     m = GPTModel(**SLICE, dropout=0.0)
     ids = torch.zeros(4, 8, dtype=torch.long)
     opt = AdamW(parameters=m.parameters(), device="cpu")
@@ -387,10 +389,13 @@ def test_unported_train_knobs_raise():
         s.hybrid_configs[knob] = 2
         st = TrainStep(m, opt, strategy=s, device="cpu")
         assert math.isfinite(float(st.step([ids, ids])))
-    pipe = PipelineLayer(blocks=list(m.blocks))
-    with pytest.raises(NotImplementedError, match="Queue A 10"):
-        TrainStep(pipe, opt, mesh=build_mesh(dp=2, pp=2,
-                                             devices=["cpu"] * 4))
+    pipe = PipelineLayer(pre=m.embeddings, blocks=list(m.blocks),
+                         post=m.head)
+    with torch.no_grad():
+        want = float(GPTPretrainingCriterion()(pipe(ids), ids))
+    st = TrainStep(pipe, opt, loss_fn=GPTPretrainingCriterion(),
+                   mesh=build_mesh(dp=2, pp=2, devices=["cpu"] * 4))
+    assert float(st.step([ids], [ids])) == pytest.approx(want, rel=1e-5)
     with pytest.raises(TypeError, match="LRScheduler"):
         AdamW(parameters=m.parameters(), learning_rate=object(),
               device="cpu")
