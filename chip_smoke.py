@@ -39,7 +39,7 @@ line:
    near ties under a 1e-4 margin are counted, not failed), the kernel
    launched exactly 24 times per ragged dispatch, prefix hits > 0, and
    the seeded streams repeat on a second engine.  A third run of the
-   same traffic with ticks 32-55 under ``torch.profiler`` prints the
+   same traffic with ticks 32-39 under ``torch.profiler`` prints the
    device's busy share in that window and the kernels that take the most
    device time (every profiled serve covers the same window: the trace
    of a whole serve takes minutes to process).
@@ -387,7 +387,23 @@ line:
    relative L2 1e-6, DGC's losses equal and LocalSGD's within 1e-6; no
    flash launch.  Each run prints s a step, tokens/s, the peak and the
    flash launches a step.
-24. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+24. The Paddle tensor layer (``core/``, ``ops/``): (a) every case of
+   ``tests/torch_op_cases.py`` (every public op of ``ops/``, each Tensor
+   dunder, a ``grad(create_graph=True)`` double grad) on the card
+   against the CPU on the same numpy inputs, gradients included, at the
+   cases' tolerances (fp32 rtol 1e-5 / atol 1e-6, transcendentals and
+   reductions 1e-4 / 1e-5, linear algebra by reconstruction 1e-4,
+   integer and bool exactly), every output on the card, and the random
+   ops repeating under one seed; (b) gpt2-medium's token table [50304,
+   1024] trained 3 steps through ``embedding(..., sparse=True)`` with
+   SGD, Momentum, Adam, lazy Adam and lazy AdamW
+   (``tests/torch_sparse_checks.py``: sparse equal to dense, lazy
+   runs' untouched rows and moments bit-identical, lazy Adam's rows
+   equal the rule row by row on the host), each run's ms a step, the
+   gradient's bytes and the peak; (c) ``py_func`` on a card tensor; (d)
+   the sequence ops over 8192 ragged tokens in 64 rows against the CPU.
+   No kernel launches.
+25. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
    phase 16 (c)'s, phase 17's and phase 18's in-process serves, phase
    20 (a)'s first serve and phase 22 (d)'s unsharded engines, B4's phase
    14's and phase 22's mesh serves, B2's phase 10's, phase 17 (d)'s and
@@ -407,6 +423,8 @@ With ``--profile-mesh`` it builds the kernels and runs only
 With ``--stage3`` it builds the kernels and runs only ``stage3_phase``:
 phase 21's ``sharding=4`` stage-3 run with and without the blocks'
 ``use_recompute``.
+With ``--tensor-layer`` it runs only phase 24, without building the
+kernels.
 With ``--cards 4`` it builds the kernels and runs only
 ``four_card_phase``: the (2, 2) mesh serve over four cards beside the
 same mesh on one card, both at the default ``async_depth=2``.
@@ -754,12 +772,10 @@ def ragged_device_ms(fn, iters=20):
 
 # the ticks a profile covers: (first, count) — a window that mixes
 # prefill chunks and decode lanes, the same in every profiled serve;
-# profiling a whole serve costs minutes of trace processing
-PROFILE_TICKS = (32, 24)
-# phase 14's and phase 22 (a)'s mesh windows, whose traces took the
-# longest to process (55.8 and 36.9 s at 24 ticks): a third of the ticks,
-# to keep the whole run inside its time limit
-MESH_PROFILE_TICKS = (32, 8)
+# profiling a whole serve costs minutes of trace processing, and the
+# twelve windows' traces took 141 s at 24 ticks (8 for the mesh's), so
+# every window is 8 ticks, to keep the whole run inside its time limit
+PROFILE_TICKS = (32, 8)
 
 
 PROFILES = {}                      # label -> (busy share, kernels a tick)
@@ -835,13 +851,13 @@ def profile_mesh_phase(card):
 
 
 def profile_phase(model, reqs, engine_cls, card, label="",
-                  breakdown=False, ops=False, ticks=PROFILE_TICKS,
-                  **engine_kw):
+                  breakdown=False, ops=False, **engine_kw):
     """Where a tick's time goes: the same traffic once more, ticks
-    ``ticks`` (first, count) under torch.profiler (``profile_window``,
-    with the kernels by launching op when ``breakdown``).  The serve then
-    runs to its end; returns its streams."""
-    first, count = ticks
+    ``PROFILE_TICKS`` (first, count) under torch.profiler
+    (``profile_window``, with the kernels by launching op when
+    ``breakdown``).  The serve then runs to its end; returns its
+    streams."""
+    first, count = PROFILE_TICKS
     eng, handles = submit_all(model, reqs, engine_cls, **engine_kw)
     for _ in range(first):
         eng.step()
@@ -1555,7 +1571,7 @@ def mesh_slice_phase(card, ragged_mod, model_fp, reqs, fp_outs):
                f" kv_blocks {eng.block_pool.managed_blocks} greedy_checked "
                f"{checked} near_ties {near}")
     again = profile_phase(tp, reqs, Engine, card, label=" mesh", ops=True,
-                          ticks=MESH_PROFILE_TICKS, mesh=one_card_mesh())
+                          mesh=one_card_mesh())
     for (_, kw), a, b in zip(reqs, outs, again):
         if kw:
             check(a.tolist() == b.tolist(),
@@ -4852,8 +4868,7 @@ def mesh_xla_phase(card, ragged_mod, fa, model, reqs, xla_outs):
             a_eng, a_wall = eng, wall
         del eng
     profile_phase(tp, reqs, Engine, card, label=" (a) mesh xla",
-                  breakdown=True, ticks=MESH_PROFILE_TICKS,
-                  mesh=one_card_mesh(), **XLA_DEFAULT)
+                  breakdown=True, mesh=one_card_mesh(), **XLA_DEFAULT)
     mesh_line(" (a) mesh xla", a_eng, a_wall, " (serve a: contiguous, "
               "whole-prompt prefill)", card)
     print_breakdown(" (a) mesh xla", " xla")
@@ -5036,6 +5051,259 @@ def mesh_serving_phase(card, ragged_mod, fa, model, reqs, fp_outs, xla_outs,
     return b4 + n4, b1
 
 
+# -- phase 24 -------------------------------------------------------------
+SWEEP_MODULES = ("math", "creation", "manipulation", "linalg", "compat_ops")
+SPARSE_SHAPE = (50304, 1024, 8, 1024)   # gpt2-medium's token table, ids
+RAGGED_CAPACITY = 8192                  # tokens, in RAGGED_ROWS sequences
+RAGGED_ROWS = 64
+RAGGED_DIM = 1024                       # gpt2-medium's width
+RAGGED_TOL = (1e-5, 1e-5)               # rtol, atol against the CPU
+
+
+def tests_module(name):
+    """A helper module of tests/ that imports numpy and the port only."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "tests", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def op_sweep(P, C):
+    """(a): every case of tests/torch_op_cases.py on the card against the
+    CPU, gradients too; ``(ops held, worst error per module)``."""
+    missing = C.uncovered(P)
+    check(not missing, f"phase 24 (a): no case covers {missing}")
+    owner = {}
+    for mod in SWEEP_MODULES:
+        for n in getattr(P.ops, mod).__all__:
+            owner.setdefault(n, mod)
+    worst, held = {}, set()
+    for case in C.CASES:
+        cid, covers, _, _, tol, grad = case
+        label = next((owner[c] for c in covers if c in owner),
+                     "autograd" if covers == ("grad",) else "Tensor")
+        P.set_device("gpu")
+        places = C.output_places(P, case)
+        check(all(p.is_gpu_place() for p in places),
+              f"phase 24 (a): {cid} left the card: {places}")
+        for g in ((False, True) if grad else (False,)):
+            P.set_device("cpu")
+            want = C.run_case(P, case, g)
+            P.set_device("gpu")
+            got = C.run_case(P, case, g)
+            err = 0.0
+            for k, (a, b) in enumerate(zip(got[0], want[0])):
+                err = max(err, C.compare(a, b, tol,
+                                         f"phase 24 (a) {cid} output {k}"))
+            if g:
+                err = max(err, C.compare_grads(got[1], want[1], tol,
+                                               f"phase 24 (a) {cid}"))
+            worst[label] = max(worst.get(label, 0.0), err)
+        held.update(covers)
+    return held, worst
+
+
+def random_ops_on_card(P, C):
+    """(a)'s random ops: the same seed repeats each stream on the card,
+    and the values lie in their range."""
+    import numpy as np
+    draws = {
+        "rand": lambda: P.rand([4096]), "randn": lambda: P.randn([4096]),
+        "standard_normal": lambda: P.standard_normal([64]),
+        "uniform": lambda: P.uniform([4096], min=2.0, max=3.0),
+        "normal": lambda: P.normal(1.0, 0.5, [4096]),
+        "randint": lambda: P.randint(0, 7, [4096]),
+        "randint_like": lambda: P.randint_like(P.zeros([64], "int32"), 0, 3),
+        "randperm": lambda: P.randperm(1000),
+        "bernoulli": lambda: P.bernoulli(P.full([4096], 0.25)),
+        "multinomial": lambda: P.multinomial(P.to_tensor(
+            np.array([0.2, 0.0, 0.8], np.float32)), 64, replacement=True),
+        "poisson": lambda: P.poisson(P.full([4096], 3.0)),
+    }
+    check(set(draws) == set(C.RANDOM_OPS), "phase 24 (a): random ops")
+    for name, draw in draws.items():
+        P.seed(7)
+        a = draw()
+        check(a.place.is_gpu_place(), f"phase 24 (a): {name} off the card")
+        P.seed(7)
+        check(np.array_equal(a.numpy(), draw().numpy()),
+              f"phase 24 (a): {name} did not repeat under one seed")
+    P.seed(0)
+    r = P.rand([100000]).numpy()
+    check(r.min() >= 0 and r.max() < 1 and abs(r.mean() - 0.5) < 0.01,
+          "phase 24 (a): rand out of range")
+    check(sorted(P.randperm(1000).tolist()) == list(range(1000)),
+          "phase 24 (a): randperm is no permutation")
+    m = P.multinomial(P.to_tensor(np.array([0.2, 0.0, 0.8], np.float32)),
+                      256, replacement=True).numpy()
+    check(1 not in m, "phase 24 (a): multinomial drew a zero-weight class")
+    return len(draws)
+
+
+def sparse_phase(P, S, card):
+    """(b): gpt2-medium's token table trained through sparse gradients."""
+    import torch
+
+    def timer(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    vocab, dim, batch, seq = SPARSE_SHAPE
+    res = S.check_all(P, vocab, dim, batch, seq, timer=timer)
+    for name, r in res.items():
+        dense = (f", dense {r['dense_ms']:.4f} ms a step, max relative "
+                 f"difference to the dense update {r['max_rel_vs_dense']:.3g}"
+                 if "dense_ms" in r else "")
+        extra = (f", untouched rows bit-identical: {r['untouched_rows']}"
+                 if "untouched_rows" in r else "")
+        if "max_abs_vs_rows" in r:
+            extra += (f", max |w - row-by-row rule| "
+                      f"{r['max_abs_vs_rows']:.3g}")
+        print(f"phase 24 (b) {name}: sparse {r['ms']:.4f} ms a step (the "
+              f"median of {S.TIMED_STEPS} after a warm-up step){dense}"
+              f"{extra} [{card}]", flush=True)
+    g = res["sgd"]
+    print(f"phase 24 (b) gradient bytes: values {g['grad_bytes']} "
+          f"({g['grad_bytes'] / 1e6:.1f} MB) against dense "
+          f"{g['dense_grad_bytes']} ({g['dense_grad_bytes'] / 1e6:.1f} MB)",
+          flush=True)
+    check(g["grad_bytes"] == batch * seq * dim * 4 and
+          g["dense_grad_bytes"] == vocab * dim * 4,
+          "phase 24 (b): gradient sizes")
+    w0, ids = S.make_inputs(vocab, dim, batch, seq)
+    for name, sparse in (("adam_lazy", True), ("adam", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        S.train(P, name, w0, ids, sparse, S.STEPS)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"phase 24 (b) peak memory over a {name} "
+              f"{'sparse' if sparse else 'dense'} run: {peak / 1e6:.1f} MB "
+              f"[{card}]", flush=True)
+
+
+def py_func_on_card(P):
+    """(c): a numpy forward and a hand-given backward on a card tensor,
+    output and gradient equal to the CPU's."""
+    import numpy as np
+    x = np.linspace(-1.5, 1.5, 4096, dtype=np.float32).reshape(64, 64)
+    outs = {}
+    for dev in ("cpu", "gpu"):
+        P.set_device(dev)
+        t = P.to_tensor(x, stop_gradient=False)
+        out = P.py_func(np.tanh, t, P.zeros([64, 64]),
+                        backward_func=lambda a, y, dy: [dy * (1 - y * y)])
+        P.sum(out * out).backward()
+        check(out.place.is_gpu_place() == (dev == "gpu"),
+              f"phase 24 (c): py_func output on {out.place}")
+        outs[dev] = (out.numpy(), t.grad.numpy())
+    for k in range(2):
+        np.testing.assert_allclose(outs["gpu"][k], outs["cpu"][k],
+                                   rtol=1e-6, atol=0)
+    return float(np.max(np.abs(outs["gpu"][1] - outs["cpu"][1])))
+
+
+def ragged_lengths():
+    """64 skewed lengths in 8192 tokens: BASELINE.md's ragged-skew corpus
+    shape (lognormal, median 166, p90 682, max 2048): one row at the max,
+    63 lognormal draws scaled together to fill the rest of the budget."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    sigma = (np.log(682) - np.log(166)) / 1.2816
+    draws = rs.lognormal(np.log(166), sigma, RAGGED_ROWS - 1)
+    room = RAGGED_CAPACITY - 2048
+    lens = np.maximum(np.floor(draws * room / draws.sum()), 1).astype(int)
+    return [2048] + [int(n) for n in lens]
+
+
+def ragged_on_card(P, card):
+    """(d): the sequence ops over a RaggedTensor of capacity 8192 on the
+    card against the CPU, at rtol 1e-5: of each value for the ops that
+    add no numbers up in another order (max, first, last, softmax's
+    positive sums, expand), of the sum of the absolute terms for sum and
+    mean (the card adds a row's terms in another order, and a sum of
+    terms of both signs keeps only the absolute error)."""
+    import numpy as np
+    from paddle_tpu_torch.core import ragged as R
+    lens = ragged_lengths()
+    rs = np.random.RandomState(1)
+    rows = [rs.randn(n, RAGGED_DIM).astype(np.float32) for n in lens]
+    rows1 = [rs.randn(n).astype(np.float32) for n in lens]
+    steps = rs.randn(RAGGED_ROWS, RAGGED_DIM).astype(np.float32)
+    l1 = np.stack([np.abs(r.astype(np.float64)).sum(0) for r in rows])
+    scale = {"sum": l1, "mean": l1 / np.array(lens)[:, None]}
+    results = {}
+    for dev in ("cpu", "gpu"):
+        P.set_device(dev)
+        rt = R.RaggedTensor.from_rows(rows, capacity=RAGGED_CAPACITY)
+        rt1 = R.RaggedTensor.from_rows(rows1, capacity=RAGGED_CAPACITY)
+        x = R.RaggedTensor(P.to_tensor(steps), P.arange(
+            RAGGED_ROWS + 1).astype("int32"))
+        out = {p: R.sequence_pool(rt, p) for p in
+               ("sum", "mean", "max", "first", "last")}
+        out["softmax"] = R.sequence_softmax(rt1).values
+        out["expand"] = R.sequence_expand(x, rt).values
+        if dev == "gpu":
+            for k, v in out.items():
+                check(v.place.is_gpu_place(), f"phase 24 (d): {k} off the "
+                      "card")
+            times = {"pool mean": cuda_time_ms(
+                lambda: R.sequence_pool(rt, "mean"), iters=10),
+                "softmax": cuda_time_ms(lambda: R.sequence_softmax(rt1),
+                                        iters=10),
+                "expand": cuda_time_ms(lambda: R.sequence_expand(x, rt),
+                                       iters=10)}
+        results[dev] = {k: v.numpy() for k, v in out.items()}
+    worst = {}
+    for k in results["cpu"]:
+        a = results["gpu"][k].astype(np.float64)
+        b = results["cpu"][k].astype(np.float64)
+        bound = RAGGED_TOL[0] * scale.get(k, np.abs(b)) + RAGGED_TOL[1]
+        ratio = float(np.max(np.abs(a - b) / bound))
+        check(ratio <= 1.0, f"phase 24 (d) {k}: the card differs from the "
+              f"CPU by {ratio:.3g} of the tolerance")
+        worst[k] = float(np.max(np.abs(a - b)))
+    print(f"phase 24 (d) ragged: {RAGGED_ROWS} sequences, {sum(lens)} of "
+          f"{RAGGED_CAPACITY} tokens (median {int(np.median(lens))}, max "
+          f"{max(lens)}), width {RAGGED_DIM}: the card equals the CPU, "
+          "max abs " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + "; ms on the card: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f" [{card}]", flush=True)
+
+
+def tensor_layer_phase(card):
+    """Phase 24: the Paddle tensor layer on the card (see the module
+    docstring)."""
+    import paddle_tpu_torch as P
+    C = tests_module("torch_op_cases")
+    S = tests_module("torch_sparse_checks")
+    t0 = time.perf_counter()
+    held, worst = op_sweep(P, C)
+    n_random = random_ops_on_card(P, C)
+    print(f"phase 24 (a) op sweep: {len(C.CASES)} cases holding "
+          f"{len(held)} functions and dunders, {n_random} random ops "
+          "repeated under one seed; worst abs error by module: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+          + f" ({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+    P.set_device("gpu")
+    sparse_phase(P, S, card)
+    err = py_func_on_card(P)
+    print(f"phase 24 (c) py_func on a card tensor: output and gradient "
+          f"equal the CPU's (max abs {err:.3g})", flush=True)
+    ragged_on_card(P, card)
+    P.set_device("gpu")
+
+
 def main(argv):
     import torch
     cards = int(argv[argv.index("--cards") + 1]) if "--cards" in argv else 1
@@ -5059,6 +5327,16 @@ def main(argv):
 
     card = card_line()
     print(f"card: {card}", flush=True)
+
+    if "--tensor-layer" in argv:
+        tensor_layer_phase(card)
+        print(f"phase 24 (the Paddle tensor layer) done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -5205,6 +5483,14 @@ def main(argv):
           "phase 23 launched a ragged kernel")
     lap("23 (pipelines beside dp and mp, ZeRO-3 a unit at a time, the "
         "meta-optimizers beside mp)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_flash_counts(fa)
+    tensor_layer_phase(card)
+    check(sum(flash_counts(fa).values()) == 0 and
+          sum(ragged_counts(ragged_mod).values()) == 0,
+          "phase 24 launched a kernel")
+    lap("24 (the Paddle tensor layer)")
 
     f32 = kres["float32"]
     kernels = [{

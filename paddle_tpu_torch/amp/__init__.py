@@ -160,8 +160,10 @@ class GradScaler:
         flags = []
         for p in optimizer._params():
             if p.grad is not None:
-                p.grad.mul_(inv)
-                flags.append((~torch.isfinite(p.grad)).any())
+                # a sparse gradient scales through its values
+                g = p.grad._values() if p.grad.is_sparse else p.grad
+                g.mul_(inv)
+                flags.append((~torch.isfinite(g)).any())
         self._found_inf = bool(torch.stack(flags).any()) if flags \
             else False
 

@@ -54,6 +54,12 @@ of a linear weight transposed like the weight — so a run begun in one
 package resumes in the other.  ``names`` maps the port's parameter names
 to the names the JAX state keys carry (its parameters' ``.name``:
 ``{n: p.name for n, p in jax_model.named_parameters()}``).
+
+``tensor_from_paddle_tpu(t)`` / ``tensor_to_paddle_tpu(t)`` carry one
+tensor-layer object (``Tensor``, ``Parameter`` or ``SelectedRows``, with
+its ``stop_gradient`` / ``trainable`` and ``name``) between the packages
+as numpy: the first reads a ``paddle_tpu`` object through its public
+surface, the second returns the record its constructors take.
 """
 from __future__ import annotations
 
@@ -231,3 +237,50 @@ def load_optimizer_state(optimizer, model, state, names=None):
                 torch.from_numpy(np.array(arr, copy=True))
     optimizer.set_state_dict(staged)
     return optimizer
+
+
+def tensor_from_paddle_tpu(t, device=None):
+    """The port's handle for a ``paddle_tpu`` ``Tensor``, ``Parameter`` or
+    ``SelectedRows`` ``t``: its value as numpy, its ``stop_gradient`` /
+    ``trainable``, ``name`` and ``persistable``, on ``device`` (the
+    current place by default).  ``t`` is read through its public surface
+    (``numpy()``, ``rows``, ``values``, ``height``), so the port imports
+    nothing of the JAX package."""
+    from .core import device as core_device
+    from .core.selected_rows import SelectedRows
+    from .core.tensor import Parameter, Tensor
+    dev = core_device.torch_device(device)
+
+    def on_dev(a):
+        return torch.from_numpy(np.array(np.asarray(a), copy=True)).to(dev)
+
+    kind = type(t).__name__
+    if kind == "SelectedRows":
+        return SelectedRows(on_dev(t.rows), on_dev(t.values), t.height,
+                            name=t.name)
+    data = on_dev(t.numpy())
+    if kind == "Parameter":
+        out = Parameter(data, name=t.name, trainable=t.trainable)
+    else:
+        out = Tensor(data, stop_gradient=t.stop_gradient, name=t.name)
+    out.persistable = bool(getattr(t, "persistable", False))
+    return out
+
+
+def tensor_to_paddle_tpu(t):
+    """The reverse of ``tensor_from_paddle_tpu``: the port's handle ``t``
+    as the record a ``paddle_tpu`` constructor takes — ``kind``
+    (``"Tensor"``, ``"Parameter"`` or ``"SelectedRows"``), the value as
+    numpy (``value``, or ``rows`` / ``values`` / ``height``), and
+    ``stop_gradient``, ``trainable``, ``name``, ``persistable``.  The
+    caller builds the JAX package's object from it."""
+    from .core.selected_rows import SelectedRows
+    from .core.tensor import Parameter
+    if isinstance(t, SelectedRows):
+        return dict(kind="SelectedRows", rows=t.rows.cpu().numpy(),
+                    values=t.values.detach().cpu().numpy(),
+                    height=t.height, name=t.name)
+    return dict(kind="Parameter" if isinstance(t, Parameter) else "Tensor",
+                value=t.numpy(), stop_gradient=t.stop_gradient,
+                trainable=t.trainable, name=t.name,
+                persistable=t.persistable)

@@ -550,16 +550,58 @@ const void* kernel_hd(int hd, bool gather) {
   return nullptr;
 }
 
+}  // namespace
+
+// The piece kernels of each (q dtype, pool type) pair, every head dim and
+// both bodies, behind a C function of their own.  ops/_build.py compiles
+// this file once for each RPA_PART, in parallel, and links the objects:
+// parts 0-3 instantiate one pair each (the bulk of the compile), part 4
+// is the C interface below.
+#ifndef RPA_PART
+#error "compile with -DRPA_PART=0..4 (ops/_build.py)"
+#endif
+
+extern "C" {
+const void* rpa_kernels_f32(int hd, int gather);
+const void* rpa_kernels_f32_int8(int hd, int gather);
+const void* rpa_kernels_bf16(int hd, int gather);
+const void* rpa_kernels_bf16_int8(int hd, int gather);
+
+#if RPA_PART == 0
+const void* rpa_kernels_f32(int hd, int gather) {
+  return kernel_hd<float, float>(hd, gather != 0);
+}
+#endif
+#if RPA_PART == 1
+const void* rpa_kernels_f32_int8(int hd, int gather) {
+  return kernel_hd<float, int8_t>(hd, gather != 0);
+}
+#endif
+#if RPA_PART == 2
+const void* rpa_kernels_bf16(int hd, int gather) {
+  return kernel_hd<__nv_bfloat16, __nv_bfloat16>(hd, gather != 0);
+}
+#endif
+#if RPA_PART == 3
+const void* rpa_kernels_bf16_int8(int hd, int gather) {
+  return kernel_hd<__nv_bfloat16, int8_t>(hd, gather != 0);
+}
+#endif
+}  // extern "C"
+
+#if RPA_PART == 4
+namespace {
+
 // The piece kernel of (dtype, quant, hd, body): dtype 0 = float32, 1 =
 // bfloat16 for q and out; quant = int8 pools with scales, else pools of
 // q's dtype; gather = the gather body, else the stream body.
 const void* kernel_of(int dtype, int quant, int hd, bool gather) {
   if (dtype == 0)
-    return quant ? kernel_hd<float, int8_t>(hd, gather)
-                 : kernel_hd<float, float>(hd, gather);
+    return quant ? rpa_kernels_f32_int8(hd, gather)
+                 : rpa_kernels_f32(hd, gather);
   if (dtype == 1)
-    return quant ? kernel_hd<__nv_bfloat16, int8_t>(hd, gather)
-                 : kernel_hd<__nv_bfloat16, __nv_bfloat16>(hd, gather);
+    return quant ? rpa_kernels_bf16_int8(hd, gather)
+                 : rpa_kernels_bf16(hd, gather);
   return nullptr;
 }
 
@@ -654,3 +696,4 @@ int ragged_paged_attn_launch(int dtype, int gather, int n_ranks,
 }
 
 }  // extern "C"
+#endif  // RPA_PART == 4

@@ -9,16 +9,17 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device=None):
+def resolve_device(device=None, escape='pass device="cpu"'):
     """Return the ``torch.device`` an entry point runs on.
 
     ``None`` resolves to ``"cuda"``; asking for CUDA without a card
-    raises ``RuntimeError`` naming the ``device="cpu"`` escape hatch."""
+    raises ``RuntimeError`` naming ``escape``, the way to the CPU (the
+    tensor layer's is ``set_device("cpu")``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; paddle_tpu_torch runs on the "
-            "card by default — pass device=\"cpu\" to run on the CPU")
+            f"card by default — {escape} to run on the CPU")
     return dev
 
 

@@ -6,7 +6,10 @@ plain C interface, compiled for ``sm_90a`` at first use into
 ``.gitignore``).  The library's file name carries a hash of its source,
 so an edited source rebuilds and an unchanged one loads the library
 already there.  ``build_all`` starts one ``nvcc`` per source, all at
-once.  Nothing here runs at import: the CPU tests import every module.
+once; the ragged source is compiled as ``RAGGED_PARTS`` objects in
+parallel (one ``nvcc -c`` a part, ``RPA_PART`` set to the part's
+number) and linked into its library.  Nothing here runs at import: the CPU
+tests import every module.
 """
 from __future__ import annotations
 
@@ -23,6 +26,11 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "paddle_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the ragged source's 40 kernels take two minutes in one nvcc; each of
+# its parts 0-3 instantiates a quarter of them, and part 4 is its C
+# interface
+RAGGED = "ragged_paged_attn"
+RAGGED_PARTS = 5
 # a lock older than this is left over from a build that died
 STALE_LOCK_S = 600.0
 
@@ -89,51 +97,79 @@ def _take_lock(lock):
     return True
 
 
+def _run(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name):
-    """Start nvcc for ``name`` unless its library is already built.
-    Returns ``(name, process or None, paths)``."""
+    """Start nvcc for ``name`` unless its library is already built: one
+    process, or one a part for the ragged source.  Returns ``(name,
+    processes, paths)``, ``paths`` ending with the temporary library and
+    the part objects to link."""
     src, lib, lock, log = _paths(name)
     os.makedirs(BUILD_DIR, exist_ok=True)
     if os.path.exists(lib):
-        return name, None, (lib, lock, log)
+        return name, [], (lib, lock, log)
     while not _take_lock(lock):
         if os.path.exists(lib):
-            return name, None, (lib, lock, log)
+            return name, [], (lib, lock, log)
         time.sleep(0.2)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return name, proc, (lib, lock, log, tmp)
+    if name != RAGGED:
+        return name, [_run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src])], (
+            lib, lock, log, tmp, [])
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{tmp}.{k}.o" for k in range(RAGGED_PARTS)]
+    procs = [_run([_nvcc(), *flags, f"-DRPA_PART={k}", "-c", "-o", obj, src])
+             for k, obj in enumerate(objs)]
+    return name, procs, (lib, lock, log, tmp, objs)
 
 
-def _finish(name, proc, paths):
+def _finish(name, procs, paths):
     lib, lock, log = paths[:3]
-    if proc is not None:
-        tmp = paths[3]
-        try:
+    if not procs:
+        return lib
+    tmp, objs = paths[3:]
+    try:
+        texts = []
+        for proc in procs:
             text, _ = proc.communicate()
+            texts.append(text)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed to build csrc/{name}.cu "
                     f"(exit {proc.returncode}):\n{text}")
-            with open(log, "w") as f:
-                f.write(text)
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            os.remove(lock)
+        if objs:
+            link = _run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                         *objs])
+            text, _ = link.communicate()
+            if link.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to link csrc/{name}.cu's parts "
+                    f"(exit {link.returncode}):\n{text}")
+        with open(log, "w") as f:
+            f.write("".join(texts))
+        os.replace(tmp, lib)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.remove(path)
+        os.remove(lock)
     return lib
 
 
 def build_all():
-    """Build every kernel source in parallel (one nvcc each) and load the
-    libraries.  Returns ``{name: ptxas report}``."""
+    """Build every kernel source in parallel (one nvcc each, or one a
+    part) and load the libraries.  Returns ``{name: ptxas report}``."""
     started = [_start(n) for n in sources()]
     reports = {}
-    for name, proc, paths in started:
-        lib_path = _finish(name, proc, paths)
+    for name, procs, paths in started:
+        lib_path = _finish(name, procs, paths)
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(lib_path)
         log = paths[2]

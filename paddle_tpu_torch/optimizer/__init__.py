@@ -34,6 +34,20 @@ in-place torch ops, with its state keys and dtypes.
   NAME ``f`` accepts; names come from ``named_parameters()`` pairs passed
   as ``parameters``, or from the model a ``TrainStep`` binds.
 
+Sparse gradients: a parameter looked up by ``nn.functional.embedding(...,
+sparse=True)`` gets a sparse COO gradient.  ``step`` merges its rows
+(sorted, duplicates summed) and applies ``_update_sparse``: ``SGD``,
+``Momentum``, ``Adam`` and ``AdamW`` update row-wise (the JAX package's
+rules; ``Adam(lazy_mode=True)`` touches the moments and the parameter at
+the merged rows only, ``lazy_mode=False`` reproduces the dense rule, an
+L2 decay is scoped to the touched rows); every other optimizer
+densifies the gradient and runs its dense rule.  ``ClipGradByGlobalNorm``
+takes the norm over the merged rows.
+
+``parameters`` may hold tensor-layer handles (``core.Tensor``): the
+optimizer updates their torch tensors, and without ``device`` it runs on
+the current place (``set_device``).
+
 State dicts: ``state_dict()`` / ``load_state_dict()`` are torch's format
 (``load_state_dict`` keeps each state tensor's own dtype, where torch
 would cast it to the parameter's).  ``paddle_state_dict()`` is the JAX
@@ -52,6 +66,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core import device as core_device
+from ..core.tensor import Tensor
 from ..device import require_on
 from ..distributed import collective
 from . import lr  # noqa: F401
@@ -69,14 +85,20 @@ class ClipGradByGlobalNorm:
 
     @torch.no_grad()
     def __call__(self, grads):
-        """Clip the list of gradient tensors ``grads`` in place."""
+        """Clip the list of gradient tensors ``grads`` in place (a sparse
+        one's norm over its merged rows)."""
         grads = [g for g in grads if g is not None]
         if not grads:
             return
-        sq = torch.stack([g.float().square().sum() for g in grads])
+        sq = torch.stack([
+            (g.coalesce().values() if g.is_sparse else g).float()
+            .square().sum() for g in grads])
         scale = self.scale(sq.sum().sqrt())
         for g in grads:
-            g.copy_((g * scale).to(g.dtype))
+            if g.is_sparse:
+                g._values().mul_(scale.to(g.dtype))
+            else:
+                g.copy_((g * scale).to(g.dtype))
 
     def scale(self, global_norm):
         """The factor every gradient takes at this global norm (a train
@@ -96,17 +118,23 @@ def _norm(t):
 
 
 def _named(parameters):
-    """``(params, names)`` from an iterable of tensors or of
-    ``(name, tensor)`` pairs; a bare tensor's name is None."""
-    params, names = [], []
+    """``(params, names, handles)`` from an iterable of tensors, of
+    tensor-layer handles (their torch tensors, named by ``.name``) or of
+    ``(name, tensor)`` pairs; a bare tensor's name is None.  ``handles``
+    says whether any entry was a handle."""
+    params, names, handles = [], [], False
     for item in parameters:
         if isinstance(item, tuple):
             name, p = item
+        elif isinstance(item, Tensor):
+            name, p = item.name, item
         else:
             name, p = None, item
+        if isinstance(p, Tensor):
+            p, handles = p._data, True
         params.append(p)
         names.append(name)
-    return params, names
+    return params, names, handles
 
 
 def _parse_wd(weight_decay):
@@ -141,7 +169,9 @@ class Optimizer(torch.optim.Optimizer):
                 f"{type(self).__name__}: learning_rate must be a float or "
                 f"an optimizer.lr.LRScheduler, got "
                 f"{type(learning_rate).__name__}")
-        params, names = _named(parameters)
+        params, names, handles = _named(parameters)
+        if device is None and handles:
+            device = core_device.torch_device()
         self.device = require_on(
             device, [(n or f"#{i}", p) for i, (p, n) in
                      enumerate(zip(params, names))], type(self).__name__)
@@ -202,6 +232,14 @@ class Optimizer(torch.optim.Optimizer):
         ``state``, in place, from the gradient ``g`` (``p``'s dtype)."""
         raise NotImplementedError
 
+    def _update_sparse(self, p, rows, vals, state, lr):
+        """The update from a sparse gradient: ``rows`` unique indices into
+        ``p``'s first axis, ``vals`` their summed gradients.  This base
+        rule densifies the gradient and runs ``_update`` (right for every
+        rule); SGD, Momentum and Adam update row-wise."""
+        g = torch.zeros_like(p, dtype=vals.dtype).index_add_(0, rows, vals)
+        self._update(p, g, state, lr)
+
     # -- steps ----------------------------------------------------------------
     @torch.no_grad()
     def step(self, closure=None):
@@ -230,8 +268,13 @@ class Optimizer(torch.optim.Optimizer):
                 state = self.state[p]
                 if not state:
                     state.update(self._init_state(p))
-                self._update(p, p.grad.to(p.dtype), state,
-                             lr if tree else self._get_param_lr(p))
+                p_lr = lr if tree else self._get_param_lr(p)
+                if p.grad.is_sparse:
+                    g = p.grad.coalesce()
+                    self._update_sparse(p, g.indices()[0],
+                                        g.values().to(p.dtype), state, p_lr)
+                else:
+                    self._update(p, p.grad.to(p.dtype), state, p_lr)
         finally:
             self._tree = False
 
@@ -330,6 +373,12 @@ class SGD(Optimizer):
             g = g + self._weight_decay * p
         p.copy_(p - lr * g)
 
+    def _update_sparse(self, p, rows, vals, state, lr):
+        # the touched rows only; a decay applies to them alone
+        if self._weight_decay:
+            vals = vals + self._weight_decay * p[rows]
+        p.index_add_(0, rows, -lr * vals)
+
 
 class Momentum(Optimizer):
     """reference: operators/optimizers/momentum_op.cc"""
@@ -355,6 +404,20 @@ class Momentum(Optimizer):
         else:
             p.copy_(p - lr * v)
 
+    def _update_sparse(self, p, rows, vals, state, lr):
+        # the velocity decays everywhere (the missing rows carry a zero
+        # gradient); gradients and decay land on the touched rows only
+        if self._weight_decay:
+            vals = vals + self._weight_decay * p[rows]
+        v = state["velocity"]
+        v.copy_(self._momentum * v)
+        v.index_add_(0, rows, vals)
+        if self._nesterov:
+            p.copy_(p - lr * self._momentum * v)
+            p.index_add_(0, rows, -lr * vals)
+        else:
+            p.copy_(p - lr * v)
+
 
 class Adam(Optimizer):
     """Adam with bias correction (reference: adam_op).
@@ -362,10 +425,10 @@ class Adam(Optimizer):
     ``multi_precision`` (default True): bf16 / fp16 parameters keep f32
     moments; False keeps them in the parameter's dtype (half the state's
     memory), the update still computed in f32 as the JAX rule computes
-    it.  ``lazy_mode`` changes only the sparse (``SelectedRows``) update,
-    which the port does not have yet (ROADMAP Queue A 12, sparse
-    embedding gradients); with dense gradients it is ignored, as in the
-    JAX package."""
+    it.  ``lazy_mode`` changes only the sparse update (a gradient left by
+    ``embedding(..., sparse=True)``): True updates the moments and the
+    parameter at the merged rows only, False reproduces the dense rule.
+    With dense gradients it is ignored, as in the JAX package."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -393,11 +456,15 @@ class Adam(Optimizer):
         return False
 
     def _update(self, p, g, state, lr):
-        b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        m, v = state["moment1"], state["moment2"]
-        g = g.to(m.dtype)
+        g = g.to(state["moment1"].dtype)
         if self._weight_decay and not isinstance(self, AdamW):
             g = g + self._weight_decay * p.to(g.dtype)
+        self._dense_rule(p, g, state, lr)
+
+    def _dense_rule(self, p, g, state, lr):
+        """The update from the whole gradient ``g``, L2 decay folded in."""
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m, v = state["moment1"], state["moment2"]
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g.square())
         b1p, b2p = state["beta1_pow"], state["beta2_pow"]
@@ -409,6 +476,32 @@ class Adam(Optimizer):
         if self._decay_on(p):
             update = update + self._weight_decay * p.to(wide)
         p.copy_((p.to(wide) - lr * update).to(p.dtype))
+
+    def _update_sparse(self, p, rows, vals, state, lr):
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m, v = state["moment1"], state["moment2"]
+        g = vals.to(m.dtype)
+        if self._weight_decay and not isinstance(self, AdamW):
+            # L2 folds into the gradient of the touched rows only
+            g = g + self._weight_decay * p[rows].to(g.dtype)
+        if not self._lazy:
+            self._dense_rule(p, torch.zeros_like(m).index_add_(0, rows, g),
+                             state, lr)
+            return
+        b1p, b2p = state["beta1_pow"], state["beta2_pow"]
+        b1p.mul_(b1)
+        b2p.mul_(b2)
+        m_r = b1 * m[rows] + (1 - b1) * g
+        v_r = b2 * v[rows] + (1 - b2) * g.square()
+        wide = _wide(m_r)
+        update = (m_r.to(wide) / (1 - b1p)) / (
+            (v_r.to(wide) / (1 - b2p)).sqrt() + eps)
+        p_r = p[rows].to(wide)
+        if self._decay_on(p):
+            update = update + self._weight_decay * p_r
+        p.index_copy_(0, rows, (p_r - lr * update).to(p.dtype))
+        m.index_copy_(0, rows, m_r)
+        v.index_copy_(0, rows, v_r)
 
 
 class AdamW(Adam):
