@@ -39,7 +39,7 @@ line:
    near ties under a 1e-4 margin are counted, not failed), the kernel
    launched exactly 24 times per ragged dispatch, prefix hits > 0, and
    the seeded streams repeat on a second engine.  A third run of the
-   same traffic with ticks 32-39 under ``torch.profiler`` prints the
+   same traffic with ticks 32-35 under ``torch.profiler`` prints the
    device's busy share in that window and the kernels that take the most
    device time (every profiled serve covers the same window: the trace
    of a whole serve takes minutes to process).
@@ -143,7 +143,7 @@ line:
    traffic served three ways.  fp32 pools: every greedy token
    teacher-forced against the dense forward (phase 4's near-tie rule),
    seeded streams equal to phase 4's unsharded ones and repeating on a
-   second run profiled as phase 4's over ticks 32-39 (busy share, top
+   second run profiled as phase 4's over ticks 32-35 (busy share, top
    kernels, and the device time under B4's and the collectives' profiler
    labels).  int8 pools: greedy
    streams equal to an unsharded ``kv_dtype="int8"`` engine's on the
@@ -353,7 +353,7 @@ line:
    argmax (phase 4's near-tie rule), every stream equal to phase 16's of
    the same serve except at near ties (host-mode seeded ones counted),
    the XLA serves launching no ragged kernel, (c) B4 over B1 24 times a
-   dispatch — and a profiled window of (a) (ticks 32-39) with its
+   dispatch — and a profiled window of (a) (ticks 32-35) with its
    kernels a tick by launching op beside phase 16's; (b)
    ``weight_dtype="int8"`` on a ``(1, 2)`` mesh, streams equal to phase
    9's; (c) phase 17 (d)'s host-tier
@@ -403,13 +403,50 @@ line:
    gradient's bytes and the peak; (c) ``py_func`` on a card tensor; (d)
    the sequence ops over 8192 ragged tokens in 64 rows against the CPU.
    No kernel launches.
-25. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+25. The Paddle ``nn`` layer system, written as a Paddle user writes it
+   (``nn.Layer`` subclasses, handles, ``loss.backward()``,
+   ``optimizer.step()``): (a) Vaswani et al. 2017's base Transformer
+   (``nn.Transformer``'s defaults: d_model 512, 8 heads, 6 + 6 layers,
+   FFN 2048, dropout 0.1) between a shared ``nn.Embedding(37000, 512)``
+   and an ``nn.Linear(512, 37000)`` head, ``nn.CrossEntropyLoss``, Adam
+   (beta2 0.98, epsilon 1e-9) with ``ClipGradByGlobalNorm(1.0)``, fp32,
+   B=64 pairs of 128 tokens a side (the paper's 25,000-token batches cut
+   to 8,192 for time), one warm-up and 5 timed steps on a seeded batch:
+   every loss finite and the loss falling, the first loss (dropout off)
+   equal to the port's CPU loss on the same weights and 4 pairs at rtol
+   1e-4; prints ms a step, tokens/s, the peak and the kernels a step
+   with a profiled step's busy share; (b) on (a)'s trained model,
+   ``TransformerDecoder.gen_cache`` plus 32 one-token steps equal the
+   full forward under ``generate_square_subsequent_mask`` at every
+   position (atol 1e-4), the ``StaticCache`` made once; (c) the ``Layer``
+   ``TransformerEncoder`` at base width, B=2, S=2048, bf16 under
+   ``amp.auto_cast``, forward and backward: B5a, B5b and B5c launch 6
+   times each (once a layer), and the loss equals the same encoder's on
+   the plain attention at phase 7's rtol 1e-3; each gradient lies at
+   most 1.5 times as far (relative L2) from the fp32 encoder's as the
+   plain bf16 path's, or as 2e-2 where that is nearer, and within 2e-2
+   of the plain path's where that lies within 2e-2 of fp32; (d) an LSTM
+   encoder-decoder at PaddleNLP ``examples/machine_translation/seq2seq``
+   widths (IWSLT'15 en-vi vocabularies 17,191 and 7,709, width 512, 2
+   layers, ``max_grad_norm`` 5.0) trained 3 steps at batch 128, length
+   50, then ``BeamSearchDecoder`` + ``dynamic_decode`` (beam 10, 50
+   steps, 16 sources; the decoder cell two ``LSTMCell`` as one) on the
+   card and on the CPU port with the same weights, each search also
+   recorded step by step: before a source's first near tie (the
+   beam-th and (beam + 1)-th candidates within 1e-4, or at the last
+   step the best ``beam`` that close) its hypotheses after every step
+   are the CPU's with scores within rtol 1e-4, a source with none has
+   the CPU's ids exactly, the excused sources are counted and not all
+   may be; (e) every case of ``tests/torch_nn_cases.py`` on
+   the card against the CPU, forward and gradient, every output on the
+   card.
+26. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
    phase 16 (c)'s, phase 17's and phase 18's in-process serves, phase
    20 (a)'s first serve and phase 22 (d)'s unsharded engines, B4's phase
    14's and phase 22's mesh serves, B2's phase 10's, phase 17 (d)'s and
    phase 18 (a)'s, B5a-B5c's phase 6's, phase 19 (a)'s, phase 21's and
-   phase 23's, B5a's phase 16 (f)'s too; the fp16 entries phase 20
-   (e)'s), the card line and
+   phase 23's and phase 25 (c)'s, B5a's phase 16 (f)'s too; the fp16
+   entries phase 20 (e)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
    work of: SDPA's one backward call gives dq, dk and dv, so both flash
@@ -425,6 +462,13 @@ phase 21's ``sharding=4`` stage-3 run with and without the blocks'
 ``use_recompute``.
 With ``--tensor-layer`` it runs only phase 24, without building the
 kernels.
+With ``--nn`` it builds the flash kernels and runs only phase 25.
+With ``--host-ab PARENT`` it runs phases 4 and 20 (a), (c), whose pace
+the host sets, as the checkout at ``PARENT`` runs them and as this one
+does, each in a process of its own, in the order PARENT, this, this,
+PARENT (``--host-paths-of ROOT`` is one such run, with phase 4's serve
+once more under cProfile), then the host time ``nn.functional``'s
+handle wrapper adds to a call (``wrapper_cost``).
 With ``--cards 4`` it builds the kernels and runs only
 ``four_card_phase``: the (2, 2) mesh serve over four cards beside the
 same mesh on one card, both at the default ``async_depth=2``.
@@ -773,9 +817,10 @@ def ragged_device_ms(fn, iters=20):
 # the ticks a profile covers: (first, count) — a window that mixes
 # prefill chunks and decode lanes, the same in every profiled serve;
 # profiling a whole serve costs minutes of trace processing, and the
-# twelve windows' traces took 141 s at 24 ticks (8 for the mesh's), so
-# every window is 8 ticks, to keep the whole run inside its time limit
-PROFILE_TICKS = (32, 8)
+# twelve windows' traces took 141 s at 24 ticks (8 for the mesh's) and
+# 95.4 s at 8 on a slow host, so every window is 4 ticks, to keep the
+# whole run inside its time limit
+PROFILE_TICKS = (32, 4)
 
 
 PROFILES = {}                      # label -> (busy share, kernels a tick)
@@ -2896,7 +2941,13 @@ def front_end_phase(card, ragged_mod, model, reqs, fp_outs, phase4_tps):
                                                       timeout_s=600),
                          "decode": HttpReplicaClient(dec.address,
                                                      timeout_s=600)},
-                        policy=RouterPolicy(disaggregate=True, seed=0),
+                        # the clients' 600 s per attempt: the 60 s
+                        # default races the routed serve's wall (about a
+                        # minute for 12 concurrent migrations on the
+                        # host's JSON), and a timed-out export fails over
+                        # to an unmigrated serve
+                        policy=RouterPolicy(disaggregate=True, seed=0,
+                                            request_timeout_s=600),
                         kv_block_size=16, registry=monitor.StatRegistry())
         targets = [
             (HttpReplicaClient, "migrate_export",
@@ -5304,6 +5355,693 @@ def tensor_layer_phase(card):
     P.set_device("gpu")
 
 
+# -- phase 25 -------------------------------------------------------------
+# (a): Vaswani et al. 2017's base model (nn.Transformer's defaults) with a
+# shared 37,000-token vocabulary; B pairs of S tokens a side (the paper's
+# 25,000-token batches cut to 8,192 a side for time)
+NN_VOCAB = 37000
+NN_B, NN_S = 64, 128
+NN_TIMED = 5                       # steps after the warm-up step
+NN_CPU_PAIRS = 4                   # the CPU's slice of the batch
+NN_DECODE_STEPS = 32               # (b)
+NN_FLASH_B, NN_FLASH_S = 2, 2048   # (c)
+NN_FLASH_RATIO = 1.5               # (c): kernels' / plain bf16's distance
+# (d): PaddleNLP examples/machine_translation/seq2seq on IWSLT'15 en-vi
+NN_SRC_VOCAB, NN_TGT_VOCAB = 17191, 7709
+NN_RNN_WIDTH, NN_RNN_LAYERS = 512, 2
+NN_RNN_B, NN_RNN_T, NN_RNN_STEPS = 128, 50, 3
+NN_BEAM, NN_BEAM_STEPS, NN_BEAM_SOURCES = 10, 50, 16
+NN_TIE_MARGIN = 1e-4
+NN_BEAM_RTOL = 1e-4                # (d): the hypotheses' scores
+NN_HEAD_SCALE = 64.0
+
+
+def nn_models(P):
+    """The model classes of phase 25, written as a Paddle user writes
+    them (``nn.Layer`` subclasses over the port's ``nn``)."""
+    import math
+    nn, F = P.nn, P.nn.functional
+
+    class Seq2SeqTransformer(nn.Layer):
+        """The base Transformer between a shared embedding (scaled by
+        sqrt(d_model), sinusoidal positions) and a linear head."""
+
+        def __init__(self, vocab, d_model=512):
+            super().__init__()
+            self.d_model = d_model
+            self.embedding = nn.Embedding(vocab, d_model)
+            self.transformer = nn.Transformer(d_model)
+            self.head = nn.Linear(d_model, vocab)
+
+        def embed(self, ids):
+            return F.add_position_encoding(self.embedding(ids),
+                                           alpha=math.sqrt(self.d_model))
+
+        def forward(self, src, tgt):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1])
+            return self.head(self.transformer(self.embed(src),
+                                              self.embed(tgt),
+                                              tgt_mask=mask))
+
+    class StackedLSTMCell(nn.RNNCellBase):
+        """Two ``LSTMCell`` as one cell: states ``[(h, c), (h, c)]``."""
+
+        def __init__(self, width, layers):
+            super().__init__()
+            self.hidden_size = width
+            self.cells = nn.LayerList([nn.LSTMCell(width, width)
+                                       for _ in range(layers)])
+
+        def forward(self, inputs, states):
+            new = []
+            for cell, state in zip(self.cells, states):
+                inputs, state = cell(inputs, state)
+                new.append(state)
+            return inputs, new
+
+    class Seq2SeqLSTM(nn.Layer):
+        """An LSTM encoder and a stacked-cell decoder started from the
+        encoder's final states (PaddleNLP's seq2seq without attention)."""
+
+        def __init__(self):
+            super().__init__()
+            w, n = NN_RNN_WIDTH, NN_RNN_LAYERS
+            self.src_embedding = nn.Embedding(NN_SRC_VOCAB, w)
+            self.tgt_embedding = nn.Embedding(NN_TGT_VOCAB, w)
+            self.encoder = nn.LSTM(w, w, n)
+            self.cell = StackedLSTMCell(w, n)
+            self.decoder = nn.RNN(self.cell)
+            self.output = nn.Linear(w, NN_TGT_VOCAB)
+
+        def encode(self, src):
+            _, (h, c) = self.encoder(self.src_embedding(src))
+            return [(h[k], c[k]) for k in range(NN_RNN_LAYERS)]
+
+        def forward(self, src, tgt):
+            out, _ = self.decoder(self.tgt_embedding(tgt), self.encode(src))
+            return self.output(out)
+
+    return Seq2SeqTransformer, Seq2SeqLSTM
+
+
+def nn_cpu_copy(P, make, layer):
+    """A CPU copy of ``layer`` (built by ``make()``) holding its weights."""
+    from paddle_tpu_torch import convert
+    P.set_device("cpu")
+    try:
+        cpu = make()
+        convert.load_layer_state(cpu, convert.export_layer_state(layer))
+    finally:
+        P.set_device("gpu")
+    return cpu
+
+
+def nn_step_profile(step, card, label):
+    """One step under torch.profiler: kernels a step and the device's busy
+    share of the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    n = sum(e.count for e in dev)
+    print(f"{label} profile: one step {n} kernels, wall_s {wall:.3f} "
+          f"device_busy_s {busy:.3f} busy_share {busy / wall:.3f} [{card}]",
+          flush=True)
+    return n, busy / wall
+
+
+def nn_transformer_phase(P, card):
+    """(a) and (b): the base Transformer trained 1 + NN_TIMED steps on a
+    seeded batch, its first loss against the port's on the CPU, then
+    incremental decoding against the full forward."""
+    import numpy as np
+    import torch
+    Seq2SeqTransformer, _ = nn_models(P)
+    P.set_device("gpu")
+    P.seed(0)
+    model = Seq2SeqTransformer(NN_VOCAB)
+    n_params = sum(p.size for p in model.parameters())
+    rs = np.random.RandomState(0)
+    src = rs.randint(3, NN_VOCAB, (NN_B, NN_S))
+    tgt = rs.randint(3, NN_VOCAB, (NN_B, NN_S + 1))
+    x, y_in, y = (P.to_tensor(src), P.to_tensor(tgt[:, :-1]),
+                  P.to_tensor(tgt[:, 1:]))
+    ce = P.nn.CrossEntropyLoss()
+
+    def loss_of(m, a, b, c):
+        return ce(P.reshape(m(a, b), [-1, NN_VOCAB]), P.reshape(c, [-1]))
+
+    # the first loss on the card against the port's CPU loss (dropout
+    # off, the same weights, a slice of the batch)
+    k = NN_CPU_PAIRS
+    model.eval()
+    card_loss = float(loss_of(model, x[:k], y_in[:k], y[:k]))
+    cpu = nn_cpu_copy(P, lambda: Seq2SeqTransformer(NN_VOCAB), model).eval()
+    P.set_device("cpu")
+    try:
+        with P.no_grad():
+            cpu_loss = float(loss_of(cpu, *(P.to_tensor(a[:k]) for a in (
+                src, tgt[:, :-1], tgt[:, 1:]))))
+    finally:
+        P.set_device("gpu")
+    del cpu
+    check(abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss),
+          f"phase 25 (a): the card's loss {card_loss} vs the CPU's "
+          f"{cpu_loss} on {k} pairs")
+    model.train()
+    opt = P.optimizer.Adam(learning_rate=1e-4, beta1=0.9, beta2=0.98,
+                           epsilon=1e-9, parameters=model.parameters(),
+                           grad_clip=P.nn.ClipGradByGlobalNorm(1.0))
+    losses = []
+
+    def step():
+        loss = loss_of(model, x, y_in, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss)
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(NN_TIMED):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / NN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kernels, busy = nn_step_profile(step, card, "phase 25 (a)")
+    vals = [float(v) for v in losses]
+    check(all(np.isfinite(vals)), f"phase 25 (a): losses {vals}")
+    check(vals[-1] < vals[0], f"phase 25 (a): the loss did not fall {vals}")
+    print(f"phase 25 (a) Transformer-base ({n_params / 1e6:.1f} M "
+          f"parameters, vocab {NN_VOCAB}, B={NN_B}, S={NN_S} a side, fp32, "
+          f"Adam + ClipGradByGlobalNorm(1.0)): first loss {card_loss:.6f} "
+          f"on the card vs {cpu_loss:.6f} on the CPU ({k} pairs, dropout "
+          f"off); losses " + " ".join(f"{v:.4f}" for v in vals)
+          + f"; {step_s * 1e3:.1f} ms a step, "
+          f"{NN_B * NN_S / step_s:.0f} target tokens/s "
+          f"({2 * NN_B * NN_S / step_s:.0f} both sides), peak "
+          f"{peak:.2f} GB, {kernels} kernels a step, busy share "
+          f"{busy:.3f} [{card}]", flush=True)
+
+    # (b) incremental decoding with the trained weights
+    model.eval()
+    tr = model.transformer
+    n = NN_DECODE_STEPS
+    with P.no_grad():
+        memory = tr.encoder(model.embed(x[:k]))
+        tgt_e = model.embed(y_in[:k, :n])
+        full = tr.decoder(tgt_e, memory,
+                          tgt_mask=tr.generate_square_subsequent_mask(n))
+        cache = tr.decoder.gen_cache(memory)
+        static = [c[1].k.torch() for c in cache]
+        worst = 0.0
+        for t in range(n):
+            out, cache = tr.decoder(tgt_e[:, t:t + 1], memory, cache=cache)
+            worst = max(worst, float(P.max(P.abs(
+                out[:, 0] - full[:, t]))))
+    check(worst <= 1e-4, f"phase 25 (b): incremental decoding differs from "
+          f"the full forward by {worst}")
+    check(all(c[1].k.torch() is s for c, s in zip(cache, static)),
+          "phase 25 (b): the static cross-attention cache was rebuilt")
+    check(cache[0][0].k.shape[1] == n, "phase 25 (b): the cache did not "
+          "grow one position a step")
+    print(f"phase 25 (b) incremental decoding: gen_cache + {n} one-token "
+          f"steps equal the full causal forward at every position (max abs "
+          f"{worst:.3g}, tolerance 1e-4); the StaticCache made once "
+          f"[{card}]", flush=True)
+    del model, opt, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def nn_flash_phase(P, fa, card):
+    """(c): the Layer TransformerEncoder at base width in bf16 under
+    amp.auto_cast on the flash kernels, against the same encoder on the
+    plain attention and in fp32; returns the flash launches of its
+    step.
+
+    The loss is held at phase 7's rtol 1e-3.  Each gradient is held to
+    the fp32 encoder's: through the kernels it may lie at most
+    NN_FLASH_RATIO times as far (relative L2) from the fp32 gradient as
+    the plain bf16 path's, or as 2e-2 where that is nearer.  Where the
+    plain bf16 gradient lies within 2e-2 of fp32, the kernels' is also
+    held to the plain path's at phase 7's relative L2 2e-2.  (bf16 alone
+    moves the deep layers' q / k projection gradients, which are small
+    through a diffuse 2048-key softmax, up to 19% from fp32, and the
+    kernels' rounding differs from the plain path's there; the kernels
+    lay within 1.1 times the plain path's distance, measured.)
+    Gradients that are zero in exact arithmetic (the key projections'
+    biases: the softmax is invariant to them) are left out."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+    nn = P.nn
+    P.set_device("gpu")
+    P.seed(1)
+    enc = nn.TransformerEncoder(nn.TransformerEncoderLayer(
+        512, 8, 2048, dropout=0.0), 6)
+    rs = np.random.RandomState(2)
+    xv = rs.randn(NN_FLASH_B, NN_FLASH_S, 512).astype(np.float32)
+    wv = rs.rand(NN_FLASH_B, NN_FLASH_S, 512).astype(np.float32)
+
+    def loss_and_grads(bf16, kernel):
+        enc.clear_gradients()
+        x = P.to_tensor(xv, stop_gradient=False)
+        real = attn_mod.flash_attention
+        if not kernel:
+            attn_mod.flash_attention = fa.flash_attention_ref
+        try:
+            with amp.auto_cast(enable=bf16, dtype="bfloat16"):
+                out = enc(x)
+            loss = P.mean(P.square(P.cast(out, "float32")
+                                   - P.to_tensor(wv)))
+            loss.backward()
+        finally:
+            attn_mod.flash_attention = real
+        grads = {n: p.grad.torch().float().clone()
+                 for n, p in enc.named_parameters()}
+        grads["x"] = x.grad.torch().float().clone()
+        return float(loss), grads
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    zero_flash_counts(fa)
+    l_kernel, g_kernel = loss_and_grads(True, True)
+    launches = flash_counts(fa)
+    check(all(v == 6 for v in launches.values()),
+          f"phase 25 (c): flash launches {launches}, 6 of each expected")
+    l_plain, g_plain = loss_and_grads(True, False)
+    l_f32, g_f32 = loss_and_grads(False, False)
+    check(abs(l_kernel - l_plain) <= 1e-3 * abs(l_plain),
+          f"phase 25 (c): loss through the kernels {l_kernel} vs plain "
+          f"{l_plain}")
+    biggest = max(float(g.norm()) for g in g_f32.values())
+    worst_ratio, worst_near, worst_bf16, worst_kernel = 0.0, 0.0, 0.0, 0.0
+    held, near = 0, 0
+    for name, gp in g_plain.items():
+        if float(g_f32[name].norm()) < 1e-6 * biggest:
+            continue
+        d_plain = rel(gp, g_f32[name])
+        d_kernel = rel(g_kernel[name], g_f32[name])
+        ratio = d_kernel / max(d_plain, 2e-2)
+        check(ratio <= NN_FLASH_RATIO,
+              f"phase 25 (c): gradient {name}: through the kernels "
+              f"{d_kernel:.3e} from fp32 (relative L2), beyond "
+              f"{NN_FLASH_RATIO} x max(2e-2, the plain bf16 path's "
+              f"{d_plain:.3e})")
+        if d_plain < 2e-2:
+            err = rel(g_kernel[name], gp)
+            check(err <= 2e-2,
+                  f"phase 25 (c): gradient {name}: the kernels differ from "
+                  f"the plain attention by relative L2 {err:.3e} > 2e-2 "
+                  f"(the plain path {d_plain:.3e} from fp32)")
+            worst_near, near = max(worst_near, err), near + 1
+        worst_ratio = max(worst_ratio, ratio)
+        worst_bf16 = max(worst_bf16, d_plain)
+        worst_kernel = max(worst_kernel, d_kernel)
+        held += 1
+    print(f"phase 25 (c) Layer TransformerEncoder (d_model 512, 8 heads, 6 "
+          f"layers, B={NN_FLASH_B}, S={NN_FLASH_S}, bf16 under auto_cast): "
+          f"flash launches a step {launches}; loss {l_kernel:.6f} vs plain "
+          f"{l_plain:.6f} (fp32 {l_f32:.6f}); {held} gradients, relative L2 "
+          f"from fp32: kernels worst {worst_kernel:.3e}, plain bf16 worst "
+          f"{worst_bf16:.3e}, worst kernels / max(2e-2, plain) "
+          f"{worst_ratio:.3f} (limit {NN_FLASH_RATIO}); {near} gradients "
+          f"with the plain path within 2e-2 of fp32: kernels vs plain worst "
+          f"{worst_near:.3e} (limit 2e-2); loss rtol 1e-3 [{card}]",
+          flush=True)
+    del enc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def beam_record(decoder, inits, steps):
+    """``dynamic_decode``'s search with ``decoder``, step by step, in the
+    same arithmetic, recorded as numpy arrays: each step's ``tokens``,
+    ``parents`` and ``scores`` ``[steps, B, beam]`` and ``member``
+    ``[steps, B]``, the gap between the beam-th and the (beam + 1)-th
+    candidate, which decides which hypotheses stay (inf where the
+    (beam + 1)-th is not live)."""
+    import numpy as np
+    import torch
+    tokens, states, log_probs, finished = decoder.initialize(inits)
+    batch, beam = tokens.shape
+    rec = {"tokens": [], "parents": [], "scores": [], "member": []}
+    for _ in range(steps):
+        logits, states = decoder.step(tokens.reshape(-1), states)
+        vocab = logits.shape[-1]
+        logp = torch.log_softmax(logits.float(), -1).reshape(batch, beam,
+                                                              vocab)
+        fin = torch.full((vocab,), -1e9, device=logp.device)
+        fin[decoder.end_token] = 0.0
+        logp = torch.where(finished[:, :, None], fin, logp)
+        total = (log_probs[:, :, None] + logp).reshape(batch, -1)
+        log_probs, idx = torch.topk(total, beam, dim=-1)
+        nxt = torch.topk(total, beam + 1, dim=-1).values[:, beam]
+        member = torch.where(nxt > -1e8, log_probs[:, -1] - nxt,
+                             torch.full_like(nxt, float("inf")))
+        parents = torch.div(idx, vocab, rounding_mode="floor")
+        tokens = idx % vocab
+        gather = (torch.arange(batch, device=idx.device)[:, None] * beam
+                  + parents).reshape(-1)
+        states = [(h.index_select(0, gather), c.index_select(0, gather))
+                  for h, c in states]
+        finished = torch.gather(finished, 1, parents) | (
+            tokens == decoder.end_token)
+        for key, v in (("tokens", tokens), ("parents", parents),
+                       ("scores", log_probs), ("member", member)):
+            rec[key].append(v.cpu().numpy())
+        if bool(finished.all()):
+            break
+    return {k: np.stack(v) for k, v in rec.items()}
+
+
+def beam_prefixes(rec, step):
+    """The hypotheses alive after ``step`` of a recorded search, each
+    backtraced through its parents: ``[B, beam, step + 1]``."""
+    import numpy as np
+    tokens, parents = rec["tokens"], rec["parents"]
+    idx = np.tile(np.arange(tokens.shape[2]), (tokens.shape[1], 1))
+    out = []
+    for t in range(step, -1, -1):
+        out.append(np.take_along_axis(tokens[t], idx, 1))
+        idx = np.take_along_axis(parents[t], idx, 1)
+    return np.stack(out[::-1], -1)
+
+
+def check_beams(ids, recs):
+    """Phase 25 (d)'s check of the card's beam search against the CPU's.
+
+    Each device's recorded search backtraces to its ``dynamic_decode``
+    ids exactly.  A source meets a near tie at the first step whose gap
+    between the beam-th and (beam + 1)-th candidate lies under
+    NN_TIE_MARGIN on either device (there another device may keep
+    another hypothesis), or, at the last step, whose best ``beam``
+    candidates lie that close to each other (which orders the output).
+    Before its first near tie, a source's hypotheses after every step
+    are the CPU's, their scores within rtol NN_BEAM_RTOL; a source with
+    none has the CPU's ids exactly and its final scores within
+    NN_BEAM_RTOL.  Fails if every source meets a near tie.  Returns
+    (sources held whole, {source: first near-tie step, the step count
+    for a tie in the last step's order}, worst relative score
+    difference)."""
+    import numpy as np
+    for dev, rec in recs.items():
+        steps = rec["tokens"].shape[0]
+        check(np.array_equal(beam_prefixes(rec, steps - 1), ids[dev]),
+              f"phase 25 (d): the recorded search on the {dev} does not "
+              f"backtrace to its dynamic_decode ids")
+    gpu, cpu = recs["gpu"], recs["cpu"]
+    check(gpu["tokens"].shape == cpu["tokens"].shape,
+          f"phase 25 (d): {gpu['tokens'].shape[0]} search steps on the "
+          f"card, {cpu['tokens'].shape[0]} on the CPU")
+    steps, batch, _ = cpu["tokens"].shape
+    member = np.minimum(gpu["member"], cpu["member"])
+    last = np.minimum(*(np.where(r["scores"][-1, :, :-1] > -1e8,
+                                 r["scores"][-1, :, :-1]
+                                 - r["scores"][-1, :, 1:], np.inf).min(-1)
+                        for r in (gpu, cpu)))
+    whole, excused, worst = 0, {}, 0.0
+    for b in range(batch):
+        ties = np.nonzero(member[:, b] < NN_TIE_MARGIN)[0]
+        first = int(ties[0]) if len(ties) else steps
+        for t in range(first):
+            hyp = {}
+            for dev, rec in recs.items():
+                seqs = beam_prefixes(rec, t)[b]
+                hyp[dev] = dict(zip(map(tuple, seqs), rec["scores"][t, b]))
+            check(set(hyp["gpu"]) == set(hyp["cpu"]),
+                  f"phase 25 (d): source {b}: the card keeps other "
+                  f"hypotheses than the CPU after step {t}, before any "
+                  f"near tie (first at step {first})")
+            for seq, want in hyp["cpu"].items():
+                err = abs(hyp["gpu"][seq] - want) / max(1.0, abs(want))
+                check(err <= NN_BEAM_RTOL,
+                      f"phase 25 (d): source {b} step {t}: a hypothesis' "
+                      f"score {hyp['gpu'][seq]} on the card vs {want}")
+                worst = max(worst, float(err))
+        if first < steps or last[b] < NN_TIE_MARGIN:
+            excused[b] = first
+            continue
+        check(np.array_equal(ids["gpu"][b], ids["cpu"][b]),
+              f"phase 25 (d): source {b} met no near tie, yet its beams "
+              f"differ from the CPU's")
+        whole += 1
+    check(whole > 0, f"phase 25 (d): every source met a near tie "
+          f"(first steps {excused}): nothing was held whole")
+    return whole, excused, worst
+
+
+def nn_lstm_phase(P, card):
+    """(d): the LSTM encoder-decoder trained NN_RNN_STEPS steps at batch
+    NN_RNN_B and length NN_RNN_T, then beam search on the card against
+    the CPU on the same weights."""
+    import numpy as np
+    import torch
+    _, Seq2SeqLSTM = nn_models(P)
+    P.set_device("gpu")
+    P.seed(3)
+    model = Seq2SeqLSTM()
+    rs = np.random.RandomState(3)
+    src = P.to_tensor(rs.randint(3, NN_SRC_VOCAB, (NN_RNN_B, NN_RNN_T)))
+    tgt = rs.randint(3, NN_TGT_VOCAB, (NN_RNN_B, NN_RNN_T + 1))
+    y_in, y = P.to_tensor(tgt[:, :-1]), P.to_tensor(tgt[:, 1:])
+    opt = P.optimizer.Adam(learning_rate=1e-3,
+                           parameters=model.parameters(),
+                           grad_clip=P.nn.ClipGradByGlobalNorm(5.0))
+    ce = P.nn.CrossEntropyLoss()
+    losses, times = [], []
+    for _ in range(NN_RNN_STEPS):
+        t0 = time.perf_counter()
+        loss = ce(P.reshape(model(src, y_in), [-1, NN_TGT_VOCAB]),
+                  P.reshape(y, [-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"phase 25 (d): LSTM losses {losses}")
+    model.eval()
+    # three steps leave the logits near uniform, where every search meets
+    # near ties: the head's weights scaled by NN_HEAD_SCALE spread the
+    # candidates as a trained model's do, on both devices alike
+    with P.no_grad():
+        model.output.weight.set_value(model.output.weight * NN_HEAD_SCALE)
+    cpu = nn_cpu_copy(P, Seq2SeqLSTM, model).eval()
+    srcs = rs.randint(3, NN_SRC_VOCAB, (NN_BEAM_SOURCES, NN_RNN_T))
+    ids, recs, lens = {}, {}, {}
+    for dev, m in (("gpu", model), ("cpu", cpu)):
+        P.set_device(dev)
+        dec = P.nn.BeamSearchDecoder(m.cell, start_token=1, end_token=2,
+                                     beam_size=NN_BEAM,
+                                     embedding_fn=m.tgt_embedding,
+                                     output_fn=m.output)
+        with P.no_grad():
+            inits = m.encode(P.to_tensor(srcs))
+            t0 = time.perf_counter()
+            out, lens[dev] = P.nn.dynamic_decode(
+                dec, inits=inits, max_step_num=NN_BEAM_STEPS,
+                return_length=True)
+            if dev == "gpu":
+                torch.cuda.synchronize()
+                beam_s = time.perf_counter() - t0
+            recs[dev] = beam_record(dec, [tuple(t.torch() for t in s)
+                                          for s in inits], NN_BEAM_STEPS)
+        ids[dev] = out.numpy()
+    P.set_device("gpu")
+    whole, excused, worst = check_beams(ids, recs)
+    held = [b for b in range(NN_BEAM_SOURCES) if b not in excused]
+    check(np.array_equal(lens["gpu"].numpy()[held], lens["cpu"].numpy()[held]),
+          "phase 25 (d): dynamic_decode's lengths differ from the CPU's")
+    print(f"phase 25 (d) LSTM seq2seq (vocab {NN_SRC_VOCAB} -> "
+          f"{NN_TGT_VOCAB}, width {NN_RNN_WIDTH}, {NN_RNN_LAYERS} layers, "
+          f"B={NN_RNN_B}, T={NN_RNN_T}, Adam + ClipGradByGlobalNorm(5.0)): "
+          f"losses " + " ".join(f"{v:.4f}" for v in losses)
+          + f", {times[-1] * 1e3:.1f} ms a step; beam {NN_BEAM} over "
+          f"{NN_BEAM_SOURCES} sources, {ids['gpu'].shape[-1]} steps in "
+          f"{beam_s:.3f} s: {whole} sources equal the CPU's ids and final "
+          f"scores with no near tie; {len(excused)} excused after a near "
+          f"tie (gap < {NN_TIE_MARGIN}; first at steps "
+          f"{sorted(excused.values())}), equal to the CPU before it; worst "
+          f"relative score difference {worst:.3e} (limit {NN_BEAM_RTOL}) "
+          f"[{card}]", flush=True)
+    del model, cpu, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def nn_sweep(P, C, card):
+    """(e): every case of tests/torch_nn_cases.py on the card against the
+    CPU, forward and gradient, every output on the card."""
+    worst = {}
+    t0 = time.perf_counter()
+    for case in C.CASES:
+        cid, fn, inputs, tol, grad, section = case
+        P.set_device("gpu")
+        outs = C.flat(fn(P, *[P.to_tensor(a) for a in inputs]))
+        check(all(o.place.is_gpu_place() for o in outs),
+              f"phase 25 (e): {cid} left the card")
+        for g in ((False, True) if grad else (False,)):
+            P.set_device("cpu")
+            want = C.run_case(P, case, g)
+            P.set_device("gpu")
+            got = C.run_case(P, case, g)
+            err = 0.0
+            for k, (a, b) in enumerate(zip(got[0], want[0])):
+                err = max(err, C.compare(a, b, tol,
+                                         f"phase 25 (e) {cid} output {k}"))
+            if g:
+                err = max(err, C.compare_grads(got[1], want[1], tol,
+                                               f"phase 25 (e) {cid}"))
+            worst[section] = max(worst.get(section, 0.0), err)
+    print(f"phase 25 (e) nn sweep: {len(C.CASES)} cases on the card equal "
+          f"the CPU, forward and gradient; worst abs error by section: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" ({time.perf_counter() - t0:.1f} s) [{card}]", flush=True)
+
+
+def nn_phase(card, fa):
+    """Phase 25: the Paddle nn layer system on the card (see the module
+    docstring); returns (c)'s flash launches."""
+    import paddle_tpu_torch as P
+    nn_transformer_phase(P, card)
+    launches = nn_flash_phase(P, fa, card)
+    nn_lstm_phase(P, card)
+    nn_sweep(P, tests_module("torch_nn_cases"), card)
+    P.set_device("gpu")
+    return launches
+
+
+def host_paths_of(root, card):
+    """Phases 4 and 20 (a), (c) as the checkout at ``root`` runs them:
+    its ``chip_smoke.py`` over its package (``--host-paths-of``)."""
+    import importlib.util
+    import torch
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_at_root", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import ragged_paged_attn as ragged_mod
+    check(os.path.abspath(_build.__file__).startswith(root + os.sep),
+          f"--host-paths-of: the package came from {_build.__file__}")
+    print(f"host paths of {root}", flush=True)
+    _build.load("ragged_paged_attn")
+    _, model, reqs, _, fp_tps = cs.slice_phase(card, ragged_mod)
+    host_profile(cs, model, reqs, card)
+    del model
+    model, _ = cs.moe_serve_phase(card, ragged_mod, reqs, fp_tps)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cs.bert_phase(card, fa, ragged_mod)
+
+
+def host_profile(cs, model, reqs, card, top=12):
+    """Phase 4's serve once more under cProfile: Python calls and
+    profiled host time a tick, and the functions with the most own time
+    (``--host-paths-of``)."""
+    import cProfile
+    import pstats
+    import torch
+    from paddle_tpu_torch.serving import Engine
+    eng, _ = cs.submit_all(model, reqs, Engine)
+    prof = cProfile.Profile()
+    prof.enable()
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof)
+    n = eng.ticks
+    print(f"host profile: {stats.total_calls / n:.1f} Python calls a tick, "
+          f"{stats.total_tt / n * 1e3:.3f} ms profiled host time a tick "
+          f"over {n} ticks [{card}]", flush=True)
+    rows = sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    for (path, line, name), (_, calls, own, _, _) in rows:
+        where = path.split("paddle_tpu_torch")[-1] if "paddle_tpu_torch" \
+            in path else os.path.basename(path)
+        print(f"host profile fn: {own / n * 1e3:.4f} ms {calls / n:.1f} "
+              f"calls a tick {where}:{line}({name})", flush=True)
+
+
+def host_ab(parent, card):
+    """``--host-ab PARENT``: ``host_paths_of`` the checkout at PARENT and
+    of this one, each in a process of its own, in the order PARENT,
+    this, this, PARENT; then ``wrapper_cost``."""
+    import subprocess
+    for root in (parent, HERE, HERE, parent):
+        rc = subprocess.call([sys.executable, os.path.abspath(__file__),
+                              "--host-paths-of", root])
+        check(rc == 0, f"--host-ab: the run of {root} exited {rc}")
+    wrapper_cost(card)
+
+
+WRAPPER_CALLS, WRAPPER_ROUNDS = 2000, 5
+
+
+def wrapper_cost(card):
+    """The host time a call that ``nn.functional._io.api`` adds to a
+    functional called with torch tensors, as the models call them:
+    ``gelu``, ``linear`` and ``layer_norm`` at gpt2-medium's width on 8
+    rows, each called WRAPPER_CALLS times through the wrapper and
+    through its ``raw_fn`` in turn, WRAPPER_ROUNDS rounds; the medians,
+    in us a call."""
+    import statistics
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(8, 1024, device="cuda", generator=g)
+    w = torch.randn(1024, 4096, device="cuda", generator=g)
+    b = torch.randn(4096, device="cuda", generator=g)
+    ones, zeros = torch.ones(1024, device="cuda"), torch.zeros(
+        1024, device="cuda")
+    calls = {"gelu": (F.gelu, (x,)), "linear": (F.linear, (x, w, b)),
+             "layer_norm": (F.layer_norm, (x, [1024], ones, zeros))}
+    for name, (fn, args) in calls.items():
+        times = {"wrapped": [], "raw": []}
+        for _ in range(WRAPPER_ROUNDS):
+            for kind, f in (("wrapped", fn), ("raw", fn.raw_fn)):
+                f(*args)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(WRAPPER_CALLS):
+                    f(*args)
+                torch.cuda.synchronize()
+                times[kind].append((time.perf_counter() - t0)
+                                   / WRAPPER_CALLS * 1e6)
+        wrapped, raw = (statistics.median(times[k]) for k in
+                        ("wrapped", "raw"))
+        print(f"wrapper cost {name}: {wrapped:.2f} us a call through "
+              f"api, {raw:.2f} us through raw_fn, {wrapped - raw:.2f} us "
+              f"added (medians of {WRAPPER_ROUNDS} rounds of "
+              f"{WRAPPER_CALLS} calls) [{card}]", flush=True)
+
+
+def finish_line(card):
+    """The card line and the last line; returns the exit code 0."""
+    import torch
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main(argv):
     import torch
     cards = int(argv[argv.index("--cards") + 1]) if "--cards" in argv else 1
@@ -5332,15 +6070,24 @@ def main(argv):
         tensor_layer_phase(card)
         print(f"phase 24 (the Paddle tensor layer) done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish_line(card)
 
+    if "--host-ab" in argv:
+        host_ab(argv[argv.index("--host-ab") + 1], card)
+        return finish_line(card)
+    if "--host-paths-of" in argv:
+        host_paths_of(argv[argv.index("--host-paths-of") + 1], card)
+        return finish_line(card)
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import ragged_paged_attn as ragged_mod
+    if "--nn" in argv:
+        for name in ("flash_attention_sm90", "flash_attention"):
+            _build.load(name)
+        nn_phase(card, fa)
+        print(f"phase 25 (the nn layer system) done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return finish_line(card)
     t0 = time.perf_counter()
     reports = _build.build_all()
     print(f"build: {len(reports)} kernel source(s) in "
@@ -5359,35 +6106,19 @@ def main(argv):
     if "--depth-ab" in argv:
         depth_ab_phase(card, int(argv[argv.index("--depth-ab") + 1]))
         lap("depth A/B")
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish_line(card)
     if "--profile-mesh" in argv:
         profile_mesh_phase(card)
         lap("mesh profile")
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish_line(card)
     if "--stage3" in argv:
         stage3_phase(card, fa)
         lap("stage 3 with and without recompute")
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish_line(card)
     if cards == 4:
         four_card_phase(card, ragged_mod)
         lap("four-card mesh")
-        print(card, flush=True)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return finish_line(card)
     kres = kernel_phase(ragged_mod)
     qres = quant_kernel_phase(ragged_mod)
     mres = mesh_kernel_phase(ragged_mod)
@@ -5491,6 +6222,13 @@ def main(argv):
           sum(ragged_counts(ragged_mod).values()) == 0,
           "phase 24 launched a kernel")
     lap("24 (the Paddle tensor layer)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in nn_phase(card, fa).items():
+        flash_launches[name] += n
+    check(sum(ragged_counts(ragged_mod).values()) == 0,
+          "phase 25 launched a ragged kernel")
+    lap("25 (the nn layer system)")
 
     f32 = kres["float32"]
     kernels = [{

@@ -11,7 +11,8 @@ Entry points run on the CUDA card unless the caller passes
 
 The top level is the Paddle tensor layer (``core`` and ``ops``):
 ``to_tensor``, ``grad``, ``seed``, ``set_device``, the dtypes and every
-op, as ``paddle_tpu/__init__.py`` exports them.  Its tensors live on
+op, as ``paddle_tpu/__init__.py`` exports them, and ``nn`` (with
+``Layer`` and ``ParamAttr``) and ``optimizer``.  Its tensors live on
 the current place, the card unless ``set_device("cpu")`` says
 otherwise.  The models, serving and training keep taking plain torch
 tensors.
@@ -50,3 +51,9 @@ from .ops.linalg import (cholesky, cross, dist, histogram,  # noqa: E402,F401
 from .core.tensor import Tensor as VarBase  # noqa: E402,F401
 from .core.tensor import Tensor as LoDTensor  # noqa: E402,F401
 from . import ops as tensor  # noqa: E402,F401  (paddle.tensor alias)
+
+# -- nn (paddle.nn, paddle.ParamAttr, paddle.Layer) ----------------------
+from . import nn  # noqa: E402,F401
+from . import optimizer  # noqa: E402,F401
+from .nn.param_attr import ParamAttr  # noqa: E402,F401
+from .nn.layer.base import Layer  # noqa: E402,F401

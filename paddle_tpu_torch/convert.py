@@ -19,10 +19,11 @@ and for BERT (``models/bert.py``) the three embeddings and their
 the heads' linears and norm.
 
 ``paddle_tpu``'s ``nn.Linear`` stores its weight ``[in, out]`` and
-torch's ``[out, in]``, so every ``nn.Linear`` weight is transposed on the
-way in; every other parameter (embeddings, norms, the MoE router and
-expert stacks, which are parameters of their own in both packages) is
-copied as it is.  The tensor-parallel form (``use_mp=True``, ``to_tensor_parallel()``)
+torch's ``[out, in]``, so every torch ``nn.Linear`` weight is transposed
+on the way in; every other parameter (embeddings, norms, the MoE router
+and expert stacks, which are parameters of their own in both packages,
+and the port's own Paddle ``nn.Linear`` layers — BERT's encoder layers —
+which keep ``[in, out]``) is copied as it is.  The tensor-parallel form (``use_mp=True``, ``to_tensor_parallel()``)
 keeps the JAX layouts and names — ``blocks.{i}.attn.qkv_weight [E, 3, H,
 hd]``, ``qkv_bias [3, 1, H, hd]``, ``out_weight [H, hd, E]``,
 ``out_bias [E]``, the column/row-parallel ``mlp.fc{1,2}.weight [in,
@@ -55,6 +56,10 @@ package resumes in the other.  ``names`` maps the port's parameter names
 to the names the JAX state keys carry (its parameters' ``.name``:
 ``{n: p.name for n, p in jax_model.named_parameters()}``).
 
+``load_layer_state(layer, state)`` / ``export_layer_state(layer)`` carry
+any ``nn.Layer``'s ``state_dict`` (parameters and persistable buffers,
+names and layouts the JAX package's) across as numpy.
+
 ``tensor_from_paddle_tpu(t)`` / ``tensor_to_paddle_tpu(t)`` carry one
 tensor-layer object (``Tensor``, ``Parameter`` or ``SelectedRows``, with
 its ``stop_gradient`` / ``trainable`` and ``name``) between the packages
@@ -71,6 +76,7 @@ from torch import nn
 
 from .nn.layer import ScanLayers
 from .quantization.weight_only import WeightOnlyInt8Linear
+from .nn.layer.base import torch_named_parameters
 
 
 def _flip(a):
@@ -124,7 +130,7 @@ def _linear_weights(model):
 
 def _state(model):
     """The parameters and the int8 weight buffers, by name."""
-    state = dict(model.named_parameters())
+    state = dict(torch_named_parameters(model))
     for name, mod in model.named_modules():
         if isinstance(mod, WeightOnlyInt8Linear):
             state[f"{name}.weight_int8"] = mod.weight_int8
@@ -184,6 +190,45 @@ def export_paddle_tpu_state(model):
     return out
 
 
+def _as_array(v):
+    if torch.is_tensor(v):
+        return v.detach().cpu().numpy()
+    return np.asarray(v.numpy() if hasattr(v, "numpy") else v)
+
+
+def load_layer_state(layer, state):
+    """Copy a ``paddle_tpu`` Layer's ``state_dict()`` (name -> array, or
+    anything with ``numpy()``) into the port's ``nn.Layer`` ``layer`` of
+    the same structure, in place.  The port's layers keep the JAX
+    package's names and layouts, so nothing is transposed: ``Linear``
+    ``weight [in, out]`` / ``bias``, a conv's ``weight [out, in / groups,
+    *k]`` (a transpose's ``[in, out / groups, *k]``), the RNNs'
+    ``weight_ih_l{k}[_reverse] [gates * H, in]``, ``weight_hh_l{k}``,
+    ``bias_ih_l{k}``, ``bias_hh_l{k}`` and the cells' ``weight_ih`` ...,
+    ``Embedding`` ``weight [V, D]``, the norms' ``weight`` / ``bias``
+    (``scale`` in an instance norm) and the batch norms' buffers
+    ``_mean`` / ``_variance``, each under its structured name
+    (``encoder.layers.0.self_attn.q_proj.weight``).  Missing or
+    unexpected names and shape mismatches raise before anything is
+    copied.  Returns the layer."""
+    arrays = {k: _as_array(v) for k, v in state.items()}
+    own = layer.state_dict()
+    missing = sorted(set(own) - set(arrays))
+    unexpected = sorted(set(arrays) - set(own))
+    if missing or unexpected:
+        raise ValueError(f"load_layer_state: missing {missing[:8]}, "
+                         f"unexpected {unexpected[:8]}")
+    layer.set_state_dict(arrays)
+    return layer
+
+
+def export_layer_state(layer):
+    """``layer.state_dict()`` as ``{name: numpy array}`` (floats as
+    float32), the names and layouts ``load_layer_state`` and the JAX
+    package's ``set_state_dict`` take."""
+    return {k: _state_array(v.torch()) for k, v in layer.state_dict().items()}
+
+
 def _state_array(v):
     """A state value as numpy: floats as float32 (numpy has no bf16),
     integer counters as they are."""
@@ -204,7 +249,7 @@ def export_optimizer_state(optimizer, model, names=None):
     paddle = optimizer.paddle_state_dict()
     out = {k: paddle[k] for k in ("__step__", "LR_Scheduler")
            if k in paddle}
-    for name, p in model.named_parameters():
+    for name, p in torch_named_parameters(model):
         for key, v in optimizer.state.get(p, {}).items():
             arr = _state_array(v)
             if name in linear and arr.ndim >= 2:
@@ -224,7 +269,7 @@ def load_optimizer_state(optimizer, model, state, names=None):
     own = {id(p): n for n, p in optimizer._state_names()}
     staged = {k: state[k] for k in ("__step__", "LR_Scheduler")
               if k in state}
-    for name, p in model.named_parameters():
+    for name, p in torch_named_parameters(model):
         prefix = f"{names.get(name, name)}__"
         for k, v in state.items():
             if not (isinstance(k, str) and k.startswith(prefix)):

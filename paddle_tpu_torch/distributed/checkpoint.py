@@ -23,6 +23,8 @@ import pickle
 import numpy as np
 import torch
 
+from ..nn.layer.base import torch_named_buffers, torch_named_parameters
+
 SUFFIX = ".ptckpt"
 
 
@@ -84,10 +86,10 @@ def save_train_state(step, path):
             state["buffers"] = bufs
     else:
         model = step.model
-        state = {"params": dict(model.named_parameters()),
+        state = {"params": dict(torch_named_parameters(model)),
                  "opt_state": {n: dict(opt.state.get(p, {}))
-                               for n, p in model.named_parameters()}}
-        bufs = {k: v for k, v in model.named_buffers() if v is not None}
+                               for n, p in torch_named_parameters(model)}}
+        bufs = {k: v for k, v in torch_named_buffers(model) if v is not None}
         if bufs:
             state["buffers"] = bufs
     state["step_count"] = np.asarray(opt._step_count)
@@ -107,7 +109,7 @@ def load_train_state(step, path):
                       restored.get("buffers"))
     else:
         model = step.model
-        named = dict(model.named_parameters())
+        named = dict(torch_named_parameters(model))
         for k, v in restored["params"].items():
             named[k].copy_(torch.as_tensor(v))
         for k, sub in restored["opt_state"].items():
@@ -118,7 +120,7 @@ def load_train_state(step, path):
             opt.state[p] = {sk: torch.as_tensor(v).to(
                 template[sk].device, template[sk].dtype)
                 for sk, v in sub.items()}
-        named_b = dict(model.named_buffers())
+        named_b = dict(torch_named_buffers(model))
         for k, v in restored.get("buffers", {}).items():
             named_b[k].copy_(torch.as_tensor(v))
     opt._step_count = int(restored["step_count"])

@@ -33,6 +33,7 @@ import torch
 from .. import collective
 from .. import mesh as mesh_mod
 from ..mesh import DATA_AXES
+from ...nn.layer.base import torch_named_buffers, torch_named_parameters
 
 
 class _PerRankStep:
@@ -49,8 +50,8 @@ class _PerRankStep:
         self.data_ranks = data_representatives(self.mesh)
         self.dp = len(self.data_ranks)
         self.devs = [self.mesh.flat_devices[r] for r in self.data_ranks]
-        optimizer.bind_names(model.named_parameters())
-        params = dict(model.named_parameters())
+        optimizer.bind_names(torch_named_parameters(model))
+        params = dict(torch_named_parameters(model))
         self.pnames = sorted(k for k in params if params[k].requires_grad)
         self.frozen = sorted(k for k in params if not params[k].requires_grad)
         self.params, self.opt_state, self.replicas = [], [], []
@@ -65,7 +66,7 @@ class _PerRankStep:
                 mine[k] = t.requires_grad_(k in self.pnames)
             rep = meta_replica(model)
             bind(rep, mine, {k: b.detach().to(dev, copy=True)
-                             for k, b in model.named_buffers()
+                             for k, b in torch_named_buffers(model)
                              if b is not None})
             self.params.append({k: mine[k] for k in self.pnames})
             self.opt_state.append({k: optimizer._init_state(mine[k])
@@ -148,7 +149,7 @@ class _PerRankStep:
 
     @torch.no_grad()
     def sync_to_layer(self):
-        named = dict(self.model.named_parameters())
+        named = dict(torch_named_parameters(self.model))
         for k in self.pnames:
             parts = [self.params[r][k].to(named[k].device)
                      for r in range(self.dp)]

@@ -16,6 +16,7 @@ from torch import nn
 
 from ..sharding import (ColumnParallelLinear, RowParallelLinear,  # noqa: F401
                         VocabParallelEmbedding)
+from ...nn.layer.base import torch_named_parameters
 
 
 class LayerDesc:
@@ -70,5 +71,5 @@ class PipelineLayer(nn.Module):
         """(parameter names of a block, block count)."""
         if not len(self.blocks):
             return [], 0
-        names = [n for n, _ in self.blocks[0].named_parameters()]
+        names = [n for n, _ in torch_named_parameters(self.blocks[0])]
         return names, len(self.blocks)

@@ -34,6 +34,7 @@ from torch.nn import functional as F
 from ..nn.functional.common import linear
 from . import collective
 from .mesh import AXES
+from ..nn.layer.base import torch_named_parameters
 
 # The serving engine's layouts on the (mp, dp) mesh, one table for the
 # engine, the sharded ragged-attention wrapper and the tests:
@@ -199,7 +200,7 @@ def shard_params_specs(layer, stage=2, axis="sharding", min_size=1024,
     world = 1 if mesh is None else mesh.axis_size(axis)
     flipped = _flipped_linear_weights(layer)
     specs = {}
-    for name, p in layer.named_parameters():
+    for name, p in torch_named_parameters(layer):
         explicit = getattr(p, "partition_spec", None)
         if explicit is not None:
             specs[name] = tuple(explicit)

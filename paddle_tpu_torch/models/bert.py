@@ -25,6 +25,8 @@ from ..device import resolve_device
 from ..nn.functional import apply_layer_norm, apply_linear, cross_entropy
 from ..nn.functional import gelu, tanh
 from ..nn.layer import TransformerEncoder, TransformerEncoderLayer
+from ..nn.layer.common import Linear as PLinear
+from ..nn.layer.norm import LayerNorm as PLayerNorm
 
 BERT_CONFIGS = {
     "bert-base": dict(num_layers=12, hidden_size=768, num_heads=12,
@@ -181,12 +183,21 @@ def _init_weights(model, seed=0):
     """The JAX package's initializers, drawn from ``seed``: Normal(0, 0.02)
     embeddings, XavierNormal linear weights (std ``sqrt(2 / (in +
     out))``), zero biases, LayerNorm at 1 / 0.  A ``scan_layers``
-    encoder's stacked ``[L, out, in]`` weights draw as one tensor each, so
+    encoder's stacked ``[L, in, out]`` weights draw as one tensor each, so
     its weights are not an unrolled model's of the same seed."""
     gen = torch.Generator(device=next(model.parameters()).device)
     gen.manual_seed(int(seed))
     for mod in model.modules():
-        if isinstance(mod, nn.Embedding):
+        if isinstance(mod, PLinear):
+            w = mod._parameters["weight"]
+            w.normal_(0.0, math.sqrt(2.0 / (w.shape[-2] + w.shape[-1])),
+                      generator=gen)
+            if mod._parameters["bias"] is not None:
+                mod._parameters["bias"].zero_()
+        elif isinstance(mod, PLayerNorm):
+            mod._parameters["weight"].fill_(1.0)
+            mod._parameters["bias"].zero_()
+        elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, generator=gen)
         elif isinstance(mod, nn.Linear):
             w = mod.weight

@@ -2,18 +2,19 @@
 ``paddle_tpu/nn/functional/attention.py``.
 
 ``scaled_dot_product_attention`` takes ``[batch, seq, heads, head_dim]``
-(paddle's layout) and dispatches as the JAX package does: without an
-explicit mask, at ``seq >= FLASH_MIN_SEQ``, with both lengths multiples
-of 128 and ``head_dim % 64 == 0``, attention goes to the flash op
-(``ops/flash_attention.py``); everything else takes
-``_reference_attention``, which materializes the scores.  A call with
-``attn_mask`` is ``scaled_dot_product_attention_masked`` (the JAX
-package's primitive of that name): the reference attention under a bool
-or additive mask, through its own amp site, which is on no list, so O1
-leaves it in its inputs' dtype.  The flash op
-also needs one length for q and k: the upstream kernel's causal
-diagonal is top-left and the reference's bottom-right, and the two agree
-only when the lengths are equal (training always has them equal).
+(paddle's layout; torch tensors or handles, ``_io.api``) and dispatches
+as the JAX package does: without an explicit mask, at ``seq >=
+FLASH_MIN_SEQ``, with both lengths multiples of 128 and ``head_dim % 64
+== 0``, attention goes to the flash op (``ops/flash_attention.py``);
+everything else takes ``_reference_attention``, which materializes the
+scores.  A call with ``attn_mask`` is
+``scaled_dot_product_attention_masked`` (the JAX package's primitive of
+that name): the reference attention under a bool or additive mask,
+through its own amp site, which is on no list, so O1 leaves it in its
+inputs' dtype.  The flash op also needs one length for q and k: the
+upstream kernel's causal diagonal is top-left and the reference's
+bottom-right, and the two agree only when the lengths are equal
+(training always has them equal).
 
 Where the JAX package asks whether a TPU backend serves the Pallas
 kernel, the port asks whether the tensors lie on a device the flash op
@@ -32,6 +33,7 @@ from ... import amp
 # looked up at call time, so a comparison can route the same model
 # through the plain versions (flash_attention_ref)
 from ...ops.flash_attention import flash_attention
+from ._io import api
 
 # flash engages at seq >= this, as in the JAX package
 FLASH_MIN_SEQ = 2048
@@ -82,6 +84,7 @@ def _sdpa(q, k, v, segment_ids=None, mask=None, scale=None,
     return _reference_attention(q, k, v, mask, scale, is_causal)
 
 
+@api
 def scaled_dot_product_attention_masked(query, key, value, mask, scale=None,
                                         is_causal=False):
     """``_reference_attention`` under ``mask`` ``[B or 1, H or 1, Sq,
@@ -94,10 +97,11 @@ def scaled_dot_product_attention_masked(query, key, value, mask, scale=None,
     return _reference_attention(query, key, value, mask, scale, is_causal)
 
 
+@api
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, scale=None,
-                                 segment_ids=None):
+                                 segment_ids=None, name=None):
     """Inputs ``[batch, seq, num_heads, head_dim]``.  ``segment_ids``
     ``[B, S]`` int32 blocks attention to same-segment pairs.  Dropout
     (``dropout_p`` in training) applies to the attention OUTPUT, as the

@@ -1,18 +1,22 @@
 """Scan-over-layers: a homogeneous layer stack with stacked parameters —
 counterpart of ``paddle_tpu/nn/layer/scan.py``.
 
-The JAX package runs the stack as one ``lax.scan`` so XLA compiles the
-body once.  Torch has no scan: the port keeps the JAX package's layout
-and names (every parameter stacked ``[L, ...]``, named as the layer
-names it: ``ln1.weight``, ``attn.qkv_proj.weight``) and runs the forward
-as a loop over the layers' slices.  Decay masks written against the
-dotted names select the same parameters in both packages.
+A ``Layer`` (so the BERT and GPT models keep building on it), whose
+layers may be Paddle Layers or torch modules.  The JAX package runs the
+stack as one ``lax.scan`` so XLA compiles the body once.  Torch has no
+scan: the port keeps the JAX package's layout and names (every parameter
+stacked ``[L, ...]``, named as the layer names it: ``ln1.weight``,
+``attn.qkv_proj.weight``) and runs the forward as a loop over the
+layers' slices.  Decay masks written against the dotted names select the
+same parameters in both packages.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 from torch.func import functional_call
+
+from .base import Layer, torch_named_buffers, torch_named_parameters
 
 
 def owner_of(module, dotted):
@@ -25,7 +29,7 @@ def owner_of(module, dotted):
     return owner, leaf
 
 
-class ScanLayers(nn.Module):
+class ScanLayers(Layer):
     """``num_layers`` structurally identical layers, their parameters
     stacked into ``[L, ...]`` tensors.
 
@@ -62,13 +66,14 @@ class ScanLayers(nn.Module):
             lyr = layer_factory()
             if template is None:
                 template = lyr
-                if any(True for _ in lyr.buffers()):
+                if any(True for _ in torch_named_buffers(lyr)):
                     raise ValueError(
                         "ScanLayers requires buffer-free layers (e.g. no "
                         "BatchNorm): running stats cannot live in the "
                         "stacked form — use an unrolled ModuleList")
-                self._stack_names = [n for n, _ in lyr.named_parameters()]
-            for name, p in lyr.named_parameters():
+                self._stack_names = [
+                    n for n, _ in torch_named_parameters(lyr)]
+            for name, p in torch_named_parameters(lyr):
                 per_leaf.setdefault(name, []).append(p.detach())
             del lyr
         with torch.no_grad():
@@ -81,7 +86,7 @@ class ScanLayers(nn.Module):
         object.__setattr__(self, "_template", template)
         for cname, child in template.named_children():
             self.add_module(cname, child)
-        for pname, p in template.named_parameters(recurse=False):
+        for pname, p in torch_named_parameters(template, recurse=False):
             self.register_parameter(pname, p)
 
     def train(self, mode=True):
@@ -90,7 +95,8 @@ class ScanLayers(nn.Module):
 
     def forward(self, x, *extra):
         names = self._stack_names
-        slices = [self.get_parameter(n).unbind(0) for n in names]
+        slices = [owner._parameters[leaf].unbind(0) for owner, leaf in
+                  (owner_of(self, n) for n in names)]
         tmpl = self._template
 
         def body(h, *layer):

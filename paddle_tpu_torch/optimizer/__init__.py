@@ -1,9 +1,11 @@
 """Optimizers — counterpart of ``paddle_tpu/optimizer/__init__.py``
 (``Optimizer``, ``SGD``, ``Momentum``, ``Adam``, ``AdamW``, ``Adamax``,
 ``Adagrad``, ``RMSProp``, ``Adadelta``, ``Lamb``, ``LarsMomentum``), of
-``paddle_tpu/optimizer/lr.py`` (``lr``, the port's copy) and of
-``paddle_tpu/nn/clip.py`` ``ClipGradByGlobalNorm``; ``extras`` holds the
-long-tail rules and the parameter-averaging utilities.
+``paddle_tpu/optimizer/lr.py`` (``lr``, the port's copy); ``extras``
+holds the long-tail rules and the parameter-averaging utilities.
+``grad_clip`` is one of ``nn.clip``'s clips (``ClipGradByGlobalNorm`` is
+re-exported here), or, when None, the one ``nn.clip.set_gradient_clip``
+registered.
 
 These are ``torch.optim.Optimizer`` subclasses with Paddle's semantics,
 not torch's: each rule is the JAX package's ``_update`` written as
@@ -70,40 +72,12 @@ from ..core import device as core_device
 from ..core.tensor import Tensor
 from ..device import require_on
 from ..distributed import collective
+from ..nn import clip as _clip_mod
+from ..nn.clip import ClipGradByGlobalNorm  # noqa: F401
 from . import lr  # noqa: F401
 from .lr import LRScheduler
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
-
-
-class ClipGradByGlobalNorm:
-    """Scale every gradient by ``clip_norm / max(global_norm,
-    clip_norm)``, the global norm taken in f32 over all gradients."""
-
-    def __init__(self, clip_norm, group_name="default_group"):
-        self.clip_norm = float(clip_norm)
-
-    @torch.no_grad()
-    def __call__(self, grads):
-        """Clip the list of gradient tensors ``grads`` in place (a sparse
-        one's norm over its merged rows)."""
-        grads = [g for g in grads if g is not None]
-        if not grads:
-            return
-        sq = torch.stack([
-            (g.coalesce().values() if g.is_sparse else g).float()
-            .square().sum() for g in grads])
-        scale = self.scale(sq.sum().sqrt())
-        for g in grads:
-            if g.is_sparse:
-                g._values().mul_(scale.to(g.dtype))
-            else:
-                g.copy_((g * scale).to(g.dtype))
-
-    def scale(self, global_norm):
-        """The factor every gradient takes at this global norm (a train
-        step over a mesh sums the squares over the shards itself)."""
-        return self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
 
 
 def _norm(t):
@@ -181,7 +155,8 @@ class Optimizer(torch.optim.Optimizer):
                                if isinstance(learning_rate, LRScheduler)
                                else float(learning_rate))
         self._weight_decay = _parse_wd(weight_decay)
-        self._grad_clip = grad_clip
+        self._grad_clip = (grad_clip if grad_clip is not None
+                           else _clip_mod.get_gradient_clip())
         self._step_count = 0
         self._tree = False
         self.last_step_lr = None
@@ -259,7 +234,7 @@ class Optimizer(torch.optim.Optimizer):
         self._step_count += 1
         params = self._params_with_grads()
         if self._grad_clip is not None:
-            self._grad_clip([p.grad for p in params])
+            self._grad_clip.clip_([p.grad for p in params])
         lr = self.get_lr()
         self.last_step_lr = lr
         self._tree = tree

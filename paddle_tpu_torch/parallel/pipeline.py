@@ -88,6 +88,8 @@ from ..distributed.fleet.utils import recompute
 from ..distributed.mesh import DATA_AXES, data_axes_size
 from ..distributed.sharding import _axes_of, piece_slices
 from .train_step import _as_tensor, _MeshEngine, bind, meta_replica
+from ..nn.layer.base import (torch_named_buffers, torch_named_parameters,
+                              torch_parameters)
 
 
 def _owned(t, device, taken):
@@ -115,7 +117,7 @@ class PipelineEngine(_MeshEngine):
             raise ValueError(f"n_blocks {nblocks} must divide pp degree "
                              f"{pp}")
         for i, blk in enumerate(model.blocks):
-            for n, p in blk.named_parameters():
+            for n, p in torch_named_parameters(blk):
                 spec = getattr(p, "partition_spec", None)
                 if mp > 1 and _names_mp(spec):
                     raise ValueError(
@@ -147,9 +149,10 @@ class PipelineEngine(_MeshEngine):
             mod = getattr(model, end)
             tp = mod is not None and mp > 1 and any(
                 _names_mp(getattr(p, "partition_spec", None))
-                for p in mod.parameters())
+                for p in torch_parameters(mod))
             self.end_mp[end] = mp if tp else 1
-            for n, p in (mod.named_parameters() if mod is not None else ()):
+            for n, p in (torch_named_parameters(mod) if mod is not None
+                         else ()):
                 spec = getattr(p, "partition_spec", None)
                 self.local_specs[f"{end}.{n}"] = tuple(spec) if tp and \
                     _names_mp(spec) else ()
@@ -161,7 +164,7 @@ class PipelineEngine(_MeshEngine):
         self.stages = [[[] for _ in range(pp)] for _ in range(self.n_data)]
         for i, blk in enumerate(model.blocks):
             st = i // self.bps
-            for n, p in blk.named_parameters():
+            for n, p in torch_named_parameters(blk):
                 self.stage_of[f"blocks.{i}.{n}"] = st
                 self.local_specs[f"blocks.{i}.{n}"] = ()
                 self.shapes[f"blocks.{i}.{n}"] = tuple(p.shape)
@@ -169,13 +172,13 @@ class PipelineEngine(_MeshEngine):
                 r = self.rank(d, st)
                 rep = meta_replica(blk)
                 params = {}
-                for n, p in blk.named_parameters():
+                for n, p in torch_named_parameters(blk):
                     t = _owned(p, self.devs[r], taken).requires_grad_(
                         p.requires_grad)
                     params[n] = t
                     self.leaves[r][f"blocks.{i}.{n}"] = t
                 bufs = {n: b.detach().to(self.devs[r], copy=True)
-                        for n, b in blk.named_buffers() if b is not None}
+                        for n, b in torch_named_buffers(blk) if b is not None}
                 bind(rep, params, bufs)
                 for n, b in bufs.items():
                     self.buffers[r][f"blocks.{i}.{n}"] = b
@@ -187,7 +190,7 @@ class PipelineEngine(_MeshEngine):
             if mod is None:
                 self.ends[end] = None
                 continue
-            for n, p in mod.named_parameters():
+            for n, p in torch_named_parameters(mod):
                 self.stage_of[f"{end}.{n}"] = 0 if end == "pre" else pp - 1
                 self.shapes[f"{end}.{n}"] = tuple(p.shape)
             self.ends[end] = [[[self._end_replica(mod, end, d, st, j, taken)
@@ -216,7 +219,7 @@ class PipelineEngine(_MeshEngine):
         r = self.rank(d, st, j)
         rep = meta_replica(mod)
         params = {}
-        for n, p in mod.named_parameters():
+        for n, p in torch_named_parameters(mod):
             k = f"{end}.{n}"
             spec = self.local_specs[k]
             t = (self._piece(r, p.detach(), spec).to(
@@ -225,7 +228,8 @@ class PipelineEngine(_MeshEngine):
             params[n] = self.leaves[r][k] = t.requires_grad_(
                 p.requires_grad)
         bind(rep, params, {n: b.detach().to(self.devs[r], copy=True)
-                           for n, b in mod.named_buffers() if b is not None})
+                           for n, b in torch_named_buffers(mod)
+                           if b is not None})
         return rep
 
     def _replicas(self):
@@ -609,29 +613,29 @@ def stack_block_params(blocks):
     """``(names, {name: [n_blocks, ...] stacked})`` of identical blocks'
     parameters (the JAX package's stacked form, for its checkpoints and
     the tests)."""
-    names = [n for n, _ in blocks[0].named_parameters()]
-    return names, {n: torch.stack([dict(b.named_parameters())[n].detach()
+    names = [n for n, _ in torch_named_parameters(blocks[0])]
+    return names, {n: torch.stack([dict(torch_named_parameters(b))[n].detach()
                                    for b in blocks]) for n in names}
 
 
 def unstack_block_params(blocks, names, stacked):
     with torch.no_grad():
         for i, blk in enumerate(blocks):
-            params = dict(blk.named_parameters())
+            params = dict(torch_named_parameters(blk))
             for n in names:
                 params[n].copy_(torch.as_tensor(stacked[n][i]))
 
 
 def stack_block_buffers(blocks):
-    names = [n for n, b in blocks[0].named_buffers() if b is not None]
-    return names, {n: torch.stack([dict(b.named_buffers())[n]
+    names = [n for n, b in torch_named_buffers(blocks[0]) if b is not None]
+    return names, {n: torch.stack([dict(torch_named_buffers(b))[n]
                                    for b in blocks]) for n in names}
 
 
 def unstack_block_buffers(blocks, names, stacked):
     with torch.no_grad():
         for i, blk in enumerate(blocks):
-            bufs = dict(blk.named_buffers())
+            bufs = dict(torch_named_buffers(blk))
             for n in names:
                 if bufs.get(n) is not None:
                     bufs[n].copy_(torch.as_tensor(stacked[n][i]))

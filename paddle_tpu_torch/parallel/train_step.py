@@ -12,7 +12,10 @@ compiles one program and returns new parameter arrays, the port runs
 eagerly and updates tensors in place; ``sync_to_layer()`` writes a
 mesh's shards back into the model (on one device the model's own
 parameters are updated, and it has nothing to do); ``donate`` changes
-nothing.
+nothing.  The model may be a Paddle ``nn.Layer`` (a ``torch.nn.Module``):
+the step reads torch's own iteration over it
+(``nn.layer.torch_named_parameters``), never the Layer's Paddle
+``parameters()``, which gives tensor-layer handles.
 
 The mesh is ``mesh``, else the process mesh (``distributed.set_mesh``,
 ``fleet.init``), as the JAX step takes ``mesh or ensure_mesh()``; with
@@ -126,6 +129,9 @@ from ..distributed.sharding import (_axes_of, _flipped_linear_weights,
 from ..nn.functional.norm import torch_batch_norm_forward
 from ..nn.layer import owner_of
 from ..optimizer import ClipGradByGlobalNorm
+from ..nn.layer.base import (torch_attributes, torch_buffers,
+                              torch_named_buffers, torch_named_parameters,
+                              torch_parameters)
 
 DATA_AXES = mesh_mod.DATA_AXES
 
@@ -149,10 +155,10 @@ def meta_replica(module):
     placeholders on the meta device (no memory): the module a rank runs,
     once ``bind`` has put the rank's tensors in."""
     memo = {}
-    for p in module.parameters():
+    for p in torch_parameters(module):
         memo[id(p)] = torch.nn.Parameter(torch.empty_like(p, device="meta"),
                                          requires_grad=p.requires_grad)
-    for b in module.buffers():
+    for b in torch_buffers(module):
         memo[id(b)] = torch.empty_like(b, device="meta")
     return copy.deepcopy(module, memo)
 
@@ -163,9 +169,9 @@ def bind(replica, params=None, buffers=None):
     params = params or {}
     if params:
         first = {}
-        for name, p in replica.named_parameters(remove_duplicate=False):
+        for name, p in torch_named_parameters(replica, remove_duplicate=False):
             first.setdefault(id(p), name)
-        for name, p in replica.named_parameters(remove_duplicate=False):
+        for name, p in torch_named_parameters(replica, remove_duplicate=False):
             if first[id(p)] in params and name not in params:
                 params = {**params, name: params[first[id(p)]]}
     for name, t in params.items():
@@ -505,10 +511,10 @@ class _MeshEngine:
 
     @torch.no_grad()
     def sync_to_layer(self, model):
-        named = dict(model.named_parameters())
+        named = dict(torch_named_parameters(model))
         for k in self.pnames:
             named[k].copy_(self.full_param(k, named[k].device))
-        named_b = dict(model.named_buffers())
+        named_b = dict(torch_named_buffers(model))
         for k, t in self.full_buffers().items():
             named_b[k].copy_(t)
 
@@ -529,8 +535,9 @@ class _FlatMesh(_MeshEngine):
             min_size = int((getattr(s, "sharding_configs", None) or {}).get(
                 "min_shard_size", 1024))
         self.stage = stage
-        params = dict(model.named_parameters())
-        buffers = {k: v for k, v in model.named_buffers() if v is not None}
+        params = dict(torch_named_parameters(model))
+        buffers = {k: v for k, v in torch_named_buffers(model)
+                   if v is not None}
         self.pnames = sorted(params)
         self.bnames = sorted(buffers)
         spec_map = shard_params_specs(model, stage=stage if stage else 2,
@@ -630,14 +637,15 @@ class _FlatMesh(_MeshEngine):
             gather = _UnitGather(self, r)
             self.gatherers.append(gather)
             first, slots = {}, []
-            for name, p in rep.named_parameters(remove_duplicate=False):
+            for name, p in torch_named_parameters(rep, remove_duplicate=False):
                 k = first.setdefault(id(p), name)
                 if k in self.unit_of:
                     slots.append((name, k))
-            for name, k in slots:
-                owner, leaf = owner_of(rep, name)
-                parametrize.register_parametrization(
-                    owner, leaf, _Stage3Slot(gather, k), unsafe=True)
+            with torch_attributes():
+                for name, k in slots:
+                    owner, leaf = owner_of(rep, name)
+                    parametrize.register_parametrization(
+                        owner, leaf, _Stage3Slot(gather, k), unsafe=True)
 
     def _gather(self, r, k):
         """Rank ``r``'s whole copy of the stage-3 parameter ``k``."""
@@ -823,7 +831,7 @@ class TrainStep:
         self.strategy = strategy
         self.training = train
         self.mesh = mesh if mesh is not None else mesh_mod.get_mesh()
-        optimizer.bind_names(model.named_parameters())
+        optimizer.bind_names(torch_named_parameters(model))
         self._m_steps = monitor.counter("train.steps",
                                         "TrainStep.step calls")
         self._m_step_time = monitor.histogram(
@@ -841,7 +849,7 @@ class TrainStep:
             self.device = self.mesh.flat_devices[0]
         else:
             self.engine = None
-            self.device = require_on(device, model.named_parameters(),
+            self.device = require_on(device, torch_named_parameters(model),
                                      "TrainStep")
 
     # -- what the JAX step exposes -----------------------------------------
@@ -850,7 +858,7 @@ class TrainStep:
         """Each parameter's spec (in its own layout); on one device every
         parameter is whole, ``()``."""
         if self.engine is None:
-            return {k: () for k, _ in self.model.named_parameters()}
+            return {k: () for k, _ in torch_named_parameters(self.model)}
         return self.engine.param_specs
 
     @property

@@ -102,6 +102,7 @@ from .request import (MAX_SEED, DeadlineShed, QueueFull, RateLimited,
 from .scheduler import Scheduler
 from .sharded import ShardedServingModel, gather_blocks, scatter_blocks
 from .spec import PromptLookupProposer
+from ..nn.layer.base import torch_named_buffers, torch_named_parameters
 
 
 class Migrated(RuntimeError):
@@ -570,7 +571,8 @@ class Engine:
             self.mesh_axes = ({k: v for k, v in mesh.shape.items() if v > 1}
                               or {"mp": 1})
         self.device = require_on(
-            device, [*model.named_parameters(), *model.named_buffers()],
+            device, [*torch_named_parameters(model),
+                     *torch_named_buffers(model)],
             "Engine")
         self.adapters = None
         if adapters is not None or max_adapters is not None:

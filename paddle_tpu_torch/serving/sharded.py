@@ -73,6 +73,7 @@ from ..nn.functional import scaled_dot_product_attention
 from ..ops.ragged_paged_attn import sharded_ragged_paged_attention
 from .kvcache import check_block_payload, import_blocks
 from .quant import QuantKV
+from ..nn.layer.base import torch_named_parameters
 
 
 class ShardedServingModel:
@@ -121,7 +122,7 @@ class ShardedServingModel:
         self.w = {name: shard(p.detach(), tuple(
                       a if a in ("mp", "dp") else None
                       for a in getattr(p, "partition_spec", ())), mesh)
-                  for name, p in tp_model.named_parameters()}
+                  for name, p in torch_named_parameters(tp_model)}
         # MoE layers: index -> (k, capacity factor)
         self.moe = {j: (blk.mlp.k, blk.mlp.capacity_factor)
                     for j, blk in enumerate(tp_model.blocks)

@@ -143,7 +143,8 @@ def test_multi_head_attention_weights_and_caches_match_jax():
     and a pre-LN encoder layer with an additive mask."""
     paddle.seed(3)
     jmha = jnn.MultiHeadAttention(32, 4, need_weights=True)
-    tmha = tlayer.MultiHeadAttention(32, 4, need_weights=True)
+    with torch.device("cpu"):  # a Layer builds on the card by default
+        tmha = tlayer.MultiHeadAttention(32, 4, need_weights=True)
     load_paddle_tpu_state(tmha, _arrays(jmha))
     rng = np.random.RandomState(4)
     x = rng.randn(2, 6, 32).astype(np.float32)
@@ -171,9 +172,10 @@ def test_multi_head_attention_weights_and_caches_match_jax():
     jlayer = jnn.TransformerEncoderLayer(32, 4, 64, dropout=0.0,
                                          activation="gelu",
                                          normalize_before=True)
-    tlay = tlayer.TransformerEncoderLayer(32, 4, 64, dropout=0.0,
-                                          activation="gelu",
-                                          normalize_before=True)
+    with torch.device("cpu"):
+        tlay = tlayer.TransformerEncoderLayer(32, 4, 64, dropout=0.0,
+                                              activation="gelu",
+                                              normalize_before=True)
     load_paddle_tpu_state(tlay, _arrays(jlayer))
     add = np.where(mask, 0.0, -1e4).astype(np.float32)
     np.testing.assert_allclose(

@@ -425,9 +425,10 @@ def test_batch_norm_over_a_split_batch_matches_jax(case):
     paddle.seed(11)
     jm = jnn.Sequential(jnn.Linear(8, 16), jnn.BatchNorm1D(16), jnn.ReLU(),
                         jnn.Linear(16, 4))
-    tm = bridge(jm, torch.nn.Sequential(
-        torch.nn.Linear(8, 16), BatchNorm1D(16), torch.nn.ReLU(),
-        torch.nn.Linear(16, 4)))
+    with torch.device("cpu"):  # a Layer builds on the card by default
+        tm = bridge(jm, torch.nn.Sequential(
+            torch.nn.Linear(8, 16), BatchNorm1D(16), torch.nn.ReLU(),
+            torch.nn.Linear(16, 4)))
     one = copy.deepcopy(tm)
     jmesh_, tmesh_ = meshes(**shape)
     js_, ts_ = (_strategies(sharding=True, sharding_configs=dict(

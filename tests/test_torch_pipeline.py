@@ -402,7 +402,8 @@ class _PaddleBNBlock(torch.nn.Module):
         super().__init__()
         from paddle_tpu_torch.nn.layer import BatchNorm1D
         self.fc = torch.nn.Linear(6, 6)
-        self.bn = BatchNorm1D(6)
+        with torch.device("cpu"):  # a Layer builds on the card by default
+            self.bn = BatchNorm1D(6)
 
     def forward(self, x):
         return self.bn(self.fc(x))
