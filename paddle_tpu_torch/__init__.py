@@ -11,8 +11,11 @@ Entry points run on the CUDA card unless the caller passes
 
 The top level is the Paddle tensor layer (``core`` and ``ops``):
 ``to_tensor``, ``grad``, ``seed``, ``set_device``, the dtypes and every
-op, as ``paddle_tpu/__init__.py`` exports them, and ``nn`` (with
-``Layer`` and ``ParamAttr``) and ``optimizer``.  Its tensors live on
+op, as ``paddle_tpu/__init__.py`` exports them, ``nn`` (with
+``Layer`` and ``ParamAttr``) and ``optimizer``, and the data pipeline
+and the high-level API: ``io``, ``reader``, ``batch``, ``metric``,
+``hapi`` (``Model``, ``callbacks``), ``save`` / ``load``, ``summary``
+and ``flops``.  Its tensors live on
 the current place, the card unless ``set_device("cpu")`` says
 otherwise.  The models, serving and training keep taking plain torch
 tensors.
@@ -57,3 +60,31 @@ from . import nn  # noqa: E402,F401
 from . import optimizer  # noqa: E402,F401
 from .nn.param_attr import ParamAttr  # noqa: E402,F401
 from .nn.layer.base import Layer  # noqa: E402,F401
+
+# -- the data pipeline and the high-level API ----------------------------
+from . import io  # noqa: E402,F401
+from . import metric  # noqa: E402,F401
+from . import hapi  # noqa: E402,F401
+from . import reader  # noqa: E402,F401
+from . import framework  # noqa: E402,F401
+from .framework.io import save, load  # noqa: E402,F401
+from .batch import batch  # noqa: E402,F401
+from .hapi import callbacks  # noqa: E402,F401
+from .hapi.model import Model  # noqa: E402,F401
+
+
+def summary(net, input_size=None, dtypes=None):
+    """paddle.summary (reference: hapi/model_summary.py)."""
+    return Model(net).summary(input_size, dtype=dtypes)
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False):
+    """The JAX package's rough FLOPs count: 2 x the parameters of every
+    weight of two or more dimensions (``Model.flops`` counts an eval
+    forward's matrix products instead)."""
+    from .nn.layer.base import torch_named_parameters as _named
+    total = 0    # the module's ``sum`` is the tensor op
+    for _, p in _named(net):
+        if p.dim() >= 2:
+            total += 2 * p.numel()
+    return total

@@ -162,7 +162,11 @@ class Tensor:
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             d = d.float()
-        return d.cpu().resolve_conj().resolve_neg().numpy()
+        arr = d.cpu().resolve_conj().resolve_neg().numpy()
+        # a CPU tensor's numpy() shares its storage: copy, so that a later
+        # in-place update (an optimizer step) does not reach the array
+        return arr.copy() if d.device.type == "cpu" and \
+            d.dtype == self._data.dtype else arr
 
     def item(self, *args):
         if args:

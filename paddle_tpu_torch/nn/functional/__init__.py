@@ -1,8 +1,7 @@
 """``paddle.nn.functional`` of the port — counterpart of
 ``paddle_tpu/nn/functional/__init__.py``: every functional that file
-exports except the sequence ops of ``sequence.py``, the fluid-era
-``legacy`` surface and the detection aliases of ``vision.ops``, which
-later slices port.  Each takes torch tensors (and returns them) or
+exports except the fluid-era ``legacy`` surface and the detection
+aliases of ``vision.ops``, which later slices port.  Each takes torch tensors (and returns them) or
 tensor-layer handles (and returns handles): ``_io``."""
 import numpy as np
 
@@ -42,6 +41,14 @@ from .loss import (  # noqa: F401
 )
 from .attention import (scaled_dot_product_attention,  # noqa: F401
                         scaled_dot_product_attention_masked)
+from .sequence import (  # noqa: F401
+    sequence_pad, sequence_unpad, sequence_pool, sequence_softmax,
+    sequence_expand, sequence_reverse, edit_distance, row_conv,
+    sequence_first_step, sequence_last_step, sequence_concat,
+    sequence_expand_as, sequence_slice, sequence_scatter,
+    sequence_enumerate, sequence_reshape, sequence_conv,
+    sequence_erase, sequence_topk_avg_pooling,
+)
 from .extension import (  # noqa: F401
     grid_sample, diag_embed, gather_tree, bilinear,
     bilinear_tensor_product, dice_loss, npair_loss, affine_grid,
@@ -49,7 +56,7 @@ from .extension import (  # noqa: F401
     pad_constant_like, fsp_matrix, im2sequence, hash,
 )
 from . import common, conv, extension, loss, norm, pooling  # noqa: F401
-from . import activation, attention  # noqa: F401
+from . import activation, attention, sequence  # noqa: F401
 
 # -- fluid-era functional aliases ------------------------------------------
 from .common import interpolate as image_resize  # noqa: F401

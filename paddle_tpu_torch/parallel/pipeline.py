@@ -80,6 +80,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import warnings
 
 import torch
 
@@ -87,7 +88,8 @@ from ..distributed import collective
 from ..distributed.fleet.utils import recompute
 from ..distributed.mesh import DATA_AXES, data_axes_size
 from ..distributed.sharding import _axes_of, piece_slices
-from .train_step import _as_tensor, _MeshEngine, bind, meta_replica
+from .train_step import (_as_tensor, _MeshEngine, bind, compute_metrics,
+                         meta_replica)
 from ..nn.layer.base import (torch_named_buffers, torch_named_parameters,
                               torch_parameters)
 
@@ -207,6 +209,7 @@ class PipelineEngine(_MeshEngine):
         self.opt_specs = {}
         self._checked = False
         self.max_stored_inputs = 0
+        self._post_outs = {}   # data rank -> post's output (metrics)
 
     def rank(self, d, s, j=0):
         """The mesh rank of pipeline ``d``'s stage ``s`` at mp index
@@ -366,14 +369,42 @@ class PipelineEngine(_MeshEngine):
         last = self.devs[self.rank(0, P - 1)]
         ys = [self._rows(_as_tensor(y, last), n, P - 1) for y in labels]
         labs = [[y[d] for y in ys] for d in range(n)]
+        self._post_outs = {}
         with st._amp():
             h = self._pre(xs, n)
             if self.schedule == "1F1B":
                 loss = self._one_f_one_b(h, labs, n)
             else:
                 loss = self._gpipe(h, labs, n)
+        st.last_metric_outs = []
+        if st.metrics and self.schedule == "1F1B":
+            warnings.warn(
+                "TrainStep(metrics=...) under the 1F1B schedule: the "
+                "model output never materializes (loss is consumed "
+                "per-microbatch inside the schedule), so metrics are not "
+                "computed — use GPipe (schedule_mode='F-then-B') or "
+                "evaluate() for metrics")
+        elif st.metrics:
+            st.last_metric_outs = compute_metrics(
+                st.metrics, self._batch_rows(n, x.shape[0]),
+                [_as_tensor(y, last) for y in labels])
+        self._post_outs = {}
         self._apply()
         return loss
+
+    def _batch_rows(self, n, rows):
+        """The running pipelines' ``post`` outputs (``_rank_loss``) put
+        back in the batch's row order: the inverse of ``_rows``."""
+        outs = [self._post_outs[d] for d in range(n)]
+        if n == 1:
+            return outs[0]
+        dev = outs[0].device
+        idx = torch.arange(rows, device=dev).view(
+            self.num_microbatches, n, -1)
+        full = outs[0].new_empty((rows,) + tuple(outs[0].shape[1:]))
+        for d in range(n):
+            full[idx[:, d].reshape(-1)] = outs[d].to(dev)
+        return full
 
     def _pre(self, xs, n):
         """``pre`` over each running pipeline's rows, on its mp group
@@ -403,6 +434,8 @@ class PipelineEngine(_MeshEngine):
         post = self.ends["post"]
         if post is not None:
             out = post[d][self.pp - 1][j](out)
+        if j == 0 and self.step_.metrics:
+            self._post_outs[d] = out.detach()
         return self._loss(out, labels)
 
     def _post_loss(self, outs, labs, n):

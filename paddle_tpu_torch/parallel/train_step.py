@@ -103,8 +103,16 @@ JAX step's spec semantics:
   host time in the ``train.step_time_ms`` histogram of the port's
   ``monitor`` default registry.
 
-``metrics=`` raises naming ROADMAP Queue A 12 (``paddle_tpu/metric`` is
-not ported).
+* ``metrics=`` (``metric.Metric`` objects): after the forward each
+  metric's ``compute(out, *labels)`` runs under ``no_grad`` on the
+  step's output, and ``last_metric_outs`` holds what it returned (a
+  list a metric: torch tensors on the step's device) for the caller's
+  ``update``, as the JAX step returns them.  Under gradient merge the
+  micro-batches' outputs are joined along the batch (stacked when 0-d);
+  over a mesh the metric sees the whole batch's output, the data ranks'
+  rows in order; under GPipe the ``post`` outputs of every micro-batch
+  in the batch's row order; under 1F1B, whose outputs never exist
+  whole, it warns and computes nothing, as the JAX step does.
 """
 from __future__ import annotations
 
@@ -127,6 +135,7 @@ from ..distributed.moe import collect_moe_aux_loss
 from ..distributed.sharding import (_axes_of, _flipped_linear_weights,
                                     piece_slices, shard_params_specs)
 from ..nn.functional.norm import torch_batch_norm_forward
+from ..core.tensor import Tensor
 from ..nn.layer import owner_of
 from ..optimizer import ClipGradByGlobalNorm
 from ..nn.layer.base import (torch_attributes, torch_buffers,
@@ -137,6 +146,8 @@ DATA_AXES = mesh_mod.DATA_AXES
 
 
 def _as_tensor(x, device):
+    if isinstance(x, Tensor):
+        x = x._data
     if isinstance(x, torch.Tensor):
         return x.to(device, non_blocking=True)
     return torch.as_tensor(np.asarray(x), device=device)
@@ -148,6 +159,29 @@ def _normalize(inputs, labels):
     if not isinstance(labels, (list, tuple)):
         labels = [labels]
     return list(inputs), list(labels)
+
+
+def compute_metrics(metrics, out, labels):
+    """Each metric's ``compute(out, *labels)`` under ``no_grad``, as a
+    list of lists of what it returned."""
+    outs = []
+    with torch.no_grad():
+        for m in metrics:
+            mo = m.compute(out, *labels)
+            outs.append(list(mo) if isinstance(mo, (list, tuple))
+                        else [mo])
+    return outs
+
+
+def join_metric_outs(parts):
+    """Per-micro-batch metric outputs joined along the batch (0-d ones
+    stacked), as the JAX step joins them under gradient merge."""
+    if len(parts) == 1:
+        return parts[0]
+    return [[torch.cat([p[i][j] for p in parts]) if parts[0][i][j].dim()
+             else torch.stack([p[i][j] for p in parts])
+             for j in range(len(parts[0][i]))]
+            for i in range(len(parts[0]))]
 
 
 def meta_replica(module):
@@ -607,6 +641,7 @@ class _FlatMesh(_MeshEngine):
                     self.opt_state[r][k] = opt._init_state(
                         self._target(r, k))
         self.reps = data_representatives(mesh)
+        self._outs = {}   # rank -> its forward's output (metrics)
         if self.gathered:
             self._install_units(model)
 
@@ -699,6 +734,8 @@ class _FlatMesh(_MeshEngine):
             out = rep(*ins)
             if isinstance(out, tuple):
                 out = out[0]
+            if st.metrics:
+                self._outs[r] = out.detach()
             loss = out if st.loss_fn is None else st.loss_fn(out, *labs)
             aux = collect_moe_aux_loss(rep)
             if aux is not None:
@@ -719,14 +756,22 @@ class _FlatMesh(_MeshEngine):
         dev0 = self.devs[0]
         total = torch.zeros((), dtype=torch.float32, device=dev0)
         n_in = len(inputs)
+        parts = []
         for i in range(k):
             per_rank, split = split_batch([c[i] for c in chunks], mesh)
             self._phase = "forward"
+            self._outs = {}
             with st._amp():
                 losses = collective.run_ranks(
                     mesh, {r: (lambda r=r: self._forward(
                         r, per_rank[r][:n_in], per_rank[r][n_in:], split))
                         for r in range(mesh.size)}, batch_split=split)
+            if st.metrics:
+                reps = self.reps if split else self.reps[:1]
+                out = torch.cat([self._outs[r].to(dev0) for r in reps])
+                parts.append(compute_metrics(
+                    st.metrics, out,
+                    [c[i].to(dev0) for c in chunks[n_in:]]))
             loss = sum(losses[r].to(dev0) for r in self.reps) / (
                 len(self.reps) * k)
             self._phase = "backward"
@@ -735,6 +780,8 @@ class _FlatMesh(_MeshEngine):
             finally:
                 self._release_units()
             total = total + loss.detach()
+        self._outs = {}
+        st.last_metric_outs = join_metric_outs(parts) if parts else []
         self._apply()
         return total
 
@@ -809,10 +856,8 @@ class TrainStep:
                  metrics=None, device=None):
         from ..distributed.fleet.meta_parallel import PipelineLayer
         from ..distributed.parallel import DataParallel
-        if metrics:
-            raise NotImplementedError(
-                "TrainStep(metrics=...) is not ported yet (ROADMAP Queue "
-                "A 12: paddle_tpu/metric)")
+        self.metrics = list(metrics or [])
+        self.last_metric_outs = []
         if isinstance(model, DataParallel):
             model = model._layers
         s = strategy
@@ -889,7 +934,9 @@ class TrainStep:
         return (amp.auto_cast(enable=True, level=self.amp_level)
                 if self.use_amp else contextlib.nullcontext())
 
-    def _loss(self, inputs, labels):
+    def _loss(self, inputs, labels, parts=None):
+        """The loss of one forward; with ``metrics`` the metrics' outputs
+        of it are appended to ``parts``."""
         with self._amp():
             out = self.model(*inputs)
             if isinstance(out, tuple):
@@ -899,6 +946,8 @@ class TrainStep:
             aux = collect_moe_aux_loss(self.model)
             if aux is not None:
                 loss = loss + aux
+        if self.metrics:
+            parts.append(compute_metrics(self.metrics, out, labels))
         return loss.float()
 
     def step(self, inputs, labels=()):
@@ -920,8 +969,9 @@ class TrainStep:
         self.model.train(self.training)
         self.optimizer.zero_grad(set_to_none=True)
         k = self.grad_merge_k
+        parts = []
         if k == 1:
-            loss = self._loss(inputs, labels)
+            loss = self._loss(inputs, labels, parts)
             loss.backward()
             loss = loss.detach()
         else:
@@ -933,9 +983,10 @@ class TrainStep:
                                  "must divide the batch")
             for i in range(k):
                 part = self._loss([c[i] for c in micro_in],
-                                  [c[i] for c in micro_lab]) / k
+                                  [c[i] for c in micro_lab], parts) / k
                 part.backward()
                 loss = loss + part.detach()
+        self.last_metric_outs = join_metric_outs(parts) if parts else []
         self.optimizer.apply_gradients()
         return loss
 

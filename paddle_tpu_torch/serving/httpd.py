@@ -1040,6 +1040,9 @@ def main(argv=None):
     p = argparse.ArgumentParser("paddle_tpu_torch.serving.httpd")
     p.add_argument("--config", default="tiny",
                    help="GPT_CONFIGS name (models/gpt.py)")
+    p.add_argument("--num-layers", type=int, default=None,
+                   help="the config's depth cut to this many layers "
+                        "(its widths stay)")
     p.add_argument("--device", default="cuda",
                    help="where the model and engine live (cuda, "
                         "cuda:N or cpu)")
@@ -1110,8 +1113,10 @@ def main(argv=None):
     from .engine import Engine
 
     dev = torch.device(args.device)
+    depth = {} if args.num_layers is None else {
+        "num_layers": args.num_layers}
     model = GPTModel.from_config(args.config, device=dev, seed=args.seed,
-                                 dropout=0.0)
+                                 dropout=0.0, **depth)
     model.eval()
     mesh = None
     if args.mp > 1 or args.dp > 1:

@@ -143,16 +143,15 @@ def _public(mod, root):
 
 def test_missing_functional_names_are_the_deferred_ones():
     """Every public name of ``paddle_tpu.nn.functional`` exists in the
-    port but the deferred ones: ``sequence.py``'s, ``legacy``'s, and the
-    detection aliases of ``vision.ops`` (the ``_vision_alias`` functions
-    and the SSD head ``multi_box_head`` over ``prior_box``)."""
-    from paddle_tpu.nn.functional import legacy, sequence
+    port but the deferred ones: ``legacy``'s, and the detection aliases
+    of ``vision.ops`` (the ``_vision_alias`` functions and the SSD head
+    ``multi_box_head`` over ``prior_box``)."""
+    from paddle_tpu.nn.functional import legacy
     JF = J.nn.functional
     names = _public(JF, "paddle_tpu.nn") | _public(JF, "paddle_tpu.ops")
-    deferred = {"multi_box_head", "legacy", "sequence"} | {
+    deferred = {"multi_box_head", "legacy"} | {
         n for n in names
-        if getattr(getattr(JF, n), "__module__", None)
-        in (sequence.__name__, legacy.__name__)
+        if getattr(getattr(JF, n), "__module__", None) == legacy.__name__
         or "_vision_alias" in getattr(getattr(JF, n), "__qualname__", "")}
     missing = {n for n in names if not hasattr(P.nn.functional, n)}
     assert missing == deferred

@@ -357,9 +357,10 @@ def test_unported_model_knobs_raise(knob):
 
 
 def test_unported_train_knobs_raise():
-    """What stays refused on the training side: ``metrics=`` and the
-    multi-process helpers (``spawn``, ``host_local_to_global``,
-    ``global_from_replicated``) name Queue A 12; the mesh knobs of the
+    """What stays refused on the training side: the multi-process
+    helpers (``spawn``, ``host_local_to_global``,
+    ``global_from_replicated``) name Queue A 12; ``metrics=`` runs (its
+    outputs in ``last_metric_outs``); the mesh knobs of the
     port's own ``DistributedStrategy`` run, and so does a pipeline beside
     data parallelism, whose loss equals the one-device model's.  A
     learning rate that is neither a float nor a scheduler is a
@@ -371,8 +372,12 @@ def test_unported_train_knobs_raise():
     m = GPTModel(**SLICE, dropout=0.0)
     ids = torch.zeros(4, 8, dtype=torch.long)
     opt = AdamW(parameters=m.parameters(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A 12"):
-        TrainStep(m, opt, metrics=[object()], device="cpu")
+    from paddle_tpu_torch.metric import Accuracy
+    st = TrainStep(m, opt, loss_fn=GPTPretrainingCriterion(),
+                   metrics=[Accuracy()], device="cpu")
+    st.step([ids], [ids])
+    (correct,), = st.last_metric_outs
+    assert tuple(correct.shape) == (4, 8, 1)
     for helper in (lambda: spawn(print), lambda: mesh.host_local_to_global(
             np.zeros(2)), lambda: mesh.global_from_replicated(np.zeros(2))):
         with pytest.raises(NotImplementedError, match="Queue A 12"):
