@@ -478,12 +478,51 @@ line:
    batches through ``DeviceLoader`` to the card: the records equal the
    pure-Python engine's as a multiset; prints records/s of the load and
    of the walk.
-27. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
+27. The multi-process and parameter-server forms: (a) ``gpt2-medium``
+   (from seed 0, widths as published, dropout 0) at B=4 x S=1024 of
+   seeded ids, bf16 O1, AdamW, trained by ``tests/torch_mp_worker.py``
+   under ``python -m paddle_tpu_torch.distributed.launch
+   --nproc_per_node 2`` (two processes on this card, gloo: logs under the
+   gitignored ``build/phase27/``) in every layout in turn — dp2 and
+   ZeRO-2 over ``sharding=2`` at 24 layers, Megatron mp2, pp2 GPipe and
+   pp2 1F1B (2 micro-batches, the loss in f32) at 8 — one warm-up and
+   ``MP_STEPS`` timed steps each, then the same layouts over two ranks of
+   this one process.  Checks: both processes' losses are equal, each
+   layout's equal the one-process run's at rtol 2e-3 (the first at
+   1e-4), GPipe's equal 1F1B's at rtol 2e-3, the loss falls, B5a-B5c
+   launch their count (once a layer a step a rank; a stage's half of
+   the layers over two micro-batches, 1F1B's forward twice) in every
+   process.  Prints ms a step and tokens/s of both runs, each process's
+   peak, and from one more, profiled step the bytes that crossed
+   processes (and were staged between the card and pinned host memory)
+   and the time under the ``process.*`` labels.  (b) PaddleRec's CTR-DNN
+   (``models/rank/dnn/config_bigdata.yaml``: 26 sparse slots over one
+   1,000,001 x 9 table, 13 dense inputs, fc 512-256-128-32, Adam 0.001,
+   batch 512) on Criteo-shaped records from numpy seed 0, 20 steps: the
+   table a ``SparseTable(optimizer="adam")`` on a ``dp=4, sharding=2``
+   mesh of this card (pulled and pushed through ``DistributedEmbedding``,
+   the tower through ``TrainStep``), a ``HashedSparseTable`` from 65,536
+   rows and two ``GeoWorkerTable`` objects (interval 10) over a
+   ``GeoSparseTable`` fed the same raw ids; the same run on the CPU.
+   Checks: touched rows and their m, v (rtol 1e-5, atol 1e-5 of the
+   largest value) and t (exactly) equal the CPU's, the untouched rows
+   are bit-identical to their start, the hashed slab grew and its slot
+   map after ``shrink(5)`` is the CPU's, the geo table is the CPU's, and
+   the table saved on the card loads on the CPU unchanged.  Prints
+   pulls/s and pushes/s and the peak.  (c) ``tests/
+   torch_fault_recovery_worker.py`` on the card: a clean run and a run
+   killed with ``os._exit`` after epoch 3, side by side, then a resume,
+   which starts at epoch 3 and ends with the clean run's weights (rtol
+   1e-6); beside them, (d) the launcher over
+   ``tests/multiprocess_worker_abort.py`` exits 7 in under 60 s with
+   "aborting all workers".
+28. Prints the ``kernels`` JSON line (B1's launches count phase 4's,
    phase 16 (c)'s, phase 17's and phase 18's in-process serves, phase
    20 (a)'s first serve and phase 22 (d)'s unsharded engines, B4's phase
    14's and phase 22's mesh serves, B2's phase 10's, phase 17 (d)'s and
    phase 18 (a)'s, B5a-B5c's phase 6's, phase 19 (a)'s, phase 21's and
-   phase 23's and phase 25 (c)'s, B5a's phase 16 (f)'s too; the fp16
+   phase 23's, phase 25 (c)'s and phase 27 (a)'s (both processes and
+   the one-process runs), B5a's phase 16 (f)'s too; the fp16
    entries phase 20 (e)'s), the card line and
    ``{"ok": true, "device": {...}}`` as the last line.  Each kernel's
    ``library_covers`` names the kernels its ``library_ms`` call does the
@@ -502,6 +541,8 @@ With ``--tensor-layer`` it runs only phase 24, without building the
 kernels.
 With ``--nn`` it builds the flash kernels and runs only phase 25.
 With ``--hapi`` it runs only phase 26, without building the kernels.
+With ``--multiprocess`` it loads the flash kernels and runs only phase
+27.
 With ``--host-ab PARENT`` it runs phases 4 and 20 (a), (c), whose pace
 the host sets, as the checkout at ``PARENT`` runs them and as this one
 does, each in a process of its own, in the order PARENT, this, this,
@@ -6690,6 +6731,449 @@ def wrapper_cost(card):
               f"{WRAPPER_CALLS} calls) [{card}]", flush=True)
 
 
+# -- phase 27 -------------------------------------------------------------
+MP_LAYERS = {"dp2": 24, "zero2": 24, "mp2": 8, "pp2_gpipe": 8,
+             "pp2_1f1b": 8}                # each layout's depth
+MP_STEPS = 3                       # timed steps after the warm-up step
+MP_LOSS_RTOL, MP_FIRST_RTOL = 2e-3, 1e-4
+MP_DIR = os.path.join(HERE, "build", "phase27")
+MP_TIMEOUT_S = 200
+CTR_ROWS, CTR_DIM = 1_000_001, 9   # PaddleRec dnn config_bigdata.yaml
+CTR_SLOTS, CTR_DENSE = 26, 13
+CTR_FC = (512, 256, 128, 32)
+CTR_LR, CTR_B, CTR_STEPS = 1e-3, 512, 20
+CTR_HASH_ROWS = 65_536             # the hashed table's first slab
+CTR_TTL = 5
+CTR_GEO_LR, CTR_GEO_INTERVAL = 0.05, 10
+CTR_RTOL = 1e-5
+
+
+def launch_cmd(*args):
+    return [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+            *args]
+
+
+def worker_results(path):
+    """``{tag: value}`` of a worker's ``RESULT`` lines."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("RESULT "):
+                _, tag, _, value = line.split(" ", 3)
+                out[tag] = json.loads(value)
+    return out
+
+
+def expected_flash(kind, layers, steps, ranks=1):
+    """Each flash kernel's launches in ``steps`` steps of a layout on
+    ``ranks`` ranks: once a layer a step on a rank, a pipeline stage's
+    half of the layers over its two micro-batches, and 1F1B's forward
+    twice (its backward tick recomputes the stage)."""
+    if kind.startswith("pp2"):
+        fwd = layers // 2 * 2 * (2 if kind.endswith("1f1b") else 1)
+        bwd = layers // 2 * 2
+    else:
+        fwd = bwd = layers
+    return {"fwd": fwd * steps * ranks, "bwd_dkv": bwd * steps * ranks,
+            "bwd_dq": bwd * steps * ranks}
+
+
+def mp_train_phase(card, fa):
+    """(a): gpt2-medium over two processes on this card (the launcher,
+    gloo), every layout held to the same layout over two ranks of this
+    one process.  Returns the flash launches of both."""
+    import torch
+    from paddle_tpu_torch.nn.functional import attention as attn_mod
+    shutil.rmtree(MP_DIR, ignore_errors=True)
+    logs = os.path.join(MP_DIR, "logs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = ",".join(str(MP_LAYERS[k]) for k in MP_LAYERS)
+    t0 = time.perf_counter()
+    rc = subprocess.run(launch_cmd(
+        "--nproc_per_node", "2", "--log_dir", logs,
+        os.path.join(HERE, "tests", "torch_mp_worker.py"),
+        "--size", "gpt2-medium", "--layers", layers,
+        "--steps", str(MP_STEPS)), cwd=HERE,
+        timeout=MP_TIMEOUT_S).returncode
+    wall = time.perf_counter() - t0
+    res = [worker_results(os.path.join(logs, f"workerlog.{r}"))
+           for r in range(2)]
+    if rc != 0:
+        for r in range(2):
+            with open(os.path.join(logs, f"workerlog.{r}")) as f:
+                print(f"phase 27 (a) worker {r} log tail:\n"
+                      f"{f.read()[-3000:]}", flush=True)
+    check(rc == 0, f"phase 27 (a): the launcher exited {rc}")
+    for r in range(2):
+        check(res[r].get("world", {}).get("backend") == "gloo" and
+              res[r]["world"]["processes"] == 2,
+              f"phase 27 (a): worker {r} did not run 2 processes over "
+              f"gloo: {res[r].get('world')}")
+    print(f"phase 27 (a) launch: 2 processes x 1 rank on this card, gloo, "
+          f"{len(MP_LAYERS)} layouts in {wall:.1f} s [{card}]", flush=True)
+    # the same layouts over two ranks of this process on this card
+    w = tests_module("torch_mp_worker")
+    keep = attn_mod.FLASH_MIN_SEQ
+    attn_mod.FLASH_MIN_SEQ = 1024
+    ref = {}
+    try:
+        for kind, n in MP_LAYERS.items():
+            ref[kind] = w.gpt_layout(kind, 2, n, 4, 1024, MP_STEPS)
+    finally:
+        attn_mod.FLASH_MIN_SEQ = keep
+    launches = dict.fromkeys(FLASH_KERNELS, 0)
+    steps = MP_STEPS + 1
+    for kind, n in MP_LAYERS.items():
+        a, b = res[0][kind], res[1][kind]
+        check(a["losses"] == b["losses"], f"phase 27 (a) {kind}: the two "
+              f"processes' losses differ: {a['losses']} {b['losses']}")
+        one = ref[kind]["losses"]
+        check(abs(a["losses"][0] - one[0]) <= MP_FIRST_RTOL * abs(one[0]),
+              f"phase 27 (a) {kind}: first loss {a['losses'][0]} against "
+              f"the one-process {one[0]} (rtol {MP_FIRST_RTOL})")
+        check(all(abs(x - y) <= MP_LOSS_RTOL * abs(y)
+                  for x, y in zip(a["losses"], one)),
+              f"phase 27 (a) {kind}: losses {a['losses']} against the "
+              f"one-process {one} (rtol {MP_LOSS_RTOL})")
+        check(a["losses"][-1] < a["losses"][0],
+              f"phase 27 (a) {kind}: the loss did not fall: {a['losses']}")
+        want = expected_flash(kind, n, steps)
+        for r, got in enumerate((a, b)):
+            check(got["launches"] == want, f"phase 27 (a) {kind}: process "
+                  f"{r} launched {got['launches']}, not {want}")
+        want2 = expected_flash(kind, n, steps, ranks=2)
+        check(ref[kind]["launches"] == want2, f"phase 27 (a) {kind}: the "
+              f"one-process run launched {ref[kind]['launches']}, not "
+              f"{want2}")
+        for name in FLASH_KERNELS:
+            launches[name] += (a["launches"][name] + b["launches"][name]
+                               + ref[kind]["launches"][name])
+        print(f"phase 27 (a) {kind}: gpt2-medium {n} layers B 4 S 1024 "
+              f"bf16 O1 AdamW losses "
+              + " ".join(f"{x:.5f}" for x in a["losses"])
+              + f" (one process " + " ".join(f"{x:.5f}" for x in one)
+              + f") ms_per_step {a['ms_per_step']:.1f} tokens_per_s "
+              f"{a['tokens_per_s']:.0f} (one process "
+              f"{ref[kind]['ms_per_step']:.1f} ms, "
+              f"{ref[kind]['tokens_per_s']:.0f} tokens/s) peak_gb "
+              f"{a['peak_gb']:.2f} {b['peak_gb']:.2f} (one process "
+              f"{ref[kind]['peak_gb']:.2f}) cross_bytes_per_step "
+              f"{a['cross_bytes']} staged_bytes {a['staged_bytes']} "
+              f"crossings {a['cross_calls']} by_kind {a['cross_by_kind']} "
+              f"process_label_ms {a['process_label_ms']:.1f} "
+              f"{b['process_label_ms']:.1f} flash {a['launches']} "
+              f"[{card}]", flush=True)
+    g, f = res[0]["pp2_gpipe"]["losses"], res[0]["pp2_1f1b"]["losses"]
+    check(all(abs(x - y) <= MP_LOSS_RTOL * abs(y) for x, y in zip(f, g)),
+          f"phase 27 (a): 1F1B {f} against GPipe {g}")
+    return launches
+
+
+class CtrDnn:
+    """The CTR-DNN of PaddleRec's ``models/rank/dnn``: the 26 slots'
+    embeddings and the 13 dense inputs concatenated, fc 512-256-128-32
+    with ReLU, and a 2-way output (trained through cross entropy)."""
+
+    @staticmethod
+    def build():
+        import torch
+        layers, width = [], CTR_SLOTS * CTR_DIM + CTR_DENSE
+        for n in CTR_FC:
+            layers += [torch.nn.Linear(width, n), torch.nn.ReLU()]
+            width = n
+        layers.append(torch.nn.Linear(width, 2))
+
+        class Net(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.mlp = torch.nn.Sequential(*layers)
+
+            def forward(self, emb, dense):
+                return self.mlp(torch.cat([emb.reshape(emb.shape[0], -1),
+                                           dense], dim=1))
+        return Net()
+
+
+def ctr_data():
+    """Criteo-shaped records from numpy seed 0: 13 dense counts (log1p),
+    26 categorical values a record drawn Zipf-like per slot, hashed to
+    raw 64-bit ids (value << 5 | slot) and into the table's rows, and a
+    click label."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    n = CTR_B * CTR_STEPS
+    dense = np.log1p(rs.exponential(5.0, (n, CTR_DENSE))).astype(np.float32)
+    vals = np.minimum(rs.zipf(1.2, (n, CTR_SLOTS)), 2 ** 40).astype(np.int64)
+    raw = (vals << 5) | np.arange(CTR_SLOTS, dtype=np.int64)
+    ids = raw % CTR_ROWS
+    label = (rs.rand(n) < 0.25).astype(np.int64)
+    return dense, raw, ids, label
+
+
+def ctr_run(device, data, rows0, tower0):
+    """CTR_STEPS steps of the CTR-DNN on ``device``: the embedding from a
+    ``SparseTable(optimizer="adam")`` on a ``dp=4, sharding=2`` mesh of
+    ranks on ``device`` (pulled, then pushed with the tower's input
+    gradient), the tower through ``TrainStep``; a ``HashedSparseTable``
+    and two ``GeoWorkerTable``s over a ``GeoSparseTable`` fed the same
+    raw ids and gradients.  Returns the tables and timings."""
+    import copy
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import build_mesh, ps
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.parallel import TrainStep
+    cases = tests_module("torch_ps_cases")
+    dense, raw, ids, label = data
+    dev = torch.device(device)
+    mesh = build_mesh(dp=4, sharding=2, devices=[dev] * 8)
+    table = ps.SparseTable("ctr", CTR_ROWS, CTR_DIM, optimizer="adam",
+                           lr=CTR_LR, initializer=lambda s, d: rows0,
+                           mesh=mesh)
+    emb = ps.DistributedEmbedding(table)
+    hashed = ps.HashedSparseTable("ctr_hash", CTR_DIM,
+                                  initial_rows=CTR_HASH_ROWS,
+                                  optimizer="adam", lr=CTR_LR,
+                                  initializer=cases.Init(1), mesh=mesh)
+    geo = ps.GeoSparseTable("ctr_geo", CTR_DIM, trainer_num=2,
+                            initial_rows=CTR_HASH_ROWS, lr=CTR_GEO_LR,
+                            initializer=cases.Init(2), mesh=mesh)
+    workers = [ps.GeoWorkerTable(geo, i, geo_need_push_nums=CTR_GEO_INTERVAL)
+               for i in range(2)]
+    tower = copy.deepcopy(tower0).to(dev)
+    step = TrainStep(tower, Adam(learning_rate=CTR_LR,
+                                 parameters=tower.parameters(),
+                                 device=device),
+                     loss_fn=torch.nn.CrossEntropyLoss(), device=device)
+    pull_s = push_s = 0.0
+    losses = []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    for i in range(CTR_STEPS):
+        sl = slice(i * CTR_B, (i + 1) * CTR_B)
+        sync()
+        t0 = time.perf_counter()
+        rows = emb(ids[sl])
+        sync()
+        pull_s += time.perf_counter() - t0
+        leaf = rows.detach().requires_grad_()
+        losses.append(float(step.step(
+            [leaf, torch.as_tensor(dense[sl]).to(dev)],
+            [torch.as_tensor(label[sl]).to(dev)])))
+        g = leaf.grad
+        sync()
+        t0 = time.perf_counter()
+        emb.apply_gradients(g)
+        sync()
+        push_s += time.perf_counter() - t0
+        hashed.pull(raw[sl])
+        hashed.push(raw[sl], g)
+        w = workers[i % 2]
+        w.pull(raw[sl])
+        w.push(raw[sl], g)
+    for w in workers:
+        w.flush()
+    peak = hashed.rows
+    evicted = hashed.shrink(CTR_TTL)
+    return {"table": table, "hashed": hashed, "geo": geo, "losses": losses,
+            "pull_s": pull_s, "push_s": push_s, "peak_rows": peak,
+            "evicted": evicted}
+
+
+def close(a, b, rtol=CTR_RTOL):
+    """``a`` against ``b`` at ``rtol`` and an atol of ``rtol`` times
+    ``b``'s largest magnitude (where a value cancels to ~0, its relative
+    error is the float order's)."""
+    import torch
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return bool(torch.allclose(a, b, rtol=rtol, atol=rtol * scale))
+
+
+def ps_phase(card):
+    """(b): the CTR-DNN's sparse tables on the card against the CPU."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import build_mesh, ps
+    data = ctr_data()
+    _, raw, ids, _ = data
+    scale = 1.0 / np.sqrt(CTR_DIM)
+    rows0 = np.random.RandomState(0).uniform(
+        -scale, scale, (CTR_ROWS, CTR_DIM)).astype(np.float32)
+    torch.manual_seed(0)
+    tower0 = CtrDnn.build()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gpu = ctr_run("cuda", data, rows0, tower0)
+    gpu_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cpu = ctr_run("cpu", data, rows0, tower0)
+    touched = torch.as_tensor(np.unique(ids))
+    t_g, t_c = gpu["table"], cpu["table"]
+    w_g = t_g.weight
+    check(close(w_g.cpu()[touched], t_c.weight[touched]),
+          "phase 27 (b): the touched rows differ from the CPU run's")
+    for k in ("m", "v"):
+        check(close(t_g.state[k].cpu()[touched], t_c.state[k][touched]),
+              f"phase 27 (b): the touched rows' {k} differ from the CPU's")
+    check(torch.equal(t_g.state["t"].cpu(), t_c.state["t"]),
+          "phase 27 (b): the per-row step counts differ from the CPU's")
+    mask = torch.ones(CTR_ROWS, dtype=torch.bool)
+    mask[touched] = False
+    check(torch.equal(w_g.cpu()[mask], torch.as_tensor(rows0)[mask]),
+          "phase 27 (b): an untouched row changed")
+    h_g, h_c = gpu["hashed"], cpu["hashed"]
+    check(gpu["peak_rows"] > CTR_HASH_ROWS,
+          f"phase 27 (b): the hashed table did not grow past "
+          f"{CTR_HASH_ROWS} rows")
+    check(h_g._slot_of == h_c._slot_of and h_g._free == h_c._free and
+          h_g.rows == h_c.rows, "phase 27 (b): the hashed table's slot map "
+          "after shrink differs from the CPU run's")
+    live = torch.as_tensor(sorted(h_g._slot_of.values()))
+    check(close(h_g.weight.cpu()[live], h_c.weight[live]),
+          "phase 27 (b): the hashed table's live rows differ from the CPU's")
+    g_g, g_c = gpu["geo"], cpu["geo"]
+    check(g_g._slot_of == g_c._slot_of and
+          close(g_g.weight.cpu(), g_c.weight),
+          "phase 27 (b): the geo table differs from the CPU run's")
+    save_dir = os.path.join(MP_DIR, "ctr_table")
+    t_g.save(save_dir)
+    back = ps.SparseTable("ctr", CTR_ROWS, CTR_DIM, optimizer="adam",
+                          lr=CTR_LR, initializer=lambda s, d: rows0,
+                          mesh=build_mesh(dp=4, sharding=2,
+                                          devices=["cpu"] * 8))
+    back.load(save_dir)
+    check(torch.equal(back.weight, w_g.cpu()) and
+          torch.equal(back.state["t"], t_g.state["t"].cpu()),
+          "phase 27 (b): the card's saved table loads on the CPU changed")
+    losses = gpu["losses"]
+    check(all(np.isfinite(losses)), f"phase 27 (b): losses {losses}")
+    n_ids = CTR_B * CTR_SLOTS
+    print(f"phase 27 (b) CTR-DNN parameter server: table {CTR_ROWS} x "
+          f"{CTR_DIM} Adam lr {CTR_LR} on a dp=4 sharding=2 mesh of this "
+          f"card ({'sharded' if t_g.sharded else 'replicated'}: "
+          f"{CTR_ROWS} rows do not divide over 2), {CTR_SLOTS} slots + "
+          f"{CTR_DENSE} dense, fc {'-'.join(map(str, CTR_FC))}, batch "
+          f"{CTR_B}, {CTR_STEPS} steps in {gpu_s:.1f} s; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; pulls/s "
+          f"{CTR_STEPS / gpu['pull_s']:.1f} "
+          f"({n_ids * CTR_STEPS / gpu['pull_s']:.0f} ids/s), pushes/s "
+          f"{CTR_STEPS / gpu['push_s']:.1f} "
+          f"({n_ids * CTR_STEPS / gpu['push_s']:.0f} ids/s); "
+          f"{len(touched)} rows touched equal the CPU run's (rtol "
+          f"{CTR_RTOL}), m/v/t too, the rest bit-identical; hashed table "
+          f"{CTR_HASH_ROWS} -> {gpu['peak_rows']} rows, shrink(ttl="
+          f"{CTR_TTL}) evicted {gpu['evicted']}, slot map equal to the "
+          f"CPU's ({h_g.size} live); geo (2 workers, interval "
+          f"{CTR_GEO_INTERVAL}) equal to the CPU's; saved on the card, "
+          f"loaded on the CPU equal; peak_gb {peak:.2f} [{card}]",
+          flush=True)
+
+
+def fault_resume_phase(card):
+    """(c) and (d): the port's fault-recovery worker on the card (a clean
+    run and a run killed after epoch 3, side by side, then a resume), and
+    beside them the launcher's abort-all (a worker exits 7 after 2 s, the
+    other sleeps 120 s)."""
+    import numpy as np
+    worker = os.path.join(HERE, "tests", "torch_fault_recovery_worker.py")
+    root = os.path.join(MP_DIR, "fault")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+    def start(ckpt, out, kill=-1):
+        env = dict(os.environ, DEVICE="gpu",
+                   PADDLE_RUNNING_ENV="PADDLE_EDL_AUTO_CHECKPOINT",
+                   PADDLE_CHECKPOINT_DIR=os.path.join(root, ckpt),
+                   OUT_PATH=os.path.join(root, out),
+                   KILL_AFTER_EPOCH=str(kill))
+        return subprocess.Popen([sys.executable, worker], env=env, cwd=HERE,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def finish(proc, timeout=120):
+        out, err = proc.communicate(timeout=timeout)
+        return proc.returncode, out, err
+
+    import threading
+    t0 = time.perf_counter()
+    abort = subprocess.Popen(launch_cmd(
+        "--nproc_per_node", "2",
+        os.path.join(HERE, "tests", "multiprocess_worker_abort.py")),
+        cwd=HERE, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
+    # the launcher's own clock: its exit is read as it happens, while (c)
+    # runs beside it
+    exited = {}
+
+    def watch():
+        abort.wait()
+        exited["s"] = time.perf_counter() - t0
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    clean, killed = start("ck_clean", "clean.npz"), start(
+        "ck_fault", "fault.npz", kill=3)
+    rc, out, err = finish(clean)
+    check(rc == 0 and "DONE" in out,
+          f"phase 27 (c): the clean run failed: {err[-2000:]}")
+    rc, out, err = finish(killed)
+    check(rc == 137 and "EPOCH 3" in out,
+          f"phase 27 (c): the killed run exited {rc}: {err[-2000:]}")
+    rc, out, err = finish(start("ck_fault", "fault.npz"))
+    check(rc == 0, f"phase 27 (c): the resume failed: {err[-2000:]}")
+    first = out.splitlines()[0]
+    check(first.startswith("EPOCH 3"),
+          f"phase 27 (c): the resume started at {first!r}, not epoch 3")
+    a = np.load(os.path.join(root, "clean.npz"))
+    b = np.load(os.path.join(root, "fault.npz"))
+    worst = max(float(np.max(np.abs(a[k] - b[k]) / (np.abs(a[k]) + 1e-30)))
+                for k in a.files)
+    check(sorted(a.files) == sorted(b.files) and
+          all(np.allclose(b[k], a[k], rtol=1e-6, atol=0) for k in a.files),
+          f"phase 27 (c): the resumed weights differ from the clean run's "
+          f"(worst relative {worst:.3g})")
+    print(f"phase 27 (c) kill and resume on the card: killed after epoch "
+          f"3 (exit 137), resumed at epoch 3, final weights equal the "
+          f"clean run's (worst relative {worst:.3g}, rtol 1e-6); the "
+          f"three runs in {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    watcher.join(timeout=max(90 - (time.perf_counter() - t0), 1))
+    if watcher.is_alive():
+        abort.kill()
+        watcher.join()
+    _, err = abort.communicate(timeout=30)
+    wall = exited["s"]
+    check(abort.returncode == 7, f"phase 27 (d): the launcher exited "
+          f"{abort.returncode}, not 7: {err[-1000:]}")
+    check("aborting all workers" in err,
+          "phase 27 (d): no 'aborting all workers' on the launcher's stderr")
+    check(wall < 60, f"phase 27 (d): the launcher took {wall:.1f} s")
+    print(f"phase 27 (d) abort-all: exit 7 {wall:.1f} s after the "
+          f"launcher's start, 'aborting all workers' [{card}]", flush=True)
+
+
+def multiprocess_phase(card, fa):
+    """Phase 27: the multi-process and parameter-server forms (module
+    docstring).  Returns the flash launches of (a)."""
+    t0 = time.perf_counter()
+    launches = mp_train_phase(card, fa)
+    t1 = time.perf_counter()
+    ps_phase(card)
+    t2 = time.perf_counter()
+    fault_resume_phase(card)
+    print(f"phase 27 parts: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c) and (d) {time.perf_counter() - t2:.1f} s; phase 27 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def finish_line(card):
     """The card line and the last line; returns the exit code 0."""
     import torch
@@ -6752,6 +7236,14 @@ def main(argv):
               "phase 26 launched a kernel")
         print(f"phase 26 (the data pipeline and the high-level API) done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return finish_line(card)
+    if "--multiprocess" in argv:
+        for name in ("flash_attention_sm90", "flash_attention"):
+            _build.load(name)
+        zero_flash_counts(fa)
+        multiprocess_phase(card, fa)
+        print(f"phase 27 (the multi-process and parameter-server forms) "
+              f"done at {time.perf_counter() - t_start:.1f} s", flush=True)
         return finish_line(card)
     if "--nn" in argv:
         for name in ("flash_attention_sm90", "flash_attention"):
@@ -6910,6 +7402,14 @@ def main(argv):
           sum(ragged_counts(ragged_mod).values()) == 0,
           "phase 26 launched a kernel")
     lap("26 (the data pipeline and the high-level API)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_flash_counts(fa)
+    for name, n in multiprocess_phase(card, fa).items():
+        flash_launches[name] += n
+    check(sum(ragged_counts(ragged_mod).values()) == 0,
+          "phase 27 launched a ragged kernel")
+    lap("27 (the multi-process and parameter-server forms)")
 
     f32 = kres["float32"]
     kernels = [{

@@ -67,6 +67,7 @@ from . import metric  # noqa: E402,F401
 from . import hapi  # noqa: E402,F401
 from . import reader  # noqa: E402,F401
 from . import framework  # noqa: E402,F401
+from . import incubate  # noqa: E402,F401
 from .framework.io import save, load  # noqa: E402,F401
 from .batch import batch  # noqa: E402,F401
 from .hapi import callbacks  # noqa: E402,F401

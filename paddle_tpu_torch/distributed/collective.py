@@ -2,9 +2,9 @@
 ``paddle_tpu/distributed/collective.py``.
 
 The JAX package lowers its collectives to XLA ops on named mesh axes
-inside ``shard_map``.  The port drives every rank from one process (see
-``distributed/mesh.py``), so a collective is a function of the ranks'
-parts, ``parts[i]`` on ``devices[i]``:
+inside ``shard_map``.  The port drives every rank of a process from that
+process (see ``distributed/mesh.py``), so a collective is a function of
+the ranks' parts, ``parts[i]`` on ``devices[i]``:
 
 * the serving pair, ``all_reduce_sum`` / ``all_gather(parts, dim,
   devices)`` (rank order, one
@@ -38,6 +38,26 @@ results when first run, and the recomputation takes them back in order
 collective's backward).  The parts meet outside any saved-tensor hook or
 dispatch mode of the thread they meet in, so no recomputation owns them.
 
+Over a mesh that spans processes (``distributed/mesh.py``) each process
+runs only its own ranks.  Where an exchange meets a group that spans
+processes, the local parts combine first, one call of the process
+transport (``distributed/process.py``) then crosses processes, and the
+result goes back to the local ranks.  The training collectives' cross
+forms are ``torch.autograd.Function``\\ s whose backward crosses too: the
+all-reduce's backward is an all-reduce, the all-gather's a
+reduce-scatter, ``p2p_shift``'s the opposite shift (profiler labels
+``process.all_reduce`` / ``process.all_gather`` /
+``process.reduce_scatter`` / ``process.p2p``).  Any other exchange
+crosses as its parts gathered to every process, which then runs the
+one-process combine, and refuses a value that needs a gradient.  Every
+process must run the same collectives in the same order, forward and
+backward: each crossing carries its group's sequence number, checked on
+both sides, so that a mismatch raises and names both calls.  Every
+process calls ``run_ranks`` at the same points (with or without ranks of
+its own to run), and over a mesh spanning processes the call's base seed
+is the mesh's first process's: rank ``r``'s random stream comes from that
+base and ``r`` alone, so it is the same whichever process runs ``r``.
+
 The paddle API (``all_reduce``, ``all_gather``, ``broadcast``,
 ``reduce``, ``scatter``, ``reduce_scatter``, ``alltoall``, ``p2p_shift``,
 ``barrier``) acts over the ``group`` axis (default: the axis of the
@@ -54,6 +74,8 @@ import threading
 
 import torch
 from torch.utils._python_dispatch import _disable_current_modes
+
+from . import process
 
 
 # -- the serving pair (no autograd: the serving tick runs under no_grad) --
@@ -206,6 +228,195 @@ def scatter_reduce_parts(parts, dim, devices=None):
     return list(_ReduceScatter.apply(dim, devices, *parts))
 
 
+# -- across processes ------------------------------------------------------
+class _Span:
+    """Where a group's ranks live: ``procs`` (sorted), ``positions[p]``
+    the group positions of process ``p``'s ranks, ``local`` this
+    process's; ``key`` names the group's sequence."""
+
+    def __init__(self, mesh, group):
+        self.group = tuple(group)
+        self.procs = mesh.procs_of(group)
+        self.positions = {p: [i for i, r in enumerate(group)
+                              if mesh.procs[r] == p] for p in self.procs}
+        self.local = self.positions[mesh.process]
+        self.key = ("group",) + self.group
+
+
+def _gather_group(parts, span, name):
+    """Every rank's part of the group (equal shapes), in group order, on
+    ``parts[0]``'s device: this process's parts go across in one call."""
+    dev = parts[0].device
+    width = max(len(v) for v in span.positions.values())
+    flat = [p.reshape(-1).to(dev) for p in parts]
+    numel = flat[0].numel()
+    pad = width - len(flat)
+    if pad:
+        flat.append(flat[0].new_zeros(pad * numel))
+    got = process.all_gather(torch.cat(flat), span.procs, key=span.key,
+                             name=name)
+    out = [None] * len(span.group)
+    for p, buf in zip(span.procs, got):
+        for j, pos in enumerate(span.positions[p]):
+            out[pos] = buf[j * numel:(j + 1) * numel].view(parts[0].shape)
+    return out
+
+
+class _XAllReduce(torch.autograd.Function):
+    """The sum over a group spanning processes: local parts summed, one
+    cross-process all-reduce, one private result a local rank; the
+    backward is the same."""
+
+    @staticmethod
+    def forward(ctx, span, devices, *parts):
+        ctx.span, ctx.devices = span, devices
+        acc = process.all_reduce(_sum_on(parts, devices[0]), span.procs,
+                                 key=span.key, name="all_reduce[sum]")
+        return tuple(_per_rank(acc, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        span = ctx.span
+        acc = process.all_reduce(_sum_on(grads, ctx.devices[0]), span.procs,
+                                 key=span.key,
+                                 name="all_reduce[sum].backward")
+        return (None, None) + tuple(_per_rank(acc, ctx.devices))
+
+
+class _XAllGather(torch.autograd.Function):
+    """The group's parts concatenated on ``dim`` across processes; the
+    backward is the reduce-scatter (the local cotangents summed, one
+    cross-process sum, each local rank its piece)."""
+
+    @staticmethod
+    def forward(ctx, dim, span, devices, *parts):
+        ctx.dim, ctx.span, ctx.devices = dim, span, devices
+        ctx.sizes = [parts[0].shape[dim]] * len(span.group)
+        full = torch.cat(_gather_group(parts, span, f"all_gather[{dim}]"),
+                         dim=dim)
+        return tuple(_per_rank(full, devices))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        span = ctx.span
+        acc = process.all_reduce(_sum_on(grads, ctx.devices[0]), span.procs,
+                                 key=span.key, kind="reduce_scatter",
+                                 name=f"all_gather[{ctx.dim}].backward")
+        pieces = acc.split(ctx.sizes, dim=ctx.dim)
+        return (None, None, None) + tuple(
+            _to(pieces[i], d).clone() for i, d in zip(span.local,
+                                                      ctx.devices))
+
+
+def _shift_group(parts, span, shift, name):
+    """Position ``i``'s result is position ``i - shift``'s part, on the
+    local parts' devices: a source in this process is copied, each other
+    one crosses by ``process.p2p`` from its process to this one alone."""
+    n = len(span.group)
+    owner = {pos: p for p, ps in span.positions.items() for pos in ps}
+    me = process.index()
+    mine = dict(zip(span.local, parts))
+    sends = [(t, owner[(j + shift) % n], (j, (j + shift) % n))
+             for j, t in mine.items() if owner[(j + shift) % n] != me]
+    recvs = [(owner[(i - shift) % n], ((i - shift) % n, i), t.device)
+             for i, t in mine.items() if owner[(i - shift) % n] != me]
+    got = iter(process.p2p(sends, recvs, span.procs, span.key, name))
+    return [_to(mine[(i - shift) % n], t.device).clone()
+            if owner[(i - shift) % n] == me else next(got)
+            for i, t in mine.items()]
+
+
+class _XShift(torch.autograd.Function):
+    """Ring shift over a group spanning processes: the rank at position
+    ``i`` gets position ``i - shift``'s part; the backward is the
+    opposite shift."""
+
+    @staticmethod
+    def forward(ctx, shift, span, *parts):
+        ctx.shift, ctx.span = shift, span
+        return tuple(_shift_group(parts, span, shift,
+                                  f"p2p_shift[{shift}]"))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(_shift_group(
+            grads, ctx.span, -ctx.shift,
+            f"p2p_shift[{ctx.shift}].backward"))
+
+
+def _devices_of(parts):
+    return [p.device for p in parts]
+
+
+def _cross_reduce(op):
+    def cross(span, parts):
+        devs = _devices_of(parts)
+        if op in ("sum", "avg"):
+            outs = list(_XAllReduce.apply(span, devs, *parts))
+            n = len(span.group)
+            return [o / n for o in outs] if op == "avg" else outs
+        _no_grad(parts, f"all_reduce[{op}]")
+        red = reduce_parts(parts, devs, op)[0]
+        red = process.all_reduce(red, span.procs, op=op, key=span.key,
+                                 name=f"all_reduce[{op}]")
+        return [_to(red, d).clone() for d in devs]
+    return cross
+
+
+def _cross_gather(dim):
+    def cross(span, parts):
+        return list(_XAllGather.apply(dim, span, _devices_of(parts), *parts))
+    return cross
+
+
+def _cross_shift(shift):
+    def cross(span, parts):
+        return list(_XShift.apply(shift, span, *parts))
+    return cross
+
+
+def _no_grad(value, name):
+    if any(t.requires_grad for t in _tensors(value)):
+        raise NotImplementedError(
+            f"{name} over a group spanning processes crosses without a "
+            "gradient; this value needs one")
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def _moved(x, dev):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_moved(v, dev) for v in x)
+    return x
+
+
+def _cross_generic(combine, name):
+    """Any other exchange across processes: every part gathered to every
+    process (no gradient), the one-process ``combine`` run on them, each
+    local rank its output."""
+    def cross(span, parts):
+        _no_grad(parts, name)
+        got = process.all_gather_object(_moved(parts, "cpu"), span.procs,
+                                        key=span.key, name=name)
+        dev = next((t.device for t in _tensors(parts)),
+                   torch.device("cpu"))
+        every = [None] * len(span.group)
+        for p, vals in zip(span.procs, got):
+            for pos, v in zip(span.positions[p], vals):
+                every[pos] = _moved(v, dev)
+        outs = combine(every)
+        return [outs[i] for i in span.local]
+    return cross
+
+
 # -- one thread a rank, in lockstep ---------------------------------------
 _tls = threading.local()
 
@@ -325,6 +536,8 @@ class _Lockstep:
         self.seq = {}
         self.error = None
         self.rng = {}
+        self.spans = {}
+        self.mesh = None
 
     # caller holds self.cv
     def _next(self):
@@ -345,8 +558,12 @@ class _Lockstep:
         if self.error is not None:
             raise _Aborted
 
-    def exchange(self, rank, group, value, combine, name):
+    def exchange(self, rank, group, value, combine, name, cross=None):
         group = tuple(group)
+        span = self.spans.get(group)
+        if span is None:
+            span = self.spans[group] = _Span(self.mesh, group)
+        local = [group[i] for i in span.local]
         with self.cv:
             n = self.seq.get((rank, group), 0)
             self.seq[rank, group] = n + 1
@@ -359,13 +576,17 @@ class _Lockstep:
                 self.cv.notify_all()
                 raise self.error
             slot["parts"][rank] = value
-            if len(slot["parts"]) == len(group):
-                parts = [slot["parts"][r] for r in group]
+            if len(slot["parts"]) == len(local):
+                parts = [slot["parts"][r] for r in local]
                 with _bare():
-                    outs = combine(parts)
-                slot["out"] = dict(zip(group, outs))
+                    if len(local) == len(group):
+                        outs = combine(parts)
+                    else:
+                        outs = (cross or _cross_generic(combine, name))(
+                            span, parts)
+                slot["out"] = dict(zip(local, outs))
                 slot["parts"] = None
-                self.waiting.difference_update(group)
+                self.waiting.difference_update(local)
             else:
                 self.waiting.add(rank)
                 self._save_rng(rank)
@@ -415,6 +636,7 @@ class _Lockstep:
             _tls.ctx = None
 
     def run(self, mesh, fns, ctxs, seeds):
+        self.mesh = mesh
         self.devices = {r: mesh.flat_devices[r] for r in fns}
         cuda_devs = sorted({d.index for d in self.devices.values()
                             if d.type == "cuda"})
@@ -453,19 +675,28 @@ class _Lockstep:
 
 def run_ranks(mesh, fns, axis=None, batch_split=False):
     """Run ``fns[r]()`` as rank ``r`` of ``mesh`` for every key ``r`` (a
-    flat rank), in lockstep (module docstring); returns ``{r: result}``.
-    Re-raises the first error of any rank."""
+    flat rank) this process holds, in lockstep (module docstring);
+    returns ``{r: result}``.  Re-raises the first error of any rank."""
+    fns = {r: f for r, f in fns.items() if mesh.is_local(r)}
     runner = _Lockstep(fns)
     ctxs = {r: RankContext(mesh, r, runner, axis=axis,
                            batch_split=batch_split) for r in fns}
     base = int(torch.randint(0, 2 ** 62, (1,)).item())
+    if mesh.spans_processes:
+        # the mesh's first process's base, so that a rank's stream is the
+        # same whichever process runs it
+        procs = mesh.procs_of(range(mesh.size))
+        mine = torch.tensor([base if process.index() == procs[0] else 0])
+        base = int(process.all_reduce(mine, procs, key=("run_ranks",),
+                                      name="run_ranks seed").item())
     seeds = {r: (base + 7919 * r) % (2 ** 63) for r in fns}
     return runner.run(mesh, fns, ctxs, seeds)
 
 
-def _collect(ctx, group, value, combine, name):
+def _collect(ctx, group, value, combine, name, cross=None):
     """``value`` meets the group's other parts (or, in a replayed region,
-    the recorded result comes back)."""
+    the recorded result comes back); ``cross`` is the exchange's form
+    across processes (default ``_cross_generic``)."""
     replaying = next((r for r in reversed(ctx.regions) if r.replay), None)
     if replaying is not None:
         out = _thaw(replaying.stash[replaying.cursor])
@@ -474,7 +705,8 @@ def _collect(ctx, group, value, combine, name):
         if ctx.runner is None:
             raise RuntimeError(
                 f"{name}: rank {ctx.rank} is not running under run_ranks")
-        out = ctx.runner.exchange(ctx.rank, group, value, combine, name)
+        out = ctx.runner.exchange(ctx.rank, group, value, combine, name,
+                                  cross)
     for r in ctx.regions:
         if not r.replay:
             r.stash.append(_freeze(out))
@@ -500,7 +732,7 @@ def mesh_all_reduce(x, axes, op="sum"):
     devs = ctx.devices(group)
     return _collect(ctx, group, x,
                     lambda parts: reduce_parts(parts, devs, op),
-                    f"all_reduce[{op}]")
+                    f"all_reduce[{op}]", _cross_reduce(op))
 
 
 def mesh_all_gather(x, dim, axes):
@@ -511,7 +743,7 @@ def mesh_all_gather(x, dim, axes):
     devs = ctx.devices(group)
     return _collect(ctx, group, x,
                     lambda parts: gather_parts(parts, dim, devs),
-                    "all_gather")
+                    "all_gather", _cross_gather(dim))
 
 
 def mesh_split(x, dim, axes):
@@ -569,7 +801,7 @@ def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     devs = ctx.devices(ranks)
     out = _collect(ctx, ranks, tensor,
                    lambda parts: reduce_parts(parts, devs, op),
-                   f"all_reduce[{op}]")
+                   f"all_reduce[{op}]", _cross_reduce(op))
     return _set(tensor, out)
 
 
@@ -586,12 +818,16 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True):
     devs = ctx.devices(ranks)
     full = _collect(ctx, ranks, tensor[None],
                     lambda parts: gather_parts(parts, 0, devs),
-                    "all_gather")
+                    "all_gather", _cross_gather(0))
     tensor_list.extend(full.unbind(0))
     return tensor_list
 
 
 def all_gather_object(obj_list, obj, group=None):
+    """Outside any rank, every process's ``obj`` (one process: ``obj``)."""
+    if current_rank() is None and process.count() > 1:
+        obj_list.extend(process.all_gather_object(obj))
+        return obj_list
     obj_list.append(obj)
     return obj_list
 
@@ -678,11 +914,14 @@ def p2p_shift(x, axis=None, shift=1):
     return _collect(ctx, ranks, x,
                     lambda parts: [_to(parts[(i - shift) % n], d)
                                    for i, d in enumerate(devs)],
-                    f"p2p_shift[{shift}]")
+                    f"p2p_shift[{shift}]", _cross_shift(shift))
 
 
 def barrier(group=None):
-    return None     # the lockstep orders every rank's work already
+    """Every process meets here (outside any rank); the lockstep orders
+    the ranks of one process already."""
+    if current_rank() is None:
+        process.barrier()
 
 
 def get_group(ring_id=0):
@@ -696,7 +935,10 @@ def parallel_region(fn, axis="dp", mesh=None, in_specs=None,
     acting over ``axis``.  ``in_specs`` / ``out_specs``: one spec a
     positional input / the output, ``(axis,)`` (the default) splitting or
     concatenating the leading dim over ``axis``, ``()`` replicating (the
-    output of the group's first rank)."""
+    output of the group's first rank).  Over a mesh spanning processes an
+    input may be a ``RankPieces`` (``mesh.host_local_to_global``), each
+    local rank taking its piece, and the output is the local ranks'
+    ``RankPieces``."""
     from . import mesh as mesh_mod
 
     def wrapped(*arrays):
@@ -707,14 +949,21 @@ def parallel_region(fn, axis="dp", mesh=None, in_specs=None,
                  else [ispec] * len(arrays))
         n = m.axis_size(axis)
         fns = {}
-        for r in range(m.size):
+        for r in m.local_ranks:
             i = m.coords(r)[axis]
             dev = m.flat_devices[r]
-            args = [torch.as_tensor(a).chunk(n)[i].to(dev) if s
+            args = [a.pieces[r] if isinstance(a, mesh_mod.RankPieces)
+                    else torch.as_tensor(a).chunk(n)[i].to(dev) if s
                     else torch.as_tensor(a).to(dev)
                     for a, s in zip(arrays, specs)]
             fns[r] = (lambda a=args: fn(*a))
         outs = run_ranks(m, fns, axis=axis)
+        if m.spans_processes:
+            one = next(iter(outs.values()))
+            shape = ((one.shape[0] * n,) + tuple(one.shape[1:]) if ospec
+                     else tuple(one.shape))
+            return mesh_mod.RankPieces(shape, (axis,) if ospec else (), m,
+                                       outs)
         row = m.group(0, axis)
         if ospec:
             return torch.cat([outs[r].to(m.flat_devices[0]) for r in row])

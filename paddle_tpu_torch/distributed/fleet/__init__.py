@@ -14,7 +14,9 @@ hybrid ``DeviceMesh`` from ``hybrid_configs`` over the given devices
 ``meta_optimizers`` step for ``adaptive_localsgd`` / ``localsgd`` /
 ``dgc`` / ``fp16_allreduce``, else ``TrainStep``, which maps amp,
 sharding, the hybrid axes, the pipeline and gradient merge itself.
-``utils.recompute`` is the dygraph recompute.
+``utils.recompute`` is the dygraph recompute.  ``util`` (a ``UtilBase``)
+and ``metrics`` aggregate over the job's processes; ``fs`` and the data
+generators are the JAX package's.
 """
 from __future__ import annotations
 
@@ -169,9 +171,26 @@ def save_persistables(model, dirname, **kwargs):
     save_sharded(model.state_dict(), os.path.join(dirname, "persistables"))
 
 
+# -- 1.x-visible classes & modules ----------------------------------------
+from .util import UtilBase  # noqa: E402,F401
+from .data_generator import (  # noqa: E402,F401
+    DataGenerator, MultiSlotDataGenerator, MultiSlotStringDataGenerator)
+from . import util as metrics  # noqa: E402,F401
+from . import data_generator, fs  # noqa: E402,F401
+
+# fleet.util — UtilBase singleton attribute (reference: fleet_base.py
+# exposes `util` as a property on the fleet object, so user code writes
+# `fleet.util.all_reduce(...)`)
+util = UtilBase()
+_util_instance = util
+
+
 class Fleet:
     """Class facade over this module's singleton state (the reference's
     ``fleet`` object is a Fleet instance)."""
+
+    def __init__(self):
+        self.util = _util_instance
 
     def init(self, role_maker=None, is_collective=True, strategy=None,
              devices=None):

@@ -2,12 +2,14 @@
 ``paddle_tpu/distributed/fleet/role_maker.py`` (reference:
 fleet/base/role_maker.py:357,528,875).
 
-The port is one controller process: without the ``PADDLE_*`` launcher
-variables the worker index is 0 and the worker count 1.
+The ``PADDLE_*`` launcher variables name the worker; without them, the
+job's process index and count (``distributed/process.py``).
 """
 from __future__ import annotations
 
 import os
+
+from .. import process
 
 
 class Role:
@@ -33,16 +35,18 @@ class RoleMakerBase:
 
 class PaddleCloudRoleMaker(RoleMakerBase):
     """Reads ``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM`` like the
-    reference; without them, the one process."""
+    reference; falls back to the job's process index and count."""
 
     def __init__(self, is_collective=True, **kwargs):
         self._is_collective = is_collective
 
     def _worker_index(self):
-        return int(os.environ.get("PADDLE_TRAINER_ID", 0))
+        env = os.environ.get("PADDLE_TRAINER_ID")
+        return int(env) if env is not None else process.index()
 
     def _worker_num(self):
-        return int(os.environ.get("PADDLE_TRAINERS_NUM", 1))
+        env = os.environ.get("PADDLE_TRAINERS_NUM")
+        return int(env) if env is not None else process.count()
 
     def _is_server(self):
         return False

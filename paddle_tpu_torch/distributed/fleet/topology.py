@@ -2,11 +2,12 @@
 ``paddle_tpu/distributed/fleet/topology.py`` (reference:
 HybridCommunicateGroup — rank <-> (dp, sharding, pp, mp) coordinates).
 The port's ``DeviceMesh`` is the topology; this exposes its axis sizes.
-Ranks are process-level, and the one controller process is rank 0 of
-every group."""
+Ranks are process-level, as in the JAX package: the data-parallel rank
+is the process index (one process drives many devices)."""
 from __future__ import annotations
 
 from .. import mesh as mesh_mod
+from .. import process
 
 
 class HybridCommunicateGroup:
@@ -29,7 +30,7 @@ class HybridCommunicateGroup:
         return self._mesh.axis_size("sp")
 
     def get_data_parallel_rank(self):
-        return 0
+        return process.index()
 
     def get_model_parallel_rank(self):
         return 0

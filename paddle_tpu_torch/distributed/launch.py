@@ -1,13 +1,35 @@
-"""The serving half of the launcher (a copy of the serving half of
-``paddle_tpu/distributed/launch.py``): spawn an N-process fleet of
-``paddle_tpu_torch.serving.httpd`` replicas on local ports and keep a
-handle over it (``spawn_serving_fleet`` / ``ServingFleet``).  The
-training launcher (``launch_main``) is not ported yet (ROADMAP.md Queue
-A 12).
+"""The launcher — a copy of ``paddle_tpu/distributed/launch.py``.
+
+Reference parity: ``python -m paddle.distributed.launch``
+(``fleet/launch.py:334``), which spawns one process per GPU and wires the
+PADDLE_* env contract, with abort-on-failure monitoring
+(``launch_utils.py:526``).  Usage:
+
+    python -m paddle_tpu_torch.distributed.launch --nnodes N \
+        --node_rank I --master ADDR:PORT train.py [args...]
+
+One process a node drives every local card; the launcher sets the env
+contract, joins the job (``distributed/process.py``:
+``torch.distributed.init_process_group``, where the JAX package calls
+``jax.distributed.initialize``) and runs the training script.
+``--nproc_per_node`` > 1 spawns that many local worker processes
+instead (processes sharing a card, CPU meshes, the reference's
+multi-process test idiom — test_dist_base.py:668), each re-entering this
+module in single-process mode, with ``--log_dir`` giving each its
+``workerlog.N`` file and ``--devices_per_proc N`` giving each N CPU ranks
+(``PADDLE_DEVICES_PER_PROC``), and watches them with the reference's
+abort-all loop: the first worker that exits non-zero terminates every
+other and the launcher exits with its code.
+
+The serving half spawns an N-process fleet of
+``paddle_tpu_torch.serving.httpd`` replicas on local ports and keeps a
+handle over it (``spawn_serving_fleet`` / ``ServingFleet``).
 """
 from __future__ import annotations
 
+import argparse
 import os
+import runpy
 import signal
 import socket
 import subprocess
@@ -31,12 +53,15 @@ def _reserve_port():
     return s
 
 
-def _worker_env():
-    """Per-worker env for spawned replicas: the parent's environment,
+def _worker_env(devices_per_proc=None):
+    """Per-worker env for spawned processes: the parent's environment,
     with the directory holding ``paddle_tpu_torch`` first on
-    ``PYTHONPATH`` so ``python -m paddle_tpu_torch.serving.httpd``
-    resolves from any working directory."""
+    ``PYTHONPATH`` so ``python -m paddle_tpu_torch...`` resolves from any
+    working directory, and ``PADDLE_DEVICES_PER_PROC`` when a worker runs
+    that many CPU ranks."""
     env = dict(os.environ)
+    if devices_per_proc:
+        env["PADDLE_DEVICES_PER_PROC"] = str(int(devices_per_proc))
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     parts = [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p]
@@ -316,3 +341,130 @@ def spawn_serving_fleet(n, config="tiny", mp=1, dp=1, device="cuda",
                     "/healthz")
             time.sleep(0.2)
     return fleet
+
+
+def _spawn_and_watch(args):
+    """Spawn ``nproc_per_node`` local workers and watch them (reference
+    launch_utils.py:526 ``watch_local_trainers``): any child failure
+    aborts the whole job; the launcher's exit code is the first failing
+    child's."""
+    world = args.nnodes * args.nproc_per_node
+    reserved = None
+    if args.master:
+        master = args.master
+    else:
+        # hold the probed port until the workers are spawning, so that a
+        # concurrent launch cannot take it in between
+        reserved = _reserve_port()
+        master = f"127.0.0.1:{reserved.getsockname()[1]}"
+    if args.log_dir:
+        os.makedirs(args.log_dir, exist_ok=True)
+    procs, logs = [], []
+    if reserved is not None:
+        # released as late as possible: rank 0's store binds the port in
+        # the first child (SO_REUSEADDR on the probe keeps that instant)
+        reserved.close()
+    for local in range(args.nproc_per_node):
+        rank = args.node_rank * args.nproc_per_node + local
+        env = _worker_env(args.devices_per_proc)
+        env["PADDLE_TRAINERS_NUM"] = str(world)
+        env["PADDLE_TRAINER_ID"] = str(rank)
+        env["PADDLE_TRAINER_ENDPOINTS"] = master
+        env["PADDLE_LOCAL_RANK"] = str(local)
+        # children re-enter this module in single-process mode (the env
+        # contract above carries the topology)
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nnodes", str(world), "--node_rank", str(rank),
+               "--master", master, args.script] + list(args.script_args)
+        if args.log_dir:
+            f = open(os.path.join(args.log_dir, f"workerlog.{rank}"), "w")
+            logs.append(f)
+            procs.append(subprocess.Popen(cmd, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT))
+        else:
+            procs.append(subprocess.Popen(cmd, env=env))
+
+    def _terminate_all(sig=signal.SIGTERM, grace=10.0):
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    p.send_signal(sig)
+                except ProcessLookupError:
+                    pass
+        deadline = time.monotonic() + grace
+        for p in procs:
+            while p.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.1)
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    def _forward(signum, frame):
+        _terminate_all()
+        sys.exit(128 + signum)
+
+    signal.signal(signal.SIGTERM, _forward)
+    signal.signal(signal.SIGINT, _forward)
+    try:
+        while True:
+            alive = False
+            for p in procs:
+                code = p.poll()
+                if code is None:
+                    alive = True
+                elif code != 0:
+                    # reference abort-all: one dead trainer kills the job
+                    sys.stderr.write(
+                        f"launch: local worker pid {p.pid} exited with "
+                        f"code {code}; aborting all workers\n")
+                    _terminate_all()
+                    return code
+            if not alive:
+                return 0
+            time.sleep(0.2)
+    finally:
+        for f in logs:
+            f.close()
+
+
+def launch_main(argv=None):
+    parser = argparse.ArgumentParser("paddle_tpu_torch.distributed.launch")
+    parser.add_argument("--nnodes", type=int,
+                        default=int(os.environ.get("PADDLE_TRAINERS_NUM",
+                                                   "1")))
+    parser.add_argument("--node_rank", type=int,
+                        default=int(os.environ.get("PADDLE_TRAINER_ID",
+                                                   "0")))
+    parser.add_argument("--master",
+                        default=os.environ.get("MASTER_ADDR_PORT", ""))
+    parser.add_argument("--nproc_per_node", type=int, default=1,
+                        help="local worker processes; 1 = one process "
+                             "driving every local card")
+    parser.add_argument("--log_dir", default=None,
+                        help="per-rank workerlog.N files (reference "
+                             "launch_utils.py log naming)")
+    parser.add_argument("--devices_per_proc", type=int, default=None,
+                        help="run each worker on this many CPU ranks "
+                             "(PADDLE_DEVICES_PER_PROC)")
+    parser.add_argument("script")
+    parser.add_argument("script_args", nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+
+    if args.nproc_per_node > 1:
+        sys.exit(_spawn_and_watch(args))
+
+    os.environ["PADDLE_TRAINERS_NUM"] = str(args.nnodes)
+    os.environ["PADDLE_TRAINER_ID"] = str(args.node_rank)
+    if args.master:
+        os.environ["PADDLE_TRAINER_ENDPOINTS"] = args.master
+    if args.devices_per_proc:
+        os.environ["PADDLE_DEVICES_PER_PROC"] = str(args.devices_per_proc)
+    if args.nnodes > 1:
+        from . import process
+        process.init()
+    sys.argv = [args.script] + list(args.script_args)
+    runpy.run_path(args.script, run_name="__main__")
+
+
+if __name__ == "__main__":
+    launch_main()

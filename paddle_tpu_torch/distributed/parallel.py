@@ -1,14 +1,18 @@
 """Data parallel and the parallel environment — counterpart of
 ``paddle_tpu/distributed/parallel.py``.
 
-The port is one controller process driving every rank of a mesh
-(``distributed/mesh.py``), as the JAX package's one process drives its
-devices: ``get_rank`` is that process's index (0), ``get_world_size``
-the process mesh's data-parallel degree.  ``DataParallel`` is a marker
-wrapper: ``TrainStep`` unwraps it and splits the batch over the data
-axes, where the gradients are summed (no Reducer).  ``spawn`` would
-start one process a rank: that multi-process form is ROADMAP Queue
-A 12's.
+``init_parallel_env`` joins the job the launcher's env contract names
+(``distributed/process.py``: ``torch.distributed.init_process_group``
+over a TCP store at the first trainer endpoint, with an explicit
+timeout, gloo or NCCL by topology), where the JAX package calls
+``jax.distributed.initialize``, and builds the process mesh, which spans
+every process's devices.  ``get_rank`` is the process's index
+(``jax.process_index``), ``get_world_size`` the process mesh's
+data-parallel degree.  ``DataParallel`` is a marker wrapper: ``TrainStep``
+unwraps it and splits the batch over the data axes, where the gradients
+are summed (no Reducer).  ``spawn`` calls ``func`` in this process, as
+the JAX package's does: one process drives every local device, and the
+launcher starts one process a node (``--nproc_per_node`` more).
 """
 from __future__ import annotations
 
@@ -18,16 +22,21 @@ import os
 from torch import nn
 
 from . import mesh as mesh_mod
+from . import process
 
 
 def init_parallel_env():
-    """The process mesh over every card (``ensure_mesh``)."""
+    """reference: python/paddle/distributed/parallel.py:57.  Joins the
+    job (a failed init raises; ``PADDLE_DIST_TIMEOUT_S``, 60 s by
+    default, bounds the join and every later collective) and sets the
+    process mesh over every process's devices (``ensure_mesh``)."""
+    process.init()
     mesh_mod.ensure_mesh()
     return ParallelEnv()
 
 
 def get_rank(group=None):
-    return 0
+    return process.index()
 
 
 def get_world_size(group=None):
@@ -99,7 +108,7 @@ class DataParallel(nn.Module):
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
-    raise NotImplementedError(
-        "distributed.spawn starts one process a rank; the port drives every "
-        "rank from one process (build a mesh and use TrainStep), and the "
-        "multi-process form is not ported yet (ROADMAP Queue A 12)")
+    """reference: distributed/spawn.py.  One process drives every local
+    device, so spawn is a direct call, as in the JAX package; several
+    processes come from the launcher (``distributed/launch.py``)."""
+    func(*args)

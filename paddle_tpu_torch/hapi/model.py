@@ -38,9 +38,20 @@ from ..parallel.train_step import TrainStep
 from . import callbacks as cbks_mod
 
 
-def _metric_to_host(outs):
+def _metric_to_host(outs, across=False):
     """The step's metric outputs (lists of torch tensors on the device)
-    as numpy, through one device-to-host copy of all of them."""
+    as numpy, through one device-to-host copy of all of them.  With
+    ``across`` (a local batch's outputs over a mesh spanning processes)
+    every process's outputs are gathered and joined along the batch, as
+    the JAX package all-gathers a multi-host array's."""
+    if across:
+        from ..distributed import process
+        mine = _metric_to_host(outs)
+        every = process.all_gather_object(mine, key=("metrics",),
+                                          name="metric inputs")
+        return [[np.concatenate([e[i][j] for e in every])
+                 if np.ndim(x) else x for j, x in enumerate(mo)]
+                for i, mo in enumerate(mine)]
     flat = [x for mo in outs for x in mo]
     ts = [x for x in flat if isinstance(x, torch.Tensor)]
     if not ts:
@@ -110,6 +121,14 @@ class Model:
             self.network.train()
         else:
             self.network.eval()
+
+    @staticmethod
+    def _spans_processes():
+        """Whether the process mesh spans processes: then each process
+        evaluates its local batch, and the metrics see every process's."""
+        from ..distributed import mesh as mesh_mod
+        mesh = mesh_mod.get_mesh()
+        return mesh is not None and getattr(mesh, "spans_processes", False)
 
     def _device(self):
         for _, p in torch_named_parameters(self.network):
@@ -197,11 +216,12 @@ class Model:
             with torch.no_grad():
                 if self._loss is not None and labs:
                     losses.append(float(self._loss(out, *labs)))
+                across = self._spans_processes()
                 for m in self._metrics:
                     mo = m.compute(out, *labs)
                     mo = list(mo) if isinstance(mo, (list, tuple)) \
                         else [mo]
-                    m.update(*_metric_to_host([mo])[0])
+                    m.update(*_metric_to_host([mo], across)[0])
         finally:
             self.mode = prev
         return losses, _wrap(out)

@@ -14,9 +14,9 @@ engine's numpy's, so the two shuffle differently; they agree on the
 records as a multiset, and unshuffled in order.
 
 ``global_shuffle`` shards by the data-parallel rank and world of
-``distributed.parallel``.  The port runs in one process: a
-``torch.distributed`` world of more than one process raises, naming
-ROADMAP Queue A 12d (the multi-process forms).
+``distributed.parallel``; over several processes it first all-gathers a
+record digest (``distributed/process.py``) and raises when the
+processes hold different records, as the JAX package does.
 
 Schema: ``set_use_var([...])`` declares the slots; each text line holds the
 concatenated values of all slots for one record (label slots included),
@@ -191,8 +191,8 @@ class InMemoryDataset:
         permutation only partitions correctly when all ranks agree on the
         full set.  Ranks with unequal local data need the reference's
         record-exchange semantics, which this redesign deliberately
-        replaces.  The JAX package enforces it across hosts with a record
-        digest; the port runs in one process (module docstring)."""
+        replaces.  Enforced across processes via a record digest when the
+        job has more than one."""
         from ..distributed import parallel as dist_parallel
         rank = dist_parallel.get_rank()
         world = dist_parallel.get_world_size()
@@ -203,15 +203,28 @@ class InMemoryDataset:
         self._engine.shard(rank, world)
 
     def _check_identical_records(self):
-        """The JAX package all-gathers a record digest over its hosts
-        here; the port has one process, and refuses more."""
-        import torch.distributed as tdist
-        if tdist.is_available() and tdist.is_initialized() and \
-                tdist.get_world_size() > 1:
-            raise NotImplementedError(
-                "InMemoryDataset.global_shuffle over several processes is "
-                "not ported yet (ROADMAP Queue A 12d, the multi-process "
-                "forms)")
+        """Digest (count, head/tail sums in load order) all-gathered over
+        the processes; a mismatch means the identical-file-list contract
+        is broken and shards would overlap/miss records."""
+        from ..distributed import process
+        if process.count() == 1:
+            return
+        n = self._engine.num()
+        k = min(n, 4)
+        head = self._engine.batch(0, k) if k else np.zeros((0, 1))
+        tail = self._engine.batch(n - k, k) if k else np.zeros((0, 1))
+        digest = [float(n), float(np.sum(head, dtype=np.float64)),
+                  float(np.sum(tail, dtype=np.float64))]
+        gathered = np.asarray(process.all_gather_object(
+            digest, key=("global_shuffle",), name="record digest"))
+        if not np.allclose(gathered, gathered[0]):
+            raise RuntimeError(
+                "global_shuffle: ranks hold DIFFERENT record sets "
+                f"(per-host [count, head-sum, tail-sum] = {gathered}).  "
+                "The shared-seed redesign requires the identical file "
+                "list on every rank (see docstring); feed all ranks the "
+                "same set_filelist, or shard files yourself with "
+                "fleet.util.get_file_shard and skip global_shuffle.")
 
     def release_memory(self):
         self._engine.release()

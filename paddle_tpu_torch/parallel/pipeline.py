@@ -74,6 +74,26 @@ own ``partition_spec``.  The port keeps its numbers and splits the work:
   constraints;
 * ``sp``, ``ep`` (and ``mp`` around dense ends) hold replicas, which the
   port computes once.
+
+Over a mesh spanning processes (``distributed/mesh.py``) every process
+runs the same schedule and does the work of its own ranks: every process
+feeds the identical global batch (``mesh.global_from_replicated``
+semantics, checked once by a digest, ``ValueError`` on different
+batches), and an activation or a cotangent whose next stage lives in
+another process goes across by ``process.send`` / ``recv`` under a key
+naming the step, pipeline, stage and micro-batch.  GPipe then cuts its
+graph at every such boundary: the forward ticks hand activations over,
+the local last stages run the loss's backward, and a loop from the last
+stage down hands each received input's gradient back and runs each sent
+output's backward against the cotangent that comes back.  1F1B hands its
+activations and cotangents over at the end of each tick's forward and
+backward sub-ticks.  Each receive waits only on a send of the same tick
+(or an earlier one), so the schedule cannot deadlock; every process runs
+each tick's rank calls, with or without work of its own there, so that
+``run_ranks`` is called in step everywhere.  The gradients of
+groups spanning processes (``pre`` and ``post``'s copies, a stage over
+data ranks of several processes) sum across in the shared
+``_reduce_and_clip``, and the step's loss is summed over the processes.
 """
 from __future__ import annotations
 
@@ -84,7 +104,7 @@ import warnings
 
 import torch
 
-from ..distributed import collective
+from ..distributed import collective, process
 from ..distributed.fleet.utils import recompute
 from ..distributed.mesh import DATA_AXES, data_axes_size
 from ..distributed.sharding import _axes_of, piece_slices
@@ -158,10 +178,24 @@ class PipelineEngine(_MeshEngine):
                 spec = getattr(p, "partition_spec", None)
                 self.local_specs[f"{end}.{n}"] = tuple(spec) if tp and \
                     _names_mp(spec) else ()
+        self.xp = mesh.spans_processes
+        if self.xp:
+            for end, j in self.end_mp.items():
+                for d in range(self.n_data):
+                    for st in range(pp):
+                        if len(mesh.procs_of([self.rank(d, st, i)
+                                              for i in range(j)])) > 1:
+                            raise NotImplementedError(
+                                f"pipeline: {end}'s mp group of stage "
+                                f"{st} spans processes; keep each "
+                                "stage's mp ranks on one process")
         taken = set()
         self.leaves = [{} for _ in range(mesh.size)]
         self.buffers = [{} for _ in range(mesh.size)]
         self.stage_of, self.shapes = {}, {}
+        # every rank holding each parameter (this process's or not)
+        self.holds = collections.defaultdict(list)
+        self.trainable = {}
         # stages[d][s]: pipeline d's stage s, a list of block replicas
         self.stages = [[[] for _ in range(pp)] for _ in range(self.n_data)]
         for i, blk in enumerate(model.blocks):
@@ -170,8 +204,13 @@ class PipelineEngine(_MeshEngine):
                 self.stage_of[f"blocks.{i}.{n}"] = st
                 self.local_specs[f"blocks.{i}.{n}"] = ()
                 self.shapes[f"blocks.{i}.{n}"] = tuple(p.shape)
+                self.trainable[f"blocks.{i}.{n}"] = p.requires_grad
             for d in range(self.n_data):
                 r = self.rank(d, st)
+                for n, _ in torch_named_parameters(blk):
+                    self.holds[f"blocks.{i}.{n}"].append(r)
+                if not mesh.is_local(r):
+                    continue
                 rep = meta_replica(blk)
                 params = {}
                 for n, p in torch_named_parameters(blk):
@@ -195,6 +234,12 @@ class PipelineEngine(_MeshEngine):
             for n, p in torch_named_parameters(mod):
                 self.stage_of[f"{end}.{n}"] = 0 if end == "pre" else pp - 1
                 self.shapes[f"{end}.{n}"] = tuple(p.shape)
+                self.trainable[f"{end}.{n}"] = p.requires_grad
+                for d in range(self.n_data):
+                    for st in range(pp):
+                        for j in range(self.end_mp[end]):
+                            self.holds[f"{end}.{n}"].append(
+                                self.rank(d, st, j))
             self.ends[end] = [[[self._end_replica(mod, end, d, st, j, taken)
                                 for j in range(self.end_mp[end])]
                                for st in range(pp)]
@@ -207,7 +252,9 @@ class PipelineEngine(_MeshEngine):
         self.param_specs = {k: ("pp",) if k.startswith("blocks.")
                             else self.local_specs[k] for k in self.pnames}
         self.opt_specs = {}
-        self._checked = False
+        self._checked = set()
+        self._fed = False
+        self._steps = 0
         self.max_stored_inputs = 0
         self._post_outs = {}   # data rank -> post's output (metrics)
 
@@ -220,6 +267,8 @@ class PipelineEngine(_MeshEngine):
 
     def _end_replica(self, mod, end, d, st, j, taken):
         r = self.rank(d, st, j)
+        if not self.mesh.is_local(r):
+            return None
         rep = meta_replica(mod)
         params = {}
         for n, p in torch_named_parameters(mod):
@@ -242,7 +291,13 @@ class PipelineEngine(_MeshEngine):
         for per_end in self.ends.values():
             for pipe in per_end or ():
                 for reps in pipe:
-                    yield from reps
+                    yield from (r for r in reps if r is not None)
+
+    def _local(self, d, s):
+        return self.mesh.is_local(self.rank(d, s))
+
+    def _proc(self, d, s):
+        return self.mesh.procs[self.rank(d, s)]
 
     # -- stages ----------------------------------------------------------
     def _run(self, fns, n, mp=1):
@@ -286,18 +341,15 @@ class PipelineEngine(_MeshEngine):
 
         return recompute(body, x)
 
-    def _check_buffer_reads(self, firsts):
-        """1F1B's guard (module docstring), on every stage of every
-        pipeline that runs: refuse a stage whose training forward reads
-        a buffer's value."""
-        if self._checked or not self.step_.training:
+    def _check_buffer_reads(self, d, s, x):
+        """1F1B's guard (module docstring), on each stage of each pipeline
+        at its first forward, with that forward's input: refuse a stage
+        whose training forward reads a buffer's value."""
+        if (d, s) in self._checked or not self.step_.training:
             return
-        for d, x in enumerate(firsts):
-            for s in range(self.pp):
-                r = self.rank(d, s)
-                if self.buffers[r]:
-                    self._check_stage(d, s, x.detach().to(self.devs[r]))
-        self._checked = True
+        if self.buffers[self.rank(d, s)]:
+            self._check_stage(d, s, x.detach())
+        self._checked.add((d, s))
 
     def _check_stage(self, d, s, xs):
         owners = []
@@ -347,26 +399,46 @@ class PipelineEngine(_MeshEngine):
     def _rows(self, a, n, s):
         """Each running pipeline's rows of every micro-batch of ``a`` (its
         share of each, in micro-batch order), on its stage ``s``'s
-        device."""
+        device (None where that stage is another process's)."""
         if n == 1:
-            return [a.to(self.devs[self.rank(0, s)])]
+            return [a.to(self.devs[self.rank(0, s)])
+                    if self._local(0, s) else None]
         M = self.num_microbatches
         idx = torch.arange(a.shape[0], device=a.device).view(M, n, -1)
         return [a.index_select(0, idx[:, d].reshape(-1)).to(
-            self.devs[self.rank(d, s)]) for d in range(n)]
+            self.devs[self.rank(d, s)]) if self._local(d, s) else None
+            for d in range(n)]
+
+    def _check_feed(self, inputs, labels):
+        """Over a mesh spanning processes, once: every process must feed
+        the identical global batch (module docstring)."""
+        if self._fed or not self.xp:
+            return
+        self._fed = True
+        mine = process.digest(list(inputs) + list(labels))
+        if len(set(process.all_gather_object(
+                mine, key=("feed",), name="feed digest"))) > 1:
+            raise ValueError(
+                "multi-host pipeline: processes fed DIFFERENT batches. "
+                "The pp ring spans hosts, so every process must feed the "
+                "identical GLOBAL batch (not its local dp shard) — load "
+                "the same data on all ranks of a dp group")
 
     def step(self, inputs, labels):
         st = self.step_
         self._free_grads()
         self._set_train()
+        self._check_feed(inputs, labels)
+        self._steps += 1
         P, M = self.pp, self.num_microbatches
-        x = _as_tensor(inputs[0], self.devs[self.rank(0, 0)])
+        x = _as_tensor(inputs[0], self.dev0 if self.xp
+                       else self.devs[self.rank(0, 0)])
         if x.shape[0] % M:
             raise ValueError(f"pipeline: accumulate_steps={M} must divide "
                              f"the batch ({x.shape[0]})")
         n = self.n_data if (x.shape[0] // M) % self.n_data == 0 else 1
         xs = self._rows(x, n, 0)
-        last = self.devs[self.rank(0, P - 1)]
+        last = self.dev0 if self.xp else self.devs[self.rank(0, P - 1)]
         ys = [self._rows(_as_tensor(y, last), n, P - 1) for y in labels]
         labs = [[y[d] for y in ys] for d in range(n)]
         self._post_outs = {}
@@ -385,11 +457,19 @@ class PipelineEngine(_MeshEngine):
                 "computed — use GPipe (schedule_mode='F-then-B') or "
                 "evaluate() for metrics")
         elif st.metrics:
+            if self.xp:
+                raise NotImplementedError(
+                    "TrainStep(metrics=...) over a pipeline spanning "
+                    "processes: the last stage's outputs live on other "
+                    "processes; evaluate() instead")
             st.last_metric_outs = compute_metrics(
                 st.metrics, self._batch_rows(n, x.shape[0]),
                 [_as_tensor(y, last) for y in labels])
         self._post_outs = {}
         self._apply()
+        if self.xp:
+            loss = process.all_reduce(loss.to(self.dev0), key=("loss",),
+                                      name="loss")
         return loss
 
     def _batch_rows(self, n, rows):
@@ -414,12 +494,14 @@ class PipelineEngine(_MeshEngine):
             return xs
         fns = {}
         for d in range(n):
+            if xs[d] is None:
+                continue
             for j in range(self.end_mp["pre"]):
                 r = self.rank(d, 0, j)
                 fns[r] = functools.partial(pre[d][0][j],
                                            xs[d].to(self.devs[r]))
         outs = self._run(fns, n, self.end_mp["pre"])
-        return [outs[self.rank(d, 0)] for d in range(n)]
+        return [outs.get(self.rank(d, 0)) for d in range(n)]
 
     def _token_count(self, n, kept):
         """A loss's token-mean denominator on a pipeline's last stage: the
@@ -445,6 +527,8 @@ class PipelineEngine(_MeshEngine):
         P = self.pp
         fns = {}
         for d in range(n):
+            if outs[d] is None:
+                continue
             for j in range(self.end_mp["post"]):
                 r = self.rank(d, P - 1, j)
                 dev = self.devs[r]
@@ -452,12 +536,17 @@ class PipelineEngine(_MeshEngine):
                     self._rank_loss, d, j, n, outs[d].to(dev),
                     [y.to(dev) for y in labs[d]])
         res = self._run(fns, n, self.end_mp["post"])
-        dev = self.devs[self.rank(0, P - 1)]
-        return sum(res[self.rank(d, P - 1)].to(dev) for d in range(n)) / n
+        mine = [d for d in range(n) if outs[d] is not None]
+        if not mine:
+            return torch.zeros((), dtype=torch.float32, device=self.dev0)
+        dev = self.devs[self.rank(mine[0], P - 1)]
+        return sum(res[self.rank(d, P - 1)].to(dev) for d in mine) / n
 
     def _gpipe(self, h, labs, n):
         P, M = self.pp, self.num_microbatches
-        carry = [list(hd.chunk(M)) for hd in h]
+        carry = [list(hd.chunk(M)) if hd is not None else [None] * M
+                 for hd in h]
+        sent, recvd, works = {}, {}, []
         for t in range(M + P - 1):
             work = {}
             for s in range(P):
@@ -465,15 +554,102 @@ class PipelineEngine(_MeshEngine):
                 if 0 <= m < M:
                     for d in range(n):
                         r = self.rank(d, s)
-                        work[r] = (d, m, functools.partial(
-                            self._stage_call, d, s,
-                            carry[d][m].to(self.devs[r])))
-            outs = self._run({r: w[2] for r, w in work.items()}, n)
-            for r, (d, m, _) in work.items():
+                        if self.mesh.is_local(r):
+                            work[r] = (d, s, m, functools.partial(
+                                self._stage_call, d, s,
+                                carry[d][m].to(self.devs[r])))
+            outs = self._run({r: w[3] for r, w in work.items()}, n)
+            for r, (d, s, m, _) in work.items():
                 carry[d][m] = outs[r]
-        loss = self._post_loss([torch.cat(c) for c in carry], labs, n)
-        loss.backward()
+            if self.xp:
+                works += self._hand_acts(t, n, carry, sent, recvd)
+        loss = self._post_loss([torch.cat(c) if c[0] is not None else None
+                                for c in carry], labs, n)
+        if loss.requires_grad:
+            loss.backward()
+        if self.xp:
+            for s in range(P - 2, -1, -1):
+                for (d, s1, m), leaf in recvd.items():
+                    if s1 == s + 1:
+                        g = leaf.grad if leaf.grad is not None else \
+                            torch.zeros_like(leaf)
+                        works += process.send(g, self._proc(d, s),
+                                              self._key("cot", d, s, m))
+                outs, cots = [], []
+                for (d, s0, m), out in sent.items():
+                    if s0 == s:
+                        outs.append(out)
+                        cots.append(process.recv(
+                            self._proc(d, s + 1), self._key("cot", d, s, m),
+                            out.device))
+                if outs:
+                    torch.autograd.backward(outs, cots)
+            process.wait(works)
         return loss.detach()
+
+    def _key(self, kind, d, s, m):
+        return (kind, self._steps, d, s, m)
+
+    def _hand_acts(self, t, n, carry, sent, recvd):
+        """GPipe's hand-over after forward tick ``t`` (module docstring):
+        a local stage's output whose next stage is another process's goes
+        across (kept in ``sent`` for the backward), and a local stage's
+        input made by another process comes in as a leaf (``recvd``)."""
+        P, M = self.pp, self.num_microbatches
+        works = []
+        for s in range(P - 1):
+            m = t - s
+            if not 0 <= m < M:
+                continue
+            for d in range(n):
+                here, there = self._local(d, s), self._local(d, s + 1)
+                if here and not there:
+                    sent[d, s, m] = carry[d][m]
+                    works += process.send(carry[d][m].detach(),
+                                          self._proc(d, s + 1),
+                                          self._key("act", d, s + 1, m))
+                    carry[d][m] = None
+                elif there and not here:
+                    x = process.recv(self._proc(d, s),
+                                     self._key("act", d, s + 1, m),
+                                     self.devs[self.rank(d, s + 1)])
+                    x.requires_grad_(torch.is_grad_enabled())
+                    recvd[d, s + 1, m] = carry[d][m] = x
+        return works
+
+    def _hand_over(self, kind, t, items, into, step):
+        """1F1B's hand-over at the end of tick ``t``'s forward (``step``
+        +1, activations) or backward (-1, cotangents) sub-ticks: each item
+        ``(d, s) -> tensor`` made here for a stage of this process moves
+        to its device, one for another process goes across, and the items
+        other processes made for this one come in."""
+        P = self.pp
+        works = []
+        for (d, s), x in items.items():
+            if self._local(d, s):
+                into[d, s] = x.to(self.devs[self.rank(d, s)])
+            else:
+                works += process.send(x, self._proc(d, s),
+                                      self._key(kind, d, s, t))
+        if not self.xp:
+            return works
+        for src in range(P):
+            dst = src + step
+            if not 0 <= dst < P or not self._made(kind, t, src):
+                continue
+            for d in range(self._n):
+                if self._local(d, dst) and not self._local(d, src):
+                    into[d, dst] = process.recv(
+                        self._proc(d, src), self._key(kind, d, dst, t),
+                        self.devs[self.rank(d, dst)])
+        return works
+
+    def _made(self, kind, t, s):
+        """Whether stage ``s`` runs a micro-batch in tick ``t``'s forward
+        (``act``) or backward (``cot``) sub-tick."""
+        P, M = self.pp, self.num_microbatches
+        m = t - s if kind == "act" else t - (2 * P - 1 - s)
+        return 0 <= m < M
 
     def _one_f_one_b(self, h, labs, n):
         P, M = self.pp, self.num_microbatches
@@ -484,45 +660,54 @@ class PipelineEngine(_MeshEngine):
                 f"(got {len(labs[0])}); GPipe (schedule_mode='F-then-B') "
                 "supports multi-label losses")
         hm = [[c.detach().requires_grad_(hd.requires_grad)
-               for c in hd.chunk(M)] for hd in h]
-        lab = [[y.chunk(M) for y in labs[d]] for d in range(n)]
-        self._check_buffer_reads([hm[d][0] for d in range(n)])
-        stored, act_in, cot_in = {}, {}, {}
+               for c in hd.chunk(M)] if hd is not None else None
+              for hd in h]
+        lab = [[y.chunk(M) for y in labs[d]] if self._local(d, P - 1)
+               else None for d in range(n)]
+        self._n = n
+        stored, act_in, cot_in, works = {}, {}, {}, []
         total = torch.zeros((), dtype=torch.float32,
-                            device=self.devs[self.rank(0, P - 1)])
+                            device=self.dev0 if self.xp
+                            else self.devs[self.rank(0, P - 1)])
         for t in range(M + 2 * P - 1):
             acts, cots, work = {}, {}, {}
             for s in range(P):                      # forward sub-ticks
                 m = t - s
                 if 0 <= m < M:
                     for d in range(n):
+                        if not self._local(d, s):
+                            continue
                         inp = hm[d][m].detach() if s == 0 else \
                             act_in.pop((d, s))
+                        if m == 0:
+                            self._check_buffer_reads(d, s, inp)
                         stored[d, s, m] = inp
                         work[self.rank(d, s)] = (d, s, inp)
-            if work:
+            if any(self._made("act", t, s) for s in range(P)):
+                # every process runs the tick, with or without work of its
+                # own, so that each draws run_ranks' seeds in step
                 with torch.no_grad():
                     outs = self._run({r: functools.partial(
                         self._run_stage, d, s, inp)
                         for r, (d, s, inp) in work.items()}, n)
                 for r, (d, s, _) in work.items():
                     if s + 1 < P:
-                        acts[d, s + 1] = outs[r].to(
-                            self.devs[self.rank(d, s + 1)])
+                        acts[d, s + 1] = outs[r]
+            works += self._hand_over("act", t, acts, act_in, 1)
             for s in range(P):                      # backward sub-ticks
                 m = t - (2 * P - 1 - s)
                 if 0 <= m < M:
                     total = total + self._backward_tick(
                         s, m, n, hm, lab, stored, cot_in, cots)
-            act_in.update(acts)
-            cot_in.update(cots)
+            works += self._hand_over("cot", t, cots, cot_in, -1)
             held = collections.Counter(key[:2] for key in stored)
             self.max_stored_inputs = max(self.max_stored_inputs,
                                          max(held.values(), default=0))
         for d in range(n):
-            if h[d].requires_grad:
+            if h[d] is not None and h[d].requires_grad:
                 torch.autograd.backward(h[d],
                                         torch.cat([c.grad for c in hm[d]]))
+        process.wait(works)
         return total
 
     def _backward_tick(self, s, m, n, hm, lab, stored, cot_in, cots):
@@ -532,29 +717,37 @@ class PipelineEngine(_MeshEngine):
         else of the output against the next stage's cotangent).  Returns
         the micro-batch's loss share (0 off the last stage)."""
         P, M = self.pp, self.num_microbatches
+        ds = [d for d in range(n) if self._local(d, s)]
+        if not ds:
+            # another process's stage: run the tick's (empty) rank calls
+            # all the same (``_one_f_one_b``)
+            self._run({}, n)
+            if s == P - 1:
+                self._post_loss([None] * n, [None] * n, n)
+            return 0.0
         xin = {}
-        for d in range(n):
+        for d in ds:
             inp = stored.pop((d, s, m))
             xin[d] = hm[d][m] if s == 0 else inp.requires_grad_(True)
         with contextlib.ExitStack() as frozen:
-            for d in range(n):
+            for d in ds:
                 frozen.enter_context(self._frozen_buffers(self.rank(d, s)))
-            outs = self._run({self.rank(d, s): functools.partial(
-                self._run_stage, d, s, xin[d]) for d in range(n)}, n)
-            outs = [outs[self.rank(d, s)] for d in range(n)]
+            res = self._run({self.rank(d, s): functools.partial(
+                self._run_stage, d, s, xin[d]) for d in ds}, n)
+            outs = [res.get(self.rank(d, s)) for d in range(n)]
             if s == P - 1:
                 loss_m = self._post_loss(
-                    outs, [[y[m] for y in lab[d]] for d in range(n)], n) / M
+                    outs, [[y[m] for y in lab[d]] if lab[d] is not None
+                           else None for d in range(n)], n) / M
                 torch.autograd.backward(loss_m)
                 share = loss_m.detach()
             else:
                 torch.autograd.backward(
-                    outs, [cot_in.pop((d, s)) for d in range(n)])
+                    [outs[d] for d in ds], [cot_in.pop((d, s)) for d in ds])
                 share = 0.0
         if s > 0:
-            for d in range(n):
-                cots[d, s - 1] = xin[d].grad.to(
-                    self.devs[self.rank(d, s - 1)])
+            for d in ds:
+                cots[d, s - 1] = xin[d].grad
         return share
 
     def _groups(self):
@@ -565,14 +758,13 @@ class PipelineEngine(_MeshEngine):
         update)."""
         out = {}
         for k in self.pnames:
-            if not self._leaf(k).requires_grad:
+            if not self.trainable[k]:
                 continue
             groups = {}
-            for r in self.holders:
-                if k in self.leaves[r]:
-                    key = tuple(start for _, start, _ in piece_slices(
-                        self.local_specs[k], self.shapes[k], self.mesh, r))
-                    groups.setdefault(key, []).append(r)
+            for r in sorted(self.holds[k]):
+                key = tuple(start for _, start, _ in piece_slices(
+                    self.local_specs[k], self.shapes[k], self.mesh, r))
+                groups.setdefault(key, []).append(r)
             out[k] = list(groups.values())
         return out
 
@@ -609,18 +801,24 @@ class PipelineEngine(_MeshEngine):
         js = range(self.mesh.axis_size("mp")) if self.local_specs[k] else (0,)
         return [self.rank(0, self.stage_of[k], j) for j in js]
 
-    def _leaf(self, k):
-        return self.leaves[self._refs(k)[0]][k]
-
     def _local_spec(self, k, sk=None):
         spec = self.local_specs[k]
-        if spec and sk is not None and \
-                self.opt_state[self._refs(k)[0]][k][sk].dim() == 0:
-            return ()
+        if spec and sk is not None:
+            r = next(r for r in self.holds[k] if self.mesh.is_local(r))
+            if self.opt_state[r][k][sk].dim() == 0:
+                return ()
         return spec
 
     def _assemble(self, k, by_rank, spec, device=None):
         refs = self._refs(k)
+        if self.xp:
+            # every process hands in the reference pieces it holds
+            mine = {r: by_rank[r].detach().cpu() for r in refs
+                    if r in by_rank}
+            by_rank = {r: t for got in process.all_gather_object(
+                mine, key=("assemble",), name=f"assemble {k}")
+                for r, t in got.items()}
+            device = device or self.dev0
         first = by_rank[refs[0]].detach()
         dev = device or first.device
         if not spec:
@@ -638,8 +836,33 @@ class PipelineEngine(_MeshEngine):
         return out
 
     def full_buffers(self):
-        return {k: v for s in range(self.pp)
+        mine = {k: v for s in range(self.pp) if self._local(0, s)
                 for k, v in self.buffers[self.rank(0, s)].items()}
+        if not self.xp:
+            return mine
+        got = process.all_gather_object(
+            {k: v.cpu() for k, v in mine.items()}, key=("assemble",),
+            name="buffers")
+        return {k: v.to(self.dev0) for g in got for k, v in g.items()}
+
+    def full_opt_state(self, device=None):
+        if not self.xp:
+            return super().full_opt_state(device)
+        out = {}
+        for k in self.pnames:
+            if not self.trainable[k]:
+                continue
+            r = next((r for r in self.holds[k] if self.mesh.is_local(r)),
+                     None)
+            names = sorted(self.opt_state[r][k]) if r is not None else None
+            names = next(n for n in process.all_gather_object(
+                names, key=("assemble",), name=f"state names {k}")
+                if n is not None)
+            per = self._holders(self.opt_state, k)
+            out[k] = {sk: self._assemble(
+                k, {r: st[sk] for r, st in per.items()},
+                self.local_specs[k], device) for sk in names}
+        return out
 
 
 def stack_block_params(blocks):

@@ -131,6 +131,7 @@ from .. import amp, monitor
 from ..device import require_on
 from ..distributed import collective
 from ..distributed import mesh as mesh_mod
+from ..distributed import process
 from ..distributed.moe import collect_moe_aux_loss
 from ..distributed.sharding import (_axes_of, _flipped_linear_weights,
                                     piece_slices, shard_params_specs)
@@ -218,13 +219,16 @@ def bind(replica, params=None, buffers=None):
 
 
 def rank_pieces(full, spec, mesh, requires_grad=False):
-    """One private tensor a rank: its piece of ``full`` under ``spec`` on
-    its device.  The first rank on ``full``'s device whose piece is a
-    contiguous view shares ``full``'s storage; every other piece is a
-    copy."""
+    """One private tensor a rank of this process (None for another's):
+    its piece of ``full`` under ``spec`` on its device.  The first rank on
+    ``full``'s device whose piece is a contiguous view shares ``full``'s
+    storage; every other piece is a copy."""
     devs = mesh.flat_devices
     out, aliased = [], False
     for r in range(mesh.size):
+        if not mesh.is_local(r):
+            out.append(None)
+            continue
         view = full
         for dim, start, n in piece_slices(spec, full.shape, mesh, r):
             view = view.narrow(dim, start, n)
@@ -239,13 +243,18 @@ def rank_pieces(full, spec, mesh, requires_grad=False):
 
 def gather_pieces(pieces, spec, mesh, device=None):
     """The logical tensor from each rank's piece (``rank_pieces``'s
-    inverse), on ``device`` (default the first piece's)."""
-    dev = device if device is not None else pieces[0].device
-    shape = list(pieces[0].shape)
+    inverse), on ``device`` (default the first piece's).  Over a mesh
+    spanning processes each piece comes from the process of its first
+    holder, and one cross-process sum puts the disjoint pieces
+    together."""
+    first = next(p for p in pieces if p is not None)
+    dev = device if device is not None else first.device
+    shape = list(first.shape)
     for dim, entry in enumerate(spec):
         for a in _axes_of(entry):
             shape[dim] *= mesh.axis_size(a)
-    out = torch.empty(shape, dtype=pieces[0].dtype, device=dev)
+    out = (torch.zeros if mesh.spans_processes else torch.empty)(
+        shape, dtype=first.dtype, device=dev)
     seen = set()
     for r in range(mesh.size):
         sl = piece_slices(spec, shape, mesh, r)
@@ -253,10 +262,14 @@ def gather_pieces(pieces, spec, mesh, device=None):
         if key in seen:
             continue
         seen.add(key)
+        if pieces[r] is None:
+            continue
         view = out
         for dim, start, n in sl:
             view = view.narrow(dim, start, n)
         view.copy_(pieces[r].detach())
+    if mesh.spans_processes:
+        out = process.all_reduce(out, key=("pieces",), name="gather_pieces")
     return out
 
 
@@ -282,7 +295,19 @@ def split_batch(arrays, mesh):
     """``(per_rank, split)``: each rank's rows of each global batch tensor
     (the data rank's chunk when the leading dim divides over the data
     axes, else the whole tensor) on its device, and whether the first
-    tensor split."""
+    tensor split.  Over a mesh spanning processes each array is this
+    process's local shard (``mesh.host_local_to_global``, or its
+    ``RankPieces``), and only this process's ranks get rows."""
+    if mesh.spans_processes:
+        per_rank = [[] for _ in range(mesh.size)]
+        split = None
+        for a in arrays:
+            if not isinstance(a, mesh_mod.RankPieces):
+                a = mesh_mod.host_local_to_global(a, mesh)
+            split = a.split if split is None else split
+            for r in mesh.local_ranks:
+                per_rank[r].append(a.pieces[r])
+        return per_rank, bool(split)
     devs = mesh.flat_devices
     n = mesh_mod.data_axes_size(mesh)
     per_rank = [[] for _ in range(mesh.size)]
@@ -409,6 +434,42 @@ class _Stage3Slot(torch.nn.Module):
         return self.gather.get(self.k)
 
 
+_BUCKET = 1 << 27     # elements a crossing of gradients carries at most
+
+
+def _cross_sums(crossing, name):
+    """``(sum, payload)`` for every entry of ``crossing`` — ``{(procs,
+    dtype): [(tensor, payload)]}`` — each tensor summed over the
+    processes ``procs``: the entries of a key go across flattened
+    together in calls of at most ``_BUCKET`` elements, keys in sorted
+    order, so every process of a set makes the same calls in the same
+    order."""
+    out = []
+    for (procs, dtype), items in sorted(crossing.items(),
+                                        key=lambda kv: (kv[0][0],
+                                                        str(kv[0][1]))):
+        dev = items[0][0].device
+        start = 0
+        while start < len(items):
+            stop, n = start, 0
+            while stop < len(items) and (stop == start or
+                                         n + items[stop][0].numel()
+                                         <= _BUCKET):
+                n += items[stop][0].numel()
+                stop += 1
+            chunk = items[start:stop]
+            flat = torch.cat([t.reshape(-1).to(dev) for t, _ in chunk])
+            flat = process.all_reduce(flat, procs, key=(name,) + procs,
+                                      name=name)
+            off = 0
+            for t, payload in chunk:
+                out.append((flat[off:off + t.numel()].view(t.shape).to(
+                    t.device), payload))
+                off += t.numel()
+            start = stop
+    return out
+
+
 class _MeshEngine:
     """What the flat and the pipeline engines share.  Each holds
     ``leaves[r]`` (rank ``r``'s tensors under the model's parameter
@@ -423,6 +484,7 @@ class _MeshEngine:
         self.mesh = mesh
         self.keep_grads = False
         self.last_grads = None
+        self.dev0 = mesh.flat_devices[mesh.local_ranks[0]]
 
     def _free_grads(self):
         for leaves in self.leaves:
@@ -432,35 +494,57 @@ class _MeshEngine:
     # -- the update --------------------------------------------------------
     @torch.no_grad()
     def _reduce_and_clip(self):
-        """``{name: {rank: gradient}}``: each trainable parameter's gradient
-        summed over every group of ranks holding the same piece (one tensor
-        a group and device; the leaves' ``.grad`` freed), then scaled by
-        the optimizer's global-norm clip, each piece counted once."""
+        """``{name: {rank: gradient}}`` for this process's ranks: each
+        trainable parameter's gradient summed over every group of ranks
+        holding the same piece (one tensor a group and device; the
+        leaves' ``.grad`` freed), then scaled by the optimizer's
+        global-norm clip, each piece counted once.  The groups spanning
+        processes sum their local parts first, then cross in one call a
+        set of processes and dtype (``_cross_sums``)."""
         opt = self.step_.optimizer
-        red, counted = {}, []
+        mesh = self.mesh
+        red, counted, crossing = {}, [], collections.defaultdict(list)
+
+        def place(k, group, local, tot):
+            if mesh.procs[group[0]] == mesh.process:
+                counted.append(tot)
+            on = {tot.device: tot}
+            for r in local:
+                if self.devs[r] not in on:
+                    on[self.devs[r]] = tot.to(self.devs[r])
+                red[k][r] = on[self.devs[r]]
+
         for k, groups in self._groups().items():
             red[k] = {}
             for group in groups:
+                local = [r for r in group if mesh.is_local(r)]
+                if not local:
+                    continue
                 tot = collective._sum_on(
-                    [self.leaves[r][k].grad for r in group],
-                    self.devs[group[0]])
+                    [self.leaves[r][k].grad for r in local],
+                    self.devs[local[0]])
                 if tot is None:
-                    tot = torch.zeros_like(self.leaves[group[0]][k])
-                counted.append(tot)
-                on = {tot.device: tot}
-                for r in group:
+                    tot = torch.zeros_like(self.leaves[local[0]][k])
+                for r in local:
                     self.leaves[r][k].grad = None
-                    if self.devs[r] not in on:
-                        on[self.devs[r]] = tot.to(self.devs[r])
-                    red[k][r] = on[self.devs[r]]
+                if len(local) < len(group):
+                    crossing[mesh.procs_of(group), tot.dtype].append(
+                        (tot, (k, group, local)))
+                else:
+                    place(k, group, local, tot)
+        for tot, args in _cross_sums(crossing, "grads"):
+            place(*args, tot)
         clip = opt._grad_clip
-        if clip is not None and counted:
+        if clip is not None and (counted or mesh.spans_processes):
             if not isinstance(clip, ClipGradByGlobalNorm):
                 raise NotImplementedError(
                     f"TrainStep over a mesh clips by the global norm only, "
                     f"not {type(clip).__name__}")
-            sq = sum(g.float().square().sum().to(self.devs[0])
-                     for g in counted)
+            sq = sum((g.float().square().sum().to(self.dev0)
+                      for g in counted),
+                     torch.zeros((), dtype=torch.float32, device=self.dev0))
+            if mesh.spans_processes:
+                sq = process.all_reduce(sq, key=("clip",), name="clip")
             scale = clip.scale(sq.sqrt())
             for t in {id(t): t for sub in red.values()
                       for t in sub.values()}.values():
@@ -614,13 +698,20 @@ class _FlatMesh(_MeshEngine):
             pieces = rank_pieces(params[k].detach(), self.param_specs[k],
                                  mesh, requires_grad=self.trainable[k])
             for r, t in enumerate(pieces):
-                self.leaves[r][k] = t
+                if t is not None:
+                    self.leaves[r][k] = t
         self.gathered = [k for k in self.pnames
                          if "sharding" in [a for e in self.param_specs[k]
                                            for a in _axes_of(e)]]
-        self.replicas = []
-        self.buffers = []
-        for r in range(mesh.size):
+        if self.gathered and mesh.spans_processes:
+            raise NotImplementedError(
+                "TrainStep: ZeRO stage 3 gathers a unit's parameters "
+                "within one process; its sharding groups here span "
+                "processes (use stage 2, or keep each sharding group on "
+                "one process)")
+        self.replicas = [None] * mesh.size
+        self.buffers = [{} for _ in range(mesh.size)]
+        for r in mesh.local_ranks:
             rep = meta_replica(model)
             bufs = {k: buffers[k].detach().to(self.devs[r], copy=True)
                     for k in self.bnames}
@@ -632,10 +723,10 @@ class _FlatMesh(_MeshEngine):
                 if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
                     mod.forward = types.MethodType(torch_batch_norm_forward,
                                                    mod)
-            self.replicas.append(rep)
-            self.buffers.append(bufs)
+            self.replicas[r] = rep
+            self.buffers[r] = bufs
         self.opt_state = [{} for _ in range(mesh.size)]
-        for r in range(mesh.size):
+        for r in mesh.local_ranks:
             for k in self.pnames:
                 if self.trainable[k]:
                     self.opt_state[r][k] = opt._init_state(
@@ -747,43 +838,99 @@ class _FlatMesh(_MeshEngine):
     def step(self, inputs, labels):
         st = self.step_
         mesh = self.mesh
+        xp = mesh.spans_processes
         k = st.grad_merge_k
         self._free_grads()
-        chunks = [torch.as_tensor(a).chunk(k) for a in inputs + labels]
-        if any(len(c) != k for c in chunks):
-            raise ValueError(f"TrainStep: gradient_merge k_steps={k} must "
-                             "divide the batch")
-        dev0 = self.devs[0]
+        if xp:
+            if k > 1:
+                raise NotImplementedError(
+                    "TrainStep: gradient_merge over a mesh spanning "
+                    "processes (each process feeds its local shard, which "
+                    "the global batch's micro-batches do not split along)")
+            micro = [list(inputs) + list(labels)]
+        else:
+            chunks = [torch.as_tensor(a).chunk(k) for a in inputs + labels]
+            if any(len(c) != k for c in chunks):
+                raise ValueError(f"TrainStep: gradient_merge k_steps={k} "
+                                 "must divide the batch")
+            micro = [[c[i] for c in chunks] for i in range(k)]
+        dev0 = self.dev0
         total = torch.zeros((), dtype=torch.float32, device=dev0)
         n_in = len(inputs)
         parts = []
-        for i in range(k):
-            per_rank, split = split_batch([c[i] for c in chunks], mesh)
+        for arrays in micro:
+            per_rank, split = split_batch(arrays, mesh)
             self._phase = "forward"
             self._outs = {}
             with st._amp():
                 losses = collective.run_ranks(
                     mesh, {r: (lambda r=r: self._forward(
                         r, per_rank[r][:n_in], per_rank[r][n_in:], split))
-                        for r in range(mesh.size)}, batch_split=split)
+                        for r in mesh.local_ranks}, batch_split=split)
             if st.metrics:
-                reps = self.reps if split else self.reps[:1]
-                out = torch.cat([self._outs[r].to(dev0) for r in reps])
-                parts.append(compute_metrics(
-                    st.metrics, out,
-                    [c[i].to(dev0) for c in chunks[n_in:]]))
-            loss = sum(losses[r].to(dev0) for r in self.reps) / (
-                len(self.reps) * k)
+                parts.append(self._metric_parts(arrays[n_in:], per_rank,
+                                                n_in, split))
             self._phase = "backward"
             try:
-                loss.backward()
+                if xp:
+                    loss = self._local_backward(losses, k)
+                else:
+                    loss = sum(losses[r].to(dev0) for r in self.reps) / (
+                        len(self.reps) * k)
+                    loss.backward()
             finally:
                 self._release_units()
             total = total + loss.detach()
         self._outs = {}
         st.last_metric_outs = join_metric_outs(parts) if parts else []
         self._apply()
+        if xp:
+            total = process.all_reduce(total, key=("loss",), name="loss")
         return total
+
+    def _local_backward(self, losses, k):
+        """This process's part of the step's backward over a mesh
+        spanning processes: every local rank's loss, the data ranks'
+        weighted as the one-process step weights them and the others by
+        0, so that each local rank runs its backward (and meets its
+        groups' cross-process collectives there); returns the local
+        ranks' share of the loss."""
+        w = 1.0 / (len(self.reps) * k)
+        local = self.mesh.local_ranks
+        torch.autograd.backward(
+            [losses[r] for r in local],
+            [torch.full_like(losses[r], w if r in self.reps else 0.0)
+             for r in local])
+        share = torch.zeros((), dtype=torch.float32, device=self.dev0)
+        for r in local:
+            if r in self.reps:
+                share = share + losses[r].detach().to(self.dev0) * w
+        return share
+
+    def _metric_parts(self, labels, per_rank, n_in, split):
+        """The metrics' outputs over the whole batch's output: the data
+        ranks' rows in order (of every process, gathered, over a mesh
+        spanning processes)."""
+        st, mesh, dev0 = self.step_, self.mesh, self.dev0
+        if not mesh.spans_processes:
+            reps = self.reps if split else self.reps[:1]
+            out = torch.cat([self._outs[r].to(dev0) for r in reps])
+            return compute_metrics(st.metrics, out,
+                                   [torch.as_tensor(y).to(dev0)
+                                    for y in labels])
+        reps = [r for r in self.reps if mesh.is_local(r)]
+        if not split:
+            r = next(iter(self._outs))
+            return compute_metrics(st.metrics, self._outs[r].to(dev0),
+                                   [y.to(dev0) for y in per_rank[r][n_in:]])
+        mine = [torch.cat([self._outs[r].cpu() for r in reps])] + [
+            torch.cat([per_rank[r][n_in + j].cpu() for r in reps])
+            for j in range(len(labels))]
+        every = process.all_gather_object(mine, key=("metrics",),
+                                          name="metrics")
+        cat = [torch.cat([e[j] for e in every]).to(dev0)
+               for j in range(len(mine))]
+        return compute_metrics(st.metrics, cat[0], cat[1:])
 
     def _groups(self):
         return {k: piece_groups(self.param_specs[k], self.shapes[k],
@@ -812,39 +959,61 @@ class _FlatMesh(_MeshEngine):
         with self._updating() as lr:
             collective.run_ranks(self.mesh, {
                 r: (lambda r=r: update(r, lr))
-                for r in range(self.mesh.size)})
+                for r in self.mesh.local_ranks})
         self._gather_moments_back()
         self.last_grads = red if self.keep_grads else None
 
     @torch.no_grad()
     def _gather_moments_back(self):
         """Every rank's full copy of a moment-sharded parameter takes the
-        slices its ``sharding`` group updated."""
+        slices its ``sharding`` group updated.  A group spanning processes
+        puts its members' disjoint slices together in one cross-process
+        sum of the zero-padded full tensor (``_cross_sums``): an all-gather
+        of the slices alone crosses half the bytes, but gloo's all-gather
+        made the step slower on the card (PERF.md, PR 20)."""
         mesh = self.mesh
+        crossing = collections.defaultdict(list)
         for k in self.pnames:
             uspec = self.update_specs[k]
             if not self.trainable[k] or uspec == self.param_specs[k]:
                 continue
-            shape = self.leaves[0][k].shape
-            for r in range(mesh.size):
-                for r2 in mesh.group(r, "sharding"):
-                    if r2 == r:
-                        continue
-                    for dim, start, n in piece_slices(uspec, shape, mesh,
-                                                      r2):
-                        self.leaves[r][k].narrow(dim, start, n).copy_(
-                            self.leaves[r2][k].narrow(dim, start, n))
+            shape = self.leaves[mesh.local_ranks[0]][k].shape
+            done = set()
+            for r in mesh.local_ranks:
+                group = tuple(mesh.group(r, "sharding"))
+                local = [g for g in group if mesh.is_local(g)]
+                if len(local) == len(group):
+                    for r2 in group:
+                        if r2 == r:
+                            continue
+                        for dim, start, n in piece_slices(uspec, shape,
+                                                          mesh, r2):
+                            self.leaves[r][k].narrow(dim, start, n).copy_(
+                                self.leaves[r2][k].narrow(dim, start, n))
+                elif group not in done:
+                    done.add(group)
+                    buf = torch.zeros_like(self.leaves[r][k])
+                    for r2 in local:
+                        for dim, start, n in piece_slices(uspec, shape,
+                                                          mesh, r2):
+                            buf.narrow(dim, start, n).copy_(
+                                self.leaves[r2][k].narrow(dim, start, n))
+                    crossing[mesh.procs_of(group), buf.dtype].append(
+                        (buf, (k, local)))
+        for full, (k, local) in _cross_sums(crossing, "moments"):
+            for r in local:
+                self.leaves[r][k].copy_(full)
 
     # -- reading the state back ---------------------------------------------
     def _local_spec(self, k, sk=None):
         return self.param_specs[k] if sk is None else self.opt_specs[k][sk]
 
     def _assemble(self, k, by_rank, spec, device=None):
-        return gather_pieces([by_rank[r] for r in range(self.mesh.size)],
+        return gather_pieces([by_rank.get(r) for r in range(self.mesh.size)],
                              spec, self.mesh, device)
 
     def full_buffers(self):
-        return dict(self.buffers[0])
+        return dict(self.buffers[self.mesh.local_ranks[0]])
 
 
 class TrainStep:
@@ -888,10 +1057,10 @@ class TrainStep:
         if self.is_pipeline:
             from .pipeline import PipelineEngine
             self.engine = PipelineEngine(self, model, self.mesh)
-            self.device = self.mesh.flat_devices[0]
+            self.device = self.engine.dev0
         elif self.mesh is not None:
             self.engine = _FlatMesh(self, model, self.mesh)
-            self.device = self.mesh.flat_devices[0]
+            self.device = self.engine.dev0
         else:
             self.engine = None
             self.device = require_on(device, torch_named_parameters(model),

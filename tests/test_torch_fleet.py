@@ -331,15 +331,25 @@ def test_training_collectives_backward_is_the_transpose():
 
 
 def test_parallel_env_and_what_stays_unported():
+    """One process: rank 0 of a world of one; ``spawn`` calls ``func``
+    here, ``host_local_to_global`` is a no-op and
+    ``global_from_replicated`` cuts each rank's rows, as the JAX
+    package's do in one process.  (Across processes:
+    ``test_torch_multiprocess.py``.)"""
     set_mesh(None)
     assert get_rank() == 0 and get_world_size() == 1
     assert not is_initialized()
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        spawn(print)
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        tmesh.host_local_to_global(np.zeros(4))
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        tmesh.global_from_replicated(np.zeros(4))
+    called = []
+    spawn(called.append, args=(5,))
+    assert called == [5]
+    x = np.arange(8, dtype=np.float32).reshape(4, 2)
+    assert tmesh.host_local_to_global(x) is x
+    mesh = build_mesh(dp=2, mp=2, devices=["cpu"] * 4)
+    g = tmesh.global_from_replicated(x, mesh)
+    assert g.shape == (4, 2) and sorted(g.pieces) == [0, 1, 2, 3]
+    for r, t in g.pieces.items():
+        np.testing.assert_array_equal(t.numpy(), x[2 * (r // 2):
+                                                   2 * (r // 2) + 2])
     set_mesh(build_mesh(dp=2, sharding=2, devices=["cpu"] * 4))
     assert get_world_size() == 4 and is_initialized()
     assert tmesh.batch_partition_spec((8, 3)) == (("dp", "sharding"), None)

@@ -228,12 +228,20 @@ def test_python_engine_same_records(data_files):
 
 def test_global_shuffle_refuses_several_processes(data_files,
                                                   monkeypatch):
-    import torch.distributed as tdist
+    """Over several processes the record digest is all-gathered: processes
+    holding different records are refused, identical ones shuffle.
+    (Real processes: ``test_torch_multiprocess.py``.)"""
+    from paddle_tpu_torch.distributed import process
     ds = _set_up(paddle.io, data_files, 8)
-    monkeypatch.setattr(tdist, "is_initialized", lambda: True)
-    monkeypatch.setattr(tdist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="12d"):
+    monkeypatch.setattr(process, "count", lambda: 2)
+    monkeypatch.setattr(process, "all_gather_object",
+                        lambda obj, **kw: [obj, [x + 1 for x in obj]])
+    with pytest.raises(RuntimeError, match="DIFFERENT record sets"):
         ds.global_shuffle()
+    monkeypatch.setattr(process, "all_gather_object",
+                        lambda obj, **kw: [obj, list(obj)])
+    ds.global_shuffle()
+    assert ds.get_shuffle_data_size() > 0
 
 
 def test_build_failure_raises_with_stderr(tmp_path, monkeypatch):

@@ -357,9 +357,10 @@ def test_unported_model_knobs_raise(knob):
 
 
 def test_unported_train_knobs_raise():
-    """What stays refused on the training side: the multi-process
-    helpers (``spawn``, ``host_local_to_global``,
-    ``global_from_replicated``) name Queue A 12; ``metrics=`` runs (its
+    """What stays refused on the training side, and what no longer is:
+    the multi-process helpers run in one process (``spawn`` calls its
+    function, ``host_local_to_global`` is a no-op,
+    ``global_from_replicated`` cuts the ranks' rows); ``metrics=`` runs (its
     outputs in ``last_metric_outs``); the mesh knobs of the
     port's own ``DistributedStrategy`` run, and so does a pipeline beside
     data parallelism, whose loss equals the one-device model's.  A
@@ -378,10 +379,12 @@ def test_unported_train_knobs_raise():
     st.step([ids], [ids])
     (correct,), = st.last_metric_outs
     assert tuple(correct.shape) == (4, 8, 1)
-    for helper in (lambda: spawn(print), lambda: mesh.host_local_to_global(
-            np.zeros(2)), lambda: mesh.global_from_replicated(np.zeros(2))):
-        with pytest.raises(NotImplementedError, match="Queue A 12"):
-            helper()
+    called = []
+    spawn(called.append, args=(1,))
+    x = np.zeros((2, 3), np.float32)
+    assert called == [1] and mesh.host_local_to_global(x) is x
+    g = mesh.global_from_replicated(x, build_mesh(dp=2, devices=["cpu"] * 2))
+    assert [tuple(t.shape) for t in g.pieces.values()] == [(1, 3), (1, 3)]
     for knob in ("sharding", "pipeline"):
         s = DistributedStrategy()
         setattr(s, knob, True)
